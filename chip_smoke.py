@@ -5,24 +5,39 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the family-update kernel (``tidy3d_tpu_torch/csrc/step.cu``) with
-   nvcc for sm_90a and print its register and spill report;
-3. the kernel against its plain PyTorch version for one E and one H
-   half-step, on a 64x48x80 random state (PML on every axis, PEC and PMC
-   walls, per-cell coefficients) and on a random state of the full-size
-   grid, to 1e-6 of the largest magnitude; kernel and plain times per
-   launch at the full size (CUDA events);
+2. build both kernels (``tidy3d_tpu_torch/csrc/step.cu`` and ``fused.cu``)
+   with nvcc for sm_90a, one nvcc process each, started together, and print
+   their register and spill reports;
+3. the family-update kernel against its plain PyTorch version for one E and
+   one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
+   PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
+   (the E update's pole term) and on a random state of the full-size grid,
+   to 1e-6 of the largest magnitude; kernel and plain times per launch at
+   the full size (CUDA events);
 4. 200 steps of the full-size broadband-DFT case (384^3 cells with CPML,
-   an 11-frequency field monitor and flux box) with the kernel runner and
-   with the plain-version runner, timed in turns plain, kernel, kernel,
-   plain; the fields must agree to 2e-5;
-5. ``tidy3d_tpu_torch.web.run`` on the full-size case: the kernel launch
-   count must grow by 2 per step, the flux must be finite and non-zero;
-6. a torch.profiler window of 20 steps: device time by kernel;
-7. the JSON summary lines; the last line is the contract line.
+   an 11-frequency field monitor and flux box) on the two-phase tier, with
+   the kernel and with the plain versions, timed in turns plain, kernel,
+   kernel, plain; the fields must agree to 2e-5;
+5. the fused one-step kernel against its plain version for one step, on the
+   64x48x80 grid with a Lorentz pole and on the full-size dispersive case
+   (384^3, a one-pole Lorentz half-space), to 1e-6; kernel and plain times
+   per step at 384^3 (CUDA events), and of the plain pole update;
+6. 200 steps on the fused tier, kernel against plain versions, in turns
+   plain, kernel, kernel, plain, on the 384^3 dispersive case and on the
+   280^3 7-pole Au half-space, to 2e-5;
+7. torch.profiler windows of 20 steps: device time of the two-phase tier on
+   the broadband case, and of the fused tier on the dispersive case split
+   into the fused kernel, the pole-update ops and the DFT/source ops;
+8. ``tidy3d_tpu_torch.web.run``, each path with the launch counts set to 0
+   just before it and read just after: the broadband case on the two-phase
+   tier (2 family launches per step), then the dispersive and the broadband
+   case on the default (fused) tier (one fused launch per step, no family
+   launch); the flux must be finite and non-zero; throughput and peak
+   device memory of each;
+9. the JSON summary lines; the last line is the contract line.
 
-It needs a CUDA device and exits non-zero without one. Long output goes to
-``chiprun_out/chip_smoke_prof.txt`` (the profiler table).
+It needs a CUDA device and exits non-zero without one. The profiler tables
+go to the ``OUT_DIR`` directory.
 """
 
 from __future__ import annotations
@@ -37,7 +52,9 @@ import numpy as np
 import torch
 
 N_FULL = 360            # cells per side inside the PML (384^3 with it)
+N_METAL = 256           # the Au case: 280^3 with the PML
 STEPS_COMPARE = 200
+NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
 OUT_DIR = "chiprun_out"
@@ -64,6 +81,16 @@ def sync() -> None:
 # --------------------------------------------------------------------------- #
 
 
+def _dft_monitors(td, size, freqs):
+    return [
+        td.FieldMonitor(center=(0, 0, 0),
+                        size=(size[0] * 0.6, size[1] * 0.6, 0),
+                        freqs=freqs, name="field"),
+        td.FluxMonitor(center=(0, 0, 0), size=(size[0] * 0.4,) * 3,
+                       freqs=freqs, name="flux"),
+    ]
+
+
 def full_case(td):
     """The broadband running-DFT case: 360^3 cells inside a 12-layer CPML,
     an Ez dipole, an 11-frequency field plane and flux box, no shutoff."""
@@ -76,30 +103,68 @@ def full_case(td):
         sources=[td.PointDipole(
             center=(0, 0, 0), polarization="Ez",
             source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 8))],
-        monitors=[
-            td.FieldMonitor(center=(0, 0, 0),
-                            size=(size[0] * 0.6, size[1] * 0.6, 0),
-                            freqs=freqs, name="field"),
-            td.FluxMonitor(center=(0, 0, 0), size=(size[0] * 0.4,) * 3,
-                           freqs=freqs, name="flux"),
-        ],
+        monitors=_dft_monitors(td, size, freqs),
         boundary_spec=td.BoundarySpec.all_sides(td.PML()),
         grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
 
 
-def mixed_case(td):
-    """64x48x80 cells: PML on every axis, PEC and PMC walls, a dielectric
-    box (per-cell ca/cb)."""
+def lorentz(td):
+    freq0 = td.C_0 / 1.55
+    return td.Lorentz(eps_inf=2.0, coeffs=[(8.0, freq0 * 1.8, freq0 / 10)])
+
+
+def dispersive_case(td):
+    """The broadband case with a one-pole Lorentz medium filling the upper
+    half of the domain and the dipole below it (the ``fdtd_combined``
+    shape of the JAX package's benchmark)."""
+    sim = full_case(td)
+    size = sim.size
+    return sim.copy(update=dict(
+        sources=[sim.sources[0].copy(update=dict(
+            center=(0, 0, -size[2] / 4)))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, size[2] / 4),
+                            size=(size[0], size[1], size[2] / 2)),
+            medium=lorentz(td))]))
+
+
+def metal_case(td):
+    """The 7-pole Au (Rakic/Brendel-Bormann fit) half-space through the
+    PML, 256^3 cells inside a 12-layer CPML, an Ez dipole below it."""
     freq0 = td.C_0 / 1.55
     dl = 0.05
+    size = (N_METAL * dl,) * 3
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=1e-11,
+        sources=[td.PointDipole(
+            center=(0, 0, -size[2] / 4), polarization="Ez",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 8))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, size[2] / 2),
+                            size=(td.inf, td.inf, size[2])),
+            medium=td.material_library["Au"]["RakicBrendelBormann1998"])],
+        boundary_spec=td.BoundarySpec.all_sides(td.PML()),
+        grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def mixed_case(td, dispersive: bool = False):
+    """64x48x80 cells: PML on every axis, PEC and PMC walls, a dielectric
+    box (per-cell ca/cb), and with ``dispersive`` a Lorentz box."""
+    freq0 = td.C_0 / 1.55
+    dl = 0.05
+    structures = [td.Structure(
+        geometry=td.Box(center=(0.1, 0, 0), size=(1.0, 0.8, 1.2)),
+        medium=td.Medium(permittivity=3.0, conductivity=0.01))]
+    if dispersive:
+        structures.append(td.Structure(
+            geometry=td.Box(center=(-0.6, 0.3, 0.5), size=(1.2, 1.0, 1.0)),
+            medium=lorentz(td)))
     return td.Simulation(
         center=(0, 0, 0), size=(52 * dl, 36 * dl, 56 * dl), run_time=1e-14,
         sources=[td.PointDipole(
             center=(0, 0, 0), polarization="Ez",
             source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 8))],
-        structures=[td.Structure(
-            geometry=td.Box(center=(0.1, 0, 0), size=(1.0, 0.8, 1.2)),
-            medium=td.Medium(permittivity=3.0, conductivity=0.01))],
+        structures=structures,
         boundary_spec=td.BoundarySpec(
             x=td.Boundary(minus=td.PML(), plus=td.PECBoundary()),
             y=td.Boundary(minus=td.PMCBoundary(), plus=td.PML()),
@@ -108,6 +173,8 @@ def mixed_case(td):
 
 
 def random_state(runner, seed: int) -> dict:
+    """Random fields, psi and pole currents; each pole's currents scaled by
+    1/|Gc| so that its term is of the order of the curl."""
     gen = torch.Generator(device=runner.device).manual_seed(seed)
     state = runner.init_state()
 
@@ -118,6 +185,10 @@ def random_state(runner, seed: int) -> dict:
     for fam in ("E", "H"):
         state[fam] = {c: rnd(v) for c, v in state[fam].items()}
     state["psi"] = {k: 0.1 * rnd(v) for k, v in state["psi"].items()}
+    state["Q"] = [{c: (rnd(qr) / abs(Gc), rnd(qi) / abs(Gc))
+                   for c, (qr, qi) in Qp.items()}
+                  for (_, Gc), Qp in zip(runner.consts["pole_scalars"],
+                                         state["Q"])]
     return state
 
 
@@ -130,14 +201,33 @@ def max_diff(a: dict, b: dict) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
+def rel_err(got: dict, ref: dict) -> float:
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    return max_diff(got, ref) / max(max_abs(ref), 1e-30)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` (CUDA events, after one warm-up)."""
+    fn()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1) / reps
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
 
 
 def compare_update(step, runner, state, what: str) -> float:
-    """Kernel against plain version for one E and one H update; returns the
-    largest absolute difference (fields and psi)."""
+    """Family kernel against plain version for one E and one H update;
+    returns the largest absolute difference (fields and psi)."""
     worst_rel, worst_abs = 0.0, 0.0
     nE = None
     for fam in ("E", "H"):
@@ -152,34 +242,38 @@ def compare_update(step, runner, state, what: str) -> float:
         for got, ref in ((kf, rf), (kp, rp)):
             if not ref:
                 continue
-            d = max_diff(got, ref)
-            assert all(bool(torch.isfinite(v).all()) for v in got.values())
-            worst_abs = max(worst_abs, d)
-            worst_rel = max(worst_rel, d / max(max_abs(ref), 1e-30))
+            worst_abs = max(worst_abs, max_diff(got, ref))
+            worst_rel = max(worst_rel, rel_err(got, ref))
         if fam == "E":
             nE = rf
-    log(f"[update] {what}: kernel vs plain max rel err {worst_rel:.3e} "
-        f"(max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
+    log(f"[update] {what}: family kernel vs plain max rel err "
+        f"{worst_rel:.3e} (max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
     assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
     return worst_abs
 
 
-def time_update(fn, runner, state, reps: int) -> float:
-    """Mean ms per call of one E plus one H update, halved (one launch)."""
-    def once():
-        nE, _ = fn("E", state, runner.consts, state["H"], runner.meta)
-        fn("H", state, runner.consts, nE, runner.meta)
+def step_sources(runner) -> list:
+    """The E-side source terms of a step inside the source pulse."""
+    return runner.step_sources("E", min(40, runner.num_steps - 1))
 
-    once()
+
+def compare_fused(fused, runner, state, what: str) -> float:
+    """Fused kernel against plain version for one step (E', H', psi');
+    returns the largest absolute difference."""
+    src = step_sources(runner)
+    before = fused.LAUNCHES
+    got = fused.fused_step(state, runner.consts, runner.meta, src)
     sync()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        once()
-    t1.record()
-    sync()
-    return t0.elapsed_time(t1) / reps / 2
+    assert fused.LAUNCHES == before + 1, "fused kernel did not launch"
+    ref = fused.fused_step_reference(state, runner.consts, runner.meta, src)
+    worst_rel, worst_abs = 0.0, 0.0
+    for g, r in zip(got, ref):
+        worst_abs = max(worst_abs, max_diff(g, r))
+        worst_rel = max(worst_rel, rel_err(g, r))
+    log(f"[fused] {what}: fused kernel vs plain max rel err {worst_rel:.3e} "
+        f"(max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
+    assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
+    return worst_abs
 
 
 def run_steps_timed(runner, steps: int):
@@ -192,32 +286,135 @@ def run_steps_timed(runner, steps: int):
     return state, time.perf_counter() - t0
 
 
-def profile_window(runner, steps: int, out_path: str) -> dict:
+def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
+    """200 steps with the kernel and with the plain versions, in turns
+    plain, kernel, kernel, plain; returns the Gcell*steps/s of each."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+
+    runners = {"plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
+               "kernel": FDTDRunner(plan, device=dev, **kw)}
+    rates = {"plain": [], "kernel": []}
+    finals = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        st, secs = run_steps_timed(runners[name], STEPS_COMPARE)
+        rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
+        finals[name] = {c: v for fam in ("E", "H")
+                        for c, v in st[fam].items()}
+        del st
+    err = rel_err(finals["kernel"], finals["plain"])
+    log(f"[steps] {what}, tier {runners['kernel'].tier}: {STEPS_COMPARE} "
+        f"steps kernel vs plain max rel err {err:.3e} (tol {TOL_STEPS:g})")
+    assert max_abs(finals["plain"]) > 0
+    assert err <= TOL_STEPS, f"{what}: 200-step rel err {err:.3e}"
+    log(f"[steps] {what} Gcell*steps/s: plain {rates['plain']} kernel "
+        f"{rates['kernel']} | {smi}")
+    return rates
+
+
+def _range_device_us(prof, name: str) -> float:
+    """Device time of the kernels launched inside profiler range ``name``."""
+    def walk(evt):
+        return sum(k.duration for k in evt.kernels) + \
+            sum(walk(c) for c in evt.cpu_children)
+
+    return sum(walk(e) for e in prof.events() if e.name == name)
+
+
+def profile_window(runner, out_path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     state = runner.init_state()
-    runner._pad_time_tables(steps + 5)
+    runner._pad_time_tables(NPROF + 5)
     state = runner.run_steps(0, 5, state)
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state = runner.run_steps(5, steps, state)
+        state = runner.run_steps(5, NPROF, state)
         sync()
     by_name = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        # the device-side copies of the runner's ranges span other kernels,
+        # and a full launch queue is host time: neither is device work
+        if evt.key.startswith("fdtd.") or evt.key == "Command Buffer Full" \
+                or getattr(evt, "is_user_annotation", False):
+            continue
         if dev_us and evt.device_type.name == "CUDA":
             by_name[evt.key] = (dev_us / 1e3, evt.count)
     with open(out_path, "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total",
                                            row_limit=40))
     total = sum(ms for ms, _ in by_name.values())
-    fam = sum(ms for k, (ms, _) in by_name.items()
-              if "family_update_kernel" in k)
-    return dict(device_ms=total, family_ms=fam,
-                launches=sum(c for _, c in by_name.values()))
+    return dict(
+        device_ms=total,
+        family_ms=sum(ms for k, (ms, _) in by_name.items()
+                      if "family_update_kernel" in k),
+        fused_ms=sum(ms for k, (ms, _) in by_name.items()
+                     if "fused_step_kernel" in k),
+        poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
+        monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
+        launches=sum(c for _, c in by_name.values()))
+
+
+def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
+    if prof["device_ms"] <= 0:
+        log(f"[profile] {what}: torch.profiler recorded no device time: not "
+            "measured")
+        return
+    per = {k: v / NPROF for k, v in prof.items()}
+    kernel = per["family_ms"] + per["fused_ms"]
+    other = per["device_ms"] - kernel - per["poles_ms"]
+    # the profiler slows the host loop, so the busy share compares the
+    # device time per step with the unprofiled step time
+    log(f"[profile] {what} per step: device {per['device_ms']:.3f} ms = "
+        f"kernels {kernel:.3f} ms (family {per['family_ms']:.3f}, fused "
+        f"{per['fused_ms']:.3f}) + pole-update ops {per['poles_ms']:.3f} ms "
+        f"+ DFT/source ops {other:.3f} ms (of which the monitor range "
+        f"{per['monitors_ms']:.3f} ms), {per['launches']:.0f} device "
+        f"launches; unprofiled step {step_ms:.3f} ms, device busy "
+        f"{per['device_ms'] / step_ms:.1%} | {smi}")
+
+
+def web_run(td, sim, what: str, smi: str, tier: str = None):
+    """``web.run`` with the launch counts set to 0 just before it; returns
+    (data, steps_run, family launches, fused launches, Gcell*steps/s)."""
+    from tidy3d_tpu_torch.solver.kernels import fused, step
+
+    old = os.environ.get("TIDY3D_TPU_KERNEL")
+    if tier is not None:
+        os.environ["TIDY3D_TPU_KERNEL"] = tier
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step.LAUNCHES = 0
+        fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        data = td.web.run(sim, task_name="chip_smoke", verbose=False)
+        total_s = time.perf_counter() - t0
+        n_family, n_fused = step.LAUNCHES, fused.LAUNCHES
+    finally:
+        if old is None:
+            os.environ.pop("TIDY3D_TPU_KERNEL", None)
+        else:
+            os.environ["TIDY3D_TPU_KERNEL"] = old
+    peak = torch.cuda.max_memory_allocated()
+    lines = data.log.splitlines()
+    steps_run = int(lines[1].split("steps run: ")[1].split(" ")[0])
+    rate = float(lines[2].split("throughput: ")[1].split(" ")[0])
+    flux = np.asarray(data["flux"].flux.values)
+    field = data["field"].Ez.values
+    log(f"[web.run] {what}: {steps_run} steps, {n_family} family and "
+        f"{n_fused} fused launches, log: {' | '.join(lines[2:])}")
+    log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
+        f"device memory {peak / 2**30:.2f} GiB | {smi}")
+    log(f"[web.run] {what}: flux {flux.tolist()}")
+    assert flux.shape == (11,) and np.all(np.isfinite(flux))
+    assert np.all(flux != 0)
+    assert field.shape[-1] == 11 and np.all(np.isfinite(field))
+    assert np.any(field != 0)
+    return data, steps_run, n_family, n_fused, rate
 
 
 def main() -> int:
@@ -227,8 +424,8 @@ def main() -> int:
     import tidy3d_tpu_torch as td
     from tidy3d_tpu.solver.lowering import lower
     from tidy3d_tpu_torch import _build
-    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
-    from tidy3d_tpu_torch.solver.kernels import step
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, update_poles
+    from tidy3d_tpu_torch.solver.kernels import fused, step
 
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,19 +436,24 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build
-    _build.load("step")
-    info = _build.BUILDS["step"]
-    log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
-    for line in info.ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    # 2. build both kernels, in parallel
+    _build.load_all(["step", "fused"])
+    for name in ("step", "fused"):
+        info = _build.BUILDS[name]
+        log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
+        for line in info.ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
 
-    # 3. one update, kernel against plain
-    mixed = FDTDRunner(lower(mixed_case(td)), device=dev)
+    # 3. one family update, kernel against plain
+    mixed = FDTDRunner(lower(mixed_case(td)), device=dev, kernel="pallas2")
     assert mixed.shape == (64, 48, 80), mixed.shape
     compare_update(step, mixed, random_state(mixed, 1), "64x48x80 mixed")
-    del mixed
+    mixed_d = FDTDRunner(lower(mixed_case(td, dispersive=True)), device=dev,
+                         kernel="pallas2")
+    assert len(mixed_d.plan.poles) == 1
+    err_family_poles = compare_update(
+        step, mixed_d, random_state(mixed_d, 3), "64x48x80 mixed, 1 pole")
 
     t0 = time.perf_counter()
     plan = lower(full_case(td))
@@ -259,94 +461,123 @@ def main() -> int:
     ncell = int(np.prod(plan.shape))
     log(f"[full] grid {plan.shape} = {ncell} cells, {plan.num_steps} steps, "
         f"lowered in {lower_s:.1f} s")
-    kr = FDTDRunner(plan, device=dev)
+    kr = FDTDRunner(plan, device=dev, kernel="pallas2")
     state = random_state(kr, 2)
     err_full = compare_update(step, kr, state, f"{plan.shape} full")
-    k_ms = time_update(step.family_update, kr, state, 20)
-    p_ms = time_update(step.family_update_reference, kr, state, 5)
-    bytes_per_launch = 36 * ncell
-    log(f"[update] {plan.shape}: kernel {k_ms:.3f} ms/launch "
-        f"({bytes_per_launch / (k_ms * 1e-3) / 1e9:.0f} GB/s at 36 B/cell), "
-        f"plain "
+
+    def update_pair(fn):
+        def once():
+            nE, _ = fn("E", state, kr.consts, state["H"], kr.meta)
+            fn("H", state, kr.consts, nE, kr.meta)
+        return once
+
+    k_ms = cuda_ms(update_pair(step.family_update), 20) / 2
+    p_ms = cuda_ms(update_pair(step.family_update_reference), 5) / 2
+    log(f"[update] {plan.shape}: family kernel {k_ms:.3f} ms/launch "
+        f"({36 * ncell / (k_ms * 1e-3) / 1e9:.0f} GB/s at 36 B/cell), plain "
         f"{p_ms:.3f} ms/launch | {smi}")
-    del state
+    del state, kr
 
-    # 4. 200 steps, plain / kernel / kernel / plain
-    pr = FDTDRunner(plan, device=dev, use_kernel=False)
-    rates = {"plain": [], "kernel": []}
-    finals = {}
-    for name, runner in (("plain", pr), ("kernel", kr), ("kernel", kr),
-                         ("plain", pr)):
-        st, secs = run_steps_timed(runner, STEPS_COMPARE)
-        rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
-        finals[name] = {c: v for fam in ("E", "H")
-                        for c, v in st[fam].items()}
-        del st
-    err = max_diff(finals["kernel"], finals["plain"]) \
-        / max(max_abs(finals["plain"]), 1e-30)
-    log(f"[steps] {STEPS_COMPARE} steps kernel vs plain runner: max rel "
-        f"err {err:.3e} (tol {TOL_STEPS:g})")
-    assert max_abs(finals["plain"]) > 0
-    assert err <= TOL_STEPS, f"200-step rel err {err:.3e}"
-    log(f"[steps] Gcell*steps/s: plain {rates['plain']} kernel "
-        f"{rates['kernel']} | {smi}")
-    del finals, pr
+    # 4. 200 steps on the two-phase tier, plain / kernel / kernel / plain
+    rates_2 = compare_runners(plan, dev, ncell, "broadband 384^3", smi,
+                              kernel="pallas2")
 
-    # 6. profile window (before the end-to-end run frees the runner)
-    nprof = 20
-    prof = profile_window(kr, nprof,
-                          os.path.join(OUT_DIR, "chip_smoke_prof.txt"))
-    if prof["device_ms"] > 0:
-        # the profiler slows the host loop, so the busy share compares the
-        # device time per step with the unprofiled step time of phase 4
-        step_ms = ncell / (float(np.mean(rates["kernel"])) * 1e9) * 1e3
-        dev_ms = prof["device_ms"] / nprof
-        log(f"[profile] per step: device {dev_ms:.3f} ms of which family "
-            f"kernel {prof['family_ms'] / nprof:.3f} ms and other ops "
-            f"{dev_ms - prof['family_ms'] / nprof:.3f} ms, "
-            f"{prof['launches'] / nprof:.0f} device launches; unprofiled "
-            f"step {step_ms:.3f} ms, device busy {dev_ms / step_ms:.1%} "
-            f"| {smi}")
-    else:
-        log("[profile] torch.profiler recorded no device time: not measured")
-    del kr
-    torch.cuda.empty_cache()
-
-    # 5. the main path: web.run
-    torch.cuda.reset_peak_memory_stats()
-    step.LAUNCHES = 0
+    # 5. one fused step, kernel against plain; times at 384^3
+    compare_fused(fused, mixed_d, random_state(mixed_d, 4),
+                  "64x48x80 mixed, 1 pole")
+    del mixed, mixed_d
     t0 = time.perf_counter()
-    data = td.web.run(full_case(td), task_name="chip_smoke", verbose=False)
-    total_s = time.perf_counter() - t0
-    launches = step.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
-    steps_run = int(data.log.split("steps run: ")[1].split(" ")[0])
-    flux = np.asarray(data["flux"].flux.values)
-    field = data["field"].Ez.values
-    log(f"[web.run] {steps_run} steps, {launches} kernel launches, "
-        f"log: {' | '.join(data.log.splitlines()[2:5])}")
-    log(f"[web.run] total {total_s:.1f} s (lowering included), peak device "
-        f"memory {peak / 2**30:.2f} GiB | {smi}")
-    log(f"[web.run] flux {flux.tolist()}")
-    assert launches == 2 * steps_run, (launches, steps_run)
-    assert flux.shape == (11,) and np.all(np.isfinite(flux))
-    assert np.all(flux != 0)
-    assert field.shape[-1] == 11 and np.all(np.isfinite(field))
-    assert np.any(field != 0)
+    plan_d = lower(dispersive_case(td))
+    log(f"[dispersive] grid {plan_d.shape}, {len(plan_d.poles)} pole, "
+        f"{plan_d.num_steps} steps, lowered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fr = FDTDRunner(plan_d, device=dev)
+    assert fr.tier == "fused" and len(plan_d.poles) == 1
+    state = random_state(fr, 5)
+    err_fused = compare_fused(fused, fr, state, f"{plan_d.shape} dispersive")
+    src = step_sources(fr)
+    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src),
+                   20)
+    fp_ms = cuda_ms(lambda: fused.fused_step_reference(
+        state, fr.consts, fr.meta, src), 5)
+    nE = {c: v.clone() for c, v in state["E"].items()}
+    pole_ms = cuda_ms(lambda: update_poles(nE, state["E"], state["Q"],
+                                           fr.consts), 10)
+    log(f"[fused] {plan_d.shape} dispersive: fused kernel {f_ms:.3f} "
+        f"ms/step ({96 * ncell / (f_ms * 1e-3) / 1e9:.0f} GB/s at 96 "
+        f"B/cell), plain {fp_ms:.3f} ms/step; plain pole update "
+        f"{pole_ms:.3f} ms/step | {smi}")
+    st_b = random_state(FDTDRunner(plan, device=dev), 6)
+    fb = FDTDRunner(plan, device=dev)
+    src_b = step_sources(fb)
+    fb_ms = cuda_ms(lambda: fused.fused_step(st_b, fb.consts, fb.meta,
+                                             src_b), 20)
+    log(f"[fused] {plan.shape} broadband: fused kernel {fb_ms:.3f} ms/step "
+        f"({48 * ncell / (fb_ms * 1e-3) / 1e9:.0f} GB/s at 48 B/cell) vs "
+        f"two family launches {2 * k_ms:.3f} ms | {smi}")
+    del state, nE, st_b, fb
+
+    # 6. 200 steps on the fused tier: dispersive 384^3 and 7-pole Au 280^3
+    rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi)
+    plan_m = lower(metal_case(td))
+    ncell_m = int(np.prod(plan_m.shape))
+    assert len(plan_m.poles) == 7, len(plan_m.poles)
+    log(f"[metal] grid {plan_m.shape}, {len(plan_m.poles)} poles")
+    mr = FDTDRunner(plan_m, device=dev)
+    st_m = random_state(mr, 7)
+    err_metal = compare_fused(fused, mr, st_m, f"{plan_m.shape} 7-pole Au")
+    src_m = step_sources(mr)
+    m_ms = cuda_ms(lambda: fused.fused_step(st_m, mr.consts, mr.meta,
+                                            src_m), 10)
+    nE_m = {c: v.clone() for c, v in st_m["E"].items()}
+    mpole_ms = cuda_ms(lambda: update_poles(nE_m, st_m["E"], st_m["Q"],
+                                            mr.consts), 5)
+    log(f"[metal] {plan_m.shape}: fused kernel {m_ms:.3f} ms/step, plain "
+        f"pole update {mpole_ms:.3f} ms/step | {smi}")
+    del st_m, nE_m, mr
+    rates_m = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi)
+    del plan_m
+
+    # 7. profile windows
+    p2 = profile_window(FDTDRunner(plan, device=dev, kernel="pallas2"),
+                        os.path.join(OUT_DIR, "chip_smoke_prof_pallas2.txt"))
+    report_profile(p2, "broadband, two-phase tier",
+                   ncell / (float(np.mean(rates_2["kernel"])) * 1e9) * 1e3,
+                   smi)
+    pf = profile_window(fr, os.path.join(OUT_DIR, "chip_smoke_prof_fused.txt"))
+    report_profile(pf, "dispersive, fused tier",
+                   ncell / (float(np.mean(rates_d["kernel"])) * 1e9) * 1e3,
+                   smi)
+    del fr
+
+    # 8. the main paths: web.run, launch counts read around each
+    _, steps_2, fam_2, fus_2, rate_2 = web_run(
+        td, full_case(td), "broadband, two-phase tier", smi, tier="pallas2")
+    assert fam_2 == 2 * steps_2 and fus_2 == 0, (fam_2, fus_2, steps_2)
+    _, steps_d, fam_d, fus_d, rate_d = web_run(
+        td, dispersive_case(td), "dispersive, default tier", smi)
+    assert fus_d == steps_d and fam_d == 0, (fam_d, fus_d, steps_d)
+    _, steps_b, fam_b, fus_b, rate_b = web_run(
+        td, full_case(td), "broadband, default tier", smi)
+    assert fus_b == steps_b and fam_b == 0, (fam_b, fus_b, steps_b)
+    log(f"[web.run] Gcell*steps/s: broadband two-phase {rate_2}, dispersive "
+        f"fused {rate_d}, broadband fused {rate_b} | {smi}")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
 
-    kernels = {"kernels": [{
-        "name": "family_update",
-        "route": "cuda",
-        "source": "tidy3d_tpu_torch/csrc/step.cu",
-        "replaces": "tidy3d_tpu/solver/kernels/pallas_step.py:118",
-        "launches": launches,
-        "max_abs_err": err_full,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}
+    kernels = {"kernels": [
+        {"name": "family_update", "route": "cuda",
+         "source": "tidy3d_tpu_torch/csrc/step.cu",
+         "replaces": "tidy3d_tpu/solver/kernels/pallas_step.py:118",
+         "launches": fam_2, "max_abs_err": max(err_full, err_family_poles),
+         "ms": k_ms, "plain_ms": p_ms},
+        {"name": "fused_step", "route": "cuda",
+         "source": "tidy3d_tpu_torch/csrc/fused.cu",
+         "replaces": "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
+         "launches": fus_d + fus_b, "max_abs_err": max(err_fused, err_metal),
+         "ms": f_ms, "plain_ms": fp_ms},
+    ]}
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ from tidy3d_tpu.solver.lowering import lower
 
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, build_constants
 
-from tests.torch_cases import SIMS
+from tests.torch_cases import DISPERSIVE, SIMS
 
 
 def _equal(a, b, path):
@@ -33,19 +33,24 @@ def _equal(a, b, path):
         assert np.array_equal(x, y), f"{path}: values differ"
 
 
-@pytest.mark.parametrize("case", sorted(SIMS))
+@pytest.mark.parametrize("case", sorted(SIMS) + sorted(DISPERSIVE))
 def test_constants_match_reference(case, monkeypatch):
     monkeypatch.setenv("TIDY3D_TPU_TILE_QUANTA", "1,1,1")
     monkeypatch.setenv("TIDY3D_TPU_KERNEL", "xla")
-    plan = lower(SIMS[case]())
+    plan = lower({**SIMS, **DISPERSIVE}[case]())
     ref = JaxRunner(plan)
     consts, pml_meta = build_constants(plan)
     assert pml_meta == ref.pml_meta
-    # the reference also carries the (here empty) dispersive-pole tables
-    extra = set(ref.consts) - set(consts)
-    assert extra == {"pole_masks", "pole_B_dense"}
-    assert not ref.consts["pole_masks"] and not ref.consts["pole_B_dense"]
-    _equal({k: ref.consts[k] for k in consts}, consts, "consts")
+    # the pole scalars and residue kinds live on the reference runner, the
+    # pole tables in its consts
+    runner_attrs = {"pole_scalars", "pole_B_meta"}
+    assert set(ref.consts) == set(consts) - runner_attrs
+    assert consts["pole_scalars"] == ref.pole_scalars
+    assert consts["pole_B_meta"] == ref.pole_B_meta
+    assert len(consts["pole_scalars"]) == len(plan.poles)
+    _equal({k: ref.consts[k] for k in consts if k not in runner_attrs},
+           {k: v for k, v in consts.items() if k not in runner_attrs},
+           "consts")
 
 
 def test_runner_device_consts_are_the_host_consts():
@@ -66,11 +71,13 @@ def test_runner_device_consts_are_the_host_consts():
 
 
 def test_unsupported_plans_raise(monkeypatch):
+    # nine Lorentz poles: one more pole slot than the kernels take
     disp = td.Structure(
         geometry=td.Box(center=(0, 0, 0), size=(0.3, 0.3, 0.3)),
-        medium=td.Lorentz(eps_inf=2.0, coeffs=[(1.0, 3e14, 1e13)]))
+        medium=td.Lorentz(eps_inf=2.0, coeffs=[
+            (1.0, 3e14 * (1 + 0.1 * i), 1e13) for i in range(9)]))
     sim = SIMS["pml_all"]().copy(update=dict(structures=[disp]))
-    with pytest.raises(NotImplementedError, match="dispersive"):
+    with pytest.raises(NotImplementedError, match="dispersive pole slots"):
         FDTDRunner(lower(sim), device="cpu")
     with pytest.raises(NotImplementedError, match="precision"):
         FDTDRunner(lower(SIMS["pml_all"]()), device="cpu",

@@ -24,7 +24,14 @@ from tidy3d_tpu.components.boundary import (  # noqa: E402
 from tidy3d_tpu.components.data.sim_data import SimulationData  # noqa: E402
 from tidy3d_tpu.components.geometry.base import Box  # noqa: E402
 from tidy3d_tpu.components.grid.grid_spec import GridSpec  # noqa: E402
-from tidy3d_tpu.components.medium import Medium  # noqa: E402
+from tidy3d_tpu.components.medium import (  # noqa: E402
+    Debye,
+    Drude,
+    Lorentz,
+    Medium,
+    PoleResidue,
+    Sellmeier,
+)
 from tidy3d_tpu.components.monitor import (  # noqa: E402
     FieldMonitor,
     FieldTimeMonitor,
@@ -32,15 +39,22 @@ from tidy3d_tpu.components.monitor import (  # noqa: E402
     FluxTimeMonitor,
 )
 from tidy3d_tpu.components.simulation import Simulation  # noqa: E402
-from tidy3d_tpu.components.source import GaussianPulse, PointDipole  # noqa: E402
+from tidy3d_tpu.components.source import (  # noqa: E402
+    GaussianPulse,
+    PlaneWave,
+    PointDipole,
+)
 from tidy3d_tpu.components.structure import Structure  # noqa: E402
 from tidy3d_tpu.constants import C_0, inf  # noqa: E402
+from tidy3d_tpu.material_library import material_library  # noqa: E402
 
 from . import web  # noqa: E402
 
 __all__ = [
     "PML", "Boundary", "BoundarySpec", "PECBoundary", "Periodic",
     "PMCBoundary", "SimulationData", "Box", "GridSpec", "Medium",
+    "Debye", "Drude", "Lorentz", "PoleResidue", "Sellmeier", "PlaneWave",
+    "material_library",
     "FieldMonitor", "FieldTimeMonitor", "FluxMonitor", "FluxTimeMonitor",
     "Simulation", "GaussianPulse", "PointDipole", "Structure", "C_0", "inf",
     "web",

@@ -5,6 +5,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 where ``<hash>`` covers the source and the flags: an edited source builds
 anew, an unchanged one loads the library already built. The build happens at
 first use, in the process that needs it; nothing is built at import.
+``load_all`` compiles several sources at once, one nvcc process each.
 
 The library is bound with ``ctypes``; the wrappers set ``argtypes`` and pass
 every pointer and the stream as ``ctypes.c_void_p``.
@@ -33,7 +34,7 @@ class BuildInfo:
 
     path: str
     built: bool           # compiled in this process (else loaded as built)
-    seconds: float        # build (or load) time
+    seconds: float        # wall time of the (parallel) build, or the load
     ptxas: str            # nvcc's -Xptxas -v report of the build
 
 
@@ -55,32 +56,67 @@ def _nvcc() -> str:
         "kernels of tidy3d_tpu_torch cannot be built")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _target(name: str):
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    report = so.with_suffix(".ptxas.txt")
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def load_all(names) -> dict:
+    """The loaded libraries of ``csrc/<name>.cu`` for each name, keyed by
+    name. The libraries not built yet are compiled together, one nvcc
+    process per source, all started at once."""
     t0 = time.perf_counter()
-    built = False
-    if not so.exists():
+    jobs = {}
+    for name in names:
+        if name in _LIBS or name in jobs:
+            continue
+        src, so = _target(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True,
-                              check=False)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, src, so, tmp)
+    failed = []
+    for name, (proc, src, so, tmp) in jobs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        report.write_text(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed to build {src.name} "
+                          f"(exit {proc.returncode}):\n{err}")
+            continue
+        so.with_suffix(".ptxas.txt").write_text(out + err)
         os.replace(tmp, so)
-        built = True
-    lib = ctypes.CDLL(str(so))
-    BUILDS[name] = BuildInfo(
-        path=str(so), built=built, seconds=time.perf_counter() - t0,
-        ptxas=report.read_text() if report.exists() else "")
-    _LIBS[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0
+    for name in names:
+        if name in _LIBS:
+            continue
+        _, so = _target(name)
+        report = so.with_suffix(".ptxas.txt")
+        _LIBS[name] = ctypes.CDLL(str(so))
+        BUILDS[name] = BuildInfo(
+            path=str(so), built=name in jobs, seconds=seconds,
+            ptxas=report.read_text() if report.exists() else "")
+    return {name: _LIBS[name] for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    return load_all([name])[name]
+
+
+def check_struct(lib: ctypes.CDLL, size_fn: str, struct) -> None:
+    """Raises unless the library's ``sizeof`` of a parameter struct equals
+    its ``ctypes`` mirror's."""
+    fn = getattr(lib, size_fn)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    if fn() != ctypes.sizeof(struct):
+        raise RuntimeError(
+            f"{struct.__name__}: {ctypes.sizeof(struct)} bytes in Python, "
+            f"{fn()} in the kernel library")

@@ -3,13 +3,16 @@
 // Replaces the TPU kernel PallasStepper.family_update
 // (tidy3d_tpu/solver/kernels/pallas_step.py:118, pallas_call at :417) and
 // computes what FDTDRunner._update_field_family (tidy3d_tpu/solver/fdtd.py:982)
-// specifies, for real, pole-free float32 runs. One launch updates one family
-// (E from H, or H from E^{n+1}) for all three components:
+// specifies, for real float32 runs with up to MAX_POLES dispersive poles.
+// One launch updates one family (E from H, or H from E^{n+1}) for all three
+// components:
 //
 //   d1 = sgn * (F_k - F_k[shifted along j]) * inv_j     (component i,
 //   d2 = sgn * (F_j - F_j[shifted along k]) * inv_k      j = i+1, k = i+2)
 //   rhs = d1 - d2 (+ psi_j') (- psi_k')
-//   E: out = ca * old + cb * rhs, zeroed on the PEC lo walls
+//   E: rhs -= Re(Gc_p) qr_p - Im(Gc_p) qi_p for each pole p
+//      (pallas_step.py:331-334), then
+//      out = ca * old + cb * rhs, zeroed on the PEC lo walls
 //   H: out = ca * old - cb * rhs
 //
 // E takes backward differences (F(-1) across the lo wall), H forward
@@ -26,10 +29,13 @@
 // bound is HBM bandwidth: 36 B per cell (3 source, 3 old and 3 new float32 values), plus
 // the per-cell ca/cb arrays where the medium varies, plus the re-reads of the
 // x and y neighbour planes and the psi slabs where L2 does not hold them.
-// At 3.35 TB/s that is about 10.7 ps per cell and family at best.
+// At 3.35 TB/s that is about 10.7 ps per cell and family at best; each pole
+// adds 24 B per cell to the E family (its 3 qr and 3 qi values).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+constexpr int MAX_POLES = 8;  // MAX_POLES in solver/kernels/step.py
 
 // Mirrored by FamilyParams in tidy3d_tpu_torch/solver/kernels/step.py.
 struct FamilyParams {
@@ -50,6 +56,10 @@ struct FamilyParams {
     int32_t bkind[3];         // wall the stencil crosses: 0 PEC, 1 PMC, 2 wrap
     int32_t pec_lo[3];        // E family: the lo wall of the axis is PEC
     int32_t is_e;
+    int32_t num_poles;        // E family: pole slots in use (<= MAX_POLES)
+    float gc_re[MAX_POLES];   // Re and Im of Gc = a (A + 1) per pole
+    float gc_im[MAX_POLES];
+    const float* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
 };
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
@@ -142,6 +152,13 @@ family_update_kernel(const FamilyParams p) {
         float psi;
         if (psi_update(p, i, 0, j, c, d1, &psi)) rhs = rhs + psi;
         if (psi_update(p, i, 1, k, c, d2, &psi)) rhs = rhs - psi;
+        if (IS_E) {
+            for (int q = 0; q < p.num_poles; ++q) {
+                const float qr = __ldg(p.q[(q * 3 + i) * 2] + cell);
+                const float qi = __ldg(p.q[(q * 3 + i) * 2 + 1] + cell);
+                rhs = rhs - (p.gc_re[q] * qr - p.gc_im[q] * qi);
+            }
+        }
         const float ca = p.ca[i] ? __ldg(p.ca[i] + cell) : p.ca_s[i];
         const float cb = p.cb[i] ? __ldg(p.cb[i] + cell) : p.cb_s[i];
         const float old = __ldg(p.old[i] + cell);
@@ -157,8 +174,12 @@ family_update_kernel(const FamilyParams p) {
     }
 }
 
+extern "C" int t3d_family_params_size() { return (int)sizeof(FamilyParams); }
+
 extern "C" int t3d_family_update(const FamilyParams* p, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
+    if (p->num_poles < 0 || p->num_poles > MAX_POLES)
+        return (int)cudaErrorInvalidValue;
     const int64_t gz = (p->n[2] + BLOCK_Z - 1) / BLOCK_Z;
     const int64_t gy = (p->n[1] + BLOCK_Y - 1) / BLOCK_Y;
     if (gz > 0x7fffffffLL || gy > 65535 || p->n[0] > 65535)

@@ -1,11 +1,24 @@
-"""The FDTD time-stepping runner in PyTorch: the counterpart of the XLA path
-of ``tidy3d_tpu/solver/fdtd.py``.
+"""The FDTD time-stepping runner in PyTorch: the counterpart of
+``tidy3d_tpu/solver/fdtd.py``.
 
-One step is an E half-step, E-source injection, an H half-step, H-source
-injection and running-DFT / time-sample monitor accumulation, exactly as in
-``tidy3d_tpu.solver.fdtd.FDTDRunner._step``. The half-steps go through
-``kernels.step.family_update``: the hand-written CUDA kernel for tensors on
-the GPU, its plain PyTorch version for tensors on the CPU.
+One step is an E half-step, E-source injection, the dispersive pole update,
+an H half-step, H-source injection and running-DFT / time-sample monitor
+accumulation, exactly as in ``tidy3d_tpu.solver.fdtd.FDTDRunner._step``.
+The field update runs on one of two tiers (``self.tier``), each a
+hand-written CUDA kernel for tensors on the GPU and its plain PyTorch
+version for tensors on the CPU:
+
+* ``fused``: one launch of ``kernels.fused.fused_step`` per step (both
+  half-steps, J sources inside), then the H sources, the pole update and
+  the monitors, in the order of ``FDTDRunner._step_fused``;
+* ``pallas2``: two launches of ``kernels.step.family_update`` per step.
+
+``TIDY3D_TPU_KERNEL`` picks the tier as in the JAX package: ``auto`` (the
+default) takes ``fused`` when the fused kernel takes the run and
+``pallas2`` otherwise; ``fused`` and ``pallas2`` force a tier, and a forced
+tier that does not take the run raises. ``xla``, which selects the JAX
+package's two-phase reference path, selects ``pallas2``, and an
+``_interpret`` suffix names the same tier.
 
 Differences from the JAX runner, all of which leave the arithmetic alone:
 
@@ -17,10 +30,14 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
   slabs are exactly the CPML width (plus one), with no TPU-tile rounding.
 * Waveform tables stay on the host: a source adds ``profile * w(t)`` with
   ``w(t)`` passed as a scalar, so no step needs a device table lookup.
+* The pole currents are updated in place.
+* The pole update and the monitor accumulation run inside the profiler
+  ranges ``fdtd.poles`` and ``fdtd.monitors``.
 
-Covered: real-valued, unsharded, float32, non-dispersive, linear runs.
-Dispersive poles, nonlinear media, time modulation, Bloch (complex) runs,
-sharding, bfloat16 storage and checkpointing raise ``NotImplementedError``.
+Covered: real-valued, unsharded, float32, linear runs, with up to
+``MAX_POLES`` dispersive (pole-residue) pole slots. Nonlinear media, time
+modulation, Bloch (complex) runs, sharding, bfloat16 storage and
+checkpointing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,16 +48,24 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import _reference  # noqa: F401  (reference layers importable)
+from tidy3d_tpu.constants import EPSILON_0
 from tidy3d_tpu.exceptions import DivergenceError
 from tidy3d_tpu.log import log
 from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS, SimulationPlan
 
+from .kernels import fused as fused_kernels
 from .kernels import step as step_kernels
+from .kernels.step import MAX_POLES
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
+
+# TIDY3D_TPU_KERNEL value -> requested tier ("auto" chooses)
+_KERNEL_ENV = {"auto": "auto", "fused": "fused", "pallas2": "pallas2",
+               "xla": "pallas2"}
 
 
 def _axis_reshape(vec: np.ndarray, axis: int) -> np.ndarray:
@@ -50,9 +75,10 @@ def _axis_reshape(vec: np.ndarray, axis: int) -> np.ndarray:
 
 
 def _check_supported(plan: SimulationPlan, precision) -> None:
-    if plan.poles:
+    if len(plan.poles) > MAX_POLES:
         raise NotImplementedError(
-            "dispersive media (pole-residue ADE) are not ported yet")
+            f"{len(plan.poles)} dispersive pole slots: the port takes at "
+            f"most {MAX_POLES}")
     if plan.nonlinear is not None:
         raise NotImplementedError("nonlinear media are not ported yet")
     if plan.modulation:
@@ -137,7 +163,49 @@ def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
         if masks:
             consts["wall_masks"][comp] = masks
     consts["dft"] = build_dft_tables(plan)
+    consts.update(build_pole_constants(plan))
     return consts, pml_meta
+
+
+def build_pole_constants(plan: SimulationPlan) -> dict:
+    """The dispersive-pole constants (the port of ``fdtd.py:444-478``).
+
+    ``pole_scalars[p] = (A, Gc)`` with ``A = (1 + a dt/2) / (1 - a dt/2)``
+    and ``Gc = a (A + 1)``; ``pole_B_meta[p][ci]`` is ``{"kind": "zero"}``,
+    ``{"kind": "mask", "mask_id", "B0": (re, im)}`` or ``{"kind":
+    "dense"}``. Residues stay compressed: a uniform medium ships one shared
+    float32 indicator per support (``pole_masks``) and a complex scalar per
+    pole, and only spatially varying residues ship dense re/im maps
+    (``pole_B_dense["p_ci"]``)."""
+    f32 = np.float32
+    dt = plan.dt
+    scalars, metas_all, dense = [], [], {}
+    for pi, pole in enumerate(plan.poles):
+        a = pole.a
+        A = (1.0 + a * dt / 2.0) / (1.0 - a * dt / 2.0)
+        Gc = a * (A + 1.0)
+        scalars.append((complex(A), complex(Gc)))
+        metas = []
+        for ci in range(3):
+            if pole.c_maps is not None:
+                Bm = EPSILON_0 * pole.c_maps[ci] * (dt / 2.0) \
+                    / (1.0 - a * dt / 2.0)
+                dense[f"{pi}_{ci}"] = (np.asarray(np.real(Bm), f32),
+                                       np.asarray(np.imag(Bm), f32))
+                metas.append(dict(kind="dense"))
+                continue
+            mid = pole.mask_ids[ci]
+            c = pole.c_vals[ci]
+            if mid < 0 or c == 0:
+                metas.append(dict(kind="zero"))
+                continue
+            B0 = EPSILON_0 * c * (dt / 2.0) / (1.0 - a * dt / 2.0)
+            metas.append(dict(kind="mask", mask_id=mid,
+                              B0=(float(B0.real), float(B0.imag))))
+        metas_all.append(metas)
+    return {"pole_masks": [np.asarray(m, f32) for m in plan.pole_masks],
+            "pole_B_dense": dense, "pole_scalars": scalars,
+            "pole_B_meta": metas_all}
 
 
 def build_dft_tables(plan: SimulationPlan) -> dict:
@@ -171,6 +239,69 @@ def build_dft_tables(plan: SimulationPlan) -> dict:
     return dft
 
 
+def select_tier(num_e_sources: int, kernel: str = None) -> str:
+    """The field-update tier of a run with ``num_e_sources`` E-side source
+    terms: ``"fused"`` or ``"pallas2"``. ``kernel`` defaults to
+    ``TIDY3D_TPU_KERNEL`` (``auto``). ``_check_supported`` has already
+    refused what neither tier takes."""
+    kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
+    # the CPU runs the plain versions, so the interpret modes are the tiers
+    want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
+    if want is None:
+        raise ValueError(f"TIDY3D_TPU_KERNEL={kernel!r}: the port has the "
+                         "tiers " + ", ".join(sorted(_KERNEL_ENV)))
+    reason = fused_kernels.unsupported_reason(num_e_sources)
+    if want == "auto":
+        return "fused" if reason is None else "pallas2"
+    if want == "fused" and reason is not None:
+        raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the fused tier does "
+                         f"not take this run ({reason})")
+    return want
+
+
+def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
+    """The semi-implicit pole-current update (the port of
+    ``FDTDRunner._update_poles``, ``fdtd.py:1145-1184``), in place on the
+    ``(qr, qi)`` buffers of ``Q``, which it returns.
+
+    ``Q' = A Q + B (E^{n+1} + E^n)`` per pole and component, with the
+    complex products written out in real and imaginary parts as the
+    reference writes them. ``E^{n+1} + E^n`` is formed once per component
+    and its product with a support mask once per (mask, component), so the
+    poles of one metal share them."""
+    cache = {}
+    for pi, ((A, _), metas, Qp) in enumerate(zip(
+            consts["pole_scalars"], consts["pole_B_meta"], Q)):
+        for ci, comp in enumerate(E_COMPS):
+            qr, qi = Qp[comp]
+            # qr' = Re(A) qr - Im(A) qi, qi' = Im(A) qr + Re(A) qi
+            im_qr = qr * A.imag
+            qr.mul_(A.real).add_(qi, alpha=-A.imag)
+            qi.mul_(A.real).add_(im_qr)
+            del im_qr
+            m = metas[ci]
+            if m["kind"] == "zero":
+                continue
+            if ("e", ci) not in cache:
+                cache[("e", ci)] = new_e[comp] + old_e[comp]
+            esum = cache[("e", ci)]
+            if m["kind"] == "mask":
+                mkey = (m["mask_id"], ci)
+                if mkey not in cache:
+                    cache[mkey] = consts["pole_masks"][m["mask_id"]] * esum
+                mes = cache[mkey]
+                b_re, b_im = m["B0"]
+                if b_re:
+                    qr.add_(mes, alpha=b_re)
+                if b_im:
+                    qi.add_(mes, alpha=b_im)
+            else:
+                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
+                qr.addcmul_(b_re, esum)
+                qi.addcmul_(b_im, esum)
+    return Q
+
+
 def _dev(x, device):
     """numpy array -> tensor on ``device``; numpy scalar -> Python float."""
     if isinstance(x, np.ndarray):
@@ -195,6 +326,11 @@ def consts_to_device(consts: dict, device) -> dict:
                        for c, ms in consts["wall_masks"].items()},
         "dft": {key: tuple(_dev(t, device) for t in tables)
                 for key, tables in consts["dft"].items()},
+        "pole_masks": [_dev(m, device) for m in consts["pole_masks"]],
+        "pole_B_dense": {key: (_dev(re, device), _dev(im, device))
+                         for key, (re, im) in consts["pole_B_dense"].items()},
+        "pole_scalars": list(consts["pole_scalars"]),
+        "pole_B_meta": consts["pole_B_meta"],
     }
     return out
 
@@ -202,12 +338,14 @@ def consts_to_device(consts: dict, device) -> dict:
 class FDTDRunner:
     """Runs the time-stepping loop of one ``SimulationPlan`` on ``device``.
 
-    ``use_kernel=False`` steps with the plain PyTorch family update on any
-    device; it exists so that the kernel can be held against it on the GPU.
+    ``use_kernel=False`` steps with the plain PyTorch versions of the tier
+    on any device; it exists so that the kernels can be held against them
+    on the GPU. ``kernel`` overrides ``TIDY3D_TPU_KERNEL`` for this runner.
     """
 
     def __init__(self, plan: SimulationPlan, device="cuda",
-                 precision: str = None, use_kernel: bool = True):
+                 precision: str = None, use_kernel: bool = True,
+                 kernel: str = None):
         _check_supported(plan, precision)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -225,6 +363,7 @@ class FDTDRunner:
             pml_meta=dict(self.pml_meta))
         self._sources = {"E": [], "H": []}
         self._build_sources()
+        self.tier = select_tier(len(self._sources["E"]), kernel)
 
     # ------------------------------------------------------------------ #
     # sources
@@ -254,14 +393,22 @@ class FDTDRunner:
                     raise NotImplementedError(
                         "complex source profiles are not ported yet")
                 profile = np.real(profile)
-            term = -cb_sl * np.asarray(profile, np.float32)
+            box = tuple(len(range(*s.indices(n)))
+                        for s, n in zip(sp.slices, self.shape))
+            term = np.array(np.broadcast_to(
+                -cb_sl * np.asarray(profile, np.float32), box), np.float32)
             self._sources[fam].append(
-                (sp.comp, sp.slices, _dev(np.asarray(term, np.float32),
-                                          self.device), sp.waveform_key))
+                (sp.comp, sp.slices, _dev(term, self.device),
+                 sp.waveform_key))
+
+    def step_sources(self, family: str, step: int) -> list:
+        """``(comp, slices, term, w)`` of each source term at ``step``."""
+        return [(comp, sl, term, float(self._waveforms[key, step]))
+                for comp, sl, term, key in self._sources[family]]
 
     def _inject(self, family: str, fields: dict, step: int):
-        for comp, sl, term, key in self._sources[family]:
-            fields[comp][sl].add_(term * float(self._waveforms[key, step]))
+        for comp, sl, term, w in self.step_sources(family, step):
+            fields[comp][sl].add_(term * w)
 
     # ------------------------------------------------------------------ #
     # state
@@ -291,6 +438,8 @@ class FDTDRunner:
             "E": {c: zeros(self.shape) for c in E_COMPS},
             "H": {c: zeros(self.shape) for c in H_COMPS},
             "psi": {k: zeros(s) for k, s in self.psi_shapes().items()},
+            "Q": [{c: (zeros(self.shape), zeros(self.shape))
+                   for c in E_COMPS} for _ in self.plan.poles],
             "mon": [self._init_monitor_acc(mi, mp)
                     for mi, mp in enumerate(self.plan.monitors)],
         }
@@ -352,16 +501,33 @@ class FDTDRunner:
         return mon
 
     def step(self, step: int, state: dict) -> dict:
-        """One leapfrog step from ``state`` (monitors accumulate in place)."""
-        nE, psi_E = self._family_update("E", state, state["H"])
-        self._inject("E", nE, step)
-        nH, psi_H = self._family_update("H", state, nE)
-        self._inject("H", nH, step)
-        mon = self._accumulate_monitors(step, nE, nH, state["mon"])
-        psi = dict(state["psi"])
-        psi.update(psi_E)
-        psi.update(psi_H)
-        return {"E": nE, "H": nH, "psi": psi, "mon": mon}
+        """One leapfrog step from ``state`` (the pole currents update and
+        the monitors accumulate in place)."""
+        if self.tier == "fused":
+            fn = fused_kernels.fused_step if self.use_kernel \
+                else fused_kernels.fused_step_reference
+            nE, nH, psi = fn(state, self.consts, self.meta,
+                             self.step_sources("E", step))
+            self._inject("H", nH, step)
+            Q = self._update_poles(nE, state)
+        else:
+            nE, psi_E = self._family_update("E", state, state["H"])
+            self._inject("E", nE, step)
+            Q = self._update_poles(nE, state)
+            nH, psi_H = self._family_update("H", state, nE)
+            self._inject("H", nH, step)
+            psi = dict(state["psi"])
+            psi.update(psi_E)
+            psi.update(psi_H)
+        with record_function("fdtd.monitors"):
+            mon = self._accumulate_monitors(step, nE, nH, state["mon"])
+        return {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
+
+    def _update_poles(self, new_e, state):
+        if not state["Q"]:
+            return state["Q"]
+        with record_function("fdtd.poles"):
+            return update_poles(new_e, state["E"], state["Q"], self.consts)
 
     def run_steps(self, start: int, num: int, state: dict) -> dict:
         for n in range(num):
@@ -401,7 +567,8 @@ class FDTDRunner:
 
         t0 = _time.perf_counter()
         if self.use_kernel:
-            step_kernels.prepare(self.device)
+            (fused_kernels if self.tier == "fused"
+             else step_kernels).prepare(self.device)
         self.compile_time = _time.perf_counter() - t0
 
         start_time = _time.perf_counter()

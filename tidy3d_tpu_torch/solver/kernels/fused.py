@@ -1,0 +1,208 @@
+"""The fused one-step update: the counterpart of ``pallas_fused.py``.
+
+``fused_step(state, consts, meta, sources)`` computes one whole leapfrog
+step of the fields: the E half-step (curl H, CPML psi of all three axes,
+the pole currents' term, the PEC lo-wall masks), the J source terms of this
+step on E', and the H half-step from E' (with its psi). It returns
+``(new_E, new_H, new_psi)``, where ``new_psi`` holds every psi slab, and
+leaves ``state`` untouched. The semantics are those of the XLA step
+``tidy3d_tpu.solver.fdtd.FDTDRunner._step`` up to the H-side sources, which
+the runner adds afterwards, as ``_step_fused`` does.
+
+``sources`` is a list of ``(comp, slices, term, w)``: ``E'_comp[slices] +=
+term * w``, with ``term`` of the slice's shape and ``w`` this step's
+waveform value.
+
+Dispatch is by device: a CPU tensor goes to ``fused_step_reference`` (the
+two family updates of ``step.py`` with the injection between them); a CUDA
+tensor launches the hand-written kernel in ``csrc/fused.cu`` or raises.
+``LAUNCHES`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Tuple
+
+import torch
+
+from ... import _reference  # noqa: F401  (reference layers importable)
+from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
+
+from . import step
+from .step import MAX_POLES, StepMeta, _check_field
+
+LAUNCHES = 0
+MAX_SOURCES = 32    # J source boxes the kernel takes (csrc/fused.cu)
+
+Source = Tuple[str, Tuple[slice, slice, slice], torch.Tensor, float]
+
+
+def unsupported_reason(num_sources: int) -> Optional[str]:
+    """Why the fused tier does not take a run with ``num_sources`` E-side
+    source terms, or None if it does. (The runner refuses complex,
+    nonlinear and modulated runs and more than ``MAX_POLES`` poles on
+    either tier.)"""
+    if num_sources > MAX_SOURCES:
+        return (f"{num_sources} E-side source terms (the kernel takes "
+                f"{MAX_SOURCES})")
+    return None
+
+
+# --------------------------------------------------------------------------- #
+# the plain PyTorch version
+# --------------------------------------------------------------------------- #
+
+
+def fused_step_reference(state: dict, consts: dict, meta: StepMeta,
+                         sources: List[Source]):
+    """Plain PyTorch step on any device: E family, J injection, H family."""
+    new_e, psi_e = step.family_update_reference("E", state, consts,
+                                                state["H"], meta)
+    for comp, sl, term, w in sources:
+        new_e[comp][sl].add_(term * w)
+    new_h, psi_h = step.family_update_reference("H", state, consts, new_e,
+                                                meta)
+    new_psi = dict(state["psi"])
+    new_psi.update(psi_e)
+    new_psi.update(psi_h)
+    return new_e, new_h, new_psi
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernel (csrc/fused.cu) through ctypes
+# --------------------------------------------------------------------------- #
+
+_P3 = ctypes.c_void_p * 3
+_I3 = ctypes.c_int32 * 3
+
+
+class SrcBox(ctypes.Structure):
+    """Mirror of ``struct SrcBox`` in ``csrc/fused.cu``."""
+
+    _fields_ = [("term", ctypes.c_void_p), ("comp", ctypes.c_int32),
+                ("lo", _I3), ("hi", _I3), ("w", ctypes.c_float)]
+
+
+class FusedParams(ctypes.Structure):
+    """Mirror of ``struct FusedParams`` in ``csrc/fused.cu``."""
+
+    _fields_ = [
+        ("e_old", _P3), ("h_old", _P3), ("e_new", _P3), ("h_new", _P3),
+        ("ca_e", _P3), ("cb_e", _P3), ("ca_h", _P3), ("cb_h", _P3),
+        ("inv_e", _P3), ("inv_h", _P3),
+        ("psi_in_e", ctypes.c_void_p * 12), ("psi_out_e", ctypes.c_void_p * 12),
+        ("psi_in_h", ctypes.c_void_p * 12), ("psi_out_h", ctypes.c_void_p * 12),
+        ("pml_b_e", ctypes.c_void_p * 6), ("pml_c_e", ctypes.c_void_p * 6),
+        ("pml_b_h", ctypes.c_void_p * 6), ("pml_c_h", ctypes.c_void_p * 6),
+        ("q", ctypes.c_void_p * (6 * MAX_POLES)),
+        ("src", SrcBox * MAX_SOURCES),
+        ("ca_s_e", ctypes.c_float * 3), ("cb_s_e", ctypes.c_float * 3),
+        ("ca_s_h", ctypes.c_float * 3), ("cb_s_h", ctypes.c_float * 3),
+        ("gc_re", ctypes.c_float * MAX_POLES),
+        ("gc_im", ctypes.c_float * MAX_POLES),
+        ("n", _I3),
+        ("w_e", ctypes.c_int32 * 6), ("w_h", ctypes.c_int32 * 6),
+        ("bk_lo", _I3), ("bk_hi", _I3), ("pec_lo", _I3),
+        ("bulk_lo", _I3), ("bulk_hi", _I3),
+        ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32),
+    ]
+
+
+def _library():
+    from ... import _build
+
+    lib = _build.load("fused")
+    fn = lib.t3d_fused_step
+    if fn.argtypes is None:
+        _build.check_struct(lib, "t3d_fused_params_size", FusedParams)
+        fn.argtypes = [ctypes.POINTER(FusedParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def prepare(device) -> None:
+    """Build and load the kernel library for ``device`` (a no-op on the
+    CPU); the runner times this as its compile step."""
+    if torch.device(device).type == "cuda":
+        _library()
+
+
+def _source_box(sl, shape):
+    """``(lo, hi)`` of a unit-step slice triple inside ``shape``."""
+    lo, hi = [], []
+    for a, s in enumerate(sl):
+        start, stop, stride = s.indices(shape[a])
+        if stride != 1:
+            raise ValueError(f"source slice {s} has a step")
+        lo.append(start)
+        hi.append(max(stop, start))
+    return lo, hi
+
+
+def _fused_step_cuda(state, consts, meta, sources):
+    global LAUNCHES
+    shape = tuple(meta.shape)
+    device = state["E"][E_COMPS[0]].device
+    if len(sources) > MAX_SOURCES:
+        raise ValueError(f"{len(sources)} source terms: the kernel takes at "
+                         f"most {MAX_SOURCES}")
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"grid {shape}: the fused kernel takes fewer than "
+                         "2^31 cells")
+    p = FusedParams()
+    for a in range(3):
+        p.n[a] = shape[a]
+        for arr, kind in ((p.bk_lo, meta.boundaries[a][0]),
+                          (p.bk_hi, meta.boundaries[a][1])):
+            if kind not in step._WALL:
+                raise ValueError(f"unsupported boundary kind '{kind}'")
+            arr[a] = step._WALL[kind]
+        p.pec_lo[a] = int(meta.boundaries[a][0] == "pec")
+        # the cells whose E and H updates meet no psi slab and no wall
+        w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
+        p.bulk_lo[a] = max(1, w_e[0], w_h[0])
+        p.bulk_hi[a] = min(shape[a] - 1, shape[a] - w_e[1], shape[a] - w_h[1])
+
+    new_e, new_h = {}, {}
+    for fam, comps, old, new, out in (("E", E_COMPS, p.e_old, p.e_new, new_e),
+                                      ("H", H_COMPS, p.h_old, p.h_new, new_h)):
+        for i, comp in enumerate(comps):
+            old[i] = _check_field(state[fam][comp], shape, comp).data_ptr()
+            out[comp] = torch.empty(shape, dtype=torch.float32, device=device)
+            new[i] = out[comp].data_ptr()
+
+    new_psi = dict(state["psi"])
+    for fam in ("E", "H"):
+        new_psi.update(step.set_family_params(fam, state, consts, meta, {
+            name: getattr(p, f"{name}_{fam.lower()}")
+            for name in step.FAMILY_FIELDS}))
+    step.set_pole_params(p, state, consts, shape)
+
+    p.num_src = len(sources)
+    for s, (comp, sl, term, w) in enumerate(sources):
+        lo, hi = _source_box(sl, shape)
+        box = tuple(h - l for l, h in zip(lo, hi))
+        box_src = p.src[s]
+        box_src.term = _check_field(term, box, f"source {s}").data_ptr()
+        box_src.comp = E_COMPS.index(comp)
+        for a in range(3):
+            box_src.lo[a] = lo[a]
+            box_src.hi[a] = hi[a]
+        box_src.w = float(w)
+
+    step.launch(_library(), p, device, "fused_step")
+    LAUNCHES += 1
+    return new_e, new_h, new_psi
+
+
+def fused_step(state: dict, consts: dict, meta: StepMeta,
+               sources: List[Source]):
+    """One leapfrog step: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns ``(new_E, new_H, new_psi)``."""
+    device = state["E"][E_COMPS[0]].device
+    if device.type == "cpu":
+        return fused_step_reference(state, consts, meta, sources)
+    if device.type != "cuda":
+        raise ValueError(f"fused_step: unsupported device '{device}'")
+    return _fused_step_cuda(state, consts, meta, sources)

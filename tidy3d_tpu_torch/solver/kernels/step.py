@@ -6,7 +6,8 @@ the curl with the boundary column of each axis, the CPML psi recursions of
 all three axes, ``ca * old +- cb * rhs`` and the PEC lo-wall masks. It
 returns ``(new_fields, new_psi)`` with the semantics of
 ``tidy3d_tpu.solver.fdtd.FDTDRunner._update_field_family`` (the XLA path,
-for real, pole-free runs) and ``PallasStepper.family_update``.
+for real runs, with the ``-Re(Gc Q)`` term of up to ``MAX_POLES``
+dispersive poles in the E update) and ``PallasStepper.family_update``.
 
 Dispatch is by device: a CPU tensor goes to ``family_update_reference``, a
 direct port of the XLA region-concat body; a CUDA tensor launches the
@@ -26,6 +27,7 @@ from ... import _reference  # noqa: F401  (reference layers importable)
 from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
 
 LAUNCHES = 0
+MAX_POLES = 8       # pole slots the kernels take (csrc/*.cu MAX_POLES)
 
 _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
 
@@ -137,11 +139,25 @@ def _region_ranges(n: int, w_lo: int, w_hi: int):
     return regions
 
 
+def pole_terms(state: dict, consts: dict):
+    """``[(Re Gc, Im Gc, Q_p)]`` per pole: the E update subtracts
+    ``Re(Gc) qr - Im(Gc) qi`` of each pole (``fdtd.py:1089-1093``)."""
+    scalars = consts["pole_scalars"]
+    if not scalars:
+        return []
+    Q = state["Q"]
+    if len(Q) != len(scalars):
+        raise ValueError(f"state holds {len(Q)} pole currents, the plan "
+                         f"{len(scalars)} poles")
+    return [(Gc.real, Gc.imag, Qp) for (_, Gc), Qp in zip(scalars, Q)]
+
+
 def family_update_reference(family: str, state: dict, consts: dict,
                             src_fields: dict, meta: StepMeta):
     """Plain PyTorch family update on any device: the field is assembled as
     a region concat over the two derivative axes (j, k) of each component,
-    with the psi terms in the slab pieces only."""
+    with the psi terms in the slab pieces only, and the E update subtracts
+    the pole currents' term."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     other = H_COMPS if is_e else E_COMPS
@@ -150,6 +166,7 @@ def family_update_reference(family: str, state: dict, consts: dict,
     fam = "dual" if is_e else "primal"
     sign_shift = 1.0 if is_e else -1.0  # backward vs forward difference
     shape, boundaries = meta.shape, meta.boundaries
+    poles = pole_terms(state, consts) if is_e else []
 
     new_fields, new_psi = {}, {}
     for i, comp in enumerate(out_comps):
@@ -211,6 +228,9 @@ def family_update_reference(family: str, state: dict, consts: dict,
                                rk[1] - slab_sl[k].start)
                 psl[j] = sl[j]
                 rhs = rhs - psi_new[tuple(psl)]
+            for gc_re, gc_im, Qp in poles:
+                qr, qi = Qp[comp]
+                rhs = rhs - (gc_re * _take(qr, sl) - gc_im * _take(qi, sl))
             ca_p = _take(ca, sl) if isinstance(ca, torch.Tensor) else ca
             cb_p = _take(cb, sl) if isinstance(cb, torch.Tensor) else cb
             if is_e:
@@ -251,6 +271,10 @@ class FamilyParams(ctypes.Structure):
         ("bkind", ctypes.c_int32 * 3),
         ("pec_lo", ctypes.c_int32 * 3),
         ("is_e", ctypes.c_int32),
+        ("num_poles", ctypes.c_int32),
+        ("gc_re", ctypes.c_float * MAX_POLES),
+        ("gc_im", ctypes.c_float * MAX_POLES),
+        ("q", ctypes.c_void_p * (6 * MAX_POLES)),
     ]
 
 
@@ -260,6 +284,7 @@ def _library():
     lib = _build.load("step")
     fn = lib.t3d_family_update
     if fn.argtypes is None:
+        _build.check_struct(lib, "t3d_family_params_size", FamilyParams)
         fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -295,14 +320,105 @@ def _vec(t, n, name):
     return v
 
 
+def set_pole_params(p, state, consts, shape) -> None:
+    """Fills ``num_poles``, ``gc_re``/``gc_im`` and the pole-current
+    pointers ``q[(pole * 3 + comp) * 2 + (0 re, 1 im)]`` of a kernel's
+    parameter struct."""
+    poles = pole_terms(state, consts)
+    if len(poles) > MAX_POLES:
+        raise ValueError(f"{len(poles)} poles: the kernels take at most "
+                         f"{MAX_POLES}")
+    p.num_poles = len(poles)
+    for pi, (gc_re, gc_im, Qp) in enumerate(poles):
+        p.gc_re[pi] = gc_re
+        p.gc_im[pi] = gc_im
+        for ci, comp in enumerate(E_COMPS):
+            for part in range(2):
+                p.q[(pi * 3 + ci) * 2 + part] = _check_field(
+                    Qp[comp][part], shape, f"Q{pi}_{comp}").data_ptr()
+
+
+# the per-family arrays of a kernel's parameter struct (the fused kernel's
+# carry an _e or _h suffix)
+FAMILY_FIELDS = ("ca", "cb", "ca_s", "cb_s", "inv", "w", "pml_b", "pml_c",
+                 "psi_in", "psi_out")
+
+
+def set_family_params(family: str, state: dict, consts: dict,
+                      meta: StepMeta, arrays: dict) -> dict:
+    """Fills the per-family fields of a kernel's parameter struct: the
+    ca/cb pointers or scalars, the inverse steps, the psi slab widths,
+    their CPML b/c vectors and the psi pointers. ``arrays`` maps each name
+    of ``FAMILY_FIELDS`` to the struct's array for this family. Returns
+    the new psi buffers, keyed as the state's."""
+    is_e = family == "E"
+    comps = E_COMPS if is_e else H_COMPS
+    coeffs = consts["coeffs_E"] if is_e else consts["coeffs_H"]
+    inv = consts["inv_dual"] if is_e else consts["inv_primal"]
+    fam = "dual" if is_e else "primal"
+    shape = tuple(meta.shape)
+
+    for i, comp in enumerate(comps):
+        for name, val in zip(("ca", "cb"), coeffs[comp]):
+            if isinstance(val, torch.Tensor):
+                arrays[name][i] = _check_field(
+                    val, shape, f"{name}_{comp}").data_ptr()
+                arrays[f"{name}_s"][i] = 0.0
+            else:
+                arrays[name][i] = None
+                arrays[f"{name}_s"][i] = float(val)
+    widths = arrays["w"]
+    for a in range(3):
+        arrays["inv"][a] = _vec(inv[a], shape[a], f"inv[{a}]").data_ptr()
+        w_lo, w_hi = meta.pml_meta[(fam, a)]
+        if w_lo + w_hi > shape[a]:
+            raise ValueError(f"overlapping psi slabs on axis {a}")
+        pml = consts["pml"].get(f"{fam}{a}")
+        for s, (side, width) in enumerate((("lo", w_lo), ("hi", w_hi))):
+            widths[2 * a + s] = width
+            if width:
+                for key in ("b", "c"):
+                    arrays[f"pml_{key}"][2 * a + s] = _vec(
+                        pml[f"{key}_{side}"], width,
+                        f"{key}_{side}{a}").data_ptr()
+
+    new_psi = {}
+    for i, comp in enumerate(comps):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        for slot, a in enumerate((j, k)):
+            for s, side in enumerate(("lo", "hi")):
+                width = widths[2 * a + s]
+                if not width:
+                    continue
+                key = f"{comp}|{a}|{side}"
+                if key not in state["psi"]:
+                    raise ValueError(f"missing psi slab '{key}'")
+                psi_shape = list(shape)
+                psi_shape[a] = width
+                psi = _check_field(state["psi"][key], psi_shape, key)
+                out = torch.empty_like(psi)
+                idx = (2 * i + slot) * 2 + s
+                arrays["psi_in"][idx] = psi.data_ptr()
+                arrays["psi_out"][idx] = out.data_ptr()
+                new_psi[key] = out
+    return new_psi
+
+
+def launch(fn, params, device, what: str) -> None:
+    """Calls a kernel library's C entry point on the current stream of
+    ``device``; raises if the launch reports a CUDA error."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(params), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
 def _family_update_cuda(family, state, consts, src_fields, meta):
     global LAUNCHES
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     src_comps = H_COMPS if is_e else E_COMPS
-    coeffs = consts["coeffs_E"] if is_e else consts["coeffs_H"]
-    inv = consts["inv_dual"] if is_e else consts["inv_primal"]
-    fam = "dual" if is_e else "primal"
     shape = tuple(meta.shape)
     device = src_fields[src_comps[0]].device
 
@@ -314,66 +430,21 @@ def _family_update_cuda(family, state, consts, src_fields, meta):
             raise ValueError(f"unsupported boundary kind '{kind}'")
         p.bkind[a] = _WALL[kind]
         p.pec_lo[a] = int(is_e and meta.boundaries[a][0] == "pec")
-        p.inv[a] = _vec(inv[a], shape[a], f"inv[{a}]").data_ptr()
     p.is_e = int(is_e)
 
     new_fields = {}
     for i, (sc, oc) in enumerate(zip(src_comps, out_comps)):
         p.src[i] = _check_field(src_fields[sc], shape, sc).data_ptr()
         p.old[i] = _check_field(state[family][oc], shape, oc).data_ptr()
-        out = torch.empty(shape, dtype=torch.float32, device=device)
-        new_fields[oc] = out
-        p.out[i] = out.data_ptr()
-        ca, cb = coeffs[oc]
-        for name, val, ptrs, scal in (("ca", ca, p.ca, p.ca_s),
-                                      ("cb", cb, p.cb, p.cb_s)):
-            if isinstance(val, torch.Tensor):
-                ptrs[i] = _check_field(val, shape, f"{name}_{oc}").data_ptr()
-                scal[i] = 0.0
-            else:
-                ptrs[i] = None
-                scal[i] = float(val)
+        new_fields[oc] = torch.empty(shape, dtype=torch.float32,
+                                     device=device)
+        p.out[i] = new_fields[oc].data_ptr()
+    new_psi = set_family_params(family, state, consts, meta, {
+        name: getattr(p, name) for name in FAMILY_FIELDS})
+    if is_e:
+        set_pole_params(p, state, consts, shape)
 
-    for a in range(3):
-        w_lo, w_hi = meta.pml_meta[(fam, a)]
-        if w_lo + w_hi > shape[a]:
-            raise ValueError(f"overlapping psi slabs on axis {a}")
-        pml = consts["pml"].get(f"{fam}{a}")
-        for s, (side, width) in enumerate((("lo", w_lo), ("hi", w_hi))):
-            p.w[2 * a + s] = width
-            if width:
-                b = _vec(pml[f"b_{side}"], width, f"b_{side}{a}")
-                c = _vec(pml[f"c_{side}"], width, f"c_{side}{a}")
-                p.pml_b[2 * a + s] = b.data_ptr()
-                p.pml_c[2 * a + s] = c.data_ptr()
-
-    new_psi = {}
-    for i, comp in enumerate(out_comps):
-        j, k = (i + 1) % 3, (i + 2) % 3
-        for slot, a in enumerate((j, k)):
-            for s, side in enumerate(("lo", "hi")):
-                idx = (2 * i + slot) * 2 + s
-                key = f"{comp}|{a}|{side}"
-                width = p.w[2 * a + s]
-                if not width:
-                    continue
-                if key not in state["psi"]:
-                    raise ValueError(f"missing psi slab '{key}'")
-                psi_shape = list(shape)
-                psi_shape[a] = width
-                psi = _check_field(state["psi"][key], psi_shape, key)
-                out = torch.empty_like(psi)
-                p.psi_in[idx] = psi.data_ptr()
-                p.psi_out[idx] = out.data_ptr()
-                new_psi[key] = out
-
-    fn = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(ctypes.byref(p), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"family_update kernel launch failed: CUDA error "
-                           f"{err}")
+    launch(_library(), p, device, "family_update")
     LAUNCHES += 1
     return new_fields, new_psi
 

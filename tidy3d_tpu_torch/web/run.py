@@ -2,9 +2,12 @@
 
 Mirrors ``tidy3d_tpu.web.run`` (``tidy3d_tpu/web/run.py:55-292``), whose
 module cannot be imported without JAX; the builders of the monitor data the
-slice covers are ported here unchanged. Field, field-time, flux and
-flux-time monitors are covered; other monitor types raise
-``NotImplementedError`` before the run starts.
+port covers are ported here unchanged. Field, field-time, flux and
+flux-time monitors are covered; other monitor types, checkpointing and
+sharded runs raise ``NotImplementedError`` before the run starts. The
+runner decides what media it takes (``solver/fdtd.py``: linear, real,
+float32, up to 8 dispersive pole slots) and which kernel tier steps the run;
+the run log names the tier.
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ def run(
         log.info(f"[{task_name}] lowered: grid {nx}x{ny}x{nz}, "
                  f"{plan.num_steps} steps, {len(plan.sources)} source terms.")
     runner = FDTDRunner(plan, device=device)
+    if verbose:
+        log.info(f"[{task_name}] kernel tier: {runner.tier}")
     raw = runner.run(verbose=verbose)
     if verbose:
         rate = np.prod(plan.shape) * runner.steps_run \
@@ -108,7 +113,7 @@ def assemble_sim_data(simulation, plan, raw, runner,
     log_lines = [
         f"task: {task_name}",
         f"steps run: {runner.steps_run} / {plan.num_steps}",
-    ] + metrics.log_lines()
+    ] + metrics.log_lines() + [f"kernel tier: {runner.tier}"]
 
     # group plans by source monitor (flux monitors have per-surface plans)
     surface_groups: Dict[str, List[int]] = {}

@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build both kernels (``tidy3d_tpu_torch/csrc/step.cu`` and ``fused.cu``)
-   with nvcc for sm_90a, one nvcc process each, started together, and print
-   their register and spill reports;
+2. build the three kernels (``tidy3d_tpu_torch/csrc/step.cu``, ``fused.cu``
+   and ``kstep.cu``) with nvcc for sm_90a, one nvcc process each, started
+   together, and print their register and spill reports;
 3. the family-update kernel against its plain PyTorch version for one E and
    one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
    PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
@@ -25,16 +25,25 @@ Phases (any failure exits non-zero):
 6. 200 steps on the fused tier, kernel against plain versions, in turns
    plain, kernel, kernel, plain, on the 384^3 dispersive case and on the
    280^3 7-pole Au half-space, to 2e-5;
-7. torch.profiler windows of 20 steps: device time of the two-phase tier on
-   the broadband case, and of the fused tier on the dispersive case split
-   into the fused kernel, the pole-update ops and the DFT/source ops;
-8. ``tidy3d_tpu_torch.web.run``, each path with the launch counts set to 0
+7. the k-step kernel against its plain version for one group of k = 2
+   steps, on the 64x48x80 grid with a Lorentz pole, on the 384^3 broadband
+   and dispersive cases and on the 280^3 Au case (7 poles), to 1e-6; kernel
+   and plain ms per group and per step (CUDA events) beside the fused
+   kernel (plus the plain pole update); 200 steps on the kstep tier, kernel
+   against plain in turns, on the dispersive and the Au case, to 2e-5;
+8. torch.profiler windows of 20 steps: device time of the two-phase tier on
+   the broadband case, of the fused tier on the dispersive case split into
+   the fused kernel, the pole-update ops and the DFT/source ops, and of the
+   kstep tier on the dispersive case;
+9. ``tidy3d_tpu_torch.web.run``, each path with the launch counts set to 0
    just before it and read just after: the broadband case on the two-phase
-   tier (2 family launches per step), then the dispersive and the broadband
-   case on the default (fused) tier (one fused launch per step, no family
-   launch); the flux must be finite and non-zero; throughput and peak
-   device memory of each;
-9. the JSON summary lines; the last line is the contract line.
+   tier (2 family launches per step), the dispersive and the broadband case
+   forced to the fused tier (one fused launch per step), then both on the
+   default tier, the kstep tier (one k-step launch per group of k steps, no
+   fused or family launch); the flux must be finite and non-zero, and on
+   the kstep tier within 2e-2 of the fused tier's (a strided DFT against an
+   every-step one); throughput and peak device memory of each;
+10. the JSON summary lines; the last line is the contract line.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -57,6 +66,7 @@ STEPS_COMPARE = 200
 NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
+TOL_FLUX = 2e-2         # a strided DFT against an every-step one
 OUT_DIR = "chiprun_out"
 
 
@@ -276,6 +286,46 @@ def compare_fused(fused, runner, state, what: str) -> float:
     return worst_abs
 
 
+def flat_state(state: dict) -> dict:
+    """Fields, psi and pole currents of a state, one entry per array."""
+    out = {f"{fam}:{key}": v for fam in ("E", "H", "psi")
+           for key, v in state[fam].items()}
+    for pi, Qp in enumerate(state["Q"]):
+        for c, (qr, qi) in Qp.items():
+            out[f"Q{pi}:{c}:re"], out[f"Q{pi}:{c}:im"] = qr, qi
+    return out
+
+
+def compare_kstep(kstep, runner, state, what: str) -> float:
+    """k-step kernel against its plain version for one group from step 36
+    (inside the source pulse), relative to the largest magnitude of each
+    of fields, psi and pole currents; returns the largest absolute
+    difference."""
+    k, t0 = runner.k, 36
+    before = kstep.LAUNCHES
+    got = kstep.kstep_group(state, runner.consts, runner.meta, runner.tables,
+                            t0, k, out=state["alt"])
+    sync()
+    assert kstep.LAUNCHES == before + 1, "k-step kernel did not launch"
+    ref = kstep.kstep_group_reference(state, runner.consts, runner.meta,
+                                      runner.tables, t0, k)
+    fg, fr = flat_state(got), flat_state(ref)
+    worst_rel, worst_abs = 0.0, 0.0
+    for group in ("E", "H", "psi", "Q"):
+        keys = [key for key in fr if key.split(":")[0].rstrip(
+            "0123456789") == group]
+        if not keys:
+            continue
+        g = {key: fg[key] for key in keys}
+        r = {key: fr[key] for key in keys}
+        worst_abs = max(worst_abs, max_diff(g, r))
+        worst_rel = max(worst_rel, rel_err(g, r))
+    log(f"[kstep] {what}, k={k}: k-step kernel vs plain max rel err "
+        f"{worst_rel:.3e} (max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
+    assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
+    return worst_abs
+
+
 def run_steps_timed(runner, steps: int):
     runner._pad_time_tables(steps)
     state = runner.init_state()
@@ -324,12 +374,12 @@ def profile_window(runner, out_path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     state = runner.init_state()
-    runner._pad_time_tables(NPROF + 5)
-    state = runner.run_steps(0, 5, state)
+    runner._pad_time_tables(NPROF + 4)
+    state = runner.run_steps(0, 4, state)
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state = runner.run_steps(5, NPROF, state)
+        state = runner.run_steps(4, NPROF, state)
         sync()
     by_name = {}
     for evt in prof.key_averages():
@@ -353,6 +403,8 @@ def profile_window(runner, out_path: str) -> dict:
                       if "family_update_kernel" in k),
         fused_ms=sum(ms for k, (ms, _) in by_name.items()
                      if "fused_step_kernel" in k),
+        kstep_ms=sum(ms for k, (ms, _) in by_name.items()
+                     if "kstep_kernel" in k),
         poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
         monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
         launches=sum(c for _, c in by_name.values()))
@@ -364,13 +416,14 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
             "measured")
         return
     per = {k: v / NPROF for k, v in prof.items()}
-    kernel = per["family_ms"] + per["fused_ms"]
+    kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"]
     other = per["device_ms"] - kernel - per["poles_ms"]
     # the profiler slows the host loop, so the busy share compares the
     # device time per step with the unprofiled step time
     log(f"[profile] {what} per step: device {per['device_ms']:.3f} ms = "
         f"kernels {kernel:.3f} ms (family {per['family_ms']:.3f}, fused "
-        f"{per['fused_ms']:.3f}) + pole-update ops {per['poles_ms']:.3f} ms "
+        f"{per['fused_ms']:.3f}, k-step {per['kstep_ms']:.3f}) + "
+        f"pole-update ops {per['poles_ms']:.3f} ms "
         f"+ DFT/source ops {other:.3f} ms (of which the monitor range "
         f"{per['monitors_ms']:.3f} ms), {per['launches']:.0f} device "
         f"launches; unprofiled step {step_ms:.3f} ms, device busy "
@@ -379,8 +432,8 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
 
 def web_run(td, sim, what: str, smi: str, tier: str = None):
     """``web.run`` with the launch counts set to 0 just before it; returns
-    (data, steps_run, family launches, fused launches, Gcell*steps/s)."""
-    from tidy3d_tpu_torch.solver.kernels import fused, step
+    (flux, steps_run, {kernel: launches}, Gcell*steps/s, the tier logged)."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     old = os.environ.get("TIDY3D_TPU_KERNEL")
     if tier is not None:
@@ -388,12 +441,12 @@ def web_run(td, sim, what: str, smi: str, tier: str = None):
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        step.LAUNCHES = 0
-        fused.LAUNCHES = 0
+        step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
         t0 = time.perf_counter()
         data = td.web.run(sim, task_name="chip_smoke", verbose=False)
         total_s = time.perf_counter() - t0
-        n_family, n_fused = step.LAUNCHES, fused.LAUNCHES
+        launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
+                    "kstep": kstep.LAUNCHES}
     finally:
         if old is None:
             os.environ.pop("TIDY3D_TPU_KERNEL", None)
@@ -405,8 +458,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None):
     rate = float(lines[2].split("throughput: ")[1].split(" ")[0])
     flux = np.asarray(data["flux"].flux.values)
     field = data["field"].Ez.values
-    log(f"[web.run] {what}: {steps_run} steps, {n_family} family and "
-        f"{n_fused} fused launches, log: {' | '.join(lines[2:])}")
+    log(f"[web.run] {what}: {steps_run} steps, launches {launches}, log: "
+        f"{' | '.join(lines[2:])}")
     log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
         f"device memory {peak / 2**30:.2f} GiB | {smi}")
     log(f"[web.run] {what}: flux {flux.tolist()}")
@@ -414,7 +467,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None):
     assert np.all(flux != 0)
     assert field.shape[-1] == 11 and np.all(np.isfinite(field))
     assert np.any(field != 0)
-    return data, steps_run, n_family, n_fused, rate
+    return flux, steps_run, launches, rate, \
+        lines[-1].split("kernel tier: ")[1]
 
 
 def main() -> int:
@@ -425,7 +479,7 @@ def main() -> int:
     from tidy3d_tpu.solver.lowering import lower
     from tidy3d_tpu_torch import _build
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, update_poles
-    from tidy3d_tpu_torch.solver.kernels import fused, step
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     os.makedirs(OUT_DIR, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -436,9 +490,9 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build both kernels, in parallel
-    _build.load_all(["step", "fused"])
-    for name in ("step", "fused"):
+    # 2. build the three kernels, in parallel
+    _build.load_all(["step", "fused", "kstep"])
+    for name in ("step", "fused", "kstep"):
         info = _build.BUILDS[name]
         log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
         for line in info.ptxas.splitlines():
@@ -491,7 +545,7 @@ def main() -> int:
     log(f"[dispersive] grid {plan_d.shape}, {len(plan_d.poles)} pole, "
         f"{plan_d.num_steps} steps, lowered in "
         f"{time.perf_counter() - t0:.1f} s")
-    fr = FDTDRunner(plan_d, device=dev)
+    fr = FDTDRunner(plan_d, device=dev, kernel="fused")
     assert fr.tier == "fused" and len(plan_d.poles) == 1
     state = random_state(fr, 5)
     err_fused = compare_fused(fused, fr, state, f"{plan_d.shape} dispersive")
@@ -507,8 +561,8 @@ def main() -> int:
         f"ms/step ({96 * ncell / (f_ms * 1e-3) / 1e9:.0f} GB/s at 96 "
         f"B/cell), plain {fp_ms:.3f} ms/step; plain pole update "
         f"{pole_ms:.3f} ms/step | {smi}")
-    st_b = random_state(FDTDRunner(plan, device=dev), 6)
-    fb = FDTDRunner(plan, device=dev)
+    fb = FDTDRunner(plan, device=dev, kernel="fused")
+    st_b = random_state(fb, 6)
     src_b = step_sources(fb)
     fb_ms = cuda_ms(lambda: fused.fused_step(st_b, fb.consts, fb.meta,
                                              src_b), 20)
@@ -518,12 +572,13 @@ def main() -> int:
     del state, nE, st_b, fb
 
     # 6. 200 steps on the fused tier: dispersive 384^3 and 7-pole Au 280^3
-    rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi)
+    rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
+                              kernel="fused")
     plan_m = lower(metal_case(td))
     ncell_m = int(np.prod(plan_m.shape))
     assert len(plan_m.poles) == 7, len(plan_m.poles)
     log(f"[metal] grid {plan_m.shape}, {len(plan_m.poles)} poles")
-    mr = FDTDRunner(plan_m, device=dev)
+    mr = FDTDRunner(plan_m, device=dev, kernel="fused")
     st_m = random_state(mr, 7)
     err_metal = compare_fused(fused, mr, st_m, f"{plan_m.shape} 7-pole Au")
     src_m = step_sources(mr)
@@ -535,10 +590,47 @@ def main() -> int:
     log(f"[metal] {plan_m.shape}: fused kernel {m_ms:.3f} ms/step, plain "
         f"pole update {mpole_ms:.3f} ms/step | {smi}")
     del st_m, nE_m, mr
-    rates_m = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi)
+    rates_m = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
+                              kernel="fused")
+
+    # 7. the k-step kernel: one group against plain, times, 200 steps
+    mk = FDTDRunner(lower(mixed_case(td, dispersive=True)), device=dev,
+                    kernel="kstep")
+    err_kstep = [compare_kstep(kstep, mk, random_state(mk, 8),
+                               "64x48x80 mixed, 1 pole")]
+    del mk
+    ks_ms = {}
+    for what, kplan, nc, seed, fused_ms in (
+            ("broadband", plan, ncell, 9, fb_ms),
+            ("dispersive", plan_d, ncell, 10, f_ms + pole_ms),
+            ("7-pole Au", plan_m, ncell_m, 11, m_ms + mpole_ms)):
+        kr = FDTDRunner(kplan, device=dev, kernel="kstep")
+        assert kr.k == 2, kr.k
+        st = random_state(kr, seed)
+        err_kstep.append(compare_kstep(kstep, kr, st,
+                                       f"{kplan.shape} {what}"))
+        k = kr.k
+
+        def group(fn):
+            return lambda: fn(st, kr.consts, kr.meta, kr.tables, 36, k,
+                              out=st["alt"])
+
+        g_ms = cuda_ms(group(kstep.kstep_group), 10)
+        gp_ms = cuda_ms(group(kstep.kstep_group_reference), 3)
+        ks_ms[what] = (g_ms, gp_ms)
+        log(f"[kstep] {kplan.shape} {what}, k={k}: k-step kernel {g_ms:.3f} "
+            f"ms/group = {g_ms / k:.3f} ms/step ({nc * k / g_ms / 1e6:.2f} "
+            f"Gcell*steps/s), plain {gp_ms:.3f} ms/group = {gp_ms / k:.3f} "
+            f"ms/step; fused kernel + plain pole update {fused_ms:.3f} "
+            f"ms/step | {smi}")
+        del st, kr
+    rates_kd = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
+                               kernel="kstep")
+    rates_km = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
+                               kernel="kstep")
     del plan_m
 
-    # 7. profile windows
+    # 8. profile windows
     p2 = profile_window(FDTDRunner(plan, device=dev, kernel="pallas2"),
                         os.path.join(OUT_DIR, "chip_smoke_prof_pallas2.txt"))
     report_profile(p2, "broadband, two-phase tier",
@@ -549,19 +641,41 @@ def main() -> int:
                    ncell / (float(np.mean(rates_d["kernel"])) * 1e9) * 1e3,
                    smi)
     del fr
+    pk = profile_window(FDTDRunner(plan_d, device=dev, kernel="kstep"),
+                        os.path.join(OUT_DIR, "chip_smoke_prof_kstep.txt"))
+    report_profile(pk, "dispersive, kstep tier",
+                   ncell / (float(np.mean(rates_kd["kernel"])) * 1e9) * 1e3,
+                   smi)
 
-    # 8. the main paths: web.run, launch counts read around each
-    _, steps_2, fam_2, fus_2, rate_2 = web_run(
+    # 9. the main paths: web.run, launch counts read around each
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    _, steps_2, n_2, rate_2, _ = web_run(
         td, full_case(td), "broadband, two-phase tier", smi, tier="pallas2")
-    assert fam_2 == 2 * steps_2 and fus_2 == 0, (fam_2, fus_2, steps_2)
-    _, steps_d, fam_d, fus_d, rate_d = web_run(
-        td, dispersive_case(td), "dispersive, default tier", smi)
-    assert fus_d == steps_d and fam_d == 0, (fam_d, fus_d, steps_d)
-    _, steps_b, fam_b, fus_b, rate_b = web_run(
-        td, full_case(td), "broadband, default tier", smi)
-    assert fus_b == steps_b and fam_b == 0, (fam_b, fus_b, steps_b)
-    log(f"[web.run] Gcell*steps/s: broadband two-phase {rate_2}, dispersive "
-        f"fused {rate_d}, broadband fused {rate_b} | {smi}")
+    assert n_2 == dict(none, family=2 * steps_2), n_2
+    flux_fd, steps_fd, n_fd, rate_fd, _ = web_run(
+        td, dispersive_case(td), "dispersive, fused tier", smi, tier="fused")
+    assert n_fd == dict(none, fused=steps_fd), n_fd
+    flux_fb, steps_fb, n_fb, rate_fb, _ = web_run(
+        td, full_case(td), "broadband, fused tier", smi, tier="fused")
+    assert n_fb == dict(none, fused=steps_fb), n_fb
+    n_kstep = 0
+    rates_k = {}
+    for what, sim, flux_f in (("dispersive", dispersive_case(td), flux_fd),
+                              ("broadband", full_case(td), flux_fb)):
+        flux, steps, n, rate, tier = web_run(
+            td, sim, f"{what}, default tier", smi)
+        k = int(tier.split("k=")[1].rstrip(")"))
+        assert tier.startswith("kstep") and steps % k == 0, tier
+        assert n == dict(none, kstep=steps // k), (n, steps, k)
+        err = float(np.max(np.abs(flux - flux_f)) / np.max(np.abs(flux_f)))
+        log(f"[web.run] {what}: kstep flux vs fused flux max rel err "
+            f"{err:.3e} (tol {TOL_FLUX:g})")
+        assert err <= TOL_FLUX, f"{what}: kstep flux rel err {err:.3e}"
+        n_kstep += n["kstep"]
+        rates_k[what] = rate
+    log(f"[web.run] Gcell*steps/s: broadband two-phase {rate_2}, fused "
+        f"{rate_fb}, kstep {rates_k['broadband']}; dispersive fused "
+        f"{rate_fd}, kstep {rates_k['dispersive']} | {smi}")
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
@@ -570,13 +684,21 @@ def main() -> int:
         {"name": "family_update", "route": "cuda",
          "source": "tidy3d_tpu_torch/csrc/step.cu",
          "replaces": "tidy3d_tpu/solver/kernels/pallas_step.py:118",
-         "launches": fam_2, "max_abs_err": max(err_full, err_family_poles),
+         "launches": n_2["family"],
+         "max_abs_err": max(err_full, err_family_poles),
          "ms": k_ms, "plain_ms": p_ms},
         {"name": "fused_step", "route": "cuda",
          "source": "tidy3d_tpu_torch/csrc/fused.cu",
          "replaces": "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
-         "launches": fus_d + fus_b, "max_abs_err": max(err_fused, err_metal),
+         "launches": n_fd["fused"] + n_fb["fused"],
+         "max_abs_err": max(err_fused, err_metal),
          "ms": f_ms, "plain_ms": fp_ms},
+        {"name": "kstep_group", "route": "cuda",
+         "source": "tidy3d_tpu_torch/csrc/kstep.cu",
+         "replaces": "tidy3d_tpu/solver/kernels/pallas_kstep.py:1425",
+         "launches": n_kstep, "max_abs_err": max(err_kstep),
+         "ms": ks_ms["dispersive"][0],
+         "plain_ms": ks_ms["dispersive"][1]},
     ]}
     log(smi)
     log(json.dumps(kernels))

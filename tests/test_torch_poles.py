@@ -183,9 +183,31 @@ def test_tier_selection(monkeypatch):
     assert FDTDRunner(crowded, device="cpu").tier == "pallas2"
     with pytest.raises(ValueError, match="fused tier does not take"):
         FDTDRunner(crowded, device="cpu", kernel="fused")
-    for name in ("triton", "kstep"):
-        with pytest.raises(ValueError, match="TIDY3D_TPU_KERNEL"):
-            FDTDRunner(plan, device="cpu", kernel=name)
+    with pytest.raises(ValueError, match="TIDY3D_TPU_KERNEL"):
+        FDTDRunner(plan, device="cpu", kernel="triton")
+    # the k-step tier: forced by name; auto on the CPU stays fused
+    for env in ("kstep", "kstep_interpret"):
+        monkeypatch.setenv("TIDY3D_TPU_KERNEL", env)
+        runner = FDTDRunner(plan, device="cpu")
+        assert (runner.tier, runner.k) == ("kstep", 2), env
+    monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
+    light = lower(DISPERSIVE["lorentz_mixed"]())
+    assert FDTDRunner(light, device="cpu").tier == "fused"
+    assert FDTDRunner(light, device="cpu", kernel="kstep").k == 2
+    # k = 4 is tried first and refused: the kernel is built for k = 2
+    monkeypatch.setenv("TIDY3D_TPU_KSTEP", "4")
+    assert FDTDRunner(light, device="cpu", kernel="kstep").k == 2
+    assert FDTDRunner(plan, device="cpu", kernel="kstep").k == 2
+    monkeypatch.setenv("TIDY3D_TPU_KSTEP", "0")
+    with pytest.raises(ValueError, match="kstep tier does not take"):
+        FDTDRunner(light, device="cpu", kernel="kstep")
+    monkeypatch.delenv("TIDY3D_TPU_KSTEP")
+    # a time monitor whose samples miss the group ends
+    unaligned = lower(SIMS["pml_all"](monitors=monitors()))
+    assert unaligned.monitors[-1].t_start % 2 != 1
+    with pytest.raises(ValueError, match="kstep tier does not take"):
+        FDTDRunner(unaligned, device="cpu", kernel="kstep")
+    assert FDTDRunner(unaligned, device="cpu").tier == "fused"
 
 
 def test_web_run_logs_the_tier(monkeypatch):

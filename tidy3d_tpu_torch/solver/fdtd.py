@@ -4,21 +4,31 @@
 One step is an E half-step, E-source injection, the dispersive pole update,
 an H half-step, H-source injection and running-DFT / time-sample monitor
 accumulation, exactly as in ``tidy3d_tpu.solver.fdtd.FDTDRunner._step``.
-The field update runs on one of two tiers (``self.tier``), each a
+The field update runs on one of three tiers (``self.tier``), each a
 hand-written CUDA kernel for tensors on the GPU and its plain PyTorch
 version for tensors on the CPU:
 
+* ``kstep``: one launch of ``kernels.kstep.kstep_group`` per group of k
+  steps (both half-steps, the CPML, the J and M sources and the pole update
+  of every substep inside), the monitors only at the group ends where a
+  sample lands, on Nyquist-strided DFT tables, in the order of
+  ``FDTDRunner._step_group``;
 * ``fused``: one launch of ``kernels.fused.fused_step`` per step (both
   half-steps, J sources inside), then the H sources, the pole update and
   the monitors, in the order of ``FDTDRunner._step_fused``;
 * ``pallas2``: two launches of ``kernels.step.family_update`` per step.
 
 ``TIDY3D_TPU_KERNEL`` picks the tier as in the JAX package: ``auto`` (the
-default) takes ``fused`` when the fused kernel takes the run and
-``pallas2`` otherwise; ``fused`` and ``pallas2`` force a tier, and a forced
-tier that does not take the run raises. ``xla``, which selects the JAX
-package's two-phase reference path, selects ``pallas2``, and an
-``_interpret`` suffix names the same tier.
+default) takes, on a CUDA device, ``kstep`` when the k-step kernel takes the
+run, else ``fused`` when the fused kernel does, else ``pallas2``; on the
+CPU it starts at ``fused``, as the JAX package's ``auto`` takes its XLA path
+off the TPU, so the CPU default samples the monitors at every step.
+``kstep``, ``fused`` and ``pallas2`` force a tier, and a forced tier that
+does not take the run raises. ``xla``, which selects the JAX package's
+two-phase reference path, selects ``pallas2``, and an ``_interpret`` suffix
+names the same tier. ``TIDY3D_TPU_KSTEP`` (``auto`` | ``0`` | k) picks k as
+the JAX package reads it (``kstep_order``). The choice is made from the
+plan alone, before anything is built or launched.
 
 Differences from the JAX runner, all of which leave the arithmetic alone:
 
@@ -28,9 +38,13 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
 * Monitor accumulators are updated in place.
 * Stencil layout is the XLA path's with tile quanta fixed at 1, 1, 1: psi
   slabs are exactly the CPML width (plus one), with no TPU-tile rounding.
-* Waveform tables stay on the host: a source adds ``profile * w(t)`` with
-  ``w(t)`` passed as a scalar, so no step needs a device table lookup.
-* The pole currents are updated in place.
+* On the one-step tiers the waveform tables stay on the host: a source
+  adds ``profile * w(t)`` with ``w(t)`` passed as a scalar. The kstep tier
+  keeps them on the device (``kernels.kstep.SourceTables``), where its
+  kernel reads ``w(t0 + j)`` for substep j.
+* On the one-step tiers the pole currents are updated in place; the kstep
+  tier reads one buffer set and writes the other (ping-pong, allocated
+  once in ``init_state``).
 * The pole update and the monitor accumulation run inside the profiler
   ranges ``fdtd.poles`` and ``fdtd.monitors``.
 
@@ -57,6 +71,7 @@ from tidy3d_tpu.log import log
 from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS, SimulationPlan
 
 from .kernels import fused as fused_kernels
+from .kernels import kstep as kstep_kernels
 from .kernels import step as step_kernels
 from .kernels.step import MAX_POLES
 
@@ -64,8 +79,8 @@ NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
 
 # TIDY3D_TPU_KERNEL value -> requested tier ("auto" chooses)
-_KERNEL_ENV = {"auto": "auto", "fused": "fused", "pallas2": "pallas2",
-               "xla": "pallas2"}
+_KERNEL_ENV = {"auto": "auto", "kstep": "kstep", "fused": "fused",
+               "pallas2": "pallas2", "xla": "pallas2"}
 
 
 def _axis_reshape(vec: np.ndarray, axis: int) -> np.ndarray:
@@ -208,26 +223,103 @@ def build_pole_constants(plan: SimulationPlan) -> dict:
             "pole_B_meta": metas_all}
 
 
-def build_dft_tables(plan: SimulationPlan) -> dict:
-    """Running-DFT cos/sin tables per frequency-domain monitor, sampled at
-    every step (the port of ``FDTDRunner._build_dft_tables`` with k = 1).
+def _is_dft(mp) -> bool:
+    return mp.kind == "field" and mp.freqs is not None and len(mp.freqs) > 0
+
+
+def nyquist_fmax(plan: SimulationPlan, freqs) -> float:
+    """The highest frequency with energy at a DFT monitor: the monitor's
+    own frequencies and ``f0 + 2.5 fwidth`` of every source (the port of
+    ``FDTDRunner._nyquist_fmax``), so that the sampling stride resolves
+    the source spectrum and nothing aliases onto the monitor band."""
+    fmax = float(np.max(np.abs(np.asarray(freqs, np.float64))))
+    for src in plan.simulation.sources:
+        st = getattr(src, "source_time", None)
+        f0 = float(getattr(st, "freq0", 0.0) or 0.0)
+        fw = float(getattr(st, "fwidth", 0.0) or 0.0)
+        fmax = max(fmax, f0 + 2.5 * fw)
+    return fmax
+
+
+def _nyquist_steps(plan: SimulationPlan, freqs):
+    """The Nyquist step count of a DFT monitor, or None without energy."""
+    fmax = nyquist_fmax(plan, freqs)
+    return max(int(1.0 / (2 * fmax) / plan.dt), 1) if fmax > 0 else None
+
+
+def _dft_stride(plan: SimulationPlan, freqs, k: int) -> int:
+    """The DFT sampling stride of a monitor on k-step groups: 1 for k = 1,
+    else ``k * max(1, nyquist // k)``, a whole number of groups."""
+    if k <= 1:
+        return 1
+    nyq = _nyquist_steps(plan, freqs)
+    return k * max(1, (nyq if nyq is not None else k) // k)
+
+
+def monitors_allow_k(plan: SimulationPlan, k: int) -> bool:
+    """Whether every monitor can sample at the ends of k-step groups (the
+    port of ``FDTDRunner._monitors_allow_k``): a DFT monitor needs k at
+    most its Nyquist step count, a time monitor needs
+    ``t_start % k == k - 1`` and ``k | t_interval``."""
+    for mp in plan.monitors:
+        if _is_dft(mp):
+            nyq = _nyquist_steps(plan, mp.freqs)
+            if nyq is not None and k > nyq:
+                return False
+        elif mp.kind == "field_time":
+            if mp.t_interval % k or mp.t_start % k != k - 1:
+                return False
+    return True
+
+
+def monitor_group_stride(plan: SimulationPlan, k: int) -> int:
+    """B: the monitors accumulate after group g only where ``(g + 1) % B
+    == 0`` (every sampled step lands on such a group end); the largest
+    divisor of at most 16 of the gcd of the monitors' group periods, as
+    ``FDTDRunner._build_dft_tables`` sets ``_mon_group_stride``."""
+    periods = []
+    for mp in plan.monitors:
+        if _is_dft(mp):
+            periods.append(_dft_stride(plan, mp.freqs, k) // k)
+        elif mp.kind == "field_time":
+            periods.append(max(mp.t_interval // k, 1))
+            periods.append(max((mp.t_start + 1) // k, 1))
+    B = 0
+    for p in periods:
+        B = np.gcd(B, p)
+    B = int(B) if B else 1
+    if B > 16:
+        B = max(d for d in range(1, 17) if B % d == 0)
+    return B
+
+
+def build_dft_tables(plan: SimulationPlan, k: int = 1) -> dict:
+    """Running-DFT cos/sin tables per frequency-domain monitor (the port of
+    ``FDTDRunner._build_dft_tables``).
 
     Row ``t`` weights the E fields at ``t_e = tmesh[t] + dt`` and the H
-    fields at ``t_h = tmesh[t] + 1.5 dt`` by ``dt * apodization``."""
+    fields at ``t_h = tmesh[t] + 1.5 dt`` by ``dt * apodization``. With
+    ``k > 1`` (the k-step tier, whose fields exist only at group ends) the
+    DFT samples on the stride ``k * max(1, nyquist // k)``: rows with
+    ``(t + 1) % stride == 0`` weigh ``dt * stride * apodization``, the
+    others zero."""
     f32 = np.float32
     tmesh = plan.tmesh
     dft = {}
     for mi, mp in enumerate(plan.monitors):
-        if not (mp.kind == "field" and mp.freqs is not None
-                and len(mp.freqs)):
+        if not _is_dft(mp):
             continue
         freqs = np.asarray(mp.freqs)
         apod = mp.monitor.apodization.apodization_weights(tmesh) \
             if getattr(mp.monitor, "apodization", None) is not None \
             else np.ones_like(tmesh)
+        stride = _dft_stride(plan, freqs, k)
         t_e = tmesh + plan.dt
         t_h = tmesh + 1.5 * plan.dt
         w = plan.dt * apod
+        if stride > 1:
+            sample = ((np.arange(len(tmesh)) + 1) % stride) == 0
+            w = np.where(sample, w * stride, 0.0)
         ang_e = 2 * np.pi * t_e[:, None] * freqs[None, :]
         ang_h = 2 * np.pi * t_h[:, None] * freqs[None, :]
         dft[str(mi)] = (
@@ -239,24 +331,86 @@ def build_dft_tables(plan: SimulationPlan) -> dict:
     return dft
 
 
-def select_tier(num_e_sources: int, kernel: str = None) -> str:
-    """The field-update tier of a run with ``num_e_sources`` E-side source
-    terms: ``"fused"`` or ``"pallas2"``. ``kernel`` defaults to
-    ``TIDY3D_TPU_KERNEL`` (``auto``). ``_check_supported`` has already
-    refused what neither tier takes."""
+def kstep_unsupported_reason(plan: SimulationPlan, k: int,
+                             num_sources: Dict[str, int]):
+    """Why the k-step tier does not take the plan at group size k, or
+    None if it does. The semantic gates of ``PallasKStepper.supported``
+    (real, linear, unmodulated, at most ``MAX_POLES`` pole slots, monitors
+    that sample at group ends) and the kernel's own (its k, its source
+    tables: ``kstep.unsupported_reason``). The TPU's layout gates (z
+    alignment, profile and waveform byte caps, packed z-psi lanes, VMEM
+    configuration) do not apply."""
+    if plan.is_complex:
+        return "Bloch (complex) runs"
+    if plan.nonlinear is not None or plan.modulation:
+        return "nonlinear or time-modulated media"
+    if len(plan.poles) > MAX_POLES:
+        return f"{len(plan.poles)} pole slots (at most {MAX_POLES})"
+    if not monitors_allow_k(plan, k):
+        return (f"a monitor does not sample at the ends of {k}-step "
+                "groups")
+    return kstep_kernels.unsupported_reason(k, num_sources)
+
+
+def kstep_order() -> Tuple[int, ...]:
+    """The group sizes k to try, from ``TIDY3D_TPU_KSTEP`` as the JAX
+    package reads it (``fdtd.py:274-294``): ``auto`` tries k = 4 then 2, an
+    integer tries itself first, ``0`` disables the k-step tier. The kernel
+    is built for k = 2 only (``kernels.kstep.KS``), so on this port every
+    other k is refused and k = 2 runs."""
+    env = os.environ.get("TIDY3D_TPU_KSTEP", "auto") or "auto"
+    if env == "0":
+        return ()
+    first = 4 if env == "auto" else int(env)
+    return tuple(dict.fromkeys(k for k in (first, 4, 2) if k >= 2))
+
+
+def align_chunk(chunk_size: int, k: int, B: int) -> int:
+    """The chunk size rounded up to whole loop iterations of the kstep
+    tier, k * gpi steps, where gpi is B if B is even and 2B otherwise
+    (the port of ``FDTDRunner._align_chunk``: chunks hold whole monitor
+    strides and return the ping-pong sets to their places)."""
+    unit = k * (B if B % 2 == 0 else 2 * B)
+    return -(-chunk_size // unit) * unit
+
+
+def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
+                device, kernel: str = None) -> Tuple[str, int]:
+    """``(tier, k)`` of a run: ``("kstep", k)``, ``("fused", 1)`` or
+    ``("pallas2", 1)``, decided from the plan alone (nothing is built or
+    launched to find out). ``num_sources`` counts the source terms per
+    family (``"E"``, ``"H"``); ``kernel`` defaults to ``TIDY3D_TPU_KERNEL``
+    (``auto``). ``auto`` on a CUDA device takes kstep, then fused, then
+    pallas2, as the JAX package does on the TPU; ``auto`` on the CPU takes
+    fused, as the JAX package takes its XLA path off the TPU, so the CPU
+    default keeps every-step monitor sampling. A forced tier that does not
+    take the run raises. ``_check_supported`` has already refused what no
+    tier takes."""
     kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
     # the CPU runs the plain versions, so the interpret modes are the tiers
     want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
     if want is None:
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel!r}: the port has the "
                          "tiers " + ", ".join(sorted(_KERNEL_ENV)))
-    reason = fused_kernels.unsupported_reason(num_e_sources)
+    if want == "kstep" or (want == "auto"
+                           and torch.device(device).type == "cuda"):
+        reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
+                   " disables it"] if not kstep_order() else []
+        for k in kstep_order():
+            reason = kstep_unsupported_reason(plan, k, num_sources)
+            if reason is None:
+                return "kstep", k
+            reasons.append(f"k={k}: {reason}")
+        if want == "kstep":
+            raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the kstep tier "
+                             f"does not take this run ({'; '.join(reasons)})")
+    reason = fused_kernels.unsupported_reason(num_sources["E"])
     if want == "auto":
-        return "fused" if reason is None else "pallas2"
+        return ("fused", 1) if reason is None else ("pallas2", 1)
     if want == "fused" and reason is not None:
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the fused tier does "
                          f"not take this run ({reason})")
-    return want
+    return want, 1
 
 
 def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
@@ -363,7 +517,20 @@ class FDTDRunner:
             pml_meta=dict(self.pml_meta))
         self._sources = {"E": [], "H": []}
         self._build_sources()
-        self.tier = select_tier(len(self._sources["E"]), kernel)
+        self.tier, self.k = select_tier(
+            plan, {fam: len(v) for fam, v in self._sources.items()},
+            self.device, kernel)
+        # monitors accumulate after group g only where (g + 1) % B == 0
+        self.mon_group_stride = 1
+        self.tables = None
+        if self.tier == "kstep":
+            self.host_consts["dft"] = build_dft_tables(plan, self.k)
+            self.consts["dft"] = {
+                key: tuple(_dev(t, self.device) for t in tables)
+                for key, tables in self.host_consts["dft"].items()}
+            self.mon_group_stride = monitor_group_stride(plan, self.k)
+            self.tables = kstep_kernels.SourceTables(
+                self._sources, self._waveforms, self.shape, self.device)
 
     # ------------------------------------------------------------------ #
     # sources
@@ -434,15 +601,22 @@ class FDTDRunner:
         def zeros(s):
             return torch.zeros(s, dtype=self.dtype, device=self.device)
 
-        state = {
-            "E": {c: zeros(self.shape) for c in E_COMPS},
-            "H": {c: zeros(self.shape) for c in H_COMPS},
-            "psi": {k: zeros(s) for k, s in self.psi_shapes().items()},
-            "Q": [{c: (zeros(self.shape), zeros(self.shape))
-                   for c in E_COMPS} for _ in self.plan.poles],
-            "mon": [self._init_monitor_acc(mi, mp)
-                    for mi, mp in enumerate(self.plan.monitors)],
-        }
+        def fields():
+            return {
+                "E": {c: zeros(self.shape) for c in E_COMPS},
+                "H": {c: zeros(self.shape) for c in H_COMPS},
+                "psi": {k: zeros(s) for k, s in self.psi_shapes().items()},
+                "Q": [{c: (zeros(self.shape), zeros(self.shape))
+                       for c in E_COMPS} for _ in self.plan.poles],
+            }
+
+        state = fields()
+        state["mon"] = [self._init_monitor_acc(mi, mp)
+                        for mi, mp in enumerate(self.plan.monitors)]
+        if self.tier == "kstep":
+            # the ping-pong set: each group reads one set and writes the
+            # other (allocated once; the runner swaps them)
+            state["alt"] = fields()
         return state
 
     def _init_monitor_acc(self, mi, mp):
@@ -502,7 +676,10 @@ class FDTDRunner:
 
     def step(self, step: int, state: dict) -> dict:
         """One leapfrog step from ``state`` (the pole currents update and
-        the monitors accumulate in place)."""
+        the monitors accumulate in place) on a one-step tier."""
+        if self.tier == "kstep":
+            raise ValueError("the kstep tier steps in groups of k "
+                             "(run_steps, step_group)")
         if self.tier == "fused":
             fn = fused_kernels.fused_step if self.use_kernel \
                 else fused_kernels.fused_step_reference
@@ -529,10 +706,55 @@ class FDTDRunner:
         with record_function("fdtd.poles"):
             return update_poles(new_e, state["E"], state["Q"], self.consts)
 
+    def step_group(self, gi: int, state: dict, accumulate: bool = True
+                   ) -> dict:
+        """Group ``gi`` of the kstep tier: steps ``gi k`` to ``gi k + k -
+        1`` in one launch of the k-step kernel (J and M sources, the pole
+        update and the CPML of every substep inside), written to the
+        ping-pong set, which becomes the state; the set read becomes the
+        next ping-pong set. The monitors accumulate on the group-end fields
+        at step ``gi k + k - 1`` when ``accumulate`` (the DFT tables are
+        strided, so no sample lands elsewhere)."""
+        k = self.k
+        fn = kstep_kernels.kstep_group if self.use_kernel \
+            else kstep_kernels.kstep_group_reference
+        new = fn(state, self.consts, self.meta, self.tables, gi * k, k,
+                 out=state["alt"])
+        mon = state["mon"]
+        if accumulate:
+            with record_function("fdtd.monitors"):
+                mon = self._accumulate_monitors(gi * k + k - 1, new["E"],
+                                                new["H"], mon)
+        return dict(new, mon=mon, alt={key: state[key] for key in
+                                       ("E", "H", "psi", "Q")})
+
     def run_steps(self, start: int, num: int, state: dict) -> dict:
-        for n in range(num):
-            state = self.step(start + n, state)
+        """Steps ``start`` to ``start + num - 1``; on the kstep tier both
+        are multiples of k and the steps run in groups."""
+        if self.tier != "kstep":
+            for n in range(num):
+                state = self.step(start + n, state)
+            return state
+        k, B = self.k, self.mon_group_stride
+        if start % k or num % k:
+            raise ValueError(f"the kstep tier runs whole groups of {k} "
+                             f"steps (start {start}, {num} steps)")
+        for gi in range(start // k, (start + num) // k):
+            state = self.step_group(gi, state, accumulate=(gi + 1) % B == 0)
         return state
+
+    def align_chunk(self, chunk_size: int) -> int:
+        """The chunk size, rounded up to whole kstep loop iterations on
+        the kstep tier (``align_chunk``)."""
+        if self.tier != "kstep":
+            return chunk_size
+        return align_chunk(chunk_size, self.k, self.mon_group_stride)
+
+    @property
+    def tier_name(self) -> str:
+        """The tier as the run log names it: ``kstep (k=2)``, ``fused``,
+        ``pallas2``."""
+        return f"kstep (k={self.k})" if self.tier == "kstep" else self.tier
 
     def _max_field(self, state) -> torch.Tensor:
         return torch.stack([state["E"][c].abs().amax() for c in E_COMPS]
@@ -555,20 +777,22 @@ class FDTDRunner:
         self.consts["dft"] = {
             key: tuple(_dev(t, self.device) for t in tables)
             for key, tables in self.host_consts["dft"].items()}
+        if self.tables is not None:
+            self.tables.set_waveforms(self._waveforms)
 
     def run(self, verbose: bool = False) -> dict:
         """Execute the time loop; returns the raw monitor data (numpy) keyed
         by monitor-plan index, as ``tidy3d_tpu``'s runner does."""
         plan = self.plan
-        chunk_size = max(self.num_steps // NUM_CHUNKS, 1)
+        chunk_size = self.align_chunk(max(self.num_steps // NUM_CHUNKS, 1))
         num_chunks = (self.num_steps + chunk_size - 1) // chunk_size
         self._pad_time_tables(num_chunks * chunk_size)
         shutoff = float(plan.simulation.shutoff or 0.0)
 
         t0 = _time.perf_counter()
         if self.use_kernel:
-            (fused_kernels if self.tier == "fused"
-             else step_kernels).prepare(self.device)
+            {"kstep": kstep_kernels, "fused": fused_kernels,
+             "pallas2": step_kernels}[self.tier].prepare(self.device)
         self.compile_time = _time.perf_counter() - t0
 
         start_time = _time.perf_counter()

@@ -1,0 +1,327 @@
+"""The k-step (temporal-blocked) group update: the counterpart of
+``pallas_kstep.py``.
+
+``kstep_group(state, consts, meta, tables, t0, k, out)`` advances the
+fields, the CPML psi and the pole currents by k whole leapfrog steps,
+``t0`` to ``t0 + k - 1``. Each substep is what the XLA step
+``tidy3d_tpu.solver.fdtd.FDTDRunner._step`` computes: the E half-step
+(curl H, psi of all three axes, the pole term, the PEC lo walls), the J
+sources, the pole update ``Q' = A Q + B (E' + E)``, the H half-step and
+the M sources. It returns the new ``{"E", "H", "psi", "Q"}`` and leaves
+``state`` untouched.
+
+``tables`` (``SourceTables``) holds the source boxes of both families, with
+``-cb * profile`` folded into each box's term, and the waveform table
+padded to the run's length; a substep at step t adds ``term * w[key, t]``.
+
+Dispatch is by device: a CPU tensor goes to ``kstep_group_reference``, the
+k substeps written from the one-step functions the port already has; a
+CUDA tensor launches the hand-written kernel in ``csrc/kstep.cu`` or
+raises. The kernel reads the state set and writes the ``out`` set (the
+runner's ping-pong buffers, allocated once), so nothing is updated in
+place. ``LAUNCHES`` counts the kernel launches.
+
+The kernel is built for k = 2 only (``KS``); the plain version takes any
+k. The rule and its reason: the kernel recomputes a halo of k - 1 and k
+cells around each block's owned core at every level, so its arithmetic
+per cell-step grows with k (1.49x of one step at k = 2, 2.77x at k = 4)
+and so does the per-thread state that limits its warps per SM, while the
+device-memory bytes it saves are not what bounds it. On the H100 a k = 4
+build was slower on every case measured: 384^3 broadband 8.2 against 2.8
+ms per step at k = 2, 384^3 with one Lorentz pole 12.7 against 4.9
+(PERF.md). The runner tries k as the JAX package does (4, then 2, under
+``TIDY3D_TPU_KSTEP=auto``), so a k this kernel is not built for is
+refused here and k = 2 runs. The JAX package's TPU kernel, bound by HBM,
+takes k = 4.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ... import _reference  # noqa: F401  (reference layers importable)
+from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
+
+from . import fused, step
+from .fused import _source_box
+from .step import MAX_POLES, StepMeta, _check_field
+
+LAUNCHES = 0
+KS = (2,)                    # group sizes the kernel is built for (K)
+MAX_SOURCES = 64             # source boxes per family (a TFSF box: 12)
+SRC_INTS = 10                # ints per box row (csrc/kstep.cu SRC_INTS)
+
+_POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}
+
+
+def unsupported_reason(k: int, num_sources: Dict[str, int]
+                       ) -> Optional[str]:
+    """Why the kernel does not take a run at group size ``k`` with
+    ``num_sources[family]`` source terms, or None if it does (it takes up
+    to ``MAX_POLES`` pole slots)."""
+    if k not in KS:
+        return f"group size {k} (the kernel is built for {KS})"
+    for fam, n in num_sources.items():
+        if n > MAX_SOURCES:
+            return (f"{n} {fam}-side source terms (the table takes "
+                    f"{MAX_SOURCES})")
+    return None
+
+
+class SourceTables:
+    """The source terms of both families for a whole run, on ``device``.
+
+    ``sources[family]`` lists ``(comp, slices, term, waveform key)`` as
+    ``FDTDRunner._build_sources`` builds them. For the kernel: one int32
+    row of ``SRC_INTS`` per box and family (component, lo, hi, offset of
+    the term in the packed term buffer, waveform row), the packed terms,
+    and the waveform table (``set_waveforms``, re-set when the runner pads
+    it), all built once."""
+
+    def __init__(self, sources: dict, waveforms: np.ndarray, shape,
+                 device):
+        self.device = torch.device(device)
+        self.shape = tuple(shape)
+        self.sources = {fam: list(sources.get(fam, [])) for fam in "EH"}
+        self.boxes, terms, off = {}, [], 0
+        for fam, comps in (("E", E_COMPS), ("H", H_COMPS)):
+            rows = []
+            for comp, sl, term, key in self.sources[fam]:
+                lo, hi = _source_box(sl, self.shape)
+                if tuple(term.shape) != tuple(h - l for l, h in zip(lo, hi)):
+                    raise ValueError(f"source term of {comp}: shape "
+                                     f"{tuple(term.shape)} for box {lo}-{hi}")
+                rows.append([comps.index(comp), *lo, *hi, off, int(key), 0])
+                terms.append(term.reshape(-1).to(torch.float32))
+                off += term.numel()
+            self.boxes[fam] = torch.tensor(
+                rows, dtype=torch.int32, device=self.device).reshape(
+                    -1, SRC_INTS)
+        if off >= 2 ** 31:
+            raise ValueError("source terms exceed 2^31 values")
+        self.terms = torch.cat(terms).contiguous() if terms else \
+            torch.zeros(1, dtype=torch.float32, device=self.device)
+        self.set_waveforms(waveforms)
+
+    def set_waveforms(self, waveforms: np.ndarray) -> None:
+        """The (rows, steps) float32 waveform table, host and device."""
+        self.waveforms = np.ascontiguousarray(waveforms, np.float32)
+        self.wf = torch.from_numpy(self.waveforms).to(self.device)
+
+    def at(self, family: str, t: int) -> list:
+        """``(comp, slices, term, w)`` of each source term at step t."""
+        return [(comp, sl, term, float(self.waveforms[key, t]))
+                for comp, sl, term, key in self.sources[family]]
+
+
+# --------------------------------------------------------------------------- #
+# the plain PyTorch version
+# --------------------------------------------------------------------------- #
+
+
+def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
+                          tables: SourceTables, t0: int, k: int,
+                          out: dict = None) -> dict:
+    """Plain PyTorch group on any device: k substeps, each the fused
+    step's plain version with the J sources, then the M sources, then the
+    pole update, in the order of the substep loop of ``pallas_kstep.py``.
+    ``out`` is accepted for the kernel's signature and not used."""
+    from ..fdtd import update_poles
+
+    Q = [{c: (qr.clone(), qi.clone()) for c, (qr, qi) in Qp.items()}
+         for Qp in state["Q"]]
+    cur = {"E": state["E"], "H": state["H"], "psi": state["psi"], "Q": Q}
+    for t in range(t0, t0 + k):
+        new_e, new_h, psi = fused.fused_step_reference(
+            cur, consts, meta, tables.at("E", t))
+        for comp, sl, term, w in tables.at("H", t):
+            new_h[comp][sl].add_(term * w)
+        if Q:
+            update_poles(new_e, cur["E"], Q, consts)
+        cur = {"E": new_e, "H": new_h, "psi": psi, "Q": Q}
+    return cur
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernel (csrc/kstep.cu) through ctypes
+# --------------------------------------------------------------------------- #
+
+_P3 = ctypes.c_void_p * 3
+_P12 = ctypes.c_void_p * 12
+_I3 = ctypes.c_int32 * 3
+_NQ = 6 * MAX_POLES
+
+
+class KStepParams(ctypes.Structure):
+    """Mirror of ``struct KStepParams`` in ``csrc/kstep.cu``."""
+
+    _fields_ = [
+        ("e_old", _P3), ("h_old", _P3), ("e_new", _P3), ("h_new", _P3),
+        ("ca_e", _P3), ("cb_e", _P3), ("ca_h", _P3), ("cb_h", _P3),
+        ("inv_e", _P3), ("inv_h", _P3),
+        ("psi_in_e", _P12), ("psi_out_e", _P12),
+        ("psi_in_h", _P12), ("psi_out_h", _P12),
+        ("pml_b_e", ctypes.c_void_p * 6), ("pml_c_e", ctypes.c_void_p * 6),
+        ("pml_b_h", ctypes.c_void_p * 6), ("pml_c_h", ctypes.c_void_p * 6),
+        ("q", ctypes.c_void_p * _NQ), ("q_out", ctypes.c_void_p * _NQ),
+        ("pole_b", ctypes.c_void_p * _NQ),
+        ("src_box", ctypes.c_void_p * 2), ("src_term", ctypes.c_void_p),
+        ("wf", ctypes.c_void_p),
+        ("ca_s_e", ctypes.c_float * 3), ("cb_s_e", ctypes.c_float * 3),
+        ("ca_s_h", ctypes.c_float * 3), ("cb_s_h", ctypes.c_float * 3),
+        ("a_re", ctypes.c_float * MAX_POLES),
+        ("a_im", ctypes.c_float * MAX_POLES),
+        ("gc_re", ctypes.c_float * MAX_POLES),
+        ("gc_im", ctypes.c_float * MAX_POLES),
+        ("pole_b0", ctypes.c_float * _NQ),
+        ("pole_kind", ctypes.c_int32 * (3 * MAX_POLES)),
+        ("n", _I3),
+        ("w_e", ctypes.c_int32 * 6), ("w_h", ctypes.c_int32 * 6),
+        ("bk_lo", _I3), ("bk_hi", _I3), ("pec_lo", _I3),
+        ("bulk_lo", _I3), ("bulk_hi", _I3),
+        ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32 * 2),
+        ("wf_len", ctypes.c_int32), ("t0", ctypes.c_int32),
+        ("k", ctypes.c_int32),
+    ]
+
+
+def _library():
+    from ... import _build
+
+    lib = _build.load("kstep")
+    fn = lib.t3d_kstep_group
+    if fn.argtypes is None:
+        _build.check_struct(lib, "t3d_kstep_params_size", KStepParams)
+        fn.argtypes = [ctypes.POINTER(KStepParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def prepare(device) -> None:
+    """Build and load the kernel library for ``device`` (a no-op on the
+    CPU); the runner times this as its compile step."""
+    if torch.device(device).type == "cuda":
+        _library()
+
+
+def _set_pole_params(p, state, out, consts, shape) -> None:
+    """The pole scalars, the input and output Q pointers and the residue
+    maps of each (pole, component)."""
+    step.set_pole_params(p, state, consts, shape)
+    if len(out["Q"]) != p.num_poles:
+        raise ValueError(f"out holds {len(out['Q'])} pole currents, the "
+                         f"plan {p.num_poles} poles")
+    for pi, ((A, _), metas) in enumerate(zip(consts["pole_scalars"],
+                                             consts["pole_B_meta"])):
+        p.a_re[pi] = A.real
+        p.a_im[pi] = A.imag
+        for ci, comp in enumerate(E_COMPS):
+            qx = (pi * 3 + ci) * 2
+            for part in range(2):
+                p.q_out[qx + part] = _check_field(
+                    out["Q"][pi][comp][part], shape,
+                    f"out Q{pi}_{comp}").data_ptr()
+            m = metas[ci]
+            p.pole_kind[pi * 3 + ci] = _POLE_KIND[m["kind"]]
+            if m["kind"] == "mask":
+                p.pole_b[qx] = _check_field(
+                    consts["pole_masks"][m["mask_id"]], shape,
+                    f"pole mask {m['mask_id']}").data_ptr()
+                p.pole_b0[qx], p.pole_b0[qx + 1] = m["B0"]
+            elif m["kind"] == "dense":
+                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
+                p.pole_b[qx] = _check_field(b_re, shape, "B re").data_ptr()
+                p.pole_b[qx + 1] = _check_field(b_im, shape,
+                                                "B im").data_ptr()
+
+
+def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
+    global LAUNCHES
+    shape = tuple(meta.shape)
+    device = state["E"][E_COMPS[0]].device
+    reason = unsupported_reason(k, {
+        fam: int(boxes.shape[0]) for fam, boxes in tables.boxes.items()})
+    if reason is not None:
+        raise ValueError(f"kstep_group: the kernel does not take {reason}")
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"grid {shape}: the k-step kernel takes fewer "
+                         "than 2^31 cells")
+    if not 0 <= t0 or t0 + k > tables.wf.shape[1]:
+        raise ValueError(f"steps {t0}..{t0 + k - 1} lie past the waveform "
+                         f"table ({tables.wf.shape[1]} steps)")
+    if out is None:
+        out = {
+            "E": {c: torch.empty_like(v) for c, v in state["E"].items()},
+            "H": {c: torch.empty_like(v) for c, v in state["H"].items()},
+            "psi": {key: torch.empty_like(v)
+                    for key, v in state["psi"].items()},
+            "Q": [{c: (torch.empty_like(qr), torch.empty_like(qi))
+                   for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]}
+    p = KStepParams()
+    for a in range(3):
+        p.n[a] = shape[a]
+        lo, hi = meta.boundaries[a]
+        for arr, kind in ((p.bk_lo, lo), (p.bk_hi, hi)):
+            if kind not in step._WALL:
+                raise ValueError(f"unsupported boundary kind '{kind}'")
+            arr[a] = step._WALL[kind]
+        if (lo == "periodic") != (hi == "periodic"):
+            raise ValueError(f"axis {a}: periodic on one side only")
+        p.pec_lo[a] = int(lo == "pec")
+        # the cells whose E and H updates meet no psi slab and no wall
+        w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
+        p.bulk_lo[a] = max(1, w_e[0], w_h[0])
+        p.bulk_hi[a] = min(shape[a] - 1, shape[a] - w_e[1], shape[a] - w_h[1])
+
+    for fam, comps, old, new in (("E", E_COMPS, p.e_old, p.e_new),
+                                 ("H", H_COMPS, p.h_old, p.h_new)):
+        for i, comp in enumerate(comps):
+            src = _check_field(state[fam][comp], shape, comp)
+            dst = _check_field(out[fam][comp], shape, f"out {comp}")
+            if src.data_ptr() == dst.data_ptr():
+                raise ValueError(f"{comp}: the output set aliases the input")
+            old[i] = src.data_ptr()
+            new[i] = dst.data_ptr()
+
+    new_psi = {}
+    for fam in ("E", "H"):
+        new_psi.update(step.set_family_params(fam, state, consts, meta, {
+            name: getattr(p, f"{name}_{fam.lower()}")
+            for name in step.FAMILY_FIELDS}, psi_out=out["psi"]))
+    _set_pole_params(p, state, out, consts, shape)
+
+    for f, fam in enumerate("EH"):
+        boxes = tables.boxes[fam]
+        if boxes.device != device or tables.terms.device != device:
+            raise ValueError("source tables on another device")
+        p.num_src[f] = boxes.shape[0]
+        p.src_box[f] = boxes.data_ptr() if boxes.shape[0] else None
+    p.src_term = tables.terms.data_ptr()
+    p.wf = tables.wf.data_ptr()
+    p.wf_len = tables.wf.shape[1]
+    p.t0 = t0
+    p.k = k
+
+    step.launch(_library(), p, device, "kstep_group")
+    LAUNCHES += 1
+    return {"E": dict(out["E"]), "H": dict(out["H"]), "psi": new_psi,
+            "Q": list(out["Q"])}
+
+
+def kstep_group(state: dict, consts: dict, meta: StepMeta,
+                tables: SourceTables, t0: int, k: int,
+                out: dict = None) -> dict:
+    """k leapfrog steps from step ``t0``: the CUDA kernel for CUDA tensors
+    (results written into ``out``'s buffers, allocated when None), the
+    plain version for CPU tensors. Returns the new ``{"E", "H", "psi",
+    "Q"}``."""
+    device = state["E"][E_COMPS[0]].device
+    if device.type == "cpu":
+        return kstep_group_reference(state, consts, meta, tables, t0, k)
+    if device.type != "cuda":
+        raise ValueError(f"kstep_group: unsupported device '{device}'")
+    return _kstep_group_cuda(state, consts, meta, tables, t0, k, out)

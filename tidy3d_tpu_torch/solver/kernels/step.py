@@ -345,12 +345,14 @@ FAMILY_FIELDS = ("ca", "cb", "ca_s", "cb_s", "inv", "w", "pml_b", "pml_c",
 
 
 def set_family_params(family: str, state: dict, consts: dict,
-                      meta: StepMeta, arrays: dict) -> dict:
+                      meta: StepMeta, arrays: dict,
+                      psi_out: dict = None) -> dict:
     """Fills the per-family fields of a kernel's parameter struct: the
     ca/cb pointers or scalars, the inverse steps, the psi slab widths,
     their CPML b/c vectors and the psi pointers. ``arrays`` maps each name
     of ``FAMILY_FIELDS`` to the struct's array for this family. Returns
-    the new psi buffers, keyed as the state's."""
+    the new psi buffers, keyed as the state's: those of ``psi_out`` where
+    given, new ones otherwise."""
     is_e = family == "E"
     comps = E_COMPS if is_e else H_COMPS
     coeffs = consts["coeffs_E"] if is_e else consts["coeffs_H"]
@@ -396,7 +398,8 @@ def set_family_params(family: str, state: dict, consts: dict,
                 psi_shape = list(shape)
                 psi_shape[a] = width
                 psi = _check_field(state["psi"][key], psi_shape, key)
-                out = torch.empty_like(psi)
+                out = torch.empty_like(psi) if psi_out is None \
+                    else _check_field(psi_out[key], psi_shape, key)
                 idx = (2 * i + slot) * 2 + s
                 arrays["psi_in"][idx] = psi.data_ptr()
                 arrays["psi_out"][idx] = out.data_ptr()

@@ -7,7 +7,7 @@ flux-time monitors are covered; other monitor types, checkpointing and
 sharded runs raise ``NotImplementedError`` before the run starts. The
 runner decides what media it takes (``solver/fdtd.py``: linear, real,
 float32, up to 8 dispersive pole slots) and which kernel tier steps the run;
-the run log names the tier.
+the run log names the tier (and k on the kstep tier).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def run(
                  f"{plan.num_steps} steps, {len(plan.sources)} source terms.")
     runner = FDTDRunner(plan, device=device)
     if verbose:
-        log.info(f"[{task_name}] kernel tier: {runner.tier}")
+        log.info(f"[{task_name}] kernel tier: {runner.tier_name}")
     raw = runner.run(verbose=verbose)
     if verbose:
         rate = np.prod(plan.shape) * runner.steps_run \
@@ -113,7 +113,7 @@ def assemble_sim_data(simulation, plan, raw, runner,
     log_lines = [
         f"task: {task_name}",
         f"steps run: {runner.steps_run} / {plan.num_steps}",
-    ] + metrics.log_lines() + [f"kernel tier: {runner.tier}"]
+    ] + metrics.log_lines() + [f"kernel tier: {runner.tier_name}"]
 
     # group plans by source monitor (flux monitors have per-surface plans)
     surface_groups: Dict[str, List[int]] = {}

@@ -43,7 +43,26 @@ Phases (any failure exits non-zero):
    fused or family launch); the flux must be finite and non-zero, and on
    the kstep tier within 2e-2 of the fused tier's (a strided DFT against an
    every-step one); throughput and peak device memory of each;
-10. the JSON summary lines; the last line is the contract line.
+10. Bloch (complex) runs, two real copies of the fields on the kstep tier:
+    the JAX package's ``fdtd_bloch`` bench case (256^3 cells, Bloch x and
+    y, a PML z, an eps = 8 slab, an Ez dipole) with the broadband case's
+    field plane and flux box: the Bloch instantiation of the k-step kernel
+    against its plain version for one group (to 1e-6 over both copies),
+    kernel and plain ms per group, 200 steps kernel against plain in turns
+    (to 2e-5), a 20-step profiler window; and the angled plane wave (256^3,
+    a PML x, Bloch y from a 25-degree plane wave, periodic z), one group
+    against plain;
+11. ``web.run`` of both Bloch cases, the launch counts set to 0 just before
+    each: one k-step launch per group and no other, throughput, peak
+    memory, a finite non-zero flux, and for the plane wave the physical
+    checks of the JAX package's ``test_angled_plane_wave_bloch`` (forward
+    amplitude within 1 % of 1, backward below 1e-2 of it);
+12. the JSON summary lines; the last line is the contract line. Each
+    kernel's ``bound_ms`` is the least time the card could take for the
+    call timed in ``ms``: the larger of the bytes of its inputs and outputs
+    (each once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+    (the H100 SXM's published peaks at 700 W). No single PyTorch call
+    computes an FDTD step, so ``library_ms`` is null.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -62,12 +81,23 @@ import torch
 
 N_FULL = 360            # cells per side inside the PML (384^3 with it)
 N_METAL = 256           # the Au case: 280^3 with the PML
+N_BLOCH = 256           # the Bloch cases: 256^3 cells, the PML included
 STEPS_COMPARE = 200
 NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
 TOL_FLUX = 2e-2         # a strided DFT against an every-step one
 OUT_DIR = "chiprun_out"
+PEAK_BYTES = 3.35e12    # H100 SXM device memory, B/s (data sheet, 700 W)
+PEAK_F32 = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
+# float32 operations per cell update, as the kernels write them: per
+# component two differences times inverse steps, their difference and
+# ca * F + cb * rhs (8); per psi cell b * psi + c * d and its add (4); per
+# pole and E component the term Re(Gc Q) (4) and the update A Q + B (E' +
+# E) (12)
+OPS_FAMILY = 24
+OPS_PSI = 4
+OPS_POLE = 16
 
 
 def log(msg: str) -> None:
@@ -157,6 +187,71 @@ def metal_case(td):
         grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
 
 
+def bloch_case(td):
+    """The JAX package's ``fdtd_bloch`` bench case (``bench.py:192-224``):
+    256 x 256 x (232 + 24 PML) cells at dl = 0.0625, Bloch x (0.27) and y
+    (-0.13), an eps = 8 slab, an Ez dipole; with the broadband case's
+    11-frequency field plane and flux box added, and ``run_time`` cut from
+    1e-11 to 1.8e-13 (1,500 steps)."""
+    freq0 = td.C_0 / 1.55
+    dl = 0.0625
+    size = (N_BLOCH * dl, N_BLOCH * dl, (N_BLOCH - 24) * dl)
+    freqs = np.linspace(freq0 * 0.95, freq0 * 1.05, 11).tolist()
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=1.8e-13,
+        sources=[td.PointDipole(
+            center=(0.12, -0.08, -size[2] / 5), polarization="Ez",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 8))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, 0),
+                            size=(td.inf, td.inf, size[2] / 4)),
+            medium=td.Medium(permittivity=8.0))],
+        monitors=_dft_monitors(td, size, freqs),
+        boundary_spec=td.BoundarySpec(
+            x=td.Boundary.bloch(bloch_vec=0.27),
+            y=td.Boundary.bloch(bloch_vec=-0.13),
+            z=td.Boundary.pml()),
+        grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def planewave_case(td):
+    """(232 + 24 PML) x 256 x 256 cells at dl = 0.05: an Ez plane wave
+    along +x at 25 degrees in y, Bloch y from the source
+    (``BlochBoundary.from_source``), periodic z; 11-frequency flux planes
+    behind and ahead of the source and point field monitors at f0, 2 um
+    ahead and 1 um behind it (the set-up of the JAX package's
+    ``test_angled_plane_wave_bloch``)."""
+    freq0 = td.C_0 / 1.55
+    dl = 0.05
+    # rounded, so that the mesher counts 232 cells and not 233
+    size = (round((N_BLOCH - 24) * dl, 9), N_BLOCH * dl, N_BLOCH * dl)
+    x_src = -size[0] / 2 + 2.0
+    pw = td.PlaneWave(
+        center=(x_src, 0, 0), size=(0, td.inf, td.inf), direction="+",
+        source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 5),
+        pol_angle=np.pi / 2, angle_theta=np.deg2rad(25.0))
+    bloch = td.BlochBoundary.from_source(source=pw, domain_size=size[1],
+                                         axis=1)
+    freqs = np.linspace(freq0 * 0.95, freq0 * 1.05, 11).tolist()
+
+    def plane(x, name):
+        return td.FluxMonitor(center=(x, 0, 0), size=(0, td.inf, td.inf),
+                              freqs=freqs, name=name)
+
+    def point(x, name):
+        return td.FieldMonitor(center=(x, 0.3, 0), size=(0, 0, 0),
+                               freqs=[freq0], name=name)
+
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=1.5e-13, sources=[pw],
+        monitors=[plane(x_src + 2.5, "flux"), plane(x_src - 1.5, "flux_back"),
+                  point(x_src + 2.0, "fwd"), point(x_src - 1.0, "bwd")],
+        boundary_spec=td.BoundarySpec(
+            x=td.Boundary.pml(), y=td.Boundary(minus=bloch, plus=bloch),
+            z=td.Boundary.periodic()),
+        grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
 def mixed_case(td, dispersive: bool = False):
     """64x48x80 cells: PML on every axis, PEC and PMC walls, a dielectric
     box (per-cell ca/cb), and with ``dispersive`` a Lorentz box."""
@@ -192,14 +287,64 @@ def random_state(runner, seed: int) -> dict:
         return torch.randn(t.shape, generator=gen, device=t.device,
                            dtype=t.dtype)
 
-    for fam in ("E", "H"):
-        state[fam] = {c: rnd(v) for c, v in state[fam].items()}
-    state["psi"] = {k: 0.1 * rnd(v) for k, v in state["psi"].items()}
+    for fam in ("E", "H", "E1", "H1"):
+        if fam in state:
+            state[fam] = {c: rnd(v) for c, v in state[fam].items()}
+    for fam in ("psi", "psi1"):
+        if fam in state:
+            state[fam] = {k: 0.1 * rnd(v) for k, v in state[fam].items()}
     state["Q"] = [{c: (rnd(qr) / abs(Gc), rnd(qi) / abs(Gc))
                    for c, (qr, qi) in Qp.items()}
                   for (_, Gc), Qp in zip(runner.consts["pole_scalars"],
                                          state["Q"])]
     return state
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in nested dicts, lists and tuples."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+    return total
+
+
+def numel(d: dict) -> int:
+    return sum(v.numel() for v in d.values())
+
+
+def bound(nbytes_: float, ops: float):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    this many bytes moved and float32 operations done."""
+    t_bytes = nbytes_ / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stepping_consts(runner) -> list:
+    """The constants a step reads: coefficients, inverse steps, CPML
+    vectors and pole residues."""
+    c = runner.consts
+    return [c["coeffs_E"], c["coeffs_H"], c["inv_dual"], c["inv_primal"],
+            c["pml"], c["pole_masks"], c["pole_B_dense"]]
+
+
+def group_bound(runner, state, k: int):
+    """The bound of one k-step group: every array of the state (both
+    copies of a complex run) and the constants read once, the new state
+    written once; k steps of both families, their psi and pole updates."""
+    fields = [state[key] for key in ("E", "H", "psi", "Q", "E1", "H1",
+                                     "psi1") if key in state]
+    ncell = int(np.prod(runner.shape))
+    copies = 2 if "E1" in state else 1
+    psi = sum(numel(state[key]) for key in ("psi", "psi1") if key in state)
+    ops = k * (copies * 2 * OPS_FAMILY * ncell + OPS_PSI * psi
+               + OPS_POLE * 3 * len(state["Q"]) * ncell)
+    return bound(2 * nbytes(fields) + nbytes(stepping_consts(runner)), ops)
 
 
 def max_abs(d: dict) -> float:
@@ -288,8 +433,8 @@ def compare_fused(fused, runner, state, what: str) -> float:
 
 def flat_state(state: dict) -> dict:
     """Fields, psi and pole currents of a state, one entry per array."""
-    out = {f"{fam}:{key}": v for fam in ("E", "H", "psi")
-           for key, v in state[fam].items()}
+    out = {f"{fam}:{key}": v for fam in ("E", "H", "psi", "E1", "H1", "psi1")
+           if fam in state for key, v in state[fam].items()}
     for pi, Qp in enumerate(state["Q"]):
         for c, (qr, qi) in Qp.items():
             out[f"Q{pi}:{c}:re"], out[f"Q{pi}:{c}:im"] = qr, qi
@@ -299,8 +444,8 @@ def flat_state(state: dict) -> dict:
 def compare_kstep(kstep, runner, state, what: str) -> float:
     """k-step kernel against its plain version for one group from step 36
     (inside the source pulse), relative to the largest magnitude of each
-    of fields, psi and pole currents; returns the largest absolute
-    difference."""
+    of fields, psi and pole currents (over both copies of a complex run);
+    returns the largest absolute difference."""
     k, t0 = runner.k, 36
     before = kstep.LAUNCHES
     got = kstep.kstep_group(state, runner.consts, runner.meta, runner.tables,
@@ -338,7 +483,8 @@ def run_steps_timed(runner, steps: int):
 
 def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
     """200 steps with the kernel and with the plain versions, in turns
-    plain, kernel, kernel, plain; returns the Gcell*steps/s of each."""
+    plain, kernel, kernel, plain (the fields of both copies of a complex
+    run compared); returns the Gcell*steps/s of each."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 
     runners = {"plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
@@ -348,8 +494,8 @@ def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
     for name in ("plain", "kernel", "kernel", "plain"):
         st, secs = run_steps_timed(runners[name], STEPS_COMPARE)
         rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
-        finals[name] = {c: v for fam in ("E", "H")
-                        for c, v in st[fam].items()}
+        finals[name] = {f"{fam}:{c}": v for fam in ("E", "H", "E1", "H1")
+                        if fam in st for c, v in st[fam].items()}
         del st
     err = rel_err(finals["kernel"], finals["plain"])
     log(f"[steps] {what}, tier {runners['kernel'].tier}: {STEPS_COMPARE} "
@@ -377,8 +523,8 @@ def profile_window(runner, out_path: str) -> dict:
     runner._pad_time_tables(NPROF + 4)
     state = runner.run_steps(0, 4, state)
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         state = runner.run_steps(4, NPROF, state)
         sync()
     by_name = {}
@@ -405,6 +551,13 @@ def profile_window(runner, out_path: str) -> dict:
                      if "fused_step_kernel" in k),
         kstep_ms=sum(ms for k, (ms, _) in by_name.items()
                      if "kstep_kernel" in k),
+        # kernel launches of the tier recorded, against those made
+        recorded=sum(n for k, (_, n) in by_name.items()
+                     if k.split("<")[0].split("(")[0].split()[-1] in (
+                         "family_update_kernel", "fused_step_kernel",
+                         "kstep_kernel")),
+        expected={"pallas2": 2 * NPROF, "fused": NPROF,
+                  "kstep": NPROF // runner.k}[runner.tier],
         poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
         monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
         launches=sum(c for _, c in by_name.values()))
@@ -415,7 +568,12 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
         log(f"[profile] {what}: torch.profiler recorded no device time: not "
             "measured")
         return
-    per = {k: v / NPROF for k, v in prof.items()}
+    if prof["recorded"] != prof["expected"]:
+        log(f"[profile] {what}: torch.profiler recorded {prof['recorded']} of "
+            f"the {prof['expected']} kernel launches made: not measured")
+        return
+    per = {k: v / NPROF for k, v in prof.items()
+           if k not in ("recorded", "expected")}
     kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"]
     other = per["device_ms"] - kernel - per["poles_ms"]
     # the profiler slows the host loop, so the busy share compares the
@@ -430,9 +588,15 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
         f"{per['device_ms'] / step_ms:.1%} | {smi}")
 
 
-def web_run(td, sim, what: str, smi: str, tier: str = None):
-    """``web.run`` with the launch counts set to 0 just before it; returns
-    (flux, steps_run, {kernel: launches}, Gcell*steps/s, the tier logged)."""
+def web_run(td, sim, what: str, smi: str, tier: str = None,
+            field: str = "field"):
+    """``web.run`` with the launch counts set to 0 just before it and read
+    just after; checks that the flux (and the ``field`` monitor's Ez, where
+    named) is finite and non-zero. Returns the data, flux, steps run,
+    ``{kernel: launches}``, Gcell*steps/s, the tier logged and the peak
+    device memory."""
+    from types import SimpleNamespace
+
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     old = os.environ.get("TIDY3D_TPU_KERNEL")
@@ -457,7 +621,6 @@ def web_run(td, sim, what: str, smi: str, tier: str = None):
     steps_run = int(lines[1].split("steps run: ")[1].split(" ")[0])
     rate = float(lines[2].split("throughput: ")[1].split(" ")[0])
     flux = np.asarray(data["flux"].flux.values)
-    field = data["field"].Ez.values
     log(f"[web.run] {what}: {steps_run} steps, launches {launches}, log: "
         f"{' | '.join(lines[2:])}")
     log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
@@ -465,10 +628,91 @@ def web_run(td, sim, what: str, smi: str, tier: str = None):
     log(f"[web.run] {what}: flux {flux.tolist()}")
     assert flux.shape == (11,) and np.all(np.isfinite(flux))
     assert np.all(flux != 0)
-    assert field.shape[-1] == 11 and np.all(np.isfinite(field))
-    assert np.any(field != 0)
-    return flux, steps_run, launches, rate, \
-        lines[-1].split("kernel tier: ")[1]
+    if field:
+        values = data[field].Ez.values
+        assert values.shape[-1] == 11 and np.all(np.isfinite(values))
+        assert np.any(values != 0)
+    return SimpleNamespace(
+        data=data, flux=flux, steps=steps_run, launches=launches, rate=rate,
+        tier=lines[-1].split("kernel tier: ")[1], peak=peak)
+
+
+def run_bloch(td, dev, smi: str) -> dict:
+    """Phases 10 and 11: the two-copy k-step kernel on the Bloch dipole and
+    the angled plane wave, then ``web.run`` of both. Returns the Bloch
+    instantiation's entry of the kernels line."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import kstep
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    # 10. Bloch (complex) runs: the two-copy k-step kernel
+    t0 = time.perf_counter()
+    plan_b = lower(bloch_case(td))
+    ncell_b = int(np.prod(plan_b.shape))
+    log(f"[bloch] dipole: grid {plan_b.shape} = {ncell_b} cells, "
+        f"{plan_b.num_steps} steps, lowered in "
+        f"{time.perf_counter() - t0:.1f} s, phases {plan_b.bloch_phases}")
+    br = FDTDRunner(plan_b, device=dev)
+    assert br.tier == "kstep" and br.is_complex and not plan_b.poles
+    st = random_state(br, 12)
+    err_bloch = [compare_kstep(kstep, br, st, f"{plan_b.shape} Bloch dipole")]
+
+    def bloch_group(fn):
+        return lambda: fn(st, br.consts, br.meta, br.tables, 36, br.k,
+                          out=st["alt"])
+
+    b_ms = cuda_ms(bloch_group(kstep.kstep_group), 10)
+    bp_ms = cuda_ms(bloch_group(kstep.kstep_group_reference), 3)
+    b_bound = group_bound(br, st, br.k)
+    log(f"[bloch] {plan_b.shape} dipole, k={br.k}, two copies: k-step kernel "
+        f"{b_ms:.3f} ms/group = {b_ms / br.k:.3f} ms/step "
+        f"({ncell_b * br.k / b_ms / 1e6:.2f} Gcell*steps/s, cells counted "
+        f"once), plain {bp_ms:.3f} ms/group; bound {b_bound[0]:.3f} ms/group "
+        f"by {b_bound[1]} | {smi}")
+    del st
+    rates_b = compare_runners(plan_b, dev, ncell_b, "Bloch dipole 256^3",
+                              smi)
+    pb = profile_window(br, os.path.join(OUT_DIR, "chip_smoke_prof_bloch.txt"))
+    report_profile(pb, "Bloch dipole, kstep tier",
+                   ncell_b / (float(np.mean(rates_b["kernel"])) * 1e9) * 1e3,
+                   smi)
+    del br
+    plan_pw = lower(planewave_case(td))
+    pr = FDTDRunner(plan_pw, device=dev)
+    assert pr.tier == "kstep" and pr.is_complex
+    pairs = sum(s.term_im is not None for fam in "EH"
+                for s in pr.tables.sources[fam])
+    log(f"[bloch] angled plane wave: grid {plan_pw.shape}, "
+        f"{plan_pw.num_steps} steps, {len(plan_pw.sources)} source plans in "
+        f"{pairs} complex (re, im) pairs, phases {plan_pw.bloch_phases}")
+    assert pairs > 0
+    err_bloch.append(compare_kstep(kstep, pr, random_state(pr, 13),
+                                   f"{plan_pw.shape} angled plane wave"))
+    del pr, plan_pw
+
+    # 11. web.run of both Bloch cases: one k-step launch per group
+    wb = web_run(td, bloch_case(td), "Bloch dipole, default tier", smi)
+    assert wb.tier == "kstep (k=2)", wb.tier
+    assert wb.launches == dict(none, kstep=wb.steps // 2), wb.launches
+    wp = web_run(td, planewave_case(td), "angled plane wave, default tier",
+                 smi, field=None)
+    assert wp.launches == dict(none, kstep=wp.steps // 2), wp.launches
+    back = np.asarray(wp.data["flux_back"].flux.values)
+    fwd = float(np.abs(wp.data["fwd"].Ez.values).max())
+    bwd = float(np.abs(wp.data["bwd"].Ez.values).max())
+    log(f"[web.run] angled plane wave: forward |Ez| {fwd:.6f} (1 within "
+        f"1e-2), backward / forward {bwd / fwd:.3e} (below 1e-2); flux "
+        f"ahead {wp.flux.tolist()}, behind {back.tolist()}")
+    assert abs(fwd - 1.0) < 1e-2 and bwd / fwd < 1e-2
+    assert np.all(np.isfinite(back))
+    n_bloch = wb.launches["kstep"] + wp.launches["kstep"]
+    log(f"[web.run] Bloch Gcell*steps/s (cells counted once): dipole "
+        f"{wb.rate}, angled plane wave {wp.rate}; peak device memory "
+        f"{wb.peak / 2**30:.2f} / {wp.peak / 2**30:.2f} GiB | {smi}")
+
+    return dict(launches=n_bloch, err=max(err_bloch), ms=b_ms,
+                plain_ms=bp_ms, bound=b_bound)
 
 
 def main() -> int:
@@ -476,7 +720,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import tidy3d_tpu_torch as td
-    from tidy3d_tpu.solver.lowering import lower
+    from tidy3d_tpu_torch.solver.lowering import lower
     from tidy3d_tpu_torch import _build
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, update_poles
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
@@ -527,6 +771,12 @@ def main() -> int:
 
     k_ms = cuda_ms(update_pair(step.family_update), 20) / 2
     p_ms = cuda_ms(update_pair(step.family_update_reference), 5) / 2
+    # per launch, half of the E and H pair: each reads 6 fields and writes
+    # 3, with its psi slabs read and written
+    fam_bound = bound(
+        (3 * nbytes(state["E"], state["H"]) + 2 * nbytes(state["psi"])
+         + nbytes(stepping_consts(kr))) / 2,
+        OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"]) / 2)
     log(f"[update] {plan.shape}: family kernel {k_ms:.3f} ms/launch "
         f"({36 * ncell / (k_ms * 1e-3) / 1e9:.0f} GB/s at 36 B/cell), plain "
         f"{p_ms:.3f} ms/launch | {smi}")
@@ -554,6 +804,13 @@ def main() -> int:
                    20)
     fp_ms = cuda_ms(lambda: fused.fused_step_reference(
         state, fr.consts, fr.meta, src), 5)
+    # one step: E, H, psi, Q and the constants read, E', H', psi' written;
+    # the pole term (not the pole update) inside
+    fused_bound = bound(
+        2 * nbytes(state["E"], state["H"], state["psi"])
+        + nbytes(state["Q"], stepping_consts(fr)),
+        2 * OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"])
+        + 4 * 3 * len(state["Q"]) * ncell)
     nE = {c: v.clone() for c, v in state["E"].items()}
     pole_ms = cuda_ms(lambda: update_poles(nE, state["E"], state["Q"],
                                            fr.consts), 10)
@@ -599,7 +856,7 @@ def main() -> int:
     err_kstep = [compare_kstep(kstep, mk, random_state(mk, 8),
                                "64x48x80 mixed, 1 pole")]
     del mk
-    ks_ms = {}
+    ks_ms, ks_bound = {}, {}
     for what, kplan, nc, seed, fused_ms in (
             ("broadband", plan, ncell, 9, fb_ms),
             ("dispersive", plan_d, ncell, 10, f_ms + pole_ms),
@@ -618,11 +875,13 @@ def main() -> int:
         g_ms = cuda_ms(group(kstep.kstep_group), 10)
         gp_ms = cuda_ms(group(kstep.kstep_group_reference), 3)
         ks_ms[what] = (g_ms, gp_ms)
+        ks_bound[what] = group_bound(kr, st, k)
         log(f"[kstep] {kplan.shape} {what}, k={k}: k-step kernel {g_ms:.3f} "
             f"ms/group = {g_ms / k:.3f} ms/step ({nc * k / g_ms / 1e6:.2f} "
             f"Gcell*steps/s), plain {gp_ms:.3f} ms/group = {gp_ms / k:.3f} "
-            f"ms/step; fused kernel + plain pole update {fused_ms:.3f} "
-            f"ms/step | {smi}")
+            f"ms/step; bound {ks_bound[what][0]:.3f} ms/group by "
+            f"{ks_bound[what][1]}; fused kernel + plain pole update "
+            f"{fused_ms:.3f} ms/step | {smi}")
         del st, kr
     rates_kd = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
                                kernel="kstep")
@@ -649,56 +908,63 @@ def main() -> int:
 
     # 9. the main paths: web.run, launch counts read around each
     none = {"family": 0, "fused": 0, "kstep": 0}
-    _, steps_2, n_2, rate_2, _ = web_run(
-        td, full_case(td), "broadband, two-phase tier", smi, tier="pallas2")
-    assert n_2 == dict(none, family=2 * steps_2), n_2
-    flux_fd, steps_fd, n_fd, rate_fd, _ = web_run(
-        td, dispersive_case(td), "dispersive, fused tier", smi, tier="fused")
-    assert n_fd == dict(none, fused=steps_fd), n_fd
-    flux_fb, steps_fb, n_fb, rate_fb, _ = web_run(
-        td, full_case(td), "broadband, fused tier", smi, tier="fused")
-    assert n_fb == dict(none, fused=steps_fb), n_fb
+    w2 = web_run(td, full_case(td), "broadband, two-phase tier", smi,
+                 tier="pallas2")
+    assert w2.launches == dict(none, family=2 * w2.steps), w2.launches
+    wfd = web_run(td, dispersive_case(td), "dispersive, fused tier", smi,
+                  tier="fused")
+    assert wfd.launches == dict(none, fused=wfd.steps), wfd.launches
+    wfb = web_run(td, full_case(td), "broadband, fused tier", smi,
+                  tier="fused")
+    assert wfb.launches == dict(none, fused=wfb.steps), wfb.launches
     n_kstep = 0
     rates_k = {}
-    for what, sim, flux_f in (("dispersive", dispersive_case(td), flux_fd),
-                              ("broadband", full_case(td), flux_fb)):
-        flux, steps, n, rate, tier = web_run(
-            td, sim, f"{what}, default tier", smi)
-        k = int(tier.split("k=")[1].rstrip(")"))
-        assert tier.startswith("kstep") and steps % k == 0, tier
-        assert n == dict(none, kstep=steps // k), (n, steps, k)
-        err = float(np.max(np.abs(flux - flux_f)) / np.max(np.abs(flux_f)))
+    for what, sim, wf in (("dispersive", dispersive_case(td), wfd),
+                          ("broadband", full_case(td), wfb)):
+        w = web_run(td, sim, f"{what}, default tier", smi)
+        k = int(w.tier.split("k=")[1].rstrip(")"))
+        assert w.tier.startswith("kstep") and w.steps % k == 0, w.tier
+        assert w.launches == dict(none, kstep=w.steps // k), (w.launches, k)
+        err = float(np.max(np.abs(w.flux - wf.flux))
+                    / np.max(np.abs(wf.flux)))
         log(f"[web.run] {what}: kstep flux vs fused flux max rel err "
             f"{err:.3e} (tol {TOL_FLUX:g})")
         assert err <= TOL_FLUX, f"{what}: kstep flux rel err {err:.3e}"
-        n_kstep += n["kstep"]
-        rates_k[what] = rate
-    log(f"[web.run] Gcell*steps/s: broadband two-phase {rate_2}, fused "
-        f"{rate_fb}, kstep {rates_k['broadband']}; dispersive fused "
-        f"{rate_fd}, kstep {rates_k['dispersive']} | {smi}")
+        n_kstep += w.launches["kstep"]
+        rates_k[what] = w.rate
+    log(f"[web.run] Gcell*steps/s: broadband two-phase {w2.rate}, fused "
+        f"{wfb.rate}, kstep {rates_k['broadband']}; dispersive fused "
+        f"{wfd.rate}, kstep {rates_k['dispersive']} | {smi}")
+    del plan, plan_d
+
+    # 10-11. Bloch (complex) runs
+    bloch = run_bloch(td, dev, smi)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+    kstep_src = "tidy3d_tpu_torch/csrc/kstep.cu"
+    kstep_tpu = "tidy3d_tpu/solver/kernels/pallas_kstep.py:1425"
     kernels = {"kernels": [
-        {"name": "family_update", "route": "cuda",
-         "source": "tidy3d_tpu_torch/csrc/step.cu",
-         "replaces": "tidy3d_tpu/solver/kernels/pallas_step.py:118",
-         "launches": n_2["family"],
-         "max_abs_err": max(err_full, err_family_poles),
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "fused_step", "route": "cuda",
-         "source": "tidy3d_tpu_torch/csrc/fused.cu",
-         "replaces": "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
-         "launches": n_fd["fused"] + n_fb["fused"],
-         "max_abs_err": max(err_fused, err_metal),
-         "ms": f_ms, "plain_ms": fp_ms},
-        {"name": "kstep_group", "route": "cuda",
-         "source": "tidy3d_tpu_torch/csrc/kstep.cu",
-         "replaces": "tidy3d_tpu/solver/kernels/pallas_kstep.py:1425",
-         "launches": n_kstep, "max_abs_err": max(err_kstep),
-         "ms": ks_ms["dispersive"][0],
-         "plain_ms": ks_ms["dispersive"][1]},
+        entry("family_update", "tidy3d_tpu_torch/csrc/step.cu",
+              "tidy3d_tpu/solver/kernels/pallas_step.py:118",
+              w2.launches["family"], max(err_full, err_family_poles), k_ms,
+              p_ms, fam_bound),
+        entry("fused_step", "tidy3d_tpu_torch/csrc/fused.cu",
+              "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
+              wfd.launches["fused"] + wfb.launches["fused"],
+              max(err_fused, err_metal), f_ms, fp_ms, fused_bound),
+        entry("kstep_group", kstep_src, kstep_tpu, n_kstep, max(err_kstep),
+              ks_ms["dispersive"][0], ks_ms["dispersive"][1],
+              ks_bound["dispersive"]),
+        entry("kstep_group_bloch", kstep_src, kstep_tpu, bloch["launches"],
+              bloch["err"], bloch["ms"], bloch["plain_ms"], bloch["bound"]),
     ]}
     log(smi)
     log(json.dumps(kernels))

@@ -8,13 +8,14 @@ reference runs with ``TIDY3D_TPU_TILE_QUANTA=1,1,1`` on its XLA path.
 import numpy as np
 import pytest
 
-import tidy3d_tpu as td
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import (
+    DISPERSIVE, lower_reference as lower, SIMS,
+)
 from tidy3d_tpu.solver.fdtd import FDTDRunner as JaxRunner
-from tidy3d_tpu.solver.lowering import lower
 
+import tidy3d_tpu_torch as td
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, build_constants
-
-from tests.torch_cases import DISPERSIVE, SIMS
 
 
 def _equal(a, b, path):
@@ -82,7 +83,10 @@ def test_unsupported_plans_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="precision"):
         FDTDRunner(lower(SIMS["pml_all"]()), device="cpu",
                    precision="bfloat16")
+    # Bloch runs step on the kstep tier, but not with dispersive poles
     bloch = SIMS["pml_all"]().copy(update=dict(
+        structures=[disp.copy(update=dict(medium=td.Lorentz(
+            eps_inf=2.0, coeffs=[(1.0, 3e14, 1e13)])))],
         boundary_spec=td.BoundarySpec(
             x=td.Boundary.bloch(bloch_vec=0.3), y=td.Boundary.pml(),
             z=td.Boundary.pml())))

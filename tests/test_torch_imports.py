@@ -1,0 +1,158 @@
+"""The port stands alone: it imports nothing of ``tidy3d_tpu`` or JAX.
+
+An AST scan of every module of ``tidy3d_tpu_torch``, of ``chip_smoke.py``
+and of the port's ``labs/`` (no ``tidy3d_tpu`` or ``jax`` import, and every
+relative import resolves inside the port); every module of the port imported, and a small
+``web.run`` on the CPU, in a process where a meta-path finder makes
+``tidy3d_tpu`` and ``jax`` unimportable; and the port's own copy of
+``lower()`` against the JAX package's on every simulation of
+``tests/torch_cases.py``: the same ``SimulationPlan``, field by field, the
+arrays bit for bit.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from tidy3d_tpu_torch.solver.lowering import lower
+
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import BLOCH, DISPERSIVE, SIMS, lower_reference, \
+    monitors
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "tidy3d_tpu_torch")
+FOREIGN = ("tidy3d_tpu", "jax", "jaxlib")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for top in (PORT, os.path.join(REPO, "labs")):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
+    return sorted(out)
+
+
+def _package_of(path: str) -> list:
+    """The package that holds module ``path`` (an ``__init__`` is its own
+    package), as a list of names."""
+    return os.path.relpath(path, REPO).split(os.sep)[:-1]
+
+
+def _exists(dotted) -> bool:
+    base = os.path.join(REPO, *dotted)
+    return os.path.isfile(base + ".py") or os.path.isfile(
+        os.path.join(base, "__init__.py"))
+
+
+def test_no_module_imports_the_jax_package_or_jax():
+    bad, unresolved = [], []
+    for path in _sources():
+        tree = ast.parse(open(path).read(), path)
+        pkg = _package_of(path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif isinstance(node, ast.ImportFrom):
+                base = pkg[:len(pkg) - (node.level - 1)]
+                target = base + (node.module.split(".") if node.module
+                                 else [])
+                # ``from . import x`` names a module or a name of target
+                if not _exists(target) and not all(
+                        _exists(target + [a.name]) for a in node.names):
+                    unresolved.append((path, node.lineno, ".".join(target)))
+            for name in names:
+                if name.split(".")[0] in FOREIGN:
+                    bad.append((os.path.relpath(path, REPO), node.lineno,
+                                name))
+    assert len(_sources()) > 60
+    assert not bad, bad
+    assert not unresolved, unresolved
+
+
+_BLOCKED = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("tidy3d_tpu", "jax", "jaxlib")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"No module named {name!r}",
+                                          name=name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import tidy3d_tpu_torch
+    for info in pkgutil.walk_packages(tidy3d_tpu_torch.__path__,
+                                      "tidy3d_tpu_torch."):
+        importlib.import_module(info.name)
+    from tests.torch_cases import SIMS, monitors
+    import tidy3d_tpu_torch as td
+    data = td.web.run(SIMS["pml_all"](monitors=monitors(), run_time=5e-15),
+                      device="cpu", verbose=False)
+    assert data["flux"].flux.values.shape == (3,)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print("MODULES", len(list(pkgutil.walk_packages(
+        tidy3d_tpu_torch.__path__, "tidy3d_tpu_torch."))), "BLOCKED", loaded)
+""")
+
+
+def test_the_port_imports_and_runs_with_both_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300, check=False)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BLOCKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def _equal(a, b, path: str):
+    """Exact equality of two plans' values: same types by name, arrays of
+    the same dtype and shape bit for bit, schema objects by their JSON."""
+    assert type(a).__name__ == type(b).__name__, \
+        f"{path}: {type(a).__name__} against {type(b).__name__}"
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _equal(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif hasattr(a, "json") and hasattr(type(a), "model_fields"):
+        assert a.json() == b.json(), path
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert np.array_equal(a, b, equal_nan=True), path
+    elif isinstance(a, dict):
+        assert list(a) == list(b), path
+        for key in a:
+            _equal(a[key], b[key], f"{path}[{key!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, float) and np.isnan(a):
+        assert np.isnan(b), path
+    else:
+        assert a == b, f"{path}: {a!r} against {b!r}"
+
+
+CASES = {**SIMS, **DISPERSIVE, **BLOCH}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lowering_matches_the_reference(case):
+    sim = CASES[case](monitors=monitors())
+    got = lower(sim)
+    ref = lower_reference(sim)
+    assert type(got).__module__ == "tidy3d_tpu_torch.solver.lowering"
+    assert type(ref).__module__ == "tidy3d_tpu.solver.lowering"
+    _equal(ref, got, case)

@@ -20,18 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-# the port first: on a machine without h5py it registers the stand-in
 import tidy3d_tpu_torch as tt
 from tidy3d_tpu_torch import convert
 from tidy3d_tpu_torch.solver import fdtd as port_fdtd
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 from tidy3d_tpu_torch.solver.kernels import kstep as kstep_kernels
 
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import (
+    DISPERSIVE, lower_reference as lower, max_rel_err, monitors, random_state,
+    SIMS,
+)
 from tidy3d_tpu.solver.fdtd import FDTDRunner as JaxRunner
-from tidy3d_tpu.solver.lowering import lower
-
-from tests.torch_cases import DISPERSIVE, SIMS, max_rel_err, monitors, \
-    random_state
 
 TOL_XLA = 1e-6      # float32 rounding of the same expression tree
 TOL_RUN = 2e-5      # the reference's own bar for whole runs

@@ -11,13 +11,14 @@ import jax
 import numpy as np
 import pytest
 
-from tidy3d_tpu.exceptions import DivergenceError
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import (
+    lower_reference as lower, max_rel_err, monitors, SIMS,
+)
 from tidy3d_tpu.solver.fdtd import FDTDRunner as JaxRunner
-from tidy3d_tpu.solver.lowering import lower
 
+from tidy3d_tpu_torch.exceptions import DivergenceError
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
-
-from tests.torch_cases import SIMS, max_rel_err, monitors
 
 TOL = 2e-5
 NSTEPS = 40

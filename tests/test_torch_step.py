@@ -15,15 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-# the port first: on a machine without h5py it registers the stand-in
 from tidy3d_tpu_torch import convert
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 from tidy3d_tpu_torch.solver.kernels import step as step_kernels
 
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import (
+    lower_reference as lower, max_rel_err, random_state, SIMS,
+)
 from tidy3d_tpu.solver.fdtd import FDTDRunner as JaxRunner
-from tidy3d_tpu.solver.lowering import lower
-
-from tests.torch_cases import SIMS, max_rel_err, random_state
 
 TOL_XLA = 1e-6      # float32 rounding of the same expression tree
 TOL_PALLAS = 1e-5   # the reference's own Pallas-vs-XLA bar

@@ -15,12 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-import tidy3d_tpu as td
+# first: where h5py is missing it makes the JAX package importable
+from tests.torch_cases import SIMS, monitors, to_reference
 from tidy3d_tpu import web as ref_web
 
 import tidy3d_tpu_torch as tt
-
-from tests.torch_cases import SIMS, monitors
 
 TOL = 2e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,11 +31,11 @@ def _rel(a, b):
 
 
 def test_web_run_matches_reference():
-    mons = monitors() + [td.FluxTimeMonitor(
+    mons = monitors() + [tt.FluxTimeMonitor(
         center=(0, 0, 0), size=(0.3, 0.25, 0.4), interval=2,
         name="flux_t")]
     sim = SIMS["pml_all"](monitors=mons, run_time=2e-14)
-    ref = ref_web.run(sim, verbose=False)
+    ref = ref_web.run(to_reference(sim), verbose=False)
     got = tt.web.run(sim, device="cpu", verbose=False)
     assert isinstance(got, tt.SimulationData)
     for name in ("flux", "flux_t"):
@@ -60,7 +59,7 @@ def test_web_run_matches_reference():
 
 
 def test_web_run_refuses_what_is_not_ported():
-    sim = SIMS["pml_all"](monitors=[td.PermittivityMonitor(
+    sim = SIMS["pml_all"](monitors=[tt.PermittivityMonitor(
         center=(0, 0, 0), size=(0.2, 0.2, 0), freqs=[2e14], name="eps")])
     with pytest.raises(NotImplementedError, match="PermittivityMonitor"):
         tt.web.run(sim, device="cpu", verbose=False)
@@ -79,9 +78,11 @@ def test_web_run_defaults_to_the_gpu():
 _NO_JAX = textwrap.dedent("""
     import importlib.abc, sys
 
+    BLOCKED = ("jax", "jaxlib", "h5py", "tidy3d_tpu")
+
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "h5py"):
+            if name.split(".")[0] in BLOCKED:
                 raise ModuleNotFoundError(f"No module named {name!r}",
                                           name=name)
             return None
@@ -98,27 +99,36 @@ _NO_JAX = textwrap.dedent("""
         grid_spec=td.GridSpec.uniform(dl=0.05))
     data = td.web.run(sim, device="cpu", verbose=False)
     assert data["flux"].flux.values.shape == (1,)
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib"))
-    print("JAX_MODULES", loaded)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print("BLOCKED_MODULES", loaded)
 """)
 
 
 _FULL_AFTER_PORT = textwrap.dedent("""
     import sys
     import tidy3d_tpu_torch
-    assert "jax" not in sys.modules
+    assert not [m for m in sys.modules
+                if m.split(".")[0] in ("tidy3d_tpu", "jax")]
     import tidy3d_tpu
     from tidy3d_tpu.components.simulation import Simulation
-    assert tidy3d_tpu.Simulation is Simulation   # runs the real __init__
+    assert tidy3d_tpu.Simulation is Simulation   # the real __init__ ran
     from tidy3d_tpu.web.run import run
     assert tidy3d_tpu.web.run is run
+    assert tidy3d_tpu.Simulation is not tidy3d_tpu_torch.Simulation
+    # a simulation crosses between the packages through its JSON
+    sim = tidy3d_tpu_torch.Simulation(
+        size=(1, 1, 1), run_time=1e-14,
+        grid_spec=tidy3d_tpu_torch.GridSpec.uniform(dl=0.1))
+    ref = tidy3d_tpu.Simulation.parse_raw(sim.json())
+    assert type(ref) is Simulation
+    assert tidy3d_tpu_torch.Simulation.parse_raw(ref.json()) == sim
     print("FULL_OK")
 """)
 
 
 def test_full_package_after_port():
-    """Importing the port first leaves ``import tidy3d_tpu`` whole."""
+    """The port loads no module of ``tidy3d_tpu`` or JAX, and ``import
+    tidy3d_tpu`` beside it is whole: its own classes, its ``web``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _FULL_AFTER_PORT], cwd=REPO,
@@ -129,10 +139,21 @@ def test_full_package_after_port():
 
 
 def test_port_runs_without_jax():
+    """``web.run`` of the port with JAX, h5py and ``tidy3d_tpu`` all
+    unimportable."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300, check=False)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "JAX_MODULES []" in proc.stdout, proc.stdout[-2000:]
+    assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout[-2000:]
+
+
+def test_web_run_refuses_a_foreign_simulation():
+    """A simulation of the JAX package is refused with the route across."""
+    ref = to_reference(SIMS["pml_all"]())
+    with pytest.raises(TypeError, match=r"parse_raw\(sim.json\(\)\)"):
+        tt.web.run(ref, device="cpu", verbose=False)
+    back = tt.Simulation.parse_raw(ref.json())
+    assert back == SIMS["pml_all"]()

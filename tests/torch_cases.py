@@ -1,18 +1,50 @@
 """Small simulations shared by the ``test_torch_*`` equivalence tests.
 
 Each grid is 10 to 22 cells wide (dl = 0.05, PML included), so both
-packages step it in well under a second on the CPU. The schema comes
-through the port, so this module imports on a machine without ``h5py``.
+packages step it in well under a second on the CPU. The simulations are the
+port's; ``to_reference`` carries one to the JAX package through its JSON
+(``parse_raw(sim.json())``), and ``lower_reference`` lowers it there. The
+equivalence tests step that one plan in both runners;
+``tests/test_torch_imports.py`` holds the port's own ``lower()`` equal to
+it on every case here.
+
+The JAX package's schema imports ``h5py`` at module level for its file I/O,
+and the card's machine has none. The tests write no file, so where ``h5py``
+is missing an empty stand-in lets them import the JAX package there: import
+this module before any ``tidy3d_tpu`` module. The port itself defers
+``h5py`` to its file I/O and needs no stand-in.
 """
+
+import sys
+import types
 
 import numpy as np
 
-import tidy3d_tpu_torch as td
-from tidy3d_tpu_torch import C_0
+try:
+    import h5py  # noqa: F401
+except ImportError:
+    sys.modules["h5py"] = types.ModuleType("h5py")
+
+import tidy3d_tpu_torch as td  # noqa: E402
+from tidy3d_tpu_torch import C_0  # noqa: E402
 
 FREQ0 = C_0 / 1.55
 DL = 0.05
 SIZE = (12 * DL, 10 * DL, 16 * DL)
+
+
+def to_reference(sim):
+    """The JAX package's ``Simulation`` equal to the port's ``sim``."""
+    import tidy3d_tpu
+
+    return tidy3d_tpu.Simulation.parse_raw(sim.json())
+
+
+def lower_reference(sim):
+    """The JAX package's ``SimulationPlan`` of the port's ``sim``."""
+    from tidy3d_tpu.solver.lowering import lower
+
+    return lower(to_reference(sim))
 
 
 def _sim(bspec, structures=(), monitors=(), run_time=1e-14, **kwargs):
@@ -117,6 +149,51 @@ def sheet_lorentz(**kw):
 DISPERSIVE = {f.__name__: f for f in (lorentz_mixed, drude_periodic,
                                       lorentz3_pml, gold_halfspace,
                                       sheet_lorentz)}
+
+
+# Bloch (complex) runs: the kstep tier steps two real copies of the fields
+
+
+def bloch_dipole(**kw):
+    """Bloch x (0.27) and y (-0.13), PML z, the dielectric block: the
+    JAX package's ``fdtd_bloch`` bench case in small."""
+    return _sim(td.BoundarySpec(
+        x=td.Boundary.bloch(bloch_vec=0.27),
+        y=td.Boundary.bloch(bloch_vec=-0.13),
+        z=td.Boundary.pml(num_layers=3)), structures=[DIELECTRIC], **kw)
+
+
+def angled_plane_wave(theta_deg: float = 25.0):
+    """An Ez-polarised plane wave along +x tilted by ``theta_deg`` in y."""
+    return td.PlaneWave(
+        center=(-0.2, 0, 0), size=(0, td.inf, td.inf), direction="+",
+        source_time=td.GaussianPulse(freq0=FREQ0, fwidth=FREQ0 / 5),
+        pol_angle=np.pi / 2, angle_theta=np.deg2rad(theta_deg))
+
+
+def bloch_planewave(**kw):
+    """PML x, Bloch y from the angled plane wave (``BlochBoundary.
+    from_source``), periodic z: complex source profiles."""
+    pw = angled_plane_wave()
+    bloch = td.BlochBoundary.from_source(source=pw, domain_size=SIZE[1],
+                                         axis=1)
+    return _sim(td.BoundarySpec(
+        x=td.Boundary.pml(num_layers=3), y=td.Boundary(minus=bloch,
+                                                       plus=bloch),
+        z=td.Boundary.periodic()), **kw).copy(update=dict(sources=[pw]))
+
+
+def bloch_x_pec(**kw):
+    """Bloch x (0.31) with PEC y walls and a PML z: the wrap of the x
+    march."""
+    return _sim(td.BoundarySpec(
+        x=td.Boundary.bloch(bloch_vec=0.31),
+        y=td.Boundary(minus=td.PECBoundary(), plus=td.PECBoundary()),
+        z=td.Boundary.pml(num_layers=3)), structures=[DIELECTRIC], **kw)
+
+
+BLOCH = {f.__name__: f for f in (bloch_dipole, bloch_planewave,
+                                 bloch_x_pec)}
 
 
 def monitors():

@@ -1,61 +1,177 @@
 """tidy3d_tpu_torch — the PyTorch/CUDA port of the tidy3d_tpu FDTD solver.
 
-The schema, the lowering to a ``SimulationPlan`` and the data layers are the
-JAX-free modules of ``tidy3d_tpu``, reused by import (see ``_reference``).
-What runs on the device — the time-stepping runner and its kernels — is
-this package's own: PyTorch around hand-written CUDA kernels for Hopper.
+The package stands alone: it imports torch, numpy, scipy and pydantic, and
+nothing of ``tidy3d_tpu`` or JAX. Its schema (``components``), the
+lowering to a ``SimulationPlan`` (``solver.lowering``), the CPML and field
+sources, the CPU mode solver and the material library are copies of the
+JAX-free modules of ``tidy3d_tpu`` under the same relative paths. What runs
+on the device — the time-stepping runner and its kernels — is this
+package's own: PyTorch around hand-written CUDA kernels for Hopper.
 
     import tidy3d_tpu_torch as td
     sim = td.Simulation(...)
     data = td.web.run(sim)            # on the GPU; device="cpu" for the
                                       # plain PyTorch path
+
+A simulation of either package crosses to the other through its JSON:
+``tidy3d_tpu.Simulation.parse_raw(sim.json())`` and back.
 """
 
-from . import _reference  # noqa: F401  (must precede every tidy3d_tpu import)
+from . import _malloc  # noqa: F401  (glibc tuning; must run before numpy allocs)
+from .constants import C_0, EPSILON_0, ETA_0, HBAR, K_B, MU_0, Q_e, inf
+from .log import log, set_logging_console, set_logging_file, set_logging_level
+from .version import __version__
 
-from tidy3d_tpu.components.boundary import (  # noqa: E402
+# --- base / types ---------------------------------------------------------- #
+from .components.base import Tidy3dBaseModel
+from .components.types import Coordinate, Size, Symmetry
+
+# --- geometry -------------------------------------------------------------- #
+from .components.geometry.base import (
+    Box,
+    ClipOperation,
+    Geometry,
+    GeometryGroup,
+    Transformed,
+)
+from .components.geometry.primitives import Cylinder, Sphere
+from .components.geometry.polyslab import ComplexPolySlabBase, PolySlab
+from .components.geometry.mesh import TriangleMesh
+
+# --- mediums --------------------------------------------------------------- #
+from .components.medium import (
+    PEC,
+    AbstractMedium,
+    AnisotropicMedium,
+    CustomAnisotropicMedium,
+    CustomIsotropicMedium,
+    CustomDebye,
+    CustomDrude,
+    CustomLorentz,
+    CustomMedium,
+    CustomPoleResidue,
+    CustomSellmeier,
+    PerturbationMedium,
+    PerturbationPoleResidue,
+    Debye,
+    Drude,
+    FullyAnisotropicMedium,
+    KerrNonlinearity,
+    Lorentz,
+    Medium,
+    Medium2D,
+    NonlinearSpec,
+    NonlinearSusceptibility,
+    PECMedium,
+    PoleResidue,
+    Sellmeier,
+    TwoPhotonAbsorption,
+)
+
+# --- structures / scene ---------------------------------------------------- #
+from .components.structure import MeshOverrideStructure, Structure
+from .components.scene import Scene
+
+# --- grid ------------------------------------------------------------------ #
+from .components.grid.grid import Coords, FieldGrid, Grid, YeeGrid
+from .components.grid.grid_spec import (
+    AutoGrid,
+    CustomGrid,
+    CustomGridBoundaries,
+    GridSpec,
+    UniformGrid,
+)
+from .components.grid.mesher import GradedMesher
+
+# --- boundaries ------------------------------------------------------------ #
+from .components.boundary import (
     PML,
+    Absorber,
+    AbsorberParams,
+    BlochBoundary,
     Boundary,
     BoundarySpec,
+    BoundaryEdge,
+    DefaultAbsorberParameters,
+    DefaultPMLParameters,
+    DefaultStablePMLParameters,
     PECBoundary,
     Periodic,
     PMCBoundary,
+    PMLParams,
+    StablePML,
 )
-from tidy3d_tpu.components.data.sim_data import SimulationData  # noqa: E402
-from tidy3d_tpu.components.geometry.base import Box  # noqa: E402
-from tidy3d_tpu.components.grid.grid_spec import GridSpec  # noqa: E402
-from tidy3d_tpu.components.medium import (  # noqa: E402
-    Debye,
-    Drude,
-    Lorentz,
-    Medium,
-    PoleResidue,
-    Sellmeier,
-)
-from tidy3d_tpu.components.monitor import (  # noqa: E402
-    FieldMonitor,
-    FieldTimeMonitor,
-    FluxMonitor,
-    FluxTimeMonitor,
-)
-from tidy3d_tpu.components.simulation import Simulation  # noqa: E402
-from tidy3d_tpu.components.source import (  # noqa: E402
+
+# --- sources --------------------------------------------------------------- #
+from .components.source import (
+    TFSF,
+    AstigmaticGaussianBeam,
+    ContinuousWave,
+    CustomCurrentSource,
+    CustomFieldSource,
+    CustomSourceTime,
+    GaussianBeam,
     GaussianPulse,
+    ModeSource,
     PlaneWave,
     PointDipole,
+    Source,
+    SourceTime,
+    UniformCurrentSource,
 )
-from tidy3d_tpu.components.structure import Structure  # noqa: E402
-from tidy3d_tpu.constants import C_0, inf  # noqa: E402
-from tidy3d_tpu.material_library import material_library  # noqa: E402
 
-from . import web  # noqa: E402
+# --- monitors -------------------------------------------------------------- #
+from .components.monitor import (
+    DiffractionMonitor,
+    FieldMonitor,
+    FieldTimeMonitor,
+    FieldProjectionAngleMonitor,
+    FieldProjectionCartesianMonitor,
+    FieldProjectionKSpaceMonitor,
+    FluxMonitor,
+    FluxTimeMonitor,
+    ModeMonitor,
+    ModeSolverMonitor,
+    Monitor,
+    PermittivityMonitor,
+)
 
-__all__ = [
-    "PML", "Boundary", "BoundarySpec", "PECBoundary", "Periodic",
-    "PMCBoundary", "SimulationData", "Box", "GridSpec", "Medium",
-    "Debye", "Drude", "Lorentz", "PoleResidue", "Sellmeier", "PlaneWave",
-    "material_library",
-    "FieldMonitor", "FieldTimeMonitor", "FluxMonitor", "FluxTimeMonitor",
-    "Simulation", "GaussianPulse", "PointDipole", "Structure", "C_0", "inf",
-    "web",
-]
+# --- mode / apodization ---------------------------------------------------- #
+from .components.mode import ModeSpec
+from .components.apodization import ApodizationSpec
+
+# --- simulation ------------------------------------------------------------ #
+from .components.simulation import Simulation
+from .components.subpixel_spec import (
+    HeuristicPECStaircasing,
+    PECConformal,
+    PolarizedAveraging,
+    Staircasing,
+    SubpixelSpec,
+    VolumetricAveraging,
+)
+
+# --- data ------------------------------------------------------------------ #
+from .components.data.data_array import (
+    DataArray,
+    FluxDataArray,
+    FluxTimeDataArray,
+    FreqDataArray,
+    ScalarFieldDataArray,
+    ScalarFieldTimeDataArray,
+    SpatialDataArray,
+    TimeDataArray,
+)
+from .components.data.monitor_data import (
+    FieldData,
+    FieldTimeData,
+    FluxData,
+    FluxTimeData,
+)
+from .components.data.sim_data import SimulationData
+
+# --- material library ------------------------------------------------------ #
+from .material_library.material_library import material_library
+
+# --- execution ------------------------------------------------------------- #
+from . import web

@@ -1,0 +1,1140 @@
+"""The FDTD Simulation specification.
+
+Behavioral model: /root/reference/tidy3d/components/simulation.py
+(Simulation:1580, AbstractYeeGridSimulation:141): structures + sources +
+monitors + boundaries + grid_spec + symmetry + run_time, with derived grid
+(:4296), CFL time step (:4194), time mesh (:4214), Nyquist stride (:4414),
+staircased permittivity rasterization (:1094-1339), 2D-material volumetric
+equivalents (:1297), and the validator suite (:2295-3056, implemented here as
+a representative subset plus the scale caps :117-135).
+
+Unlike the reference, ``Simulation.run()`` here executes locally on TPU via
+tidy3d_tpu.solver (the reference ships the spec to a cloud solver farm).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Literal, Optional, Set, Tuple, Union
+
+import numpy as np
+import pydantic
+
+from ..constants import C_0, fp_eps, inf
+from ..exceptions import SetupError, ValidationError
+from ..log import log
+from ..version import SCHEMA_VERSION, __version__
+from .apodization import ApodizationSpec
+from .base import Tidy3dBaseModel, cached_property, skip_if_fields_missing
+from .boundary import (
+    Absorber,
+    AbsorberSpec,
+    BlochBoundary,
+    Boundary,
+    BoundarySpec,
+    PECBoundary,
+    Periodic,
+    PML,
+    PMCBoundary,
+    StablePML,
+)
+from .geometry.base import Box, Geometry
+from .grid.grid import Coords, Grid
+from .grid.grid_spec import AutoGrid, GridSpec, UniformGrid
+from .medium import (
+    AbstractMedium,
+    AnisotropicMedium,
+    Medium,
+    Medium2D,
+    MediumType,
+    MediumType3D,
+    PECMedium,
+)
+from .monitor import (
+    AbstractFieldProjectionMonitor,
+    DiffractionMonitor,
+    FieldMonitor,
+    FieldTimeMonitor,
+    FreqMonitor,
+    ModeMonitor,
+    ModeSolverMonitor,
+    Monitor,
+    MonitorType,
+    TimeMonitor,
+)
+from .scene import Scene
+from .source import (
+    CustomCurrentSource,
+    CustomFieldSource,
+    GaussianBeam,
+    ModeSource,
+    PlaneWave,
+    Source,
+    SourceType,
+    TFSF,
+)
+from .structure import Structure
+from .subpixel_spec import SubpixelSpec
+from .types import Ax, Axis, Bound, Coordinate, Symmetry, annotate_type
+
+# scale caps (reference: simulation.py:117-135)
+NUM_CELLS_WARN_EPSILON = 100_000_000
+MAX_TIME_STEPS = 1e7
+WARN_TIME_STEPS = 1e6
+MAX_GRID_CELLS = 20e9
+MAX_CELLS_TIMES_STEPS = 1e16
+WARN_MONITOR_DATA_SIZE_GB = 10
+MAX_MONITOR_INTERNAL_DATA_SIZE_GB = 50
+MAX_SIMULATION_DATA_SIZE_GB = 50
+WARN_MODE_NUM_CELLS = 1e5
+MAX_NUM_SOURCES = 1000
+
+# default thickness (um) of the single cell along a zero-size dimension
+ZERO_DIM_CELL_SIZE = 1.0
+
+PML_HEIGHT_FOR_0_DIMS = ZERO_DIM_CELL_SIZE
+
+
+class Simulation(Box):
+    """FDTD simulation specification: the complete problem definition."""
+
+    run_time: pydantic.PositiveFloat = pydantic.Field(
+        ..., title="Run Time", description="Total physical simulated time [s]."
+    )
+    medium: annotate_type(MediumType3D) = pydantic.Field(
+        default_factory=Medium, title="Background Medium",
+    )
+    symmetry: Tuple[Symmetry, Symmetry, Symmetry] = pydantic.Field(
+        (0, 0, 0), title="Symmetries",
+        description="Reflection symmetry across planes through the center: "
+        "0 (none), 1 (even / PMC-like), -1 (odd / PEC-like).",
+    )
+    structures: Tuple[Structure, ...] = pydantic.Field(
+        (), title="Structures",
+        description="Structures in the domain; later structures override earlier ones.",
+    )
+    sources: Tuple[annotate_type(SourceType), ...] = pydantic.Field(
+        (), title="Sources"
+    )
+    boundary_spec: BoundarySpec = pydantic.Field(
+        default_factory=BoundarySpec, title="Boundaries",
+    )
+    monitors: Tuple[annotate_type(MonitorType), ...] = pydantic.Field(
+        (), title="Monitors"
+    )
+    grid_spec: GridSpec = pydantic.Field(
+        default_factory=GridSpec, title="Grid Specification",
+    )
+    shutoff: pydantic.NonNegativeFloat = pydantic.Field(
+        1e-5, title="Shutoff condition",
+        description="Stop when the ratio of the max field intensity to the "
+        "max ever intensity drops below this (0 disables).",
+    )
+    subpixel: Union[bool, SubpixelSpec] = pydantic.Field(
+        True, title="Subpixel Averaging",
+        description="Apply subpixel permittivity averaging at material "
+        "interfaces in the solver lowering: True/False for the default "
+        "polarized scheme / staircasing, or a SubpixelSpec selecting "
+        "per-material-type schemes (reference: subpixel_spec.py:117).",
+    )
+
+    @property
+    def subpixel_spec(self) -> SubpixelSpec:
+        """Normalized per-material-type subpixel selection."""
+        if isinstance(self.subpixel, SubpixelSpec):
+            return self.subpixel
+        if self.subpixel:
+            return SubpixelSpec()
+        from .subpixel_spec import Staircasing
+
+        stair = Staircasing()
+        return SubpixelSpec(dielectric=stair, metal=stair, pec=stair,
+                            lossy_metal=stair)
+    normalize_index: Optional[pydantic.NonNegativeInt] = pydantic.Field(
+        0, title="Normalization index",
+        description="Source index whose spectrum normalizes frequency monitors.",
+    )
+    courant: float = pydantic.Field(
+        0.99, gt=0.0, le=1.0, title="Normalized Courant Factor",
+    )
+    # files are stamped with the serialization-schema version (the
+    # reference-compatible 2.7.x), not the package version
+    version: str = pydantic.Field(SCHEMA_VERSION, title="Version")
+
+    # ------------------------------------------------------------------ #
+    # validators
+    # ------------------------------------------------------------------ #
+
+    def perturbed_mediums_copy(self, temperature=None, electron_density=None,
+                               hole_density=None, interp_method: str = "linear"
+                               ) -> "Simulation":
+        """Copy with every perturbation-capable medium replaced by its
+        perturbed custom medium sampled on the provided solution fields
+        (reference: simulation.py perturbed_mediums_copy:4493) — the bridge
+        from heat/charge solutions to the optical solve."""
+        from .structure import Structure
+
+        def maybe_perturb(medium):
+            if hasattr(medium, "perturbed_copy"):
+                return medium.perturbed_copy(temperature, electron_density,
+                                             hole_density, interp_method)
+            return medium
+
+        new_structures = []
+        for structure in self.structures:
+            new_medium = maybe_perturb(structure.medium)
+            if new_medium is not structure.medium:
+                structure = structure.copy(update=dict(medium=new_medium))
+            new_structures.append(structure)
+        new_medium = maybe_perturb(self.medium)
+        return self.copy(update=dict(structures=tuple(new_structures),
+                                     medium=new_medium))
+
+    def to_gds_file(self, fname: str, x: float = None, y: float = None,
+                    z: float = None, gds_layer_dtype_map=None) -> None:
+        """Export structure cross-sections at a plane to a GDSII file
+        (reference: simulation.py Simulation.to_gds_file)."""
+        raise NotImplementedError(
+            "GDSII export (components/gds.py) is not ported yet "
+            "(ROADMAP.md: schema extras)")
+
+    @pydantic.model_validator(mode="before")
+    @classmethod
+    def _migrate_old_schema(cls, values):
+        """Serialized sims from older schema versions are migrated through
+        the Updater chain before validation (reference behavior:
+        base_sim/simulation.py:107 warns and updates on load)."""
+        if isinstance(values, dict):
+            from ..version import SCHEMA_VERSION
+
+            version = values.get("version")
+            if isinstance(version, str) and version.split(".")[:2] != \
+                    SCHEMA_VERSION.split(".")[:2]:
+                from ..updater import Updater
+
+                log.warning(
+                    f"Simulation written with schema version {version}; "
+                    f"updating to {SCHEMA_VERSION}.", log_once=True)
+                values = Updater(sim_dict=values).update_to_current()
+        return values
+
+    @pydantic.field_validator("monitors")
+    @classmethod
+    def _monitor_names_unique(cls, val):
+        names = [m.name for m in val]
+        if len(set(names)) != len(names):
+            raise SetupError(f"Monitor names are not unique: {names}.")
+        return val
+
+    @pydantic.field_validator("sources")
+    @classmethod
+    def _max_sources(cls, val):
+        if len(val) > MAX_NUM_SOURCES:
+            raise SetupError(f"Too many sources ({len(val)} > {MAX_NUM_SOURCES}).")
+        return val
+
+    @pydantic.model_validator(mode="after")
+    def _objects_in_bounds(self):
+        sim_box = Box(center=self.center, size=self.size)
+        for kind, objs in (("Source", self.sources), ("Monitor", self.monitors)):
+            for obj in objs:
+                if not sim_box.intersects(obj):
+                    raise SetupError(
+                        f"{kind} '{getattr(obj, 'name', None)}' is completely "
+                        "outside of the simulation domain."
+                    )
+        for structure in self.structures:
+            if not sim_box.intersects(structure.geometry):
+                log.warning(
+                    f"Structure '{structure.name}' is completely outside of the "
+                    "simulation domain.", log_once=True,
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _bloch_boundaries_zero_dims(self):
+        """Zero-size dims must have periodic-type boundaries."""
+        for axis, (minus, plus) in enumerate(self.boundary_spec.to_list):
+            if self.size[axis] == 0.0:
+                if isinstance(minus, (PML, StablePML, Absorber)):
+                    raise SetupError(
+                        f"Absorbing boundary along zero-size axis {'xyz'[axis]}; "
+                        "use Periodic (or PEC/PMC) instead."
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _plane_wave_boundaries(self):
+        """Plane waves require periodic-type transverse boundaries at normal
+        incidence and Bloch boundaries at angled incidence."""
+        for source in self.sources:
+            # reference simulation.py:2309-2346 checks PlaneWave only; an
+            # angled TFSF whose box stays inside the domain is legal with
+            # any transverse boundary (tfsf_boundaries :2391 constrains
+            # only boundary-crossing TFSF boxes)
+            if not isinstance(source, PlaneWave) or isinstance(source, TFSF):
+                continue
+            inj_axis = tuple(source.size).index(0.0)
+            for axis in range(3):
+                if axis == inj_axis or self.size[axis] == 0.0:
+                    continue
+                minus, _ = self.boundary_spec.to_list[axis]
+                theta = getattr(source, "angle_theta", 0.0)
+                if theta == 0.0 and isinstance(minus, BlochBoundary):
+                    continue
+                if theta != 0.0 and isinstance(minus, (PML, StablePML,
+                                                       Absorber)):
+                    # reference simulation.py:2328-2334: angled + absorbing
+                    # transverse boundary is a hard error
+                    raise SetupError(
+                        "Angled plane wave sources are not compatible with "
+                        "the absorbing boundary along dimension "
+                        f"{'xyz'[axis]}. Either set the source "
+                        "'angle_theta' to 0, or use Bloch boundaries that "
+                        "match the source angle."
+                    )
+                if theta != 0.0 and isinstance(minus, Periodic):
+                    # reference behavior (_check_bloch_vec): a Periodic
+                    # boundary is a zero Bloch vector — warn, don't error
+                    log.warning(
+                        "Angled plane-wave source with 'Periodic' "
+                        f"transverse boundary along axis {'xyz'[axis]}: "
+                        "the zero Bloch vector does not match the source "
+                        "angle; use 'BlochBoundary.from_source' for a "
+                        "consistent setup.",
+                        log_once=True,
+                    )
+                if theta == 0.0 and not isinstance(
+                    minus, (Periodic, BlochBoundary, PECBoundary, PMCBoundary)
+                ):
+                    log.warning(
+                        "Plane wave sources should have periodic-type boundary "
+                        f"conditions along the transverse axis {'xyz'[axis]}.",
+                        log_once=True,
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _symmetry_boundaries(self):
+        for axis in range(3):
+            if self.symmetry[axis] != 0:
+                minus, plus = self.boundary_spec.to_list[axis]
+                if isinstance(minus, BlochBoundary) and minus.bloch_vec % 1.0 != 0:
+                    raise SetupError(
+                        "Symmetry is incompatible with a non-integer Bloch vector "
+                        f"along axis {'xyz'[axis]}."
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _diffraction_monitor_boundaries(self):
+        for monitor in self.monitors:
+            if isinstance(monitor, DiffractionMonitor):
+                normal_axis = tuple(monitor.size).index(0.0)
+                for axis in range(3):
+                    if axis == normal_axis or self.size[axis] == 0.0:
+                        continue
+                    minus, _ = self.boundary_spec.to_list[axis]
+                    if not isinstance(minus, (Periodic, BlochBoundary)):
+                        raise SetupError(
+                            f"DiffractionMonitor '{monitor.name}' requires "
+                            "periodic or Bloch boundaries in the transverse directions."
+                        )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _bloch_with_symmetry(self):
+        """Bloch boundaries cannot be combined with symmetry along the same
+        axis (reference: simulation.py bloch_with_symmetry:2295)."""
+        for axis in range(3):
+            if self.symmetry[axis] == 0:
+                continue
+            minus, _ = self.boundary_spec.to_list[axis]
+            if isinstance(minus, BlochBoundary):
+                raise SetupError(
+                    f"Bloch boundary along axis {'xyz'[axis]} cannot be used "
+                    "together with symmetry along that axis."
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _tfsf_with_symmetry(self):
+        """TFSF sources are incompatible with symmetry
+        (reference: simulation.py tfsf_with_symmetry:2465)."""
+        if any(isinstance(s, TFSF) for s in self.sources) and any(
+                sym != 0 for sym in self.symmetry):
+            raise SetupError("TFSF sources cannot be used with symmetries.")
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _tfsf_boundaries(self):
+        """A TFSF box must stay inside the domain along its injection axis
+        and may only touch/cross transverse boundaries that are periodic
+        or Bloch (reference: simulation.py tfsf_boundaries:2391)."""
+        rmin = [c - s / 2 for c, s in zip(self.center, self.size)]
+        rmax = [c + s / 2 for c, s in zip(self.center, self.size)]
+        for source in self.sources:
+            if not isinstance(source, TFSF):
+                continue
+            inj = source.injection_axis
+            src_rmin, src_rmax = source.bounds
+            if src_rmin[inj] <= rmin[inj] or src_rmax[inj] >= rmax[inj]:
+                raise SetupError(
+                    "TFSF source must not touch or cross the simulation "
+                    f"boundary along its injection axis {'xyz'[inj]}."
+                )
+            for axis in range(3):
+                if axis == inj:
+                    continue
+                crosses = (src_rmin[axis] <= rmin[axis]
+                           or src_rmax[axis] >= rmax[axis])
+                minus, plus = self.boundary_spec.to_list[axis]
+                per_ok = all(isinstance(b, (Periodic, BlochBoundary))
+                             for b in (minus, plus))
+                if crosses and not per_ok:
+                    raise SetupError(
+                        "TFSF source must not touch or cross the simulation "
+                        f"boundary along {'xyz'[axis]} unless that boundary "
+                        "is Periodic or BlochBoundary."
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _boundaries_for_zero_dims(self):
+        """Zero-size axes forbid Bloch boundaries, symmetry, and unmatched
+        plus/minus boundary kinds
+        (reference: simulation.py boundaries_for_zero_dims:2475);
+        absorbing boundaries are checked in _bloch_boundaries_zero_dims."""
+        for axis, (minus, plus) in enumerate(self.boundary_spec.to_list):
+            if self.size[axis] != 0.0:
+                continue
+            name = "xyz"[axis]
+            if isinstance(minus, BlochBoundary) or isinstance(plus, BlochBoundary):
+                raise SetupError(
+                    f"Zero size along {name}: Bloch boundaries are not "
+                    "supported there (the Bloch vector is defined in units "
+                    "of 2*pi/size); use a small nonzero size instead."
+                )
+            if self.symmetry[axis] != 0:
+                raise SetupError(
+                    f"Zero size along {name}: symmetry along that axis is "
+                    "incorrect; use PEC/PMC boundaries to select the source "
+                    "polarization instead."
+                )
+            if type(minus) is not type(plus):
+                raise SetupError(
+                    f"Zero size along {name}: the plus and minus boundary "
+                    "conditions must be the same kind."
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _2d_geometry_has_2d_medium(self):
+        """Zero-thickness (sheet) geometries require a Medium2D and 3D
+        geometries cannot carry a Medium2D
+        (reference: simulation.py _validate_2d_geometry_has_2d_medium:2537)."""
+        from .medium import Medium2D
+
+        for structure in self.structures:
+            zero_dims = getattr(structure.geometry, "zero_dims", [])
+            is_2d_geo = len(zero_dims) == 1
+            is_2d_med = isinstance(structure.medium, Medium2D)
+            if is_2d_med and not is_2d_geo:
+                raise SetupError(
+                    f"Structure '{structure.name}' has a Medium2D but its "
+                    "geometry is not a zero-thickness sheet."
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _check_normalize_index(self):
+        """normalize_index must point at an existing, nonzero source
+        (reference: simulation.py _check_normalize_index:3193)."""
+        idx = self.normalize_index
+        if idx is None or len(self.sources) == 0:
+            return self
+        if idx >= len(self.sources):
+            raise SetupError(
+                f"normalize_index {idx} out of bounds for "
+                f"{len(self.sources)} sources."
+            )
+        if self.sources[idx].source_time.amplitude == 0.0:
+            log.warning("normalize_index points at a source with zero "
+                        "amplitude.", log_once=True)
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _source_homogeneous_isotropic(self):
+        """Field sources (plane wave / beams / mode) must be embedded in a
+        single isotropic medium on their plane
+        (reference: simulation.py _source_homogeneous_isotropic:3136)."""
+        from .medium import AnisotropicMedium, FullyAnisotropicMedium
+        from .source import GaussianBeam, ModeSource
+
+        for source in self.sources:
+            if not isinstance(source, (PlaneWave, GaussianBeam)):
+                continue
+            mediums = self.scene.intersecting_media(
+                Box(center=source.center, size=source.size))
+            if len(mediums) > 1:
+                raise SetupError(
+                    f"Source '{getattr(source, 'name', None)}' spans more "
+                    "than one medium; plane-wave and beam sources must be "
+                    "embedded in a homogeneous medium."
+                )
+            for medium in mediums:
+                if isinstance(medium, (AnisotropicMedium,
+                                       FullyAnisotropicMedium)):
+                    raise SetupError(
+                        "Plane-wave and beam sources cannot be embedded in "
+                        "an anisotropic medium."
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _projection_monitors_homogeneous(self):
+        """Field-projection monitor surfaces must lie in a single medium
+        (reference: simulation.py _projection_monitors_homogeneous:2762)."""
+        for monitor in self.monitors:
+            if not isinstance(monitor, AbstractFieldProjectionMonitor):
+                continue
+            mediums = self.scene.intersecting_media(
+                Box(center=monitor.center, size=monitor.size))
+            if len(mediums) > 1:
+                raise SetupError(
+                    f"Projection monitor '{monitor.name}' intersects more "
+                    "than one medium; near-field surfaces must be in a "
+                    "homogeneous medium."
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _projection_monitors_distance(self):
+        """Warn when the far-field approximation is used at projection
+        distances that are not much larger than the monitor size
+        (reference: simulation.py _projection_monitors_distance:2922)."""
+        for monitor in self.monitors:
+            proj_distance = getattr(monitor, "proj_distance", None)
+            if proj_distance is None:
+                continue
+            if not getattr(monitor, "far_field_approx", True):
+                continue
+            max_size = max(s for s in monitor.size if not np.isinf(s))
+            if abs(proj_distance) < 10 * max_size:
+                log.warning(
+                    f"Projection monitor '{monitor.name}' has proj_distance "
+                    "closer than 10x its size while far_field_approx=True; "
+                    "set far_field_approx=False for near-zone accuracy.",
+                    log_once=True,
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _warn_monitor_simulation_frequency_range(self):
+        """Warn when monitor frequencies fall outside the source spectrum
+        (reference: simulation.py _warn_monitor_simulation_frequency_range:2704)."""
+        if not self.sources:
+            return self
+        fmins = []
+        fmaxs = []
+        for source in self.sources:
+            st = source.source_time
+            fmins.append(st.freq0 - 2.5 * st.fwidth)
+            fmaxs.append(st.freq0 + 2.5 * st.fwidth)
+        fmin, fmax = min(fmins), max(fmaxs)
+        for monitor in self.monitors:
+            raw = getattr(monitor, "freqs", None)
+            freqs = np.atleast_1d(np.asarray(
+                raw if raw is not None else []))
+            if freqs.size and (np.any(freqs < fmin) or np.any(freqs > fmax)):
+                log.warning(
+                    f"Monitor '{monitor.name}' has frequencies outside the "
+                    "sources' spectral range; data there will be noisy.",
+                    log_once=True,
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _warn_monitor_mediums_frequency_range(self):
+        """Warn when monitor frequencies are outside a medium's fitted
+        frequency_range
+        (reference: simulation.py _warn_monitor_mediums_frequency_range:2651)."""
+        freqs = []
+        for monitor in self.monitors:
+            raw = getattr(monitor, "freqs", None)
+            if raw is None:
+                continue
+            freqs.extend(np.atleast_1d(np.asarray(raw)).tolist())
+        if not freqs:
+            return self
+        fmin, fmax = min(freqs), max(freqs)
+        mediums = [self.medium] + [s.medium for s in self.structures]
+        for medium in mediums:
+            frange = getattr(medium, "frequency_range", None)
+            if frange is None:
+                continue
+            if fmin < frange[0] or fmax > frange[1]:
+                log.warning(
+                    f"Monitor frequencies are outside medium "
+                    f"'{getattr(medium, 'name', None)}' fitted "
+                    "frequency_range; the dispersion model is extrapolating.",
+                    log_once=True,
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _structures_not_close_pml(self):
+        """Warn if a structure terminates inside the PML region: structures
+        should either stay out of the PML or extend completely through it
+        (reference: simulation.py _structures_not_close_pml:2592)."""
+        pml_thick = []
+        for axis in range(3):
+            minus, plus = self.boundary_spec.to_list[axis]
+            n_lo = minus.num_layers if isinstance(minus, AbsorberSpec) else 0
+            n_hi = plus.num_layers if isinstance(plus, AbsorberSpec) else 0
+            pml_thick.append((n_lo, n_hi))
+        if not any(n for pair in pml_thick for n in pair):
+            return self
+        try:
+            bounds_grid = self.grid.boundaries.to_list
+        except Exception:
+            return self
+        warned = False
+        for structure in self.structures:
+            if warned:
+                break
+            rmin, rmax = structure.geometry.bounds
+            for axis in range(3):
+                coords = np.asarray(bounds_grid[axis])
+                n_lo, n_hi = pml_thick[axis]
+                dom_lo = self.center[axis] - self.size[axis] / 2
+                dom_hi = self.center[axis] + self.size[axis] / 2
+                pml_lo_edge = coords[0]
+                pml_hi_edge = coords[-1]
+                # terminates strictly inside the PML region
+                if n_lo and pml_lo_edge < rmin[axis] < dom_lo:
+                    warned = True
+                if n_hi and dom_hi < rmax[axis] < pml_hi_edge:
+                    warned = True
+            if warned:
+                log.warning(
+                    f"Structure '{structure.name}' terminates inside the PML "
+                    "region; structures should extend completely through the "
+                    "PML to avoid reflection artifacts.", log_once=True,
+                )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _integration_surfaces_in_bounds(self):
+        """Flux-like monitors need their integration surfaces inside the
+        domain (reference: simulation.py _integration_surfaces_in_bounds:2901)."""
+        from .monitor import FluxMonitor, FluxTimeMonitor
+
+        rmin = [c - s / 2 for c, s in zip(self.center, self.size)]
+        rmax = [c + s / 2 for c, s in zip(self.center, self.size)]
+        for monitor in self.monitors:
+            if not isinstance(monitor, (FluxMonitor, FluxTimeMonitor)):
+                continue
+            m_rmin, m_rmax = monitor.bounds
+            for axis in range(3):
+                if self.size[axis] == 0.0:
+                    continue
+                if m_rmin[axis] > rmax[axis] or m_rmax[axis] < rmin[axis]:
+                    raise SetupError(
+                        f"Monitor '{monitor.name}' integration surface lies "
+                        "outside the simulation domain."
+                    )
+        return self
+
+    @pydantic.model_validator(mode="after")
+    def _validate_custom_source_time(self):
+        """Warn when a CustomSourceTime envelope does not cover the run
+        time (reference: simulation.py _validate_custom_source_time:3240)."""
+        from .source import CustomSourceTime
+
+        for source in self.sources:
+            st = source.source_time
+            if not isinstance(st, CustomSourceTime):
+                continue
+            t_end = st.end_time()
+            if t_end is not None and t_end < self.run_time:
+                log.warning(
+                    "CustomSourceTime envelope ends before run_time; the "
+                    "source is extrapolated with its last value.",
+                    log_once=True,
+                )
+        return self
+
+    # ------------------------------------------------------------------ #
+    # scene / structures
+    # ------------------------------------------------------------------ #
+
+    @cached_property
+    def scene(self) -> Scene:
+        return Scene(medium=self.medium, structures=self.structures)
+
+    @cached_property
+    def self_structure(self) -> Structure:
+        return Structure(geometry=Box(size=(inf, inf, inf), center=self.center),
+                         medium=self.medium)
+
+    @cached_property
+    def all_structures(self) -> List[Structure]:
+        return [self.self_structure] + list(self.volumetric_structures)
+
+    @cached_property
+    def volumetric_structures(self) -> Tuple[Structure, ...]:
+        """Structures with 2D materials replaced by one-cell volumetric slabs."""
+        if not any(isinstance(s.medium, Medium2D) for s in self.structures):
+            return self.structures
+        out = []
+        for structure in self.structures:
+            if not isinstance(structure.medium, Medium2D):
+                out.append(structure)
+                continue
+            geometry = structure.geometry
+            rmin, rmax = geometry.bounds
+            flat_axes = [a for a in range(3) if rmax[a] - rmin[a] <= fp_eps]
+            if len(flat_axes) != 1:
+                raise SetupError("Medium2D structure must be planar (one flat axis).")
+            axis = flat_axes[0]
+            position = rmin[axis]
+            # thickness = local grid cell size at the sheet
+            bounds_1d = np.asarray(self.grid.boundaries.to_list[axis])
+            ind = int(np.clip(np.searchsorted(bounds_1d, position) - 1, 0,
+                              len(bounds_1d) - 2))
+            dl = bounds_1d[ind + 1] - bounds_1d[ind]
+            new_medium = structure.medium.volumetric_equivalent(
+                axis=axis, adjacent_media=(self.medium, self.medium),
+                adjacent_dls=(dl, dl),
+            )
+            new_rmin = list(rmin)
+            new_rmax = list(rmax)
+            new_rmin[axis] = position - dl / 2
+            new_rmax[axis] = position + dl / 2
+            new_geometry = Box.from_bounds(tuple(new_rmin), tuple(new_rmax))
+            out.append(structure.copy(update={"geometry": new_geometry,
+                                              "medium": new_medium}))
+        return tuple(out)
+
+    @cached_property
+    def mediums(self) -> Set[AbstractMedium]:
+        return self.scene.mediums
+
+    @cached_property
+    def medium_map(self) -> Dict[AbstractMedium, int]:
+        return self.scene.medium_map
+
+    @cached_property
+    def background_structure(self) -> Structure:
+        return self.scene.background_structure
+
+    # ------------------------------------------------------------------ #
+    # boundaries / pml
+    # ------------------------------------------------------------------ #
+
+    @cached_property
+    def num_pml_layers(self) -> List[Tuple[int, int]]:
+        """[(x-, x+), (y-, y+), (z-, z+)] numbers of absorbing layers."""
+        out = []
+        for minus, plus in self.boundary_spec.to_list:
+            n_minus = minus.num_layers if isinstance(minus, AbsorberSpec) else 0
+            n_plus = plus.num_layers if isinstance(plus, AbsorberSpec) else 0
+            out.append((n_minus, n_plus))
+        return out
+
+    @cached_property
+    def periodic_axes(self) -> Tuple[bool, bool, bool]:
+        """Axes with periodic-type (Periodic/Bloch) boundaries."""
+        return tuple(
+            isinstance(minus, (Periodic, BlochBoundary))
+            for minus, _ in self.boundary_spec.to_list
+        )
+
+    @cached_property
+    def bounds_pml(self) -> Bound:
+        """Simulation bounds including the PML layers."""
+        grid = self.grid
+        rmin = [np.asarray(b)[0] for b in grid.boundaries.to_list]
+        rmax = [np.asarray(b)[-1] for b in grid.boundaries.to_list]
+        return tuple(rmin), tuple(rmax)
+
+    @cached_property
+    def simulation_bounds(self) -> Bound:
+        return self.bounds
+
+    # ------------------------------------------------------------------ #
+    # grid
+    # ------------------------------------------------------------------ #
+
+    @cached_property
+    def grid(self) -> Grid:
+        """The FDTD Yee grid (including PML extension)."""
+        sim_structure = Structure(
+            geometry=Box(center=self.center, size=self._finite_size),
+            medium=self.medium,
+        )
+        structures = [sim_structure] + list(self.structures)
+
+        grid = self.grid_spec.make_grid(
+            structures=structures,
+            symmetry=self.symmetry,
+            periodic=self.periodic_axes,
+            sources=self.sources,
+            num_pml_layers=self.num_pml_layers,
+        )
+        # zero-size dims: one finite cell, snapped around the center
+        boundaries = dict(grid.boundaries.to_dict)
+        for axis, dim in enumerate("xyz"):
+            if self.size[axis] == 0.0:
+                c = self.center[axis]
+                boundaries[dim] = np.array([c - ZERO_DIM_CELL_SIZE / 2,
+                                            c + ZERO_DIM_CELL_SIZE / 2])
+        return Grid(boundaries=Coords(**boundaries))
+
+    @property
+    def _finite_size(self) -> Tuple[float, float, float]:
+        # give zero-size dims a nominal extent for meshing; fixed afterwards
+        return tuple(s if s > 0 else ZERO_DIM_CELL_SIZE for s in self.size)
+
+    @cached_property
+    def num_cells(self) -> int:
+        return int(np.prod([max(n, 1) for n in self.grid.num_cells]))
+
+    @cached_property
+    def num_computational_grid_points(self) -> int:
+        """Cells actually stepped, accounting for symmetry reduction."""
+        num = 1
+        for axis, n in enumerate(self.grid.num_cells):
+            num *= (n // 2 + 1) if self.symmetry[axis] != 0 else n
+        return num
+
+    @pydantic.model_validator(mode="after")
+    def _warn_validate_grid_size(self):
+        # evaluated lazily in validate_pre_run to avoid meshing at construction
+        return self
+
+    # ------------------------------------------------------------------ #
+    # time stepping
+    # ------------------------------------------------------------------ #
+
+    @cached_property
+    def dt(self) -> float:
+        """CFL-stable time step [s]."""
+        dl_mins = [
+            float(np.min(np.asarray(sizes)))
+            for dim, sizes in enumerate(self.grid.sizes.to_list)
+            if self.grid.num_cells[dim] > 1 and self.size[dim] > 0
+        ]
+        if not dl_mins:
+            dl_mins = [ZERO_DIM_CELL_SIZE]
+        dl_sum_inv_sq = sum(1 / dl**2 for dl in dl_mins)
+        dl_avg = 1 / np.sqrt(dl_sum_inv_sq)
+        n_cfl = min(min(mat.n_cfl for mat in self.scene.mediums), 1)
+        dt = float(n_cfl * self.courant * dl_avg / C_0)
+        # conformal PEC meshing trades time step for stability
+        # (reference: subpixel_spec.py PECConformal.timestep_reduction)
+        from .subpixel_spec import PECConformal
+
+        pec_scheme = self.subpixel_spec.pec
+        if isinstance(pec_scheme, PECConformal):
+            has_pec = any(isinstance(st.medium, PECMedium)
+                          for st in self.structures)
+            if has_pec:
+                dt *= pec_scheme.courant_ratio()
+        return dt
+
+    @cached_property
+    def complex_fields(self) -> bool:
+        """Whether time-domain fields are complex (non-trivial Bloch phase);
+        such runs inject the full analytic source signal (reference:
+        simulation.py Simulation.complex_fields:2740)."""
+        for boundary in self.boundary_spec.to_list:
+            for bc in boundary:
+                if isinstance(bc, BlochBoundary) and bc.bloch_vec % 1.0 != 0:
+                    return True
+        return False
+
+    @cached_property
+    def tmesh(self) -> np.ndarray:
+        dt = self.dt
+        return np.arange(0.0, self.run_time + dt, dt)
+
+    @cached_property
+    def num_time_steps(self) -> int:
+        return len(self.tmesh)
+
+    @cached_property
+    def frequency_range(self) -> Tuple[float, float]:
+        if not self.sources:
+            return (0.0, inf)
+        ranges = [src.source_time.frequency_range() for src in self.sources]
+        return (min(r[0] for r in ranges), max(r[1] for r in ranges))
+
+    def nyquist_step(self, freqs=None) -> int:
+        """Maximum DFT accumulation stride given the monitor frequencies
+        (``freqs=None`` collects them from the monitors, matching the
+        reference's argument-free property; reference: simulation.py:4414)."""
+        if freqs is None:
+            freqs = [f for m in self.monitors
+                     for f in np.atleast_1d(np.asarray(
+                         getattr(m, "freqs", None)
+                         if getattr(m, "freqs", None) is not None else []))]
+            if not len(freqs):
+                freqs = [0.0]
+        freq_max = max(float(np.max(np.asarray(freqs))), fp_eps)
+        # also bound by the source spectrum extent
+        fwidth_max = max((src.source_time.fwidth for src in self.sources), default=0.0)
+        freq0_max = max((src.source_time.freq0 for src in self.sources), default=0.0)
+        freq_max = max(freq_max, freq0_max + 2 * fwidth_max)
+        nyquist = 1 / (2 * freq_max)
+        return max(int(nyquist / self.dt), 1)
+
+    # ------------------------------------------------------------------ #
+    # permittivity rasterization (staircase; the solver applies subpixel)
+    # ------------------------------------------------------------------ #
+
+    def epsilon(self, box: Box = None, coord_key: str = "centers",
+                freq: float = None):
+        """Complex eps on the grid (optionally inside ``box``) as a
+        SpatialDataArray."""
+        from .data.data_array import SpatialDataArray
+
+        grid = self.grid
+        coords = grid[coord_key]
+        xs, ys, zs = np.asarray(coords.x), np.asarray(coords.y), np.asarray(coords.z)
+        if box is not None:
+            (xmin, ymin, zmin), (xmax, ymax, zmax) = box.bounds
+            xs = xs[(xs >= xmin) & (xs <= xmax)] if len(xs) else xs
+            ys = ys[(ys >= ymin) & (ys <= ymax)] if len(ys) else ys
+            zs = zs[(zs >= zmin) & (zs <= zmax)] if len(zs) else zs
+            xs = xs if len(xs) else np.array([box.center[0]])
+            ys = ys if len(ys) else np.array([box.center[1]])
+            zs = zs if len(zs) else np.array([box.center[2]])
+        component = {"Ex": 0, "Ey": 1, "Ez": 2}.get(coord_key, 0)
+        eps = self._eps_on_grid_points(xs, ys, zs, freq, component)
+        return SpatialDataArray(eps, coords=dict(x=xs, y=ys, z=zs))
+
+    def epsilon_on_grid(self, coords: Coords, coord_key: str = "centers",
+                        freq: float = None) -> np.ndarray:
+        component = {"Ex": 0, "Ey": 1, "Ez": 2}.get(coord_key, 0)
+        return self._eps_on_grid_points(
+            np.asarray(coords.x), np.asarray(coords.y), np.asarray(coords.z),
+            freq, component,
+        )
+
+    def _eps_on_grid_points(self, xs, ys, zs, freq, component: int) -> np.ndarray:
+        """Staircase eps over the outer product of 1D coords, with per-structure
+        bbox cropping for speed. PEC is represented as pec_val."""
+        from ..constants import pec_val
+
+        def eps_value(medium: AbstractMedium):
+            if isinstance(medium, PECMedium):
+                return pec_val + 0j
+            return medium.eps_diagonal(freq)[component]
+
+        eps = np.full((len(xs), len(ys), len(zs)), eps_value(self.medium), dtype=complex)
+        for structure in self.volumetric_structures:
+            rmin, rmax = structure.geometry.bounds
+            ix = np.nonzero((xs >= rmin[0] - fp_eps) & (xs <= rmax[0] + fp_eps))[0]
+            iy = np.nonzero((ys >= rmin[1] - fp_eps) & (ys <= rmax[1] + fp_eps))[0]
+            iz = np.nonzero((zs >= rmin[2] - fp_eps) & (zs <= rmax[2] + fp_eps))[0]
+            if len(ix) == 0 or len(iy) == 0 or len(iz) == 0:
+                continue
+            sl = np.ix_(ix, iy, iz)
+            xg, yg, zg = np.meshgrid(xs[ix], ys[iy], zs[iz], indexing="ij", sparse=True)
+            mask = structure.geometry.inside(xg, yg, zg)
+            if not np.any(mask):
+                continue
+            medium = structure.medium
+            if getattr(medium, "is_custom", False) and hasattr(medium, "eps_dataarray_freq"):
+                comp_arr = medium.eps_dataarray_freq(freq)[component]
+                vals = comp_arr.interp(
+                    x=xs[ix], y=ys[iy], z=zs[iz],
+                    method="linear" if medium.interp_method == "linear" else "nearest",
+                ).values
+                eps[sl] = np.where(mask, vals, eps[sl])
+            else:
+                eps[sl] = np.where(mask, eps_value(medium), eps[sl])
+        return eps
+
+    # ------------------------------------------------------------------ #
+    # monitor helpers
+    # ------------------------------------------------------------------ #
+
+    def discretize_monitor(self, monitor: Monitor) -> Grid:
+        """Subgrid covering a monitor (with one-cell extension for colocation)."""
+        span_inds = self.grid.discretize_inds(monitor, extend=True)
+        return self._subgrid(span_inds)
+
+    def discretize(self, box: Box, extend: bool = False) -> Grid:
+        span_inds = self.grid.discretize_inds(box, extend=extend)
+        return self._subgrid(span_inds)
+
+    def _subgrid(self, span_inds) -> Grid:
+        boundaries = {}
+        for dim, (beg, end) in zip("xyz", span_inds):
+            coords = np.asarray(self.grid.boundaries.to_dict[dim])
+            boundaries[dim] = coords[beg:end + 1]
+        return Grid(boundaries=Coords(**boundaries))
+
+    @cached_property
+    def monitors_data_size(self) -> Dict[str, float]:
+        sizes = {}
+        for monitor in self.monitors:
+            num_cells = np.prod(monitor.downsampled_num_cells(
+                tuple(e - b for b, e in self.grid.discretize_inds(monitor))
+            )) if not isinstance(monitor, (ModeMonitor,)) else 0
+            sizes[monitor.name] = float(monitor.storage_size(int(num_cells), self.tmesh))
+        return sizes
+
+    # ------------------------------------------------------------------ #
+    # validation before running
+    # ------------------------------------------------------------------ #
+
+    def validate_pre_upload(self, source_required: bool = True) -> None:
+        """Scale/config checks before running (reference: :3341)."""
+        if source_required and len(self.sources) == 0:
+            raise SetupError("No sources in simulation.")
+        num_cells = self.num_cells
+        if num_cells > MAX_GRID_CELLS:
+            raise SetupError(f"Simulation has {num_cells:.2e} cells, "
+                             f"exceeding the maximum of {MAX_GRID_CELLS:.2e}.")
+        num_steps = self.num_time_steps
+        if num_steps > MAX_TIME_STEPS:
+            raise SetupError(f"Simulation has {num_steps:.2e} time steps, "
+                             f"exceeding the maximum of {MAX_TIME_STEPS:.2e}.")
+        if num_steps > WARN_TIME_STEPS:
+            log.warning("Simulation has over 1e6 time steps; long run expected.")
+        if num_steps * self.num_computational_grid_points > MAX_CELLS_TIMES_STEPS:
+            raise SetupError("Simulation cells x steps exceeds the maximum.")
+        total_size_gb = sum(self.monitors_data_size.values()) / 1e9
+        if total_size_gb > MAX_SIMULATION_DATA_SIZE_GB:
+            raise SetupError(f"Total monitor data {total_size_gb:.2f} GB exceeds "
+                             f"the {MAX_SIMULATION_DATA_SIZE_GB} GB maximum.")
+        if total_size_gb > WARN_MONITOR_DATA_SIZE_GB:
+            log.warning(f"Monitor data is {total_size_gb:.2f} GB.")
+
+    validate_pre_run = validate_pre_upload
+
+    # ------------------------------------------------------------------ #
+    # cropping (used by the mode solver)
+    # ------------------------------------------------------------------ #
+
+    def subsection(self, region: Box, grid_spec: GridSpec = None,
+                   symmetry: Tuple[Symmetry, Symmetry, Symmetry] = None,
+                   remove_outside_structures: bool = True,
+                   remove_outside_custom_mediums: bool = False,
+                   boundary_spec: BoundarySpec = None,
+                   **kwargs) -> "Simulation":
+        """New simulation restricted to ``region`` (reference: :1357)."""
+        if grid_spec is None:
+            # keep the exact parent grid within the region
+            from .grid.grid_spec import CustomGridBoundaries
+
+            grids_1d = {}
+            for dim in "xyz":
+                axis = "xyz".index(dim)
+                coords = np.asarray(self.grid.boundaries.to_dict[dim])
+                lo = region.bounds[0][axis]
+                hi = region.bounds[1][axis]
+                mask = (coords >= lo - fp_eps) & (coords <= hi + fp_eps)
+                inside = coords[mask]
+                if len(inside) < 2:
+                    ind = int(np.clip(np.searchsorted(coords, region.center[axis]) - 1,
+                                      0, len(coords) - 2))
+                    inside = coords[ind:ind + 2]
+                grids_1d[f"grid_{dim}"] = CustomGridBoundaries(coords=inside)
+            grid_spec = GridSpec(**grids_1d)
+        elif grid_spec == "identical":
+            grid_spec = self.grid_spec
+
+        structures = self.structures
+        if remove_outside_structures:
+            structures = tuple(s for s in self.structures if s.geometry.intersects(region))
+
+        if symmetry is None:
+            symmetry = tuple(
+                0 if region.center[a] != self.center[a] else self.symmetry[a]
+                for a in range(3)
+            )
+
+        region_box = Box(center=region.center, size=region.size)
+        if boundary_spec is None:
+            # newly-flat axes need periodic-type boundaries
+            updates = {}
+            for axis, dim in enumerate("xyz"):
+                if region.size[axis] == 0.0 and self.size[axis] != 0.0:
+                    updates[dim] = Boundary.periodic()
+            boundary_spec = self.boundary_spec.copy(update=updates) if updates \
+                else self.boundary_spec
+        new = dict(
+            center=region.center, size=region.size, structures=structures,
+            symmetry=symmetry, grid_spec=grid_spec,
+            monitors=(),
+            sources=tuple(s for s in self.sources if region_box.intersects(s)),
+            boundary_spec=boundary_spec,
+        )
+        new.update(kwargs)
+        return self.copy(update=new)
+
+    # ------------------------------------------------------------------ #
+    # plotting (minimal)
+    # ------------------------------------------------------------------ #
+
+    def plot_3d(self, width=800, height=800, path=None):
+        """Interactive 3D viewer (reference ``simulation.py:4169``
+        ``plot_3d``): not ported yet."""
+        raise NotImplementedError(
+            "the 3D viewer (components/viz3d.py) is not ported yet "
+            "(ROADMAP.md: schema extras)")
+
+    def plot(self, x: float = None, y: float = None, z: float = None,
+             ax: Ax = None, **kwargs):
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        self.scene.plot(x=x, y=y, z=z, ax=ax)
+        for source in self.sources:
+            try:
+                source.plot(x=x, y=y, z=z, ax=ax, facecolor="limegreen", alpha=0.4)
+            except Exception:
+                pass
+        for monitor in self.monitors:
+            try:
+                monitor.plot(x=x, y=y, z=z, ax=ax, facecolor="orange", alpha=0.4)
+            except Exception:
+                pass
+        rmin, rmax = self.bounds
+        axis, _ = Geometry.parse_xyz_kwargs(x=x, y=y, z=z)
+        _, (b1, b2) = Geometry.pop_axis(rmin, axis)
+        _, (t1, t2) = Geometry.pop_axis(rmax, axis)
+        ax.set_xlim(b1, t1)
+        ax.set_ylim(b2, t2)
+        return ax
+
+    def plot_eps(self, x: float = None, y: float = None, z: float = None,
+                 freq: float = None, ax: Ax = None, **kwargs):
+        import matplotlib.pyplot as plt
+
+        axis, position = Geometry.parse_xyz_kwargs(x=x, y=y, z=z)
+        if ax is None:
+            _, ax = plt.subplots()
+        centers = self.grid.centers
+        coords = [np.asarray(centers.x), np.asarray(centers.y), np.asarray(centers.z)]
+        coords[axis] = np.array([position])
+        eps = self._eps_on_grid_points(coords[0], coords[1], coords[2], freq, 0)
+        eps2d = np.squeeze(eps.real, axis=axis)
+        _, (c1, c2) = Geometry.pop_axis(coords, axis)
+        ax.pcolormesh(c1, c2, eps2d.T, shading="nearest", cmap="gist_yarg")
+        ax.set_aspect("equal")
+        return ax
+
+    # --- convenience used by reference notebooks ------------------------ #
+
+    @cached_property
+    def wvl_mat_min(self) -> float:
+        freq_max = max(src.source_time.freq0 for src in self.sources)
+        eps_max = max(abs(m.eps_model(freq_max)) for m in self.scene.mediums
+                      if not isinstance(m, PECMedium))
+        return C_0 / freq_max / np.sqrt(float(np.real(eps_max)))

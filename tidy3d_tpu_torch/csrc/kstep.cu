@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel PallasKStepper.step_group
 // (tidy3d_tpu/solver/kernels/pallas_kstep.py:1425, _region_call at :1468,
-// pallas_call at :1785) for real float32 runs with up to MAX_POLES pole
-// slots. One launch computes K substeps; substep j (0-based), as the
-// substep loop of pallas_kstep.py:2474-2590 orders it and the XLA step
+// pallas_call at :1785) for float32 runs: real ones with up to MAX_POLES
+// pole slots, and pole-free Bloch (complex) ones with their two copies (the
+// Bloch part below). One launch computes K substeps; substep j (0-based), as
+// the substep loop of pallas_kstep.py:2474-2590 orders it and the XLA step
 // FDTDRunner._step (tidy3d_tpu/solver/fdtd.py:1614) specifies:
 //
 //   E' = ca_E * E + cb_E * (curl H + psi_E' - sum_p Re(Gc_p Q_p)),
@@ -63,13 +64,36 @@
 // off the pole-free group. K is 2: a build at K = 4 (3.12 recompute with
 // 14 rows, to fit its shared memory) was slower on every case measured
 // (PERF.md).
+//
+// Bloch (complex) runs. A run with a Bloch phase e^{i phi_a} on a periodic
+// axis a steps two real copies of the fields, re (copy 0) and im (copy 1),
+// as the XLA step does (FDTDRunner._wrap_col, fdtd.py:861-893); it replaces
+// the dual-copy machinery of PallasKStepper (pallas_kstep.py:135-151,
+// :1042-1100, :1931-1976). The kernel (BL = true, pole-free only) gives
+// each copy its own blocks: the copy is folded into blockIdx.z, so a block
+// keeps the registers of one copy (64, two blocks per SM). Away
+// from the wrap the update of both copies is the same, and no axis with a
+// Bloch phase has a PML, so every coefficient is periodic along it. A
+// halo cell whose unwrapped coordinate lies m_a periods past the domain
+// along each axis is therefore a virtual cell, e^{i sum_a m_a phi_a} times
+// the real cell it wraps to, and its evolution over the K levels is the
+// rotation of the real cell's. So only two things change: every level-0
+// value a block loads for a virtual cell (E, H, and psi of the other axes)
+// is rotated, which needs the other copy's value there and nowhere else;
+// and the source terms of virtual cells are rotated (the "virtual profile"
+// of pallas_kstep.py:1081-1100). Each source term is complex, (term + i
+// term_im) (w[key] + i w[key_im]), and copy c adds its real (c = 0) or
+// imaginary (c = 1) part. Only owners write, and an owned cell is never
+// virtual. On the H100 the two copies take 1.19-1.25x the time of two real
+// launches on the same grid: the test for a virtual cell and the rotation
+// code sit on every level-0 load of an instruction-bound kernel (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr int MAX_POLES = 8;     // MAX_POLES in solver/kernels/step.py
 constexpr int NQ = 6 * MAX_POLES;
-constexpr int SRC_INTS = 10;     // SRC_INTS in solver/kernels/kstep.py
+constexpr int SRC_INTS = 12;     // SRC_INTS in solver/kernels/kstep.py
 constexpr int K = 2;             // substeps per launch: KS in kstep.py
 
 constexpr int TZ = 32;           // tile width in z: one warp per row
@@ -91,20 +115,20 @@ enum { POLE_ZERO = 0, POLE_MASK = 1, POLE_DENSE = 2 };
 
 // Mirrored by KStepParams in tidy3d_tpu_torch/solver/kernels/kstep.py.
 struct KStepParams {
-    const float* e_old[3];     // input set
-    const float* h_old[3];
-    float* e_new[3];           // output set
-    float* h_new[3];
+    const float* e_old[2][3];  // input set, [copy][comp]: copy 1 (the
+    const float* h_old[2][3];  // imaginary part) only in a complex run
+    float* e_new[2][3];        // output set
+    float* h_new[2][3];
     const float* ca_e[3];      // per-cell coefficient, or null for the scalar
     const float* cb_e[3];
     const float* ca_h[3];
     const float* cb_h[3];
     const float* inv_e[3];     // E stencil inverse steps (kappa folded in)
     const float* inv_h[3];     // H stencil inverse steps
-    const float* psi_in_e[12];  // [(2 * comp + slot) * 2 + side]: slot 0 is
-    float* psi_out_e[12];       // axis comp+1, slot 1 axis comp+2
-    const float* psi_in_h[12];
-    float* psi_out_h[12];
+    const float* psi_in_e[2][12];  // [copy][(2 * comp + slot) * 2 + side]:
+    float* psi_out_e[2][12];       // slot 0 is axis comp+1, slot 1 axis
+    const float* psi_in_h[2][12];  // comp+2
+    float* psi_out_h[2][12];
     const float* pml_b_e[6];   // [2 * axis + side]
     const float* pml_c_e[6];
     const float* pml_b_h[6];
@@ -115,7 +139,8 @@ struct KStepParams {
                                // (part 0) or the dense re/im residue maps
     const int32_t* src_box[2]; // [0 J, 1 M]: num_src rows of SRC_INTS ints:
                                // comp, lo[3], hi[3], term offset, waveform
-                               // row, unused
+                               // row, the imaginary part's term offset and
+                               // waveform row (-1: none), unused
     const float* src_term;     // the boxes' terms (-cb * profile), packed
     const float* wf;           // waveform table, wf_len steps per row
     float ca_s_e[3];
@@ -127,6 +152,8 @@ struct KStepParams {
     float gc_re[MAX_POLES];    // Gc = a (A + 1)
     float gc_im[MAX_POLES];
     float pole_b0[NQ];         // mask kind: B0 (re, im) per (pole, comp)
+    float bloch_c[3];          // Bloch phase e^{i phi} = c + i s per axis:
+    float bloch_s[3];          // (1, 0) where the axis carries none
     int32_t pole_kind[3 * MAX_POLES];
     int32_t n[3];              // interior shape (x, y, z), z contiguous;
                                // fewer than 2^31 cells
@@ -142,10 +169,16 @@ struct KStepParams {
     int32_t wf_len;
     int32_t t0;                // global step of the group's first substep
     int32_t k;                 // substeps per launch: K, checked
+    int32_t ncopy;             // 1 (real run) or 2 (complex, pole-free)
 };
 
 static_assert(sizeof(KStepParams) <= 4096,
               "kernel parameters must fit the 4 KB launch limit");
+
+// A phase e^{i theta} as (cos theta, sin theta).
+struct Rot {
+    float c, s;
+};
 
 // Per-thread constants of a block.
 struct Col {
@@ -160,7 +193,43 @@ struct Col {
     bool src[2];          // a source box of the family reaches the block
     float inv_e_yz[2];    // the column's E and H inverse steps in y and z
     float inv_h_yz[2];
+    int cp;               // the copy the block steps (complex runs)
+    Rot rot;              // the column's Bloch phase across y and z
 };
+
+__device__ __forceinline__ Rot rot_mul(Rot a, Rot b) {
+    return {a.c * b.c - a.s * b.s, a.c * b.s + a.s * b.c};
+}
+
+// e^{i m phi_a}: the phase of a cell m periods past the domain along axis
+// a (exactly (1, 0) on an axis without a Bloch phase).
+__device__ __forceinline__ Rot rot_axis(const KStepParams& p, int a, int m) {
+    Rot r = {1.0f, 0.0f};
+    const Rot u = {p.bloch_c[a], m < 0 ? -p.bloch_s[a] : p.bloch_s[a]};
+    for (int i = m < 0 ? -m : m; i > 0; --i) r = rot_mul(r, u);
+    return r;
+}
+
+// The phase of the cell at unwrapped plane x (wrapped: cx) of the column.
+template <bool BL>
+__device__ __forceinline__ Rot cell_rot(const KStepParams& p, const Col& t,
+                                        int x, int cx) {
+    if (!BL) return {1.0f, 0.0f};
+    return x == cx ? t.rot
+                   : rot_mul(t.rot, rot_axis(p, 0, (x - cx) / p.n[0]));
+}
+
+// The level-0 value of copy cp at idx (f: copy cp's array, g: the other
+// copy's), seen from a cell whose phase is r: for a virtual cell (r != 1)
+// copy cp of r (F0 + i F1), which reads the other copy there.
+template <bool BL>
+__device__ __forceinline__ float load0(const float* f, const float* g,
+                                       int cp, int64_t idx, Rot r) {
+    const float v = __ldg(f + idx);
+    if (!BL || (r.c == 1.0f && r.s == 0.0f)) return v;
+    const float w = __ldg(g + idx);
+    return cp == 0 ? r.c * v - r.s * w : r.c * v + r.s * w;
+}
 
 // The pole currents handed from level to level (see the header), for NP
 // pole slots. Every index into them is known at compile time, so they stay
@@ -240,10 +309,13 @@ __device__ __forceinline__ int slab_offset(const int32_t* n, int a, int wd,
     return (l[0] * dim[1] + l[1]) * dim[2] + l[2];
 }
 
-// Adds the source terms of family fam at cell c and step t to v.
+// Adds the source terms of family fam at cell c and step t to v. In a
+// complex run (BL) copy cp adds its part of r (term + i term_im) (w[key] +
+// i w[key_im]), r being the cell's phase.
+template <bool BL>
 __device__ __forceinline__ float add_sources(const KStepParams& p, int fam,
                                              int comp, const int* c, int t,
-                                             float v) {
+                                             float v, int cp, Rot r) {
     const int32_t* box = p.src_box[fam];
     for (int s = 0; s < p.num_src[fam]; ++s, box += SRC_INTS) {
         if (box[0] != comp || c[0] < box[1] || c[0] >= box[4] ||
@@ -253,27 +325,42 @@ __device__ __forceinline__ float add_sources(const KStepParams& p, int fam,
         const int off = ((c[0] - box[1]) * (box[5] - box[2]) +
                          (c[1] - box[2])) * (box[6] - box[3]) +
                         (c[2] - box[3]);
-        v = v + __ldg(p.src_term + box[7] + off) *
-                    __ldg(p.wf + (int64_t)box[8] * p.wf_len + t);
+        const float tr = __ldg(p.src_term + box[7] + off);
+        const float wr = __ldg(p.wf + (int64_t)box[8] * p.wf_len + t);
+        if (!BL) {
+            v = v + tr * wr;
+            continue;
+        }
+        const float ti = box[9] >= 0 ? __ldg(p.src_term + box[9] + off) : 0.0f;
+        const float wi =
+            box[10] >= 0 ? __ldg(p.wf + (int64_t)box[10] * p.wf_len + t)
+                         : 0.0f;
+        const float zr = tr * wr - ti * wi;
+        const float zi = tr * wi + ti * wr;
+        v = v + (cp == 0 ? r.c * zr - r.s * zi : r.s * zr + r.c * zi);
     }
     return v;
 }
 
 // H of level L - 1 at c - e_a (f: its value at c), for the E stencil:
 // level 0 from the input set, the others from the rings. bulk: c lies in
-// the bulk, so c - e_a is a domain cell and no wall rule applies.
-template <int NP, int L>
+// the bulk, so c - e_a is a domain cell and no wall rule applies. rc: the
+// phase of c (complex runs); the wrap to c - e_a crosses one more period.
+template <int NP, int L, bool BL>
 __device__ __forceinline__ float h_back(const KStepParams& p, const Col& t,
                                         float* sm, int comp, int a, int x,
                                         const int* c, int cell, float f,
-                                        bool bulk) {
+                                        bool bulk, Rot rc) {
     if constexpr (L == 1) {
-        const float* F = p.h_old[comp];
+        const int cp = BL ? t.cp : 0;
+        const float* F = p.h_old[cp][comp];
+        const float* G = BL ? p.h_old[1 - cp][comp] : nullptr;
         const int st = a == 0 ? t.stride0 : (a == 1 ? p.n[2] : 1);
-        if (bulk || c[a] > 0) return __ldg(F + cell - st);
+        if (bulk || c[a] > 0) return load0<BL>(F, G, cp, cell - st, rc);
         if (p.bk_lo[a] == WALL_PEC) return 0.0f;
         if (p.bk_lo[a] == WALL_PMC) return f;
-        return __ldg(F + cell + (p.n[a] - 1) * st);
+        return load0<BL>(F, G, cp, cell + (p.n[a] - 1) * st,
+                         BL ? rot_mul(rc, rot_axis(p, a, -1)) : rc);
     }
     if (!bulk && c[a] == 0 && !t.wrap[a])
         return p.bk_lo[a] == WALL_PEC ? 0.0f : f;
@@ -316,7 +403,7 @@ __device__ __forceinline__ bool plane_of(const KStepParams& p, const Col& t,
 
 // Level L's E plane x: E', psi_E', the pole update, into the ring (levels
 // below K) or the output set (level K, owned cells).
-template <int NP, int L>
+template <int NP, int L, bool BL>
 __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                                         float* sm, int x,
                                         Carry<NP>& cr) {
@@ -330,23 +417,30 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
         const bool bulk =
             t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
         const int step = p.t0 + L - 1;
+        const int cp = BL ? t.cp : 0;
+        const Rot rc = cell_rot<BL>(p, t, x, cx);
         float eo[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-            eo[i] = L == 1 ? __ldg(p.e_old[i] + cell)
+            eo[i] = L == 1 ? load0<BL>(p.e_old[cp][i], p.e_old[1 - cp][i],
+                                       cp, cell, rc)
                            : e_ring<NP>(sm, L - 1, x, i)[tid];
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
             const int j = (i + 1) % 3;
             const int k = (i + 2) % 3;
-            const float hk = L == 1 ? __ldg(p.h_old[k] + cell)
-                                    : h_ring<NP>(sm, L - 1, x, k)[tid];
-            const float hj = L == 1 ? __ldg(p.h_old[j] + cell)
-                                    : h_ring<NP>(sm, L - 1, x, j)[tid];
+            const float hk =
+                L == 1 ? load0<BL>(p.h_old[cp][k], p.h_old[1 - cp][k], cp,
+                                   cell, rc)
+                       : h_ring<NP>(sm, L - 1, x, k)[tid];
+            const float hj =
+                L == 1 ? load0<BL>(p.h_old[cp][j], p.h_old[1 - cp][j], cp,
+                                   cell, rc)
+                       : h_ring<NP>(sm, L - 1, x, j)[tid];
             const float hk_b =
-                h_back<NP, L>(p, t, sm, k, j, x, c, cell, hk, bulk);
+                h_back<NP, L, BL>(p, t, sm, k, j, x, c, cell, hk, bulk, rc);
             const float hj_b =
-                h_back<NP, L>(p, t, sm, j, k, x, c, cell, hj, bulk);
+                h_back<NP, L, BL>(p, t, sm, j, k, x, c, cell, hj, bulk, rc);
             const float d1 = (hk - hk_b) * inv_step(p.inv_e, t.inv_e_yz, j, c);
             const float d2 = (hj - hj_b) * inv_step(p.inv_e, t.inv_e_yz, k, c);
             float rhs = d1 - d2;
@@ -360,7 +454,8 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                 const int pidx = idx * 2 + side;
                 const int off = slab_offset(p.n, a, wd, loc, c);
                 const float prev =
-                    L == 1 ? __ldg(p.psi_in_e[pidx] + off)
+                    L == 1 ? load0<BL>(p.psi_in_e[cp][pidx],
+                                       p.psi_in_e[1 - cp][pidx], cp, off, rc)
                            : psi_slot<NP>(sm, L - 1, x, idx)[tid];
                 const float v =
                     __ldg(p.pml_b_e[2 * a + side] + loc) * prev +
@@ -368,7 +463,7 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                         (slot == 0 ? d1 : d2);
                 rhs = slot == 0 ? rhs + v : rhs - v;
                 if (L < K) psi_slot<NP>(sm, L, x, idx)[tid] = v;
-                if (owner) p.psi_out_e[pidx][off] = v;
+                if (owner) p.psi_out_e[cp][pidx][off] = v;
             }
             // this component's pole currents: live for this iteration only
             float q_in[NP > 0 ? 2 * NP : 1];
@@ -387,9 +482,10 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
             if (!bulk && ((p.pec_lo[j] && c[j] == 0) ||
                           (p.pec_lo[k] && c[k] == 0)))
                 out = 0.0f;
-            if (t.src[0]) out = add_sources(p, 0, i, c, step, out);
+            if (t.src[0])
+                out = add_sources<BL>(p, 0, i, c, step, out, cp, rc);
             e_ring<NP>(sm, L, x, i)[tid] = out;
-            if (owner) p.e_new[i][cell] = out;
+            if (owner) p.e_new[cp][i][cell] = out;
             // the pole update on E' (after J) and E of the level below
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
@@ -439,7 +535,7 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
 
 // Level L's H plane x: H' and psi_H', into the ring (levels below K) or
 // the output set (level K, owned cells).
-template <int NP, int L>
+template <int NP, int L, bool BL>
 __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
                                         float* sm, int x) {
     int cx;
@@ -452,6 +548,8 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
         const bool bulk =
             t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
         const int step = p.t0 + L - 1;
+        const int cp = BL ? t.cp : 0;
+        const Rot rc = cell_rot<BL>(p, t, x, cx);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
             const int j = (i + 1) % 3;
@@ -475,7 +573,8 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
                 const int pidx = idx * 2 + side;
                 const int off = slab_offset(p.n, a, wd, loc, c);
                 const float prev =
-                    L == 1 ? __ldg(p.psi_in_h[pidx] + off)
+                    L == 1 ? load0<BL>(p.psi_in_h[cp][pidx],
+                                       p.psi_in_h[1 - cp][pidx], cp, off, rc)
                            : psi_slot<NP>(sm, L - 1, x, 6 + idx)[tid];
                 const float v =
                     __ldg(p.pml_b_h[2 * a + side] + loc) * prev +
@@ -483,16 +582,19 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
                         (slot == 0 ? d1 : d2);
                 rhs = slot == 0 ? rhs + v : rhs - v;
                 if (L < K) psi_slot<NP>(sm, L, x, 6 + idx)[tid] = v;
-                if (owner) p.psi_out_h[pidx][off] = v;
+                if (owner) p.psi_out_h[cp][pidx][off] = v;
             }
-            const float ho = L == 1 ? __ldg(p.h_old[i] + cell)
-                                    : h_ring<NP>(sm, L - 1, x, i)[tid];
+            const float ho =
+                L == 1 ? load0<BL>(p.h_old[cp][i], p.h_old[1 - cp][i], cp,
+                                   cell, rc)
+                       : h_ring<NP>(sm, L - 1, x, i)[tid];
             const float ca = p.ca_h[i] ? __ldg(p.ca_h[i] + cell) : p.ca_s_h[i];
             const float cb = p.cb_h[i] ? __ldg(p.cb_h[i] + cell) : p.cb_s_h[i];
             float out = ca * ho - cb * rhs;
-            if (t.src[1]) out = add_sources(p, 1, i, c, step, out);
+            if (t.src[1])
+                out = add_sources<BL>(p, 1, i, c, step, out, cp, rc);
             if (L < K) h_ring<NP>(sm, L, x, i)[tid] = out;
-            if (owner) p.h_new[i][cell] = out;
+            if (owner) p.h_new[cp][i][cell] = out;
         }
         return;
     }
@@ -510,24 +612,24 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
 // planes [xb - (K - L), xe + K - L - 1]. Rows (warps) and planes outside
 // skip the level; the ranges nest, so what a level skips no higher level
 // reads, its carries included.
-template <int NP, int L>
+template <int NP, int L, bool BL>
 __device__ __forceinline__ void levels(const KStepParams& p, const Col& t,
                                        float* sm, int m, Carry<NP>& cr) {
     constexpr int TY = Cfg<NP>::TY;
     const int xe = m - L + 1;
     const bool rows = t.ty >= L - 1 && t.ty <= TY - L;
     if (rows && xe >= t.xb - (K - L) && xe <= t.xe + K - L)
-        e_level<NP, L>(p, t, sm, xe, cr);
+        e_level<NP, L, BL>(p, t, sm, xe, cr);
     __syncthreads();
     if (rows && t.ty < TY - L && xe - 1 >= t.xb - (K - L) &&
         xe - 1 < t.xe + K - L)
-        h_level<NP, L>(p, t, sm, xe - 1);
+        h_level<NP, L, BL>(p, t, sm, xe - 1);
     // level K's H writes no ring, and the next position's level 1 E
     // writes none that it reads (K > 1), so only the lower levels need a
     // barrier here
     if constexpr (L < K) {
         __syncthreads();
-        levels<NP, L + 1>(p, t, sm, m, cr);
+        levels<NP, L + 1, BL>(p, t, sm, m, cr);
     }
 }
 
@@ -542,7 +644,7 @@ __device__ __forceinline__ void block_range(const KStepParams& p,
     }
 }
 
-template <int NP>
+template <int NP, bool BL>
 __global__ void __launch_bounds__(TZ * (Cfg<NP>::TY),
                                   (Cfg<NP>::MIN_BLOCKS))
 kstep_kernel(const KStepParams p) {
@@ -556,7 +658,10 @@ kstep_kernel(const KStepParams p) {
     t.tz = threadIdx.x;
     const int y0 = blockIdx.y * OY;
     const int z0 = blockIdx.x * OZ;
-    t.xb = blockIdx.z * BX;
+    // a complex run folds the copy into the x blocks: [copy][x block]
+    const int gx = (p.n[0] + BX - 1) / BX;
+    t.cp = BL ? (int)blockIdx.z / gx : 0;
+    t.xb = ((int)blockIdx.z - t.cp * gx) * BX;
     t.xe = min(t.xb + BX, p.n[0]);
     t.stride0 = p.n[1] * p.n[2];
 #pragma unroll
@@ -568,13 +673,25 @@ kstep_kernel(const KStepParams p) {
     t.own_yz = t.ty >= K - 1 && t.ty < K - 1 + OY && t.tz >= K - 1 &&
                t.tz < K - 1 + OZ && t.cy < p.n[1] && t.cz < p.n[2];
     t.in_yz = true;
+    t.rot = {1.0f, 0.0f};
     if (t.cy < 0 || t.cy >= p.n[1]) {
-        if (t.wrap[1]) t.cy = wrap_index(t.cy, p.n[1]);
-        else t.in_yz = false;
+        if (t.wrap[1]) {
+            const int uy = t.cy;
+            t.cy = wrap_index(uy, p.n[1]);
+            if (BL) t.rot = rot_axis(p, 1, (uy - t.cy) / p.n[1]);
+        } else {
+            t.in_yz = false;
+        }
     }
     if (t.cz < 0 || t.cz >= p.n[2]) {
-        if (t.wrap[2]) t.cz = wrap_index(t.cz, p.n[2]);
-        else t.in_yz = false;
+        if (t.wrap[2]) {
+            const int uz = t.cz;
+            t.cz = wrap_index(uz, p.n[2]);
+            if (BL)
+                t.rot = rot_mul(t.rot, rot_axis(p, 2, (uz - t.cz) / p.n[2]));
+        } else {
+            t.in_yz = false;
+        }
     }
     // a bulk column's y and z neighbours are domain cells of the same tile
     // or outside the cone of every owned cell
@@ -617,10 +734,10 @@ kstep_kernel(const KStepParams p) {
     // (xb) needs level 1 from xb - K + 1 on, the last (xe - 1) needs level
     // K's E plane xe
     for (int m = t.xb - K + 1; m <= t.xe + K - 1; ++m)
-        levels<NP, 1>(p, t, sm, m, cr);
+        levels<NP, 1, BL>(p, t, sm, m, cr);
 }
 
-template <int NP>
+template <int NP, bool BL>
 static int launch(const KStepParams* p, cudaStream_t stream) {
     constexpr int TY = Cfg<NP>::TY;
     constexpr int TILE = Cfg<NP>::TILE;
@@ -628,25 +745,25 @@ static int launch(const KStepParams* p, cudaStream_t stream) {
     constexpr int OZ = TZ - 2 * K + 1;
     const int64_t gz = (p->n[2] + OZ - 1) / OZ;
     const int64_t gy = (p->n[1] + OY - 1) / OY;
-    const int64_t gx = (p->n[0] + BX - 1) / BX;
+    const int64_t gx = (p->n[0] + BX - 1) / BX * (BL ? 2 : 1);
     if (gy > 65535 || gx > 65535) return (int)cudaErrorInvalidConfiguration;
     const size_t smem =
         (size_t)(ring_floats<NP>() + (K - 1) * 2 * 12 * TILE) *
         sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        kstep_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kstep_kernel<NP, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)gz, (unsigned)gy, (unsigned)gx);
     const dim3 block(TZ, TY);
-    kstep_kernel<NP><<<grid, block, smem, stream>>>(*p);
+    kstep_kernel<NP, BL><<<grid, block, smem, stream>>>(*p);
     return (int)cudaGetLastError();
 }
 
 // The kernel for NP = p->num_poles pole slots.
 template <int NP>
 static int launch_poles(const KStepParams* p, cudaStream_t stream) {
-    if (p->num_poles == NP) return launch<NP>(p, stream);
+    if (p->num_poles == NP) return launch<NP, false>(p, stream);
     if constexpr (NP < MAX_POLES) return launch_poles<NP + 1>(p, stream);
     return (int)cudaErrorInvalidValue;
 }
@@ -657,8 +774,11 @@ extern "C" int t3d_kstep_group(const KStepParams* p, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
     if (p->k != K || p->num_poles < 0 || p->num_poles > MAX_POLES ||
         p->num_src[0] < 0 || p->num_src[1] < 0 || p->t0 < 0 ||
-        p->t0 + K > p->wf_len ||
+        p->t0 + K > p->wf_len || p->ncopy < 1 || p->ncopy > 2 ||
+        (p->ncopy == 2 && p->num_poles != 0) ||
         (int64_t)p->n[0] * p->n[1] * p->n[2] > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
+    // a complex run: the two-copy instantiation, pole-free only
+    if (p->ncopy == 2) return launch<0, true>(p, (cudaStream_t)stream);
     return launch_poles<0>(p, (cudaStream_t)stream);
 }

@@ -48,10 +48,20 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
 * The pole update and the monitor accumulation run inside the profiler
   ranges ``fdtd.poles`` and ``fdtd.monitors``.
 
-Covered: real-valued, unsharded, float32, linear runs, with up to
-``MAX_POLES`` dispersive (pole-residue) pole slots. Nonlinear media, time
-modulation, Bloch (complex) runs, sharding, bfloat16 storage and
-checkpointing raise ``NotImplementedError``.
+Bloch (complex) runs step two real copies of the fields (re and im: ``E``,
+``H``, ``psi`` and ``E1``, ``H1``, ``psi1``) that mix only where a stencil
+wraps across an axis with a Bloch phase and in the complex source terms.
+They run on the kstep tier only, as in the JAX package, whose one-step
+kernels have no copy machinery (``tidy3d_tpu/solver/fdtd.py:297-300``):
+``auto`` takes kstep on the CPU too, a forced one-step tier raises, and so
+does a plan the kstep tier does not take. The DFT adds copy 1 rotated into
+both quadratures, time monitors record copy 0.
+
+Covered: unsharded, float32, linear runs, real with up to ``MAX_POLES``
+dispersive (pole-residue) pole slots, or complex without poles. Nonlinear
+media, time modulation, Bloch runs with poles (the JAX package runs them on
+its XLA path only), sharding, bfloat16 storage and checkpointing raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,16 +74,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import _reference  # noqa: F401  (reference layers importable)
-from tidy3d_tpu.constants import EPSILON_0
-from tidy3d_tpu.exceptions import DivergenceError
-from tidy3d_tpu.log import log
-from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS, SimulationPlan
-
+from ..constants import EPSILON_0
+from ..exceptions import DivergenceError
+from ..log import log
 from .kernels import fused as fused_kernels
 from .kernels import kstep as kstep_kernels
 from .kernels import step as step_kernels
 from .kernels.step import MAX_POLES
+from .lowering import E_COMPS, H_COMPS, SimulationPlan
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
@@ -98,15 +106,24 @@ def _check_supported(plan: SimulationPlan, precision) -> None:
         raise NotImplementedError("nonlinear media are not ported yet")
     if plan.modulation:
         raise NotImplementedError("time-modulated media are not ported yet")
-    if plan.is_complex:
+    if plan.is_complex and plan.poles:
         raise NotImplementedError(
-            "Bloch boundaries with a non-trivial phase (complex fields) are "
-            "not ported yet")
+            "Bloch boundaries with dispersive poles are not ported yet (the "
+            "JAX package runs them on its XLA path only)")
     prec = precision or os.environ.get("TIDY3D_TPU_PRECISION", "float32")
     if str(prec).lower() not in ("float32", "f32", "fp32"):
         raise NotImplementedError(
             f"field storage precision '{prec}' is not ported yet; only "
             "float32 runs")
+
+
+def bloch_phases(plan: SimulationPlan):
+    """``(c, s)`` of each axis's Bloch phase ``e^{i phi}``, or None where
+    it is 1 within 1e-12 (a plain periodic axis), as
+    ``tidy3d_tpu/solver/fdtd.py:109-114`` decides."""
+    return tuple(None if abs(ph - 1.0) <= 1e-12
+                 else (float(np.real(ph)), float(np.imag(ph)))
+                 for ph in plan.bloch_phases)
 
 
 def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
@@ -340,8 +357,6 @@ def kstep_unsupported_reason(plan: SimulationPlan, k: int,
     tables: ``kstep.unsupported_reason``). The TPU's layout gates (z
     alignment, profile and waveform byte caps, packed z-psi lanes, VMEM
     configuration) do not apply."""
-    if plan.is_complex:
-        return "Bloch (complex) runs"
     if plan.nonlinear is not None or plan.modulation:
         return "nonlinear or time-modulated media"
     if len(plan.poles) > MAX_POLES:
@@ -383,17 +398,22 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
     (``auto``). ``auto`` on a CUDA device takes kstep, then fused, then
     pallas2, as the JAX package does on the TPU; ``auto`` on the CPU takes
     fused, as the JAX package takes its XLA path off the TPU, so the CPU
-    default keeps every-step monitor sampling. A forced tier that does not
-    take the run raises. ``_check_supported`` has already refused what no
-    tier takes."""
+    default keeps every-step monitor sampling. A complex (Bloch) plan takes
+    kstep on every device: the one-step tiers have no Bloch copies. A
+    forced tier that does not take the run raises, and so does a complex
+    plan that the kstep tier does not take. ``_check_supported`` has
+    already refused what no tier takes."""
     kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
     # the CPU runs the plain versions, so the interpret modes are the tiers
     want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
     if want is None:
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel!r}: the port has the "
                          "tiers " + ", ".join(sorted(_KERNEL_ENV)))
-    if want == "kstep" or (want == "auto"
-                           and torch.device(device).type == "cuda"):
+    if plan.is_complex and want not in ("auto", "kstep"):
+        raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
+                         "no Bloch copies; complex runs take the kstep tier")
+    if want == "kstep" or plan.is_complex or (
+            want == "auto" and torch.device(device).type == "cuda"):
         reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
                    " disables it"] if not kstep_order() else []
         for k in kstep_order():
@@ -401,7 +421,7 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
             if reason is None:
                 return "kstep", k
             reasons.append(f"k={k}: {reason}")
-        if want == "kstep":
+        if want == "kstep" or plan.is_complex:
             raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the kstep tier "
                              f"does not take this run ({'; '.join(reasons)})")
     reason = fused_kernels.unsupported_reason(num_sources["E"])
@@ -514,7 +534,11 @@ class FDTDRunner:
         self.consts = consts_to_device(self.host_consts, self.device)
         self.meta = step_kernels.StepMeta(
             shape=self.shape, boundaries=tuple(plan.boundaries),
-            pml_meta=dict(self.pml_meta))
+            pml_meta=dict(self.pml_meta), bloch=bloch_phases(plan))
+        self.is_complex = plan.is_complex
+        # the state keys that a kstep group reads and writes
+        self._group_keys = ("E", "H", "psi", "Q") + (
+            kstep_kernels.COPIES[1] if self.is_complex else ())
         self._sources = {"E": [], "H": []}
         self._build_sources()
         self.tier, self.k = select_tier(
@@ -537,8 +561,11 @@ class FDTDRunner:
     # ------------------------------------------------------------------ #
 
     def _build_sources(self):
-        """Per family, ``(comp, slices, -c_b * profile, waveform key)`` per
-        current source: the step adds ``term * waveform[key, step]``."""
+        """Per family, a ``kstep.SourceTerm`` per current source: the step
+        adds ``term * waveform[key, step]``, ``term = -c_b * profile``. In a
+        complex run each (re, im) plan pair of lowering is one term
+        (``kstep.group_source_plans``), with the im plan's profile in
+        ``term_im`` and the re plan's ``waveform_key_im`` in ``key_im``."""
         hc = self.host_consts
         wf = hc["waveforms"]
         if np.iscomplexobj(wf):
@@ -548,30 +575,39 @@ class FDTDRunner:
                     "complex source waveforms are not ported yet")
             wf = np.real(wf)
         self._waveforms = np.asarray(wf, np.float32)
-        for si, sp in enumerate(self.plan.sources):
-            if sp.waveform_key is None:
-                continue
-            fam = "E" if sp.comp in E_COMPS else "H"
-            _, cb = hc["coeffs_E" if fam == "E" else "coeffs_H"][sp.comp]
-            cb_sl = cb[sp.slices] if np.ndim(cb) else cb
+
+        def term(si, box, cb_sl):
             profile = hc["src_profiles"][si]
             if np.iscomplexobj(profile):
                 if np.any(np.imag(profile) != 0):
                     raise NotImplementedError(
                         "complex source profiles are not ported yet")
                 profile = np.real(profile)
+            return _dev(np.array(np.broadcast_to(
+                -cb_sl * np.asarray(profile, np.float32), box), np.float32),
+                self.device)
+
+        sources = self.plan.sources
+        for i_re, i_im in kstep_kernels.group_source_plans(sources,
+                                                           self.is_complex):
+            sp = sources[i_re]
+            if sp.waveform_key is None:
+                continue
+            fam = "E" if sp.comp in E_COMPS else "H"
+            _, cb = hc["coeffs_E" if fam == "E" else "coeffs_H"][sp.comp]
+            cb_sl = cb[sp.slices] if np.ndim(cb) else cb
             box = tuple(len(range(*s.indices(n)))
                         for s, n in zip(sp.slices, self.shape))
-            term = np.array(np.broadcast_to(
-                -cb_sl * np.asarray(profile, np.float32), box), np.float32)
-            self._sources[fam].append(
-                (sp.comp, sp.slices, _dev(term, self.device),
-                 sp.waveform_key))
+            self._sources[fam].append(kstep_kernels.SourceTerm(
+                sp.comp, sp.slices, term(i_re, box, cb_sl), sp.waveform_key,
+                term(i_im, box, cb_sl) if i_im is not None else None,
+                sp.waveform_key_im if self.is_complex else None))
 
     def step_sources(self, family: str, step: int) -> list:
-        """``(comp, slices, term, w)`` of each source term at ``step``."""
-        return [(comp, sl, term, float(self._waveforms[key, step]))
-                for comp, sl, term, key in self._sources[family]]
+        """``(comp, slices, term, w)`` of each source term at ``step`` (the
+        one-step tiers: real runs only)."""
+        return [(s.comp, s.slices, s.term, float(self._waveforms[s.key, step]))
+                for s in self._sources[family]]
 
     def _inject(self, family: str, fields: dict, step: int):
         for comp, sl, term, w in self.step_sources(family, step):
@@ -602,13 +638,14 @@ class FDTDRunner:
             return torch.zeros(s, dtype=self.dtype, device=self.device)
 
         def fields():
-            return {
-                "E": {c: zeros(self.shape) for c in E_COMPS},
-                "H": {c: zeros(self.shape) for c in H_COMPS},
-                "psi": {k: zeros(s) for k, s in self.psi_shapes().items()},
-                "Q": [{c: (zeros(self.shape), zeros(self.shape))
-                       for c in E_COMPS} for _ in self.plan.poles],
-            }
+            out = {"Q": [{c: (zeros(self.shape), zeros(self.shape))
+                          for c in E_COMPS} for _ in self.plan.poles]}
+            # copy 1 of a complex run: the imaginary part
+            for e, h, p in kstep_kernels.COPIES[:1 + self.is_complex]:
+                out[e] = {c: zeros(self.shape) for c in E_COMPS}
+                out[h] = {c: zeros(self.shape) for c in H_COMPS}
+                out[p] = {k: zeros(s) for k, s in self.psi_shapes().items()}
+            return out
 
         state = fields()
         state["mon"] = [self._init_monitor_acc(mi, mp)
@@ -647,9 +684,13 @@ class FDTDRunner:
             else step_kernels.family_update_reference
         return fn(family, state, self.consts, src_fields, self.meta)
 
-    def _accumulate_monitors(self, step: int, newE, newH, mon):
+    def _accumulate_monitors(self, step: int, newE, newH, mon, newE1=None,
+                             newH1=None):
         """Running-DFT / time-sample accumulation on the fresh fields, in
-        place on the accumulators of ``mon``."""
+        place on the accumulators of ``mon``. In a complex run ``newE1`` and
+        ``newH1`` are copy 1: the DFT adds it rotated into both quadratures,
+        ``(v0 + i v1) e^{i w t}`` (``tidy3d_tpu/solver/fdtd.py:1217-1223``),
+        and time monitors record copy 0 only."""
         consts = self.consts
         for mi, (mp, acc) in enumerate(zip(self.plan.monitors, mon)):
             key = str(mi)
@@ -658,12 +699,18 @@ class FDTDRunner:
                 ph = {"E": (cos_e[step], sin_e[step]),
                       "H": (cos_h[step], sin_h[step])}
                 for comp in mp.comps:
-                    fields = newE if comp in E_COMPS else newH
+                    is_e = comp in E_COMPS
+                    fields = newE if is_e else newH
                     vals = fields[comp][mp.slices[comp]].unsqueeze(-1)
                     cos_t, sin_t = ph[comp[0]]
                     acc_re, acc_im = acc[comp]
                     acc_re.addcmul_(vals, cos_t)
                     acc_im.addcmul_(vals, sin_t)
+                    if newE1 is not None:
+                        vals1 = (newE1 if is_e else newH1)[comp][
+                            mp.slices[comp]].unsqueeze(-1)
+                        acc_re.addcmul_(vals1, sin_t, value=-1.0)
+                        acc_im.addcmul_(vals1, cos_t)
             elif mp.kind == "field_time":
                 if not (mp.t_start <= step < mp.t_stop
                         and (step - mp.t_start) % mp.t_interval == 0):
@@ -723,10 +770,11 @@ class FDTDRunner:
         mon = state["mon"]
         if accumulate:
             with record_function("fdtd.monitors"):
-                mon = self._accumulate_monitors(gi * k + k - 1, new["E"],
-                                                new["H"], mon)
-        return dict(new, mon=mon, alt={key: state[key] for key in
-                                       ("E", "H", "psi", "Q")})
+                mon = self._accumulate_monitors(
+                    gi * k + k - 1, new["E"], new["H"], mon, new.get("E1"),
+                    new.get("H1"))
+        return dict(new, mon=mon, alt={key: state[key]
+                                       for key in self._group_keys})
 
     def run_steps(self, start: int, num: int, state: dict) -> dict:
         """Steps ``start`` to ``start + num - 1``; on the kstep tier both
@@ -757,8 +805,10 @@ class FDTDRunner:
         return f"kstep (k={self.k})" if self.tier == "kstep" else self.tier
 
     def _max_field(self, state) -> torch.Tensor:
-        return torch.stack([state["E"][c].abs().amax() for c in E_COMPS]
-                           ).amax()
+        """The largest |E| over both copies of a complex run
+        (``tidy3d_tpu/solver/fdtd.py:1765-1776``)."""
+        return torch.stack([state[e][c].abs().amax() for c in E_COMPS
+                            for e in ("E", "E1") if e in state]).amax()
 
     # ------------------------------------------------------------------ #
     # run

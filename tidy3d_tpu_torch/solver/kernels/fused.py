@@ -26,8 +26,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ... import _reference  # noqa: F401  (reference layers importable)
-from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
+from ..lowering import E_COMPS, H_COMPS
 
 from . import step
 from .step import MAX_POLES, StepMeta, _check_field

@@ -14,6 +14,13 @@ the M sources. It returns the new ``{"E", "H", "psi", "Q"}`` and leaves
 ``-cb * profile`` folded into each box's term, and the waveform table
 padded to the run's length; a substep at step t adds ``term * w[key, t]``.
 
+A complex (Bloch) run steps two real copies of the fields, re and im
+(``E``, ``H``, ``psi`` and ``E1``, ``H1``, ``psi1``). They mix only where a
+stencil wraps across an axis with a Bloch phase (``StepMeta.bloch``) and in
+the sources: each term is complex, ``term + i term_im`` driven by ``w[key]
++ i w[key_im]`` (``SourceTerm``), and adds its real part to copy 0 and its
+imaginary part to copy 1.
+
 Dispatch is by device: a CPU tensor goes to ``kstep_group_reference``, the
 k substeps written from the one-step functions the port already has; a
 CUDA tensor launches the hand-written kernel in ``csrc/kstep.cu`` or
@@ -38,13 +45,12 @@ takes k = 4.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ... import _reference  # noqa: F401  (reference layers importable)
-from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
+from ..lowering import E_COMPS, H_COMPS
 
 from . import fused, step
 from .fused import _source_box
@@ -53,7 +59,8 @@ from .step import MAX_POLES, StepMeta, _check_field
 LAUNCHES = 0
 KS = (2,)                    # group sizes the kernel is built for (K)
 MAX_SOURCES = 64             # source boxes per family (a TFSF box: 12)
-SRC_INTS = 10                # ints per box row (csrc/kstep.cu SRC_INTS)
+SRC_INTS = 12                # ints per box row (csrc/kstep.cu SRC_INTS)
+COPIES = ("E", "H", "psi"), ("E1", "H1", "psi1")   # state keys per copy
 
 _POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}
 
@@ -72,15 +79,49 @@ def unsupported_reason(k: int, num_sources: Dict[str, int]
     return None
 
 
+class SourceTerm(NamedTuple):
+    """One source box: ``term * w[key]``, plus ``i term_im`` and ``i
+    w[key_im]`` in a complex run (None where absent)."""
+
+    comp: str
+    slices: Tuple[slice, slice, slice]
+    term: torch.Tensor
+    key: int
+    term_im: Optional[torch.Tensor] = None
+    key_im: Optional[int] = None
+
+
+def group_source_plans(sources, is_complex: bool
+                       ) -> List[Tuple[int, Optional[int]]]:
+    """``(i_re, i_im)`` index pairs of the plan's source list (``i_im`` None
+    for a single plan), as ``pallas_kstep.py:1050-1066`` groups them: in a
+    complex run lowering splits a complex profile into a (re, im) plan pair
+    that shares comp and slices, the im plan's ``waveform_key_im`` being the
+    re plan's ``waveform_key``; such a pair becomes one complex term."""
+    groups, si, n = [], 0, len(sources)
+    while si < n:
+        sp = sources[si]
+        if is_complex and si + 1 < n:
+            nxt = sources[si + 1]
+            if nxt.comp == sp.comp and nxt.slices == sp.slices \
+                    and nxt.waveform_key_im == sp.waveform_key:
+                groups.append((si, si + 1))
+                si += 2
+                continue
+        groups.append((si, None))
+        si += 1
+    return groups
+
+
 class SourceTables:
     """The source terms of both families for a whole run, on ``device``.
 
-    ``sources[family]`` lists ``(comp, slices, term, waveform key)`` as
+    ``sources[family]`` lists the ``SourceTerm`` of each box as
     ``FDTDRunner._build_sources`` builds them. For the kernel: one int32
     row of ``SRC_INTS`` per box and family (component, lo, hi, offset of
-    the term in the packed term buffer, waveform row), the packed terms,
-    and the waveform table (``set_waveforms``, re-set when the runner pads
-    it), all built once."""
+    the term in the packed term buffer, waveform row, and the same two for
+    the imaginary part or -1), the packed terms, and the waveform table
+    (``set_waveforms``, re-set when the runner pads it), all built once."""
 
     def __init__(self, sources: dict, waveforms: np.ndarray, shape,
                  device):
@@ -88,16 +129,27 @@ class SourceTables:
         self.shape = tuple(shape)
         self.sources = {fam: list(sources.get(fam, [])) for fam in "EH"}
         self.boxes, terms, off = {}, [], 0
+
+        def pack(term):
+            nonlocal off
+            if term is None:
+                return -1
+            terms.append(term.reshape(-1).to(torch.float32))
+            off += term.numel()
+            return off - term.numel()
+
         for fam, comps in (("E", E_COMPS), ("H", H_COMPS)):
             rows = []
-            for comp, sl, term, key in self.sources[fam]:
-                lo, hi = _source_box(sl, self.shape)
-                if tuple(term.shape) != tuple(h - l for l, h in zip(lo, hi)):
-                    raise ValueError(f"source term of {comp}: shape "
-                                     f"{tuple(term.shape)} for box {lo}-{hi}")
-                rows.append([comps.index(comp), *lo, *hi, off, int(key), 0])
-                terms.append(term.reshape(-1).to(torch.float32))
-                off += term.numel()
+            for s in self.sources[fam]:
+                lo, hi = _source_box(s.slices, self.shape)
+                box = tuple(h - l for l, h in zip(lo, hi))
+                for t in (s.term, s.term_im):
+                    if t is not None and tuple(t.shape) != box:
+                        raise ValueError(f"source term of {s.comp}: shape "
+                                         f"{tuple(t.shape)} for box {lo}-{hi}")
+                rows.append([comps.index(s.comp), *lo, *hi, pack(s.term),
+                             int(s.key), pack(s.term_im),
+                             -1 if s.key_im is None else int(s.key_im), 0])
             self.boxes[fam] = torch.tensor(
                 rows, dtype=torch.int32, device=self.device).reshape(
                     -1, SRC_INTS)
@@ -112,10 +164,29 @@ class SourceTables:
         self.waveforms = np.ascontiguousarray(waveforms, np.float32)
         self.wf = torch.from_numpy(self.waveforms).to(self.device)
 
+    def _w(self, key, t) -> float:
+        return 0.0 if key is None else float(self.waveforms[key, t])
+
     def at(self, family: str, t: int) -> list:
-        """``(comp, slices, term, w)`` of each source term at step t."""
-        return [(comp, sl, term, float(self.waveforms[key, t]))
-                for comp, sl, term, key in self.sources[family]]
+        """``(comp, slices, term, w)`` of each source term of a real run at
+        step t."""
+        return [(s.comp, s.slices, s.term, self._w(s.key, t))
+                for s in self.sources[family]]
+
+    def copy_adds(self, family: str, t: int) -> list:
+        """``(comp, slices, add0, add1)`` of each source term of a complex
+        run at step t: the real and imaginary parts of ``(term + i term_im)
+        (w[key] + i w[key_im])``, which copies 0 and 1 add
+        (``pallas_kstep.py:1047-1049``)."""
+        out = []
+        for s in self.sources[family]:
+            wr, wi = self._w(s.key, t), self._w(s.key_im, t)
+            add0, add1 = s.term * wr, s.term * wi
+            if s.term_im is not None:
+                add0 = add0 - s.term_im * wi
+                add1 = add1 + s.term_im * wr
+            out.append((s.comp, s.slices, add0, add1))
+        return out
 
 
 # --------------------------------------------------------------------------- #
@@ -129,9 +200,16 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
     """Plain PyTorch group on any device: k substeps, each the fused
     step's plain version with the J sources, then the M sources, then the
     pole update, in the order of the substep loop of ``pallas_kstep.py``.
-    ``out`` is accepted for the kernel's signature and not used."""
+    A complex run (``"E1"`` in ``state``) takes the two-copy substep of
+    ``_bloch_substep``. ``out`` is accepted for the kernel's signature and
+    not used."""
     from ..fdtd import update_poles
 
+    if "E1" in state:
+        cur = {key: state[key] for pair in COPIES for key in pair}
+        for t in range(t0, t0 + k):
+            cur = _bloch_substep(cur, consts, meta, tables, t)
+        return dict(cur, Q=[])
     Q = [{c: (qr.clone(), qi.clone()) for c, (qr, qi) in Qp.items()}
          for Qp in state["Q"]]
     cur = {"E": state["E"], "H": state["H"], "psi": state["psi"], "Q": Q}
@@ -146,13 +224,47 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
     return cur
 
 
+def _bloch_substep(cur: dict, consts: dict, meta: StepMeta,
+                   tables: SourceTables, t: int) -> dict:
+    """One step of both copies of a complex run, as the XLA step
+    ``FDTDRunner._step`` takes it (``tidy3d_tpu/solver/fdtd.py:1614-1723``):
+    each copy's E from its own H and, across a Bloch wrap, the other copy's
+    H; the J sources; each copy's H from its E' and the other copy's E';
+    the M sources."""
+    views = [{"E": cur[e], "H": cur[h], "psi": cur[p], "Q": []}
+             for e, h, p in COPIES]
+    new_e, psi = [], [dict(v["psi"]) for v in views]
+    for c, view in enumerate(views):
+        ne, pe = step.family_update_reference(
+            "E", view, consts, view["H"], meta, partner=views[1 - c]["H"],
+            part=c)
+        new_e.append(ne)
+        psi[c].update(pe)
+    for comp, sl, *adds in tables.copy_adds("E", t):
+        for c in range(2):
+            new_e[c][comp][sl].add_(adds[c])
+    new_h = []
+    for c, view in enumerate(views):
+        nh, ph = step.family_update_reference(
+            "H", view, consts, new_e[c], meta, partner=new_e[1 - c], part=c)
+        new_h.append(nh)
+        psi[c].update(ph)
+    for comp, sl, *adds in tables.copy_adds("H", t):
+        for c in range(2):
+            new_h[c][comp][sl].add_(adds[c])
+    return {key: val for c, (e, h, p) in enumerate(COPIES)
+            for key, val in ((e, new_e[c]), (h, new_h[c]), (p, psi[c]))}
+
+
 # --------------------------------------------------------------------------- #
 # the CUDA kernel (csrc/kstep.cu) through ctypes
 # --------------------------------------------------------------------------- #
 
 _P3 = ctypes.c_void_p * 3
-_P12 = ctypes.c_void_p * 12
+_P3x2 = _P3 * 2                      # [copy][comp]
+_P12x2 = (ctypes.c_void_p * 12) * 2  # [copy][psi slot]
 _I3 = ctypes.c_int32 * 3
+_F3 = ctypes.c_float * 3
 _NQ = 6 * MAX_POLES
 
 
@@ -160,11 +272,12 @@ class KStepParams(ctypes.Structure):
     """Mirror of ``struct KStepParams`` in ``csrc/kstep.cu``."""
 
     _fields_ = [
-        ("e_old", _P3), ("h_old", _P3), ("e_new", _P3), ("h_new", _P3),
+        ("e_old", _P3x2), ("h_old", _P3x2), ("e_new", _P3x2),
+        ("h_new", _P3x2),
         ("ca_e", _P3), ("cb_e", _P3), ("ca_h", _P3), ("cb_h", _P3),
         ("inv_e", _P3), ("inv_h", _P3),
-        ("psi_in_e", _P12), ("psi_out_e", _P12),
-        ("psi_in_h", _P12), ("psi_out_h", _P12),
+        ("psi_in_e", _P12x2), ("psi_out_e", _P12x2),
+        ("psi_in_h", _P12x2), ("psi_out_h", _P12x2),
         ("pml_b_e", ctypes.c_void_p * 6), ("pml_c_e", ctypes.c_void_p * 6),
         ("pml_b_h", ctypes.c_void_p * 6), ("pml_c_h", ctypes.c_void_p * 6),
         ("q", ctypes.c_void_p * _NQ), ("q_out", ctypes.c_void_p * _NQ),
@@ -178,6 +291,7 @@ class KStepParams(ctypes.Structure):
         ("gc_re", ctypes.c_float * MAX_POLES),
         ("gc_im", ctypes.c_float * MAX_POLES),
         ("pole_b0", ctypes.c_float * _NQ),
+        ("bloch_c", _F3), ("bloch_s", _F3),
         ("pole_kind", ctypes.c_int32 * (3 * MAX_POLES)),
         ("n", _I3),
         ("w_e", ctypes.c_int32 * 6), ("w_h", ctypes.c_int32 * 6),
@@ -185,7 +299,7 @@ class KStepParams(ctypes.Structure):
         ("bulk_lo", _I3), ("bulk_hi", _I3),
         ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32 * 2),
         ("wf_len", ctypes.c_int32), ("t0", ctypes.c_int32),
-        ("k", ctypes.c_int32),
+        ("k", ctypes.c_int32), ("ncopy", ctypes.c_int32),
     ]
 
 
@@ -243,10 +357,14 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     global LAUNCHES
     shape = tuple(meta.shape)
     device = state["E"][E_COMPS[0]].device
+    copies = COPIES[:1 + ("E1" in state)]
     reason = unsupported_reason(k, {
         fam: int(boxes.shape[0]) for fam, boxes in tables.boxes.items()})
     if reason is not None:
         raise ValueError(f"kstep_group: the kernel does not take {reason}")
+    if len(copies) == 2 and state["Q"]:
+        raise ValueError("kstep_group: the kernel takes no pole currents in "
+                         "a complex (Bloch) run")
     if shape[0] * shape[1] * shape[2] >= 2 ** 31:
         raise ValueError(f"grid {shape}: the k-step kernel takes fewer "
                          "than 2^31 cells")
@@ -254,14 +372,12 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
         raise ValueError(f"steps {t0}..{t0 + k - 1} lie past the waveform "
                          f"table ({tables.wf.shape[1]} steps)")
     if out is None:
-        out = {
-            "E": {c: torch.empty_like(v) for c, v in state["E"].items()},
-            "H": {c: torch.empty_like(v) for c, v in state["H"].items()},
-            "psi": {key: torch.empty_like(v)
-                    for key, v in state["psi"].items()},
-            "Q": [{c: (torch.empty_like(qr), torch.empty_like(qi))
-                   for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]}
+        out = {key: {c: torch.empty_like(v) for c, v in state[key].items()}
+               for pair in copies for key in pair}
+        out["Q"] = [{c: (torch.empty_like(qr), torch.empty_like(qi))
+                     for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]
     p = KStepParams()
+    p.ncopy = len(copies)
     for a in range(3):
         p.n[a] = shape[a]
         lo, hi = meta.boundaries[a]
@@ -276,22 +392,36 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
         w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
         p.bulk_lo[a] = max(1, w_e[0], w_h[0])
         p.bulk_hi[a] = min(shape[a] - 1, shape[a] - w_e[1], shape[a] - w_h[1])
+        # a virtual cell past a Bloch wall is the rotated real cell only
+        # where every coefficient is periodic along the axis
+        cs = meta.bloch[a] if len(copies) == 2 else None
+        if cs is not None and (lo != "periodic" or any(w_e + w_h)):
+            raise ValueError(f"axis {a}: a Bloch phase needs a periodic "
+                             "axis without psi slabs")
+        p.bloch_c[a], p.bloch_s[a] = cs if cs is not None else (1.0, 0.0)
 
-    for fam, comps, old, new in (("E", E_COMPS, p.e_old, p.e_new),
-                                 ("H", H_COMPS, p.h_old, p.h_new)):
-        for i, comp in enumerate(comps):
-            src = _check_field(state[fam][comp], shape, comp)
-            dst = _check_field(out[fam][comp], shape, f"out {comp}")
-            if src.data_ptr() == dst.data_ptr():
-                raise ValueError(f"{comp}: the output set aliases the input")
-            old[i] = src.data_ptr()
-            new[i] = dst.data_ptr()
-
-    new_psi = {}
-    for fam in ("E", "H"):
-        new_psi.update(step.set_family_params(fam, state, consts, meta, {
-            name: getattr(p, f"{name}_{fam.lower()}")
-            for name in step.FAMILY_FIELDS}, psi_out=out["psi"]))
+    new_psi = []
+    for c, (e, h, pk) in enumerate(copies):
+        for fam, comps, old, new in ((e, E_COMPS, p.e_old, p.e_new),
+                                     (h, H_COMPS, p.h_old, p.h_new)):
+            for i, comp in enumerate(comps):
+                src = _check_field(state[fam][comp], shape, f"{fam} {comp}")
+                dst = _check_field(out[fam][comp], shape, f"out {fam} {comp}")
+                if src.data_ptr() == dst.data_ptr():
+                    raise ValueError(f"{fam} {comp}: the output set aliases "
+                                     "the input")
+                old[c][i] = src.data_ptr()
+                new[c][i] = dst.data_ptr()
+        psi = {}
+        for fam in ("E", "H"):
+            arrays = {name: getattr(p, f"{name}_{fam.lower()}")
+                      for name in step.FAMILY_FIELDS}
+            arrays["psi_in"] = arrays["psi_in"][c]
+            arrays["psi_out"] = arrays["psi_out"][c]
+            psi.update(step.set_family_params(
+                fam, {"psi": state[pk]}, consts, meta, arrays,
+                psi_out=out[pk]))
+        new_psi.append(psi)
     _set_pole_params(p, state, out, consts, shape)
 
     for f, fam in enumerate("EH"):
@@ -308,8 +438,10 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
 
     step.launch(_library(), p, device, "kstep_group")
     LAUNCHES += 1
-    return {"E": dict(out["E"]), "H": dict(out["H"]), "psi": new_psi,
-            "Q": list(out["Q"])}
+    new = {"Q": list(out["Q"])}
+    for (e, h, pk), psi in zip(copies, new_psi):
+        new.update({e: dict(out[e]), h: dict(out[h]), pk: psi})
+    return new
 
 
 def kstep_group(state: dict, consts: dict, meta: StepMeta,
@@ -318,7 +450,7 @@ def kstep_group(state: dict, consts: dict, meta: StepMeta,
     """k leapfrog steps from step ``t0``: the CUDA kernel for CUDA tensors
     (results written into ``out``'s buffers, allocated when None), the
     plain version for CPU tensors. Returns the new ``{"E", "H", "psi",
-    "Q"}``."""
+    "Q"}``, with ``"E1"``, ``"H1"``, ``"psi1"`` in a complex run."""
     device = state["E"][E_COMPS[0]].device
     if device.type == "cpu":
         return kstep_group_reference(state, consts, meta, tables, t0, k)

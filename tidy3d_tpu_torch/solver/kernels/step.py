@@ -19,12 +19,11 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from ... import _reference  # noqa: F401  (reference layers importable)
-from tidy3d_tpu.solver.lowering import E_COMPS, H_COMPS
+from ..lowering import E_COMPS, H_COMPS
 
 LAUNCHES = 0
 MAX_POLES = 8       # pole slots the kernels take (csrc/*.cu MAX_POLES)
@@ -35,12 +34,16 @@ _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
 @dataclass(frozen=True)
 class StepMeta:
     """Static layout of a run: interior shape, per-axis ``(lo, hi)``
-    boundary kinds (``"pec"``, ``"pmc"`` or ``"periodic"``) and the psi
-    slab widths ``pml_meta[(family, axis)] = (w_lo, w_hi)``."""
+    boundary kinds (``"pec"``, ``"pmc"`` or ``"periodic"``), the psi slab
+    widths ``pml_meta[(family, axis)] = (w_lo, w_hi)`` and, per periodic
+    axis that carries a Bloch phase ``e^{i phi} = c + i s``, ``bloch[axis]
+    = (c, s)`` (None elsewhere: a complex run steps two real copies, re and
+    im, that mix only where a stencil wraps across such an axis)."""
 
     shape: Tuple[int, int, int]
     boundaries: Tuple[Tuple[str, str], ...]
     pml_meta: Dict[Tuple[str, int], Tuple[int, int]]
+    bloch: Tuple[Optional[Tuple[float, float]], ...] = (None, None, None)
 
 
 # --------------------------------------------------------------------------- #
@@ -66,10 +69,16 @@ def _bslice(vec, sl):
     return vec if _is_trivial(take) else vec[take]
 
 
-def _wrap_col(F, axis: int, side: str, boundaries):
+def _wrap_col(F, axis: int, side: str, boundaries, Fp=None, cs=None,
+              part: int = 0):
     """Boundary column entering the stencil across the domain edge: the
     F(-1) column at ``lo`` (backward difference), the F(N) column at ``hi``
-    (forward difference). PEC gives zero, PMC a mirror, periodic a wrap."""
+    (forward difference). PEC gives zero, PMC a mirror, periodic a wrap.
+
+    On a Bloch axis (``cs = (c, s)`` of the phase ``e^{i phi}``) the wrapped
+    column mixes copy ``part`` (``F``) with the other copy (``Fp``):
+    ``F(-1) = e^{-i phi} F(N-1)``, ``F(N) = e^{+i phi} F(0)`` (the port of
+    ``FDTDRunner._wrap_col``, ``tidy3d_tpu/solver/fdtd.py:861-893``)."""
     n = F.shape[axis]
     if side == "lo":
         kind = boundaries[axis][0]
@@ -78,6 +87,10 @@ def _wrap_col(F, axis: int, side: str, boundaries):
             return torch.zeros_like(col)
         if kind == "pmc":
             return F.narrow(axis, 0, 1)
+        if Fp is not None and cs is not None:
+            c, s = cs
+            return c * col + (s if part == 0 else -s) * Fp.narrow(
+                axis, n - 1, 1)
         return col
     kind = boundaries[axis][1]
     col = F.narrow(axis, 0, 1)
@@ -85,12 +98,17 @@ def _wrap_col(F, axis: int, side: str, boundaries):
         return torch.zeros_like(col)
     if kind == "pmc":
         return F.narrow(axis, n - 1, 1)
+    if Fp is not None and cs is not None:
+        c, s = cs
+        return c * col + (-s if part == 0 else s) * Fp.narrow(axis, 0, 1)
     return col
 
 
-def _shift_take(F, sl, axis: int, dn: bool, boundaries):
+def _shift_take(F, sl, axis: int, dn: bool, boundaries, Fp=None, cs=None,
+                part: int = 0):
     """The shifted operand F_{i-1} (dn) or F_{i+1} (up) restricted to the
-    region slice ``sl``."""
+    region slice ``sl`` (``Fp``, ``cs``, ``part``: the Bloch wrap of
+    ``_wrap_col``)."""
     n = F.shape[axis]
     s = sl[axis]
     start = 0 if s == slice(None) else (s.start or 0)
@@ -102,7 +120,8 @@ def _shift_take(F, sl, axis: int, dn: bool, boundaries):
             sl2 = list(sl)
             sl2[axis] = slice(start - 1, stop - 1)
             return _take(F, tuple(sl2))
-        col = _take(_wrap_col(F, axis, "lo", boundaries), tuple(oth))
+        col = _take(_wrap_col(F, axis, "lo", boundaries, Fp, cs, part),
+                    tuple(oth))
         if stop <= 1:
             return col
         rest = list(sl)
@@ -112,7 +131,8 @@ def _shift_take(F, sl, axis: int, dn: bool, boundaries):
         sl2 = list(sl)
         sl2[axis] = slice(start + 1, stop + 1)
         return _take(F, tuple(sl2))
-    col = _take(_wrap_col(F, axis, "hi", boundaries), tuple(oth))
+    col = _take(_wrap_col(F, axis, "hi", boundaries, Fp, cs, part),
+                tuple(oth))
     if start >= n - 1:
         return col
     rest = list(sl)
@@ -153,11 +173,15 @@ def pole_terms(state: dict, consts: dict):
 
 
 def family_update_reference(family: str, state: dict, consts: dict,
-                            src_fields: dict, meta: StepMeta):
+                            src_fields: dict, meta: StepMeta,
+                            partner: dict = None, part: int = 0):
     """Plain PyTorch family update on any device: the field is assembled as
     a region concat over the two derivative axes (j, k) of each component,
     with the psi terms in the slab pieces only, and the E update subtracts
-    the pole currents' term."""
+    the pole currents' term. In a complex run ``state`` and ``src_fields``
+    are copy ``part`` and ``partner`` holds the other copy's
+    ``src_fields``, which enters where a stencil wraps across a Bloch
+    axis."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     other = H_COMPS if is_e else E_COMPS
@@ -173,15 +197,19 @@ def family_update_reference(family: str, state: dict, consts: dict,
         j, k = (i + 1) % 3, (i + 2) % 3
         Fk = src_fields[other[k]]
         Fj = src_fields[other[j]]
+        Fk_p = partner[other[k]] if partner is not None else None
+        Fj_p = partner[other[j]] if partner is not None else None
         ca, cb = coeffs[comp]
         F_old = state[family][comp]
 
         def d1_of(sl):
-            shifted = _shift_take(Fk, sl, j, is_e, boundaries)
+            shifted = _shift_take(Fk, sl, j, is_e, boundaries, Fk_p,
+                                  meta.bloch[j], part)
             return sign_shift * (_take(Fk, sl) - shifted) * _bslice(inv[j], sl)
 
         def d2_of(sl):
-            shifted = _shift_take(Fj, sl, k, is_e, boundaries)
+            shifted = _shift_take(Fj, sl, k, is_e, boundaries, Fj_p,
+                                  meta.bloch[k], part)
             return sign_shift * (_take(Fj, sl) - shifted) * _bslice(inv[k], sl)
 
         # psi slab updates (full slabs, spanning corners)

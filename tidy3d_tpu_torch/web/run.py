@@ -5,9 +5,13 @@ module cannot be imported without JAX; the builders of the monitor data the
 port covers are ported here unchanged. Field, field-time, flux and
 flux-time monitors are covered; other monitor types, checkpointing and
 sharded runs raise ``NotImplementedError`` before the run starts. The
-runner decides what media it takes (``solver/fdtd.py``: linear, real,
-float32, up to 8 dispersive pole slots) and which kernel tier steps the run;
-the run log names the tier (and k on the kstep tier).
+runner decides what media it takes (``solver/fdtd.py``: linear, float32, up
+to 8 dispersive pole slots in a real run, none in a Bloch (complex) run) and
+which kernel tier steps the run; the run log names the tier (and k on the
+kstep tier).
+
+``run`` takes this package's ``Simulation``. One of the JAX package crosses
+over through its JSON: ``tidy3d_tpu_torch.Simulation.parse_raw(sim.json())``.
 """
 
 from __future__ import annotations
@@ -18,32 +22,30 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .. import _reference  # noqa: F401  (reference layers importable)
-from tidy3d_tpu.components.data.data_array import (
+from ..components.data.data_array import (
     FluxDataArray,
     FluxTimeDataArray,
     ScalarFieldDataArray,
     ScalarFieldTimeDataArray,
 )
-from tidy3d_tpu.components.data.monitor_data import (
+from ..components.data.monitor_data import (
     FieldData,
     FieldTimeData,
     FluxData,
     FluxTimeData,
 )
-from tidy3d_tpu.components.data.sim_data import SimulationData
-from tidy3d_tpu.components.monitor import (
+from ..components.data.sim_data import SimulationData
+from ..components.monitor import (
     FieldMonitor,
     FieldTimeMonitor,
     FluxMonitor,
     FluxTimeMonitor,
 )
-from tidy3d_tpu.components.simulation import Simulation
-from tidy3d_tpu.log import log
-from tidy3d_tpu.solver.lowering import lower
-from tidy3d_tpu.solver.profiling import RunMetrics
-
+from ..components.simulation import Simulation
+from ..log import log
 from ..solver.fdtd import FDTDRunner
+from ..solver.lowering import lower
+from ..solver.profiling import RunMetrics
 
 _COVERED = (FieldMonitor, FieldTimeMonitor, FluxMonitor, FluxTimeMonitor)
 
@@ -79,6 +81,12 @@ def run(
     ``device`` defaults to the GPU and raises if there is none; the plain
     PyTorch path runs on the CPU only when asked for with ``device="cpu"``.
     """
+    if not isinstance(simulation, Simulation):
+        kind = type(simulation)
+        raise TypeError(
+            f"web.run takes a tidy3d_tpu_torch.Simulation, not "
+            f"{kind.__module__}.{kind.__name__}; carry a simulation across "
+            "with tidy3d_tpu_torch.Simulation.parse_raw(sim.json())")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("web.run: no CUDA device is available; pass "

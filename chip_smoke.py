@@ -57,12 +57,35 @@ Phases (any failure exits non-zero):
     memory, a finite non-zero flux, and for the plane wave the physical
     checks of the JAX package's ``test_angled_plane_wave_bloch`` (forward
     amplitude within 1 % of 1, backward below 1e-2 of it);
-12. the JSON summary lines; the last line is the contract line. Each
+12. sharded runs, x-slabs on virtual shards of the one card (a mesh that
+    names it four times): the 384^3 dispersive case split (4, 1, 1), 96
+    planes per shard, the x-CPML in shards 0 and 3, the Lorentz Q in the
+    halo exchange, the dipole's boxes reaching two shards: one group of the
+    shard-local k-step kernel against its plain version and against the
+    unsharded kernel on the same random state (to 1e-6), the group's
+    CUDA-event time split into the exchange and each shard's launch, the
+    host's enqueue time, 200 steps sharded against unsharded in turns (to
+    2e-5); on several visible cards the same group on distinct devices,
+    otherwise a line that says it was not run;
+13. the 1-shard ring (``bench.py``'s ``fdtd_sharded``): the broadband case
+    on a (1, 1, 1) mesh, the halos exchanged onto itself, against the
+    unsharded runner, 200 steps in turns: ms per step and the ratio;
+14. the sharded main path, its launch counts set to 0 just before it: a
+    full-length run of the broadband case over 4 x-shards through
+    ``FDTDRunner`` with an explicit ``ShardingPlan``, then the port's
+    ``SimulationData`` builders; raw monitors against the unsharded run (to
+    2e-5), kstep launches equal to 4 per group and no other kernel's,
+    Gcell*steps/s and peak device memory;
+15. a (1, 2, 1) decomposition of the broadband case, rotated onto x,
+    against the unsharded run (to 2e-5);
+16. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
-    (the H100 SXM's published peaks at 700 W). No single PyTorch call
-    computes an FDTD step, so ``library_ms`` is null.
+    (the H100 SXM's published peaks at 700 W); the sharded group's bytes
+    are the unsharded group's plus the halo planes each exchange reads and
+    writes. No single PyTorch call computes an FDTD step, so
+    ``library_ms`` is null.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -333,10 +356,11 @@ def stepping_consts(runner) -> list:
             c["pml"], c["pole_masks"], c["pole_B_dense"]]
 
 
-def group_bound(runner, state, k: int):
-    """The bound of one k-step group: every array of the state (both
-    copies of a complex run) and the constants read once, the new state
-    written once; k steps of both families, their psi and pole updates."""
+def group_work(runner, state, k: int):
+    """``(bytes, operations)`` of one k-step group: every array of the
+    state (both copies of a complex run) and the constants read once, the
+    new state written once; k steps of both families, their psi and pole
+    updates."""
     fields = [state[key] for key in ("E", "H", "psi", "Q", "E1", "H1",
                                      "psi1") if key in state]
     ncell = int(np.prod(runner.shape))
@@ -344,7 +368,12 @@ def group_bound(runner, state, k: int):
     psi = sum(numel(state[key]) for key in ("psi", "psi1") if key in state)
     ops = k * (copies * 2 * OPS_FAMILY * ncell + OPS_PSI * psi
                + OPS_POLE * 3 * len(state["Q"]) * ncell)
-    return bound(2 * nbytes(fields) + nbytes(stepping_consts(runner)), ops)
+    return 2 * nbytes(fields) + nbytes(stepping_consts(runner)), ops
+
+
+def group_bound(runner, state, k: int):
+    """The bound of one k-step group (``group_work``)."""
+    return bound(*group_work(runner, state, k))
 
 
 def max_abs(d: dict) -> float:
@@ -715,6 +744,256 @@ def run_bloch(td, dev, smi: str) -> dict:
                 plain_ms=bp_ms, bound=b_bound)
 
 
+def sharded_runner(plan, devices, **kw):
+    """A runner sharded over ``devices`` (a device listed several times is
+    one virtual shard each), x-only unless ``decomp`` says otherwise."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.sharding import ShardingPlan, make_mesh
+
+    mesh, _ = make_mesh(devices=devices, decomp=kw.pop("decomp", None))
+    return FDTDRunner(plan, device=devices[0],
+                      sharding_plan=ShardingPlan(mesh, plan.shape), **kw)
+
+
+def shard_group(fn, runner, states, t0):
+    """One sharded group as ``step_group`` makes it: the halo exchange of
+    the set read, then one call of ``fn`` per shard."""
+    runner.exchange_halos(states)
+    return [fn(st, sh.consts, sh.meta, sh.tables, t0, runner.k, out=st["alt"])
+            for sh, st in zip(runner.shards, states)]
+
+
+def compare_sharded_group(kstep, ur, sr, seed: int, what: str):
+    """One group of the sharded k-step kernel from a random state split
+    into shards, against its plain version and against the unsharded
+    kernel on the same state; returns ``(largest absolute difference to
+    plain, the states of the shards)``."""
+    from tidy3d_tpu_torch import convert
+
+    k, t0 = sr.k, 36
+    glob = random_state(ur, seed)
+    uns = flat_state(kstep.kstep_group(glob, ur.consts, ur.meta, ur.tables,
+                                       t0, k, out=glob["alt"]))
+    states = convert.shard_states_from_reference(glob, sr)
+    del glob
+    before = kstep.SHARDED_LAUNCHES
+    news = shard_group(kstep.kstep_group, sr, states, t0)
+    sync()
+    assert kstep.SHARDED_LAUNCHES == before + len(sr.shards), \
+        "sharded kernel did not launch"
+    got = flat_state(convert.shard_states_to_reference(news, sr,
+                                                       tensors=True))
+    plain = flat_state(convert.shard_states_to_reference(
+        shard_group(kstep.kstep_group_reference, sr, states, t0), sr,
+        tensors=True))
+    worst = {"plain": (0.0, 0.0), "unsharded": (0.0, 0.0)}
+    for name, ref in (("plain", plain), ("unsharded", uns)):
+        for group in ("E", "H", "psi", "Q"):
+            keys = [key for key in ref if key.split(":")[0].rstrip(
+                "0123456789") == group]
+            if not keys:
+                continue
+            g = {key: got[key] for key in keys}
+            r = {key: ref[key] for key in keys}
+            worst[name] = (max(worst[name][0], rel_err(g, r)),
+                           max(worst[name][1], max_diff(g, r)))
+    for name, (rel, ab) in worst.items():
+        log(f"[sharded] {what}: one group, sharded kernel vs {name} max rel "
+            f"err {rel:.3e} (max abs {ab:.3e}, tol {TOL_UPDATE:g})")
+        assert rel <= TOL_UPDATE, f"{what} vs {name}: rel err {rel:.3e}"
+    return worst["plain"][1], states
+
+
+def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
+    """Phases 12 to 15: sharded runs on virtual shards of the one card, on
+    ``plan_d`` (the dispersive case) and ``plan`` (the broadband case,
+    lowered from ``sim``). Returns the ``kstep_group_sharded`` entry of the
+    kernels line."""
+    from tidy3d_tpu_torch.solver import distributed
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, halo_arrays
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+    from tidy3d_tpu_torch.web.run import assemble_sim_data
+
+    ncell = int(np.prod(plan.shape))
+    # 12. the 4-shard dispersive case: one group against plain and against
+    # the unsharded kernel, times, 200 steps
+    ur = FDTDRunner(plan_d, device=dev, kernel="kstep")
+    sr = sharded_runner(plan_d, [dev] * 4)
+    lay = sr.layout
+    assert sr.tier == "kstep" and 4 * lay.nx_loc == plan_d.shape[0]
+    held = [int(sh.tables.boxes["E"].shape[0]) for sh in sr.shards]
+    pml_x = [sh.index for sh in sr.shards
+             if any(sh.meta.pml_meta[("dual", 0)])]
+    log(f"[sharded] dispersive {plan_d.shape}, 4 virtual x-shards of "
+        f"{lay.nx_loc} planes: x-PML slabs on shards {pml_x}, J source "
+        f"boxes per shard {held}")
+    assert pml_x == [0, 3] and sum(held) > 1, (pml_x, held)
+    err_sh, states = compare_sharded_group(kstep, ur, sr, 14,
+                                           f"{plan_d.shape} dispersive")
+    k = sr.k
+
+    def launch(s):
+        sh, st = sr.shards[s], states[s]
+        return lambda: kstep.kstep_group(st, sh.consts, sh.meta, sh.tables,
+                                         36, k, out=st["alt"])
+
+    g_ms = cuda_ms(lambda: shard_group(kstep.kstep_group, sr, states, 36), 10)
+    ex_ms = cuda_ms(lambda: sr.exchange_halos(states), 10)
+    l_ms = [cuda_ms(launch(s), 10) for s in range(4)]
+    gp_ms = cuda_ms(lambda: shard_group(kstep.kstep_group_reference, sr,
+                                        states, 36), 2)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        shard_group(kstep.kstep_group, sr, states, 36)
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    sync()
+    glob = ur.init_state()
+    halo_bytes = sum(2 * 2 * k * a[0].numel() * a.element_size()
+                     for st in states for a in halo_arrays(st))
+    copies = 2 * sum(len(halo_arrays(st)) for st in states)
+    u_bytes, u_ops = group_work(ur, glob, k)
+    u_bound = bound(u_bytes, u_ops)
+    sh_bound = bound(u_bytes + halo_bytes, u_ops)
+    u_ms = cuda_ms(lambda: kstep.kstep_group(glob, ur.consts, ur.meta,
+                                             ur.tables, 36, k,
+                                             out=glob["alt"]), 10)
+    del glob
+    log(f"[sharded] {plan_d.shape} dispersive, 4 shards, k={k}: group "
+        f"{g_ms:.3f} ms (CUDA events) = launches "
+        f"{', '.join(f'{m:.3f}' for m in l_ms)} ms (sum {sum(l_ms):.3f}) "
+        f"+ exchange {g_ms - sum(l_ms):.3f} ms (the rest; {copies} halo "
+        f"blocks, {halo_bytes / 1e6:.1f} MB moved; {ex_ms:.3f} ms timed "
+        f"alone); "
+        f"unsharded group {u_ms:.3f} ms, ratio {g_ms / u_ms:.3f}; host "
+        f"{host_ms:.3f} ms per group enqueued; plain {gp_ms:.3f} ms; bound "
+        f"{sh_bound[0]:.3f} ms by {sh_bound[1]} (unsharded "
+        f"{u_bound[0]:.3f}) | {smi}")
+    del states
+    # 200 steps, sharded against unsharded, in turns
+    finals, rates = {}, {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        st, secs = run_steps_timed(ur if name == "unsharded" else sr,
+                                   STEPS_COMPARE)
+        rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
+        if name == "sharded":
+            from tidy3d_tpu_torch import convert
+            st = convert.shard_states_to_reference(st["shards"], sr,
+                                                   tensors=True)
+        finals[name] = {f"{fam}:{c}": v for fam in ("E", "H")
+                        for c, v in st[fam].items()}
+        del st
+    err = rel_err(finals["sharded"], finals["unsharded"])
+    log(f"[sharded] dispersive: {STEPS_COMPARE} steps, 4 shards vs unsharded "
+        f"max rel err {err:.3e} (tol {TOL_STEPS:g}); Gcell*steps/s "
+        f"unsharded {rates['unsharded']} sharded {rates['sharded']} | {smi}")
+    assert err <= TOL_STEPS, f"sharded 200 steps: rel err {err:.3e}"
+    del finals, ur, sr
+
+    # distinct devices, where there are several
+    cards = distributed.ring_device_order()
+    if len(cards) > 1:
+        n = min(4, len(cards))
+        devs = [cards[s % n] for s in range(4)]
+        compare_sharded_group(kstep, FDTDRunner(plan_d, device=dev,
+                                                kernel="kstep"),
+                              sharded_runner(plan_d, devs), 15,
+                              f"dispersive on {n} distinct devices")
+    else:
+        log("[sharded] distinct devices: not run (one CUDA device visible)")
+
+    # 13. the 1-shard ring (bench.py fdtd_sharded): 200 steps in turns
+    ring = {"unsharded": FDTDRunner(plan, device=dev, kernel="kstep"),
+            "ring": sharded_runner(plan, [dev])}
+    ms = {"unsharded": [], "ring": []}
+    for name in ("unsharded", "ring", "ring", "unsharded"):
+        ms[name].append(run_steps_timed(ring[name], STEPS_COMPARE)[1]
+                        / STEPS_COMPARE * 1e3)
+    ratio = float(np.mean(ms["ring"]) / np.mean(ms["unsharded"]))
+    log(f"[sharded] broadband, 1-shard ring onto itself: ms/step ring "
+        f"{ms['ring']} unsharded {ms['unsharded']}, ratio {ratio:.4f} | {smi}")
+    del ring
+
+    # 14. the main path: a full-length broadband run over 4 x-shards,
+    # then the port's SimulationData builders
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    ref_raw = FDTDRunner(plan, device=dev, kernel="kstep").run()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    kstep.SHARDED_LAUNCHES = 0
+    run4 = sharded_runner(plan, [dev] * 4)
+    raw = run4.run()
+    launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
+                "kstep": kstep.LAUNCHES}
+    n_sharded = kstep.SHARDED_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    groups = run4.steps_run // run4.k
+    assert launches == dict(none, kstep=4 * groups), launches
+    assert n_sharded == 4 * groups, n_sharded
+    data = assemble_sim_data(sim, plan, raw, run4, "chip_smoke")
+    flux = np.asarray(data["flux"].flux.values)
+    assert flux.shape == (11,) and np.all(np.isfinite(flux)) \
+        and np.all(flux != 0)
+    err = raw_err(ref_raw, raw)
+    rate = ncell * run4.steps_run / run4.wall_time / 1e9
+    log(f"[sharded] broadband web path, 4 x-shards: {run4.steps_run} steps, "
+        f"{groups} groups, launches {launches} ({n_sharded} shard-local), "
+        f"{rate:.3f} Gcell*steps/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; raw monitors vs unsharded max rel err "
+        f"{err:.3e} (tol {TOL_STEPS:g}); tier {data.log.splitlines()[-1]} "
+        f"| {smi}")
+    assert err <= TOL_STEPS, f"4-shard broadband: rel err {err:.3e}"
+    # the broadband group split, on the runner's own state
+    st4 = run4.init_state()["shards"]
+    gb_ms = cuda_ms(lambda: shard_group(kstep.kstep_group, run4, st4, 36),
+                    10)
+    lb_ms = sum(cuda_ms(lambda sh=sh, st=st: kstep.kstep_group(
+        st, sh.consts, sh.meta, sh.tables, 36, k, out=st["alt"]), 10)
+        for sh, st in zip(run4.shards, st4))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        shard_group(kstep.kstep_group, run4, st4, 36)
+    hb_ms = (time.perf_counter() - t0) / 10 * 1e3
+    sync()
+    log(f"[sharded] broadband, 4 shards: group {gb_ms:.3f} ms = launches "
+        f"{lb_ms:.3f} ms + exchange {gb_ms - lb_ms:.3f} ms; host "
+        f"{hb_ms:.3f} ms per group enqueued | {smi}")
+    del run4, data, st4
+
+    # 15. a y decomposition through the rotation
+    ry = sharded_runner(plan, [dev] * 2, decomp=(1, 2, 1))
+    assert ry._plan_rot == 1
+    raw_y = ry.run()
+    err_y = raw_err(ref_raw, raw_y)
+    log(f"[sharded] broadband, (1, 2, 1) rotated onto x: {ry.steps_run} "
+        f"steps, {ncell * ry.steps_run / ry.wall_time / 1e9:.3f} "
+        f"Gcell*steps/s, raw monitors vs unsharded max rel err {err_y:.3e} "
+        f"(tol {TOL_STEPS:g}) | {smi}")
+    assert err_y <= TOL_STEPS, f"y decomposition: rel err {err_y:.3e}"
+    return dict(launches=n_sharded, err=err_sh, ms=g_ms, plain_ms=gp_ms,
+                bound=sh_bound)
+
+
+def raw_err(ref: dict, got: dict) -> float:
+    """The largest difference of two raw monitor sets, relative to the
+    largest magnitude of each monitor."""
+    assert set(ref) == set(got)
+    worst = 0.0
+    for idx in ref:
+        assert set(ref[idx]) == set(got[idx]), idx
+        if not ref[idx]:
+            continue
+        scale = max(float(np.max(np.abs(v))) for v in ref[idx].values())
+        for comp, r in ref[idx].items():
+            g = got[idx][comp]
+            assert g.shape == r.shape and np.all(np.isfinite(g)), (idx, comp)
+            worst = max(worst, float(np.max(np.abs(g - r))) / max(scale,
+                                                                  1e-30))
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -935,10 +1214,13 @@ def main() -> int:
     log(f"[web.run] Gcell*steps/s: broadband two-phase {w2.rate}, fused "
         f"{wfb.rate}, kstep {rates_k['broadband']}; dispersive fused "
         f"{wfd.rate}, kstep {rates_k['dispersive']} | {smi}")
-    del plan, plan_d
 
     # 10-11. Bloch (complex) runs
     bloch = run_bloch(td, dev, smi)
+
+    # 12-15. sharded runs on virtual shards
+    shard = run_sharded(td, dev, smi, full_case(td), plan, plan_d)
+    del plan, plan_d
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
@@ -965,6 +1247,9 @@ def main() -> int:
               ks_bound["dispersive"]),
         entry("kstep_group_bloch", kstep_src, kstep_tpu, bloch["launches"],
               bloch["err"], bloch["ms"], bloch["plain_ms"], bloch["bound"]),
+        entry("kstep_group_sharded", kstep_src,
+              f"{kstep_tpu} with :1386", shard["launches"], shard["err"],
+              shard["ms"], shard["plain_ms"], shard["bound"]),
     ]}
     log(smi)
     log(json.dumps(kernels))

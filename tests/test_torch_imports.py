@@ -2,9 +2,11 @@
 
 An AST scan of every module of ``tidy3d_tpu_torch``, of ``chip_smoke.py``
 and of the port's ``labs/`` (no ``tidy3d_tpu`` or ``jax`` import, and every
-relative import resolves inside the port); every module of the port imported, and a small
-``web.run`` on the CPU, in a process where a meta-path finder makes
-``tidy3d_tpu`` and ``jax`` unimportable; and the port's own copy of
+relative import resolves inside the port); every module of the port
+imported, and a small ``web.run`` on the CPU, unsharded and over two
+virtual shards (the JAX package's distributed layer imports JAX, so a
+stray import of it would show here), in a process where a meta-path finder
+makes ``tidy3d_tpu`` and ``jax`` unimportable; and the port's own copy of
 ``lower()`` against the JAX package's on every simulation of
 ``tests/torch_cases.py``: the same ``SimulationPlan``, field by field, the
 arrays bit for bit.
@@ -101,6 +103,14 @@ _BLOCKED = textwrap.dedent("""
     import tidy3d_tpu_torch as td
     data = td.web.run(SIMS["pml_all"](monitors=monitors(), run_time=5e-15),
                       device="cpu", verbose=False)
+    assert data["flux"].flux.values.shape == (3,)
+    # a sharded run: two virtual CPU shards of the 18 x planes
+    import os
+    os.environ["TIDY3D_TPU_SHARD"] = "2,1,1"
+    sim = SIMS["pml_all"](monitors=monitors()[:2], run_time=5e-15)
+    data = td.web.run(sim.copy(update=dict(size=(0.6,) + sim.size[1:])),
+                      device="cpu", verbose=False)
+    assert "2 x-shards" in data.log
     assert data["flux"].flux.values.shape == (3,)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("MODULES", len(list(pkgutil.walk_packages(

@@ -1,4 +1,5 @@
-"""Carries stepping state between ``tidy3d_tpu`` (numpy) and the port.
+"""Carries stepping state between ``tidy3d_tpu`` (numpy) and the port, and
+between a global state and the shards of a sharded run.
 
 The JAX runner's unsharded one-step tiers keep E/H as dicts of
 ``(nx, ny, nz)`` arrays, psi slabs keyed ``"comp|axis|side"`` and the pole
@@ -81,4 +82,65 @@ def state_to_reference(state: dict, z_transposed: bool = False) -> dict:
                  for c, (qr, qi) in Qp.items()} for Qp in state.get("Q", [])]
     if "E1" in state:
         out["Q1"] = []
+    return out
+
+
+def shard_states_from_reference(state_np: dict, runner) -> list:
+    """The state of each shard of a sharded ``runner`` (tensors on the
+    shards' devices, empty monitor parts) from a global state (E/H/psi
+    dicts and the ``Q`` list of a real run, of numpy arrays or tensors):
+    every x-spanning array as the shard's padded x-slice, its halo planes
+    already holding the neighbours' core edges (what a ring exchange
+    gives), and the x psi slabs on the edge shards that hold them."""
+    lay = runner.layout
+    states = runner.init_state()["shards"]
+    for s, (sh, st) in enumerate(zip(runner.shards, states)):
+        def put(a):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a, np.float32))
+            if a.shape[0] == lay.nx:
+                a = lay.take(a, s)
+            return a.to(sh.device, copy=True).contiguous()
+
+        for fam in ("E", "H"):
+            st[fam] = {c: put(v) for c, v in state_np[fam].items()}
+        st["psi"] = {key: put(state_np["psi"][key]) for key in st["psi"]}
+        Q = state_np.get("Q", [])
+        if len(Q) != len(st["Q"]):
+            raise ValueError(f"{len(Q)} pole currents given, the plan has "
+                             f"{len(st['Q'])} poles")
+        st["Q"] = [{c: (put(qr), put(qi)) for c, (qr, qi) in Qp.items()}
+                   for Qp in Q]
+    return states
+
+
+def shard_states_to_reference(states: list, runner,
+                              tensors: bool = False) -> dict:
+    """The global state (E/H/psi dicts and ``Q`` list, of numpy arrays, or
+    with ``tensors`` of tensors on the first shard's device) from the
+    shards' states: the owned planes of each x-spanning array joined in x
+    order, and each x psi slab from the edge shard that holds it."""
+    lay = runner.layout
+    dev = states[0]["E"]["Ex"].device
+
+    def one(a):
+        return a.to(dev) if tensors else a.cpu().numpy()
+
+    def join(arrays):
+        parts = [one(lay.owned(a)) for a in arrays]
+        return torch.cat(parts) if tensors else np.concatenate(parts)
+
+    out = {fam: {c: join([st[fam][c] for st in states])
+                 for c in states[0][fam]} for fam in ("E", "H")}
+    out["psi"] = {}
+    for st in states:
+        for key, v in st["psi"].items():
+            if key.split("|")[1] == "0":
+                out["psi"][key] = one(v)
+    for key, v in states[0]["psi"].items():
+        if key.split("|")[1] != "0":
+            out["psi"][key] = join([st["psi"][key] for st in states])
+    out["Q"] = [{c: (join([st["Q"][pi][c][0] for st in states]),
+                     join([st["Q"][pi][c][1] for st in states]))
+                 for c in Qp} for pi, Qp in enumerate(states[0]["Q"])]
     return out

@@ -87,6 +87,24 @@
 // virtual. On the H100 the two copies take 1.19-1.25x the time of two real
 // launches on the same grid: the test for a virtual cell and the rotation
 // code sit on every level-0 load of an instruction-bound kernel (PERF.md).
+//
+// Sharded runs (shard-local mode, xpad = K). It replaces the sharded mode
+// of the same TPU kernel (pallas_kstep.py:109-115, the halo exchange
+// _exchange_halos at :1386): an x-slab decomposition in which each shard
+// steps its own nx_loc planes (n[0]). Every x-spanning array of the shard
+// (fields, Q, per-cell coefficients and residues, the x inverse steps, the
+// psi slabs of y and z) carries K halo planes on each x side, so local
+// plane x lives at padded plane x + xpad; the x psi slabs, which only the
+// edge shards hold, keep their own planes. Before each launch the caller
+// fills the halo planes with the neighbours' core edges (ring exchange).
+// A side that reads its halo (x_halo) treats its K halo planes as part of
+// the domain: the block's dependency cone reaches exactly K planes past
+// the core, so the owned planes come out exact, and the march never needs
+// a plane beyond the halo. Such a side has no wall; the global x walls
+// apply only on a side that does not read its halo (an edge shard of a
+// non-periodic x). The caller gives x-psi slab widths, bulk bounds, PEC
+// masks and source boxes in the shard's local coordinates. Unsharded runs
+// are the case xpad = 0 with no halo side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,6 +188,10 @@ struct KStepParams {
     int32_t t0;                // global step of the group's first substep
     int32_t k;                 // substeps per launch: K, checked
     int32_t ncopy;             // 1 (real run) or 2 (complex, pole-free)
+    int32_t xpad;              // shard-local run: K halo planes on each x
+                               // side of every x-spanning array (0: none)
+    int32_t x_halo[2];         // the (lo, hi) x side reads its halo planes
+                               // (a neighbour shard) instead of a wall
 };
 
 static_assert(sizeof(KStepParams) <= 4096,
@@ -294,19 +316,29 @@ __device__ __forceinline__ bool slab_of(const int32_t* w, const int32_t* n,
 
 // The inverse step of axis a at cell c: along x from device memory, along
 // y and z the column's own (yz), loaded once per block.
-__device__ __forceinline__ float inv_step(const float* const* inv,
+__device__ __forceinline__ float inv_step(const KStepParams& p,
+                                          const float* const* inv,
                                           const float* yz, int a,
                                           const int* c) {
-    return a == 0 ? __ldg(inv[0] + c[0]) : yz[a - 1];
+    return a == 0 ? __ldg(inv[0] + c[0] + p.xpad) : yz[a - 1];
 }
 
-__device__ __forceinline__ int slab_offset(const int32_t* n, int a, int wd,
-                                           int loc, const int* c) {
-    int dim[3] = {n[0], n[1], n[2]};
-    int l[3] = {c[0], c[1], c[2]};
+// The offset of cell c in the psi slab of axis a: an x slab holds its own
+// planes, the y and z slabs span the padded x planes of a shard.
+__device__ __forceinline__ int slab_offset(const KStepParams& p, int a,
+                                           int wd, int loc, const int* c) {
+    int dim[3] = {p.n[0], p.n[1], p.n[2]};
+    int l[3] = {c[0] + p.xpad, c[1], c[2]};
     dim[a] = wd;
     l[a] = loc;
     return (l[0] * dim[1] + l[1]) * dim[2] + l[2];
+}
+
+// The lo (side 0) or hi (side 1) end of axis a is a wall the stencil
+// meets: a shard's x side that reads its halo planes is none.
+__device__ __forceinline__ bool walled(const KStepParams& p, int a,
+                                       int side) {
+    return a != 0 || !p.x_halo[side];
 }
 
 // Adds the source terms of family fam at cell c and step t to v. In a
@@ -356,13 +388,14 @@ __device__ __forceinline__ float h_back(const KStepParams& p, const Col& t,
         const float* F = p.h_old[cp][comp];
         const float* G = BL ? p.h_old[1 - cp][comp] : nullptr;
         const int st = a == 0 ? t.stride0 : (a == 1 ? p.n[2] : 1);
-        if (bulk || c[a] > 0) return load0<BL>(F, G, cp, cell - st, rc);
+        if (bulk || c[a] > 0 || !walled(p, a, 0))
+            return load0<BL>(F, G, cp, cell - st, rc);
         if (p.bk_lo[a] == WALL_PEC) return 0.0f;
         if (p.bk_lo[a] == WALL_PMC) return f;
         return load0<BL>(F, G, cp, cell + (p.n[a] - 1) * st,
                          BL ? rot_mul(rc, rot_axis(p, a, -1)) : rc);
     }
-    if (!bulk && c[a] == 0 && !t.wrap[a])
+    if (!bulk && c[a] == 0 && !t.wrap[a] && walled(p, a, 0))
         return p.bk_lo[a] == WALL_PEC ? 0.0f : f;
     const int tid = t.ty * TZ + t.tz;
     if (a == 0) return h_ring<NP>(sm, L - 1, x - 1, comp)[tid];
@@ -377,7 +410,7 @@ __device__ __forceinline__ float e_fwd(const KStepParams& p, const Col& t,
                                        float* sm, int level, int comp, int a,
                                        int x, const int* c, float f,
                                        bool bulk) {
-    if (!bulk && c[a] == p.n[a] - 1 && !t.wrap[a])
+    if (!bulk && c[a] == p.n[a] - 1 && !t.wrap[a] && walled(p, a, 1))
         return p.bk_hi[a] == WALL_PEC ? 0.0f : f;
     const int tid = t.ty * TZ + t.tz;
     if (a == 0) return e_ring<NP>(sm, level, x + 1, comp)[tid];
@@ -389,10 +422,13 @@ __device__ __forceinline__ float e_fwd(const KStepParams& p, const Col& t,
 }
 
 // The plane x (unwrapped march coordinate) of the domain, wrapped on a
-// periodic x axis; false if it lies outside a non-periodic domain.
+// periodic x axis; false if it lies outside a non-periodic domain. In a
+// shard-local run a side that reads its halo extends the domain by its
+// K halo planes (local planes -K..-1 or n..n+K-1, padded planes
+// x + xpad), which hold the neighbour's core edge.
 __device__ __forceinline__ bool plane_of(const KStepParams& p, const Col& t,
                                          int x, int* cx) {
-    if (x >= 0 && x < p.n[0]) {
+    if (x >= (p.x_halo[0] ? -K : 0) && x < p.n[0] + (p.x_halo[1] ? K : 0)) {
         *cx = x;
         return true;
     }
@@ -412,7 +448,7 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
     const int tid = t.ty * TZ + t.tz;
     if (plane && t.in_yz) {
         const int c[3] = {cx, t.cy, t.cz};
-        const int cell = cx * t.stride0 + t.cy * p.n[2] + t.cz;
+        const int cell = (cx + p.xpad) * t.stride0 + t.cy * p.n[2] + t.cz;
         const bool owner = L == K && t.own_yz && x >= t.xb && x < t.xe;
         const bool bulk =
             t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
@@ -441,8 +477,8 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                 h_back<NP, L, BL>(p, t, sm, k, j, x, c, cell, hk, bulk, rc);
             const float hj_b =
                 h_back<NP, L, BL>(p, t, sm, j, k, x, c, cell, hj, bulk, rc);
-            const float d1 = (hk - hk_b) * inv_step(p.inv_e, t.inv_e_yz, j, c);
-            const float d2 = (hj - hj_b) * inv_step(p.inv_e, t.inv_e_yz, k, c);
+            const float d1 = (hk - hk_b) * inv_step(p, p.inv_e, t.inv_e_yz, j, c);
+            const float d2 = (hj - hj_b) * inv_step(p, p.inv_e, t.inv_e_yz, k, c);
             float rhs = d1 - d2;
 #pragma unroll
             for (int slot = 0; slot < 2; ++slot) {
@@ -452,7 +488,7 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                 if (bulk || !slab_of(p.w_e, p.n, a, c, &side, &loc)) continue;
                 const int wd = p.w_e[2 * a + side];
                 const int pidx = idx * 2 + side;
-                const int off = slab_offset(p.n, a, wd, loc, c);
+                const int off = slab_offset(p, a, wd, loc, c);
                 const float prev =
                     L == 1 ? load0<BL>(p.psi_in_e[cp][pidx],
                                        p.psi_in_e[1 - cp][pidx], cp, off, rc)
@@ -543,7 +579,7 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
     const int tid = t.ty * TZ + t.tz;
     if (plane && t.in_yz) {
         const int c[3] = {cx, t.cy, t.cz};
-        const int cell = cx * t.stride0 + t.cy * p.n[2] + t.cz;
+        const int cell = (cx + p.xpad) * t.stride0 + t.cy * p.n[2] + t.cz;
         const bool owner = L == K && t.own_yz && x >= t.xb && x < t.xe;
         const bool bulk =
             t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
@@ -558,10 +594,10 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
             const float ej = e_ring<NP>(sm, L, x, j)[tid];
             const float d1 =
                 (e_fwd<NP>(p, t, sm, L, k, j, x, c, ek, bulk) - ek) *
-                inv_step(p.inv_h, t.inv_h_yz, j, c);
+                inv_step(p, p.inv_h, t.inv_h_yz, j, c);
             const float d2 =
                 (e_fwd<NP>(p, t, sm, L, j, k, x, c, ej, bulk) - ej) *
-                inv_step(p.inv_h, t.inv_h_yz, k, c);
+                inv_step(p, p.inv_h, t.inv_h_yz, k, c);
             float rhs = d1 - d2;
 #pragma unroll
             for (int slot = 0; slot < 2; ++slot) {
@@ -571,7 +607,7 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
                 if (bulk || !slab_of(p.w_h, p.n, a, c, &side, &loc)) continue;
                 const int wd = p.w_h[2 * a + side];
                 const int pidx = idx * 2 + side;
-                const int off = slab_offset(p.n, a, wd, loc, c);
+                const int off = slab_offset(p, a, wd, loc, c);
                 const float prev =
                     L == 1 ? load0<BL>(p.psi_in_h[cp][pidx],
                                        p.psi_in_h[1 - cp][pidx], cp, off, rc)
@@ -665,7 +701,8 @@ kstep_kernel(const KStepParams p) {
     t.xe = min(t.xb + BX, p.n[0]);
     t.stride0 = p.n[1] * p.n[2];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) t.wrap[a] = p.bk_lo[a] == WALL_WRAP;
+    for (int a = 0; a < 3; ++a)
+        t.wrap[a] = p.bk_lo[a] == WALL_WRAP && walled(p, a, 0);
     const int ybase = y0 - (K - 1);
     const int zbase = z0 - (K - 1);
     t.cy = ybase + t.ty;
@@ -776,7 +813,9 @@ extern "C" int t3d_kstep_group(const KStepParams* p, void* stream) {
         p->num_src[0] < 0 || p->num_src[1] < 0 || p->t0 < 0 ||
         p->t0 + K > p->wf_len || p->ncopy < 1 || p->ncopy > 2 ||
         (p->ncopy == 2 && p->num_poles != 0) ||
-        (int64_t)p->n[0] * p->n[1] * p->n[2] > 0x7fffffffLL)
+        (p->xpad != 0 && (p->xpad != K || p->ncopy != 1)) ||
+        ((p->x_halo[0] || p->x_halo[1]) && p->xpad == 0) ||
+        (int64_t)(p->n[0] + 2 * p->xpad) * p->n[1] * p->n[2] > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     // a complex run: the two-copy instantiation, pole-free only
     if (p->ncopy == 2) return launch<0, true>(p, (cudaStream_t)stream);

@@ -57,10 +57,29 @@ kernels have no copy machinery (``tidy3d_tpu/solver/fdtd.py:297-300``):
 does a plan the kstep tier does not take. The DFT adds copy 1 rotated into
 both quadratures, time monitors record copy 0.
 
-Covered: unsharded, float32, linear runs, real with up to ``MAX_POLES``
-dispersive (pole-residue) pole slots, or complex without poles. Nonlinear
+Sharded runs (``sharding_plan``, a ``sharding.ShardingPlan``) split x into
+slabs, one per mesh entry, on the kstep tier, as the JAX package's
+``_make_run_fn_sharded`` runs its k-step kernel under ``shard_map``
+(``tidy3d_tpu/solver/fdtd.py:1823-1906``). One process drives every
+shard; a mesh may name one device several times (virtual shards). Shard s
+owns ``nx / n`` planes and holds every x-spanning array padded by k halo
+planes per side (``sharding.XSlabs``). Each group first refreshes the halo
+planes of the buffer set it reads from the neighbours' core edges (a ring:
+shard 0's left neighbour is the last shard), then launches the k-step
+kernel once per shard in its shard-local mode; the set that was exchanged
+is the one carried forward as the next ping-pong set. Each shard
+accumulates the part of each monitor it owns, and ``run()`` joins the parts
+in x order. A single-axis y or z decomposition rotates the plan onto x
+(``plan_rotate.py``) and the raw monitors back. The gate
+(``shard_unsupported_reason``) and the refusals: a sharded request runs
+sharded on the kstep tier or raises, and mixed 2D/3D decompositions and
+sharded Bloch runs, which the JAX package sends to its GSPMD XLA path,
+raise ``NotImplementedError``.
+
+Covered: float32, linear runs, real with up to ``MAX_POLES`` dispersive
+(pole-residue) pole slots, or complex without poles (unsharded). Nonlinear
 media, time modulation, Bloch runs with poles (the JAX package runs them on
-its XLA path only), sharding, bfloat16 storage and checkpointing raise
+its XLA path only), bfloat16 storage and checkpointing raise
 ``NotImplementedError``.
 """
 
@@ -80,8 +99,10 @@ from ..log import log
 from .kernels import fused as fused_kernels
 from .kernels import kstep as kstep_kernels
 from .kernels import step as step_kernels
-from .kernels.step import MAX_POLES
+from .kernels.step import MAX_POLES, StepMeta
 from .lowering import E_COMPS, H_COMPS, SimulationPlan
+from .plan_rotate import perm_for_rot, rotate_plan, unrotate_raw
+from .sharding import ShardingPlan, XSlabs, mesh_devices
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
@@ -367,6 +388,69 @@ def kstep_unsupported_reason(plan: SimulationPlan, k: int,
     return kstep_kernels.unsupported_reason(k, num_sources)
 
 
+def shard_unsupported_reason(shape, pml_meta, k: int, ndev: int):
+    """Why an x-slab decomposition over ``ndev`` shards does not take a
+    grid of ``shape`` on the k-step kernel at group size k, or None if it
+    does: the counterpart of ``PallasKStepper.supported_sharded``
+    (``pallas_kstep.py:333-370``) for this kernel, whose blocks need no TPU
+    quanta. nx must split evenly; every shard must be at least 2k planes
+    thick; and each x-PML slab, with the k planes of its neighbour's halo,
+    must lie inside its edge shard, so that no halo plane of another shard
+    is a CPML plane."""
+    nx = shape[0]
+    if nx % ndev:
+        return f"{nx} x planes do not split into {ndev} equal shards"
+    nx_loc = nx // ndev
+    if nx_loc < 2 * k:
+        return (f"shards of {nx_loc} planes (at least 2k = {2 * k} for "
+                f"the k-plane halos)")
+    if ndev > 1:
+        for side, name in ((0, "lo"), (1, "hi")):
+            w = max(pml_meta[("dual", 0)][side],
+                    pml_meta[("primal", 0)][side])
+            if w and w + k > nx_loc:
+                return (f"the {name} x-PML slab of {w} planes and its "
+                        f"{k}-plane cone do not fit in the edge shard of "
+                        f"{nx_loc} planes")
+    return None
+
+
+def shard_constants(host_consts: dict, pml_meta: dict, layout: XSlabs,
+                    s: int) -> Tuple[dict, dict]:
+    """Shard s's host constants and psi slab widths: every x-spanning
+    array (per-cell coefficients, the x inverse steps, PEC masks along x,
+    pole masks and dense residues) as its padded x-slice
+    (``pallas_kstep.py:714-770``, ``:982-1036``, ``:1183-1193``), and the
+    x CPML tables and x psi slabs on the sides that are the global edge
+    only."""
+    nx = layout.nx
+
+    def take(v):
+        if isinstance(v, np.ndarray) and v.ndim == 3 and v.shape[0] == nx:
+            return layout.take(v, s)
+        return v
+
+    out = dict(host_consts)
+    for key in ("coeffs_E", "coeffs_H"):
+        out[key] = {c: (take(a), take(b))
+                    for c, (a, b) in host_consts[key].items()}
+    for key in ("inv_dual", "inv_primal"):
+        out[key] = [take(v) for v in host_consts[key]]
+    out["wall_masks"] = {c: [take(m) for m in ms]
+                         for c, ms in host_consts["wall_masks"].items()}
+    out["pole_masks"] = [take(m) for m in host_consts["pole_masks"]]
+    out["pole_B_dense"] = {key: (take(re), take(im)) for key, (re, im)
+                           in host_consts["pole_B_dense"].items()}
+    edge = [not h for h in layout.halo(s)]
+    meta = dict(pml_meta)
+    for fam in ("dual", "primal"):
+        w_lo, w_hi = pml_meta[(fam, 0)]
+        meta[(fam, 0)] = (w_lo if edge[0] else 0, w_hi if edge[1] else 0)
+    out["pml"] = {key: d for key, d in host_consts["pml"].items()
+                  if key[-1] != "0" or any(meta[(key[:-1], 0)])}
+    return out, meta
+
+
 def kstep_order() -> Tuple[int, ...]:
     """The group sizes k to try, from ``TIDY3D_TPU_KSTEP`` as the JAX
     package reads it (``fdtd.py:274-294``): ``auto`` tries k = 4 then 2, an
@@ -390,7 +474,8 @@ def align_chunk(chunk_size: int, k: int, B: int) -> int:
 
 
 def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
-                device, kernel: str = None) -> Tuple[str, int]:
+                device, kernel: str = None,
+                sharded: bool = False) -> Tuple[str, int]:
     """``(tier, k)`` of a run: ``("kstep", k)``, ``("fused", 1)`` or
     ``("pallas2", 1)``, decided from the plan alone (nothing is built or
     launched to find out). ``num_sources`` counts the source terms per
@@ -399,10 +484,11 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
     pallas2, as the JAX package does on the TPU; ``auto`` on the CPU takes
     fused, as the JAX package takes its XLA path off the TPU, so the CPU
     default keeps every-step monitor sampling. A complex (Bloch) plan takes
-    kstep on every device: the one-step tiers have no Bloch copies. A
-    forced tier that does not take the run raises, and so does a complex
-    plan that the kstep tier does not take. ``_check_supported`` has
-    already refused what no tier takes."""
+    kstep on every device: the one-step tiers have no Bloch copies; so
+    does a ``sharded`` run: only the k-step kernel has a shard-local mode.
+    A forced tier that does not take the run raises, and so does a complex
+    or sharded plan that the kstep tier does not take.
+    ``_check_supported`` has already refused what no tier takes."""
     kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
     # the CPU runs the plain versions, so the interpret modes are the tiers
     want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
@@ -412,8 +498,13 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
     if plan.is_complex and want not in ("auto", "kstep"):
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
                          "no Bloch copies; complex runs take the kstep tier")
-    if want == "kstep" or plan.is_complex or (
-            want == "auto" and torch.device(device).type == "cuda"):
+    if sharded and want not in ("auto", "kstep"):
+        raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
+                         "no shard-local mode; sharded runs take the kstep "
+                         "tier")
+    only_kstep = want == "kstep" or plan.is_complex or sharded
+    if only_kstep or (want == "auto"
+                      and torch.device(device).type == "cuda"):
         reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
                    " disables it"] if not kstep_order() else []
         for k in kstep_order():
@@ -421,7 +512,7 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
             if reason is None:
                 return "kstep", k
             reasons.append(f"k={k}: {reason}")
-        if want == "kstep" or plan.is_complex:
+        if only_kstep:
             raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the kstep tier "
                              f"does not take this run ({'; '.join(reasons)})")
     reason = fused_kernels.unsupported_reason(num_sources["E"])
@@ -509,30 +600,75 @@ def consts_to_device(consts: dict, device) -> dict:
     return out
 
 
+class _Shard:
+    """One x-slab of a sharded run: its index and device, its constants
+    (padded x-slices of the run's), its ``StepMeta``, source tables and,
+    per monitor, the slices of the monitor's cells that it owns, in its
+    padded planes (only the components it owns any of)."""
+
+    def __init__(self, index, device, consts, meta, tables, mon_slices):
+        self.index = index
+        self.device = device
+        self.consts = consts
+        self.meta = meta
+        self.tables = tables
+        self.mon_slices = mon_slices
+
+
+def _owned(mp, slices: dict):
+    """``(comp, slices)`` of the monitor's components in ``slices``."""
+    return [(comp, slices[comp]) for comp in mp.comps if comp in slices]
+
+
+def halo_arrays(state: dict) -> list:
+    """The arrays of a shard's buffer set whose halo planes the ring
+    exchange refreshes (``pallas_kstep.py:1386-1421``): E, H, the pole
+    currents and the psi slabs of y and z, which span x (the x slabs, on
+    the edge shards only, have no halo)."""
+    out = list(state["E"].values()) + list(state["H"].values())
+    for Qp in state["Q"]:
+        for qr, qi in Qp.values():
+            out += [qr, qi]
+    out += [v for key, v in state["psi"].items() if key.split("|")[1] != "0"]
+    return out
+
+
 class FDTDRunner:
     """Runs the time-stepping loop of one ``SimulationPlan`` on ``device``.
 
     ``use_kernel=False`` steps with the plain PyTorch versions of the tier
     on any device; it exists so that the kernels can be held against them
     on the GPU. ``kernel`` overrides ``TIDY3D_TPU_KERNEL`` for this runner.
+    ``sharding_plan`` runs the plan sharded over its mesh's devices, which
+    must be of ``device``'s kind (see the module's docstring).
     """
 
     def __init__(self, plan: SimulationPlan, device="cuda",
                  precision: str = None, use_kernel: bool = True,
-                 kernel: str = None):
+                 kernel: str = None, sharding_plan: ShardingPlan = None):
         _check_supported(plan, precision)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
+        # single-axis y/z decompositions rotate onto the x slabs
+        # (tidy3d_tpu/solver/fdtd.py:86-100); run() rotates the raw
+        # monitors back
+        self._plan_rot = 0
+        if sharding_plan is not None:
+            plan, sharding_plan = self._x_decomposition(plan, sharding_plan)
+        self.sharding = sharding_plan
         self.plan = plan
         self.shape = tuple(plan.shape)
         self.num_steps = plan.num_steps
         self.dtype = torch.float32
         self.use_kernel = use_kernel
         self.host_consts, self.pml_meta = build_constants(plan)
-        self.consts = consts_to_device(self.host_consts, self.device)
-        self.meta = step_kernels.StepMeta(
+        sharded = sharding_plan is not None
+        # a sharded run keeps its constants per shard (self.shards)
+        self.consts = None if sharded else consts_to_device(
+            self.host_consts, self.device)
+        self.meta = StepMeta(
             shape=self.shape, boundaries=tuple(plan.boundaries),
             pml_meta=dict(self.pml_meta), bloch=bloch_phases(plan))
         self.is_complex = plan.is_complex
@@ -543,18 +679,102 @@ class FDTDRunner:
         self._build_sources()
         self.tier, self.k = select_tier(
             plan, {fam: len(v) for fam, v in self._sources.items()},
-            self.device, kernel)
+            self.device, kernel, sharded=sharded)
         # monitors accumulate after group g only where (g + 1) % B == 0
         self.mon_group_stride = 1
         self.tables = None
+        self.shards = None
         if self.tier == "kstep":
             self.host_consts["dft"] = build_dft_tables(plan, self.k)
-            self.consts["dft"] = {
-                key: tuple(_dev(t, self.device) for t in tables)
-                for key, tables in self.host_consts["dft"].items()}
             self.mon_group_stride = monitor_group_stride(plan, self.k)
-            self.tables = kstep_kernels.SourceTables(
-                self._sources, self._waveforms, self.shape, self.device)
+            if sharded:
+                self._build_shards()
+            else:
+                self.consts["dft"] = {
+                    key: tuple(_dev(t, self.device) for t in tables)
+                    for key, tables in self.host_consts["dft"].items()}
+                self.tables = kstep_kernels.SourceTables(
+                    self._sources, self._waveforms, self.shape, self.device)
+
+    # ------------------------------------------------------------------ #
+    # sharding
+    # ------------------------------------------------------------------ #
+
+    def _x_decomposition(self, plan, sharding_plan):
+        """The plan and sharding plan of an x-only decomposition: a
+        single-axis y or z one rotated onto x; refuses the rest."""
+        d = sharding_plan.decomp
+        devices = mesh_devices(sharding_plan.mesh)
+        if any(torch.device(dv).type != self.device.type for dv in devices):
+            raise ValueError(f"the mesh's devices {devices} are not all of "
+                             f"the run's kind ({self.device.type})")
+        if plan.is_complex:
+            raise NotImplementedError(
+                "sharded Bloch (complex) runs are not ported yet (the JAX "
+                "package runs them on its GSPMD XLA path) (ROADMAP.md: "
+                "sharded Bloch runs)")
+        if d[0] == 1 and (d[1] > 1) != (d[2] > 1):
+            self._plan_rot = 1 if d[1] > 1 else 2
+            p = perm_for_rot(self._plan_rot)
+            plan = rotate_plan(plan, self._plan_rot)
+            sharding_plan = ShardingPlan(
+                np.transpose(sharding_plan.mesh, p), plan.shape)
+        elif d[1] > 1 or d[2] > 1:
+            raise NotImplementedError(
+                f"decomposition {d}: mixed 2D/3D decompositions are not "
+                "ported yet (the JAX package runs them on its GSPMD XLA "
+                "path) (ROADMAP.md: mixed 2D/3D decompositions)")
+        return plan, sharding_plan
+
+    def _build_shards(self):
+        """The x-slab layout, each shard's constants on its device, its
+        ``StepMeta``, its source tables and its monitor slices."""
+        plan, k = self.plan, self.k
+        devices = [torch.device(dv) for dv in
+                   mesh_devices(self.sharding.mesh)]
+        ndev = len(devices)
+        reason = shard_unsupported_reason(self.shape, self.pml_meta, k, ndev)
+        if reason is not None:
+            raise ValueError(f"a sharded run over {ndev} x-slabs: {reason}")
+        lay = self.layout = XSlabs(self.shape[0], ndev, k,
+                                   plan.boundaries[0][0] == "periodic")
+        self.shards = []
+        for s, dev in enumerate(devices):
+            hc, pml_meta = shard_constants(self.host_consts, self.pml_meta,
+                                           lay, s)
+            meta = StepMeta(
+                shape=(lay.nx_loc,) + self.shape[1:],
+                boundaries=tuple(plan.boundaries), pml_meta=pml_meta,
+                bloch=bloch_phases(plan), xpad=k, x_halo=lay.halo(s))
+            sources = {fam: [t._replace(term=t.term.to(dev)) for t in
+                             kstep_kernels.shard_sources(
+                                 terms, self.shape, lay.x0(s), lay.padded,
+                                 k, lay.periodic)]
+                       for fam, terms in self._sources.items()}
+            tables = kstep_kernels.SourceTables(
+                sources, self._waveforms, meta.array_shape, dev, x_origin=k)
+            mon_slices = []
+            for mp in plan.monitors:
+                owned = {}
+                for comp, sl in mp.slices.items():
+                    rng = lay.owned_range(s, sl[0].start, sl[0].stop)
+                    if rng is not None:
+                        owned[comp] = (slice(*rng),) + tuple(sl[1:])
+                mon_slices.append(owned)
+            self.shards.append(_Shard(s, dev, consts_to_device(hc, dev), meta,
+                                      tables, mon_slices))
+
+    @property
+    def devices(self) -> list:
+        """The distinct devices the run steps on."""
+        if self.shards is None:
+            return [self.device]
+        return list(dict.fromkeys(sh.device for sh in self.shards))
+
+    def exchange_halos(self, states: list) -> None:
+        """Refreshes the halo planes of each shard's buffer set in
+        ``states`` from its neighbours' core edges, in place."""
+        self.layout.exchange([halo_arrays(st) for st in states])
 
     # ------------------------------------------------------------------ #
     # sources
@@ -617,62 +837,83 @@ class FDTDRunner:
     # state
     # ------------------------------------------------------------------ #
 
-    def psi_shapes(self) -> Dict[str, Tuple[int, int, int]]:
-        """psi slab shapes keyed ``"comp|axis|side"`` (XLA-path layout)."""
+    def psi_shapes(self, meta: StepMeta = None
+                   ) -> Dict[str, Tuple[int, int, int]]:
+        """psi slab shapes keyed ``"comp|axis|side"`` (XLA-path layout), of
+        the run or of the shard whose ``meta`` is given (its y and z slabs
+        span its padded x planes)."""
+        meta = meta or self.meta
         shapes = {}
         for comp in E_COMPS + H_COMPS:
             fam = "dual" if comp[0] == "E" else "primal"
             i = "xyz".index(comp[1])
             for deriv_axis in ((i + 1) % 3, (i + 2) % 3):
-                w_lo, w_hi = self.pml_meta[(fam, deriv_axis)]
+                w_lo, w_hi = meta.pml_meta[(fam, deriv_axis)]
                 for side, width in (("lo", w_lo), ("hi", w_hi)):
                     if width == 0:
                         continue
-                    s = list(self.shape)
+                    s = list(meta.array_shape)
                     s[deriv_axis] = width
                     shapes[f"{comp}|{deriv_axis}|{side}"] = tuple(s)
         return shapes
 
-    def init_state(self) -> dict:
+    def _fields(self, meta: StepMeta, device) -> dict:
+        """Zero fields, psi slabs and pole currents (both copies of a
+        complex run) of the run or of one shard."""
+        shape = meta.array_shape
+
         def zeros(s):
-            return torch.zeros(s, dtype=self.dtype, device=self.device)
+            return torch.zeros(s, dtype=self.dtype, device=device)
 
-        def fields():
-            out = {"Q": [{c: (zeros(self.shape), zeros(self.shape))
-                          for c in E_COMPS} for _ in self.plan.poles]}
-            # copy 1 of a complex run: the imaginary part
-            for e, h, p in kstep_kernels.COPIES[:1 + self.is_complex]:
-                out[e] = {c: zeros(self.shape) for c in E_COMPS}
-                out[h] = {c: zeros(self.shape) for c in H_COMPS}
-                out[p] = {k: zeros(s) for k, s in self.psi_shapes().items()}
-            return out
+        out = {"Q": [{c: (zeros(shape), zeros(shape)) for c in E_COMPS}
+                     for _ in self.plan.poles]}
+        # copy 1 of a complex run: the imaginary part
+        for e, h, p in kstep_kernels.COPIES[:1 + self.is_complex]:
+            out[e] = {c: zeros(shape) for c in E_COMPS}
+            out[h] = {c: zeros(shape) for c in H_COMPS}
+            out[p] = {k: zeros(s) for k, s in self.psi_shapes(meta).items()}
+        return out
 
-        state = fields()
+    def init_state(self) -> dict:
+        """The zero state; a sharded run's is ``{"shards": [...]}``, one
+        state per shard, each with its own monitor parts."""
+        if self.shards is not None:
+            return {"shards": [dict(
+                self._fields(sh.meta, sh.device),
+                mon=[self._init_monitor_acc(mi, mp, sh.mon_slices[mi],
+                                            sh.device)
+                     for mi, mp in enumerate(self.plan.monitors)],
+                alt=self._fields(sh.meta, sh.device))
+                for sh in self.shards]}
+        state = self._fields(self.meta, self.device)
         state["mon"] = [self._init_monitor_acc(mi, mp)
                         for mi, mp in enumerate(self.plan.monitors)]
         if self.tier == "kstep":
             # the ping-pong set: each group reads one set and writes the
             # other (allocated once; the runner swaps them)
-            state["alt"] = fields()
+            state["alt"] = self._fields(self.meta, self.device)
         return state
 
-    def _init_monitor_acc(self, mi, mp):
+    def _init_monitor_acc(self, mi, mp, slices: dict = None, device=None):
+        """The accumulators of monitor ``mi`` over ``slices`` (default: the
+        whole monitor)."""
+        slices = mp.slices if slices is None else slices
+        device = device or self.device
         acc = {}
         f32 = torch.float32
-        if mp.kind == "field" and str(mi) in self.consts["dft"]:
+        if mp.kind == "field" and str(mi) in self.host_consts["dft"]:
             nf = len(mp.freqs)
-            for comp in mp.comps:
-                s = tuple(s_.stop - s_.start for s_ in mp.slices[comp]) + (nf,)
-                acc[comp] = (torch.zeros(s, dtype=f32, device=self.device),
-                             torch.zeros(s, dtype=f32, device=self.device))
+            for comp, sl in _owned(mp, slices):
+                s = tuple(s_.stop - s_.start for s_ in sl) + (nf,)
+                acc[comp] = (torch.zeros(s, dtype=f32, device=device),
+                             torch.zeros(s, dtype=f32, device=device))
         elif mp.kind == "field_time":
             n_samples = max(
                 (mp.t_stop - mp.t_start + mp.t_interval - 1)
                 // mp.t_interval, 1)
-            for comp in mp.comps:
-                s = (n_samples,) + tuple(s_.stop - s_.start
-                                         for s_ in mp.slices[comp])
-                acc[comp] = torch.zeros(s, dtype=f32, device=self.device)
+            for comp, sl in _owned(mp, slices):
+                s = (n_samples,) + tuple(s_.stop - s_.start for s_ in sl)
+                acc[comp] = torch.zeros(s, dtype=f32, device=device)
         return acc
 
     # ------------------------------------------------------------------ #
@@ -685,30 +926,33 @@ class FDTDRunner:
         return fn(family, state, self.consts, src_fields, self.meta)
 
     def _accumulate_monitors(self, step: int, newE, newH, mon, newE1=None,
-                             newH1=None):
+                             newH1=None, dft: dict = None,
+                             slices: list = None):
         """Running-DFT / time-sample accumulation on the fresh fields, in
         place on the accumulators of ``mon``. In a complex run ``newE1`` and
         ``newH1`` are copy 1: the DFT adds it rotated into both quadratures,
         ``(v0 + i v1) e^{i w t}`` (``tidy3d_tpu/solver/fdtd.py:1217-1223``),
-        and time monitors record copy 0 only."""
-        consts = self.consts
+        and time monitors record copy 0 only. A shard passes its own DFT
+        tables (``dft``) and per monitor the slices it owns (``slices``)."""
+        dft = self.consts["dft"] if dft is None else dft
         for mi, (mp, acc) in enumerate(zip(self.plan.monitors, mon)):
             key = str(mi)
-            if mp.kind == "field" and key in consts["dft"]:
-                cos_e, sin_e, cos_h, sin_h = consts["dft"][key]
+            sls = mp.slices if slices is None else slices[mi]
+            if mp.kind == "field" and key in dft:
+                cos_e, sin_e, cos_h, sin_h = dft[key]
                 ph = {"E": (cos_e[step], sin_e[step]),
                       "H": (cos_h[step], sin_h[step])}
-                for comp in mp.comps:
+                for comp, sl in _owned(mp, sls):
                     is_e = comp in E_COMPS
                     fields = newE if is_e else newH
-                    vals = fields[comp][mp.slices[comp]].unsqueeze(-1)
+                    vals = fields[comp][sl].unsqueeze(-1)
                     cos_t, sin_t = ph[comp[0]]
                     acc_re, acc_im = acc[comp]
                     acc_re.addcmul_(vals, cos_t)
                     acc_im.addcmul_(vals, sin_t)
                     if newE1 is not None:
                         vals1 = (newE1 if is_e else newH1)[comp][
-                            mp.slices[comp]].unsqueeze(-1)
+                            sl].unsqueeze(-1)
                         acc_re.addcmul_(vals1, sin_t, value=-1.0)
                         acc_im.addcmul_(vals1, cos_t)
             elif mp.kind == "field_time":
@@ -716,9 +960,9 @@ class FDTDRunner:
                         and (step - mp.t_start) % mp.t_interval == 0):
                     continue
                 idx = (step - mp.t_start) // mp.t_interval
-                for comp in mp.comps:
+                for comp, sl in _owned(mp, sls):
                     fields = newE if comp in E_COMPS else newH
-                    acc[comp][idx].copy_(fields[comp][mp.slices[comp]])
+                    acc[comp][idx].copy_(fields[comp][sl])
         return mon
 
     def step(self, step: int, state: dict) -> dict:
@@ -761,10 +1005,28 @@ class FDTDRunner:
         ping-pong set, which becomes the state; the set read becomes the
         next ping-pong set. The monitors accumulate on the group-end fields
         at step ``gi k + k - 1`` when ``accumulate`` (the DFT tables are
-        strided, so no sample lands elsewhere)."""
+        strided, so no sample lands elsewhere). A sharded run first
+        exchanges the halos of the set it reads, then launches once per
+        shard, then accumulates each shard's monitor parts."""
         k = self.k
         fn = kstep_kernels.kstep_group if self.use_kernel \
             else kstep_kernels.kstep_group_reference
+        if self.shards is not None:
+            states = state["shards"]
+            with record_function("fdtd.halo_exchange"):
+                self.exchange_halos(states)
+            news = [fn(st, sh.consts, sh.meta, sh.tables, gi * k, k,
+                       out=st["alt"]) for sh, st in zip(self.shards, states)]
+            out = []
+            for sh, st, new in zip(self.shards, states, news):
+                if accumulate:
+                    with record_function("fdtd.monitors"):
+                        self._accumulate_monitors(
+                            gi * k + k - 1, new["E"], new["H"], st["mon"],
+                            dft=sh.consts["dft"], slices=sh.mon_slices)
+                out.append(dict(new, mon=st["mon"], alt={
+                    key: st[key] for key in self._group_keys}))
+            return {"shards": out}
         new = fn(state, self.consts, self.meta, self.tables, gi * k, k,
                  out=state["alt"])
         mon = state["mon"]
@@ -801,12 +1063,23 @@ class FDTDRunner:
     @property
     def tier_name(self) -> str:
         """The tier as the run log names it: ``kstep (k=2)``, ``fused``,
-        ``pallas2``."""
-        return f"kstep (k={self.k})" if self.tier == "kstep" else self.tier
+        ``pallas2``; a sharded run adds its decomposition, ``kstep (k=2,
+        4 x-shards)``."""
+        if self.tier != "kstep":
+            return self.tier
+        if self.shards is None:
+            return f"kstep (k={self.k})"
+        return f"kstep (k={self.k}, {len(self.shards)} x-shards)"
 
     def _max_field(self, state) -> torch.Tensor:
         """The largest |E| over both copies of a complex run
-        (``tidy3d_tpu/solver/fdtd.py:1765-1776``)."""
+        (``tidy3d_tpu/solver/fdtd.py:1765-1776``), over the owned planes of
+        every shard of a sharded run (the ``lax.pmax`` at :1858)."""
+        if self.shards is not None:
+            dev = self.shards[0].device
+            return torch.stack([
+                self.layout.owned(st["E"][c]).abs().amax().to(dev)
+                for st in state["shards"] for c in E_COMPS]).amax()
         return torch.stack([state[e][c].abs().amax() for c in E_COMPS
                             for e in ("E", "E1") if e in state]).amax()
 
@@ -824,15 +1097,45 @@ class FDTDRunner:
         self.host_consts["dft"] = {
             k: tuple(np.pad(t, ((0, extra), (0, 0))) for t in tables)
             for k, tables in self.host_consts["dft"].items()}
-        self.consts["dft"] = {
-            key: tuple(_dev(t, self.device) for t in tables)
-            for key, tables in self.host_consts["dft"].items()}
-        if self.tables is not None:
-            self.tables.set_waveforms(self._waveforms)
+        for consts, tables, dev in (
+                [(self.consts, self.tables, self.device)]
+                if self.shards is None else
+                [(sh.consts, sh.tables, sh.device) for sh in self.shards]):
+            consts["dft"] = {
+                key: tuple(_dev(t, dev) for t in tabs)
+                for key, tabs in self.host_consts["dft"].items()}
+            if tables is not None:
+                tables.set_waveforms(self._waveforms)
+
+    def _raw_monitors(self, mon_parts: list) -> dict:
+        """The raw monitor data (numpy) keyed by monitor-plan index from the
+        accumulators of the run or, in x order, of its shards: a shard's
+        DFT part covers its planes of axis 0, a time part those of axis
+        1."""
+        out = {}
+        for idx, mp in enumerate(self.plan.monitors):
+            parts = [mon[idx] for mon in mon_parts]
+            mon = {}
+            for comp in mp.comps:
+                arrs = [p[comp] for p in parts if comp in p]
+                if not arrs:
+                    continue
+                if mp.kind == "field":
+                    re_ = np.concatenate([a[0].cpu().numpy() for a in arrs])
+                    im_ = np.concatenate([a[1].cpu().numpy() for a in arrs])
+                    mon[comp] = re_ + 1j * im_
+                else:
+                    mon[comp] = np.concatenate(
+                        [a.cpu().numpy() for a in arrs], axis=1)
+            out[idx] = mon
+        if self._plan_rot:
+            out = unrotate_raw(out, self.plan, self._plan_rot)
+        return out
 
     def run(self, verbose: bool = False) -> dict:
         """Execute the time loop; returns the raw monitor data (numpy) keyed
-        by monitor-plan index, as ``tidy3d_tpu``'s runner does."""
+        by monitor-plan index, as ``tidy3d_tpu``'s runner does (in the
+        original axes for a rotated decomposition)."""
         plan = self.plan
         chunk_size = self.align_chunk(max(self.num_steps // NUM_CHUNKS, 1))
         num_chunks = (self.num_steps + chunk_size - 1) // chunk_size
@@ -841,8 +1144,9 @@ class FDTDRunner:
 
         t0 = _time.perf_counter()
         if self.use_kernel:
-            {"kstep": kstep_kernels, "fused": fused_kernels,
-             "pallas2": step_kernels}[self.tier].prepare(self.device)
+            for dev in self.devices:
+                {"kstep": kstep_kernels, "fused": fused_kernels,
+                 "pallas2": step_kernels}[self.tier].prepare(dev)
         self.compile_time = _time.perf_counter() - t0
 
         start_time = _time.perf_counter()
@@ -856,8 +1160,9 @@ class FDTDRunner:
             cur = float(self._max_field(state).item())
             max_ever = float(np.maximum(max_ever, cur))
             ci += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.wall_time = _time.perf_counter() - start_time
         self.steps_run = ci * chunk_size
         self.final_decay = cur / max_ever if max_ever > 0 else 1.0
@@ -870,16 +1175,8 @@ class FDTDRunner:
                      f"final field decay {self.final_decay:.2e}.")
 
         t1 = _time.perf_counter()
-        out = {}
-        for idx, (mp, acc) in enumerate(zip(plan.monitors, state["mon"])):
-            mon = {}
-            for comp, arr in acc.items():
-                if mp.kind == "field":
-                    re_ = arr[0].cpu().numpy()
-                    im_ = arr[1].cpu().numpy()
-                    mon[comp] = re_ + 1j * im_
-                else:
-                    mon[comp] = arr.cpu().numpy()
-            out[idx] = mon
+        parts = [st["mon"] for st in state["shards"]] \
+            if self.shards is not None else [state["mon"]]
+        out = self._raw_monitors(parts)
         self.transfer_time = _time.perf_counter() - t1
         return out

@@ -57,6 +57,7 @@ from .fused import _source_box
 from .step import MAX_POLES, StepMeta, _check_field
 
 LAUNCHES = 0
+SHARDED_LAUNCHES = 0         # the shard-local ones among LAUNCHES
 KS = (2,)                    # group sizes the kernel is built for (K)
 MAX_SOURCES = 64             # source boxes per family (a TFSF box: 12)
 SRC_INTS = 12                # ints per box row (csrc/kstep.cu SRC_INTS)
@@ -121,13 +122,19 @@ class SourceTables:
     row of ``SRC_INTS`` per box and family (component, lo, hi, offset of
     the term in the packed term buffer, waveform row, and the same two for
     the imaginary part or -1), the packed terms, and the waveform table
-    (``set_waveforms``, re-set when the runner pads it), all built once."""
+    (``set_waveforms``, re-set when the runner pads it), all built once.
+
+    A shard's tables (``shard_sources``) hold slices in its padded x
+    planes, ``shape`` being the padded shape; ``x_origin`` (its halo
+    width) takes the kernel's boxes to local planes."""
 
     def __init__(self, sources: dict, waveforms: np.ndarray, shape,
-                 device):
+                 device, x_origin: int = 0):
         self.device = torch.device(device)
         self.shape = tuple(shape)
+        self.x_origin = x_origin
         self.sources = {fam: list(sources.get(fam, [])) for fam in "EH"}
+        self._views = {}
         self.boxes, terms, off = {}, [], 0
 
         def pack(term):
@@ -147,6 +154,8 @@ class SourceTables:
                     if t is not None and tuple(t.shape) != box:
                         raise ValueError(f"source term of {s.comp}: shape "
                                          f"{tuple(t.shape)} for box {lo}-{hi}")
+                lo[0] -= x_origin
+                hi[0] -= x_origin
                 rows.append([comps.index(s.comp), *lo, *hi, pack(s.term),
                              int(s.key), pack(s.term_im),
                              -1 if s.key_im is None else int(s.key_im), 0])
@@ -163,6 +172,17 @@ class SourceTables:
         """The (rows, steps) float32 waveform table, host and device."""
         self.waveforms = np.ascontiguousarray(waveforms, np.float32)
         self.wf = torch.from_numpy(self.waveforms).to(self.device)
+
+    def view(self, start: int, stop: int) -> "SourceTables":
+        """The tables of planes ``[start, stop)`` of a shard's padded x
+        range, as an unsharded run of those planes sees them (cached)."""
+        if (start, stop) not in self._views:
+            shape = (stop - start,) + self.shape[1:]
+            self._views[(start, stop)] = SourceTables(
+                {fam: clip_sources_x(terms, self.shape, -start, shape[0])
+                 for fam, terms in self.sources.items()},
+                self.waveforms, shape, self.device)
+        return self._views[(start, stop)]
 
     def _w(self, key, t) -> float:
         return 0.0 if key is None else float(self.waveforms[key, t])
@@ -189,6 +209,39 @@ class SourceTables:
         return out
 
 
+def clip_sources_x(sources: list, shape, shift: int, nx: int) -> list:
+    """The ``SourceTerm`` boxes of a frame of ``shape`` moved by ``shift``
+    planes along x and clipped to the new frame's ``[0, nx)``, their terms
+    clipped with them; boxes left empty are dropped."""
+    out = []
+    for s in sources:
+        lo, hi = _source_box(s.slices, shape)
+        a, b = max(lo[0] + shift, 0), min(hi[0] + shift, nx)
+        if a >= b:
+            continue
+        cut = slice(a - lo[0] - shift, b - lo[0] - shift)
+        out.append(s._replace(
+            slices=(slice(a, b),) + tuple(s.slices[1:]), term=s.term[cut],
+            term_im=None if s.term_im is None else s.term_im[cut]))
+    return out
+
+
+def shard_sources(sources: list, shape, x0: int, padded: int, pad: int,
+                  periodic: bool) -> list:
+    """The ``SourceTerm`` boxes (global slices of a grid of ``shape``) that
+    reach a shard owning global planes ``[x0, x0 + padded - 2 pad)``, in its
+    padded x planes. Every shard whose padded range a box reaches gets it,
+    not only its owner: halo cells are recomputed below level k and need
+    the source terms too. On a periodic x the halo planes past an edge
+    are those of the other side, so each box is also given shifted by one
+    period each way."""
+    out = []
+    for m in ((-1, 0, 1) if periodic else (0,)):
+        out += clip_sources_x(sources, shape, pad - x0 + m * shape[0],
+                              padded)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # the plain PyTorch version
 # --------------------------------------------------------------------------- #
@@ -201,10 +254,13 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
     step's plain version with the J sources, then the M sources, then the
     pole update, in the order of the substep loop of ``pallas_kstep.py``.
     A complex run (``"E1"`` in ``state``) takes the two-copy substep of
-    ``_bloch_substep``. ``out`` is accepted for the kernel's signature and
+    ``_bloch_substep``. A shard of a sharded run (``meta.xpad``) takes
+    ``_shard_group``. ``out`` is accepted for the kernel's signature and
     not used."""
     from ..fdtd import update_poles
 
+    if meta.xpad:
+        return _shard_group(state, consts, meta, tables, t0, k)
     if "E1" in state:
         cur = {key: state[key] for pair in COPIES for key in pair}
         for t in range(t0, t0 + k):
@@ -222,6 +278,75 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
             update_poles(new_e, cur["E"], Q, consts)
         cur = {"E": new_e, "H": new_h, "psi": psi, "Q": Q}
     return cur
+
+
+def _x_cut(v, start: int, stop: int, nx: int):
+    """Planes ``[start, stop)`` of a tensor that spans the ``nx`` padded x
+    planes (a view); anything else (a scalar, a vector along y or z, an x
+    psi slab) as it is."""
+    if isinstance(v, torch.Tensor) and v.dim() == 3 and v.shape[0] == nx:
+        return v[start:stop]
+    return v
+
+
+def _shard_group(state: dict, consts: dict, meta: StepMeta,
+                 tables: SourceTables, t0: int, k: int) -> dict:
+    """A shard's group, from the XLA semantics on its padded view: the
+    unsharded plain group on the planes the shard sees, which are its
+    owned planes plus the halo planes of each side that reads its halo.
+    There the view's edge is no wall and is given a periodic column: its
+    errors travel one plane per half-step, so after k steps they stay
+    inside the k halo planes. A side without halo is the global x edge,
+    with its wall and its CPML. The owned planes of the result replace
+    those of a copy of the input; its halo planes keep the input's."""
+    K, nl = meta.xpad, meta.shape[0]
+    if k > K:
+        raise ValueError(f"a shard with {K} halo planes per side steps at "
+                         f"most {K} steps per group, not {k}")
+    nx = nl + 2 * K
+    start = 0 if meta.x_halo[0] else K
+    stop = nx if meta.x_halo[1] else K + nl
+
+    def cut(v):
+        return _x_cut(v, start, stop, nx)
+
+    view = {fam: {c: cut(v) for c, v in state[fam].items()}
+            for fam in ("E", "H", "psi")}
+    view["Q"] = [{c: (cut(qr), cut(qi)) for c, (qr, qi) in Qp.items()}
+                 for Qp in state["Q"]]
+    vconsts = dict(consts)
+    for key in ("coeffs_E", "coeffs_H"):
+        vconsts[key] = {c: (cut(a), cut(b)) for c, (a, b) in
+                        consts[key].items()}
+    for key in ("inv_dual", "inv_primal"):
+        vconsts[key] = [cut(consts[key][0])] + list(consts[key][1:])
+    vconsts["wall_masks"] = {c: [cut(m) for m in ms]
+                             for c, ms in consts["wall_masks"].items()}
+    vconsts["pole_masks"] = [cut(m) for m in consts["pole_masks"]]
+    vconsts["pole_B_dense"] = {key: (cut(re), cut(im)) for key, (re, im)
+                               in consts["pole_B_dense"].items()}
+    (lo, hi), rest = meta.boundaries[0], tuple(meta.boundaries[1:])
+    vmeta = StepMeta(
+        shape=(stop - start,) + tuple(meta.shape[1:]),
+        boundaries=(("periodic" if meta.x_halo[0] else lo,
+                     "periodic" if meta.x_halo[1] else hi),) + rest,
+        pml_meta=meta.pml_meta, bloch=meta.bloch)
+    new = kstep_group_reference(view, vconsts, vmeta,
+                                tables.view(start, stop), t0, k)
+
+    def owned(old, v):
+        if not (v.dim() == 3 and old.shape[0] == nx):
+            return v
+        out = old.clone()
+        out[K:K + nl] = v[K - start:K - start + nl]
+        return out
+
+    return {
+        **{fam: {c: owned(state[fam][c], v) for c, v in new[fam].items()}
+           for fam in ("E", "H", "psi")},
+        "Q": [{c: (owned(qo[0], qr), owned(qo[1], qi))
+               for (c, (qr, qi)), qo in zip(Qp.items(), Qo.values())}
+              for Qp, Qo in zip(new["Q"], state["Q"])]}
 
 
 def _bloch_substep(cur: dict, consts: dict, meta: StepMeta,
@@ -300,6 +425,7 @@ class KStepParams(ctypes.Structure):
         ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32 * 2),
         ("wf_len", ctypes.c_int32), ("t0", ctypes.c_int32),
         ("k", ctypes.c_int32), ("ncopy", ctypes.c_int32),
+        ("xpad", ctypes.c_int32), ("x_halo", ctypes.c_int32 * 2),
     ]
 
 
@@ -354,8 +480,8 @@ def _set_pole_params(p, state, out, consts, shape) -> None:
 
 
 def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
-    global LAUNCHES
-    shape = tuple(meta.shape)
+    global LAUNCHES, SHARDED_LAUNCHES
+    shape = meta.array_shape
     device = state["E"][E_COMPS[0]].device
     copies = COPIES[:1 + ("E1" in state)]
     reason = unsupported_reason(k, {
@@ -365,6 +491,11 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     if len(copies) == 2 and state["Q"]:
         raise ValueError("kstep_group: the kernel takes no pole currents in "
                          "a complex (Bloch) run")
+    if meta.xpad not in (0, k) or (any(meta.x_halo) and not meta.xpad):
+        raise ValueError(f"kstep_group: {meta.xpad} halo planes for k = {k}")
+    if meta.xpad and len(copies) == 2:
+        raise ValueError("kstep_group: a complex (Bloch) run is not "
+                         "sharded")
     if shape[0] * shape[1] * shape[2] >= 2 ** 31:
         raise ValueError(f"grid {shape}: the k-step kernel takes fewer "
                          "than 2^31 cells")
@@ -378,8 +509,11 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
                      for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]
     p = KStepParams()
     p.ncopy = len(copies)
+    p.xpad = meta.xpad
+    p.x_halo[0], p.x_halo[1] = (int(h) for h in meta.x_halo)
     for a in range(3):
-        p.n[a] = shape[a]
+        n = meta.shape[a]
+        p.n[a] = n
         lo, hi = meta.boundaries[a]
         for arr, kind in ((p.bk_lo, lo), (p.bk_hi, hi)):
             if kind not in step._WALL:
@@ -387,11 +521,14 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
             arr[a] = step._WALL[kind]
         if (lo == "periodic") != (hi == "periodic"):
             raise ValueError(f"axis {a}: periodic on one side only")
-        p.pec_lo[a] = int(lo == "pec")
+        # a shard's x side that reads its halo meets no wall
+        halo = meta.x_halo if a == 0 else (False, False)
+        p.pec_lo[a] = int(lo == "pec" and not halo[0])
         # the cells whose E and H updates meet no psi slab and no wall
         w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
-        p.bulk_lo[a] = max(1, w_e[0], w_h[0])
-        p.bulk_hi[a] = min(shape[a] - 1, shape[a] - w_e[1], shape[a] - w_h[1])
+        p.bulk_lo[a] = -k if halo[0] else max(1, w_e[0], w_h[0])
+        p.bulk_hi[a] = n + k if halo[1] else min(n - 1, n - w_e[1],
+                                                 n - w_h[1])
         # a virtual cell past a Bloch wall is the rotated real cell only
         # where every coefficient is periodic along the axis
         cs = meta.bloch[a] if len(copies) == 2 else None
@@ -438,6 +575,7 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
 
     step.launch(_library(), p, device, "kstep_group")
     LAUNCHES += 1
+    SHARDED_LAUNCHES += bool(meta.xpad)
     new = {"Q": list(out["Q"])}
     for (e, h, pk), psi in zip(copies, new_psi):
         new.update({e: dict(out[e]), h: dict(out[h]), pk: psi})

@@ -38,12 +38,26 @@ class StepMeta:
     widths ``pml_meta[(family, axis)] = (w_lo, w_hi)`` and, per periodic
     axis that carries a Bloch phase ``e^{i phi} = c + i s``, ``bloch[axis]
     = (c, s)`` (None elsewhere: a complex run steps two real copies, re and
-    im, that mix only where a stencil wraps across such an axis)."""
+    im, that mix only where a stencil wraps across such an axis).
+
+    A shard of a sharded k-step run (``kernels.kstep``) steps ``shape[0]``
+    owned x planes of arrays padded by ``xpad`` halo planes on each x side
+    (``array_shape``); ``x_halo`` says which x sides read their halo (a
+    neighbour shard) instead of meeting the global x wall, and ``pml_meta``
+    holds the shard's own x psi slabs (the edge shards' only)."""
 
     shape: Tuple[int, int, int]
     boundaries: Tuple[Tuple[str, str], ...]
     pml_meta: Dict[Tuple[str, int], Tuple[int, int]]
     bloch: Tuple[Optional[Tuple[float, float]], ...] = (None, None, None)
+    xpad: int = 0
+    x_halo: Tuple[bool, bool] = (False, False)
+
+    @property
+    def array_shape(self) -> Tuple[int, int, int]:
+        """The shape of the x-spanning arrays: ``shape`` with the halo
+        planes."""
+        return (self.shape[0] + 2 * self.xpad,) + tuple(self.shape[1:])
 
 
 # --------------------------------------------------------------------------- #
@@ -386,7 +400,7 @@ def set_family_params(family: str, state: dict, consts: dict,
     coeffs = consts["coeffs_E"] if is_e else consts["coeffs_H"]
     inv = consts["inv_dual"] if is_e else consts["inv_primal"]
     fam = "dual" if is_e else "primal"
-    shape = tuple(meta.shape)
+    shape = meta.array_shape
 
     for i, comp in enumerate(comps):
         for name, val in zip(("ca", "cb"), coeffs[comp]):
@@ -401,7 +415,7 @@ def set_family_params(family: str, state: dict, consts: dict,
     for a in range(3):
         arrays["inv"][a] = _vec(inv[a], shape[a], f"inv[{a}]").data_ptr()
         w_lo, w_hi = meta.pml_meta[(fam, a)]
-        if w_lo + w_hi > shape[a]:
+        if w_lo + w_hi > meta.shape[a]:
             raise ValueError(f"overlapping psi slabs on axis {a}")
         pml = consts["pml"].get(f"{fam}{a}")
         for s, (side, width) in enumerate((("lo", w_lo), ("hi", w_hi))):

@@ -3,8 +3,12 @@
 Mirrors ``tidy3d_tpu.web.run`` (``tidy3d_tpu/web/run.py:55-292``), whose
 module cannot be imported without JAX; the builders of the monitor data the
 port covers are ported here unchanged. Field, field-time, flux and
-flux-time monitors are covered; other monitor types, checkpointing and
-sharded runs raise ``NotImplementedError`` before the run starts. The
+flux-time monitors are covered; other monitor types and checkpointing
+raise ``NotImplementedError`` before the run starts. ``TIDY3D_TPU_SHARD``
+asks for a sharded run as in the JAX package
+(``solver/distributed.sharding_plan_from_env``): x-slabs, or one y or z
+axis rotated onto x, over the visible CUDA devices (on the CPU, over
+virtual shards). The
 runner decides what media it takes (``solver/fdtd.py``: linear, float32, up
 to 8 dispersive pole slots in a real run, none in a Bloch (complex) run) and
 which kernel tier steps the run; the run log names the tier (and k on the
@@ -16,7 +20,6 @@ over through its JSON: ``tidy3d_tpu_torch.Simulation.parse_raw(sim.json())``.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List
 
 import numpy as np
@@ -43,6 +46,7 @@ from ..components.monitor import (
 )
 from ..components.simulation import Simulation
 from ..log import log
+from ..solver.distributed import sharding_plan_from_env
 from ..solver.fdtd import FDTDRunner
 from ..solver.lowering import lower
 from ..solver.profiling import RunMetrics
@@ -58,9 +62,6 @@ def _check_covered(simulation: Simulation, checkpoint_path) -> None:
                 "yet; covered: " + ", ".join(t.__name__ for t in _COVERED))
     if checkpoint_path is not None:
         raise NotImplementedError("checkpoint/resume is not ported yet")
-    if os.environ.get("TIDY3D_TPU_SHARD"):
-        raise NotImplementedError("sharded (multi-device) runs are not "
-                                  "ported yet")
 
 
 def run(
@@ -98,7 +99,13 @@ def run(
         nx, ny, nz = plan.shape
         log.info(f"[{task_name}] lowered: grid {nx}x{ny}x{nz}, "
                  f"{plan.num_steps} steps, {len(plan.sources)} source terms.")
-    runner = FDTDRunner(plan, device=device)
+    sharding_plan = sharding_plan_from_env(plan.shape, device)
+    if sharding_plan is not None and verbose:
+        log.info(f"[{task_name}] sharded: decomposition "
+                 f"{sharding_plan.decomp} over "
+                 f"{len(set(sharding_plan.devices))} device(s), "
+                 f"{int(np.prod(sharding_plan.decomp))} shards")
+    runner = FDTDRunner(plan, device=device, sharding_plan=sharding_plan)
     if verbose:
         log.info(f"[{task_name}] kernel tier: {runner.tier_name}")
     raw = runner.run(verbose=verbose)

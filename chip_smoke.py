@@ -5,9 +5,11 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the three kernels (``tidy3d_tpu_torch/csrc/step.cu``, ``fused.cu``
-   and ``kstep.cu``) with nvcc for sm_90a, one nvcc process each, started
-   together, and print their register and spill reports;
+2. build the six kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
+   ``fused.cu``, ``kstep.cu`` and the labs' ``lab_step.cu``,
+   ``lab_kstep.cu``, ``lab_pole.cu``) with nvcc for sm_90a, one nvcc
+   process each, started together, and print their register and spill
+   reports;
 3. the family-update kernel against its plain PyTorch version for one E and
    one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
    PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
@@ -78,14 +80,44 @@ Phases (any failure exits non-zero):
     Gcell*steps/s and peak device memory;
 15. a (1, 2, 1) decomposition of the broadband case, rotated onto x,
     against the unsharded run (to 2e-5);
-16. the JSON summary lines; the last line is the contract line. Each
+16. the labs' main paths (``tidy3d_tpu_torch.labs``), each with its launch
+    counts set to 0 just before it and read just after: ``kernel_lab.main``
+    (n = 384, bx 4 and 8, ``LAB_BF16=1``), ``kernel_lab2.main`` (k = 1 to
+    4, bx = 8, f32 and bf16) and ``pole_lab.main`` (all six variants);
+    every kernel and variant must have launched;
+17. the step lab's kernel against its plain version on random 384^3
+    fields, bx = 8 and 4, curl, noroll and copy in f32 (to 1e-6) and bf16
+    (to 1e-2: every operation rounds to bf16, one ulp is 2^-8 of a value);
+    kernel ms per step at bx = 8 and 4, plain ms, and for copy one
+    ``torch._foreach_copy_`` of the 6 fields;
+18. the k-step lab's kernel against its plain version on random 384^3
+    fields, bx = 8, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to 1e-2:
+    one rounding at the store), every plane compared, the clamped edge
+    windows included; kernel and plain ms per group;
+19. each pole-lab kernel against its plain version at the lab's size (24
+    x 64 x 128 cells, R = 600, GRID = 16), all 16 copies of the output
+    equal: the kernel contracts ``a * b + c`` into one FMA where the plain
+    version rounds twice, up to 1.5 ulp of a carry a step; the tolerance
+    (``pole_lab.kernel_tolerance``) is about 4x the error measured on
+    these inputs: 3e-4 for ``vpu_peak``'s chains (measured 7.4e-5), 5e-4
+    for ``fma_peak``'s (1.3e-4), 1e-5 for the carries damped by 0.999
+    (``pole_chan`` 2.8e-7, ``pole_packed`` 1.9e-6), 1e-2 for the bf16
+    ``pole_chan``; ``curl_mix`` grows ~1.8x a repeat on a window that
+    varies in y or z, so it is compared on the lab's constant window at R
+    = 600 and on a random one at R = 40 (to 1.5 x 2^-23 a repeat); kernel
+    ms and TFLOP/s under the lab's flop model, plain ms and ptxas's
+    registers;
+20. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
-    (each once) over 3.35 TB/s and its float32 operations over 67 TFLOP/s
-    (the H100 SXM's published peaks at 700 W); the sharded group's bytes
-    are the unsharded group's plus the halo planes each exchange reads and
-    writes. No single PyTorch call computes an FDTD step, so
-    ``library_ms`` is null.
+    (each once) over 3.35 TB/s and the operations its function needs over
+    the peak for their type, 67 TFLOP/s float32 and 133.8 TFLOP/s bf16
+    (the H100 SXM's published peaks at 700 W; the pole lab's operations
+    are ``pole_lab.ops``, fewer than its flop model counts); the
+    sharded group's bytes are the unsharded group's plus the halo planes
+    each exchange reads and writes. No single PyTorch call computes an FDTD
+    step or a lab kernel's function, so ``library_ms`` is null, but for the
+    step lab's copy variant (``torch._foreach_copy_``).
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -95,12 +127,15 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+# the card's peaks, the roofline bound, CUDA-event timing and nvidia-smi
+from tidy3d_tpu_torch.labs._common import (PEAK_BF16, PEAK_F32, bound,
+                                           cuda_ms, nvidia_smi)
 
 N_FULL = 360            # cells per side inside the PML (384^3 with it)
 N_METAL = 256           # the Au case: 280^3 with the PML
@@ -110,9 +145,9 @@ NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
 TOL_FLUX = 2e-2         # a strided DFT against an every-step one
+TOL_BF16 = 1e-2         # bf16 storage: one bf16 ulp is 2^-8 of a value
+N_LAB = 384             # the step labs' default n
 OUT_DIR = "chiprun_out"
-PEAK_BYTES = 3.35e12    # H100 SXM device memory, B/s (data sheet, 700 W)
-PEAK_F32 = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
 # float32 operations per cell update, as the kernels write them: per
 # component two differences times inverse steps, their difference and
 # ca * F + cb * rhs (8); per psi cell b * psi + c * d and its add (4); per
@@ -125,14 +160,6 @@ OPS_POLE = 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return proc.stdout.strip().splitlines()[0]
 
 
 def sync() -> None:
@@ -340,14 +367,6 @@ def numel(d: dict) -> int:
     return sum(v.numel() for v in d.values())
 
 
-def bound(nbytes_: float, ops: float):
-    """``(bound_ms, bound_by)``: the least time the card could take for
-    this many bytes moved and float32 operations done."""
-    t_bytes = nbytes_ / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def stepping_consts(runner) -> list:
     """The constants a step reads: coefficients, inverse steps, CPML
     vectors and pole residues."""
@@ -388,20 +407,6 @@ def max_diff(a: dict, b: dict) -> float:
 def rel_err(got: dict, ref: dict) -> float:
     assert all(bool(torch.isfinite(v).all()) for v in got.values())
     return max_diff(got, ref) / max(max_abs(ref), 1e-30)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms per call of ``fn`` (CUDA events, after one warm-up)."""
-    fn()
-    sync()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    sync()
-    return t0.elapsed_time(t1) / reps
 
 
 # --------------------------------------------------------------------------- #
@@ -976,6 +981,230 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
                 bound=sh_bound)
 
 
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+          library_ms=None) -> dict:
+    """One kernel's entry of the kernels line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def timed(fn):
+    """``(fn(), device ms of that one call)`` (CUDA events)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0.record()
+    out = fn()
+    t1.record()
+    sync()
+    return out, t0.elapsed_time(t1)
+
+
+def lab_err(got: dict, ref: dict):
+    """``(rel_err, max_diff)`` of two field sets, taken in float."""
+    got = {c: v.float() for c, v in got.items()}
+    ref = {c: v.float() for c, v in ref.items()}
+    return rel_err(got, ref), max_diff(got, ref)
+
+
+def lab_fields(seed: int, dtype, names) -> dict:
+    """Seeded random ``N_LAB``^3 fields on the card, rounded to ``dtype``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {c: torch.randn((N_LAB,) * 3, generator=gen,
+                           device="cuda").to(dtype) for c in names}
+
+
+def run_lab_mains(smi: str) -> dict:
+    """Phase 16: each lab's entry point at the labs' default sizes, its
+    launch counts set to 0 just before it and read just after; every
+    kernel and variant must have launched. Returns the counts by lab."""
+    from tidy3d_tpu_torch.labs import kernel_lab, kernel_lab2, pole_lab
+
+    bf16 = ("", "_bf16")
+    expect = {
+        kernel_lab: [v + s for v in kernel_lab.VARIANTS for s in bf16],
+        kernel_lab2: [f"k{k}" + s for k in kernel_lab2.KS for s in bf16],
+        pole_lab: list(pole_lab.VARIANTS),
+    }
+    runs = ((kernel_lab, [str(N_LAB), "4,8"], {"LAB_BF16": "1"}),
+            (kernel_lab2, [str(N_LAB), "1,2,3,4", "8"], {}),
+            (pole_lab, list(pole_lab.VARIANTS), {}))
+    counts = {}
+    for lab, argv, env in runs:
+        name = lab.__name__.rsplit(".", 1)[-1]
+        old = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        log(f"[lab] python3 -m {lab.__name__} {' '.join(argv)} "
+            f"{' '.join(f'{k}={v}' for k, v in env.items())}")
+        try:
+            lab.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rc = lab.main(argv)
+            counts[name] = dict(lab.LAUNCHES)
+        finally:
+            for key, value in old.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        log(f"[lab] {name} main: exit {rc} in "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts[name]}")
+        assert rc == 0, f"{name} main exited {rc}"
+        missing = [k for k in expect[lab] if not counts[name].get(k)]
+        assert not missing, f"{name}: no launch of {missing}"
+    return counts
+
+
+def run_lab_step(smi: str, launches: dict) -> list:
+    """Phase 17: the step lab's kernel against its plain version at
+    ``N_LAB``^3 on random fields, bx = 8 and 4, every variant in f32 and
+    bf16; kernel, plain and (copy) ``_foreach_copy_`` times at bx = 8."""
+    from tidy3d_tpu_torch.labs import kernel_lab
+
+    out = []
+    names = kernel_lab.E + kernel_lab.H
+    for dtype, tol in ((torch.float32, TOL_UPDATE), (torch.bfloat16,
+                                                     TOL_BF16)):
+        f = lab_fields(21, dtype, names)
+        o = {c: torch.empty_like(v) for c, v in f.items()}
+        for variant in kernel_lab.VARIANTS:
+            key = kernel_lab.launch_key(variant, dtype)
+            worst = 0.0
+            for bx in (8, 4):
+                got = kernel_lab.lab_step(f, variant, bx)
+                sync()
+                ref, plain_ms = timed(lambda: kernel_lab.lab_step_reference(
+                    f, variant))
+                rel, ab = lab_err(got, ref)
+                log(f"[lab_step] {N_LAB}^3 {key} bx={bx}: kernel vs plain "
+                    f"max rel err {rel:.3e} (max abs {ab:.3e}, tol {tol:g})")
+                assert rel <= tol, f"lab_step {key} bx={bx}: {rel:.3e}"
+                worst = max(worst, ab)
+                del got, ref
+            ms, ms4 = (cuda_ms(lambda: kernel_lab.lab_step(
+                f, variant, bx, out=o), 20) for bx in (8, 4))
+            lib = None
+            if variant == "copy":
+                src, dst = [f[c] for c in names], [o[c] for c in names]
+                lib = cuda_ms(lambda: torch._foreach_copy_(dst, src), 20)
+            bnd = bound(kernel_lab.step_bytes(N_LAB, dtype),
+                        0 if variant == "copy"
+                        else kernel_lab.FLOPS_PER_CELL * N_LAB ** 3,
+                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            log(f"[lab_step] {N_LAB}^3 {key} bx=8: kernel {ms:.3f} ms/step "
+                f"({kernel_lab.step_bytes(N_LAB, dtype) / ms / 1e6:.0f} "
+                f"GB/s; bx=4 {ms4:.3f} ms), plain {plain_ms:.3f} ms, bound "
+                f"{bnd[0]:.3f} ms by "
+                f"{bnd[1]}"
+                + (f", torch._foreach_copy_ {lib:.3f} ms" if lib else "")
+                + f" | {smi}")
+            out.append(entry(
+                f"lab_step_{key}", "tidy3d_tpu_torch/csrc/lab_step.cu",
+                "scripts/kernel_lab.py:29", launches[key], worst, ms,
+                plain_ms, bnd, lib))
+        del f, o
+    return out
+
+
+def run_lab_kstep(smi: str, launches: dict) -> list:
+    """Phase 18: the k-step lab's kernel against its plain version at
+    ``N_LAB``^3 on random fields, bx = 8, k = 1 to 4, f32 and bf16
+    storage; kernel and plain ms per group and per step."""
+    from tidy3d_tpu_torch.labs import kernel_lab2
+
+    out = []
+    names = kernel_lab2.E + kernel_lab2.H
+    for dtype, tol in ((torch.float32, TOL_UPDATE), (torch.bfloat16,
+                                                     TOL_BF16)):
+        f = lab_fields(22, dtype, names)
+        o = {c: torch.empty_like(v) for c, v in f.items()}
+        for k in kernel_lab2.KS:
+            key = kernel_lab2.launch_key(k, dtype)
+            got = kernel_lab2.lab_kstep(f, k, 8)
+            sync()
+            ref, plain_ms = timed(lambda: kernel_lab2.lab_kstep_reference(
+                f, k, 8))
+            rel, ab = lab_err(got, ref)
+            log(f"[lab_kstep] {N_LAB}^3 {key} bx=8: kernel vs plain max rel "
+                f"err {rel:.3e} (max abs {ab:.3e}, tol {tol:g})")
+            assert rel <= tol, f"lab_kstep {key}: {rel:.3e}"
+            del got, ref
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: kernel_lab2.lab_kstep(f, k, 8, out=o), 10)
+            bnd = bound(kernel_lab2.step_bytes(N_LAB, dtype),
+                        kernel_lab2.FLOPS_PER_CELL * N_LAB ** 3 * k)
+            log(f"[lab_kstep] {N_LAB}^3 {key} bx=8: kernel {ms:.3f} ms/group "
+                f"= {ms / k:.3f} ms/step, plain {plain_ms:.3f} ms/group; "
+                f"bound {bnd[0]:.3f} ms/group = {bnd[0] / k:.3f} ms/step by "
+                f"{bnd[1]} | {smi}")
+            out.append(entry(
+                f"lab_kstep_{key}", "tidy3d_tpu_torch/csrc/lab_kstep.cu",
+                "scripts/kernel_lab2.py:26", launches[key], ab, ms,
+                plain_ms, bnd))
+        del f, o
+    return out
+
+
+POLE_LAB_LINES = {"vpu_peak": 53, "fma_peak": 250, "pole_chan": 103,
+                  "pole_chan_bf16": 103, "pole_packed": 167, "curl_mix": 280}
+
+
+def run_pole_lab(smi: str, launches: dict) -> list:
+    """Phase 19: each pole-lab kernel against its plain version at the
+    lab's size (24 x 64 x 128, R = 600, GRID = 16), every repeat's copy
+    equal; ``curl_mix`` on the lab's constant window at R = 600 and on a
+    random one at R = 40 (the mix grows ~1.8x a repeat); kernel ms and
+    TFLOP/s under the lab's flop model, plain ms, registers."""
+    from tidy3d_tpu_torch.labs import _common, pole_lab
+
+    dev = torch.device("cuda")
+    out = []
+    for variant in pole_lab.VARIANTS:
+        cases = [(pole_lab.R, None)]
+        if variant == "curl_mix":
+            cases = [(pole_lab.R, pole_lab.CURL_MIX_WINDOW), (40, None)]
+        worst = 0.0
+        for reps, constant in cases:
+            inputs = pole_lab.make_inputs(variant, seed=31, device=dev,
+                                          constant=constant)
+            got = pole_lab.run(variant, inputs, reps=reps, copies=True)
+            sync()
+            assert all(torch.equal(got[0], got[g])
+                       for g in range(1, got.shape[0])), \
+                f"{variant}: the grid's copies differ"
+            ref, plain_ms = timed(lambda: pole_lab.REFERENCES[variant](
+                *inputs, reps=reps))
+            rel, ab = lab_err({"o": got[0]}, {"o": ref[0]})
+            tol = pole_lab.kernel_tolerance(variant, reps)
+            what = "constant" if constant is not None else "random"
+            log(f"[pole_lab] {variant}, R={reps}, {what} window: kernel vs "
+                f"plain max rel err {rel:.3e} (max abs {ab:.3e}, tol "
+                f"{tol:.3g}); {got.shape[0]} copies equal")
+            assert rel <= tol, f"pole_lab {variant} R={reps}: {rel:.3e}"
+            worst = max(worst, ab)
+            if reps == pole_lab.R:
+                timed_inputs, timed_plain = inputs, plain_ms
+            del got, ref
+        ms = cuda_ms(lambda: pole_lab.run(variant, timed_inputs), 3)
+        fl = pole_lab.flops(variant)
+        window = timed_inputs[1 if variant.startswith("pole") else 0].shape
+        bnd = bound(nbytes(timed_inputs) + int(np.prod(window)) * (
+            2 if variant.endswith("bf16") else 4), pole_lab.ops(variant),
+            pole_lab.peak(variant))
+        regs = _common.registers_of("lab_pole", variant.replace("_bf16", ""))
+        log(f"[pole_lab] {variant}: kernel {ms:.3f} ms/call "
+            f"({fl / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
+            f"{timed_plain:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]}; "
+            f"ptxas {regs} | {smi}")
+        out.append(entry(
+            f"pole_lab_{variant}", "tidy3d_tpu_torch/csrc/lab_pole.cu",
+            f"scripts/pole_lab.py:{POLE_LAB_LINES[variant]}",
+            launches[variant], worst, ms, timed_plain, bnd))
+    return out
+
+
 def raw_err(ref: dict, got: dict) -> float:
     """The largest difference of two raw monitor sets, relative to the
     largest magnitude of each monitor."""
@@ -1013,9 +1242,10 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build the three kernels, in parallel
-    _build.load_all(["step", "fused", "kstep"])
-    for name in ("step", "fused", "kstep"):
+    # 2. build the six kernel sources, in parallel
+    sources = ["step", "fused", "kstep", "lab_step", "lab_kstep", "lab_pole"]
+    _build.load_all(sources)
+    for name in sources:
         info = _build.BUILDS[name]
         log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
         for line in info.ptxas.splitlines():
@@ -1221,15 +1451,18 @@ def main() -> int:
     # 12-15. sharded runs on virtual shards
     shard = run_sharded(td, dev, smi, full_case(td), plan, plan_d)
     del plan, plan_d
+    torch.cuda.empty_cache()
+
+    # 16-19. the labs: their entry points, then each kernel against plain
+    lab_counts = run_lab_mains(smi)
+    labs = run_lab_step(smi, lab_counts["kernel_lab"])
+    torch.cuda.empty_cache()
+    labs += run_lab_kstep(smi, lab_counts["kernel_lab2"])
+    torch.cuda.empty_cache()
+    labs += run_pole_lab(smi, lab_counts["pole_lab"])
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
-
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     kstep_src = "tidy3d_tpu_torch/csrc/kstep.cu"
     kstep_tpu = "tidy3d_tpu/solver/kernels/pallas_kstep.py:1425"
@@ -1250,7 +1483,7 @@ def main() -> int:
         entry("kstep_group_sharded", kstep_src,
               f"{kstep_tpu} with :1386", shard["launches"], shard["err"],
               shard["ms"], shard["plain_ms"], shard["bound"]),
-    ]}
+    ] + labs}
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

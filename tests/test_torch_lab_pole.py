@@ -1,0 +1,173 @@
+"""The port's pole lab (``tidy3d_tpu_torch.labs.pole_lab``) against the JAX
+lab ``scripts/pole_lab.py``.
+
+The JAX lab's kernels read its module globals (``Wx``, ``Wy``, ``Z``,
+``R``, ``GRID``) at trace time, so the test sets them small on the loaded
+module (2 x 8 x 128 cells, 3 repeats, a grid of 2) and builds and calls
+each ``make_*`` inside ``force_tpu_interpret_mode``; the port's function
+gets the same sizes as arguments and the same seeded numpy inputs.
+Tolerances, relative to the largest magnitude: 1e-6 in f32, 1e-2 for the
+bf16 ``pole_chan`` (bf16's epsilon is 7.8e-3).
+
+Without JAX: ``pole_chan`` and ``pole_packed`` agree, every repeat of the
+grid gives the same window, and the flop model is the JAX lab's. The
+kernel-against-plain tests at the end need a CUDA card and skip without
+one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tidy3d_tpu_torch.labs import _common, pole_lab
+
+from tests.test_torch_lab_step import jax_lab
+
+SIZES = dict(wx=2, wy=8, z=128)
+REPS, GRID = 3, 2
+
+
+def rel(ref, got) -> float:
+    ref = np.asarray(ref, dtype=np.float64)
+    got = np.asarray(got, dtype=np.float64)
+    assert ref.shape == got.shape
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def as_np(t) -> np.ndarray:
+    return t.double().cpu().numpy()
+
+
+def jax_run(variant, inputs, monkeypatch):
+    lab = jax_lab("pole_lab")
+    for name, value in (("Wx", SIZES["wx"]), ("Wy", SIZES["wy"]),
+                        ("Z", SIZES["z"]), ("R", REPS), ("GRID", GRID)):
+        monkeypatch.setattr(lab, name, value)
+    makers = {"vpu_peak": lab.make_vpu_peak, "fma_peak": lab.make_fma_peak,
+              "pole_chan": lab.make_pole_chan,
+              "pole_chan_bf16": lambda: lab.make_pole_chan(jnp.bfloat16),
+              "pole_packed": lab.make_pole_packed,
+              "curl_mix": lab.make_curl_mix}
+    with pltpu.force_tpu_interpret_mode():
+        fn, args, _ = makers[variant]()
+        ours = [jnp.asarray(t.float().numpy(), dtype=a.dtype)
+                for t, a in zip(inputs, args)]
+        assert [a.shape for a in ours] == [a.shape for a in args]
+        return np.asarray(fn(*ours).astype(jnp.float32))
+
+
+def jax_tolerance(variant: str) -> float:
+    """1e-6 in f32 and 1e-2 in bf16, but for the FMA chains: XLA on the CPU
+    contracts each ``a * c + v`` into one FMA (bit for bit an FMA emulated
+    in float64), the plain version rounds product and sum apart, so the two
+    drift by up to 1.5 ulp of the carry a chain step, undamped (c ~ 1)."""
+    if variant.endswith("bf16"):
+        return 1e-2
+    steps = pole_lab.chain_steps(variant, REPS)
+    return max(1e-6, 1.5 * steps * 2.0 ** -23)
+
+
+@pytest.mark.parametrize("variant", pole_lab.VARIANTS)
+def test_matches_the_jax_lab(variant, monkeypatch):
+    inputs = pole_lab.make_inputs(variant, seed=1, **SIZES)
+    ref = jax_run(variant, inputs, monkeypatch)
+    got = pole_lab.run(variant, inputs, reps=REPS, grid=GRID)
+    tol = jax_tolerance(variant)
+    err = rel(ref, as_np(got))
+    assert err <= tol, f"{variant}: {err:.2e}"
+
+
+def test_packed_coefficients_are_the_jax_labs():
+    lab = jax_lab("pole_lab")
+    with pltpu.force_tpu_interpret_mode():
+        _, args, _ = lab.make_pole_packed()
+    assert np.array_equal(np.asarray(args[3]), pole_lab.packed_coeffs())
+
+
+def test_chan_and_packed_agree():
+    """The two formulations on the same values (``q`` permuted into the
+    packed layout) agree to the rounding of their different sum orders
+    over 60 repeats."""
+    chan = pole_lab.make_inputs("pole_chan", seed=2, **SIZES)
+    packed = pole_lab.make_inputs("pole_packed", seed=2, **SIZES)
+    assert torch.equal(packed[2], chan[2][:, pole_lab.chan_to_packed()])
+    a = pole_lab.run("pole_chan", chan, reps=60, grid=1)
+    b = pole_lab.run("pole_packed", packed, reps=60, grid=1)
+    assert rel(as_np(a), as_np(b)) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", pole_lab.VARIANTS)
+def test_grid_copies_are_equal(variant):
+    inputs = pole_lab.make_inputs(variant, seed=3, **SIZES)
+    out = pole_lab.run(variant, inputs, reps=2, grid=3, copies=True)
+    assert out.shape == (3, SIZES["wx"], SIZES["wy"], SIZES["z"])
+    assert all(torch.equal(out[0], out[g]) for g in range(1, 3))
+    assert bool(torch.isfinite(out.float()).all())
+
+
+def test_flop_model_is_the_jax_labs():
+    lab = jax_lab("pole_lab")
+    assert pole_lab.flops("pole_chan", reps=1, grid=1) == lab.POLE_FLOPS
+    # the lab's sizes: 241.6, 120.8, 402.0 and 101.9 GFLOP a call
+    for variant, gflop in (("vpu_peak", 241.6), ("fma_peak", 120.8),
+                           ("pole_packed", 402.0), ("curl_mix", 101.9)):
+        assert abs(pole_lab.flops(variant) / 1e9 - gflop) < 0.05
+
+
+def test_operation_count_is_the_functions():
+    """``ops``, what the bounds count, is the function's own work: 198
+    operations a cell and repeat for the pole update, 48 for ``curl_mix``
+    (fewer than the flop model's 213 and 54), plus the final sum; the bf16
+    ``pole_chan`` is held to the bf16 peak."""
+    one = dict(wx=1, wy=1, z=1, grid=1)
+    for variant, per, final in (("vpu_peak", 128, 7), ("fma_peak", 64, 1),
+                                ("pole_chan", 198, 3), ("pole_packed", 198, 3),
+                                ("curl_mix", 48, 1)):
+        assert pole_lab.ops(variant, reps=0, **one) == final
+        assert pole_lab.ops(variant, reps=5, **one) == 5 * per + final
+        assert pole_lab.ops(variant) <= pole_lab.flops(variant) + final * (
+            pole_lab.Wx * pole_lab.Wy * pole_lab.Z * pole_lab.GRID)
+    assert pole_lab.flops("pole_chan", reps=1, grid=1, wx=1, wy=1, z=1) == 213
+    assert pole_lab.peak("pole_chan_bf16") == _common.PEAK_BF16 == 133.8e12
+    assert pole_lab.peak("pole_chan") == _common.PEAK_F32
+
+
+def test_cpu_dispatch_counts_no_launch():
+    before = dict(pole_lab.LAUNCHES)
+    pole_lab.run("fma_peak", pole_lab.make_inputs("fma_peak", **SIZES),
+                 reps=1, grid=1)
+    assert pole_lab.LAUNCHES == before
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pole_lab.main(["fma_peak"]) == 2
+
+
+# --------------------------------------------------------------------------- #
+# kernel against plain version, on the card
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", pole_lab.VARIANTS)
+def test_kernel_matches_plain(variant, cuda):
+    inputs = pole_lab.make_inputs(variant, seed=4, device=cuda, **SIZES)
+    before = pole_lab.LAUNCHES.get(variant, 0)
+    got = pole_lab.run(variant, inputs, reps=REPS, grid=GRID, copies=True)
+    torch.cuda.synchronize()
+    assert pole_lab.LAUNCHES[variant] == before + 1
+    assert all(torch.equal(got[0], got[g]) for g in range(1, GRID))
+    ref = pole_lab.REFERENCES[variant](*inputs, reps=REPS, grid=GRID)
+    tol = pole_lab.kernel_tolerance(variant, REPS)
+    err = rel(as_np(ref[0]), as_np(got[0]))
+    assert err <= tol, f"{variant}: {err:.2e}"

@@ -1,0 +1,120 @@
+"""What the labs share: the card's name and power limit, CUDA-event timing,
+the roofline bound, the ctypes binding of a lab library and ptxas's
+register counts."""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+
+import torch
+
+PEAK_BYTES = 3.35e12    # H100 SXM device memory, B/s (data sheet, 700 W)
+PEAK_F32 = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
+# H100 SXM5 bf16 outside the tensor cores, FLOP/s (NVIDIA H100 Tensor Core
+# GPU Architecture whitepaper: 133.8 TFLOPS, twice the float32 rate)
+PEAK_BF16 = 133.8e12
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` (CUDA events, after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``nbytes`` and do ``flops`` operations at ``peak`` FLOP/s (float32 by
+    default, ``PEAK_BF16`` for bf16 arithmetic)."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def need_cuda(lab: str) -> bool:
+    """Whether a CUDA device is there; says so on stderr when it is not."""
+    if torch.cuda.is_available():
+        return True
+    print(f"{lab}: no CUDA device is available", file=sys.stderr)
+    return False
+
+
+def library(name: str, entry: str, struct, size_fn: str):
+    """The C entry point ``entry`` of ``csrc/<name>.cu``, built and loaded
+    at first use, its parameter struct checked against ``struct``."""
+    from .. import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        _build.check_struct(lib, size_fn, struct)
+        fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_cuda(t, shape, dtypes, name: str):
+    """Raises unless ``t`` is a contiguous CUDA tensor of ``shape`` and one
+    of ``dtypes``."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {dtypes}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t
+
+
+def registers(name: str) -> dict:
+    """``{mangled kernel name: (registers, spill stores, spill loads)}``
+    from the ptxas report of ``csrc/<name>.cu`` (built in this process or
+    loaded as built)."""
+    from .. import _build
+
+    out, current = {}, None
+    for line in _build.BUILDS[name].ptxas.splitlines():
+        m = re.search(r"[Ff]unction properties for (\S+)", line) or \
+            re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1).rstrip(":'")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            regs = out.get(current, (0, 0, 0))[0]
+            out[current] = (regs, int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            _, st, ld = out.get(current, (0, 0, 0))
+            out[current] = (int(m.group(1)), st, ld)
+    return out
+
+
+def registers_of(name: str, kernel: str) -> str:
+    """One line of registers and spills per instantiation of ``kernel``."""
+    rows = [f"{regs} registers, spill {st}/{ld} B"
+            for mangled, (regs, st, ld) in sorted(registers(name).items())
+            if kernel in mangled]
+    return "; ".join(rows) if rows else "not reported"

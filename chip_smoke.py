@@ -9,7 +9,9 @@ Phases (any failure exits non-zero):
    ``fused.cu``, ``kstep.cu`` and the labs' ``lab_step.cu``,
    ``lab_kstep.cu``, ``lab_pole.cu``) with nvcc for sm_90a, one nvcc
    process each, started together, and print their register and spill
-   reports;
+   reports; for every instantiation of the k-step kernel (0 to 8 pole slots
+   and Bloch, each bulk and shell) its registers, spills and blocks of 512
+   threads per SM (the CUDA occupancy calculator);
 3. the family-update kernel against its plain PyTorch version for one E and
    one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
    PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
@@ -31,18 +33,23 @@ Phases (any failure exits non-zero):
    steps, on the 64x48x80 grid with a Lorentz pole, on the 384^3 broadband
    and dispersive cases and on the 280^3 Au case (7 poles), to 1e-6; kernel
    and plain ms per group and per step (CUDA events) beside the fused
-   kernel (plus the plain pole update); 200 steps on the kstep tier, kernel
-   against plain in turns, on the dispersive and the Au case, to 2e-5;
+   kernel (plus the plain pole update), the ratio to the group's bound, the
+   bulk and shell blocks (two device launches a group), registers and
+   blocks per SM; 200 steps on the kstep tier, kernel against plain in
+   turns, on the broadband, the dispersive and the Au case, to 2e-5;
 8. torch.profiler windows of 20 steps: device time of the two-phase tier on
    the broadband case, of the fused tier on the dispersive case split into
    the fused kernel, the pole-update ops and the DFT/source ops, and of the
-   kstep tier on the dispersive case;
+   kstep tier on the dispersive case; the device's busy share (the union of
+   its events' intervals, overlapping kernels once, over the unprofiled
+   step time);
 9. ``tidy3d_tpu_torch.web.run``, each path with the launch counts set to 0
    just before it and read just after: the broadband case on the two-phase
    tier (2 family launches per step), the dispersive and the broadband case
    forced to the fused tier (one fused launch per step), then both on the
-   default tier, the kstep tier (one k-step launch per group of k steps, no
-   fused or family launch); the flux must be finite and non-zero, and on
+   default tier, the kstep tier (one k-step call per group of k steps, its
+   device launches one per non-empty block list, no fused or family
+   launch); the flux must be finite and non-zero, and on
    the kstep tier within 2e-2 of the fused tier's (a strided DFT against an
    every-step one); throughput and peak device memory of each;
 10. Bloch (complex) runs, two real copies of the fields on the kstep tier:
@@ -50,7 +57,8 @@ Phases (any failure exits non-zero):
     y, a PML z, an eps = 8 slab, an Ez dipole) with the broadband case's
     field plane and flux box: the Bloch instantiation of the k-step kernel
     against its plain version for one group (to 1e-6 over both copies),
-    kernel and plain ms per group, 200 steps kernel against plain in turns
+    kernel and plain ms per group, the ratio to the bound, registers and
+    blocks per SM, 200 steps kernel against plain in turns
     (to 2e-5), a 20-step profiler window; and the angled plane wave (256^3,
     a PML x, Bloch y from a 25-degree plane wave, periodic z), one group
     against plain;
@@ -66,7 +74,8 @@ Phases (any failure exits non-zero):
     shard-local k-step kernel against its plain version and against the
     unsharded kernel on the same random state (to 1e-6), the group's
     CUDA-event time split into the exchange and each shard's launch, the
-    host's enqueue time, 200 steps sharded against unsharded in turns (to
+    host's enqueue time, the ratio to the bound, registers and blocks per
+    SM, 200 steps sharded against unsharded in turns (to
     2e-5); on several visible cards the same group on distinct devices,
     otherwise a line that says it was not run;
 13. the 1-shard ring (``bench.py``'s ``fdtd_sharded``): the broadband case
@@ -76,7 +85,8 @@ Phases (any failure exits non-zero):
     full-length run of the broadband case over 4 x-shards through
     ``FDTDRunner`` with an explicit ``ShardingPlan``, then the port's
     ``SimulationData`` builders; raw monitors against the unsharded run (to
-    2e-5), kstep launches equal to 4 per group and no other kernel's,
+    2e-5), kstep calls equal to 4 per group (each shard's bulk and shell
+    lists a device launch each) and no other kernel's,
     Gcell*steps/s and peak device memory;
 15. a (1, 2, 1) decomposition of the broadband case, rotated onto x,
     against the unsharded run (to 2e-5);
@@ -89,7 +99,8 @@ Phases (any failure exits non-zero):
     fields, bx = 8 and 4, curl, noroll and copy in f32 (to 1e-6) and bf16
     (to 1e-2: every operation rounds to bf16, one ulp is 2^-8 of a value);
     kernel ms per step at bx = 8 and 4, plain ms, and for copy one
-    ``torch._foreach_copy_`` of the 6 fields;
+    ``torch._foreach_copy_`` of the 6 fields; the copy bit-identical to
+    plain, its 16-byte vectors and, on 15^3 fields, its scalar tail;
 18. the k-step lab's kernel against its plain version on random 384^3
     fields, bx = 8, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to 1e-2:
     one rounding at the store), every plane compared, the clamped edge
@@ -117,7 +128,9 @@ Phases (any failure exits non-zero):
     sharded group's bytes are the unsharded group's plus the halo planes
     each exchange reads and writes. No single PyTorch call computes an FDTD
     step or a lab kernel's function, so ``library_ms`` is null, but for the
-    step lab's copy variant (``torch._foreach_copy_``).
+    step lab's copy variant (``torch._foreach_copy_``). The k-step entries
+    also carry the registers and blocks per SM of their bulk and shell
+    instantiations.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -127,6 +140,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -395,6 +409,45 @@ def group_bound(runner, state, k: int):
     return bound(*group_work(runner, state, k))
 
 
+def kstep_registers() -> dict:
+    """``{(pole slots, bloch, bulk): (registers, spill stores, spill
+    loads)}`` of each instantiation of ``csrc/kstep.cu`` (ptxas's report)."""
+    from tidy3d_tpu_torch.labs import _common
+
+    out = {}
+    for mangled, regs in _common.registers("kstep").items():
+        m = re.search(r"kstep_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+        if m:
+            out[(int(m.group(1)), m.group(2) == "1",
+                 m.group(3) == "1")] = regs
+    return out
+
+
+def kstep_resources(num_poles: int, bloch: bool) -> dict:
+    """Registers and blocks per SM of the bulk and the shell instantiation
+    the k-step kernel runs for ``num_poles`` pole slots (or Bloch)."""
+    from tidy3d_tpu_torch.solver.kernels import kstep
+
+    regs = kstep_registers()
+    parts = {"bulk": True, "shell": False}
+    return {"registers": {name: regs[(num_poles, bloch, bulk)][0]
+                          for name, bulk in parts.items()},
+            "blocks_per_sm": {name: kstep.occupancy(num_poles, bloch, bulk)
+                              for name, bulk in parts.items()}}
+
+
+def lists_per_group(runner) -> int:
+    """Device launches of one k-step group of ``runner``: one per block
+    list (bulk, shell) that is not empty, on each shard."""
+    from tidy3d_tpu_torch.solver.kernels import kstep
+
+    metas = [sh.meta for sh in runner.shards] if runner.shards \
+        else [runner.meta]
+    ncopy = 2 if runner.is_complex else 1
+    return sum(len(ids) > 0 for meta in metas
+               for ids in kstep.classify_blocks(meta, runner.k, ncopy))
+
+
 def max_abs(d: dict) -> float:
     return max(float(v.abs().max()) for v in d.values())
 
@@ -550,6 +603,23 @@ def _range_device_us(prof, name: str) -> float:
     return sum(walk(e) for e in prof.events() if e.name == name)
 
 
+def _device_busy_us(prof) -> float:
+    """Time in which the device ran at least one kernel or copy: the union
+    of the device events' intervals, so that kernels that overlap (the two
+    launches of a k-step group) count once."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type.name == "CUDA" and not e.name.startswith("fdtd.")
+        and e.name != "Command Buffer Full"
+        and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def profile_window(runner, out_path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -591,9 +661,11 @@ def profile_window(runner, out_path: str) -> dict:
                          "family_update_kernel", "fused_step_kernel",
                          "kstep_kernel")),
         expected={"pallas2": 2 * NPROF, "fused": NPROF,
-                  "kstep": NPROF // runner.k}[runner.tier],
+                  "kstep": NPROF // runner.k * lists_per_group(runner)
+                  }[runner.tier],
         poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
         monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
+        busy_ms=_device_busy_us(prof) / 1e3,
         launches=sum(c for _, c in by_name.values()))
 
 
@@ -611,15 +683,16 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
     kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"]
     other = per["device_ms"] - kernel - per["poles_ms"]
     # the profiler slows the host loop, so the busy share compares the
-    # device time per step with the unprofiled step time
+    # time the device was busy per step with the unprofiled step time
     log(f"[profile] {what} per step: device {per['device_ms']:.3f} ms = "
         f"kernels {kernel:.3f} ms (family {per['family_ms']:.3f}, fused "
         f"{per['fused_ms']:.3f}, k-step {per['kstep_ms']:.3f}) + "
         f"pole-update ops {per['poles_ms']:.3f} ms "
         f"+ DFT/source ops {other:.3f} ms (of which the monitor range "
         f"{per['monitors_ms']:.3f} ms), {per['launches']:.0f} device "
-        f"launches; unprofiled step {step_ms:.3f} ms, device busy "
-        f"{per['device_ms'] / step_ms:.1%} | {smi}")
+        f"launches; busy {per['busy_ms']:.3f} ms (overlapping kernels "
+        f"once); unprofiled step {step_ms:.3f} ms, device busy "
+        f"{per['busy_ms'] / step_ms:.1%} | {smi}")
 
 
 def web_run(td, sim, what: str, smi: str, tier: str = None,
@@ -640,11 +713,13 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+        kstep.DEVICE_LAUNCHES = 0
         t0 = time.perf_counter()
         data = td.web.run(sim, task_name="chip_smoke", verbose=False)
         total_s = time.perf_counter() - t0
         launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
                     "kstep": kstep.LAUNCHES}
+        device_launches = kstep.DEVICE_LAUNCHES
     finally:
         if old is None:
             os.environ.pop("TIDY3D_TPU_KERNEL", None)
@@ -655,8 +730,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     steps_run = int(lines[1].split("steps run: ")[1].split(" ")[0])
     rate = float(lines[2].split("throughput: ")[1].split(" ")[0])
     flux = np.asarray(data["flux"].flux.values)
-    log(f"[web.run] {what}: {steps_run} steps, launches {launches}, log: "
-        f"{' | '.join(lines[2:])}")
+    log(f"[web.run] {what}: {steps_run} steps, launches {launches} (k-step "
+        f"device launches {device_launches}), log: {' | '.join(lines[2:])}")
     log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
         f"device memory {peak / 2**30:.2f} GiB | {smi}")
     log(f"[web.run] {what}: flux {flux.tolist()}")
@@ -668,7 +743,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         assert np.any(values != 0)
     return SimpleNamespace(
         data=data, flux=flux, steps=steps_run, launches=launches, rate=rate,
-        tier=lines[-1].split("kernel tier: ")[1], peak=peak)
+        tier=lines[-1].split("kernel tier: ")[1], peak=peak,
+        device_launches=device_launches)
 
 
 def run_bloch(td, dev, smi: str) -> dict:
@@ -699,11 +775,15 @@ def run_bloch(td, dev, smi: str) -> dict:
     b_ms = cuda_ms(bloch_group(kstep.kstep_group), 10)
     bp_ms = cuda_ms(bloch_group(kstep.kstep_group_reference), 3)
     b_bound = group_bound(br, st, br.k)
+    res = kstep_resources(0, True)
+    dl_b = lists_per_group(br)
     log(f"[bloch] {plan_b.shape} dipole, k={br.k}, two copies: k-step kernel "
         f"{b_ms:.3f} ms/group = {b_ms / br.k:.3f} ms/step "
         f"({ncell_b * br.k / b_ms / 1e6:.2f} Gcell*steps/s, cells counted "
         f"once), plain {bp_ms:.3f} ms/group; bound {b_bound[0]:.3f} ms/group "
-        f"by {b_bound[1]} | {smi}")
+        f"by {b_bound[1]}, ratio {b_ms / b_bound[0]:.2f}; {dl_b} device "
+        f"launches a group, registers {res['registers']}, blocks per SM "
+        f"{res['blocks_per_sm']} | {smi}")
     del st
     rates_b = compare_runners(plan_b, dev, ncell_b, "Bloch dipole 256^3",
                               smi)
@@ -729,9 +809,11 @@ def run_bloch(td, dev, smi: str) -> dict:
     wb = web_run(td, bloch_case(td), "Bloch dipole, default tier", smi)
     assert wb.tier == "kstep (k=2)", wb.tier
     assert wb.launches == dict(none, kstep=wb.steps // 2), wb.launches
+    assert wb.device_launches == dl_b * wb.steps // 2, wb.device_launches
     wp = web_run(td, planewave_case(td), "angled plane wave, default tier",
                  smi, field=None)
     assert wp.launches == dict(none, kstep=wp.steps // 2), wp.launches
+    assert wp.device_launches >= wp.steps // 2, wp.device_launches
     back = np.asarray(wp.data["flux_back"].flux.values)
     fwd = float(np.abs(wp.data["fwd"].Ez.values).max())
     bwd = float(np.abs(wp.data["bwd"].Ez.values).max())
@@ -746,7 +828,7 @@ def run_bloch(td, dev, smi: str) -> dict:
         f"{wb.peak / 2**30:.2f} / {wp.peak / 2**30:.2f} GiB | {smi}")
 
     return dict(launches=n_bloch, err=max(err_bloch), ms=b_ms,
-                plain_ms=bp_ms, bound=b_bound)
+                plain_ms=bp_ms, bound=b_bound, **res)
 
 
 def sharded_runner(plan, devices, **kw):
@@ -864,6 +946,11 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
                                              ur.tables, 36, k,
                                              out=glob["alt"]), 10)
     del glob
+    res = kstep_resources(len(plan_d.poles), False)
+    log(f"[sharded] {plan_d.shape} dispersive, 4 shards, k={k}: "
+        f"{lists_per_group(sr)} device launches a group, registers "
+        f"{res['registers']}, blocks per SM {res['blocks_per_sm']}, ratio "
+        f"to the bound {g_ms / sh_bound[0]:.2f}")
     log(f"[sharded] {plan_d.shape} dispersive, 4 shards, k={k}: group "
         f"{g_ms:.3f} ms (CUDA events) = launches "
         f"{', '.join(f'{m:.3f}' for m in l_ms)} ms (sum {sum(l_ms):.3f}) "
@@ -926,16 +1013,18 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
-    kstep.SHARDED_LAUNCHES = 0
+    kstep.SHARDED_LAUNCHES = kstep.DEVICE_LAUNCHES = 0
     run4 = sharded_runner(plan, [dev] * 4)
     raw = run4.run()
     launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
                 "kstep": kstep.LAUNCHES}
     n_sharded = kstep.SHARDED_LAUNCHES
+    n_device = kstep.DEVICE_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     groups = run4.steps_run // run4.k
     assert launches == dict(none, kstep=4 * groups), launches
     assert n_sharded == 4 * groups, n_sharded
+    assert n_device == lists_per_group(run4) * groups, n_device
     data = assemble_sim_data(sim, plan, raw, run4, "chip_smoke")
     flux = np.asarray(data["flux"].flux.values)
     assert flux.shape == (11,) and np.all(np.isfinite(flux)) \
@@ -943,7 +1032,8 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     err = raw_err(ref_raw, raw)
     rate = ncell * run4.steps_run / run4.wall_time / 1e9
     log(f"[sharded] broadband web path, 4 x-shards: {run4.steps_run} steps, "
-        f"{groups} groups, launches {launches} ({n_sharded} shard-local), "
+        f"{groups} groups, launches {launches} ({n_sharded} shard-local, "
+        f"{n_device} device launches), "
         f"{rate:.3f} Gcell*steps/s, peak device memory "
         f"{peak / 2**30:.2f} GiB; raw monitors vs unsharded max rel err "
         f"{err:.3e} (tol {TOL_STEPS:g}); tier {data.log.splitlines()[-1]} "
@@ -978,16 +1068,17 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
         f"(tol {TOL_STEPS:g}) | {smi}")
     assert err_y <= TOL_STEPS, f"y decomposition: rel err {err_y:.3e}"
     return dict(launches=n_sharded, err=err_sh, ms=g_ms, plain_ms=gp_ms,
-                bound=sh_bound)
+                bound=sh_bound, **res)
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
-          library_ms=None) -> dict:
-    """One kernel's entry of the kernels line."""
+          library_ms=None, **extra) -> dict:
+    """One kernel's entry of the kernels line (``extra``: more keys, as the
+    k-step kernel's registers and blocks per SM)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms}
+            "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
 
 def timed(fn):
@@ -1081,6 +1172,9 @@ def run_lab_step(smi: str, launches: dict) -> list:
                 log(f"[lab_step] {N_LAB}^3 {key} bx={bx}: kernel vs plain "
                     f"max rel err {rel:.3e} (max abs {ab:.3e}, tol {tol:g})")
                 assert rel <= tol, f"lab_step {key} bx={bx}: {rel:.3e}"
+                if variant == "copy":
+                    assert all(torch.equal(got[c], ref[c]) for c in names), \
+                        f"lab_step {key}: the copy is not bit-identical"
                 worst = max(worst, ab)
                 del got, ref
             ms, ms4 = (cuda_ms(lambda: kernel_lab.lab_step(
@@ -1105,6 +1199,16 @@ def run_lab_step(smi: str, launches: dict) -> list:
                 "scripts/kernel_lab.py:29", launches[key], worst, ms,
                 plain_ms, bnd, lib))
         del f, o
+        # the copy's scalar tail: 15^3 values are no whole number of
+        # 16-byte vectors
+        g = {c: v[:15, :15, :15].contiguous()
+             for c, v in lab_fields(23, dtype, names).items()}
+        got = kernel_lab.lab_step(g, "copy", 5)
+        sync()
+        assert all(torch.equal(got[c], g[c]) for c in names), \
+            f"lab_step copy {dtype} 15^3: not bit-identical"
+        log(f"[lab_step] 15^3 {kernel_lab.launch_key('copy', dtype)}: "
+            f"kernel bit-identical to plain (vectors and scalar tail)")
     return out
 
 
@@ -1251,6 +1355,13 @@ def main() -> int:
         for line in info.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
+    # every instantiation of the k-step kernel, bulk and shell
+    for (np_, bl, bulk), (regs, st, ld) in sorted(kstep_registers().items()):
+        log(f"[build] kstep {'Bloch' if bl else f'NP={np_}'} "
+            f"{'bulk' if bulk else 'shell'}: {regs} registers, spill "
+            f"{st}/{ld} B, {kstep.occupancy(np_, bl, bulk)} blocks of 512 "
+            f"threads per SM")
+    assert len(kstep_registers()) == 2 * (kstep.MAX_POLES + 2)
 
     # 3. one family update, kernel against plain
     mixed = FDTDRunner(lower(mixed_case(td)), device=dev, kernel="pallas2")
@@ -1365,7 +1476,7 @@ def main() -> int:
     err_kstep = [compare_kstep(kstep, mk, random_state(mk, 8),
                                "64x48x80 mixed, 1 pole")]
     del mk
-    ks_ms, ks_bound = {}, {}
+    ks_ms, ks_bound, ks_res, ks_lists = {}, {}, {}, {}
     for what, kplan, nc, seed, fused_ms in (
             ("broadband", plan, ncell, 9, fb_ms),
             ("dispersive", plan_d, ncell, 10, f_ms + pole_ms),
@@ -1385,13 +1496,22 @@ def main() -> int:
         gp_ms = cuda_ms(group(kstep.kstep_group_reference), 3)
         ks_ms[what] = (g_ms, gp_ms)
         ks_bound[what] = group_bound(kr, st, k)
+        ks_res[what] = kstep_resources(len(kplan.poles), False)
+        ks_lists[what] = lists_per_group(kr)
+        nb, ns = (len(ids) for ids in kstep.classify_blocks(kr.meta, k))
         log(f"[kstep] {kplan.shape} {what}, k={k}: k-step kernel {g_ms:.3f} "
             f"ms/group = {g_ms / k:.3f} ms/step ({nc * k / g_ms / 1e6:.2f} "
             f"Gcell*steps/s), plain {gp_ms:.3f} ms/group = {gp_ms / k:.3f} "
             f"ms/step; bound {ks_bound[what][0]:.3f} ms/group by "
-            f"{ks_bound[what][1]}; fused kernel + plain pole update "
-            f"{fused_ms:.3f} ms/step | {smi}")
+            f"{ks_bound[what][1]}, ratio {g_ms / ks_bound[what][0]:.2f}; "
+            f"fused kernel + plain pole update {fused_ms:.3f} ms/step | "
+            f"{smi}")
+        log(f"[kstep] {what}: {nb} bulk and {ns} shell blocks "
+            f"({nb / (nb + ns):.1%} bulk), {ks_lists[what]} device launches "
+            f"a group, registers {ks_res[what]['registers']}, blocks per SM "
+            f"{ks_res[what]['blocks_per_sm']}")
         del st, kr
+    compare_runners(plan, dev, ncell, "broadband 384^3", smi, kernel="kstep")
     rates_kd = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
                                kernel="kstep")
     rates_km = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
@@ -1434,6 +1554,8 @@ def main() -> int:
         k = int(w.tier.split("k=")[1].rstrip(")"))
         assert w.tier.startswith("kstep") and w.steps % k == 0, w.tier
         assert w.launches == dict(none, kstep=w.steps // k), (w.launches, k)
+        assert w.device_launches == ks_lists[what] * w.steps // k, \
+            (w.device_launches, ks_lists[what])
         err = float(np.max(np.abs(w.flux - wf.flux))
                     / np.max(np.abs(wf.flux)))
         log(f"[web.run] {what}: kstep flux vs fused flux max rel err "
@@ -1477,12 +1599,16 @@ def main() -> int:
               max(err_fused, err_metal), f_ms, fp_ms, fused_bound),
         entry("kstep_group", kstep_src, kstep_tpu, n_kstep, max(err_kstep),
               ks_ms["dispersive"][0], ks_ms["dispersive"][1],
-              ks_bound["dispersive"]),
+              ks_bound["dispersive"], **ks_res["dispersive"]),
         entry("kstep_group_bloch", kstep_src, kstep_tpu, bloch["launches"],
-              bloch["err"], bloch["ms"], bloch["plain_ms"], bloch["bound"]),
+              bloch["err"], bloch["ms"], bloch["plain_ms"], bloch["bound"],
+              registers=bloch["registers"],
+              blocks_per_sm=bloch["blocks_per_sm"]),
         entry("kstep_group_sharded", kstep_src,
               f"{kstep_tpu} with :1386", shard["launches"], shard["err"],
-              shard["ms"], shard["plain_ms"], shard["bound"]),
+              shard["ms"], shard["plain_ms"], shard["bound"],
+              registers=shard["registers"],
+              blocks_per_sm=shard["blocks_per_sm"]),
     ] + labs}
     log(smi)
     log(json.dumps(kernels))

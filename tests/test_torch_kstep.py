@@ -29,7 +29,7 @@ from tidy3d_tpu_torch.solver.kernels import kstep as kstep_kernels
 # first: where h5py is missing it makes the JAX package importable
 from tests.torch_cases import (
     DISPERSIVE, lower_reference as lower, max_rel_err, monitors, random_state,
-    SIMS,
+    SIMS, TILED,
 )
 from tidy3d_tpu.solver.fdtd import FDTDRunner as JaxRunner
 
@@ -340,3 +340,87 @@ def test_kernel_runner_matches_plain_runner(case, cuda):
                        for c, v in state[fam].items()})
     assert max(np.max(np.abs(v)) for v in finals[1].values()) > 0
     assert max_rel_err(finals[1], finals[0]) <= TOL_RUN
+
+
+def _tiled_state(port, seed):
+    """A random state in the reference's layout; a complex run's copy 1
+    under ``E1``, ``H1``, ``psi1``."""
+    rng = np.random.default_rng(seed)
+    st = random_state(rng, port.shape, port.psi_shapes(),
+                      port.consts["pole_scalars"])
+    if port.is_complex:
+        im = random_state(rng, port.shape, port.psi_shapes())
+        st.update(E1=im["E"], H1=im["H"], psi1=im["psi"])
+    return st
+
+
+def _flat_copies(state: dict) -> dict:
+    out = _flat(state)
+    for fam in ("E1", "H1", "psi1"):
+        out.update({f"{fam}:{key}": np.asarray(v)
+                    for key, v in state.get(fam, {}).items()})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TILED))
+def test_kernel_matches_plain_on_bulk_and_shell_blocks(case, cuda):
+    """Grids of 3 or more blocks per axis: the bulk and the shell
+    instantiation in one group (two launches), against plain to 1e-6, for
+    0, 1, 2, 7 and 8 pole slots, PEC and PMC lo walls, periodic axes and
+    the Bloch copies."""
+    from tidy3d_tpu_torch.solver.lowering import lower as port_lower
+
+    plan = port_lower(TILED[case]())
+    port = FDTDRunner(plan, device=cuda, kernel="kstep")
+    ncopy = 2 if port.is_complex else 1
+    assert all(g >= 3 for g in kstep_kernels.grid_blocks(plan.shape, 2))
+    bulk, shell = kstep_kernels.block_lists(port.meta, 2, ncopy, cuda)
+    assert bulk.numel() > 0 and shell.numel() > 0
+    st = _tiled_state(port, 7)
+    outs = []
+    for fn in (kstep_kernels.kstep_group,
+               kstep_kernels.kstep_group_reference):
+        state = convert.state_from_reference(st, port)
+        before = (kstep_kernels.LAUNCHES, kstep_kernels.DEVICE_LAUNCHES)
+        new = fn(state, port.consts, port.meta, port.tables, T0, 2)
+        torch.cuda.synchronize()
+        launched = fn is kstep_kernels.kstep_group
+        assert (kstep_kernels.LAUNCHES - before[0],
+                kstep_kernels.DEVICE_LAUNCHES - before[1]) == \
+            ((1, 2) if launched else (0, 0))
+        outs.append(_flat_copies(convert.state_to_reference(new)))
+    _check_groups(outs[1], outs[0], TOL_XLA, f"{case} kstep kernel")
+
+
+@pytest.mark.gpu
+def test_sharded_kernel_on_bulk_and_shell_blocks(cuda):
+    """Four virtual x-shards of a tiled two-pole grid: one shard-local
+    group of the kernel against plain and against the unsharded kernel."""
+    from tidy3d_tpu_torch.solver.lowering import lower as port_lower
+    from tidy3d_tpu_torch.solver.sharding import ShardingPlan, make_mesh
+
+    plan = port_lower(TILED["tiled_lorentz2"]())
+    ref = FDTDRunner(plan, device=cuda, kernel="kstep")
+    st = _tiled_state(ref, 9)
+    unsharded = _flat(convert.state_to_reference(kstep_kernels.kstep_group(
+        convert.state_from_reference(st, ref), ref.consts, ref.meta,
+        ref.tables, T0, 2)))
+    mesh, _ = make_mesh(devices=[cuda] * 4)
+    run = FDTDRunner(plan, device=cuda, kernel="kstep",
+                     sharding_plan=ShardingPlan(mesh, plan.shape))
+    assert any(kstep_kernels.block_lists(sh.meta, 2, 1, cuda)[0].numel()
+               for sh in run.shards)
+    outs = []
+    for fn in (kstep_kernels.kstep_group,
+               kstep_kernels.kstep_group_reference):
+        states = convert.shard_states_from_reference(st, run)
+        before = kstep_kernels.SHARDED_LAUNCHES
+        news = [fn(s, sh.consts, sh.meta, sh.tables, T0, 2, out=s["alt"])
+                for sh, s in zip(run.shards, states)]
+        torch.cuda.synchronize()
+        assert kstep_kernels.SHARDED_LAUNCHES - before == (
+            4 if fn is kstep_kernels.kstep_group else 0)
+        outs.append(_flat(convert.shard_states_to_reference(news, run)))
+    _check_groups(outs[1], outs[0], TOL_XLA, "4 shards, kernel vs plain")
+    _check_groups(unsharded, outs[0], TOL_XLA, "4 shards vs unsharded")

@@ -140,3 +140,20 @@ def test_kernel_matches_plain(variant, bx, dtype, cuda):
     ref = kernel_lab.lab_step_reference(f, variant)
     err = rel_err(as_np(ref), as_np(got))
     assert err <= TOL[dtype], f"{variant} bx={bx} {dtype}: {err:.2e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,bx", [(16, 8), (15, 5)])
+def test_copy_is_bit_identical(n, bx, dtype, cuda):
+    """The copy variant's 16-byte vectors and its scalar tail: 15^3 values
+    leave 7 (bf16) or 3 (f32) past the last whole vector of each field."""
+    f = to_torch(random_fields(6, n), dtype, cuda)
+    got = kernel_lab.lab_step(f, "copy", bx)
+    torch.cuda.synchronize()
+    ref = kernel_lab.lab_step_reference(f, "copy")
+    for c in kernel_lab.E + kernel_lab.H:
+        assert torch.equal(got[c].view(torch.int16 if dtype == torch.bfloat16
+                                       else torch.int32),
+                           ref[c].view(torch.int16 if dtype == torch.bfloat16
+                                       else torch.int32)), c

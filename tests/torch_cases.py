@@ -196,6 +196,81 @@ BLOCH = {f.__name__: f for f in (bloch_dipole, bloch_planewave,
                                  bloch_x_pec)}
 
 
+# Grids of several k-step kernel blocks per axis (x slabs of 32 planes,
+# tiles of 13 rows and 29 columns at k = 2), none of them a multiple of the
+# tile: the kernel's bulk and shell blocks both occur. 70 x 40 x 64 cells
+# inside the walls (76 x 46 x 70 with a 3-layer PML on every side).
+TILED_SIZE = (70 * DL, 40 * DL, 64 * DL)
+PML3 = td.PML(num_layers=3)
+LORENTZ2 = td.Lorentz(eps_inf=1.5, coeffs=[
+    (2.0, 1.5 * FREQ0, FREQ0 / 10), (1.0, 2.5 * FREQ0, FREQ0 / 5)])
+LORENTZ8 = td.Lorentz(eps_inf=1.5, coeffs=[
+    (0.5 + 0.25 * i, (1.2 + 0.25 * i) * FREQ0, FREQ0 / 10)
+    for i in range(8)])
+
+
+def _tiled(bspec, structures=(), **kw):
+    return _sim(bspec, structures, **kw).copy(update=dict(size=TILED_SIZE))
+
+
+def _half(medium):
+    """``medium`` filling the upper z half through the x and y walls."""
+    return _box(medium, center=(0, 0, TILED_SIZE[2] / 4),
+                size=(td.inf, td.inf, TILED_SIZE[2] / 2))
+
+
+def tiled_pec_pmc(**kw):
+    """PEC lo x and PMC lo y walls, PML on the other sides, a dielectric
+    block: no poles."""
+    return _tiled(td.BoundarySpec(
+        x=td.Boundary(minus=td.PECBoundary(), plus=PML3),
+        y=td.Boundary(minus=td.PMCBoundary(), plus=PML3),
+        z=td.Boundary(minus=PML3, plus=PML3)), [DIELECTRIC], **kw)
+
+
+def tiled_lorentz_periodic(**kw):
+    """One Lorentz pole in a half-space, periodic x."""
+    return _tiled(td.BoundarySpec(x=td.Boundary.periodic(),
+                                  y=td.Boundary(minus=PML3, plus=PML3),
+                                  z=td.Boundary(minus=PML3, plus=PML3)),
+                  [DIELECTRIC, _half(LORENTZ)], **kw)
+
+
+def tiled_lorentz2(**kw):
+    """Two Lorentz poles in a half-space, PML on every side."""
+    return _tiled(td.BoundarySpec.all_sides(td.PML(num_layers=3)),
+                  [_half(LORENTZ2)], **kw)
+
+
+def tiled_gold(**kw):
+    """The 7-pole Au fit in a half-space, PML on every side."""
+    return _tiled(td.BoundarySpec.all_sides(td.PML(num_layers=3)),
+                  [_half(GOLD)], **kw)
+
+
+def tiled_lorentz8(**kw):
+    """Eight Lorentz poles in a half-space, PMC lo x and PEC lo z, periodic
+    y: every pole slot the kernel has."""
+    return _tiled(td.BoundarySpec(
+        x=td.Boundary(minus=td.PMCBoundary(), plus=PML3),
+        y=td.Boundary.periodic(),
+        z=td.Boundary(minus=td.PECBoundary(), plus=PML3)),
+        [_half(LORENTZ8)], **kw)
+
+
+def tiled_bloch(**kw):
+    """Bloch x (0.27) and y (-0.13), PML z, the dielectric block."""
+    return _tiled(td.BoundarySpec(
+        x=td.Boundary.bloch(bloch_vec=0.27),
+        y=td.Boundary.bloch(bloch_vec=-0.13),
+        z=td.Boundary(minus=PML3, plus=PML3)), [DIELECTRIC], **kw)
+
+
+TILED = {f.__name__: f for f in (tiled_pec_pmc, tiled_lorentz_periodic,
+                                 tiled_lorentz2, tiled_gold, tiled_lorentz8,
+                                 tiled_bloch)}
+
+
 def monitors():
     """A field, a flux and a field-time monitor around the source."""
     freqs = list(np.linspace(0.9 * FREQ0, 1.1 * FREQ0, 3))

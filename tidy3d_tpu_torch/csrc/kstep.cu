@@ -5,7 +5,7 @@
 // (tidy3d_tpu/solver/kernels/pallas_kstep.py:1425, _region_call at :1468,
 // pallas_call at :1785) for float32 runs: real ones with up to MAX_POLES
 // pole slots, and pole-free Bloch (complex) ones with their two copies (the
-// Bloch part below). One launch computes K substeps; substep j (0-based), as
+// Bloch part below). One call computes K substeps; substep j (0-based), as
 // the substep loop of pallas_kstep.py:2474-2590 orders it and the XLA step
 // FDTDRunner._step (tidy3d_tpu/solver/fdtd.py:1614) specifies:
 //
@@ -18,75 +18,103 @@
 // families. The inputs (E, H, psi, Q) are one buffer set, the outputs the
 // other: nothing is updated in place.
 //
-// Design. A block owns a (BX, OY, OZ) box of cells and computes a
+// Design. K is 2. A block owns a (BX, OY, OZ) box of cells and computes a
 // (TY, TZ) tile in y and z that extends it by K - 1 cells on the lo side
 // and K on the hi side (OY = TY - 2K + 1, OZ = TZ - 2K + 1): E at level j
 // of a cell needs H at level j - 1 one cell lower on each axis, H at level
 // j needs E at level j one cell higher, so after K levels exactly the owned
 // core is exact (the dependency cone). One thread holds one (y, z) column
-// of the tile and the block marches over x. At march position m, level j
-// computes its E plane at x = m - j + 1, the pole update of that plane,
-// then its H plane at x = m - j: each level runs one plane behind the one
-// below it. A level's E and H planes
-// sit in shared memory, two planes per level (the plane being written and
-// the one its readers still need), so 2K - 1 barriers per march position
-// separate every write from the reads of other threads. Level 0 is read
-// from device memory with the wall rules of fused.cu; level K's H goes
-// straight to device memory. The per-cell recursions (psi and Q) pass from
-// level to level inside the thread: level j + 1 computes, at march
-// position m, the plane that level j computed at m - 1. psi, which only
-// the PML slabs hold, goes through per-thread shared-memory slots, two
-// planes per level. Q, which every cell holds, stays in registers: each
-// level keeps its last value in a slot and hands the previous one on. The
-// kernel is instantiated per NP, the number of pole slots, so that
-// every index into these carries is a compile-time constant; a run-time
-// pole count put them in local memory and cost 4x (PERF.md). Each level
-// skips the rows (warps) and planes outside its cone, which narrows by one
-// cell per level. Cells whose updates meet no psi slab and no wall (the
-// bulk) skip those branches.
+// of the tile and the block marches over x. At march position m, level 1
+// computes its E plane at x = m, then its H plane at x = m - 1; level 2 its
+// E plane at m - 1 and its H plane at m - 2. A level's E and H planes sit in
+// shared-memory rings, two planes per level, and 3 barriers per position
+// separate every write from the reads of other threads. Level 2's H goes
+// straight to device memory.
+//
+// Level 0 (the input E and H) is staged through shared memory by
+// asynchronous copies (cp.async, 4 bytes a thread and value): while the
+// block computes position m, the copies of plane m + 2 are in flight into
+// the buffer that plane m frees after level 1's E, and the barrier before
+// level 2's H waits for plane m + 1. The staged H tile has one more row
+// and column (the y - 1 and z - 1 neighbours of the tile's first row and
+// column); the x neighbour, plane m - 1 of the thread's own column, stays
+// in registers from the previous position. So each level-0 value is loaded
+// from device memory once per block, and level 1 reads its stencil as the
+// higher levels read theirs. The wall rules apply once, when a column or
+// plane is staged: past a PEC lo wall zeros, past a PMC lo wall the mirror
+// (the wall cell itself), on a periodic axis the wrapped cell; in a Bloch
+// run a virtual cell is staged already rotated (below). psi, which only
+// the PML slabs hold, goes from level 1 to level 2 through per-thread
+// shared-memory slots, two planes deep. The pole currents pass from level
+// 1 to level 2 in registers (Carry): level 1 computes Q1 of plane x at
+// position x and hands on the Q1 of plane x - 1, which level 2 uses at the
+// same position. The kernel is instantiated per NP, the number of pole
+// slots, so that every index into the carries is a compile-time constant.
+//
+// Bulk and shell. The host (solver/kernels/kstep.py) splits the blocks into
+// two lists once per layout: a bulk block's cone (its owned box grown by K
+// planes in x and by K - 1 / K cells in y and z) lies where no psi slab, no
+// wall and no wrap reaches an update. Bulk blocks run an instantiation
+// without psi code or slots, wall rules or Bloch rotation (61 KB of shared
+// memory against the shell's 109 KB, 40 % of the shell's instructions in the
+// pole-free march); shell blocks run the general one. Each list is one
+// launch on the caller's stream, the second a programmatic dependent launch
+// whose blocks fill the SMs the first one's last wave leaves idle, and which
+// ends after it: shell first where two blocks fit on an SM, bulk first where
+// one fits (one launch with a block-uniform dispatch, and the other orders,
+// measured slower, PERF.md).
 //
 // Only the owner of a cell writes its E, H, psi or Q (every other block
 // that computes the cell does so in its halo and discards it), so no value
-// has two writers. Walls: a periodic axis wraps the tile's coordinates (a
-// halo row past the wall is the cell on the other side); at a PEC or PMC
-// wall the stencil takes the wall rule at every level, halo cells too.
+// has two writers. Walls at level 2: a periodic axis wraps the tile's
+// coordinates (a halo row past the wall is the cell on the other side); at
+// a PEC or PMC wall the stencil takes the wall rule, halo cells too.
 //
 // What bounds it. Per group a cell's E, H and Q are read once from device
 // memory (times the recompute factor TY * TZ * (BX + 2K - 1) / (OY * OZ *
 // BX), 1.49) and written once: with one pole, ((24 + 24 + 24 + 4) * 1.49 +
-// 48) / 2 = 81 B per cell-step against the fused tier's 96 plus 72 B of
-// the separate pole pass. The recompute multiplies the arithmetic by the
-// same factor, and the pole carries hold many registers, so the kernel is
-// bound by instructions and by how many warps fit on an SM (Cfg), not by
-// device memory or by its 2K - 1 barriers per march position (removing
-// them all changed nothing). Load instructions count: holding the column's
-// y and z inverse steps in registers, not loading them per cell, took 6 %
-// off the pole-free group. K is 2: a build at K = 4 (3.12 recompute with
-// 14 rows, to fit its shared memory) was slower on every case measured
-// (PERF.md).
+// 48) / 2 = 81 B per cell-step. The recompute multiplies the arithmetic by
+// the same factor, so the kernel is bound by instructions and by the warps
+// that fit on an SM, not by device memory: at 384^3 on the H100 it runs at
+// 4.1x its byte bound pole-free, 3.5x with one pole, 3.2x with 7 poles, and
+// its time followed its instruction count. Neither load latency nor
+// shared-memory reads bound it: prefetching the next plane's Q and
+// coefficients into L2, staging Q by cp.async beside E and H, and keeping
+// the thread's own column of levels 1 and 2 in registers were each slower or
+// no faster; the shell blocks, 43 % of the blocks at 384^3, took 54 % of the
+// time while the two launches ran apart (PERF.md). Up to one pole two
+// 512-thread blocks fit on an SM (64 registers); from two poles the carries
+// take 12 NP registers and one block fits (128). A design without carries
+// (level 2 recomputing Q1 from Q read again, two blocks for every NP) was
+// slower from 4 poles on (7 poles: 10.4 against 8.7 ms a group), and carries
+// forced into 64 registers spill (18.2 ms); carries in shared memory do not
+// fit beside the shell's 109 KB. Aligned 16-byte staging copies would need
+// an owned z width of 32 columns and so 35 columns a tile, more than one
+// warp holds; the rows stay 4-byte copies. K is 2: a build at K = 4 (3.12
+// recompute with 14 rows, to fit its shared memory) was slower on every case
+// measured (PERF.md).
 //
 // Bloch (complex) runs. A run with a Bloch phase e^{i phi_a} on a periodic
 // axis a steps two real copies of the fields, re (copy 0) and im (copy 1),
 // as the XLA step does (FDTDRunner._wrap_col, fdtd.py:861-893); it replaces
 // the dual-copy machinery of PallasKStepper (pallas_kstep.py:135-151,
 // :1042-1100, :1931-1976). The kernel (BL = true, pole-free only) gives
-// each copy its own blocks: the copy is folded into blockIdx.z, so a block
-// keeps the registers of one copy (64, two blocks per SM). Away
+// each copy its own blocks: the copy is folded into the block index. Away
 // from the wrap the update of both copies is the same, and no axis with a
 // Bloch phase has a PML, so every coefficient is periodic along it. A
 // halo cell whose unwrapped coordinate lies m_a periods past the domain
 // along each axis is therefore a virtual cell, e^{i sum_a m_a phi_a} times
 // the real cell it wraps to, and its evolution over the K levels is the
 // rotation of the real cell's. So only two things change: every level-0
-// value a block loads for a virtual cell (E, H, and psi of the other axes)
+// value a block reads for a virtual cell (E, H, and psi of the other axes)
 // is rotated, which needs the other copy's value there and nowhere else;
 // and the source terms of virtual cells are rotated (the "virtual profile"
-// of pallas_kstep.py:1081-1100). Each source term is complex, (term + i
+// of pallas_kstep.py:1081-1100). E and H are rotated once, when the staging
+// copies them (the per-load test is out of the march); psi, read by the
+// slab cells only, at its load. Each source term is complex, (term + i
 // term_im) (w[key] + i w[key_im]), and copy c adds its real (c = 0) or
 // imaginary (c = 1) part. Only owners write, and an owned cell is never
-// virtual. On the H100 the two copies take 1.19-1.25x the time of two real
-// launches on the same grid: the test for a virtual cell and the rotation
-// code sit on every level-0 load of an instruction-bound kernel (PERF.md).
+// virtual.
 //
 // Sharded runs (shard-local mode, xpad = K). It replaces the sharded mode
 // of the same TPU kernel (pallas_kstep.py:109-115, the halo exchange
@@ -113,20 +141,32 @@ constexpr int MAX_POLES = 8;     // MAX_POLES in solver/kernels/step.py
 constexpr int NQ = 6 * MAX_POLES;
 constexpr int SRC_INTS = 12;     // SRC_INTS in solver/kernels/kstep.py
 constexpr int K = 2;             // substeps per launch: KS in kstep.py
+static_assert(K == 2, "the march is written for two levels");
 
-constexpr int TZ = 32;           // tile width in z: one warp per row
-constexpr int BX = 32;           // owned x planes per block
+// The tile (TILE_Y, TILE_Z, SLAB_X in kstep.py): TZ columns in z, one warp
+// a row, TY rows, BX owned x planes per block.
+constexpr int TZ = 32;
+constexpr int TY = 16;
+constexpr int BX = 32;
+constexpr int TILE = TY * TZ;
+constexpr int OY = TY - 2 * K + 1;   // owned rows and columns
+constexpr int OZ = TZ - 2 * K + 1;
+// Blocks per SM each instantiation is built for: two (64 registers) up
+// to one pole slot, one (128 registers) from two on, where the pole
+// carries need the registers (PERF.md).
+__host__ __device__ constexpr int min_blocks(int np) { return np <= 1 ? 2 : 1; }
+constexpr int SZ = TZ + 1;           // a staged H row: the z - 1 column
+constexpr int STILE = (TY + 1) * SZ; // a staged H tile: the y - 1 row too
 
-// Tile rows in y and the blocks per SM that the registers are budgeted for,
-// per pole count NP. More warps per SM win as long as the registers fit
-// without heavy spills: two blocks (64 registers) with at most one pole,
-// one block (up to 128) with more (PERF.md).
-template <int NP>
-struct Cfg {
-    static constexpr int TY = 16;
-    static constexpr int MIN_BLOCKS = NP <= 1 ? 2 : 1;
-    static constexpr int TILE = TY * TZ;
-};
+// Shared memory, in floats: the E rings of levels 1 and 2 and the H ring
+// of level 1 (two planes each), the staged level 0 (two planes of E, two
+// of H), and in the shell instantiation the psi slots of level 1.
+constexpr int RING_FLOATS = 18 * TILE;
+constexpr int STAGE_E = RING_FLOATS;
+constexpr int STAGE_H = STAGE_E + 6 * TILE;
+constexpr int PSI_SLOTS = STAGE_H + 6 * STILE;
+constexpr int SMEM_BULK = PSI_SLOTS;
+constexpr int SMEM_SHELL = PSI_SLOTS + 24 * TILE;
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
 enum { POLE_ZERO = 0, POLE_MASK = 1, POLE_DENSE = 2 };
@@ -194,7 +234,7 @@ struct KStepParams {
                                // (a neighbour shard) instead of a wall
 };
 
-static_assert(sizeof(KStepParams) <= 4096,
+static_assert(sizeof(KStepParams) + sizeof(void*) <= 4096,
               "kernel parameters must fit the 4 KB launch limit");
 
 // A phase e^{i theta} as (cos theta, sin theta).
@@ -202,9 +242,25 @@ struct Rot {
     float c, s;
 };
 
+__device__ __forceinline__ bool is_one(Rot r) {
+    return r.c == 1.0f && r.s == 0.0f;
+}
+
+// The pole currents level 1 hands to level 2 in registers: Q1 of the
+// plane level 1 just computed (q_slot) and of the plane before (q). Every
+// index into them is known at compile time, so they stay in registers (a
+// run-time pole count would put them in local memory).
+template <int NP>
+struct Carry {
+    static constexpr int QN = NP > 0 ? 6 * NP : 1;
+    float q_slot[QN];
+    float q[QN];
+};
+
 // Per-thread constants of a block.
 struct Col {
-    int ty, tz;
+    int ty, tz, tid;
+    int sidx;             // the column's entry in a staged H tile
     int cy, cz;           // the column's (wrapped) y and z
     bool in_yz;           // the column lies in the domain
     bool own_yz;          // the block owns the column
@@ -217,6 +273,10 @@ struct Col {
     float inv_h_yz[2];
     int cp;               // the copy the block steps (complex runs)
     Rot rot;              // the column's Bloch phase across y and z
+    int off;              // the staged column's y-z offset (-1: zeros)
+    int x_sidx;           // the thread's extra staged entry (-1: none)
+    int x_off;            // and its y-z offset (-1: zeros)
+    Rot x_rot;            // and phase
 };
 
 __device__ __forceinline__ Rot rot_mul(Rot a, Rot b) {
@@ -241,59 +301,64 @@ __device__ __forceinline__ Rot cell_rot(const KStepParams& p, const Col& t,
                    : rot_mul(t.rot, rot_axis(p, 0, (x - cx) / p.n[0]));
 }
 
-// The level-0 value of copy cp at idx (f: copy cp's array, g: the other
-// copy's), seen from a cell whose phase is r: for a virtual cell (r != 1)
-// copy cp of r (F0 + i F1), which reads the other copy there.
+// The value of copy cp at idx (f: copy cp's array, g: the other copy's),
+// seen from a cell whose phase is r: for a virtual cell (r != 1) copy cp
+// of r (F0 + i F1), which reads the other copy there.
 template <bool BL>
 __device__ __forceinline__ float load0(const float* f, const float* g,
                                        int cp, int64_t idx, Rot r) {
     const float v = __ldg(f + idx);
-    if (!BL || (r.c == 1.0f && r.s == 0.0f)) return v;
+    if (!BL || is_one(r)) return v;
     const float w = __ldg(g + idx);
     return cp == 0 ? r.c * v - r.s * w : r.c * v + r.s * w;
 }
-
-// The pole currents handed from level to level (see the header), for NP
-// pole slots. Every index into them is known at compile time, so they stay
-// in registers (a run-time pole count would put them in local memory).
-template <int NP>
-struct Carry {
-    static constexpr int QN = NP > 0 ? 6 * NP : 1;
-    float q_slot[K - 1][QN];
-    float q[QN];
-};
 
 __device__ __forceinline__ int wrap_index(int v, int n) {
     v %= n;
     return v < 0 ? v + n : v;
 }
 
-template <int NP>
+// Asynchronous 4-byte copy from device to shared memory.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float* e_ring(float* sm, int level, int x,
                                          int comp) {
-    return sm + (((level - 1) * 2 + (x & 1)) * 3 + comp) * Cfg<NP>::TILE;
+    return sm + (((level - 1) * 2 + (x & 1)) * 3 + comp) * TILE;
 }
 
-template <int NP>
-__host__ __device__ constexpr int ring_floats() {
-    return (6 * K + 6 * (K - 1)) * Cfg<NP>::TILE;
+__device__ __forceinline__ float* h_ring(float* sm, int x, int comp) {
+    return sm + (12 + (x & 1) * 3 + comp) * TILE;
 }
 
-// psi of level 1..K-1 at plane x, E (idx 0-5) and H (6-11), per thread,
-// double-buffered by plane parity: level L writes plane x at one march
-// position and level L + 1 reads it at the next, while level L writes x+1.
-template <int NP>
-__device__ __forceinline__ float* psi_slot(float* sm, int level, int x,
-                                           int idx) {
-    return sm + ring_floats<NP>() +
-           (((level - 1) * 2 + (x & 1)) * 12 + idx) * Cfg<NP>::TILE;
+// The staged E (3 tiles) and H (3 tiles of STILE) of plane x.
+__device__ __forceinline__ float* stage_e(float* sm, int x) {
+    return sm + STAGE_E + (x & 1) * 3 * TILE;
 }
 
-template <int NP>
-__device__ __forceinline__ float* h_ring(float* sm, int level, int x,
-                                         int comp) {
-    return sm + (6 * K + ((level - 1) * 2 + (x & 1)) * 3 + comp) *
-                    Cfg<NP>::TILE;
+__device__ __forceinline__ float* stage_h(float* sm, int x) {
+    return sm + STAGE_H + (x & 1) * 3 * STILE;
+}
+
+// psi of level 1 at plane x, E (idx 0-5) and H (6-11), per thread,
+// double-buffered by plane parity: level 1 writes plane x at one march
+// position and level 2 reads it at the next, while level 1 writes x+1.
+__device__ __forceinline__ float* psi_slot(float* sm, int x, int idx) {
+    return sm + PSI_SLOTS + ((x & 1) * 12 + idx) * TILE;
 }
 
 // The slab of axis a that holds cell c: side and index along a, or false.
@@ -312,15 +377,6 @@ __device__ __forceinline__ bool slab_of(const int32_t* w, const int32_t* n,
         return true;
     }
     return false;
-}
-
-// The inverse step of axis a at cell c: along x from device memory, along
-// y and z the column's own (yz), loaded once per block.
-__device__ __forceinline__ float inv_step(const KStepParams& p,
-                                          const float* const* inv,
-                                          const float* yz, int a,
-                                          const int* c) {
-    return a == 0 ? __ldg(inv[0] + c[0] + p.xpad) : yz[a - 1];
 }
 
 // The offset of cell c in the psi slab of axis a: an x slab holds its own
@@ -374,53 +430,6 @@ __device__ __forceinline__ float add_sources(const KStepParams& p, int fam,
     return v;
 }
 
-// H of level L - 1 at c - e_a (f: its value at c), for the E stencil:
-// level 0 from the input set, the others from the rings. bulk: c lies in
-// the bulk, so c - e_a is a domain cell and no wall rule applies. rc: the
-// phase of c (complex runs); the wrap to c - e_a crosses one more period.
-template <int NP, int L, bool BL>
-__device__ __forceinline__ float h_back(const KStepParams& p, const Col& t,
-                                        float* sm, int comp, int a, int x,
-                                        const int* c, int cell, float f,
-                                        bool bulk, Rot rc) {
-    if constexpr (L == 1) {
-        const int cp = BL ? t.cp : 0;
-        const float* F = p.h_old[cp][comp];
-        const float* G = BL ? p.h_old[1 - cp][comp] : nullptr;
-        const int st = a == 0 ? t.stride0 : (a == 1 ? p.n[2] : 1);
-        if (bulk || c[a] > 0 || !walled(p, a, 0))
-            return load0<BL>(F, G, cp, cell - st, rc);
-        if (p.bk_lo[a] == WALL_PEC) return 0.0f;
-        if (p.bk_lo[a] == WALL_PMC) return f;
-        return load0<BL>(F, G, cp, cell + (p.n[a] - 1) * st,
-                         BL ? rot_mul(rc, rot_axis(p, a, -1)) : rc);
-    }
-    if (!bulk && c[a] == 0 && !t.wrap[a] && walled(p, a, 0))
-        return p.bk_lo[a] == WALL_PEC ? 0.0f : f;
-    const int tid = t.ty * TZ + t.tz;
-    if (a == 0) return h_ring<NP>(sm, L - 1, x - 1, comp)[tid];
-    if (a == 1)
-        return t.ty > 0 ? h_ring<NP>(sm, L - 1, x, comp)[tid - TZ] : 0.0f;
-    return t.tz > 0 ? h_ring<NP>(sm, L - 1, x, comp)[tid - 1] : 0.0f;
-}
-
-// E of level L at c + e_a (f: its value at c), for the H stencil.
-template <int NP>
-__device__ __forceinline__ float e_fwd(const KStepParams& p, const Col& t,
-                                       float* sm, int level, int comp, int a,
-                                       int x, const int* c, float f,
-                                       bool bulk) {
-    if (!bulk && c[a] == p.n[a] - 1 && !t.wrap[a] && walled(p, a, 1))
-        return p.bk_hi[a] == WALL_PEC ? 0.0f : f;
-    const int tid = t.ty * TZ + t.tz;
-    if (a == 0) return e_ring<NP>(sm, level, x + 1, comp)[tid];
-    if (a == 1)
-        return t.ty < Cfg<NP>::TY - 1
-                   ? e_ring<NP>(sm, level, x, comp)[tid + TZ]
-                   : 0.0f;
-    return t.tz < TZ - 1 ? e_ring<NP>(sm, level, x, comp)[tid + 1] : 0.0f;
-}
-
 // The plane x (unwrapped march coordinate) of the domain, wrapped on a
 // periodic x axis; false if it lies outside a non-periodic domain. In a
 // shard-local run a side that reads its halo extends the domain by its
@@ -437,121 +446,272 @@ __device__ __forceinline__ bool plane_of(const KStepParams& p, const Col& t,
     return true;
 }
 
-// Level L's E plane x: E', psi_E', the pole update, into the ring (levels
-// below K) or the output set (level K, owned cells).
-template <int NP, int L, bool BL>
+// The y-z offset of the cell that level 0 holds at unwrapped (uy, uz) and
+// its phase: the cell itself in the domain, the wrapped cell on a periodic
+// axis, the wall cell one cell past a PMC lo wall (the mirror); -1 (zeros)
+// past a PEC lo wall and anywhere else outside the domain.
+template <bool BL>
+__device__ __forceinline__ int stage_column(const KStepParams& p,
+                                            const Col& t, int uy, int uz,
+                                            Rot* r) {
+    int c[3] = {0, uy, uz};
+    *r = {1.0f, 0.0f};
+#pragma unroll
+    for (int a = 1; a < 3; ++a) {
+        const int u = c[a];
+        if (u >= 0 && u < p.n[a]) continue;
+        if (t.wrap[a]) {
+            c[a] = wrap_index(u, p.n[a]);
+            if (BL) *r = rot_mul(*r, rot_axis(p, a, (u - c[a]) / p.n[a]));
+        } else if (u == -1 && p.bk_lo[a] == WALL_PMC) {
+            c[a] = 0;
+        } else {
+            return -1;
+        }
+    }
+    return c[1] * p.n[2] + c[2];
+}
+
+// Level 0 of one staged entry (y-z offset off, phase r) at padded plane
+// offset base: E (e, 3 tiles apart; null: none) and H (h, 3 tiles of
+// STILE apart). A plain entry is copied asynchronously; a virtual one is
+// loaded and rotated; one outside the domain holds zeros.
+template <bool BL>
+__device__ __forceinline__ void stage_entry(const KStepParams& p, int cp,
+                                            int base, int off, Rot r,
+                                            float* e, float* h) {
+    if (off < 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) h[i * STILE] = 0.0f;
+        return;
+    }
+    const int idx = base + off;
+    if (!BL || is_one(r)) {
+        if (e) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) cp_async4(e + i * TILE, p.e_old[cp][i] + idx);
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) cp_async4(h + i * STILE, p.h_old[cp][i] + idx);
+        return;
+    }
+    if (e) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+            e[i * TILE] = load0<BL>(p.e_old[cp][i], p.e_old[1 - cp][i], cp,
+                                    idx, r);
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+        h[i * STILE] = load0<BL>(p.h_old[cp][i], p.h_old[1 - cp][i], cp, idx,
+                                 r);
+}
+
+// Stages level 0 of plane x (unwrapped) into its buffers, E too if with_e.
+// A plane past a PMC lo wall is the wall plane; past a PEC lo wall, and
+// outside a non-periodic domain, the column's own H entry (the only one a
+// computed cell reads there, as its x neighbour) holds zeros.
+template <bool BL, bool BULK>
+__device__ __forceinline__ void stage(const KStepParams& p, const Col& t,
+                                      float* sm, int x, bool with_e) {
+    float* se = stage_e(sm, x) + t.tid;
+    float* sh = stage_h(sm, x);
+    int sx = x;
+    Rot rx = {1.0f, 0.0f};
+    if (!BULK && !plane_of(p, t, x, &sx)) {
+        if (x == -1 && walled(p, 0, 0) && p.bk_lo[0] == WALL_PMC) {
+            sx = 0;
+        } else {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) sh[i * STILE + t.sidx] = 0.0f;
+            return;
+        }
+    }
+    if (BL && !BULK && sx != x) rx = rot_axis(p, 0, (x - sx) / p.n[0]);
+    const int base = (sx + p.xpad) * t.stride0;
+    stage_entry<BL>(p, t.cp, base, t.off, rot_mul(t.rot, rx),
+                    with_e && t.in_yz ? se : nullptr, sh + t.sidx);
+    if (t.x_sidx >= 0)
+        stage_entry<BL>(p, t.cp, base, t.x_off, rot_mul(t.x_rot, rx),
+                        nullptr, sh + t.x_sidx);
+}
+
+// H of level 1 at c - e_a (f: its value at c), for level 2's E stencil.
+// bulk: c lies in the bulk, so c - e_a is a domain cell and no wall rule
+// applies.
+template <bool BULK>
+__device__ __forceinline__ float h_back(const KStepParams& p, const Col& t,
+                                        float* sm, int comp, int a, int x,
+                                        const int* c, float f, bool bulk) {
+    if (!BULK && !bulk && c[a] == 0 && !t.wrap[a] && walled(p, a, 0))
+        return p.bk_lo[a] == WALL_PEC ? 0.0f : f;
+    if (a == 0) return h_ring(sm, x - 1, comp)[t.tid];
+    if (a == 1) return t.ty > 0 ? h_ring(sm, x, comp)[t.tid - TZ] : 0.0f;
+    return t.tz > 0 ? h_ring(sm, x, comp)[t.tid - 1] : 0.0f;
+}
+
+// E of level L at c + e_a (f: its value at c), for the H stencil.
+template <bool BULK>
+__device__ __forceinline__ float e_fwd(const KStepParams& p, const Col& t,
+                                       float* sm, int level, int comp, int a,
+                                       int x, const int* c, float f,
+                                       bool bulk) {
+    if (!BULK && !bulk && c[a] == p.n[a] - 1 && !t.wrap[a] && walled(p, a, 1))
+        return p.bk_hi[a] == WALL_PEC ? 0.0f : f;
+    if (a == 0) return e_ring(sm, level, x + 1, comp)[t.tid];
+    if (a == 1)
+        return t.ty < TY - 1 ? e_ring(sm, level, x, comp)[t.tid + TZ] : 0.0f;
+    return t.tz < TZ - 1 ? e_ring(sm, level, x, comp)[t.tid + 1] : 0.0f;
+}
+
+// Q' = A Q + B (E' + E) of pole q, component i, at cell (esum = E' + E),
+// as (re, im).
+__device__ __forceinline__ Rot pole_update(const KStepParams& p, int q, int i,
+                                           int cell, float qr, float qi,
+                                           float esum) {
+    const float are = p.a_re[q], aim = p.a_im[q];
+    const int qx = (q * 3 + i) * 2;
+    const float im_qr = qr * aim;
+    float r = qr * are + qi * (-aim);
+    float m = qi * are + im_qr;
+    const int kind = p.pole_kind[q * 3 + i];
+    if (kind == POLE_MASK) {
+        const float mes = __ldg(p.pole_b[qx] + cell) * esum;
+        r = r + p.pole_b0[qx] * mes;
+        m = m + p.pole_b0[qx + 1] * mes;
+    } else if (kind == POLE_DENSE) {
+        r = r + __ldg(p.pole_b[qx] + cell) * esum;
+        m = m + __ldg(p.pole_b[qx + 1] + cell) * esum;
+    }
+    return {r, m};
+}
+
+// The E plane x of level L (1 or 2): E', psi_E' and the pole update, into
+// the ring (level 1) or the output set (level 2, owned cells). Level 1
+// reads the staged level 0 (h0p: the column's H of plane x - 1) and leaves
+// the column's level-0 H of plane x in h0c; level 2 reads the rings.
+template <int NP, int L, bool BL, bool BULK>
 __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
-                                        float* sm, int x,
-                                        Carry<NP>& cr) {
-    int cx;
-    const bool plane = plane_of(p, t, x, &cx);
-    const int tid = t.ty * TZ + t.tz;
+                                        float* sm, int x, const float* h0p,
+                                        float* h0c, Carry<NP>& cr) {
+    const float* sh = stage_h(sm, x) + t.sidx;
+    if (L == 1) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) h0c[i] = sh[i * STILE];
+    }
+    int cx = x;
+    const bool plane = BULK || plane_of(p, t, x, &cx);
     if (plane && t.in_yz) {
         const int c[3] = {cx, t.cy, t.cz};
         const int cell = (cx + p.xpad) * t.stride0 + t.cy * p.n[2] + t.cz;
         const bool owner = L == K && t.own_yz && x >= t.xb && x < t.xe;
         const bool bulk =
-            t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
+            BULK || (t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0]);
         const int step = p.t0 + L - 1;
         const int cp = BL ? t.cp : 0;
-        const Rot rc = cell_rot<BL>(p, t, x, cx);
+        const Rot rc = BULK ? Rot{1.0f, 0.0f} : cell_rot<BL>(p, t, x, cx);
+        const float inv_x = __ldg(p.inv_e[0] + cx + p.xpad);
         float eo[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-            eo[i] = L == 1 ? load0<BL>(p.e_old[cp][i], p.e_old[1 - cp][i],
-                                       cp, cell, rc)
-                           : e_ring<NP>(sm, L - 1, x, i)[tid];
+            eo[i] = L == 1 ? stage_e(sm, x)[i * TILE + t.tid]
+                           : e_ring(sm, 1, x, i)[t.tid];
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
             const int j = (i + 1) % 3;
             const int k = (i + 2) % 3;
-            const float hk =
-                L == 1 ? load0<BL>(p.h_old[cp][k], p.h_old[1 - cp][k], cp,
-                                   cell, rc)
-                       : h_ring<NP>(sm, L - 1, x, k)[tid];
-            const float hj =
-                L == 1 ? load0<BL>(p.h_old[cp][j], p.h_old[1 - cp][j], cp,
-                                   cell, rc)
-                       : h_ring<NP>(sm, L - 1, x, j)[tid];
-            const float hk_b =
-                h_back<NP, L, BL>(p, t, sm, k, j, x, c, cell, hk, bulk, rc);
-            const float hj_b =
-                h_back<NP, L, BL>(p, t, sm, j, k, x, c, cell, hj, bulk, rc);
-            const float d1 = (hk - hk_b) * inv_step(p, p.inv_e, t.inv_e_yz, j, c);
-            const float d2 = (hj - hj_b) * inv_step(p, p.inv_e, t.inv_e_yz, k, c);
-            float rhs = d1 - d2;
-#pragma unroll
-            for (int slot = 0; slot < 2; ++slot) {
-                const int a = slot == 0 ? j : k;
-                const int idx = 2 * i + slot;
-                int side, loc;
-                if (bulk || !slab_of(p.w_e, p.n, a, c, &side, &loc)) continue;
-                const int wd = p.w_e[2 * a + side];
-                const int pidx = idx * 2 + side;
-                const int off = slab_offset(p, a, wd, loc, c);
-                const float prev =
-                    L == 1 ? load0<BL>(p.psi_in_e[cp][pidx],
-                                       p.psi_in_e[1 - cp][pidx], cp, off, rc)
-                           : psi_slot<NP>(sm, L - 1, x, idx)[tid];
-                const float v =
-                    __ldg(p.pml_b_e[2 * a + side] + loc) * prev +
-                    __ldg(p.pml_c_e[2 * a + side] + loc) *
-                        (slot == 0 ? d1 : d2);
-                rhs = slot == 0 ? rhs + v : rhs - v;
-                if (L < K) psi_slot<NP>(sm, L, x, idx)[tid] = v;
-                if (owner) p.psi_out_e[cp][pidx][off] = v;
+            float hk, hj, hk_b, hj_b;
+            if (L == 1) {
+                // the staged stencil: x neighbour in registers, y and z
+                // neighbours one row and one column back in the tile
+                hk = h0c[k];
+                hj = h0c[j];
+                hk_b = j == 0 ? h0p[k] : sh[k * STILE - (j == 1 ? SZ : 1)];
+                hj_b = k == 0 ? h0p[j] : sh[j * STILE - (k == 1 ? SZ : 1)];
+            } else {
+                hk = h_ring(sm, x, k)[t.tid];
+                hj = h_ring(sm, x, j)[t.tid];
+                hk_b = h_back<BULK>(p, t, sm, k, j, x, c, hk, bulk);
+                hj_b = h_back<BULK>(p, t, sm, j, k, x, c, hj, bulk);
             }
-            // this component's pole currents: live for this iteration only
-            float q_in[NP > 0 ? 2 * NP : 1];
+            const float d1 =
+                (hk - hk_b) * (j == 0 ? inv_x : t.inv_e_yz[j - 1]);
+            const float d2 =
+                (hj - hj_b) * (k == 0 ? inv_x : t.inv_e_yz[k - 1]);
+            float rhs = d1 - d2;
+            if (!BULK) {
+#pragma unroll
+                for (int slot = 0; slot < 2; ++slot) {
+                    const int a = slot == 0 ? j : k;
+                    const int idx = 2 * i + slot;
+                    int side, loc;
+                    if (bulk || !slab_of(p.w_e, p.n, a, c, &side, &loc))
+                        continue;
+                    const int wd = p.w_e[2 * a + side];
+                    const int pidx = idx * 2 + side;
+                    const int off = slab_offset(p, a, wd, loc, c);
+                    const float prev =
+                        L == 1 ? load0<BL>(p.psi_in_e[cp][pidx],
+                                           p.psi_in_e[1 - cp][pidx], cp, off,
+                                           rc)
+                               : psi_slot(sm, x, idx)[t.tid];
+                    const float v =
+                        __ldg(p.pml_b_e[2 * a + side] + loc) * prev +
+                        __ldg(p.pml_c_e[2 * a + side] + loc) *
+                            (slot == 0 ? d1 : d2);
+                    rhs = slot == 0 ? rhs + v : rhs - v;
+                    if (L == 1) psi_slot(sm, x, idx)[t.tid] = v;
+                    if (owner) p.psi_out_e[cp][pidx][off] = v;
+                }
+            }
+            // this component's pole currents: Q from device memory at
+            // level 1, Q1 from the carries at level 2
+            float qc[NP > 0 ? 2 * NP : 1];
 #pragma unroll
             for (int q = 0; q < NP; ++q) {
                 const int qx = (q * 3 + i) * 2;
-                q_in[2 * q] = L == 1 ? __ldg(p.q[qx] + cell) : cr.q[qx];
-                q_in[2 * q + 1] =
-                    L == 1 ? __ldg(p.q[qx + 1] + cell) : cr.q[qx + 1];
-                rhs = rhs - (p.gc_re[q] * q_in[2 * q] -
-                             p.gc_im[q] * q_in[2 * q + 1]);
+                if constexpr (L == 1) {
+                    qc[2 * q] = __ldg(p.q[qx] + cell);
+                    qc[2 * q + 1] = __ldg(p.q[qx + 1] + cell);
+                } else {
+                    qc[2 * q] = cr.q[qx];
+                    qc[2 * q + 1] = cr.q[qx + 1];
+                }
+                rhs = rhs - (p.gc_re[q] * qc[2 * q] -
+                             p.gc_im[q] * qc[2 * q + 1]);
             }
             const float ca = p.ca_e[i] ? __ldg(p.ca_e[i] + cell) : p.ca_s_e[i];
             const float cb = p.cb_e[i] ? __ldg(p.cb_e[i] + cell) : p.cb_s_e[i];
             float out = ca * eo[i] + cb * rhs;
-            if (!bulk && ((p.pec_lo[j] && c[j] == 0) ||
-                          (p.pec_lo[k] && c[k] == 0)))
+            if (!BULK && !bulk &&
+                ((p.pec_lo[j] && c[j] == 0) || (p.pec_lo[k] && c[k] == 0)))
                 out = 0.0f;
             if (t.src[0])
                 out = add_sources<BL>(p, 0, i, c, step, out, cp, rc);
-            e_ring<NP>(sm, L, x, i)[tid] = out;
+            e_ring(sm, L, x, i)[t.tid] = out;
             if (owner) p.e_new[cp][i][cell] = out;
-            // the pole update on E' (after J) and E of the level below
+            if constexpr (L == 1) {
+                // Q1 = A Q + B (E1 + E), after J, handed to level 2
 #pragma unroll
-            for (int q = 0; q < NP; ++q) {
-                const float are = p.a_re[q], aim = p.a_im[q];
-                const int qx = (q * 3 + i) * 2;
-                const float qr = q_in[2 * q];
-                const float qi = q_in[2 * q + 1];
-                const float im_qr = qr * aim;
-                float nqr = qr * are + qi * (-aim);
-                float nqi = qi * are + im_qr;
-                const int kind = p.pole_kind[q * 3 + i];
-                if (kind != POLE_ZERO) {
-                    const float esum = out + eo[i];
-                    if (kind == POLE_MASK) {
-                        const float mes = __ldg(p.pole_b[qx] + cell) * esum;
-                        nqr = nqr + p.pole_b0[qx] * mes;
-                        nqi = nqi + p.pole_b0[qx + 1] * mes;
-                    } else {
-                        nqr = nqr + __ldg(p.pole_b[qx] + cell) * esum;
-                        nqi = nqi + __ldg(p.pole_b[qx + 1] + cell) * esum;
-                    }
+                for (int q = 0; q < NP; ++q) {
+                    const int qx = (q * 3 + i) * 2;
+                    const Rot q1 = pole_update(p, q, i, cell, qc[2 * q],
+                                               qc[2 * q + 1], out + eo[i]);
+                    cr.q[qx] = cr.q_slot[qx];
+                    cr.q[qx + 1] = cr.q_slot[qx + 1];
+                    cr.q_slot[qx] = q1.c;
+                    cr.q_slot[qx + 1] = q1.s;
                 }
-                if constexpr (L < K) {
-                    cr.q[qx] = cr.q_slot[L - 1][qx];
-                    cr.q[qx + 1] = cr.q_slot[L - 1][qx + 1];
-                    cr.q_slot[L - 1][qx] = nqr;
-                    cr.q_slot[L - 1][qx + 1] = nqi;
-                } else if (owner) {
-                    p.q_out[qx][cell] = nqr;
-                    p.q_out[qx + 1][cell] = nqi;
+            }
+            if (L == 2 && owner) {
+                // Q2 = A Q1 + B (E2 + E1), after J
+#pragma unroll
+                for (int q = 0; q < NP; ++q) {
+                    const int qx = (q * 3 + i) * 2;
+                    const Rot q2 = pole_update(p, q, i, cell, qc[2 * q],
+                                               qc[2 * q + 1], out + eo[i]);
+                    p.q_out[qx][cell] = q2.c;
+                    p.q_out[qx + 1][cell] = q2.s;
                 }
             }
         }
@@ -560,112 +720,85 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
     if (plane) {
         // a column outside the domain: zeros, never read across a wall
 #pragma unroll
-        for (int i = 0; i < 3; ++i) e_ring<NP>(sm, L, x, i)[tid] = 0.0f;
+        for (int i = 0; i < 3; ++i) e_ring(sm, L, x, i)[t.tid] = 0.0f;
     }
-    if constexpr (L < K) {
+    if constexpr (L == 1) {
         // nothing computed: hand on the last values (outside the cone)
 #pragma unroll
-        for (int qx = 0; qx < 6 * NP; ++qx) cr.q[qx] = cr.q_slot[L - 1][qx];
+        for (int qx = 0; qx < 6 * NP; ++qx) cr.q[qx] = cr.q_slot[qx];
     }
 }
 
-// Level L's H plane x: H' and psi_H', into the ring (levels below K) or
-// the output set (level K, owned cells).
-template <int NP, int L, bool BL>
+// The H plane x of level L: H' and psi_H', into the ring (level 1) or the
+// output set (level 2, owned cells). Level 1's H is the column's staged
+// value of plane x (ho).
+template <int NP, int L, bool BL, bool BULK>
 __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
-                                        float* sm, int x) {
-    int cx;
-    const bool plane = plane_of(p, t, x, &cx);
-    const int tid = t.ty * TZ + t.tz;
+                                        float* sm, int x, const float* ho) {
+    int cx = x;
+    const bool plane = BULK || plane_of(p, t, x, &cx);
     if (plane && t.in_yz) {
         const int c[3] = {cx, t.cy, t.cz};
         const int cell = (cx + p.xpad) * t.stride0 + t.cy * p.n[2] + t.cz;
         const bool owner = L == K && t.own_yz && x >= t.xb && x < t.xe;
         const bool bulk =
-            t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0];
+            BULK || (t.bulk_yz && cx >= p.bulk_lo[0] && cx < p.bulk_hi[0]);
         const int step = p.t0 + L - 1;
         const int cp = BL ? t.cp : 0;
-        const Rot rc = cell_rot<BL>(p, t, x, cx);
+        const Rot rc = BULK ? Rot{1.0f, 0.0f} : cell_rot<BL>(p, t, x, cx);
+        const float inv_x = __ldg(p.inv_h[0] + cx + p.xpad);
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
             const int j = (i + 1) % 3;
             const int k = (i + 2) % 3;
-            const float ek = e_ring<NP>(sm, L, x, k)[tid];
-            const float ej = e_ring<NP>(sm, L, x, j)[tid];
+            const float ek = e_ring(sm, L, x, k)[t.tid];
+            const float ej = e_ring(sm, L, x, j)[t.tid];
             const float d1 =
-                (e_fwd<NP>(p, t, sm, L, k, j, x, c, ek, bulk) - ek) *
-                inv_step(p, p.inv_h, t.inv_h_yz, j, c);
+                (e_fwd<BULK>(p, t, sm, L, k, j, x, c, ek, bulk) - ek) *
+                (j == 0 ? inv_x : t.inv_h_yz[j - 1]);
             const float d2 =
-                (e_fwd<NP>(p, t, sm, L, j, k, x, c, ej, bulk) - ej) *
-                inv_step(p, p.inv_h, t.inv_h_yz, k, c);
+                (e_fwd<BULK>(p, t, sm, L, j, k, x, c, ej, bulk) - ej) *
+                (k == 0 ? inv_x : t.inv_h_yz[k - 1]);
             float rhs = d1 - d2;
+            if (!BULK) {
 #pragma unroll
-            for (int slot = 0; slot < 2; ++slot) {
-                const int a = slot == 0 ? j : k;
-                const int idx = 2 * i + slot;
-                int side, loc;
-                if (bulk || !slab_of(p.w_h, p.n, a, c, &side, &loc)) continue;
-                const int wd = p.w_h[2 * a + side];
-                const int pidx = idx * 2 + side;
-                const int off = slab_offset(p, a, wd, loc, c);
-                const float prev =
-                    L == 1 ? load0<BL>(p.psi_in_h[cp][pidx],
-                                       p.psi_in_h[1 - cp][pidx], cp, off, rc)
-                           : psi_slot<NP>(sm, L - 1, x, 6 + idx)[tid];
-                const float v =
-                    __ldg(p.pml_b_h[2 * a + side] + loc) * prev +
-                    __ldg(p.pml_c_h[2 * a + side] + loc) *
-                        (slot == 0 ? d1 : d2);
-                rhs = slot == 0 ? rhs + v : rhs - v;
-                if (L < K) psi_slot<NP>(sm, L, x, 6 + idx)[tid] = v;
-                if (owner) p.psi_out_h[cp][pidx][off] = v;
+                for (int slot = 0; slot < 2; ++slot) {
+                    const int a = slot == 0 ? j : k;
+                    const int idx = 2 * i + slot;
+                    int side, loc;
+                    if (bulk || !slab_of(p.w_h, p.n, a, c, &side, &loc))
+                        continue;
+                    const int wd = p.w_h[2 * a + side];
+                    const int pidx = idx * 2 + side;
+                    const int off = slab_offset(p, a, wd, loc, c);
+                    const float prev =
+                        L == 1 ? load0<BL>(p.psi_in_h[cp][pidx],
+                                           p.psi_in_h[1 - cp][pidx], cp, off,
+                                           rc)
+                               : psi_slot(sm, x, 6 + idx)[t.tid];
+                    const float v =
+                        __ldg(p.pml_b_h[2 * a + side] + loc) * prev +
+                        __ldg(p.pml_c_h[2 * a + side] + loc) *
+                            (slot == 0 ? d1 : d2);
+                    rhs = slot == 0 ? rhs + v : rhs - v;
+                    if (L == 1) psi_slot(sm, x, 6 + idx)[t.tid] = v;
+                    if (owner) p.psi_out_h[cp][pidx][off] = v;
+                }
             }
-            const float ho =
-                L == 1 ? load0<BL>(p.h_old[cp][i], p.h_old[1 - cp][i], cp,
-                                   cell, rc)
-                       : h_ring<NP>(sm, L - 1, x, i)[tid];
+            const float hv = L == 1 ? ho[i] : h_ring(sm, x, i)[t.tid];
             const float ca = p.ca_h[i] ? __ldg(p.ca_h[i] + cell) : p.ca_s_h[i];
             const float cb = p.cb_h[i] ? __ldg(p.cb_h[i] + cell) : p.cb_s_h[i];
-            float out = ca * ho - cb * rhs;
+            float out = ca * hv - cb * rhs;
             if (t.src[1])
                 out = add_sources<BL>(p, 1, i, c, step, out, cp, rc);
-            if (L < K) h_ring<NP>(sm, L, x, i)[tid] = out;
+            if (L == 1) h_ring(sm, x, i)[t.tid] = out;
             if (owner) p.h_new[cp][i][cell] = out;
         }
         return;
     }
-    if constexpr (L < K) {
-        if (plane) {
+    if (L == 1 && plane) {
 #pragma unroll
-            for (int i = 0; i < 3; ++i) h_ring<NP>(sm, L, x, i)[tid] = 0.0f;
-        }
-    }
-}
-
-// Levels L..K at march position m. The cone narrows by one cell per level
-// on each side: the owned H of level K needs E_L on rows [L - 1, TY - L] and
-// planes [xb - (K - L), xe + K - L], and H_L on rows [L - 1, TY - L - 1] and
-// planes [xb - (K - L), xe + K - L - 1]. Rows (warps) and planes outside
-// skip the level; the ranges nest, so what a level skips no higher level
-// reads, its carries included.
-template <int NP, int L, bool BL>
-__device__ __forceinline__ void levels(const KStepParams& p, const Col& t,
-                                       float* sm, int m, Carry<NP>& cr) {
-    constexpr int TY = Cfg<NP>::TY;
-    const int xe = m - L + 1;
-    const bool rows = t.ty >= L - 1 && t.ty <= TY - L;
-    if (rows && xe >= t.xb - (K - L) && xe <= t.xe + K - L)
-        e_level<NP, L, BL>(p, t, sm, xe, cr);
-    __syncthreads();
-    if (rows && t.ty < TY - L && xe - 1 >= t.xb - (K - L) &&
-        xe - 1 < t.xe + K - L)
-        h_level<NP, L, BL>(p, t, sm, xe - 1);
-    // level K's H writes no ring, and the next position's level 1 E
-    // writes none that it reads (K > 1), so only the lower levels need a
-    // barrier here
-    if constexpr (L < K) {
-        __syncthreads();
-        levels<NP, L + 1, BL>(p, t, sm, m, cr);
+        for (int i = 0; i < 3; ++i) h_ring(sm, x, i)[t.tid] = 0.0f;
     }
 }
 
@@ -680,60 +813,66 @@ __device__ __forceinline__ void block_range(const KStepParams& p,
     }
 }
 
-template <int NP, bool BL>
-__global__ void __launch_bounds__(TZ * (Cfg<NP>::TY),
-                                  (Cfg<NP>::MIN_BLOCKS))
-kstep_kernel(const KStepParams p) {
-    extern __shared__ float sm[];
-    constexpr int TY = Cfg<NP>::TY;
-    constexpr int TILE = Cfg<NP>::TILE;
-    constexpr int OY = TY - 2 * K + 1;   // owned rows and columns
-    constexpr int OZ = TZ - 2 * K + 1;
+// One block's march: block id (its index in the grid of x slabs (copies
+// folded in), y rows and z columns of tiles, z fastest).
+template <int NP, bool BL, bool BULK>
+__device__ __forceinline__ void march(const KStepParams& p, int id,
+                                      float* sm) {
     Col t;
     t.ty = threadIdx.y;
     t.tz = threadIdx.x;
-    const int y0 = blockIdx.y * OY;
-    const int z0 = blockIdx.x * OZ;
-    // a complex run folds the copy into the x blocks: [copy][x block]
+    t.tid = t.ty * TZ + t.tz;
+    t.sidx = (t.ty + 1) * SZ + t.tz + 1;
+    const int gz = (p.n[2] + OZ - 1) / OZ;
+    const int gy = (p.n[1] + OY - 1) / OY;
     const int gx = (p.n[0] + BX - 1) / BX;
-    t.cp = BL ? (int)blockIdx.z / gx : 0;
-    t.xb = ((int)blockIdx.z - t.cp * gx) * BX;
+    const int bz = id % gz;
+    const int by = (id / gz) % gy;
+    const int bs = id / (gz * gy);
+    // a complex run folds the copy into the x slabs: [copy][slab]
+    t.cp = BL ? bs / gx : 0;
+    t.xb = (bs - t.cp * gx) * BX;
     t.xe = min(t.xb + BX, p.n[0]);
     t.stride0 = p.n[1] * p.n[2];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-        t.wrap[a] = p.bk_lo[a] == WALL_WRAP && walled(p, a, 0);
-    const int ybase = y0 - (K - 1);
-    const int zbase = z0 - (K - 1);
-    t.cy = ybase + t.ty;
-    t.cz = zbase + t.tz;
+        t.wrap[a] = !BULK && p.bk_lo[a] == WALL_WRAP && walled(p, a, 0);
+    const int ybase = by * OY - (K - 1);
+    const int zbase = bz * OZ - (K - 1);
+    const int uy = ybase + t.ty, uz = zbase + t.tz;
     t.own_yz = t.ty >= K - 1 && t.ty < K - 1 + OY && t.tz >= K - 1 &&
-               t.tz < K - 1 + OZ && t.cy < p.n[1] && t.cz < p.n[2];
-    t.in_yz = true;
-    t.rot = {1.0f, 0.0f};
-    if (t.cy < 0 || t.cy >= p.n[1]) {
-        if (t.wrap[1]) {
-            const int uy = t.cy;
-            t.cy = wrap_index(uy, p.n[1]);
-            if (BL) t.rot = rot_axis(p, 1, (uy - t.cy) / p.n[1]);
-        } else {
-            t.in_yz = false;
-        }
+               t.tz < K - 1 + OZ && uy < p.n[1] && uz < p.n[2];
+    // the extra staged entries: the row before the tile (threads 0..TZ-1)
+    // and the column before it (the next TY threads)
+    int ey = ybase - 1, ez = zbase + t.tid;
+    t.x_sidx = t.tid + 1;
+    if (t.tid >= TZ) {
+        ey = ybase + t.tid - TZ;
+        ez = zbase - 1;
+        t.x_sidx = (t.tid - TZ + 1) * SZ;
     }
-    if (t.cz < 0 || t.cz >= p.n[2]) {
-        if (t.wrap[2]) {
-            const int uz = t.cz;
-            t.cz = wrap_index(uz, p.n[2]);
-            if (BL)
-                t.rot = rot_mul(t.rot, rot_axis(p, 2, (uz - t.cz) / p.n[2]));
-        } else {
-            t.in_yz = false;
-        }
+    if (t.tid >= TZ + TY) t.x_sidx = -1;
+    if (BULK) {
+        // a bulk tile lies inside the domain: no wrap, no wall, no phase
+        t.in_yz = true;
+        t.cy = uy;
+        t.cz = uz;
+        t.rot = t.x_rot = {1.0f, 0.0f};
+        t.off = uy * p.n[2] + uz;
+        t.x_off = ey * p.n[2] + ez;
+    } else {
+        t.in_yz = (t.wrap[1] || (uy >= 0 && uy < p.n[1])) &&
+                  (t.wrap[2] || (uz >= 0 && uz < p.n[2]));
+        t.cy = t.wrap[1] ? wrap_index(uy, p.n[1]) : uy;
+        t.cz = t.wrap[2] ? wrap_index(uz, p.n[2]) : uz;
+        t.off = stage_column<BL>(p, t, uy, uz, &t.rot);
+        t.x_off = stage_column<BL>(p, t, ey, ez, &t.x_rot);
     }
     // a bulk column's y and z neighbours are domain cells of the same tile
     // or outside the cone of every owned cell
-    t.bulk_yz = t.in_yz && t.cy >= p.bulk_lo[1] && t.cy < p.bulk_hi[1] &&
-                t.cz >= p.bulk_lo[2] && t.cz < p.bulk_hi[2];
+    t.bulk_yz = BULK || (t.in_yz && t.cy >= p.bulk_lo[1] &&
+                         t.cy < p.bulk_hi[1] && t.cz >= p.bulk_lo[2] &&
+                         t.cz < p.bulk_hi[2]);
     // the column's inverse steps in y and z, fixed for the whole march
     t.inv_e_yz[0] = t.in_yz ? __ldg(p.inv_e[1] + t.cy) : 0.0f;
     t.inv_e_yz[1] = t.in_yz ? __ldg(p.inv_e[2] + t.cz) : 0.0f;
@@ -756,58 +895,144 @@ kstep_kernel(const KStepParams p) {
     }
     // the rings start as zeros: planes before the march are outside the
     // cone of every owned cell, and zeros keep them finite
-    for (int i = t.ty * TZ + t.tz; i < ring_floats<NP>(); i += TILE)
-        sm[i] = 0.0f;
+    for (int i = t.tid; i < RING_FLOATS; i += TILE) sm[i] = 0.0f;
+
+    // level 1's E plane m needs level 0 of planes m - 1 and m; the march
+    // runs m over [xb - 1, xe + 1] (the first owned H plane of level 2, xb,
+    // needs level 1 from xb - 1 on, the last, xe - 1, level 2's E plane xe)
+    const int m0 = t.xb - (K - 1), m1 = t.xe + K - 1;
+    float h0p[3], h0c[3];
     Carry<NP> cr;
 #pragma unroll
-    for (int l = 0; l < K - 1; ++l) {
-#pragma unroll
-        for (int qx = 0; qx < Carry<NP>::QN; ++qx) cr.q_slot[l][qx] = 0.0f;
-    }
-#pragma unroll
-    for (int qx = 0; qx < Carry<NP>::QN; ++qx) cr.q[qx] = 0.0f;
+    for (int qx = 0; qx < Carry<NP>::QN; ++qx) cr.q[qx] = cr.q_slot[qx] = 0.0f;
+    stage<BL, BULK>(p, t, sm, m0 - 1, false);
+    cp_async_commit();
+    stage<BL, BULK>(p, t, sm, m0, true);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // level j's E plane at m - j + 1: the first owned H plane of level K
-    // (xb) needs level 1 from xb - K + 1 on, the last (xe - 1) needs level
-    // K's E plane xe
-    for (int m = t.xb - K + 1; m <= t.xe + K - 1; ++m)
-        levels<NP, 1, BL>(p, t, sm, m, cr);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) h0p[i] = stage_h(sm, m0 - 1)[i * STILE + t.sidx];
+    __syncthreads();
+    stage<BL, BULK>(p, t, sm, m0 + 1, true);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // the cone narrows by one cell per level on each side: the owned H of
+    // level 2 needs E_1 on rows [0, TY - 1] and planes [xb - 1, xe + 1], H_1
+    // on rows [0, TY - 2] and planes [xb - 1, xe], E_2 on rows [1, TY - 2]
+    // and planes [xb, xe], H_2 on rows [1, TY - 3] and planes [xb, xe - 1].
+    // Rows (warps) and planes outside skip the level; the ranges nest, so
+    // what a level skips no higher level reads.
+    for (int m = m0; m <= m1; ++m) {
+        e_level<NP, 1, BL, BULK>(p, t, sm, m, h0p, h0c, cr);
+        __syncthreads();
+        // plane m's buffers are free: stage plane m + 2 into them
+        if (m + 2 <= m1) stage<BL, BULK>(p, t, sm, m + 2, true);
+        cp_async_commit();
+        if (t.ty <= TY - 2 && m >= t.xb)
+            h_level<NP, 1, BL, BULK>(p, t, sm, m - 1, h0p);
+        __syncthreads();
+        if (t.ty >= 1 && t.ty <= TY - 2 && m >= t.xb + 1)
+            e_level<NP, 2, BL, BULK>(p, t, sm, m - 1, h0p, h0c, cr);
+        // plane m + 1 has landed (only m + 2 may be in flight)
+        cp_async_wait<1>();
+        __syncthreads();
+        if (t.ty >= 1 && t.ty <= TY - 3 && m >= t.xb + 2)
+            h_level<NP, 2, BL, BULK>(p, t, sm, m - 2, nullptr);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) h0p[i] = h0c[i];
+    }
+    cp_async_wait<0>();
 }
 
-template <int NP, bool BL>
-static int launch(const KStepParams* p, cudaStream_t stream) {
-    constexpr int TY = Cfg<NP>::TY;
-    constexpr int TILE = Cfg<NP>::TILE;
-    constexpr int OY = TY - 2 * K + 1;
-    constexpr int OZ = TZ - 2 * K + 1;
-    const int64_t gz = (p->n[2] + OZ - 1) / OZ;
-    const int64_t gy = (p->n[1] + OY - 1) / OY;
-    const int64_t gx = (p->n[0] + BX - 1) / BX * (BL ? 2 : 1);
-    if (gy > 65535 || gx > 65535) return (int)cudaErrorInvalidConfiguration;
-    const size_t smem =
-        (size_t)(ring_floats<NP>() + (K - 1) * 2 * 12 * TILE) *
-        sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        kstep_kernel<NP, BL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)gz, (unsigned)gy, (unsigned)gx);
-    const dim3 block(TZ, TY);
-    kstep_kernel<NP, BL><<<grid, block, smem, stream>>>(*p);
-    return (int)cudaGetLastError();
+// Finished blocks of the second launch of the group in flight. One
+// counter per device serves every group: the runner launches them all on
+// one stream, and a group's first launch starts after the previous group
+// has ended.
+__device__ unsigned g_done_blocks = 0;
+
+template <int NP, bool BL, bool BULK>
+__global__ void __launch_bounds__(TILE, min_blocks(NP))
+kstep_kernel(const KStepParams p, const int32_t* __restrict__ ids,
+             int second) {
+    extern __shared__ float sm[];
+    // the group's second launch may start once every block of this one has
+    // started (a no-op for a launch that has no dependent)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    march<NP, BL, BULK>(p, ids[blockIdx.x], sm);
+    if (second) {
+        // the second launch ends after the first: its last block to finish
+        // waits for the first launch's grid (the two write disjoint cells
+        // and read only the input set, so nothing else waits)
+        __syncthreads();
+        if (threadIdx.x == 0 && threadIdx.y == 0 &&
+            atomicAdd(&g_done_blocks, 1u) == gridDim.x - 1) {
+            g_done_blocks = 0;
+            asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        }
+    }
 }
 
-// The kernel for NP = p->num_poles pole slots.
+using KernelFn = void (*)(const KStepParams, const int32_t*, int);
+
 template <int NP>
-static int launch_poles(const KStepParams* p, cudaStream_t stream) {
-    if (p->num_poles == NP) return launch<NP, false>(p, stream);
-    if constexpr (NP < MAX_POLES) return launch_poles<NP + 1>(p, stream);
-    return (int)cudaErrorInvalidValue;
+static KernelFn kernel_poles(int np, bool bulk) {
+    if (np == NP)
+        return bulk ? kstep_kernel<NP, false, true>
+                    : kstep_kernel<NP, false, false>;
+    if constexpr (NP < MAX_POLES) return kernel_poles<NP + 1>(np, bulk);
+    return nullptr;
+}
+
+// The instantiation for np pole slots (real runs) or the two-copy one
+// (bloch, np = 0), bulk or shell; null if there is none.
+static KernelFn kernel_for(int np, bool bloch, bool bulk) {
+    if (bloch)
+        return np != 0 ? nullptr
+                       : bulk ? kstep_kernel<0, true, true>
+                              : kstep_kernel<0, true, false>;
+    return kernel_poles<0>(np, bulk);
+}
+
+static size_t smem_bytes(bool bulk) {
+    return (size_t)(bulk ? SMEM_BULK : SMEM_SHELL) * sizeof(float);
+}
+
+static cudaError_t prepare(KernelFn fn, bool bulk) {
+    return cudaFuncSetAttribute((const void*)fn,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem_bytes(bulk));
 }
 
 extern "C" int t3d_kstep_params_size() { return (int)sizeof(KStepParams); }
 
-extern "C" int t3d_kstep_group(const KStepParams* p, void* stream) {
+// The tile the host's block lists count in: TY, TZ, BX.
+extern "C" void t3d_kstep_tile(int32_t* out) {
+    out[0] = TY;
+    out[1] = TZ;
+    out[2] = BX;
+}
+
+// Blocks of one instantiation that fit on an SM (0 if none; negative: a
+// CUDA error).
+extern "C" int t3d_kstep_occupancy(int np, int bloch, int bulk) {
+    const KernelFn fn = kernel_for(np, bloch != 0, bulk != 0);
+    if (!fn) return -(int)cudaErrorInvalidValue;
+    cudaError_t err = prepare(fn, bulk != 0);
+    int blocks = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, (const void*)fn, TILE, smem_bytes(bulk != 0));
+    return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// One group: the bulk blocks (n_bulk ids) and the shell blocks (n_shell
+// ids) as two launches on stream. Every block of the grid is in exactly
+// one list (the caller's classification).
+extern "C" int t3d_kstep_group(const KStepParams* p, const int32_t* bulk_ids,
+                               int n_bulk, const int32_t* shell_ids,
+                               int n_shell, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
     if (p->k != K || p->num_poles < 0 || p->num_poles > MAX_POLES ||
         p->num_src[0] < 0 || p->num_src[1] < 0 || p->t0 < 0 ||
@@ -815,9 +1040,40 @@ extern "C" int t3d_kstep_group(const KStepParams* p, void* stream) {
         (p->ncopy == 2 && p->num_poles != 0) ||
         (p->xpad != 0 && (p->xpad != K || p->ncopy != 1)) ||
         ((p->x_halo[0] || p->x_halo[1]) && p->xpad == 0) ||
-        (int64_t)(p->n[0] + 2 * p->xpad) * p->n[1] * p->n[2] > 0x7fffffffLL)
+        (int64_t)(p->n[0] + 2 * p->xpad) * p->n[1] * p->n[2] > 0x7fffffffLL ||
+        n_bulk < 0 || n_shell < 0)
         return (int)cudaErrorInvalidValue;
-    // a complex run: the two-copy instantiation, pole-free only
-    if (p->ncopy == 2) return launch<0, true>(p, (cudaStream_t)stream);
-    return launch_poles<0>(p, (cudaStream_t)stream);
+    const bool bloch = p->ncopy == 2;
+    const dim3 block(TZ, TY);
+    // The second launch is a programmatic dependent launch: its blocks
+    // fill the SMs that the first launch's last wave leaves idle. The shell
+    // launch goes first where two blocks fit on an SM, the bulk one where
+    // one fits (the other order measured slower there, PERF.md).
+    const bool bulk_first = min_blocks(p->num_poles) == 1;
+    for (int part = 0; part < 2; ++part) {
+        const bool bulk = (part == 0) == bulk_first;
+        const int count = bulk ? n_bulk : n_shell;
+        if (count == 0) continue;
+        const KernelFn fn = kernel_for(p->num_poles, bloch, bulk);
+        if (!fn) return (int)cudaErrorInvalidValue;
+        cudaError_t err = prepare(fn, bulk);
+        if (err != cudaSuccess) return (int)err;
+        const int second = part == 1 && (bulk ? n_shell : n_bulk) > 0;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(count);
+        cfg.blockDim = block;
+        cfg.dynamicSmemBytes = smem_bytes(bulk);
+        cfg.stream = (cudaStream_t)stream;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+        attr[0].val.programmaticStreamSerializationAllowed = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = second ? 1 : 0;
+        err = cudaLaunchKernelEx(&cfg, fn, *p,
+                                 bulk ? bulk_ids : shell_ids, second);
+        if (err != cudaSuccess) return (int)err;
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
 }

@@ -20,14 +20,26 @@
 // Bound: bytes. 12 fields of n^3 once (2.72 GB at 384^3 f32: 0.811 ms at
 // 3.35 TB/s) against 36 flops a cell (0.03 ms at 67 TFLOP/s).
 //
-// Design: one block of 32 x 8 threads per (bx x planes, 8 y rows, 32 z
-// cells); a warp reads 32 neighbouring z values. The block first computes
+// The copy variant has a launch of its own: each field as a flat run of
+// 16-byte vectors, 4 loaded by a thread before it stores any, so that a
+// bf16 request fills whole sectors and enough bytes are in flight. On the
+// H100 it moves 2.90 TB/s (0.938 ms a step in f32, 0.475 in bf16 at 384^3:
+// 0.88x and 0.78x torch._foreach_copy_ of the same fields; one value a
+// thread and plane took 1.280 and 1.011, PERF.md). The stencil variants
+// keep one value a thread: their staged E' and its y and z neighbours are
+// indexed per cell, so 16-byte rows do not carry over unchanged.
+//
+// Design of the stencil variants: one block of 32 x 8 threads per (bx x
+// planes, 8 y rows, 32 z cells); a warp reads 32 neighbouring z values.
+// The block first computes
 // E' on its cells and one more plane, row and column (the forward
 // neighbours H' needs: the next block's first plane, or the virtual plane
 // at the hi end) into shared memory, storing its own cells' E', then H' of
 // its cells from shared memory. The y and z neighbours of the E' stage and
 // the x neighbour plane come from L1/L2: each field is read from device
 // memory about once.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +63,8 @@ constexpr int TY = 8;
 constexpr int BZ = TZ + 1;  // the E' stage: one more row and column
 constexpr int BY = TY + 1;
 constexpr int MAX_BX = 32;
+constexpr int COPY_THREADS = 256;  // the copy variant's block
+constexpr int COPY_UNROLL = 4;     // 16-byte vectors in flight a thread
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -110,17 +124,6 @@ lab_step_kernel(const LabStepParams p) {
         out[c] = (T*)p.out[c];
     }
     const int tid = threadIdx.y * TZ + threadIdx.x;
-
-    if (V == COPY) {
-        for (int r = 0; r < bx; ++r) {
-            const int64_t y = y0 + threadIdx.y, z = z0 + threadIdx.x;
-            if (y >= n || z >= n) continue;
-            const int64_t cell = (x0 + r) * sx + y * sy + z;
-#pragma unroll
-            for (int c = 0; c < 6; ++c) out[c][cell] = in[c][cell];
-        }
-        return;
-    }
 
     const float ca = p.ca, cb = p.cb, keep = p.keep;
     const int plane = BY * BZ;
@@ -200,14 +203,58 @@ lab_step_kernel(const LabStepParams p) {
     }
 }
 
+// The copy variant: each field as a flat run of 16-byte vectors (4 floats,
+// 8 bf16), COPY_UNROLL of them loaded by a thread before it stores any; the
+// n^3 mod (16 / sizeof(T)) values left at the end of a field one by one.
+// T only sets the element size: the bits are moved as they are.
+template <typename T>
+__global__ void __launch_bounds__(COPY_THREADS)
+lab_copy_kernel(const LabStepParams p) {
+    constexpr int PER_VEC = 16 / sizeof(T);
+    const int64_t total = p.n * p.n * p.n;
+    const int64_t nvec = total / PER_VEC;
+    const int64_t base =
+        (int64_t)blockIdx.x * COPY_THREADS * COPY_UNROLL + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+        const int4* src = (const int4*)p.inp[c];
+        int4* dst = (int4*)p.out[c];
+        int4 v[COPY_UNROLL];
+#pragma unroll
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+            const int64_t i = base + u * COPY_THREADS;
+            if (i < nvec) v[u] = __ldg(src + i);
+        }
+#pragma unroll
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+            const int64_t i = base + u * COPY_THREADS;
+            if (i < nvec) dst[i] = v[u];
+        }
+        const int64_t tail = nvec * PER_VEC + threadIdx.x;
+        if (blockIdx.x == 0 && tail < total)
+            ((T*)p.out[c])[tail] = ((const T*)p.inp[c])[tail];
+    }
+}
+
+template <typename T>
+static int launch_copy(const LabStepParams& p, cudaStream_t s) {
+    const int64_t nvec = p.n * p.n * p.n / (16 / sizeof(T));
+    const int64_t blocks = std::max<int64_t>(
+        1, (nvec + COPY_THREADS * COPY_UNROLL - 1) /
+               (COPY_THREADS * COPY_UNROLL));
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    lab_copy_kernel<T><<<(unsigned)blocks, COPY_THREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
+}
+
 template <int V, typename T>
 static int launch(const LabStepParams& p, cudaStream_t s) {
+    if constexpr (V == COPY) return launch_copy<T>(p, s);
     const int64_t gz = (p.n + TZ - 1) / TZ;
     const int64_t gy = (p.n + TY - 1) / TY;
     const int64_t gx = p.n / p.bx;
     if (gy > 65535 || gx > 65535) return (int)cudaErrorInvalidConfiguration;
-    const size_t smem =
-        V == COPY ? 0 : sizeof(float) * 3 * (p.bx + 1) * BY * BZ;
+    const size_t smem = sizeof(float) * 3 * (p.bx + 1) * BY * BZ;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             lab_step_kernel<V, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

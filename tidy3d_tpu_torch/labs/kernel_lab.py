@@ -18,9 +18,10 @@ to bf16, the constants too, as the JAX lab's weak-typed scalars make it).
 
     python3 -m tidy3d_tpu_torch.labs.kernel_lab [n] [bx list]
 
-prints ms per step and Gcell*steps/s per variant, the bound and the card's
-name and power limit; ``LAB_BF16=1`` adds the bf16 runs. Needs a CUDA
-device.
+prints ms per step and Gcell*steps/s per variant (after copy, the time of
+``torch._foreach_copy_`` of the same fields: the copy ceiling), the bound
+and the card's name and power limit; ``LAB_BF16=1`` adds the bf16 runs.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -138,6 +139,9 @@ def _lab_step_cuda(fields, variant, bx, out):
                                       c).data_ptr()
         p.out[i] = _common.check_cuda(out[c], shape, (dtype,),
                                       f"out {c}").data_ptr()
+    if variant == "copy" and any(ptr % 16 for ptr in (*p.inp, *p.out)):
+        raise ValueError("lab_step: the copy variant moves 16-byte vectors "
+                         "and needs 16-byte aligned fields")
     p.n, p.bx = n, bx
     p.variant = VARIANTS.index(variant)
     p.bf16 = int(dtype == torch.bfloat16)
@@ -203,6 +207,19 @@ def main(argv=None) -> int:
                 rate = n ** 3 / ms / 1e6
                 print(f"{dname} {variant:7s} bx={bx}: {ms:6.3f} ms/step  "
                       f"{rate:6.2f} Gcell*steps/s", flush=True)
+            if variant == "copy":
+                # the copy ceiling: one library call moving the same bytes
+                src = [fields[c] for c in E + H]
+                dst = [other[c] for c in E + H]
+
+                def lib():
+                    for _ in range(steps):
+                        torch._foreach_copy_(dst, src)
+
+                ms = min(_common.cuda_ms(lib, 1) for _ in range(3)) / steps
+                print(f"{dname} torch._foreach_copy_: {ms:6.3f} ms/step "
+                      f"({step_bytes(n, dtype) / ms / 1e6:.0f} GB/s)",
+                      flush=True)
         peak = _common.PEAK_BF16 if dtype == torch.bfloat16 else \
             _common.PEAK_F32
         bnd = _common.bound(step_bytes(n, dtype), FLOPS_PER_CELL * n ** 3,

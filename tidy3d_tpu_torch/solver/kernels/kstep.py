@@ -26,7 +26,15 @@ k substeps written from the one-step functions the port already has; a
 CUDA tensor launches the hand-written kernel in ``csrc/kstep.cu`` or
 raises. The kernel reads the state set and writes the ``out`` set (the
 runner's ping-pong buffers, allocated once), so nothing is updated in
-place. ``LAUNCHES`` counts the kernel launches.
+place. ``LAUNCHES`` counts the groups the kernel stepped.
+
+A group is up to two device launches (``DEVICE_LAUNCHES`` counts them),
+one per non-empty block list: the *bulk* blocks, whose dependency cone
+meets no psi slab, no wall and no wrap, run an instantiation without that
+code; the *shell* blocks run the general one. The second launch is a
+programmatic dependent launch on the same stream, which fills the SMs the
+first one's last wave leaves idle. ``block_lists`` classifies the blocks
+of a layout once (cached) and hands each launch its list of block ids.
 
 The kernel is built for k = 2 only (``KS``); the plain version takes any
 k. The rule and its reason: the kernel recomputes a halo of k - 1 and k
@@ -56,14 +64,20 @@ from . import fused, step
 from .fused import _source_box
 from .step import MAX_POLES, StepMeta, _check_field
 
-LAUNCHES = 0
+LAUNCHES = 0                 # groups stepped by the kernel
 SHARDED_LAUNCHES = 0         # the shard-local ones among LAUNCHES
+DEVICE_LAUNCHES = 0          # kernel launches: bulk and shell, per group
 KS = (2,)                    # group sizes the kernel is built for (K)
 MAX_SOURCES = 64             # source boxes per family (a TFSF box: 12)
 SRC_INTS = 12                # ints per box row (csrc/kstep.cu SRC_INTS)
 COPIES = ("E", "H", "psi"), ("E1", "H1", "psi1")   # state keys per copy
 
 _POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}
+
+# the kernel's tile (csrc/kstep.cu TY, TZ, BX; checked when the library
+# loads): TILE_Y rows and TILE_Z columns of y-z columns, SLAB_X owned x
+# planes per block
+TILE_Y, TILE_Z, SLAB_X = 16, 32, 32
 
 
 def unsupported_reason(k: int, num_sources: Dict[str, int]
@@ -382,6 +396,82 @@ def _bloch_substep(cur: dict, consts: dict, meta: StepMeta,
 
 
 # --------------------------------------------------------------------------- #
+# bulk and shell blocks
+# --------------------------------------------------------------------------- #
+
+
+def bulk_bounds(meta: StepMeta, k: int):
+    """``(lo, hi)`` per axis: the cells in ``[lo, hi)`` on every axis are
+    the bulk, whose E and H updates meet no psi slab and no wall (so no
+    wrap either). A shard's x side that reads its halo has no wall: its k
+    halo planes count."""
+    lo, hi = [], []
+    for a in range(3):
+        n = meta.shape[a]
+        halo = meta.x_halo if a == 0 else (False, False)
+        w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
+        lo.append(-k if halo[0] else max(1, w_e[0], w_h[0]))
+        hi.append(n + k if halo[1] else min(n - 1, n - w_e[1], n - w_h[1]))
+    return lo, hi
+
+
+def grid_blocks(shape, k: int, ncopy: int = 1):
+    """The kernel's grid of blocks for an interior ``shape``: ``(gx, gy,
+    gz)`` tiles of ``SLAB_X`` owned planes, ``TILE_Y - 2k + 1`` owned rows
+    and ``TILE_Z - 2k + 1`` owned columns (x slabs times ``ncopy``: a
+    complex run's copies each get their own blocks). A block's id is its
+    index in that grid, z fastest."""
+    oy, oz = TILE_Y - 2 * k + 1, TILE_Z - 2 * k + 1
+    return (-(-shape[0] // SLAB_X) * ncopy, -(-shape[1] // oy),
+            -(-shape[2] // oz))
+
+
+def block_cones(shape, k: int):
+    """Each block's dependency cone per axis, ``[lo, hi)`` arrays over its
+    slab, row and column index: the owned box grown by k planes in x and
+    by k - 1 (lo) and k (hi) cells in y and z, the tile it computes."""
+    gx, gy, gz = grid_blocks(shape, k)
+    xb = np.arange(gx) * SLAB_X
+    xe = np.minimum(xb + SLAB_X, shape[0])
+    cones = [(xb - k, xe + k)]
+    for g, o, t in ((gy, TILE_Y - 2 * k + 1, TILE_Y),
+                    (gz, TILE_Z - 2 * k + 1, TILE_Z)):
+        lo = np.arange(g) * o - (k - 1)
+        cones.append((lo, lo + t))
+    return cones
+
+
+def classify_blocks(meta: StepMeta, k: int, ncopy: int = 1):
+    """``(bulk, shell)``: int32 arrays of the block ids of a layout, bulk
+    where the whole cone lies in the bulk (``bulk_bounds``) on every axis,
+    shell elsewhere. Each block is in exactly one."""
+    lo, hi = bulk_bounds(meta, k)
+    inside = [(c_lo >= lo[a]) & (c_hi <= hi[a])
+              for a, (c_lo, c_hi) in enumerate(block_cones(meta.shape, k))]
+    bulk = inside[0][:, None, None] & inside[1][None, :, None] \
+        & inside[2][None, None, :]
+    bulk = np.concatenate([bulk] * ncopy).reshape(-1)
+    ids = np.arange(bulk.size, dtype=np.int32)
+    return ids[bulk], ids[~bulk]
+
+
+_BLOCK_LISTS: dict = {}
+
+
+def block_lists(meta: StepMeta, k: int, ncopy: int, device):
+    """``classify_blocks`` as int32 tensors on ``device``, built once per
+    layout (shape, walls, psi slabs, halo sides, copies) and device."""
+    key = (tuple(meta.shape), tuple(map(tuple, meta.boundaries)),
+           tuple(sorted(meta.pml_meta.items())), tuple(meta.x_halo), k,
+           ncopy, str(device))
+    if key not in _BLOCK_LISTS:
+        _BLOCK_LISTS[key] = tuple(
+            torch.from_numpy(ids).to(device)
+            for ids in classify_blocks(meta, k, ncopy))
+    return _BLOCK_LISTS[key]
+
+
+# --------------------------------------------------------------------------- #
 # the CUDA kernel (csrc/kstep.cu) through ctypes
 # --------------------------------------------------------------------------- #
 
@@ -436,9 +526,30 @@ def _library():
     fn = lib.t3d_kstep_group
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_kstep_params_size", KStepParams)
-        fn.argtypes = [ctypes.POINTER(KStepParams), ctypes.c_void_p]
+        tile = (ctypes.c_int32 * 3)()
+        lib.t3d_kstep_tile.argtypes = [ctypes.c_void_p]
+        lib.t3d_kstep_tile.restype = None
+        lib.t3d_kstep_tile(tile)
+        if tuple(tile) != (TILE_Y, TILE_Z, SLAB_X):
+            raise RuntimeError(f"csrc/kstep.cu tiles {tuple(tile)}, "
+                               f"kstep.py {(TILE_Y, TILE_Z, SLAB_X)}")
+        lib.t3d_kstep_occupancy.argtypes = [ctypes.c_int] * 3
+        lib.t3d_kstep_occupancy.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(KStepParams), ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+    return lib
+
+
+def occupancy(num_poles: int, bloch: bool, bulk: bool) -> int:
+    """Blocks per SM of one instantiation of the kernel (the CUDA
+    occupancy calculator); needs the card."""
+    blocks = _library().t3d_kstep_occupancy(num_poles, int(bloch),
+                                            int(bulk))
+    if blocks < 0:
+        raise RuntimeError(f"kstep occupancy: CUDA error {-blocks}")
+    return blocks
 
 
 def prepare(device) -> None:
@@ -480,7 +591,7 @@ def _set_pole_params(p, state, out, consts, shape) -> None:
 
 
 def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
-    global LAUNCHES, SHARDED_LAUNCHES
+    global LAUNCHES, SHARDED_LAUNCHES, DEVICE_LAUNCHES
     shape = meta.array_shape
     device = state["E"][E_COMPS[0]].device
     copies = COPIES[:1 + ("E1" in state)]
@@ -511,6 +622,7 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     p.ncopy = len(copies)
     p.xpad = meta.xpad
     p.x_halo[0], p.x_halo[1] = (int(h) for h in meta.x_halo)
+    bulk_lo, bulk_hi = bulk_bounds(meta, k)
     for a in range(3):
         n = meta.shape[a]
         p.n[a] = n
@@ -525,10 +637,8 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
         halo = meta.x_halo if a == 0 else (False, False)
         p.pec_lo[a] = int(lo == "pec" and not halo[0])
         # the cells whose E and H updates meet no psi slab and no wall
+        p.bulk_lo[a], p.bulk_hi[a] = bulk_lo[a], bulk_hi[a]
         w_e, w_h = meta.pml_meta[("dual", a)], meta.pml_meta[("primal", a)]
-        p.bulk_lo[a] = -k if halo[0] else max(1, w_e[0], w_h[0])
-        p.bulk_hi[a] = n + k if halo[1] else min(n - 1, n - w_e[1],
-                                                 n - w_h[1])
         # a virtual cell past a Bloch wall is the rotated real cell only
         # where every coefficient is periodic along the axis
         cs = meta.bloch[a] if len(copies) == 2 else None
@@ -573,9 +683,18 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     p.t0 = t0
     p.k = k
 
-    step.launch(_library(), p, device, "kstep_group")
+    bulk, shell = block_lists(meta, k, len(copies), device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _library().t3d_kstep_group(
+            ctypes.byref(p), bulk.data_ptr(), bulk.numel(),
+            shell.data_ptr(), shell.numel(), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"kstep_group kernel launch failed: CUDA error "
+                           f"{err}")
     LAUNCHES += 1
     SHARDED_LAUNCHES += bool(meta.xpad)
+    DEVICE_LAUNCHES += bool(bulk.numel()) + bool(shell.numel())
     new = {"Q": list(out["Q"])}
     for (e, h, pk), psi in zip(copies, new_psi):
         new.update({e: dict(out[e]), h: dict(out[h]), pk: psi})

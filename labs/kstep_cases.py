@@ -1,8 +1,7 @@
 """Lab: the k-step kernel's group time on the full-size cases of
 ``chip_smoke.py``, to compare two trees of the port in one run on the card.
 
-    python3 labs/kstep_cases.py [--root DIR] [--poles 3,4,5,6]
-        [--variant NAME=FLAG,FLAG ...] [case ...]
+    python3 labs/kstep_cases.py [--root DIR] [--poles 3,4,5,6] [case ...]
 
 Imports ``tidy3d_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout that holds this script), so that a second tree (an unpacked
@@ -18,21 +17,12 @@ adds the Au case's geometry filled with a Lorentz medium of each number
 of poles given. Where the tree reports them, it prints the kernel's
 registers and spills (ptxas) and blocks per SM of each instantiation. The
 last line is the card's name and power limit. Needs a CUDA device.
-
-``--variant NAME=FLAG,FLAG`` (repeatable) builds the tree's
-``csrc/kstep.cu`` once more per variant with those nvcc flags added (say
-``-maxrregcount=64``, or the ``-D`` macros of an experimental copy; all
-builds started together) and times every variant on each case, in turns
-(variant order, then reversed), each checked against plain first.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import re
-import subprocess
 import sys
 import time
 
@@ -53,53 +43,8 @@ def lorentz_case(td, chip_smoke, poles: int):
         update=dict(medium=td.Lorentz(eps_inf=2.0, coeffs=coeffs)))]))
 
 
-def build_variants(variants: dict) -> dict:
-    """``{name: loaded library}`` of csrc/kstep.cu built with each name's
-    extra nvcc flags, the builds run at once."""
-    from tidy3d_tpu_torch import _build
-
-    src = _build.CSRC / "kstep.cu"
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, flags in variants.items():
-        so = out_dir / f"libkstep_{name}.so"
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name}: nvcc failed\n{err}")
-        regs, current = [], None
-        for line in err.splitlines():
-            m = re.search(r"Compiling entry function '_Z\d+(\w+?)ILi(\d)"
-                          r"ELb([01])ELb([01])E", line)
-            if m:
-                current = (f"NP={m.group(2)}{' Bloch' * (m.group(3) == '1')}"
-                           f" {'bulk' if m.group(4) == '1' else 'shell'}")
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and current:
-                spill = f"{m.group(1)}/{m.group(2)}"
-            m = re.search(r"Used (\d+) registers", line)
-            if m and current:
-                regs.append(f"{current} {m.group(1)} ({spill})")
-                current = None
-        print(f"[variant] {name} registers (spill B): {'; '.join(regs)}",
-              flush=True)
-        libs[name] = ctypes.CDLL(str(so))
-        print(f"[variant] {name}: {' '.join(variants[name])}", flush=True)
-    return libs
-
-
-def time_case(case, make_sim, chip_smoke, td, dev, smi,
-              variants=None) -> None:
-    """One case: one group against plain, then 20 timed groups (per
-    variant library, in turns, where ``variants`` is given)."""
-    from tidy3d_tpu_torch import _build
+def time_case(case, make_sim, chip_smoke, td, dev, smi) -> None:
+    """One case: one group against plain, then 20 timed groups."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.kernels import kstep
     from tidy3d_tpu_torch.solver.lowering import lower
@@ -138,32 +83,12 @@ def time_case(case, make_sim, chip_smoke, td, dev, smi,
           f"{bnd[0]:.3f} ms/group by {bnd[1]}, ratio {ms / bnd[0]:.2f}; "
           f"{dev_launches / max(groups, 1):.2f} device launches a kernel "
           f"call; lowered in {lower_s:.1f} s | {smi}", flush=True)
-    if not variants:
-        return
-    base = _build._LIBS["kstep"]
-    times = {name: [] for name in variants}
-    try:
-        for name, lib in variants.items():
-            _build._LIBS["kstep"] = lib
-            if case != "sharded":
-                chip_smoke.compare_kstep(kstep, runner, st, f"{case} {name}")
-        for order in (list(variants), list(variants)[::-1]):
-            for name in order:
-                _build._LIBS["kstep"] = variants[name]
-                times[name].append(chip_smoke.cuda_ms(group, 20))
-    finally:
-        _build._LIBS["kstep"] = base
-    print(f"[variants] {case}, {len(plan.poles)} poles, ms/group (two turns;"
-          f" bound {bnd[0]:.3f}): " + "; ".join(
-              f"{name} {t[0]:.3f} {t[1]:.3f}" for name, t in times.items())
-          + f" | {smi}", flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--poles", default="")
-    ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("cases", nargs="*")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -207,11 +132,8 @@ def main(argv=None) -> int:
         sims[f"lorentz{n}"] = (lambda n: lambda td: lorentz_case(
             td, chip_smoke, n))(n)
         cases.append(f"lorentz{n}")
-    libs = build_variants({
-        v.split("=", 1)[0]: v.split("=", 1)[1].split(",")
-        for v in args.variant}) if args.variant else None
     for case in cases:
-        time_case(case, sims[case], chip_smoke, td, dev, smi, libs)
+        time_case(case, sims[case], chip_smoke, td, dev, smi)
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

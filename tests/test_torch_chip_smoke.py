@@ -54,7 +54,8 @@ def _env(monkeypatch):
 
 @pytest.mark.parametrize("case,ndev", [
     ("tiled_lorentz2", 1), ("tiled_bloch", 1), ("tiled_lorentz2", 4),
-    ("pml_all", 1)])
+    ("pml_all", 1), ("tiled_lorentz_periodic", 1),
+    ("tiled_lorentz_periodic", 2)])
 def test_lists_per_group_counts_nonempty_lists(case, ndev):
     plan = lower({**SIMS, **TILED}[case]())
     kw = {}

@@ -394,19 +394,22 @@ def test_kernel_matches_plain_on_bulk_and_shell_blocks(case, cuda):
 
 
 @pytest.mark.gpu
-def test_sharded_kernel_on_bulk_and_shell_blocks(cuda):
-    """Four virtual x-shards of a tiled two-pole grid: one shard-local
-    group of the kernel against plain and against the unsharded kernel."""
+@pytest.mark.parametrize("case,ndev", [("tiled_lorentz2", 4),
+                                       ("tiled_lorentz_periodic", 2)])
+def test_sharded_kernel_on_bulk_and_shell_blocks(case, ndev, cuda):
+    """Virtual x-shards of a tiled grid (two poles over 4 shards; one pole
+    and a periodic x over 2): one shard-local group of the kernel against
+    plain and against the unsharded kernel."""
     from tidy3d_tpu_torch.solver.lowering import lower as port_lower
     from tidy3d_tpu_torch.solver.sharding import ShardingPlan, make_mesh
 
-    plan = port_lower(TILED["tiled_lorentz2"]())
+    plan = port_lower(TILED[case]())
     ref = FDTDRunner(plan, device=cuda, kernel="kstep")
     st = _tiled_state(ref, 9)
     unsharded = _flat(convert.state_to_reference(kstep_kernels.kstep_group(
         convert.state_from_reference(st, ref), ref.consts, ref.meta,
         ref.tables, T0, 2)))
-    mesh, _ = make_mesh(devices=[cuda] * 4)
+    mesh, _ = make_mesh(devices=[cuda] * ndev)
     run = FDTDRunner(plan, device=cuda, kernel="kstep",
                      sharding_plan=ShardingPlan(mesh, plan.shape))
     assert any(kstep_kernels.block_lists(sh.meta, 2, 1, cuda)[0].numel()
@@ -420,7 +423,41 @@ def test_sharded_kernel_on_bulk_and_shell_blocks(cuda):
                 for sh, s in zip(run.shards, states)]
         torch.cuda.synchronize()
         assert kstep_kernels.SHARDED_LAUNCHES - before == (
-            4 if fn is kstep_kernels.kstep_group else 0)
+            ndev if fn is kstep_kernels.kstep_group else 0)
         outs.append(_flat(convert.shard_states_to_reference(news, run)))
-    _check_groups(outs[1], outs[0], TOL_XLA, "4 shards, kernel vs plain")
-    _check_groups(unsharded, outs[0], TOL_XLA, "4 shards vs unsharded")
+    _check_groups(outs[1], outs[0], TOL_XLA, f"{ndev} shards, kernel vs plain")
+    _check_groups(unsharded, outs[0], TOL_XLA, f"{ndev} shards vs unsharded")
+
+
+@pytest.mark.gpu
+def test_groups_on_two_streams_match_plain(cuda):
+    """Two runners stepping groups on two streams at once, enqueued in
+    turns: each group's second launch counts its finished blocks in its
+    own stream's word, so every group ends after its first launch and
+    both runs match plain to 1e-6 a group."""
+    from tidy3d_tpu_torch.solver.lowering import lower as port_lower
+
+    plan = port_lower(TILED["tiled_lorentz2"]())
+    ports = [FDTDRunner(plan, device=cuda, kernel="kstep") for _ in range(2)]
+    starts = [_tiled_state(port, seed) for port, seed in zip(ports, (11, 12))]
+    streams = [torch.cuda.Stream(cuda) for _ in ports]
+    groups = 6
+    # each run's states, group by group (every group writes a new set)
+    runs = [[convert.state_from_reference(st, port)]
+            for st, port in zip(starts, ports)]
+    torch.cuda.synchronize()
+    for g in range(groups):
+        for port, stream, run in zip(ports, streams, runs):
+            with torch.cuda.stream(stream):
+                run.append(kstep_kernels.kstep_group(
+                    run[-1], port.consts, port.meta, port.tables,
+                    T0 + 2 * g, 2))
+    torch.cuda.synchronize()
+    assert len({id(kstep_kernels.done_word(s)) for s in streams}) == 2
+    for port, run in zip(ports, runs):
+        for g in range(groups):
+            ref = kstep_kernels.kstep_group_reference(
+                run[g], port.consts, port.meta, port.tables, T0 + 2 * g, 2)
+            _check_groups(_flat(convert.state_to_reference(ref)),
+                          _flat(convert.state_to_reference(run[g + 1])),
+                          TOL_XLA, f"two streams, group {g}, kernel vs plain")

@@ -9,7 +9,9 @@ grids (several blocks per axis, no size a multiple of the tile), on the
 shard-local metas of 2 and 4 x-shards (both halo sides, the edge shards
 with their x-PML) and on the Bloch metas: each block lands in exactly one
 list, no bulk cone holds a cell the kernel would need a wall rule, a psi
-slab or a virtual cell for, and every shell cone holds one. The 384^3
+slab or a virtual cell for, and every shell cone holds one. The cones
+the brute force walks are derived here from the stencil and the tile,
+not taken from ``kstep.block_cones``, which is held to them. The 384^3
 broadband layout gives the bulk share that ``PERF.md`` quotes.
 """
 
@@ -42,6 +44,39 @@ def _runner(case, ndev=1):
     mesh, _ = make_mesh(devices=["cpu"] * ndev)
     return FDTDRunner(plan, device="cpu", kernel="kstep",
                       sharding_plan=ShardingPlan(mesh, plan.shape))
+
+
+def stencil_cone(lo: int, hi: int):
+    """On one axis, the cells whose updates a block computes so that its
+    owned cells ``[lo, hi)`` come out exact after K levels, level by level
+    from the stencil: H at level j of a cell reads E at level j there and
+    one cell higher, E at level j reads H at level j - 1 there and one cell
+    lower. The union of every level's updates, ``[lo', hi')``."""
+    h = (lo, hi)                     # H at level K: the owned cells
+    cells = [h]
+    for level in range(K, 0, -1):
+        e = (h[0], h[1] + 1)         # E at this level
+        h = (e[0] - 1, e[1])         # H at the level before
+        cells += [e, h] if level > 1 else [e]
+    return min(c[0] for c in cells), max(c[1] for c in cells)
+
+
+def derived_cones(shape):
+    """Each block's cone per axis, ``[lo, hi)`` arrays over its slab, row
+    and column index, from the stencil (``stencil_cone``) and the kernel's
+    tile alone: a block owns ``SLAB_X`` planes (the last slab ends at the
+    domain) and the rows and columns of the tile less what the cone adds;
+    in y and z it computes its whole tile, past the domain's hi end too."""
+    lo0, hi0 = stencil_cone(0, 1)
+    grow = (hi0 - lo0) - 1
+    owned = (kstep.SLAB_X, kstep.TILE_Y - grow, kstep.TILE_Z - grow)
+    cones = []
+    for a, (n, o) in enumerate(zip(shape, owned)):
+        lo = np.arange(-(-n // o)) * o
+        hi = np.minimum(lo + o, n) if a == 0 else lo + o
+        cone = [stencil_cone(int(l), int(h)) for l, h in zip(lo, hi)]
+        cones.append(tuple(np.array(c) for c in zip(*cone)))
+    return cones
 
 
 def bad_cells(meta: StepMeta, origin, extent) -> np.ndarray:
@@ -79,12 +114,14 @@ def bad_cells(meta: StepMeta, origin, extent) -> np.ndarray:
 def check_blocks(meta: StepMeta, ncopy: int):
     """The classification against the brute force; returns the counts."""
     bulk, shell = kstep.classify_blocks(meta, K, ncopy)
-    gx, gy, gz = kstep.grid_blocks(meta.shape, K, ncopy)
+    cones = derived_cones(meta.shape)
+    gx, gy, gz = (len(lo) for lo, _ in cones)
+    gx *= ncopy
+    assert kstep.grid_blocks(meta.shape, K, ncopy) == (gx, gy, gz)
     total = gx * gy * gz
     assert bulk.dtype == shell.dtype == np.int32
     assert np.array_equal(np.sort(np.concatenate([bulk, shell])),
                           np.arange(total)), "every block in one list"
-    cones = kstep.block_cones(meta.shape, K)
     origin = [int(lo.min()) for lo, _ in cones]
     extent = [int(hi.max()) - o for (_, hi), o in zip(cones, origin)]
     bad = bad_cells(meta, origin, extent)
@@ -151,6 +188,18 @@ def test_synthetic_layouts_match_the_brute_force(shape, walls):
                         xpad=K, x_halo=(True, True))
     check_blocks(meta, 1)
     check_blocks(meta, 2)
+
+
+@pytest.mark.parametrize("shape", [(384, 384, 384), (280, 280, 280),
+                                   (65, 27, 59), (31, 12, 28)])
+def test_block_cones_follow_the_stencil(shape):
+    """The host's cones are the stencil's: the owned box grown by K - 1
+    cells on the lo side and K on the hi side of every axis."""
+    assert kstep.cone_halo(K) == (-stencil_cone(0, 1)[0],
+                                  stencil_cone(0, 1)[1] - 1)
+    for (lo, hi), (d_lo, d_hi) in zip(kstep.block_cones(shape, K),
+                                      derived_cones(shape)):
+        assert np.array_equal(lo, d_lo) and np.array_equal(hi, d_hi)
 
 
 def test_broadband_384_bulk_share():

@@ -19,11 +19,12 @@
 // other: nothing is updated in place.
 //
 // Design. K is 2. A block owns a (BX, OY, OZ) box of cells and computes a
-// (TY, TZ) tile in y and z that extends it by K - 1 cells on the lo side
-// and K on the hi side (OY = TY - 2K + 1, OZ = TZ - 2K + 1): E at level j
-// of a cell needs H at level j - 1 one cell lower on each axis, H at level
-// j needs E at level j one cell higher, so after K levels exactly the owned
-// core is exact (the dependency cone). One thread holds one (y, z) column
+// (TY, TZ) tile in y and z that extends it by HALO_LO = K - 1 cells on the
+// lo side and HALO_HI = K on the hi side (OY = TY - HALO_LO - HALO_HI, OZ
+// likewise), and as many planes in x: E at level j of a cell needs H at
+// level j - 1 one cell lower on each axis, H at level j needs E at level j
+// one cell higher, so after K levels exactly the owned core is exact (the
+// dependency cone). One thread holds one (y, z) column
 // of the tile and the block marches over x. At march position m, level 1
 // computes its E plane at x = m, then its H plane at x = m - 1; level 2 its
 // E plane at m - 1 and its H plane at m - 2. A level's E and H planes sit in
@@ -52,17 +53,20 @@
 // slots, so that every index into the carries is a compile-time constant.
 //
 // Bulk and shell. The host (solver/kernels/kstep.py) splits the blocks into
-// two lists once per layout: a bulk block's cone (its owned box grown by K
-// planes in x and by K - 1 / K cells in y and z) lies where no psi slab, no
-// wall and no wrap reaches an update. Bulk blocks run an instantiation
-// without psi code or slots, wall rules or Bloch rotation (61 KB of shared
-// memory against the shell's 109 KB, 40 % of the shell's instructions in the
-// pole-free march); shell blocks run the general one. Each list is one
-// launch on the caller's stream, the second a programmatic dependent launch
-// whose blocks fill the SMs the first one's last wave leaves idle, and which
-// ends after it: shell first where two blocks fit on an SM, bulk first where
-// one fits (one launch with a block-uniform dispatch, and the other orders,
-// measured slower, PERF.md).
+// two lists once per layout: a bulk block's cone (its owned box grown by
+// HALO_LO cells on the lo side and HALO_HI on the hi side of every axis,
+// the cells whose updates it computes; t3d_kstep_tile reports the numbers)
+// lies where no psi slab, no wall and no wrap reaches an update, so the
+// level-0 cells it reads, one more on the lo side, are domain cells. Bulk
+// blocks run an instantiation without psi code or slots, wall rules or
+// Bloch rotation (61 KB of shared memory against the shell's 109 KB, 40 %
+// of the shell's instructions in the pole-free march); shell blocks run the
+// general one. Each list is one launch on the caller's stream, the second a
+// programmatic dependent launch whose blocks fill the SMs the first one's
+// last wave leaves idle, and which ends after it: shell first where two
+// blocks fit on an SM, bulk first where one fits (one launch with a
+// block-uniform dispatch, and the other orders, measured slower, PERF.md;
+// so was every block through the shell instantiation at one pole).
 //
 // Only the owner of a cell writes its E, H, psi or Q (every other block
 // that computes the cell does so in its halo and discards it), so no value
@@ -143,14 +147,17 @@ constexpr int SRC_INTS = 12;     // SRC_INTS in solver/kernels/kstep.py
 constexpr int K = 2;             // substeps per launch: KS in kstep.py
 static_assert(K == 2, "the march is written for two levels");
 
-// The tile (TILE_Y, TILE_Z, SLAB_X in kstep.py): TZ columns in z, one warp
+// The tile (TILE_Y, TILE_Z, SLAB_X and the halo in kstep.py, checked
+// against t3d_kstep_tile when the library loads): TZ columns in z, one warp
 // a row, TY rows, BX owned x planes per block.
 constexpr int TZ = 32;
 constexpr int TY = 16;
 constexpr int BX = 32;
 constexpr int TILE = TY * TZ;
-constexpr int OY = TY - 2 * K + 1;   // owned rows and columns
-constexpr int OZ = TZ - 2 * K + 1;
+constexpr int HALO_LO = K - 1;       // the cone past the owned box, every
+constexpr int HALO_HI = K;           // axis: cells computed, not written
+constexpr int OY = TY - HALO_LO - HALO_HI;   // owned rows and columns
+constexpr int OZ = TZ - HALO_LO - HALO_HI;
 // Blocks per SM each instantiation is built for: two (64 registers) up
 // to one pole slot, one (128 registers) from two on, where the pole
 // carries need the registers (PERF.md).
@@ -837,11 +844,11 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
 #pragma unroll
     for (int a = 0; a < 3; ++a)
         t.wrap[a] = !BULK && p.bk_lo[a] == WALL_WRAP && walled(p, a, 0);
-    const int ybase = by * OY - (K - 1);
-    const int zbase = bz * OZ - (K - 1);
+    const int ybase = by * OY - HALO_LO;
+    const int zbase = bz * OZ - HALO_LO;
     const int uy = ybase + t.ty, uz = zbase + t.tz;
-    t.own_yz = t.ty >= K - 1 && t.ty < K - 1 + OY && t.tz >= K - 1 &&
-               t.tz < K - 1 + OZ && uy < p.n[1] && uz < p.n[2];
+    t.own_yz = t.ty >= HALO_LO && t.ty < HALO_LO + OY && t.tz >= HALO_LO &&
+               t.tz < HALO_LO + OZ && uy < p.n[1] && uz < p.n[2];
     // the extra staged entries: the row before the tile (threads 0..TZ-1)
     // and the column before it (the next TY threads)
     int ey = ybase - 1, ez = zbase + t.tid;
@@ -898,9 +905,10 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
     for (int i = t.tid; i < RING_FLOATS; i += TILE) sm[i] = 0.0f;
 
     // level 1's E plane m needs level 0 of planes m - 1 and m; the march
-    // runs m over [xb - 1, xe + 1] (the first owned H plane of level 2, xb,
-    // needs level 1 from xb - 1 on, the last, xe - 1, level 2's E plane xe)
-    const int m0 = t.xb - (K - 1), m1 = t.xe + K - 1;
+    // runs m over the cone, [xb - 1, xe + 1] (the first owned H plane of
+    // level 2, xb, needs level 1 from xb - 1 on, the last, xe - 1, level
+    // 2's E plane xe)
+    const int m0 = t.xb - HALO_LO, m1 = t.xe + HALO_HI - 1;
     float h0p[3], h0c[3];
     Carry<NP> cr;
 #pragma unroll
@@ -946,35 +954,33 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
     cp_async_wait<0>();
 }
 
-// Finished blocks of the second launch of the group in flight. One
-// counter per device serves every group: the runner launches them all on
-// one stream, and a group's first launch starts after the previous group
-// has ended.
-__device__ unsigned g_done_blocks = 0;
-
+// done: null in a group's first launch; in its second, the stream's word
+// that counts the launch's finished blocks (zero at the start).
 template <int NP, bool BL, bool BULK>
 __global__ void __launch_bounds__(TILE, min_blocks(NP))
 kstep_kernel(const KStepParams p, const int32_t* __restrict__ ids,
-             int second) {
+             unsigned* done) {
     extern __shared__ float sm[];
     // the group's second launch may start once every block of this one has
     // started (a no-op for a launch that has no dependent)
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     march<NP, BL, BULK>(p, ids[blockIdx.x], sm);
-    if (second) {
+    if (done) {
         // the second launch ends after the first: its last block to finish
         // waits for the first launch's grid (the two write disjoint cells
-        // and read only the input set, so nothing else waits)
+        // and read only the input set, so nothing else waits), and zeroes
+        // the word for the stream's next group, which starts after this
+        // launch has ended
         __syncthreads();
         if (threadIdx.x == 0 && threadIdx.y == 0 &&
-            atomicAdd(&g_done_blocks, 1u) == gridDim.x - 1) {
-            g_done_blocks = 0;
+            atomicAdd(done, 1u) == gridDim.x - 1) {
+            *done = 0;
             asm volatile("griddepcontrol.wait;\n" ::: "memory");
         }
     }
 }
 
-using KernelFn = void (*)(const KStepParams, const int32_t*, int);
+using KernelFn = void (*)(const KStepParams, const int32_t*, unsigned*);
 
 template <int NP>
 static KernelFn kernel_poles(int np, bool bulk) {
@@ -1007,11 +1013,11 @@ static cudaError_t prepare(KernelFn fn, bool bulk) {
 
 extern "C" int t3d_kstep_params_size() { return (int)sizeof(KStepParams); }
 
-// The tile the host's block lists count in: TY, TZ, BX.
+// The geometry the host's block lists count in: the tile (TY, TZ), the
+// owned box (BX, OY, OZ) and the cone's halo (HALO_LO, HALO_HI).
 extern "C" void t3d_kstep_tile(int32_t* out) {
-    out[0] = TY;
-    out[1] = TZ;
-    out[2] = BX;
+    const int32_t v[7] = {TY, TZ, BX, OY, OZ, HALO_LO, HALO_HI};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
 }
 
 // Blocks of one instantiation that fit on an SM (0 if none; negative: a
@@ -1028,11 +1034,13 @@ extern "C" int t3d_kstep_occupancy(int np, int bloch, int bulk) {
 }
 
 // One group: the bulk blocks (n_bulk ids) and the shell blocks (n_shell
-// ids) as two launches on stream. Every block of the grid is in exactly
-// one list (the caller's classification).
+// ids) as two launches on stream (one where a list is empty). Every block
+// of the grid is in exactly one list (the caller's classification). done:
+// a zeroed word of device memory that the stream's groups share (they run
+// one after another; a group on another stream needs its own word).
 extern "C" int t3d_kstep_group(const KStepParams* p, const int32_t* bulk_ids,
                                int n_bulk, const int32_t* shell_ids,
-                               int n_shell, void* stream) {
+                               int n_shell, unsigned* done, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
     if (p->k != K || p->num_poles < 0 || p->num_poles > MAX_POLES ||
         p->num_src[0] < 0 || p->num_src[1] < 0 || p->t0 < 0 ||
@@ -1041,7 +1049,7 @@ extern "C" int t3d_kstep_group(const KStepParams* p, const int32_t* bulk_ids,
         (p->xpad != 0 && (p->xpad != K || p->ncopy != 1)) ||
         ((p->x_halo[0] || p->x_halo[1]) && p->xpad == 0) ||
         (int64_t)(p->n[0] + 2 * p->xpad) * p->n[1] * p->n[2] > 0x7fffffffLL ||
-        n_bulk < 0 || n_shell < 0)
+        n_bulk < 0 || n_shell < 0 || (n_bulk > 0 && n_shell > 0 && !done))
         return (int)cudaErrorInvalidValue;
     const bool bloch = p->ncopy == 2;
     const dim3 block(TZ, TY);
@@ -1058,7 +1066,7 @@ extern "C" int t3d_kstep_group(const KStepParams* p, const int32_t* bulk_ids,
         if (!fn) return (int)cudaErrorInvalidValue;
         cudaError_t err = prepare(fn, bulk);
         if (err != cudaSuccess) return (int)err;
-        const int second = part == 1 && (bulk ? n_shell : n_bulk) > 0;
+        const bool second = part == 1 && (bulk ? n_shell : n_bulk) > 0;
         cudaLaunchConfig_t cfg = {};
         cfg.gridDim = dim3(count);
         cfg.blockDim = block;
@@ -1069,8 +1077,8 @@ extern "C" int t3d_kstep_group(const KStepParams* p, const int32_t* bulk_ids,
         attr[0].val.programmaticStreamSerializationAllowed = 1;
         cfg.attrs = attr;
         cfg.numAttrs = second ? 1 : 0;
-        err = cudaLaunchKernelEx(&cfg, fn, *p,
-                                 bulk ? bulk_ids : shell_ids, second);
+        err = cudaLaunchKernelEx(&cfg, fn, *p, bulk ? bulk_ids : shell_ids,
+                                 second ? done : (unsigned*)nullptr);
         if (err != cudaSuccess) return (int)err;
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;

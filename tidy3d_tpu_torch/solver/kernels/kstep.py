@@ -33,8 +33,10 @@ one per non-empty block list: the *bulk* blocks, whose dependency cone
 meets no psi slab, no wall and no wrap, run an instantiation without that
 code; the *shell* blocks run the general one. The second launch is a
 programmatic dependent launch on the same stream, which fills the SMs the
-first one's last wave leaves idle. ``block_lists`` classifies the blocks
-of a layout once (cached) and hands each launch its list of block ids.
+first one's last wave leaves idle; its blocks count themselves in a word
+of device memory that each stream has to itself. ``block_lists``
+classifies the blocks of a layout once (cached) and hands each launch its
+list of block ids.
 
 The kernel is built for k = 2 only (``KS``); the plain version takes any
 k. The rule and its reason: the kernel recomputes a halo of k - 1 and k
@@ -74,10 +76,19 @@ COPIES = ("E", "H", "psi"), ("E1", "H1", "psi1")   # state keys per copy
 
 _POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}
 
-# the kernel's tile (csrc/kstep.cu TY, TZ, BX; checked when the library
-# loads): TILE_Y rows and TILE_Z columns of y-z columns, SLAB_X owned x
-# planes per block
+# the kernel's geometry (csrc/kstep.cu TY, TZ, BX, HALO_LO, HALO_HI; all
+# checked against the library's report when it loads): TILE_Y rows and
+# TILE_Z columns of y-z columns, SLAB_X owned x planes per block, and a
+# cone that reaches k - 1 cells past the owned box on the lo side of every
+# axis and k on the hi side
 TILE_Y, TILE_Z, SLAB_X = 16, 32, 32
+
+
+def cone_halo(k: int) -> Tuple[int, int]:
+    """The cells a block computes past its owned box on each axis, ``(lo,
+    hi)``: E at level j needs H at level j - 1 one cell lower, H at level j
+    needs E at level j one cell higher."""
+    return k - 1, k
 
 
 def unsupported_reason(k: int, num_sources: Dict[str, int]
@@ -415,29 +426,34 @@ def bulk_bounds(meta: StepMeta, k: int):
     return lo, hi
 
 
+def owned_widths(k: int) -> Tuple[int, int, int]:
+    """The owned box of a block: ``SLAB_X`` planes, and the tile less its
+    cone's halo in y and z."""
+    halo = sum(cone_halo(k))
+    return SLAB_X, TILE_Y - halo, TILE_Z - halo
+
+
 def grid_blocks(shape, k: int, ncopy: int = 1):
     """The kernel's grid of blocks for an interior ``shape``: ``(gx, gy,
-    gz)`` tiles of ``SLAB_X`` owned planes, ``TILE_Y - 2k + 1`` owned rows
-    and ``TILE_Z - 2k + 1`` owned columns (x slabs times ``ncopy``: a
-    complex run's copies each get their own blocks). A block's id is its
-    index in that grid, z fastest."""
-    oy, oz = TILE_Y - 2 * k + 1, TILE_Z - 2 * k + 1
-    return (-(-shape[0] // SLAB_X) * ncopy, -(-shape[1] // oy),
+    gz)`` owned boxes (``owned_widths``; x slabs times ``ncopy``: a complex
+    run's copies each get their own blocks). A block's id is its index in
+    that grid, z fastest."""
+    ox, oy, oz = owned_widths(k)
+    return (-(-shape[0] // ox) * ncopy, -(-shape[1] // oy),
             -(-shape[2] // oz))
 
 
 def block_cones(shape, k: int):
     """Each block's dependency cone per axis, ``[lo, hi)`` arrays over its
-    slab, row and column index: the owned box grown by k planes in x and
-    by k - 1 (lo) and k (hi) cells in y and z, the tile it computes."""
-    gx, gy, gz = grid_blocks(shape, k)
-    xb = np.arange(gx) * SLAB_X
-    xe = np.minimum(xb + SLAB_X, shape[0])
-    cones = [(xb - k, xe + k)]
-    for g, o, t in ((gy, TILE_Y - 2 * k + 1, TILE_Y),
-                    (gz, TILE_Z - 2 * k + 1, TILE_Z)):
-        lo = np.arange(g) * o - (k - 1)
-        cones.append((lo, lo + t))
+    slab, row and column index: the owned box grown by ``cone_halo(k)``
+    (in y and z the whole tile, which the kernel computes even past the
+    domain's hi end)."""
+    h_lo, h_hi = cone_halo(k)
+    cones = []
+    for a, (g, o) in enumerate(zip(grid_blocks(shape, k), owned_widths(k))):
+        lo = np.arange(g) * o
+        hi = np.minimum(lo + o, shape[0]) if a == 0 else lo + o
+        cones.append((lo - h_lo, hi + h_hi))
     return cones
 
 
@@ -456,6 +472,7 @@ def classify_blocks(meta: StepMeta, k: int, ncopy: int = 1):
 
 
 _BLOCK_LISTS: dict = {}
+_DONE_WORDS: dict = {}
 
 
 def block_lists(meta: StepMeta, k: int, ncopy: int, device):
@@ -469,6 +486,19 @@ def block_lists(meta: StepMeta, k: int, ncopy: int, device):
             torch.from_numpy(ids).to(device)
             for ids in classify_blocks(meta, k, ncopy))
     return _BLOCK_LISTS[key]
+
+
+def done_word(stream: torch.cuda.Stream) -> torch.Tensor:
+    """The zeroed int32 word in which the second launch of a group counts
+    its finished blocks, one per stream: a stream's groups run one after
+    another and the launch's last block zeroes it again, while groups on
+    two streams may run at once."""
+    key = (stream.device, stream.cuda_stream)
+    if key not in _DONE_WORDS:
+        with torch.cuda.stream(stream):
+            _DONE_WORDS[key] = torch.zeros(1, dtype=torch.int32,
+                                           device=stream.device)
+    return _DONE_WORDS[key]
 
 
 # --------------------------------------------------------------------------- #
@@ -526,18 +556,20 @@ def _library():
     fn = lib.t3d_kstep_group
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_kstep_params_size", KStepParams)
-        tile = (ctypes.c_int32 * 3)()
+        tile = (ctypes.c_int32 * 7)()
         lib.t3d_kstep_tile.argtypes = [ctypes.c_void_p]
         lib.t3d_kstep_tile.restype = None
         lib.t3d_kstep_tile(tile)
-        if tuple(tile) != (TILE_Y, TILE_Z, SLAB_X):
-            raise RuntimeError(f"csrc/kstep.cu tiles {tuple(tile)}, "
-                               f"kstep.py {(TILE_Y, TILE_Z, SLAB_X)}")
+        ox, oy, oz = owned_widths(KS[0])
+        want = (TILE_Y, TILE_Z, ox, oy, oz) + cone_halo(KS[0])
+        if tuple(tile) != want:
+            raise RuntimeError(f"csrc/kstep.cu geometry {tuple(tile)}, "
+                               f"kstep.py {want} (tile, owned box, halo)")
         lib.t3d_kstep_occupancy.argtypes = [ctypes.c_int] * 3
         lib.t3d_kstep_occupancy.restype = ctypes.c_int
         fn.argtypes = [ctypes.POINTER(KStepParams), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -684,11 +716,12 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     p.k = k
 
     bulk, shell = block_lists(meta, k, len(copies), device)
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(device)
     with torch.cuda.device(device):
         err = _library().t3d_kstep_group(
             ctypes.byref(p), bulk.data_ptr(), bulk.numel(),
-            shell.data_ptr(), shell.numel(), ctypes.c_void_p(stream))
+            shell.data_ptr(), shell.numel(), done_word(stream).data_ptr(),
+            ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"kstep_group kernel launch failed: CUDA error "
                            f"{err}")

@@ -102,9 +102,12 @@ Phases (any failure exits non-zero):
     ``torch._foreach_copy_`` of the 6 fields; the copy bit-identical to
     plain, its 16-byte vectors and, on 15^3 fields, its scalar tail;
 18. the k-step lab's kernel against its plain version on random 384^3
-    fields, bx = 8, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to 1e-2:
-    one rounding at the store), every plane compared, the clamped edge
-    windows included; kernel and plain ms per group;
+    fields, bx = 8 and 4, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to
+    1e-2: one rounding at the store), every plane compared, the clamped
+    edge windows included; kernel ms per group and per step (bx = 8, and
+    bx = 4), plain ms per group, the ratio to the bound, registers, shared
+    memory, threads and blocks per SM of each instantiation and the
+    march's x chunks;
 19. each pole-lab kernel against its plain version at the lab's size (24
     x 64 x 128 cells, R = 600, GRID = 16), all 16 copies of the output
     equal: the kernel contracts ``a * b + c`` into one FMA where the plain
@@ -117,7 +120,11 @@ Phases (any failure exits non-zero):
     varies in y or z, so it is compared on the lab's constant window at R
     = 600 and on a random one at R = 40 (to 1.5 x 2^-23 a repeat); kernel
     ms and TFLOP/s under the lab's flop model, plain ms and ptxas's
-    registers;
+    registers; for ``pole_chan_bf16`` the ratio to the bound and to twice
+    the bound (one bf16 operation a lane and instruction, since nothing
+    contracts) and the SASS instruction classes of its repeat loop
+    (``cuobjdump -sass``), which must hold bf16x2 arithmetic and no
+    conversion;
 20. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
@@ -130,7 +137,9 @@ Phases (any failure exits non-zero):
     step or a lab kernel's function, so ``library_ms`` is null, but for the
     step lab's copy variant (``torch._foreach_copy_``). The k-step entries
     also carry the registers and blocks per SM of their bulk and shell
-    instantiations.
+    instantiations, the k-step lab's entries their registers, shared
+    bytes, threads, blocks per SM and x chunks, and ``pole_chan_bf16``'s
+    its SASS classes.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -1214,11 +1223,14 @@ def run_lab_step(smi: str, launches: dict) -> list:
 
 def run_lab_kstep(smi: str, launches: dict) -> list:
     """Phase 18: the k-step lab's kernel against its plain version at
-    ``N_LAB``^3 on random fields, bx = 8, k = 1 to 4, f32 and bf16
-    storage; kernel and plain ms per group and per step."""
+    ``N_LAB``^3 on random fields, bx = 8 and 4, k = 1 to 4, f32 and bf16
+    storage; kernel ms per group and per step at bx = 8 (and bx = 4), plain
+    ms, the ratio to the bound, registers, shared memory, blocks per SM and
+    the march's x chunks."""
     from tidy3d_tpu_torch.labs import kernel_lab2
 
     out = []
+    dev = torch.device("cuda")
     names = kernel_lab2.E + kernel_lab2.H
     for dtype, tol in ((torch.float32, TOL_UPDATE), (torch.bfloat16,
                                                      TOL_BF16)):
@@ -1226,27 +1238,39 @@ def run_lab_kstep(smi: str, launches: dict) -> list:
         o = {c: torch.empty_like(v) for c, v in f.items()}
         for k in kernel_lab2.KS:
             key = kernel_lab2.launch_key(k, dtype)
-            got = kernel_lab2.lab_kstep(f, k, 8)
-            sync()
-            ref, plain_ms = timed(lambda: kernel_lab2.lab_kstep_reference(
-                f, k, 8))
-            rel, ab = lab_err(got, ref)
-            log(f"[lab_kstep] {N_LAB}^3 {key} bx=8: kernel vs plain max rel "
-                f"err {rel:.3e} (max abs {ab:.3e}, tol {tol:g})")
-            assert rel <= tol, f"lab_kstep {key}: {rel:.3e}"
-            del got, ref
-            torch.cuda.empty_cache()
-            ms = cuda_ms(lambda: kernel_lab2.lab_kstep(f, k, 8, out=o), 10)
+            worst = 0.0
+            for bx in (8, 4):
+                got = kernel_lab2.lab_kstep(f, k, bx)
+                sync()
+                ref, p_ms = timed(lambda: kernel_lab2.lab_kstep_reference(
+                    f, k, bx))
+                rel, ab = lab_err(got, ref)
+                log(f"[lab_kstep] {N_LAB}^3 {key} bx={bx}: kernel vs plain "
+                    f"max rel err {rel:.3e} (max abs {ab:.3e}, tol {tol:g})")
+                assert rel <= tol, f"lab_kstep {key} bx={bx}: {rel:.3e}"
+                worst = max(worst, ab)
+                if bx == 8:
+                    plain_ms = p_ms
+                del got, ref
+                torch.cuda.empty_cache()
+            ms, ms4 = (cuda_ms(lambda: kernel_lab2.lab_kstep(
+                f, k, bx, out=o), 10) for bx in (8, 4))
             bnd = bound(kernel_lab2.step_bytes(N_LAB, dtype),
                         kernel_lab2.FLOPS_PER_CELL * N_LAB ** 3 * k)
+            res = kernel_lab2.resources(k, dtype)
+            res["chunks"] = kernel_lab2.chunks_on(N_LAB, k, dtype, dev)
             log(f"[lab_kstep] {N_LAB}^3 {key} bx=8: kernel {ms:.3f} ms/group "
-                f"= {ms / k:.3f} ms/step, plain {plain_ms:.3f} ms/group; "
-                f"bound {bnd[0]:.3f} ms/group = {bnd[0] / k:.3f} ms/step by "
-                f"{bnd[1]} | {smi}")
+                f"= {ms / k:.3f} ms/step (bx=4 {ms4:.3f} ms/group), plain "
+                f"{plain_ms:.3f} ms/group; bound {bnd[0]:.3f} ms/group = "
+                f"{bnd[0] / k:.3f} ms/step by {bnd[1]}, kernel/bound "
+                f"{ms / bnd[0]:.2f}; {res['registers']} registers, "
+                f"{res['smem']} B shared, {res['threads']} threads, "
+                f"{res['blocks_per_sm']} blocks/SM, {res['chunks']} x "
+                f"chunks | {smi}")
             out.append(entry(
                 f"lab_kstep_{key}", "tidy3d_tpu_torch/csrc/lab_kstep.cu",
-                "scripts/kernel_lab2.py:26", launches[key], ab, ms,
-                plain_ms, bnd))
+                "scripts/kernel_lab2.py:26", launches[key], worst, ms,
+                plain_ms, bnd, **res))
         del f, o
     return out
 
@@ -1298,6 +1322,17 @@ def run_pole_lab(smi: str, launches: dict) -> list:
             2 if variant.endswith("bf16") else 4), pole_lab.ops(variant),
             pole_lab.peak(variant))
         regs = _common.registers_of("lab_pole", variant.replace("_bf16", ""))
+        extra = {}
+        if variant == "pole_chan_bf16":
+            # no contraction: one operation a lane and instruction, half
+            # the bf16 peak's two (an FMA) a lane
+            extra["sass"] = _common.sass_classes("lab_pole",
+                                                 "pole_chan_bf16_kernel")
+            log(f"[pole_lab] pole_chan_bf16: kernel/bound {ms / bnd[0]:.2f}, "
+                f"kernel/floor {ms / (2 * bnd[0]):.2f} (no-contraction floor "
+                f"{2 * bnd[0]:.3f} ms); SASS of the repeat loop {extra['sass']}")
+            assert extra["sass"]["bf16x2"] > 0 and \
+                extra["sass"]["convert"] == 0, extra["sass"]
         log(f"[pole_lab] {variant}: kernel {ms:.3f} ms/call "
             f"({fl / (ms * 1e-3) / 1e12:.2f} TFLOP/s), plain "
             f"{timed_plain:.3f} ms, bound {bnd[0]:.3f} ms by {bnd[1]}; "
@@ -1305,7 +1340,7 @@ def run_pole_lab(smi: str, launches: dict) -> list:
         out.append(entry(
             f"pole_lab_{variant}", "tidy3d_tpu_torch/csrc/lab_pole.cu",
             f"scripts/pole_lab.py:{POLE_LAB_LINES[variant]}",
-            launches[variant], worst, ms, timed_plain, bnd))
+            launches[variant], worst, ms, timed_plain, bnd, **extra))
     return out
 
 

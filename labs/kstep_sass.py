@@ -16,6 +16,7 @@ these static counts are the instruction-bound evidence. Needs ``nvcc`` and
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import re
 import shutil
@@ -23,38 +24,16 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
-BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
 
 
-def functions(sass: str) -> dict:
-    """``{function name: [(address, instruction text)]}``."""
-    out, current = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function\s*:\s*(\S+)", line)
-        if m:
-            current = m.group(1)
-            out[current] = []
-            continue
-        m = INSTR.search(line)
-        if m and current:
-            out[current].append((int(m.group(1), 16), m.group(2).strip()))
-    return out
-
-
-def loop_body(instrs: list) -> list:
-    """The instructions of the longest backward-branch loop."""
-    best = []
-    for i, (addr, text) in enumerate(instrs):
-        m = BRANCH.search(text)
-        if not m:
-            continue
-        target = int(m.group(1), 16)
-        if target < addr:
-            body = [t for a, t in instrs if target <= a <= addr]
-            if len(body) > len(best):
-                best = body
-    return best
+def _shared():
+    """This checkout's ``tidy3d_tpu_torch/labs/_common.py``, loaded by path
+    so that ``--root`` still picks the tree whose kernel is built."""
+    path = os.path.join(HERE, "tidy3d_tpu_torch", "labs", "_common.py")
+    spec = importlib.util.spec_from_file_location("_lab_common", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None) -> int:
@@ -71,12 +50,12 @@ def main(argv=None) -> int:
     assert lib and os.path.dirname(path).startswith(root), path
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    for name, instrs in sorted(functions(sass).items()):
+    shared = _shared()
+    for name, instrs in sorted(shared.sass_functions(sass).items()):
         if "kstep_kernel" not in name:
             continue
-        body = loop_body(instrs)
-        count = {kind: sum(bool(re.match(pat, t.split(" ", 1)[-1]
-                                         if t.startswith("@") else t))
+        body = shared.loop_body(instrs)
+        count = {kind: sum(bool(re.match(pat, shared.opcode(t)))
                            for t in body)
                  for kind, pat in (("LDG", r"LDG"), ("LDS", r"LDS"),
                                    ("BAR", r"BAR"), ("LDGSTS", r"LDGSTS"))}

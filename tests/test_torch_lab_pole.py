@@ -134,6 +134,80 @@ def test_operation_count_is_the_functions():
     assert pole_lab.peak("pole_chan") == _common.PEAK_F32
 
 
+def round_bf16(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded once to bf16 (8 significant bits, nearest
+    even)."""
+    m, e = np.frexp(x)
+    return np.ldexp(np.rint(m * 256.0), e - 8)
+
+
+def pole_chan_bf16_emulated(e, m, q, reps: int) -> np.ndarray:
+    """``pole_chan`` in float64 with each multiply, add and subtract
+    rounded once to bf16, left to right, at the lab's bf16 constants."""
+    k = pole_lab.chan_constants(torch.bfloat16)
+    r = round_bf16
+    mask = m.double().numpy()
+    es = [e[:, ci].double().numpy() for ci in range(3)]
+    qs = [q[:, ch].double().numpy() for ch in range(pole_lab.C)]
+    for _ in range(reps):
+        new_es = []
+        for ci in range(3):
+            pt = None
+            for p in range(pole_lab.NR + pole_lab.NC):
+                ch0 = p * 3 if p < pole_lab.NR else \
+                    pole_lab.NR * 3 + (p - pole_lab.NR) * 6
+                t = r(k["gr"][p] * qs[ch0 + ci])
+                if p >= pole_lab.NR:
+                    t = r(t - r(k["gi"][p] * qs[ch0 + 3 + ci]))
+                pt = t if pt is None else r(pt + t)
+            new_es.append(r(r(k["ca"] * es[ci]) + r(k["cb"] * pt)))
+        for ci in range(3):
+            mes = r(mask * r(new_es[ci] + es[ci]))
+            for p in range(pole_lab.NR + pole_lab.NC):
+                ch0 = p * 3 if p < pole_lab.NR else \
+                    pole_lab.NR * 3 + (p - pole_lab.NR) * 6
+                qr = qs[ch0 + ci]
+                nqr = r(k["ar"][p] * qr)
+                if p >= pole_lab.NR:
+                    qi = qs[ch0 + 3 + ci]
+                    nqr = r(nqr - r(k["ai"][p] * qi))
+                    qs[ch0 + 3 + ci] = r(r(r(k["ai"][p] * qr)
+                                           + r(k["ar"][p] * qi))
+                                         + r(k["b0i"][p] * mes))
+                qs[ch0 + ci] = r(nqr + r(k["b0r"][p] * mes))
+        es = new_es
+    return r(r(r(es[0] + es[1]) + es[2]) + qs[0])
+
+
+def test_round_bf16_is_torchs():
+    x = np.random.default_rng(5).standard_normal(4096) * 10.0 ** \
+        np.random.default_rng(6).integers(-6, 6, 4096)
+    want = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    assert np.array_equal(round_bf16(x), want)
+
+
+@pytest.mark.parametrize("reps", [1, pole_lab.R])
+def test_bf16_reference_rounds_each_operation_once(reps):
+    """The plain bf16 ``pole_chan`` against a float64 emulation that rounds
+    each exact operation once to bf16 (the native bf16x2 kernel's
+    arithmetic): within the 1e-2 kernel tolerance at R = 600; the one-ulp
+    differences after one repeat are counted and printed."""
+    sizes = dict(wx=1, wy=4, z=32)
+    e, m, q = pole_lab.make_inputs("pole_chan_bf16", seed=7, **sizes)
+    got = pole_lab.run("pole_chan_bf16", (e, m, q), reps=reps, grid=1)
+    want = pole_chan_bf16_emulated(e, m, q, reps)
+    got = got.double().numpy()
+    err = rel(want, got)
+    assert err <= pole_lab.kernel_tolerance("pole_chan_bf16"), err
+    if reps == 1:
+        ulp = np.ldexp(1.0, np.frexp(np.abs(want))[1] - 8)
+        diffs = int(np.count_nonzero(got != want))
+        ones = int(np.count_nonzero(np.abs(got - want) == ulp))
+        print(f"pole_chan_bf16, one repeat: {diffs} of {want.size} outputs "
+              f"differ from single rounding, {ones} by one ulp")
+        assert diffs == ones
+
+
 def test_cpu_dispatch_counts_no_launch():
     before = dict(pole_lab.LAUNCHES)
     pole_lab.run("fma_peak", pole_lab.make_inputs("fma_peak", **SIZES),

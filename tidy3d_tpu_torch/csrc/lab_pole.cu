@@ -21,8 +21,15 @@
 // coefficients as kernel parameters, so they stay in the constant bank as
 // instruction operands; pole_packed reads its 4 x 30 coefficient vectors
 // from memory (staged once in shared memory) inside the repeat loop.
-// pole_chan_bf16 keeps the carries in bf16 and rounds every operation's
-// float result to bf16, as the JAX lab's bf16 arithmetic does. curl_mix
+// pole_chan_bf16 computes as the JAX lab's bf16 arithmetic does, every
+// multiply, add and subtract rounded to bf16 (nearest even), left to right:
+// a thread takes two neighbouring cells as __nv_bfloat162 (the 3 E and 30 Q
+// carries in 33 registers), and each operation is one native bf16x2
+// instruction with an explicit .rn rounding (mul/add/sub.rn.bf16x2), which
+// the compiler does not contract into an FMA: the spec rounds product and
+// sum apart. Its constants arrive as bf16x2 bit patterns in the parameter
+// block. Bound: operations; without contraction one operation a lane and
+// instruction, so its floor is twice the bound at the bf16 peak. curl_mix
 // mixes y and z neighbours, periodic in the window's plane: one block per
 // (x plane, repeat) holds the plane's 6 fields in shared memory (196 KB at
 // 64 x 128). Built without fast-math: a*b + c contracts to one FMA, as the
@@ -54,34 +61,13 @@ struct LabPoleParams {
     int32_t bf16;       // pole_chan on bf16
     float ca, cb;       // 0.999 and 0.37 as the arithmetic sees them
     float ar[8], ai[8], b0r[8], b0i[8], gr[8], gi[8];  // pole_chan's
+    // pole_chan_bf16's constants, each a bf16x2 of the constant twice
+    uint32_t ca2, cb2;
+    uint32_t ar2[8], ai2[8], b0r2[8], b0i2[8], gr2[8], gi2[8];
 };
 
 enum { VPU_PEAK = 0, FMA_PEAK = 1, POLE_CHAN = 2, POLE_PACKED = 3,
        CURL_MIX = 4 };
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-    static __device__ __forceinline__ float ld(const float* p, int64_t i) {
-        return __ldg(p + i);
-    }
-    static __device__ __forceinline__ void st(float* p, int64_t i, float v) {
-        p[i] = v;
-    }
-    static __device__ __forceinline__ float r(float v) { return v; }
-};
-template <> struct Num<__nv_bfloat16> {
-    static __device__ __forceinline__ float ld(const __nv_bfloat16* p,
-                                               int64_t i) {
-        return __bfloat162float(p[i]);
-    }
-    static __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i,
-                                              float v) {
-        p[i] = __float2bfloat16_rn(v);
-    }
-    static __device__ __forceinline__ float r(float v) {
-        return __bfloat162float(__float2bfloat16_rn(v));
-    }
-};
 
 constexpr int THREADS = 256;
 
@@ -132,24 +118,22 @@ __host__ __device__ constexpr int ch0_of(int pp) {
     return pp < NR ? pp * 3 : NR * 3 + (pp - NR) * 6;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
 pole_chan_kernel(const LabPoleParams p) {
-    using N = Num<T>;
     const int64_t wyz = p.wy * p.z;
     const int64_t cells = p.wx * wyz;
     const int64_t idx = (int64_t)blockIdx.x * THREADS + threadIdx.x;
     if (idx >= cells * p.grid) return;
     const int64_t cell = idx % cells;
     const int64_t x = cell / wyz, yz = cell - x * wyz;
-    const T* e = (const T*)p.e;
-    const T* q = (const T*)p.q;
-    const float mask = N::ld((const T*)p.m, cell);
+    const float* e = (const float*)p.e;
+    const float* q = (const float*)p.q;
+    const float mask = __ldg((const float*)p.m + cell);
     float es[3], qs[C];
 #pragma unroll
-    for (int ci = 0; ci < 3; ++ci) es[ci] = N::ld(e, (x * 3 + ci) * wyz + yz);
+    for (int ci = 0; ci < 3; ++ci) es[ci] = __ldg(e + (x * 3 + ci) * wyz + yz);
 #pragma unroll
-    for (int ch = 0; ch < C; ++ch) qs[ch] = N::ld(q, (x * C + ch) * wyz + yz);
+    for (int ch = 0; ch < C; ++ch) qs[ch] = __ldg(q + (x * C + ch) * wyz + yz);
     const float ca = p.ca, cb = p.cb;
 
 #pragma unroll 1
@@ -161,34 +145,125 @@ pole_chan_kernel(const LabPoleParams p) {
 #pragma unroll
             for (int pp = 0; pp < NP; ++pp) {
                 const int ch0 = ch0_of(pp);
-                float t = N::r(p.gr[pp] * qs[ch0 + ci]);
-                if (pp >= NR) t = N::r(t - N::r(p.gi[pp] * qs[ch0 + 3 + ci]));
-                pt = pp == 0 ? t : N::r(pt + t);
+                float t = p.gr[pp] * qs[ch0 + ci];
+                if (pp >= NR) t = t - p.gi[pp] * qs[ch0 + 3 + ci];
+                pt = pp == 0 ? t : pt + t;
             }
-            ne[ci] = N::r(N::r(ca * es[ci]) + N::r(cb * pt));
+            ne[ci] = ca * es[ci] + cb * pt;
         }
 #pragma unroll
         for (int ci = 0; ci < 3; ++ci) {
-            const float mes = N::r(mask * N::r(ne[ci] + es[ci]));
+            const float mes = mask * (ne[ci] + es[ci]);
 #pragma unroll
             for (int pp = 0; pp < NP; ++pp) {
                 const int ch0 = ch0_of(pp);
                 const float qr = qs[ch0 + ci];
-                float nqr = N::r(p.ar[pp] * qr);
+                float nqr = p.ar[pp] * qr;
                 if (pp >= NR) {
                     const float qi = qs[ch0 + 3 + ci];
-                    nqr = N::r(nqr - N::r(p.ai[pp] * qi));
+                    nqr = nqr - p.ai[pp] * qi;
                     qs[ch0 + 3 + ci] =
-                        N::r(N::r(N::r(p.ai[pp] * qr) + N::r(p.ar[pp] * qi)) +
-                             N::r(p.b0i[pp] * mes));
+                        p.ai[pp] * qr + p.ar[pp] * qi + p.b0i[pp] * mes;
                 }
-                qs[ch0 + ci] = N::r(nqr + N::r(p.b0r[pp] * mes));
+                qs[ch0 + ci] = nqr + p.b0r[pp] * mes;
             }
             es[ci] = ne[ci];
         }
     }
-    N::st((T*)p.out, idx,
-          N::r(N::r(N::r(es[0] + es[1]) + es[2]) + qs[0]));
+    ((float*)p.out)[idx] = es[0] + es[1] + es[2] + qs[0];
+}
+
+// bf16x2 arithmetic, each operation rounded once to nearest even; the
+// explicit .rn keeps ptxas from contracting a multiply and an add
+struct B2 {
+    uint32_t v;
+};
+__device__ __forceinline__ B2 operator*(B2 a, B2 b) {
+    B2 d;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(a.v), "r"(b.v));
+    return d;
+}
+__device__ __forceinline__ B2 operator+(B2 a, B2 b) {
+    B2 d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(a.v), "r"(b.v));
+    return d;
+}
+__device__ __forceinline__ B2 operator-(B2 a, B2 b) {
+    B2 d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(a.v), "r"(b.v));
+    return d;
+}
+__device__ __forceinline__ B2 pair(const __nv_bfloat16* p, int64_t i0,
+                                   int64_t i1) {
+    const uint16_t lo = __bfloat16_as_ushort(p[i0]);
+    const uint16_t hi = __bfloat16_as_ushort(p[i1]);
+    return B2{(uint32_t)lo | ((uint32_t)hi << 16)};
+}
+
+// pole_chan on bf16: a thread takes cells 2t and 2t + 1 of the (grid, wx,
+// wy, z) output, whatever rows they lie in (the update is pointwise)
+__global__ void __launch_bounds__(THREADS)
+pole_chan_bf16_kernel(const LabPoleParams p) {
+    const int64_t wyz = p.wy * p.z;
+    const int64_t cells = p.wx * wyz;
+    const int64_t total = cells * p.grid;
+    const int64_t i0 = 2 * ((int64_t)blockIdx.x * THREADS + threadIdx.x);
+    if (i0 >= total) return;
+    const int64_t i1 = i0 + 1 < total ? i0 + 1 : i0;
+    const int64_t c0 = i0 % cells, c1 = i1 % cells;
+    const int64_t x0 = c0 / wyz, yz0 = c0 - x0 * wyz;
+    const int64_t x1 = c1 / wyz, yz1 = c1 - x1 * wyz;
+    const __nv_bfloat16* e = (const __nv_bfloat16*)p.e;
+    const __nv_bfloat16* q = (const __nv_bfloat16*)p.q;
+    const B2 mask = pair((const __nv_bfloat16*)p.m, c0, c1);
+    B2 es[3], qs[C];
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci)
+        es[ci] = pair(e, (x0 * 3 + ci) * wyz + yz0, (x1 * 3 + ci) * wyz + yz1);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+        qs[ch] = pair(q, (x0 * C + ch) * wyz + yz0, (x1 * C + ch) * wyz + yz1);
+    const B2 ca{p.ca2}, cb{p.cb2};
+
+#pragma unroll 1
+    for (int r = 0; r < p.reps; ++r) {
+        B2 ne[3];
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+            B2 pt{0};
+#pragma unroll
+            for (int pp = 0; pp < NP; ++pp) {
+                const int ch0 = ch0_of(pp);
+                B2 t = B2{p.gr2[pp]} * qs[ch0 + ci];
+                if (pp >= NR) t = t - B2{p.gi2[pp]} * qs[ch0 + 3 + ci];
+                pt = pp == 0 ? t : pt + t;
+            }
+            ne[ci] = ca * es[ci] + cb * pt;
+        }
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+            const B2 mes = mask * (ne[ci] + es[ci]);
+#pragma unroll
+            for (int pp = 0; pp < NP; ++pp) {
+                const int ch0 = ch0_of(pp);
+                const B2 qr = qs[ch0 + ci];
+                const B2 ar{p.ar2[pp]};
+                B2 nqr = ar * qr;
+                if (pp >= NR) {
+                    const B2 ai{p.ai2[pp]};
+                    const B2 qi = qs[ch0 + 3 + ci];
+                    nqr = nqr - ai * qi;
+                    qs[ch0 + 3 + ci] = ai * qr + ar * qi + B2{p.b0i2[pp]} * mes;
+                }
+                qs[ch0 + ci] = nqr + B2{p.b0r2[pp]} * mes;
+            }
+            es[ci] = ne[ci];
+        }
+    }
+    const B2 sum = es[0] + es[1] + es[2] + qs[0];
+    uint16_t* out = (uint16_t*)p.out;
+    out[i0] = (uint16_t)(sum.v & 0xffff);
+    if (i1 != i0) out[i1] = (uint16_t)(sum.v >> 16);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -336,10 +411,10 @@ extern "C" int t3d_lab_pole(const LabPoleParams* p, void* stream) {
             break;
         case POLE_CHAN:
             if (p->bf16)
-                pole_chan_kernel<__nv_bfloat16>
-                    <<<(unsigned)blocks, THREADS, 0, s>>>(*p);
+                pole_chan_bf16_kernel<<<(unsigned)((blocks + 1) / 2), THREADS,
+                                        0, s>>>(*p);
             else
-                pole_chan_kernel<float><<<(unsigned)blocks, THREADS, 0, s>>>(*p);
+                pole_chan_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(*p);
             break;
         case POLE_PACKED:
             pole_packed_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(*p);

@@ -1,11 +1,13 @@
 """What the labs share: the card's name and power limit, CUDA-event timing,
-the roofline bound, the ctypes binding of a lab library and ptxas's
-register counts."""
+the roofline bound, the ctypes binding of a lab library, ptxas's register
+counts and the SASS instruction classes of a kernel's loop."""
 
 from __future__ import annotations
 
 import ctypes
+import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -118,3 +120,82 @@ def registers_of(name: str, kernel: str) -> str:
             for mangled, (regs, st, ld) in sorted(registers(name).items())
             if kernel in mangled]
     return "; ".join(rows) if rows else "not reported"
+
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+
+
+def sass_functions(sass: str) -> dict:
+    """``{function name: [(address, instruction text)]}`` of a
+    ``cuobjdump -sass`` listing."""
+    out, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            current = m.group(1)
+            out[current] = []
+            continue
+        m = _INSTR.search(line)
+        if m and current:
+            out[current].append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def loop_body(instrs: list) -> list:
+    """The instructions of the longest backward-branch loop: from the
+    target of a backward branch to that branch."""
+    best = []
+    for addr, text in instrs:
+        m = _BRANCH.search(text)
+        if not m:
+            continue
+        target = int(m.group(1), 16)
+        if target < addr:
+            body = [t for a, t in instrs if target <= a <= addr]
+            if len(body) > len(best):
+                best = body
+    return best
+
+
+def opcode(instr: str) -> str:
+    """An instruction's opcode with its modifiers, the predicate dropped."""
+    return instr.split()[1] if instr.startswith("@") else instr.split()[0]
+
+
+def sass_loop(name: str, kernel: str) -> list:
+    """The opcodes of the longest loop of the kernel whose mangled name
+    holds ``kernel``, from ``cuobjdump -sass`` of ``csrc/<name>.cu``'s
+    library (built in this process or loaded as built)."""
+    from .. import _build
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    sass = sass_functions(subprocess.run(
+        [tool, "-sass", _build.BUILDS[name].path], capture_output=True,
+        text=True, check=True, timeout=300).stdout)
+    names = [f for f in sass if kernel in f]
+    if len(names) != 1:
+        raise ValueError(f"{kernel}: {len(names)} functions match in {name}")
+    return [opcode(instr) for instr in loop_body(sass[names[0]])]
+
+
+def sass_classes(name: str, kernel: str) -> dict:
+    """Instruction classes of ``sass_loop(name, kernel)``: ``bf16x2``
+    arithmetic (HFMA2/HMUL2/HADD2 on BF16), ``f32`` arithmetic
+    (FFMA/FMUL/FADD), ``convert`` (F2F, F2FP, I2F, F2I), the rest as
+    ``other``, and ``loop``, their sum."""
+    out = {"bf16x2": 0, "f32": 0, "convert": 0, "other": 0}
+    body = sass_loop(name, kernel)
+    for op in body:
+        if re.match(r"H(FMA|MUL|ADD)2", op) and "BF16" in op:
+            out["bf16x2"] += 1
+        elif re.match(r"F(FMA|MUL|ADD)\b", op):
+            out["f32"] += 1
+        elif re.match(r"(F2F|F2FP|I2F|F2I)\b", op):
+            out["convert"] += 1
+        else:
+            out["other"] += 1
+    out["loop"] = len(body)
+    return out

@@ -12,8 +12,14 @@ only the block's own planes are written. Interior planes come out as k
 steps of ``kernel_lab``'s curl; the first and last k planes differ, and the
 port computes what the Pallas kernel computes on every plane.
 
-``lab_kstep(fields, k, bx)`` runs the CUDA kernel ``csrc/lab_kstep.cu`` for
-CUDA tensors and the plain version ``lab_kstep_reference`` for CPU tensors.
+Read as one computation, the windows are slices of a virtual x sequence V
+(``virtual_rows``): ``[0, hw) ++ [0, n) ++ [n - hw, n)``, stepped k times
+with zero x differences at V's two ends; the output is V's rows
+``[hw, hw + n)``. A window's stale zone (k rows at each end) never reaches
+the rows it writes, so the CUDA kernel marches along V instead of stepping
+windows: ``lab_kstep(fields, k, bx)`` runs ``csrc/lab_kstep.cu`` for CUDA
+tensors (x chunks of V per y/z tile, ``chunk_rows`` and ``chunk_count``)
+and the plain version ``lab_kstep_reference`` for CPU tensors.
 Storage f32 or bf16, arithmetic in f32, one rounding at the store.
 
     python3 -m tidy3d_tpu_torch.labs.kernel_lab2 [n] [k list] [bx list]
@@ -26,6 +32,7 @@ device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 
 import torch
@@ -65,6 +72,41 @@ def window_rows(n: int, bx: int, k: int) -> torch.Tensor:
                     + list(range(i * bx, i * bx + bx))
                     + list(range(hi, hi + hw)))
     return torch.tensor(rows, dtype=torch.long)
+
+
+def virtual_rows(n: int, bx: int, k: int) -> torch.Tensor:
+    """The global x plane of each row of V: ``[0, hw) ++ [0, n) ++
+    [n - hw, n)``. Every window of ``window_rows`` is a slice of V."""
+    hw = halo_width(k, bx)
+    return torch.cat([torch.arange(hw), torch.arange(n),
+                      torch.arange(n - hw, n)])
+
+
+TZ = 32                 # owned z columns of a kernel tile
+
+
+def chunk_rows(n: int, k: int, hw: int, chunks: int) -> list:
+    """``(a, s, e, b)`` per x chunk of the kernel's march: it stores V's
+    rows ``[s, e)`` (the output rows ``[hw, hw + n)`` cut into ``chunks``
+    near-equal parts) and marches over ``[a, b)``, k lead-in and k lead-out
+    rows more where V has them, as ``csrc/lab_kstep.cu`` computes them."""
+    length = n + 2 * hw
+    out = []
+    for c in range(chunks):
+        s, e = hw + c * n // chunks, hw + (c + 1) * n // chunks
+        out.append((max(s - k, 0), s, e, min(e + k, length)))
+    return out
+
+
+def chunk_count(n: int, k: int, tiles: int, slots: int) -> int:
+    """The x chunks per tile that give the least march time: the waves of
+    ``tiles * chunks`` blocks over ``slots`` resident blocks, times the
+    positions a block marches (its rows plus k lead-in, k lead-out and k
+    to drain the levels)."""
+    def cost(c):
+        return -(-tiles * c // slots) * (-(-n // c) + 3 * k)
+
+    return min(range(1, n + 1), key=lambda c: (cost(c), c))
 
 
 # --------------------------------------------------------------------------- #
@@ -124,12 +166,45 @@ class LabKStepParams(ctypes.Structure):
         ("bx", ctypes.c_int32), ("k", ctypes.c_int32),
         ("hw", ctypes.c_int32), ("bf16", ctypes.c_int32),
         ("ca", ctypes.c_float), ("cb", ctypes.c_float),
+        ("chunks", ctypes.c_int32),
     ]
 
 
 def _library():
     return _common.library("lab_kstep", "t3d_lab_kstep", LabKStepParams,
                            "t3d_lab_kstep_params_size")
+
+
+_RESOURCES: dict = {}
+
+
+def resources(k: int, dtype) -> dict:
+    """Threads, shared bytes, blocks per SM (the CUDA occupancy calculator),
+    registers and owned y rows of a tile (``ty``) of the kernel's
+    instantiation for k and ``dtype``, as the library reports them."""
+    key = (k, dtype)
+    if key not in _RESOURCES:
+        fn = _common.library("lab_kstep", "t3d_lab_kstep_info",
+                             LabKStepParams, "t3d_lab_kstep_params_size")
+        p = LabKStepParams(k=k, bf16=int(dtype == torch.bfloat16))
+        out = (ctypes.c_int * 5)()
+        err = fn(ctypes.byref(p), out)
+        if err:
+            raise RuntimeError(f"lab_kstep: no instantiation for k = {k} "
+                               f"(CUDA error {err})")
+        _RESOURCES[key] = dict(threads=out[0], smem=out[1],
+                               blocks_per_sm=out[2], registers=out[3],
+                               ty=out[4])
+    return _RESOURCES[key]
+
+
+@functools.lru_cache(maxsize=None)
+def chunks_on(n: int, k: int, dtype, device) -> int:
+    """The x chunks per tile of a launch at ``n`` on ``device``."""
+    res = resources(k, dtype)
+    tiles = -(-n // TZ) * -(-n // res["ty"])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return chunk_count(n, k, tiles, sms * max(1, res["blocks_per_sm"]))
 
 
 def _lab_kstep_cuda(fields, k, bx, out):
@@ -145,6 +220,9 @@ def _lab_kstep_cuda(fields, k, bx, out):
     hw = halo_width(k, bx)
     if n % hw:
         raise ValueError(f"lab_kstep: the halo width {hw} must divide n")
+    if n % 2:
+        raise ValueError(f"lab_kstep: n = {n}; the kernel stages pairs of "
+                         f"z cells, so n must be even")
     if out is None:
         out = {c: torch.empty(shape, dtype=dtype, device=first.device)
                for c in E + H}
@@ -157,6 +235,7 @@ def _lab_kstep_cuda(fields, k, bx, out):
     p.n, p.bx, p.k, p.hw = n, bx, k, hw
     p.bf16 = int(dtype == torch.bfloat16)
     p.ca, p.cb = CA, CB
+    p.chunks = chunks_on(n, k, dtype, first.device)
     launch(_library(), p, first.device, "lab_kstep")
     key = launch_key(k, dtype)
     LAUNCHES[key] = LAUNCHES.get(key, 0) + 1

@@ -319,6 +319,13 @@ REFERENCES = {
 # --------------------------------------------------------------------------- #
 
 _P8 = ctypes.c_float * 8
+_U8 = ctypes.c_uint32 * 8
+
+
+def bf16x2_bits(v: float) -> int:
+    """The bf16x2 bit pattern that holds the bf16 of ``v`` in both halves."""
+    b = int(torch.tensor(v, dtype=torch.bfloat16).view(torch.int16)) & 0xFFFF
+    return b | b << 16
 
 
 class LabPoleParams(ctypes.Structure):
@@ -334,6 +341,9 @@ class LabPoleParams(ctypes.Structure):
         ("ca", ctypes.c_float), ("cb", ctypes.c_float),
         ("ar", _P8), ("ai", _P8), ("b0r", _P8), ("b0i", _P8),
         ("gr", _P8), ("gi", _P8),
+        ("ca2", ctypes.c_uint32), ("cb2", ctypes.c_uint32),
+        ("ar2", _U8), ("ai2", _U8), ("b0r2", _U8), ("b0i2", _U8),
+        ("gr2", _U8), ("gi2", _U8),
     ]
 
 
@@ -378,9 +388,10 @@ def _run_cuda(variant, inputs, reps, grid):
     k = chan_constants(out_dtype)
     p.ca, p.cb = k["ca"], k["cb"]
     for name in ("ar", "ai", "b0r", "b0i", "gr", "gi"):
-        arr = getattr(p, name)
+        arr, arr2 = getattr(p, name), getattr(p, name + "2")
         for i, v in enumerate(k[name]):
-            arr[i] = v
+            arr[i], arr2[i] = v, bf16x2_bits(v)
+    p.ca2, p.cb2 = bf16x2_bits(k["ca"]), bf16x2_bits(k["cb"])
     launch(_library(), p, device, variant)
     LAUNCHES[variant] = LAUNCHES.get(variant, 0) + 1
     return out

@@ -97,10 +97,15 @@ Phases (any failure exits non-zero):
     every kernel and variant must have launched;
 17. the step lab's kernel against its plain version on random 384^3
     fields, bx = 8 and 4, curl, noroll and copy in f32 (to 1e-6) and bf16
-    (to 1e-2: every operation rounds to bf16, one ulp is 2^-8 of a value);
-    kernel ms per step at bx = 8 and 4, plain ms, and for copy one
+    (to 1e-2: every operation rounds to bf16, one ulp is 2^-8 of a value),
+    and the stencil variants at n = 15 (odd: cell by cell) and 40 (32
+    does not divide it) with bx = 1, 5 and 8 where it divides n; kernel ms
+    per step at bx = 8 and 4, plain ms, and for copy one
     ``torch._foreach_copy_`` of the 6 fields; the copy bit-identical to
-    plain, its 16-byte vectors and, on 15^3 fields, its scalar tail;
+    plain, its 16-byte vectors and, on 15^3 fields, its scalar tail; each
+    stencil instantiation's threads, registers, bytes spilled, shared
+    bytes and blocks per SM, and the SASS classes of its march loop (the
+    bf16 loop must hold bf16x2 arithmetic and no conversion);
 18. the k-step lab's kernel against its plain version on random 384^3
     fields, bx = 8 and 4, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to
     1e-2: one rounding at the store), every plane compared, the clamped
@@ -124,7 +129,11 @@ Phases (any failure exits non-zero):
     the bound (one bf16 operation a lane and instruction, since nothing
     contracts) and the SASS instruction classes of its repeat loop
     (``cuobjdump -sass``), which must hold bf16x2 arithmetic and no
-    conversion;
+    conversion; for ``curl_mix`` (the six fields in registers, one block
+    a window plane, no cluster) its threads, registers, bytes spilled
+    (must be 0), shared bytes and blocks per SM, and the SASS classes of
+    its repeat loop, whose shared loads and stores must be the edge rows'
+    only (6 of each, 16 bytes);
 20. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
@@ -138,8 +147,9 @@ Phases (any failure exits non-zero):
     step lab's copy variant (``torch._foreach_copy_``). The k-step entries
     also carry the registers and blocks per SM of their bulk and shell
     instantiations, the k-step lab's entries their registers, shared
-    bytes, threads, blocks per SM and x chunks, and ``pole_chan_bf16``'s
-    its SASS classes.
+    bytes, threads, blocks per SM and x chunks, the step lab's stencil
+    entries and ``curl_mix``'s their resources and SASS classes, and
+    ``pole_chan_bf16``'s its SASS classes.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -1157,11 +1167,47 @@ def run_lab_mains(smi: str) -> dict:
     return counts
 
 
+def ptxas_of(lib: str, symbol: str) -> dict:
+    """Registers and bytes spilled (stores + loads) of the one kernel of
+    ``csrc/<lib>.cu`` whose mangled name holds ``symbol`` (ptxas)."""
+    from tidy3d_tpu_torch.labs import _common
+
+    rows = [v for k, v in _common.registers(lib).items() if symbol in k]
+    assert len(rows) == 1, f"{lib}: {len(rows)} kernels match {symbol}"
+    regs, st, ld = rows[0]
+    return {"registers": regs, "spill_bytes": st + ld}
+
+
+def lab_step_small(kernel_lab, dtype, tol) -> None:
+    """The stencil variants against plain at n = 15 (odd: staged and
+    stored cell by cell) and n = 40 (32 does not divide it; the tile
+    wraps), bx = 1, 5 and 8 where it divides n."""
+    names = kernel_lab.E + kernel_lab.H
+    for n, seed in ((15, 24), (40, 25)):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        f = {c: torch.randn((n,) * 3, generator=gen, device="cuda").to(dtype)
+             for c in names}
+        for variant in ("curl", "noroll"):
+            for bx in (1, 5, 8):
+                if n % bx:
+                    continue
+                got = kernel_lab.lab_step(f, variant, bx)
+                ref = kernel_lab.lab_step_reference(f, variant)
+                rel, _ = lab_err(got, ref)
+                assert rel <= tol, f"lab_step {variant} n={n} bx={bx} " \
+                    f"{dtype}: {rel:.3e}"
+    log(f"[lab_step] n = 15 and 40, bx = 1, 5, 8: curl and noroll "
+        f"{'bf16' if dtype == torch.bfloat16 else 'f32'} within {tol:g} of "
+        f"plain")
+
+
 def run_lab_step(smi: str, launches: dict) -> list:
     """Phase 17: the step lab's kernel against its plain version at
     ``N_LAB``^3 on random fields, bx = 8 and 4, every variant in f32 and
-    bf16; kernel, plain and (copy) ``_foreach_copy_`` times at bx = 8."""
-    from tidy3d_tpu_torch.labs import kernel_lab
+    bf16, and the stencil variants at n = 15 and 40; kernel, plain and
+    (copy) ``_foreach_copy_`` times at bx = 8; each stencil
+    instantiation's resources and the SASS classes of its march loop."""
+    from tidy3d_tpu_torch.labs import _common, kernel_lab
 
     out = []
     names = kernel_lab.E + kernel_lab.H
@@ -1188,10 +1234,23 @@ def run_lab_step(smi: str, launches: dict) -> list:
                 del got, ref
             ms, ms4 = (cuda_ms(lambda: kernel_lab.lab_step(
                 f, variant, bx, out=o), 20) for bx in (8, 4))
-            lib = None
+            lib, extra = None, {}
             if variant == "copy":
                 src, dst = [f[c] for c in names], [o[c] for c in names]
                 lib = cuda_ms(lambda: torch._foreach_copy_(dst, src), 20)
+            else:
+                symbol = kernel_lab.kernel_symbol(variant, dtype)
+                extra = dict(kernel_lab.resources(variant, dtype),
+                             **ptxas_of("lab_step", symbol),
+                             sass=_common.sass_classes("lab_step", symbol))
+                log(f"[lab_step] {key}: {extra['threads']} threads, "
+                    f"{extra['registers']} registers, {extra['spill_bytes']} "
+                    f"B spilled, {extra['smem']} B shared, "
+                    f"{extra['blocks_per_sm']} blocks/SM; SASS of the march "
+                    f"loop {extra['sass']}")
+                if dtype == torch.bfloat16:
+                    assert extra["sass"]["bf16x2"] > 0 and \
+                        extra["sass"]["convert"] == 0, extra["sass"]
             bnd = bound(kernel_lab.step_bytes(N_LAB, dtype),
                         0 if variant == "copy"
                         else kernel_lab.FLOPS_PER_CELL * N_LAB ** 3,
@@ -1202,12 +1261,14 @@ def run_lab_step(smi: str, launches: dict) -> list:
                 f"{bnd[0]:.3f} ms by "
                 f"{bnd[1]}"
                 + (f", torch._foreach_copy_ {lib:.3f} ms" if lib else "")
-                + f" | {smi}")
+                + f"; kernel/bound {ms / bnd[0]:.2f} (bx=4 "
+                f"{ms4 / bnd[0]:.2f}) | {smi}")
             out.append(entry(
                 f"lab_step_{key}", "tidy3d_tpu_torch/csrc/lab_step.cu",
                 "scripts/kernel_lab.py:29", launches[key], worst, ms,
-                plain_ms, bnd, lib))
+                plain_ms, bnd, lib, ms_bx4=ms4, **extra))
         del f, o
+        lab_step_small(kernel_lab, dtype, tol)
         # the copy's scalar tail: 15^3 values are no whole number of
         # 16-byte vectors
         g = {c: v[:15, :15, :15].contiguous()
@@ -1323,6 +1384,21 @@ def run_pole_lab(smi: str, launches: dict) -> list:
             pole_lab.peak(variant))
         regs = _common.registers_of("lab_pole", variant.replace("_bf16", ""))
         extra = {}
+        if variant == "curl_mix":
+            extra = dict(pole_lab.curl_mix_resources(),
+                         **ptxas_of("lab_pole", "curl_mix_kernel"),
+                         sass=_common.sass_classes("lab_pole",
+                                                   "curl_mix_kernel"))
+            log(f"[pole_lab] curl_mix: {extra['threads']} threads, "
+                f"{extra['registers']} registers, {extra['spill_bytes']} B "
+                f"spilled, {extra['smem']} B shared, "
+                f"{extra['blocks_per_sm']} blocks/SM, no cluster (one block "
+                f"a window plane); kernel/bound {ms / bnd[0]:.2f}; SASS of "
+                f"the repeat loop {extra['sass']}")
+            assert extra["spill_bytes"] == 0, extra
+            # the edge rows only: 3 stores and 3 loads of 16 B a half-step
+            assert extra["sass"]["lds"] <= 6 and extra["sass"]["sts"] <= 6, \
+                extra["sass"]
         if variant == "pole_chan_bf16":
             # no contraction: one operation a lane and instruction, half
             # the bf16 peak's two (an FMA) a lane

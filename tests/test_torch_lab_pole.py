@@ -10,7 +10,9 @@ Tolerances, relative to the largest magnitude: 1e-6 in f32, 1e-2 for the
 bf16 ``pole_chan`` (bf16's epsilon is 7.8e-3).
 
 Without JAX: ``pole_chan`` and ``pole_packed`` agree, every repeat of the
-grid gives the same window, and the flop model is the JAX lab's. The
+grid gives the same window, the flop model is the JAX lab's, and
+``curl_mix``'s kernel decomposition emulated in torch equals the plain
+version bit for bit. The
 kernel-against-plain tests at the end need a CUDA card and skip without
 one.
 """
@@ -23,7 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tidy3d_tpu_torch.labs import _common, pole_lab
 
-from tests.test_torch_lab_step import jax_lab
+from tests.test_torch_lab_step import jax_lab, round_bf16
 
 SIZES = dict(wx=2, wy=8, z=128)
 REPS, GRID = 3, 2
@@ -134,13 +136,6 @@ def test_operation_count_is_the_functions():
     assert pole_lab.peak("pole_chan") == _common.PEAK_F32
 
 
-def round_bf16(x: np.ndarray) -> np.ndarray:
-    """float64 values rounded once to bf16 (8 significant bits, nearest
-    even)."""
-    m, e = np.frexp(x)
-    return np.ldexp(np.rint(m * 256.0), e - 8)
-
-
 def pole_chan_bf16_emulated(e, m, q, reps: int) -> np.ndarray:
     """``pole_chan`` in float64 with each multiply, add and subtract
     rounded once to bf16, left to right, at the lab's bf16 constants."""
@@ -208,6 +203,66 @@ def test_bf16_reference_rounds_each_operation_once(reps):
         assert diffs == ones
 
 
+def curl_mix_emulated(x, reps: int):
+    """``curl_mix`` (one grid copy) as its kernel decomposes a window plane
+    (``pole_lab.curl_mix_plan``): each thread's rows x cells in registers;
+    along z a lane's own cells, and for its first (last) cell the last
+    (first) cell of the lane before (after), lane 0 and 31 wrapping; along y
+    the thread's other rows, and for its first (last) row the edge row that
+    the warp before (after) stores, the first and last warp wrapping."""
+    wx, wy, z = x.shape
+    plan = pole_lab.curl_mix_plan(wy, z)
+    nw = plan["warps"]
+    xb = x.reshape(wx, nw, plan["rows"], 32, plan["cells"])
+    e = [xb * (0.1 * i + 0.1) for i in range(3)]
+    h = [xb * (0.1 * i + 0.1) for i in range(3, 6)]
+    below = [(w - 1) % nw for w in range(nw)]   # whose edge row a warp reads
+    above = [(w + 1) % nw for w in range(nw)]
+
+    def zm(f):
+        last = f[..., -1:][:, :, :, [31, *range(31)]]
+        return torch.cat([last, f[..., :-1]], -1)
+
+    def zp(f):
+        first = f[..., :1][:, :, :, [*range(1, 32), 0]]
+        return torch.cat([f[..., 1:], first], -1)
+
+    def ym(f):
+        return torch.cat([f[:, below, -1:], f[:, :, :-1]], 2)
+
+    def yp(f):
+        return torch.cat([f[:, :, 1:], f[:, above, :1]], 2)
+
+    for _ in range(reps):
+        for ci in range(3):
+            hj, hk = h[(ci + 1) % 3], h[(ci + 2) % 3]
+            d1 = (hj - ym(hj)) * 0.5
+            d2 = (hk - zm(hk)) * 0.5
+            e[ci] = pole_lab.CA * e[ci] + pole_lab.CB * (d1 - d2)
+        for ci in range(3):
+            ej, ek = e[(ci + 1) % 3], e[(ci + 2) % 3]
+            d1 = (yp(ej) - ej) * 0.5
+            d2 = (zp(ek) - ek) * 0.5
+            h[ci] = pole_lab.CA * h[ci] - pole_lab.CB * (d1 - d2)
+    return (e[0] + h[0]).reshape(wx, wy, z)
+
+
+@pytest.mark.parametrize("wy", [8, 64])
+def test_curl_mix_decomposition_equals_plain(wy):
+    """The kernel's decomposition of a window plane (cells per lane, rows
+    per thread, warp edges, both wraps) gives the plain version's result
+    bit for bit over 3 repeats of a seeded window."""
+    (x,) = pole_lab.make_inputs("curl_mix", wx=2, wy=wy, z=128, seed=11)
+    want = pole_lab.curl_mix_reference(x, reps=3, grid=1)[0]
+    assert torch.equal(curl_mix_emulated(x, 3), want)
+
+
+@pytest.mark.parametrize("wy,z", [(6, 128), (8, 64), (68, 128), (0, 128)])
+def test_curl_mix_plan_refuses_other_windows(wy, z):
+    with pytest.raises(ValueError, match=f"\\(wy, z\\) = \\({wy}, {z}\\)"):
+        pole_lab.curl_mix_plan(wy, z)
+
+
 def test_cpu_dispatch_counts_no_launch():
     before = dict(pole_lab.LAUNCHES)
     pole_lab.run("fma_peak", pole_lab.make_inputs("fma_peak", **SIZES),
@@ -245,3 +300,24 @@ def test_kernel_matches_plain(variant, cuda):
     tol = pole_lab.kernel_tolerance(variant, REPS)
     err = rel(as_np(ref[0]), as_np(got[0]))
     assert err <= tol, f"{variant}: {err:.2e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wx,wy,reps", [(2, 8, 40), (pole_lab.Wx, pole_lab.Wy,
+                                                     40)])
+def test_curl_mix_kernel_on_seeded_windows(wx, wy, reps, cuda):
+    (x,) = pole_lab.make_inputs("curl_mix", wx=wx, wy=wy, z=pole_lab.Z,
+                                seed=13, device=cuda)
+    got = pole_lab.run("curl_mix", (x,), reps=reps, grid=2, copies=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    ref = pole_lab.curl_mix_reference(x, reps=reps, grid=1)
+    err = rel(as_np(ref[0]), as_np(got[0]))
+    assert err <= pole_lab.kernel_tolerance("curl_mix", reps), err
+
+
+@pytest.mark.gpu
+def test_curl_mix_kernel_refuses_other_windows(cuda):
+    (x,) = pole_lab.make_inputs("curl_mix", wx=1, wy=6, z=128, device=cuda)
+    with pytest.raises(ValueError, match="6, 128"):
+        pole_lab.run("curl_mix", (x,), reps=1, grid=1)

@@ -10,10 +10,14 @@
 // repeat g into slice g of a (grid, wx, wy, z) output, so every repeat is
 // live work.
 //
-// Bound: operations. The inputs are read once (a few MB); the lab's flop
-// model (an FMA counts 2) times reps and grid over 67 TFLOP/s: 3.606 ms
-// (vpu_peak), 1.803 (fma_peak), 6.000 (pole_chan, pole_packed), 1.521
-// (curl_mix) at the lab's sizes.
+// Bound: operations. The inputs are read once (a few MB). Two counts of the
+// operations, an FMA as 2, times reps and grid over 67 TFLOP/s at the lab's
+// sizes: the function's own operations (pole_lab.ops, what PERF.md's table
+// and chip_smoke.py hold a kernel to): 3.606 ms (vpu_peak), 1.803
+// (fma_peak), 5.578 (pole_chan, pole_packed; pole_chan_bf16 2.793 at the
+// bf16 peak), 1.352 (curl_mix, 48 a cell and repeat); the JAX lab's flop
+// model (pole_lab.flops, for TFLOP/s only) charges the pole update 213 a
+// cell and repeat (6.000 ms) and curl_mix 54 (1.521 ms).
 //
 // Design: the first four variants are pointwise, one thread per cell and
 // repeat, every carry in registers (pole_chan: 3 E and 30 Q values), loops
@@ -29,11 +33,24 @@
 // the compiler does not contract into an FMA: the spec rounds product and
 // sum apart. Its constants arrive as bf16x2 bit patterns in the parameter
 // block. Bound: operations; without contraction one operation a lane and
-// instruction, so its floor is twice the bound at the bf16 peak. curl_mix
-// mixes y and z neighbours, periodic in the window's plane: one block per
-// (x plane, repeat) holds the plane's 6 fields in shared memory (196 KB at
-// 64 x 128). Built without fast-math: a*b + c contracts to one FMA, as the
-// TPU's and the flop model's FMA does.
+// instruction, so its floor is twice the bound at the bf16 peak.
+//
+// curl_mix mixes y and z neighbours, periodic in the window's plane. Its six
+// fields stay in registers across all repeats: a plane (64 x 128 x 6 =
+// 49152 floats at the lab's size) is one block of 512 threads of up to 128
+// registers, a thread 4 y rows x 4 z cells (96 carries), a warp all 128 z
+// cells, so three of a cell's four neighbours are the thread's own, the z
+// one across lanes comes by shuffle (the z wrap stays in the warp) and the
+// y one across warps is an edge row that the neighbour warp stores into
+// shared memory before a block barrier: 6 edge stores and 6 edge loads of
+// 16 bytes a thread and repeat instead of 36 shared accesses a cell. (A
+// plane split over a cluster of two blocks, 2 rows a thread, exchanged its
+// block edges through distributed shared memory: 6.5 ms a call behind a
+// cluster barrier each half-step, 5.6 behind point-to-point mbarriers,
+// against 2.8 for one block; PERF.md.) It takes z = 128 and wy a multiple
+// of 4 up to 64.
+// Built without fast-math: a*b + c contracts to one FMA, as the TPU's and
+// the flop model's FMA does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,7 +61,6 @@ constexpr int NC = 3;                // complex poles
 constexpr int NP = NR + NC;
 constexpr int C = NR * 3 + NC * 6;   // Q channels (30)
 constexpr int NSLOT = NR + 2 * NC;   // 3-channel slots of the packed layout
-constexpr int SMEM_MAX = 232448;     // 227 KB a block can use
 
 // Mirrored by LabPoleParams in tidy3d_tpu_torch/labs/pole_lab.py.
 struct LabPoleParams {
@@ -329,70 +345,168 @@ pole_packed_kernel(const LabPoleParams p) {
     ((float*)p.out)[idx] = es[0] + es[1] + es[2] + Q[0];
 }
 
-// one block per (x plane, repeat); threads over (y, z) as 32 x 32
-constexpr int CM_TZ = 32;
-constexpr int CM_TY = 32;
+// curl_mix: one block per (window plane, copy); a thread holds CM_ROWS y
+// rows x CM_CELLS consecutive z cells of all six fields in registers for
+// all repeats, a warp the whole z extent (CM_Z = 32 CM_CELLS).
+constexpr int CM_CELLS = 4;          // z cells a lane
+constexpr int CM_Z = 32 * CM_CELLS;  // the window's z
+constexpr int CM_ROWS = 4;           // y rows a thread
+constexpr int CM_MAX_WARPS = 16;     // wy up to 16 CM_ROWS (512 threads)
+constexpr int CM_EDGE = 3 * CM_Z;    // floats of one warp's edge row
 
-__global__ void __launch_bounds__(CM_TZ * CM_TY)
-curl_mix_kernel(const LabPoleParams p) {
-    extern __shared__ float f[];  // [6][wy][z]: e0 e1 e2 h0 h1 h2
-    const int wy = (int)p.wy, nz = (int)p.z;
-    const int P = wy * nz;
-    const int64_t plane = blockIdx.x % p.wx;
-    const float* x = (const float*)p.x + plane * P;
-    for (int y = threadIdx.y; y < wy; y += CM_TY)
-        for (int z = threadIdx.x; z < nz; z += CM_TZ) {
-            const float v = __ldg(x + y * nz + z);
+// e[ci] of one row from h: d1 along y (ym: the row below, of hj), d2 along
+// z (the cell before: from the lane before for cell 0, periodic in the warp)
+__device__ __forceinline__ void curl_mix_e(float (&e)[CM_CELLS],
+                                           const float (&hj)[CM_CELLS],
+                                           const float (&ym)[CM_CELLS],
+                                           const float (&hk)[CM_CELLS],
+                                           int lane) {
+    const float last = __shfl_sync(0xffffffffu, hk[CM_CELLS - 1],
+                                   (lane + 31) & 31);
 #pragma unroll
-            for (int i = 0; i < 6; ++i)
-                f[i * P + y * nz + z] = v * (float)(0.1 * i + 0.1);
-        }
-    __syncthreads();
-    float* e = f;
-    float* h = f + 3 * P;
-#pragma unroll 1
-    for (int r = 0; r < p.reps; ++r) {
-        for (int y = threadIdx.y; y < wy; y += CM_TY) {
-            const int ym = y > 0 ? y - 1 : wy - 1;
-            for (int z = threadIdx.x; z < nz; z += CM_TZ) {
-                const int zm = z > 0 ? z - 1 : nz - 1;
-                const int o = y * nz + z;
-#pragma unroll
-                for (int ci = 0; ci < 3; ++ci) {
-                    const float* hj = h + ((ci + 1) % 3) * P;
-                    const float* hk = h + ((ci + 2) % 3) * P;
-                    const float d1 = (hj[o] - hj[ym * nz + z]) * 0.5f;
-                    const float d2 = (hk[o] - hk[y * nz + zm]) * 0.5f;
-                    e[ci * P + o] = 0.999f * e[ci * P + o] + 0.37f * (d1 - d2);
-                }
-            }
-        }
-        __syncthreads();
-        for (int y = threadIdx.y; y < wy; y += CM_TY) {
-            const int yp = y < wy - 1 ? y + 1 : 0;
-            for (int z = threadIdx.x; z < nz; z += CM_TZ) {
-                const int zp = z < nz - 1 ? z + 1 : 0;
-                const int o = y * nz + z;
-#pragma unroll
-                for (int ci = 0; ci < 3; ++ci) {
-                    const float* ej = e + ((ci + 1) % 3) * P;
-                    const float* ek = e + ((ci + 2) % 3) * P;
-                    const float d1 = (ej[yp * nz + z] - ej[o]) * 0.5f;
-                    const float d2 = (ek[y * nz + zp] - ek[o]) * 0.5f;
-                    h[ci * P + o] = 0.999f * h[ci * P + o] - 0.37f * (d1 - d2);
-                }
-            }
-        }
-        __syncthreads();
+    for (int c = 0; c < CM_CELLS; ++c) {
+        const float d1 = (hj[c] - ym[c]) * 0.5f;
+        const float d2 = (hk[c] - (c > 0 ? hk[c - 1] : last)) * 0.5f;
+        e[c] = 0.999f * e[c] + 0.37f * (d1 - d2);
     }
-    float* out = (float*)p.out + (int64_t)blockIdx.x * P;
-    for (int y = threadIdx.y; y < wy; y += CM_TY)
-        for (int z = threadIdx.x; z < nz; z += CM_TZ)
-            out[y * nz + z] = e[y * nz + z] + h[y * nz + z];
+}
+
+// h[ci] of one row from e: d1 along y (yp: the row above, of ej), d2 along
+// z (the cell after: from the lane after for the last cell)
+__device__ __forceinline__ void curl_mix_h(float (&h)[CM_CELLS],
+                                           const float (&ej)[CM_CELLS],
+                                           const float (&yp)[CM_CELLS],
+                                           const float (&ek)[CM_CELLS],
+                                           int lane) {
+    const float first = __shfl_sync(0xffffffffu, ek[0], (lane + 1) & 31);
+#pragma unroll
+    for (int c = 0; c < CM_CELLS; ++c) {
+        const float d1 = (yp[c] - ej[c]) * 0.5f;
+        const float d2 = ((c < CM_CELLS - 1 ? ek[c + 1] : first) - ek[c]) * 0.5f;
+        h[c] = 0.999f * h[c] - 0.37f * (d1 - d2);
+    }
+}
+
+__device__ __forceinline__ void ld4(float (&v)[4], const float* s) {
+    const float4 t = *(const float4*)s;
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+}
+__device__ __forceinline__ void st4(float* s, const float (&v)[4]) {
+    *(float4*)s = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Edges, per half-step: each warp stores the row its neighbour warp needs
+// into that warp's slot in shared memory (its last H row for the warp
+// above, read as its first row's y - 1; its first E row for the warp below,
+// read as its last row's y + 1), the last and first warp wrapping round
+// the window's y; one barrier orders the stores before the reads. The
+// rows that need no edge are updated first.
+__global__ void __launch_bounds__(32 * CM_MAX_WARPS, 1)
+curl_mix_kernel(const __grid_constant__ LabPoleParams p) {
+    extern __shared__ __align__(16) float edges[];  // [2][warps][3][CM_Z]
+    const int warps = blockDim.x / 32;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    float* hin = edges;                      // the H row below a warp
+    float* ein = edges + warps * CM_EDGE;    // the E row above a warp
+    const int64_t window = blockIdx.x;       // copy * wx + plane
+    const int64_t P = p.wy * CM_Z;
+    const int64_t cell0 = (int64_t)warp * CM_ROWS * CM_Z + lane * CM_CELLS;
+    const float* x = (const float*)p.x + (window % p.wx) * P + cell0;
+    float* hdst = hin + (warp + 1) % warps * CM_EDGE + lane * CM_CELLS;
+    float* edst = ein + (warp + warps - 1) % warps * CM_EDGE +
+                  lane * CM_CELLS;
+    const float* hown = hin + warp * CM_EDGE + lane * CM_CELLS;
+    const float* eown = ein + warp * CM_EDGE + lane * CM_CELLS;
+    constexpr int L = CM_ROWS - 1;
+
+    float e[3][CM_ROWS][CM_CELLS], h[3][CM_ROWS][CM_CELLS];
+#pragma unroll
+    for (int r = 0; r < CM_ROWS; ++r) {
+        float v[4];
+        ld4(v, x + r * CM_Z);
+#pragma unroll
+        for (int c = 0; c < CM_CELLS; ++c)
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+                e[i][r][c] = v[c] * (float)(0.1 * i + 0.1);
+                h[i][r][c] = v[c] * (float)(0.1 * (i + 3) + 0.1);
+            }
+    }
+#pragma unroll 1
+    for (int rep = 0; rep < p.reps; ++rep) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) st4(hdst + i * CM_Z, h[i][L]);
+        __syncthreads();
+#pragma unroll
+        for (int r = L; r > 0; --r)
+#pragma unroll
+            for (int ci = 0; ci < 3; ++ci)
+                curl_mix_e(e[ci][r], h[(ci + 1) % 3][r],
+                           h[(ci + 1) % 3][r - 1], h[(ci + 2) % 3][r], lane);
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+            float ym[CM_CELLS];
+            ld4(ym, hown + (ci + 1) % 3 * CM_Z);
+            curl_mix_e(e[ci][0], h[(ci + 1) % 3][0], ym, h[(ci + 2) % 3][0],
+                       lane);
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) st4(edst + i * CM_Z, e[i][0]);
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < L; ++r)
+#pragma unroll
+            for (int ci = 0; ci < 3; ++ci)
+                curl_mix_h(h[ci][r], e[(ci + 1) % 3][r],
+                           e[(ci + 1) % 3][r + 1], e[(ci + 2) % 3][r], lane);
+#pragma unroll
+        for (int ci = 0; ci < 3; ++ci) {
+            float yp[CM_CELLS];
+            ld4(yp, eown + (ci + 1) % 3 * CM_Z);
+            curl_mix_h(h[ci][L], e[(ci + 1) % 3][L], yp, e[(ci + 2) % 3][L],
+                       lane);
+        }
+    }
+    float* out = (float*)p.out + window * P + cell0;
+#pragma unroll
+    for (int r = 0; r < CM_ROWS; ++r) {
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < CM_CELLS; ++c) v[c] = e[0][r][c] + h[0][r][c];
+        st4(out + r * CM_Z, v);
+    }
+}
+
+// the warps of a curl_mix block for window height wy, or 0 if the kernel
+// does not take (wy, z)
+static int curl_mix_warps(int64_t wy, int64_t z) {
+    if (z != CM_Z || wy % CM_ROWS || wy < CM_ROWS ||
+        wy / CM_ROWS > CM_MAX_WARPS)
+        return 0;
+    return (int)(wy / CM_ROWS);
 }
 
 extern "C" int t3d_lab_pole_params_size() {
     return (int)sizeof(LabPoleParams);
+}
+
+// curl_mix's resources at window height p->wy: threads, shared bytes,
+// blocks per SM, registers
+extern "C" int t3d_lab_pole_curl_mix_info(const LabPoleParams* p, int* out) {
+    const int warps = curl_mix_warps(p->wy, p->z);
+    if (!warps) return (int)cudaErrorInvalidValue;
+    out[0] = 32 * warps;
+    out[1] = 2 * warps * CM_EDGE * (int)sizeof(float);
+    int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], curl_mix_kernel, out[0], out[1]);
+    if (err) return err;
+    cudaFuncAttributes attr;
+    err = (int)cudaFuncGetAttributes(&attr, curl_mix_kernel);
+    out[3] = attr.numRegs;
+    return err;
 }
 
 extern "C" int t3d_lab_pole(const LabPoleParams* p, void* stream) {
@@ -420,17 +534,11 @@ extern "C" int t3d_lab_pole(const LabPoleParams* p, void* stream) {
             pole_packed_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(*p);
             break;
         case CURL_MIX: {
-            const int64_t smem = 6 * p->wy * p->z * (int64_t)sizeof(float);
-            if (smem > SMEM_MAX || p->wx * p->grid > 0x7fffffffLL)
+            const int warps = curl_mix_warps(p->wy, p->z);
+            if (!warps || p->wx * p->grid > 0x7fffffffLL)
                 return (int)cudaErrorInvalidValue;
-            if (smem > 48 * 1024) {
-                const cudaError_t err = cudaFuncSetAttribute(
-                    curl_mix_kernel,
-                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-                if (err != cudaSuccess) return (int)err;
-            }
-            curl_mix_kernel<<<(unsigned)(p->wx * p->grid),
-                              dim3(CM_TZ, CM_TY), (size_t)smem, s>>>(*p);
+            curl_mix_kernel<<<(unsigned)(p->wx * p->grid), 32 * warps,
+                              2 * warps * CM_EDGE * sizeof(float), s>>>(*p);
             break;
         }
         default:

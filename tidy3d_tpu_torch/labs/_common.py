@@ -184,18 +184,29 @@ def sass_loop(name: str, kernel: str) -> list:
 def sass_classes(name: str, kernel: str) -> dict:
     """Instruction classes of ``sass_loop(name, kernel)``: ``bf16x2``
     arithmetic (HFMA2/HMUL2/HADD2 on BF16), ``f32`` arithmetic
-    (FFMA/FMUL/FADD), ``convert`` (F2F, F2FP, I2F, F2I), the rest as
-    ``other``, and ``loop``, their sum."""
-    out = {"bf16x2": 0, "f32": 0, "convert": 0, "other": 0}
+    (FFMA/FMUL/FADD), ``convert`` (F2F, F2FP, I2F, F2I), shared-memory
+    loads ``lds`` and stores ``sts``, warp shuffles ``shfl``, the rest as
+    ``other``, and ``loop``, their sum; ``memory``: every load, store,
+    shuffle and barrier opcode of the loop (modifiers dropped) with its
+    count."""
+    out = {"bf16x2": 0, "f32": 0, "convert": 0, "lds": 0, "sts": 0,
+           "shfl": 0, "other": 0}
+    memory: dict = {}
     body = sass_loop(name, kernel)
     for op in body:
+        base = op.split(".")[0]
+        if re.match(r"(LD|ST|SHFL|ATOM|RED|BAR|UCGABAR|MEMBAR)", base):
+            memory[base] = memory.get(base, 0) + 1
         if re.match(r"H(FMA|MUL|ADD)2", op) and "BF16" in op:
             out["bf16x2"] += 1
         elif re.match(r"F(FMA|MUL|ADD)\b", op):
             out["f32"] += 1
         elif re.match(r"(F2F|F2FP|I2F|F2I)\b", op):
             out["convert"] += 1
+        elif base in ("LDS", "STS", "SHFL"):
+            out[base.lower()] += 1
         else:
             out["other"] += 1
     out["loop"] = len(body)
+    out["memory"] = memory
     return out

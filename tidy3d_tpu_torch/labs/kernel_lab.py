@@ -13,8 +13,12 @@ Variants (one launch per step, both the E and the H update inside):
 for CUDA tensors and the plain version ``lab_step_reference`` for CPU
 tensors. The result does not depend on ``bx``, the x depth of a block: on
 the TPU it was the grid's block, here it is the x planes one CUDA block
-holds. f32, or bf16 storage with bf16 arithmetic (every operation rounded
+writes. f32, or bf16 storage with bf16 arithmetic (every operation rounded
 to bf16, the constants too, as the JAX lab's weak-typed scalars make it).
+The stencil variants march each ``TY`` x ``TZ`` y/z tile through its x
+chunks of ``bx`` planes: ``chunk_planes`` gives the planes a chunk stages
+(a lead-in, its own, a lead-out), ``tile_rows`` and ``tile_cols`` the
+wrapped y rows and z columns a tile stages.
 
     python3 -m tidy3d_tpu_torch.labs.kernel_lab [n] [bx list]
 
@@ -43,6 +47,8 @@ VARIANTS = ("curl", "noroll", "copy")
 DTYPES = (torch.float32, torch.bfloat16)
 
 LAUNCHES: dict = {}     # kernel launches by ``launch_key``
+TY, TZ = 16, 32         # owned y rows and z columns of a stencil tile
+MAX_N = 46340           # the stencil kernel's y n + z in 32 bits
 
 
 def launch_key(variant: str, dtype) -> str:
@@ -130,6 +136,9 @@ def _lab_step_cuda(fields, variant, bx, out):
         raise ValueError(f"lab_step: unsupported dtype {dtype}")
     if bx < 1 or n % bx:
         raise ValueError(f"lab_step: bx = {bx} must divide n = {n}")
+    if variant != "copy" and n > MAX_N:
+        raise ValueError(f"lab_step: n = {n}; the stencil march indexes a "
+                         f"plane in 32 bits (n <= {MAX_N})")
     if out is None:
         out = {c: torch.empty(shape, dtype=dtype, device=first.device)
                for c in E + H}
@@ -164,6 +173,67 @@ def lab_step(fields: dict, variant: str = "curl", bx: int = 8,
     if device.type != "cuda":
         raise ValueError(f"lab_step: unsupported device '{device}'")
     return _lab_step_cuda(fields, variant, bx, out)
+
+
+def tile_rows(n: int, y0: int) -> list:
+    """The y rows a tile at ``y0`` stages: ``y0 - 1 .. y0 + TY``, wrapped
+    (onto itself where n < TY + 2)."""
+    return [(y0 - 1 + j) % n for j in range(TY + 2)]
+
+
+def tile_cols(n: int, z0: int) -> list:
+    """The z columns a tile at ``z0`` stages: ``z0 - 2 .. z0 + TZ + 1``
+    (whole pairs on each side), wrapped."""
+    return [(z0 - 2 + k) % n for k in range(TZ + 4)]
+
+
+def chunk_planes(n: int, bx: int) -> list:
+    """Per x chunk of ``bx`` planes, the planes the stencil march stages, in
+    order: the lead-in (the plane before, or plane 0 again: only its Hy and
+    Hz are read, for the x difference), the chunk's own planes, the
+    lead-out (the plane after, whose E' its last H' reads; at the hi end
+    plane n - 1 again, which gives the virtual plane's zero x
+    difference)."""
+    if bx < 1 or n % bx:
+        raise ValueError(f"lab_step: bx = {bx} must divide n = {n}")
+    return [[max(x0 - 1, 0), *range(x0, x0 + bx), min(x0 + bx, n - 1)]
+            for x0 in range(0, n, bx)]
+
+
+def kernel_symbol(variant: str, dtype) -> str:
+    """What the mangled name of the stencil kernel's instantiation for
+    ``variant``, ``dtype`` and pair-aligned fields holds (for ptxas's
+    report and the SASS)."""
+    return (f"lab_step_kernelILi{VARIANTS.index(variant)}E"
+            + ("13__nv_bfloat16" if dtype == torch.bfloat16 else "f")
+            + "Lb1E")
+
+
+_RESOURCES: dict = {}
+
+
+def resources(variant: str, dtype) -> dict:
+    """Threads, shared bytes, blocks per SM (the CUDA occupancy
+    calculator), registers and owned y rows of a tile (``ty``) of a stencil
+    variant's instantiation for ``dtype``, as the library reports them."""
+    key = (variant, dtype)
+    if key not in _RESOURCES:
+        fn = _common.library("lab_step", "t3d_lab_step_info", LabStepParams,
+                             "t3d_lab_step_params_size")
+        p = LabStepParams(variant=VARIANTS.index(variant),
+                          bf16=int(dtype == torch.bfloat16))
+        out = (ctypes.c_int * 5)()
+        err = fn(ctypes.byref(p), out)
+        if err:
+            raise RuntimeError(f"lab_step: no stencil instantiation for "
+                               f"{variant} (CUDA error {err})")
+        _RESOURCES[key] = dict(threads=out[0], smem=out[1],
+                               blocks_per_sm=out[2], registers=out[3],
+                               ty=out[4])
+        if out[4] != TY:
+            raise RuntimeError(f"lab_step: the library's tile height "
+                               f"{out[4]} is not TY = {TY}")
+    return _RESOURCES[key]
 
 
 def step_bytes(n: int, dtype) -> int:

@@ -16,8 +16,9 @@ memory:
                  vectors read from memory, a loop over the 10 three-channel
                  slots, the qr/qi swap by index
   curl_mix       6 carried fields, a curl-like mix of periodic y and z
-                 differences and FMAs; out: field 0 + field 3. The mix is
-                 not a stable curl: a window that varies in y or z grows
+                 differences and FMAs (the kernel keeps the fields in
+                 registers, ``curl_mix_plan``); out: field 0 + field 3. The
+                 mix is not a stable curl: a window that varies in y or z grows
                  about 1.8x a repeat and overflows float32 within 400
                  repeats, so ``main`` times it, as the JAX lab does, on a
                  window full of 0.01 (``CURL_MIX_WINDOW``)
@@ -53,6 +54,8 @@ GRID = 16                       # repeats of the same window
 NSLOT = NR + 2 * NC             # 3-channel blocks of the packed layout
 CA, CB = 0.999, 0.37
 CURL_MIX_WINDOW = 0.01          # the JAX lab's curl_mix input value
+CM_ROWS, CM_CELLS = 4, 4        # curl_mix's kernel: rows x cells a thread
+CM_MAX_WARPS = 16               # of a curl_mix block (wy <= 64)
 
 VARIANTS = ("vpu_peak", "fma_peak", "pole_chan", "pole_chan_bf16",
             "pole_packed", "curl_mix")
@@ -357,6 +360,39 @@ def _library():
                            "t3d_lab_pole_params_size")
 
 
+def curl_mix_plan(wy: int, z: int) -> dict:
+    """How ``csrc/lab_pole.cu``'s ``curl_mix`` splits a ``(wy, z)`` window
+    plane: one block of ``warps`` warps, a thread ``rows`` y rows x
+    ``cells`` z cells, a warp all z. Raises ``ValueError`` for a window the
+    kernel does not take."""
+    if z != 32 * CM_CELLS or wy % CM_ROWS or not \
+            CM_ROWS <= wy <= CM_ROWS * CM_MAX_WARPS:
+        raise ValueError(
+            f"curl_mix: the kernel takes z = {32 * CM_CELLS} and wy a "
+            f"multiple of {CM_ROWS} up to {CM_ROWS * CM_MAX_WARPS}, not "
+            f"(wy, z) = ({wy}, {z})")
+    return dict(warps=wy // CM_ROWS, rows=CM_ROWS, cells=CM_CELLS)
+
+
+def curl_mix_resources(wy: int = Wy, z: int = Z) -> dict:
+    """``curl_mix``'s threads, shared bytes, blocks per SM and registers at
+    window ``(wy, z)``, as the library reports them."""
+    curl_mix_plan(wy, z)
+    fn = _common.library("lab_pole", "t3d_lab_pole_curl_mix_info",
+                         LabPoleParams, "t3d_lab_pole_params_size")
+    p = LabPoleParams(wx=Wx, wy=wy, z=z, grid=GRID)
+    out = (ctypes.c_int * 4)()
+    err = fn(ctypes.byref(p), out)
+    if err:
+        raise RuntimeError(f"curl_mix: resources not reported (CUDA error "
+                           f"{err})")
+    res = dict(zip(("threads", "smem", "blocks_per_sm", "registers"), out))
+    if res["threads"] != 32 * curl_mix_plan(wy, z)["warps"]:
+        raise RuntimeError(f"curl_mix: the library's {res['threads']} "
+                           f"threads do not match curl_mix_plan")
+    return res
+
+
 def _run_cuda(variant, inputs, reps, grid):
     f32, bf16 = (torch.float32,), (torch.bfloat16,)
     p = LabPoleParams()
@@ -376,6 +412,8 @@ def _run_cuda(variant, inputs, reps, grid):
     else:
         x = inputs[0]
         wx, wy, z = x.shape
+        if variant == "curl_mix":
+            curl_mix_plan(wy, z)
         p.x = _common.check_cuda(x, (wx, wy, z), f32, "x").data_ptr()
         out_dtype = torch.float32
     device = inputs[0].device

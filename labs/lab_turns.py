@@ -10,11 +10,12 @@ its plain version (relative to the largest magnitude):
 ``kernel_lab2.lab_kstep`` at 384^3, bx = 8, k = 1..4, f32 and bf16
 storage (ms per group, best of 3 runs of 10 calls, CUDA events; to 1e-6
 f32, 1e-2 bf16; with the registers, shared bytes, blocks per SM and
-chunks where the tree reports them); ``kernel_lab.lab_step``'s curl and
-noroll at 384^3, f32 and bf16, bx = 8 and 4 (ms per step, best of 3 runs
-of 20; to 1e-6 and 1e-2; with the tree's resources where it reports
-them); ``pole_lab``'s ``pole_chan_bf16`` at the lab's size (ms per call,
-best of 3 runs of 3, within 1e-2) and ``curl_mix`` (ms per call on the
+chunks where the tree reports them); ``kernel_lab.lab_step``'s curl,
+noroll and copy at 384^3, f32 and bf16, bx = 8 and 4 (ms per step, best
+of 3 runs of 20; to 1e-6 and 1e-2; with the tree's resources for the
+stencil where it reports them); ``pole_lab``'s ``pole_chan_bf16`` at the
+lab's size (ms per call, best of 3 runs of 3, within 1e-2) and
+``curl_mix`` (ms per call on the
 lab's constant window at R = 600, best of 3 runs of 3; held to plain
 there and on a seeded window at R = 40, within
 ``pole_lab.kernel_tolerance``). Name a tree twice to run it in two turns
@@ -85,8 +86,8 @@ def child(root: str) -> dict:
 
 
 def step_lab(gen) -> dict:
-    """The step lab's stencil variants, ms per step by key and bx (the
-    tree's modules, imported by ``child``)."""
+    """The step lab's variants, ms per step by key and bx (the tree's
+    modules, imported by ``child``)."""
     import torch
     from tidy3d_tpu_torch.labs import _common, kernel_lab
 
@@ -98,7 +99,7 @@ def step_lab(gen) -> dict:
         f = {c: torch.randn((N,) * 3, generator=gen, device=dev).to(dtype)
              for c in names}
         o = {c: torch.empty_like(v) for c, v in f.items()}
-        for variant in ("curl", "noroll"):
+        for variant in ("curl", "noroll", "copy"):
             ref = kernel_lab.lab_step_reference(f, variant)
             scale = max(float(v.float().abs().max()) for v in ref.values())
             for bx in (8, 4):
@@ -110,7 +111,7 @@ def step_lab(gen) -> dict:
                 ms = min(_common.cuda_ms(lambda: kernel_lab.lab_step(
                     f, variant, bx, out=o), 20) for _ in range(3))
                 row = {"ms": ms, "err": err}
-                if hasattr(kernel_lab, "resources"):
+                if hasattr(kernel_lab, "resources") and variant != "copy":
                     row.update(kernel_lab.resources(variant, dtype))
                 out[f"{variant}_{dname}_bx{bx}"] = row
             del ref

@@ -44,11 +44,9 @@
 // y one across warps is an edge row that the neighbour warp stores into
 // shared memory before a block barrier: 6 edge stores and 6 edge loads of
 // 16 bytes a thread and repeat instead of 36 shared accesses a cell. (A
-// plane split over a cluster of two blocks, 2 rows a thread, exchanged its
-// block edges through distributed shared memory: 6.5 ms a call behind a
-// cluster barrier each half-step, 5.6 behind point-to-point mbarriers,
-// against 2.8 for one block; PERF.md.) It takes z = 128 and wy a multiple
-// of 4 up to 64.
+// plane split over a cluster of two blocks, its block edges exchanged
+// through distributed shared memory, measured slower than one block:
+// PERF.md, Findings.) It takes z = 128 and wy a multiple of 4 up to 64.
 // Built without fast-math: a*b + c contracts to one FMA, as the TPU's and
 // the flop model's FMA does.
 

@@ -90,12 +90,50 @@ Phases (any failure exits non-zero):
     Gcell*steps/s and peak device memory;
 15. a (1, 2, 1) decomposition of the broadband case, rotated onto x,
     against the unsharded run (to 2e-5);
-16. the labs' main paths (``tidy3d_tpu_torch.labs``), each with its launch
+16. ``web.run`` of the waveguide (384^3 at dl = 0.02 um: a Si strip in
+    SiO2, a mode source of mode 0, on one 2 x 2 um plane a mode monitor of
+    2 modes and 11 frequencies, a mode-solver monitor and a flux monitor,
+    a permittivity monitor on z = 0) on the default tier, launch counts
+    set to 0 just before and read just after: k-step launches only; the
+    forward mode-0 power within 5 % of the flux through the plane,
+    ``|a+|^2 - |a-|^2`` within 1 % of it (the reference's backward
+    amplitude is a grid artifact here, ``labs/builder_grid_error.py``),
+    the backward amplitude below the forward one, the permittivity
+    plane equal to ``plan.eps_yee``; Gcell*steps/s, peak memory and the
+    host seconds of the mode solves, then the same case with the flux
+    plane only (the cost of the new monitors);
+17. ``web.run`` of the broadband case with a 4 um projection box around
+    its Ez dipole: |E_theta| isotropic in phi at theta = pi/2 (max/min
+    below 1.1) and within 10 % of sin(theta) from 30 to 150 degrees (the
+    reference's projection has a first-order grid error,
+    ``labs/builder_grid_error.py``); the host seconds of the projection;
+    then the case without and with the box once more, Gcell*steps/s in
+    turns against phase 9's run;
+18. ``web.run`` of the angled plane wave (the two-copy k-step kernel) with
+    a diffraction plane ahead of the source: the (0, 0) order holds more
+    than 98 % of the diffracted power and the total is within 0.1 of 1
+    (the bar of the JAX package's ``test_diffraction_vacuum_zero_order``);
+    then without and with the plane once more, in turns against phase 11;
+19. checkpoint and resume: the 384^3 dispersive case on the kstep tier and
+    on 4 virtual x-shards, and the Bloch dipole: an uninterrupted run, half
+    of the chunks in a fresh runner through ``run_steps`` and
+    ``save_checkpoint``, the rest in a third runner through
+    ``run_checkpointed``; raw monitors to 1e-6 of the largest magnitude;
+    the file's bytes and its save and load seconds;
+20. a short ``web.run`` of the broadband case under
+    ``TIDY3D_TPU_PROFILE`` in a process of its own: the trace file holds
+    the k-step kernel's records and ``fdtd.monitors`` ranges;
+21. memory: every main-path run's ``estimate_device_memory()`` beside its
+    measured peak (``hbm_peak_bytes``, less what was allocated before it;
+    the 4-shard run of phase 14 included), each estimate at least the peak;
+    then ``TIDY3D_TPU_HBM_BYTES`` one byte below the far-field run's
+    estimate: ``web.run`` raises ``SetupError`` with no launch;
+22. the labs' main paths (``tidy3d_tpu_torch.labs``), each with its launch
     counts set to 0 just before it and read just after: ``kernel_lab.main``
     (n = 384, bx 4 and 8, ``LAB_BF16=1``), ``kernel_lab2.main`` (k = 1 to
     4, bx = 8, f32 and bf16) and ``pole_lab.main`` (all six variants);
     every kernel and variant must have launched;
-17. the step lab's kernel against its plain version on random 384^3
+23. the step lab's kernel against its plain version on random 384^3
     fields, bx = 8 and 4, curl, noroll and copy in f32 (to 1e-6) and bf16
     (to 1e-2: every operation rounds to bf16, one ulp is 2^-8 of a value),
     and the stencil variants at n = 15 (odd: cell by cell) and 40 (32
@@ -106,14 +144,14 @@ Phases (any failure exits non-zero):
     stencil instantiation's threads, registers, bytes spilled, shared
     bytes and blocks per SM, and the SASS classes of its march loop (the
     bf16 loop must hold bf16x2 arithmetic and no conversion);
-18. the k-step lab's kernel against its plain version on random 384^3
+24. the k-step lab's kernel against its plain version on random 384^3
     fields, bx = 8 and 4, k = 1 to 4, f32 (to 1e-6) and bf16 storage (to
     1e-2: one rounding at the store), every plane compared, the clamped
     edge windows included; kernel ms per group and per step (bx = 8, and
     bx = 4), plain ms per group, the ratio to the bound, registers, shared
     memory, threads and blocks per SM of each instantiation and the
     march's x chunks;
-19. each pole-lab kernel against its plain version at the lab's size (24
+25. each pole-lab kernel against its plain version at the lab's size (24
     x 64 x 128 cells, R = 600, GRID = 16), all 16 copies of the output
     equal: the kernel contracts ``a * b + c`` into one FMA where the plain
     version rounds twice, up to 1.5 ulp of a carry a step; the tolerance
@@ -134,7 +172,7 @@ Phases (any failure exits non-zero):
     (must be 0), shared bytes and blocks per SM, and the SASS classes of
     its repeat loop, whose shared loads and stores must be the edge rows'
     only (6 of each, 16 bytes);
-20. the JSON summary lines; the last line is the contract line. Each
+26. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -179,8 +217,21 @@ TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
 TOL_FLUX = 2e-2         # a strided DFT against an every-step one
 TOL_BF16 = 1e-2         # bf16 storage: one bf16 ulp is 2^-8 of a value
+TOL_RESUME = 1e-6       # a resumed run against an uninterrupted one
+TOL_MODE_FLUX = 5e-2    # forward mode-0 power against the plane's flux
+# |a+|^2 - |a-|^2 against the plane's flux: the backward amplitude of the
+# reference's overlap is a grid artifact of ~0.12 of the forward one here
+# (labs/builder_grid_error.py), which this identity holds to
+TOL_BALANCE = 1e-2
+# |E_theta| / sin(theta): the reference's projection reads E and H half a
+# cell apart across each surface, an error of order k dl = 0.2 at dl =
+# 0.05 um that halves with dl (labs/builder_grid_error.py)
+TOL_PATTERN = 0.1
 N_LAB = 384             # the step labs' default n
 OUT_DIR = "chiprun_out"
+CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # git-ignored
+# (what, estimate, peak, allocated before the run) of every main-path run
+MEMORY = []
 # float32 operations per cell update, as the kernels write them: per
 # component two differences times inverse steps, their difference and
 # ca * F + cb * rhs (8); per psi cell b * psi + c * d and its add (4); per
@@ -358,6 +409,69 @@ def mixed_case(td, dispersive: bool = False):
             y=td.Boundary(minus=td.PMCBoundary(), plus=td.PML()),
             z=td.Boundary.pml()),
         grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def waveguide_case(td, monitors: bool = True):
+    """360^3 cells inside a 12-layer CPML (384^3) at dl = 0.02 um: a Si
+    strip (eps 12.1, 0.5 x 0.22 um) along x in SiO2 (eps 2.085), a mode
+    source of mode 0 at x = -3 um; on the 2 x 2 um plane at x = +3 um a
+    mode monitor (2 modes, 11 frequencies around 1.55 um), a mode-solver
+    monitor (2 modes at 1.55 um) and a flux monitor, and a permittivity
+    monitor on the z = 0 plane. Without ``monitors``: the flux plane only.
+    The default shutoff (1e-5) ends the run once the pulse has left."""
+    freq0 = td.C_0 / 1.55
+    dl = 0.02
+    size = (N_FULL * dl,) * 3
+    freqs = np.linspace(freq0 * 0.95, freq0 * 1.05, 11).tolist()
+    plane = dict(center=(3.0, 0, 0), size=(0, 2.0, 2.0))
+    mons = [td.FluxMonitor(**plane, freqs=freqs, name="flux")]
+    if monitors:
+        spec = td.ModeSpec(num_modes=2)
+        mons += [
+            td.ModeMonitor(**plane, freqs=freqs, mode_spec=spec, name="mode"),
+            td.ModeSolverMonitor(**plane, freqs=[freq0], mode_spec=spec,
+                                 name="modes"),
+            td.PermittivityMonitor(center=(0, 0, 0),
+                                   size=(size[0], size[1], 0),
+                                   freqs=[freq0], name="eps")]
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=4e-13,
+        medium=td.Medium(permittivity=2.085),
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, 0), size=(td.inf, 0.5, 0.22)),
+            medium=td.Medium(permittivity=12.1))],
+        sources=[td.ModeSource(
+            center=(-3.0, 0, 0), size=(0, 2.0, 2.0), direction="+",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 10),
+            mode_spec=td.ModeSpec(num_modes=1), mode_index=0)],
+        monitors=mons, boundary_spec=td.BoundarySpec.all_sides(td.PML()),
+        grid_spec=td.GridSpec.uniform(dl=dl))
+
+
+FAR_THETA = np.deg2rad(np.arange(30, 151, 10))
+FAR_PHI = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+
+
+def farfield_case(td):
+    """The broadband case with a field-projection box of 4 um around the
+    dipole: |E_theta| at 13 polar angles (30 to 150 degrees) and 8
+    azimuths, at 1.55 um."""
+    sim = full_case(td)
+    far = td.FieldProjectionAngleMonitor(
+        center=(0, 0, 0), size=(4.0, 4.0, 4.0), freqs=[td.C_0 / 1.55],
+        name="far", theta=FAR_THETA, phi=FAR_PHI)
+    return sim.copy(update=dict(monitors=list(sim.monitors) + [far]))
+
+
+def diffraction_case(td):
+    """The angled plane wave with a diffraction plane on its forward flux
+    plane, at 1.55 um."""
+    sim = planewave_case(td)
+    x = sim.monitors[0].center[0]
+    diff = td.DiffractionMonitor(
+        center=(x, 0, 0), size=(0, td.inf, td.inf), freqs=[td.C_0 / 1.55],
+        name="diff", normal_dir="+")
+    return sim.copy(update=dict(monitors=list(sim.monitors) + [diff]))
 
 
 def random_state(runner, seed: int) -> dict:
@@ -731,6 +845,7 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     try:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
         kstep.DEVICE_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -748,11 +863,18 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     lines = data.log.splitlines()
     steps_run = int(lines[1].split("steps run: ")[1].split(" ")[0])
     rate = float(lines[2].split("throughput: ")[1].split(" ")[0])
+    mem = log_memory(lines)
+    host = {name: float(secs) for name, secs in (
+        part.rsplit(" ", 1) for part in log_field(
+            lines, "monitor data host seconds: ").split(", ") if part)}
+    MEMORY.append((what, mem["estimate"], mem["peak"], base))
     flux = np.asarray(data["flux"].flux.values)
     log(f"[web.run] {what}: {steps_run} steps, launches {launches} (k-step "
         f"device launches {device_launches}), log: {' | '.join(lines[2:])}")
     log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
-        f"device memory {peak / 2**30:.2f} GiB | {smi}")
+        f"device memory {peak / 2**30:.2f} GiB (the runner's "
+        f"{mem['peak'] / 2**30:.3f}, estimate {mem['estimate'] / 2**30:.3f},"
+        f" {base / 2**30:.3f} allocated before) | {smi}")
     log(f"[web.run] {what}: flux {flux.tolist()}")
     assert flux.shape == (11,) and np.all(np.isfinite(flux))
     assert np.all(flux != 0)
@@ -763,7 +885,21 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     return SimpleNamespace(
         data=data, flux=flux, steps=steps_run, launches=launches, rate=rate,
         tier=lines[-1].split("kernel tier: ")[1], peak=peak,
-        device_launches=device_launches)
+        device_launches=device_launches, host=host, total_s=total_s)
+
+
+def log_field(lines: list, prefix: str) -> str:
+    """The rest of the log line that starts with ``prefix``."""
+    return next(line for line in lines
+                if line.startswith(prefix))[len(prefix):]
+
+
+def log_memory(lines: list) -> dict:
+    """``{"peak", "estimate"}`` bytes from a SimulationData log's ``device
+    memory: peak P B, estimate E B on <device>`` line."""
+    m = re.match(r"peak (\d+) B, estimate (\d+) B on ",
+                 log_field(lines, "device memory: "))
+    return {"peak": int(m.group(1)), "estimate": int(m.group(2))}
 
 
 def run_bloch(td, dev, smi: str) -> dict:
@@ -847,7 +983,7 @@ def run_bloch(td, dev, smi: str) -> dict:
         f"{wb.peak / 2**30:.2f} / {wp.peak / 2**30:.2f} GiB | {smi}")
 
     return dict(launches=n_bloch, err=max(err_bloch), ms=b_ms,
-                plain_ms=bp_ms, bound=b_bound, **res)
+                plain_ms=bp_ms, bound=b_bound, rate_planewave=wp.rate, **res)
 
 
 def sharded_runner(plan, devices, **kw):
@@ -1033,8 +1169,12 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
     kstep.SHARDED_LAUNCHES = kstep.DEVICE_LAUNCHES = 0
+    base = torch.cuda.memory_allocated()
     run4 = sharded_runner(plan, [dev] * 4)
     raw = run4.run()
+    MEMORY.append(("broadband, 4 virtual x-shards",
+                   run4.estimate_device_memory()["total"],
+                   run4.hbm_peak_bytes, base))
     launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
                 "kstep": kstep.LAUNCHES}
     n_sharded = kstep.SHARDED_LAUNCHES
@@ -1090,6 +1230,291 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
                 bound=sh_bound, **res)
 
 
+def run_waveguide(td, smi: str) -> int:
+    """Phase 16: the 384^3 waveguide through ``web.run`` on the default
+    tier (k-step launches only), mode 0 forward against the flux, the power
+    balance of both directions, the permittivity plane against the plan;
+    then the
+    same case with the flux plane only, for the cost of the new monitors.
+    Returns the k-step launches."""
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    w = web_run(td, waveguide_case(td), "waveguide, default tier", smi,
+                field=None)
+    assert w.tier == "kstep (k=2)", w.tier
+    assert w.launches == dict(none, kstep=w.steps // 2), w.launches
+    amps = w.data["mode"].amps
+    fwd = np.abs(amps.sel(direction="+", mode_index=0).values)
+    bwd = np.abs(amps.sel(direction="-", mode_index=0).values)
+    ratio = fwd ** 2 / w.flux
+    balance = (fwd ** 2 - bwd ** 2) / w.flux
+    n_eff = np.real(np.asarray(w.data["mode"].n_complex.values))
+    log(f"[waveguide] mode 0: |a+|^2 / flux {ratio.tolist()} (1 within "
+        f"{TOL_MODE_FLUX:g}); |a-| / |a+| {(bwd / fwd).tolist()}; "
+        f"(|a+|^2 - |a-|^2) / flux {balance.tolist()} (1 within "
+        f"{TOL_BALANCE:g}); n_eff at 1.55 um {n_eff[5].tolist()}")
+    assert np.all(np.abs(ratio - 1) <= TOL_MODE_FLUX), ratio
+    assert np.all(np.abs(balance - 1) <= TOL_BALANCE), balance
+    assert np.all(bwd < fwd), bwd / fwd
+    modes = w.data["modes"]
+    assert np.all(np.isfinite(modes.Ey.values)) and np.any(modes.Ey.values)
+    plan = lower(waveguide_case(td))
+    mp = next(m for m in plan.monitors if m.kind == "permittivity")
+    for comp in ("Ex", "Ey", "Ez"):
+        eps = np.broadcast_to(plan.eps_yee[comp], plan.shape)[mp.slices[comp]]
+        got = getattr(w.data["eps"], f"eps_{comp[1]}{comp[1]}").values[..., 0]
+        assert np.array_equal(got, eps.astype(np.complex64)), comp
+    assert len(np.unique(np.real(got))) > 1
+    del plan
+    log(f"[waveguide] permittivity plane {got.shape} equal to plan.eps_yee; "
+        f"host seconds of the mode solves: mode monitor {w.host['mode']:.3f}"
+        f" (11 frequencies), mode-solver monitor {w.host['modes']:.3f}, "
+        f"permittivity {w.host['eps']:.3f}, flux {w.host['flux']:.3f}")
+    base = web_run(td, waveguide_case(td, monitors=False),
+                   "waveguide without the new monitors, default tier", smi,
+                   field=None)
+    assert base.launches == dict(none, kstep=base.steps // 2)
+    log(f"[waveguide] Gcell*steps/s {w.rate} with the mode, mode-solver and "
+        f"permittivity monitors, {base.rate} without; steps {w.steps} / "
+        f"{base.steps}; peak device memory {w.peak / 2**30:.3f} / "
+        f"{base.peak / 2**30:.3f} GiB | {smi}")
+    return w.launches["kstep"] + base.launches["kstep"]
+
+
+def run_farfield(td, smi: str, rate_without: float) -> int:
+    """Phase 17: the broadband case with a projection box around its Ez
+    dipole through ``web.run``: |E_theta| isotropic in phi at theta = pi/2
+    and within ``TOL_PATTERN`` of sin(theta) from 30 to 150 degrees.
+    Returns the k-step launches."""
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    w = web_run(td, farfield_case(td), "far field, default tier", smi)
+    assert w.launches == dict(none, kstep=w.steps // 2), w.launches
+    e = np.abs(np.asarray(w.data["far"].Etheta.values))[0, :, :, 0]
+    assert e.shape == (len(FAR_THETA), len(FAR_PHI)) and np.all(e > 0)
+    i90 = int(np.argmin(np.abs(FAR_THETA - np.pi / 2)))
+    iso = float(e[i90].max() / e[i90].min())
+    pattern = e / e[i90][None, :]
+    dev_theta = np.max(np.abs(pattern / np.sin(FAR_THETA)[:, None] - 1),
+                       axis=1)
+    dev = float(dev_theta.max())
+    log(f"[far field] |E_theta| at theta = 90 deg over phi: max/min {iso:.4f}"
+        f" (below 1.1); |E_theta(theta)| / |E_theta(90)| / sin(theta) - 1: "
+        f"max {dev:.4f} (within {TOL_PATTERN:g}) over theta 30..150 deg, by "
+        f"theta {np.round(dev_theta, 4).tolist()}; "
+        f"host seconds of the projection {w.host['far']:.3f}; Gcell*steps/s "
+        f"{w.rate} (without the projection box {rate_without}) | {smi}")
+    assert iso < 1.1 and dev <= TOL_PATTERN, (iso, dev)
+    return w.launches["kstep"] + rates_in_turns(
+        td, farfield_case(td), full_case(td), "far field", smi, w.rate,
+        rate_without)
+
+
+def run_diffraction(td, smi: str, rate_without: float) -> int:
+    """Phase 18: the angled plane wave (two-copy k-step kernel) with a
+    diffraction plane through ``web.run``: the (0, 0) order holds more than
+    98 % of the diffracted power and the total is within 0.1 of 1. Returns
+    the k-step launches."""
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    w = web_run(td, diffraction_case(td), "diffraction, default tier", smi,
+                field=None)
+    assert w.launches == dict(none, kstep=w.steps // 2), w.launches
+    dd = w.data["diff"]
+    power = np.abs(np.asarray(dd.amps.values)) ** 2
+    total = float(power.sum())
+    o_x = list(np.atleast_1d(dd.orders_x))
+    o_y = list(np.atleast_1d(dd.orders_y))
+    p0 = float(power[o_x.index(0), o_y.index(0)].sum())
+    log(f"[diffraction] orders {o_x} x {o_y}: (0, 0) holds {p0 / total:.6f} "
+        f"of the power (above 0.98), total {total:.6f} (within 0.1 of 1; "
+        f"cos 25 deg = {np.cos(np.deg2rad(25.0)):.6f}); host seconds of the "
+        f"diffraction sums {w.host['diff']:.3f}; Gcell*steps/s {w.rate} "
+        f"(without the plane {rate_without}) | {smi}")
+    assert p0 / total > 0.98 and abs(total - 1.0) < 0.1, (p0, total)
+    return w.launches["kstep"] + rates_in_turns(
+        td, diffraction_case(td), planewave_case(td), "diffraction", smi,
+        w.rate, rate_without)
+
+
+def rates_in_turns(td, with_sim, without_sim, what: str, smi: str,
+                   rate_with: float, rate_without: float) -> int:
+    """A second run of a case without and then with its new monitors,
+    after the first pair (the case without them ran in an earlier phase):
+    Gcell*steps/s of each, in turns. Returns the k-step launches."""
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    runs = [web_run(td, sim, f"{what} {name} the new monitors, default "
+                    "tier", smi, field=None)
+            for name, sim in (("without", without_sim), ("with", with_sim))]
+    for r in runs:
+        assert r.launches == dict(none, kstep=r.steps // 2), r.launches
+    log(f"[{what}] Gcell*steps/s in turns: without the new monitors "
+        f"{[rate_without, runs[0].rate]}, with {[rate_with, runs[1].rate]} "
+        f"| {smi}")
+    return sum(r.launches["kstep"] for r in runs)
+
+
+def resume_case(make_runner, plan, what: str, smi: str) -> None:
+    """Phase 19 for one case: the uninterrupted run, half of the chunks in a
+    fresh runner through ``run_steps`` then ``save_checkpoint``, the rest in
+    a third runner through ``run_checkpointed``; the raw monitors agree to
+    ``TOL_RESUME`` of their largest magnitude."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, "resume.npz")
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    r0 = make_runner(plan)
+    ref = r0.run()
+    steps, k = r0.steps_run, r0.k
+    del r0
+    r1 = make_runner(plan)
+    chunk, num_chunks = r1.chunking()
+    half = num_chunks // 2
+    state, max_ever = r1.init_state(), 0.0
+    for ci in range(half):
+        state = r1.run_steps(ci * chunk, chunk, state)
+        cur = float(r1._max_field(state))
+        max_ever = max(max_ever, cur)
+    sync()
+    nbytes_file = r1.save_checkpoint(path, state, half, max_ever, cur)
+    save_s = r1.checkpoint_save_s
+    del state, r1
+    r2 = make_runner(plan)
+    got = r2.run_checkpointed(path, checkpoint_every=num_chunks)
+    launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
+                "kstep": kstep.LAUNCHES}
+    assert not os.path.exists(path)
+    assert r2.steps_run == steps, (r2.steps_run, steps)
+    groups = steps // k
+    shards = len(r2.shards) if r2.shards else 1
+    # the uninterrupted run, then its two halves
+    want = 2 * shards * groups
+    assert launches == {"family": 0, "fused": 0, "kstep": want}, launches
+    err = raw_err(ref, got)
+    log(f"[resume] {what}: {num_chunks} chunks of {chunk} steps, saved after "
+        f"{half}: file {nbytes_file} B ({nbytes_file / 2**30:.3f} GiB), save "
+        f"{save_s:.2f} s, load {r2.checkpoint_load_s:.2f} s; resumed vs "
+        f"uninterrupted max rel err {err:.3e} (tol {TOL_RESUME:g}); "
+        f"launches {launches} | {smi}")
+    assert err <= TOL_RESUME, f"{what}: resumed rel err {err:.3e}"
+    del r2
+
+
+def run_resume(td, dev, plan_d, smi: str) -> None:
+    """Phase 19: resume on the kstep tier at 384^3 (dispersive), on 4
+    virtual x-shards (dispersive) and on the Bloch dipole (256^3)."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    resume_case(lambda p: FDTDRunner(p, device=dev), plan_d,
+                "dispersive 384^3, kstep tier", smi)
+    torch.cuda.empty_cache()
+    resume_case(lambda p: sharded_runner(p, [dev] * 4), plan_d,
+                "dispersive 384^3, 4 virtual x-shards", smi)
+    torch.cuda.empty_cache()
+    resume_case(lambda p: FDTDRunner(p, device=dev), lower(bloch_case(td)),
+                "Bloch dipole 256^3, two copies", smi)
+    torch.cuda.empty_cache()
+
+
+PROFILE_SCRIPT = """
+import json, os, sys
+import tidy3d_tpu_torch as td
+from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+import chip_smoke
+sim = chip_smoke.full_case(td).copy(update=dict(run_time=2e-14))
+step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+data = td.web.run(sim, task_name="chip_smoke", verbose=False)
+print(json.dumps({"launches": {"family": step.LAUNCHES,
+                               "fused": fused.LAUNCHES,
+                               "kstep": kstep.LAUNCHES},
+                  "log": data.log}))
+"""
+
+
+def trace_counts(path: str) -> dict:
+    """Of a Chrome trace: the k-step kernel's records on the device and the
+    runner's ``fdtd.monitors`` ranges."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return {
+        "kstep_kernel": sum(1 for e in events if e.get("cat") == "kernel"
+                            and "kstep_kernel" in e.get("name", "")),
+        "fdtd.monitors": sum(1 for e in events
+                             if e.get("name") == "fdtd.monitors"),
+        "events": len(events)}
+
+
+def run_profiled(smi: str) -> int:
+    """Phase 20: a short ``web.run`` of the broadband case (212 steps) under
+    ``TIDY3D_TPU_PROFILE`` in a process of its own (torch.profiler loses
+    kernel records late in a long process, ``PERF.md`` section 7): the
+    trace must hold the k-step kernel's records and ``fdtd.monitors``
+    ranges. Returns the k-step launches."""
+    import glob
+    import shutil
+    import subprocess
+
+    trace_dir = os.path.join(OUT_DIR, "chip_smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    env = dict(os.environ, TIDY3D_TPU_PROFILE=trace_dir)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PROFILE_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=600,
+                          check=False)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    counts = trace_counts(traces[0])
+    lines = out["log"].splitlines()
+    steps = int(lines[1].split("steps run: ")[1].split(" ")[0])
+    log(f"[profiler] web.run under TIDY3D_TPU_PROFILE: {steps} steps, "
+        f"launches {out['launches']}, trace {traces[0]} "
+        f"({os.path.getsize(traces[0])} B): {counts}; the process took "
+        f"{time.perf_counter() - t0:.1f} s; log: {' | '.join(lines[2:4])}")
+    assert out["launches"] == {"family": 0, "fused": 0, "kstep": steps // 2}
+    assert counts["kstep_kernel"] > 0 and counts["fdtd.monitors"] > 0, counts
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return out["launches"]["kstep"]
+
+
+def run_memory(td, smi: str) -> None:
+    """Phase 21: every main-path run's estimate against its measured peak
+    (the peak less what was allocated before it), then the gate: a limit
+    one byte below the broadband case's estimate makes ``web.run`` raise
+    ``SetupError`` before any launch."""
+    from tidy3d_tpu_torch.exceptions import SetupError
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    for what, est, peak, base in MEMORY:
+        log(f"[memory] {what}: estimate {est / 2**30:.3f} GiB, peak "
+            f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} allocated before), "
+            f"estimate / run's peak {est / max(peak - base, 1):.3f}")
+    low = [m for m in MEMORY if m[1] < m[2] - m[3]]
+    assert not low, f"estimates below the peak: {low}"
+    est = next(m[1] for m in MEMORY if m[0] == "far field, default tier")
+    os.environ["TIDY3D_TPU_HBM_BYTES"] = str(est - 1)
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    kstep.DEVICE_LAUNCHES = 0
+    try:
+        td.web.run(farfield_case(td), task_name="chip_smoke", verbose=False)
+        raise AssertionError("web.run ran past a limit below its estimate")
+    except SetupError as err:
+        refused = str(err)
+    finally:
+        del os.environ["TIDY3D_TPU_HBM_BYTES"]
+    launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
+                "kstep": kstep.LAUNCHES, "device": kstep.DEVICE_LAUNCHES}
+    log(f"[memory] TIDY3D_TPU_HBM_BYTES={est - 1}: web.run raised "
+        f"SetupError ({refused[:160]}...), launches {launches} | {smi}")
+    assert not any(launches.values()), launches
+    torch.cuda.empty_cache()
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
           library_ms=None, **extra) -> dict:
     """One kernel's entry of the kernels line (``extra``: more keys, as the
@@ -1127,7 +1552,7 @@ def lab_fields(seed: int, dtype, names) -> dict:
 
 
 def run_lab_mains(smi: str) -> dict:
-    """Phase 16: each lab's entry point at the labs' default sizes, its
+    """Phase 22: each lab's entry point at the labs' default sizes, its
     launch counts set to 0 just before it and read just after; every
     kernel and variant must have launched. Returns the counts by lab."""
     from tidy3d_tpu_torch.labs import kernel_lab, kernel_lab2, pole_lab
@@ -1202,7 +1627,7 @@ def lab_step_small(kernel_lab, dtype, tol) -> None:
 
 
 def run_lab_step(smi: str, launches: dict) -> list:
-    """Phase 17: the step lab's kernel against its plain version at
+    """Phase 23: the step lab's kernel against its plain version at
     ``N_LAB``^3 on random fields, bx = 8 and 4, every variant in f32 and
     bf16, and the stencil variants at n = 15 and 40; kernel, plain and
     (copy) ``_foreach_copy_`` times at bx = 8; each stencil
@@ -1283,7 +1708,7 @@ def run_lab_step(smi: str, launches: dict) -> list:
 
 
 def run_lab_kstep(smi: str, launches: dict) -> list:
-    """Phase 18: the k-step lab's kernel against its plain version at
+    """Phase 24: the k-step lab's kernel against its plain version at
     ``N_LAB``^3 on random fields, bx = 8 and 4, k = 1 to 4, f32 and bf16
     storage; kernel ms per group and per step at bx = 8 (and bx = 4), plain
     ms, the ratio to the bound, registers, shared memory, blocks per SM and
@@ -1341,7 +1766,7 @@ POLE_LAB_LINES = {"vpu_peak": 53, "fma_peak": 250, "pole_chan": 103,
 
 
 def run_pole_lab(smi: str, launches: dict) -> list:
-    """Phase 19: each pole-lab kernel against its plain version at the
+    """Phase 25: each pole-lab kernel against its plain version at the
     lab's size (24 x 64 x 128, R = 600, GRID = 16), every repeat's copy
     equal; ``curl_mix`` on the lab's constant window at R = 600 and on a
     random one at R = 40 (the mix grows ~1.8x a repeat); kernel ms and
@@ -1439,6 +1864,7 @@ def raw_err(ref: dict, got: dict) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1683,10 +2109,22 @@ def main() -> int:
 
     # 12-15. sharded runs on virtual shards
     shard = run_sharded(td, dev, smi, full_case(td), plan, plan_d)
-    del plan, plan_d
     torch.cuda.empty_cache()
 
-    # 16-19. the labs: their entry points, then each kernel against plain
+    # 16-18. mode, mode-solver, permittivity, projection and diffraction
+    # monitors through web.run
+    n_kstep += run_waveguide(td, smi)
+    n_kstep += run_farfield(td, smi, rates_k["broadband"])
+    bloch["launches"] += run_diffraction(td, smi, bloch["rate_planewave"])
+    # 19. checkpoint and resume
+    run_resume(td, dev, plan_d, smi)
+    del plan, plan_d
+    # 20. web.run under TIDY3D_TPU_PROFILE, in a process of its own
+    n_kstep += run_profiled(smi)
+    # 21. the memory estimate against every run's peak, and the gate
+    run_memory(td, smi)
+
+    # 22-25. the labs: their entry points, then each kernel against plain
     lab_counts = run_lab_mains(smi)
     labs = run_lab_step(smi, lab_counts["kernel_lab"])
     torch.cuda.empty_cache()
@@ -1721,6 +2159,7 @@ def main() -> int:
               registers=shard["registers"],
               blocks_per_sm=shard["blocks_per_sm"]),
     ] + labs}
+    log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,15 @@
 """Pieces of ``chip_smoke.py`` that need no card: the device busy time of a
 profiler window (the union of the device events' intervals, so that the
-two overlapping launches of a k-step group count once) and the device
-launches a k-step group makes (one per non-empty block list, per shard).
+two overlapping launches of a k-step group count once), the device
+launches a k-step group makes (one per non-empty block list, per shard),
+the records a profiler trace holds, the memory line of a run's log and the
+full-size cases of the new monitors (built, not run).
 """
 
+import json
 from types import SimpleNamespace
+
+import numpy as np
 
 import pytest
 
@@ -14,7 +19,8 @@ from tidy3d_tpu_torch.solver.kernels import kstep
 from tidy3d_tpu_torch.solver.lowering import lower
 from tidy3d_tpu_torch.solver.sharding import ShardingPlan, make_mesh
 
-from tests.torch_cases import SIMS, TILED
+import tidy3d_tpu_torch as td
+from tests.torch_cases import SIMS, TILED, monitors
 
 
 def _event(start, end, name="kstep_kernel", device="CUDA", note=False):
@@ -72,3 +78,54 @@ def test_lists_per_group_counts_nonempty_lists(case, ndev):
     assert ndev <= want <= 2 * ndev
     if case in TILED and ndev == 1:
         assert want == 2
+
+
+def test_trace_counts(tmp_path):
+    """The k-step kernel's device records and the ``fdtd.monitors``
+    ranges of a Chrome trace; host records and other kernels do not
+    count."""
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "void kstep_kernel<0, false, true>(...)"},
+        {"cat": "kernel", "name": "void kstep_kernel<1, false, false>(...)"},
+        {"cat": "kernel", "name": "fused_step_kernel"},
+        {"cat": "cpu_op", "name": "kstep_kernel"},
+        {"cat": "user_annotation", "name": "fdtd.monitors"},
+        {"cat": "gpu_user_annotation", "name": "fdtd.monitors"},
+        {"cat": "user_annotation", "name": "fdtd.poles"}]}))
+    assert chip_smoke.trace_counts(str(path)) == {
+        "kstep_kernel": 2, "fdtd.monitors": 2, "events": 7}
+
+
+def test_log_memory_reads_the_run_log():
+    """``log_memory`` and ``log_field`` read what ``web.run`` logs: the
+    peak (0 on the CPU), the estimate and each monitor's host seconds."""
+    sim = SIMS["pml_all"](monitors=monitors()[:2], run_time=5e-15)
+    data = td.web.run(sim, device="cpu", verbose=False)
+    lines = data.log.splitlines()
+    mem = chip_smoke.log_memory(lines)
+    runner = FDTDRunner(lower(sim), device="cpu")
+    assert mem == {"peak": 0,
+                   "estimate": runner.estimate_device_memory()["total"]}
+    host = chip_smoke.log_field(lines, "monitor data host seconds: ")
+    assert [part.split()[0] for part in host.split(", ")] == ["field", "flux"]
+
+
+@pytest.mark.parametrize("make", ["waveguide_case", "farfield_case",
+                                  "diffraction_case"])
+def test_new_cases_build(make):
+    """The full-size cases of phases 16 to 18 validate (they are lowered
+    and run on the card only)."""
+    sim = getattr(chip_smoke, make)(td)
+    names = [m.name for m in sim.monitors]
+    want = {"waveguide_case": ["flux", "mode", "modes", "eps"],
+            "farfield_case": ["field", "flux", "far"],
+            "diffraction_case": ["flux", "flux_back", "fwd", "bwd",
+                                 "diff"]}[make]
+    assert names == want
+    if make == "farfield_case":
+        far = sim.monitors[-1]
+        assert np.isclose(np.asarray(far.theta), np.pi / 2).any()
+    if make == "waveguide_case":
+        assert [m.name for m in chip_smoke.waveguide_case(
+            td, monitors=False).monitors] == ["flux"]

@@ -25,8 +25,8 @@ import pytest
 from tidy3d_tpu_torch.solver.lowering import lower
 
 # first: where h5py is missing it makes the JAX package importable
-from tests.torch_cases import BLOCH, DISPERSIVE, SIMS, lower_reference, \
-    monitors
+from tests.torch_cases import BLOCH, DISPERSIVE, MONITOR_CASES, SIMS, \
+    lower_reference, monitors
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tidy3d_tpu_torch")
@@ -166,3 +166,12 @@ def test_lowering_matches_the_reference(case):
     assert type(got).__module__ == "tidy3d_tpu_torch.solver.lowering"
     assert type(ref).__module__ == "tidy3d_tpu.solver.lowering"
     _equal(ref, got, case)
+
+
+@pytest.mark.parametrize("case", sorted(MONITOR_CASES))
+def test_monitor_case_lowering_matches_the_reference(case):
+    """The cases of ``tests/test_torch_monitors.py`` (a mode source, mode,
+    mode-solver, permittivity, projection and diffraction monitors) lower
+    to the same plan in both packages."""
+    sim = MONITOR_CASES[case]()
+    _equal(lower_reference(sim), lower(sim), case)

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -59,13 +60,28 @@ def test_web_run_matches_reference():
 
 
 def test_web_run_refuses_what_is_not_ported():
-    sim = SIMS["pml_all"](monitors=[tt.PermittivityMonitor(
-        center=(0, 0, 0), size=(0.2, 0.2, 0), freqs=[2e14], name="eps")])
-    with pytest.raises(NotImplementedError, match="PermittivityMonitor"):
-        tt.web.run(sim, device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tt.web.run(SIMS["pml_all"](), device="cpu", verbose=False,
-                   checkpoint_path="unused.npz")
+    """What no tier of the port takes raises before the run: a nonlinear
+    (Kerr) medium and a time-modulated one (``solver/fdtd.py``
+    ``_check_supported``)."""
+    box = tt.Box(center=(0, 0, 0.1), size=(0.2, 0.2, 0.2))
+    kerr = tt.Medium(permittivity=2.0, nonlinear_spec=tt.NonlinearSpec(
+        models=[tt.KerrNonlinearity(n2=1e-3)]))
+    # the port has no copy of the time-modulation schema yet: the lowering
+    # reads these attributes of a medium's ``modulation_spec``
+    modulation = SimpleNamespace(
+        applied_modulation=True, conductivity=None,
+        permittivity=SimpleNamespace(
+            negligible_modulation=False,
+            time_modulation=SimpleNamespace(freq0=1e13, phase=0.0,
+                                            amplitude=1.0),
+            space_modulation=SimpleNamespace(amplitude=0.1, phase=0.0)))
+    modulated = tt.Medium(permittivity=2.0, modulation_spec=modulation)
+    for medium, match in ((kerr, "nonlinear media"),
+                          (modulated, "time-modulated media")):
+        sim = SIMS["pml_all"]().copy(update=dict(structures=[
+            tt.Structure(geometry=box, medium=medium)]))
+        with pytest.raises(NotImplementedError, match=match):
+            tt.web.run(sim, device="cpu", verbose=False)
 
 
 def test_web_run_defaults_to_the_gpu():

@@ -308,3 +308,97 @@ def max_rel_err(ref: dict, got: dict) -> float:
     scale = max(float(np.max(np.abs(v))) for v in ref.values()) + 1e-30
     return max(float(np.max(np.abs(np.asarray(ref[k]) - np.asarray(got[k]))))
                for k in ref) / scale
+
+
+# Cases of web.run's monitor data: modes and the mode solver, permittivity,
+# far-field projection and diffraction
+
+
+def mode_plane(**kw):
+    """The mode plane of ``waveguide``: 0.4 x 0.6 um normal to x."""
+    return dict(center=(0.15, 0, 0), size=(0, 0.4, 0.6), **kw)
+
+
+def waveguide_monitors(freqs=None):
+    """A mode monitor of 2 modes, a mode-solver monitor and a flux plane on
+    the mode plane, and a permittivity plane through the strip."""
+    freqs = list(np.linspace(0.9 * FREQ0, 1.1 * FREQ0, 3)) \
+        if freqs is None else freqs
+    spec = td.ModeSpec(num_modes=2)
+    return [
+        td.ModeMonitor(**mode_plane(), freqs=freqs, mode_spec=spec,
+                       name="mode"),
+        td.ModeSolverMonitor(**mode_plane(), freqs=freqs[:2], mode_spec=spec,
+                             name="modes"),
+        td.FluxMonitor(**mode_plane(), freqs=freqs, name="flux"),
+        td.PermittivityMonitor(center=(0, 0, 0), size=(0.5, 0.4, 0),
+                               freqs=[FREQ0], name="eps"),
+    ]
+
+
+def waveguide(monitors=None, run_time=2e-14, **kw):
+    """A strip of eps 12.1 (0.25 x 0.15 um) along x in eps 2.085, a mode
+    source of mode 0 at x = -0.2 and ``waveguide_monitors``; PML on every
+    side."""
+    sim = _sim(td.BoundarySpec.all_sides(td.PML(num_layers=3)),
+               run_time=run_time, **kw)
+    return sim.copy(update=dict(
+        medium=td.Medium(permittivity=2.085),
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, 0), size=(td.inf, 0.25, 0.15)),
+            medium=td.Medium(permittivity=12.1))],
+        sources=[td.ModeSource(
+            center=(-0.2, 0, 0), size=(0, 0.4, 0.6), direction="+",
+            source_time=td.GaussianPulse(freq0=FREQ0, fwidth=FREQ0 / 5),
+            mode_spec=td.ModeSpec(num_modes=1), mode_index=0)],
+        monitors=waveguide_monitors() if monitors is None
+        else list(monitors)))
+
+
+def projection_monitors(freqs=None):
+    """The three field-projection monitors on a box around the dipole."""
+    freqs = [FREQ0, 1.1 * FREQ0] if freqs is None else freqs
+    box = dict(center=(0, 0, 0), size=(0.3, 0.25, 0.4), freqs=freqs)
+    return [
+        td.FieldProjectionAngleMonitor(
+            **box, name="angle", theta=np.linspace(0.2, np.pi - 0.2, 5),
+            phi=np.linspace(0, 2 * np.pi, 4, endpoint=False)),
+        td.FieldProjectionCartesianMonitor(
+            **box, name="cartesian", proj_axis=2, proj_distance=50.0,
+            x=np.linspace(-5, 5, 3), y=np.linspace(-4, 4, 3)),
+        td.FieldProjectionKSpaceMonitor(
+            **box, name="kspace", proj_axis=1, ux=np.linspace(-0.6, 0.6, 3),
+            uy=np.linspace(-0.5, 0.5, 3)),
+    ]
+
+
+def diffraction_monitors(freqs=None):
+    """Diffraction planes ahead of and behind an x-directed plane wave."""
+    freqs = list(np.linspace(0.9 * FREQ0, 1.1 * FREQ0, 3)) \
+        if freqs is None else freqs
+    return [
+        td.DiffractionMonitor(center=(0.2, 0, 0), size=(0, td.inf, td.inf),
+                              freqs=freqs, name="diff", normal_dir="+"),
+        td.DiffractionMonitor(center=(-0.25, 0, 0), size=(0, td.inf, td.inf),
+                              freqs=freqs, name="diff_r", normal_dir="-"),
+    ]
+
+
+def normal_planewave(**kw):
+    """PML x, periodic y and z, a dielectric block and an Ez plane wave
+    along +x: a real run with diffraction orders."""
+    return _sim(td.BoundarySpec(
+        x=td.Boundary.pml(num_layers=3), y=td.Boundary.periodic(),
+        z=td.Boundary.periodic()), structures=[DIELECTRIC], **kw).copy(
+        update=dict(sources=[angled_plane_wave(0.0)]))
+
+
+MONITOR_CASES = {
+    "waveguide": waveguide,
+    "projection": lambda **kw: pml_all(**kw).copy(
+        update=dict(monitors=projection_monitors())),
+    "diffraction": lambda **kw: normal_planewave(**kw).copy(
+        update=dict(monitors=diffraction_monitors())),
+    "diffraction_bloch": lambda **kw: bloch_planewave(**kw).copy(
+        update=dict(monitors=diffraction_monitors())),
+}

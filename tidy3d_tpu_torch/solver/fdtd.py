@@ -79,8 +79,25 @@ raise ``NotImplementedError``.
 Covered: float32, linear runs, real with up to ``MAX_POLES`` dispersive
 (pole-residue) pole slots, or complex without poles (unsharded). Nonlinear
 media, time modulation, Bloch runs with poles (the JAX package runs them on
-its XLA path only), bfloat16 storage and checkpointing raise
-``NotImplementedError``.
+its XLA path only) and bfloat16 storage raise ``NotImplementedError``.
+
+``estimate_device_memory`` counts the bytes each device holds for the run
+(its constants, the state with its second buffer set, the shards' halo
+planes, a step's temporaries and a margin) and ``check_memory_budget``
+raises ``SetupError`` when a device's count exceeds its limit
+(``TIDY3D_TPU_HBM_BYTES``, else the CUDA device's memory; the CPU is not
+checked; ``TIDY3D_TPU_MEM_CHECK=0`` turns it off), as
+``tidy3d_tpu/solver/fdtd.py:545-630`` does. ``run`` records the peak of
+``torch.cuda.max_memory_allocated`` in ``hbm_peak_bytes``.
+
+``run_checkpointed`` saves the state every few chunks into a ``.npz`` of
+named arrays (``save_checkpoint``), resumes from it when the file exists
+(``load_checkpoint``, which refuses a file of another grid, tier, k or
+decomposition) and deletes it when the run ends, as
+``tidy3d_tpu/solver/fdtd.py:1961-2069`` does. The kstep tier's ping-pong
+set is not saved: a group writes every cell of the set it is given that a
+later group reads (a shard's halo planes are refreshed by the exchange
+before they are read).
 """
 
 from __future__ import annotations
@@ -94,7 +111,7 @@ import torch
 from torch.profiler import record_function
 
 from ..constants import EPSILON_0
-from ..exceptions import DivergenceError
+from ..exceptions import DivergenceError, SetupError
 from ..log import log
 from .kernels import fused as fused_kernels
 from .kernels import kstep as kstep_kernels
@@ -106,6 +123,9 @@ from .sharding import ShardingPlan, XSlabs, mesh_devices
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
+CHECKPOINT_VERSION = 1
+# the working margin of the memory estimate: half the state plus this
+MARGIN_BYTES = 256 << 20
 
 # TIDY3D_TPU_KERNEL value -> requested tier ("auto" chooses)
 _KERNEL_ENV = {"auto": "auto", "kstep": "kstep", "fused": "fused",
@@ -655,6 +675,9 @@ class FDTDRunner:
         # (tidy3d_tpu/solver/fdtd.py:86-100); run() rotates the raw
         # monitors back
         self._plan_rot = 0
+        # the decomposition asked for (before a rotation onto x)
+        self.decomp = (1, 1, 1) if sharding_plan is None \
+            else tuple(sharding_plan.decomp)
         if sharding_plan is not None:
             plan, sharding_plan = self._x_decomposition(plan, sharding_plan)
         self.sharding = sharding_plan
@@ -874,24 +897,27 @@ class FDTDRunner:
             out[p] = {k: zeros(s) for k, s in self.psi_shapes(meta).items()}
         return out
 
-    def init_state(self) -> dict:
+    def init_state(self, device=None) -> dict:
         """The zero state; a sharded run's is ``{"shards": [...]}``, one
-        state per shard, each with its own monitor parts."""
+        state per shard, each with its own monitor parts. ``device``
+        overrides the run's and every shard's device (``"meta"`` sizes the
+        state without allocating it)."""
         if self.shards is not None:
             return {"shards": [dict(
-                self._fields(sh.meta, sh.device),
+                self._fields(sh.meta, device or sh.device),
                 mon=[self._init_monitor_acc(mi, mp, sh.mon_slices[mi],
-                                            sh.device)
+                                            device or sh.device)
                      for mi, mp in enumerate(self.plan.monitors)],
-                alt=self._fields(sh.meta, sh.device))
+                alt=self._fields(sh.meta, device or sh.device))
                 for sh in self.shards]}
-        state = self._fields(self.meta, self.device)
-        state["mon"] = [self._init_monitor_acc(mi, mp)
+        device = device or self.device
+        state = self._fields(self.meta, device)
+        state["mon"] = [self._init_monitor_acc(mi, mp, device=device)
                         for mi, mp in enumerate(self.plan.monitors)]
         if self.tier == "kstep":
             # the ping-pong set: each group reads one set and writes the
             # other (allocated once; the runner swaps them)
-            state["alt"] = self._fields(self.meta, self.device)
+            state["alt"] = self._fields(self.meta, device)
         return state
 
     def _init_monitor_acc(self, mi, mp, slices: dict = None, device=None):
@@ -1040,10 +1066,13 @@ class FDTDRunner:
 
     def run_steps(self, start: int, num: int, state: dict) -> dict:
         """Steps ``start`` to ``start + num - 1``; on the kstep tier both
-        are multiples of k and the steps run in groups."""
+        are multiples of k and the steps run in groups. On the one-step
+        tiers ``state`` is updated in place and returned."""
         if self.tier != "kstep":
+            # in place, so that the set a step replaces is freed at once
+            # and no more than two sets are ever held
             for n in range(num):
-                state = self.step(start + n, state)
+                state.update(self.step(start + n, state))
             return state
         k, B = self.k, self.mon_group_stride
         if start % k or num % k:
@@ -1132,14 +1161,38 @@ class FDTDRunner:
             out = unrotate_raw(out, self.plan, self._plan_rot)
         return out
 
+    def chunking(self) -> Tuple[int, int]:
+        """``(chunk_size, num_chunks)`` of the time loop (chunks of whole
+        kstep loop iterations on the kstep tier), with the waveform and DFT
+        tables padded to the last chunk's end."""
+        chunk_size = self.align_chunk(max(self.num_steps // NUM_CHUNKS, 1))
+        num_chunks = (self.num_steps + chunk_size - 1) // chunk_size
+        self._pad_time_tables(num_chunks * chunk_size)
+        return chunk_size, num_chunks
+
     def run(self, verbose: bool = False) -> dict:
         """Execute the time loop; returns the raw monitor data (numpy) keyed
         by monitor-plan index, as ``tidy3d_tpu``'s runner does (in the
         original axes for a rotated decomposition)."""
+        return self._run(None, 0, verbose)
+
+    def run_checkpointed(self, checkpoint_path: str,
+                         checkpoint_every: int = 5,
+                         verbose: bool = False) -> dict:
+        """Like ``run``, but saves the state every ``checkpoint_every``
+        chunks (``save_checkpoint``) and resumes from ``checkpoint_path``
+        when it exists; the file is deleted when the run ends, so that a
+        finished run does not hijack the next one with a stale resume
+        (``tidy3d_tpu/solver/fdtd.py:2003-2069``)."""
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every={checkpoint_every}: save "
+                             "every 1 or more chunks")
+        return self._run(checkpoint_path, checkpoint_every, verbose)
+
+    def _run(self, checkpoint_path, checkpoint_every: int,
+             verbose: bool) -> dict:
         plan = self.plan
-        chunk_size = self.align_chunk(max(self.num_steps // NUM_CHUNKS, 1))
-        num_chunks = (self.num_steps + chunk_size - 1) // chunk_size
-        self._pad_time_tables(num_chunks * chunk_size)
+        chunk_size, num_chunks = self.chunking()
         shutoff = float(plan.simulation.shutoff or 0.0)
 
         t0 = _time.perf_counter()
@@ -1149,9 +1202,17 @@ class FDTDRunner:
                  "pallas2": step_kernels}[self.tier].prepare(dev)
         self.compile_time = _time.perf_counter() - t0
 
+        cuda_devices = [dev for dev in self.devices if dev.type == "cuda"]
+        for dev in cuda_devices:
+            torch.cuda.reset_peak_memory_stats(dev)
+        self.checkpoint_save_s = self.checkpoint_load_s = 0.0
         start_time = _time.perf_counter()
-        state = self.init_state()
-        ci, max_ever, cur = 0, 0.0, 0.0
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            state, ci, max_ever, cur = self.load_checkpoint(checkpoint_path)
+            if verbose:
+                log.info(f"resuming from {checkpoint_path} at chunk {ci}.")
+        else:
+            state, ci, max_ever, cur = self.init_state(), 0, 0.0, 0.0
         while ci < num_chunks:
             if shutoff > 0 and ci >= SHUTOFF_MIN_CHUNKS \
                     and cur < shutoff * max_ever:
@@ -1160,10 +1221,20 @@ class FDTDRunner:
             cur = float(self._max_field(state).item())
             max_ever = float(np.maximum(max_ever, cur))
             ci += 1
-        for dev in self.devices:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if checkpoint_path is not None and ci % checkpoint_every == 0 \
+                    and ci < num_chunks:
+                self.save_checkpoint(checkpoint_path, state, ci, max_ever,
+                                     cur)
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            os.remove(checkpoint_path)
+        for dev in cuda_devices:
+            torch.cuda.synchronize(dev)
         self.wall_time = _time.perf_counter() - start_time
+        # the peak of the allocated device memory since the loop began
+        # (every tensor of the process that was live meanwhile counts)
+        self.hbm_peak_bytes = max(
+            (torch.cuda.max_memory_allocated(dev) for dev in cuda_devices),
+            default=0)
         self.steps_run = ci * chunk_size
         self.final_decay = cur / max_ever if max_ever > 0 else 1.0
         if not np.isfinite(cur) or not np.isfinite(max_ever):
@@ -1180,3 +1251,232 @@ class FDTDRunner:
         out = self._raw_monitors(parts)
         self.transfer_time = _time.perf_counter() - t1
         return out
+
+    # ------------------------------------------------------------------ #
+    # checkpoint / resume
+    # ------------------------------------------------------------------ #
+
+    def _checkpoint_meta(self) -> dict:
+        """The run's identity in a checkpoint: a file of another grid,
+        tier, k or decomposition is refused."""
+        return {"__version__": np.asarray(CHECKPOINT_VERSION),
+                "__grid_shape__": np.asarray(self.shape),
+                "__tier__": np.asarray(self.tier),
+                "__k__": np.asarray(self.k),
+                "__decomp__": np.asarray(self.decomp)}
+
+    def save_checkpoint(self, path: str, state: dict, chunk_idx: int,
+                        max_ever: float, cur: float) -> int:
+        """Writes the state (fields, psi, pole currents and monitor
+        accumulators of the run or of every shard; not the kstep tier's
+        ping-pong set) and the loop position to ``path`` atomically (a
+        ``.tmp`` file, then ``os.replace``). Arrays are named by their
+        place in the state (``E.Ex``, ``Q.0.Ex.re``, ``mon.3.Hy.im``,
+        ``shards.1.psi.Ex|1|lo``), beside the run's identity
+        (``_checkpoint_meta``), ``__chunk_idx__``, ``__max_ever__`` and
+        ``__cur__`` (the last chunk's field maximum, which the shutoff test
+        reads). Returns the file's bytes."""
+        t0 = _time.perf_counter()
+        arrays = {name: t.cpu().numpy() for name, t in _named(state)}
+        arrays.update(self._checkpoint_meta())
+        arrays["__chunk_idx__"] = np.asarray(chunk_idx)
+        arrays["__max_ever__"] = np.asarray(max_ever)
+        arrays["__cur__"] = np.asarray(cur)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+        self.checkpoint_save_s = getattr(self, "checkpoint_save_s", 0.0) \
+            + _time.perf_counter() - t0
+        return os.path.getsize(path)
+
+    def load_checkpoint(self, path: str):
+        """``(state, chunk_idx, max_ever, cur)`` from a file that
+        ``save_checkpoint`` wrote for a run of this grid, tier, k and
+        decomposition (``SetupError`` otherwise); the state is this
+        runner's ``init_state()`` with every saved array copied in."""
+        t0 = _time.perf_counter()
+        with np.load(path) as data:
+            for key, want in self._checkpoint_meta().items():
+                got = data[key] if key in data.files else None
+                if got is None or got.shape != want.shape \
+                        or np.any(got != want):
+                    raise SetupError(
+                        f"Checkpoint at '{path}' was written for "
+                        f"{key.strip('_')} "
+                        f"{None if got is None else got.tolist()}, but "
+                        f"this run has {want.tolist()}: refusing to "
+                        "resume.")
+            state = self.init_state()
+            names = set()
+            for name, t in _named(state):
+                if name not in data.files:
+                    raise SetupError(f"Checkpoint at '{path}' holds no "
+                                     f"array '{name}': refusing to resume.")
+                arr = data[name]
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise SetupError(
+                        f"Checkpoint at '{path}': '{name}' has shape "
+                        f"{arr.shape}, this run {tuple(t.shape)}: refusing "
+                        "to resume.")
+                t.copy_(torch.from_numpy(arr))
+                names.add(name)
+            extra = [n for n in data.files
+                     if not n.startswith("__") and n not in names]
+            if extra:
+                raise SetupError(f"Checkpoint at '{path}' holds arrays this "
+                                 f"run does not have ({extra[:3]}): "
+                                 "refusing to resume.")
+            out = (state, int(data["__chunk_idx__"]),
+                   float(data["__max_ever__"]), float(data["__cur__"]))
+        self.checkpoint_load_s = getattr(self, "checkpoint_load_s", 0.0) \
+            + _time.perf_counter() - t0
+        return out
+
+    # ------------------------------------------------------------------ #
+    # device memory
+    # ------------------------------------------------------------------ #
+
+    def _resident(self) -> list:
+        """``(device, tensors)`` of what the runner holds on each device
+        for the whole run: the constants, the source terms and tables."""
+        def tables(t):
+            return [] if t is None else [t.boxes, t.terms, t.wf]
+
+        out = [(self.device, [self._sources])]
+        if self.shards is None:
+            return out + [(self.device, [self.consts, tables(self.tables)])]
+        return out + [(sh.device, [sh.consts, tables(sh.tables)])
+                      for sh in self.shards]
+
+    def _pole_work(self, cells: int) -> int:
+        """Bytes of the one-step tiers' pole-update temporaries
+        (``update_poles``): the sum E' + E of each component with a
+        residue, each (mask, component) product and one rotation
+        temporary."""
+        comps, masks = set(), set()
+        for metas in self.host_consts["pole_B_meta"]:
+            for ci, m in enumerate(metas):
+                if m["kind"] != "zero":
+                    comps.add(ci)
+                if m["kind"] == "mask":
+                    masks.add((m["mask_id"], ci))
+        n = len(comps) + len(masks) + bool(self.plan.poles)
+        return 4 * cells * n
+
+    def estimate_device_memory(self) -> dict:
+        """Bytes this run holds on each device (the port of
+        ``FDTDRunner.estimate_device_memory``, counted per device: the
+        shards of a mesh that names one device several times all count on
+        it). Components, for the most loaded device:
+
+        * ``consts``: the constants, source terms and tables, as held;
+        * ``state``: fields, psi, pole currents, monitor accumulators and
+          the second buffer set (the kstep tier's ping-pong set; on the
+          one-step tiers the E, H and psi that each step allocates while
+          the old ones are live), halo planes excepted;
+        * ``halo``: the k halo planes on each side of a shard's arrays;
+        * ``work``: a step's temporaries: on the one-step tiers the pole
+          update's (``_pole_work``), else one field for the field maximum;
+        * ``margin``: half of state and halo plus 256 MiB, as the
+          reference keeps;
+
+        and ``total``, their sum; ``devices`` holds the same dict for every
+        device. The state is sized on the ``meta`` device: nothing is
+        allocated. The time tables are first padded to the last chunk, as
+        the run holds them (``chunking``)."""
+        self.chunking()
+        keys = ("consts", "state", "halo", "work", "margin")
+        per: Dict[str, dict] = {}
+
+        def add(dev, key, n):
+            per.setdefault(str(torch.device(dev)), dict.fromkeys(keys, 0))[
+                key] += int(n)
+
+        for dev, objs in self._resident():
+            add(dev, "consts", _nbytes(objs))
+        state = self.init_state(device="meta")
+        shards = state["shards"] if self.shards is not None else [state]
+        devices = [sh.device for sh in self.shards] \
+            if self.shards is not None else [self.device]
+        padded = self.layout.padded if self.shards is not None else None
+        for dev, st in zip(devices, shards):
+            if "alt" not in st:
+                # a one-step tier: the E, H and psi of the next step
+                st = dict(st, alt={key: st[key] for key in ("E", "H", "psi")})
+            for _, t in _named(st, skip=()):
+                n = t.numel() * t.element_size()
+                halo = n * 2 * self.k // padded \
+                    if padded and t.ndim == 3 and t.shape[0] == padded else 0
+                add(dev, "state", n - halo)
+                add(dev, "halo", halo)
+            cells = int(np.prod(st["E"]["Ex"].shape))
+            add(dev, "work", self._pole_work(cells) if self.tier != "kstep"
+                and self.plan.poles else 4 * cells)
+        for d in per.values():
+            d["margin"] = (d["state"] + d["halo"]) // 2 + MARGIN_BYTES
+            d["total"] = sum(d[key] for key in keys)
+        worst = max(per, key=lambda name: per[name]["total"])
+        return dict(per[worst], device=worst, devices=per)
+
+    def check_memory_budget(self) -> dict:
+        """Raises ``SetupError`` before anything is launched when a
+        device's estimate exceeds its limit (the port of
+        ``FDTDRunner.check_memory_budget``): ``TIDY3D_TPU_HBM_BYTES`` when
+        set, else the CUDA device's total memory; a CPU device is not
+        checked, as the JAX package checks no platform but the TPU.
+        ``TIDY3D_TPU_MEM_CHECK=0`` turns the check off. Returns the
+        estimate (None when off)."""
+        if os.environ.get("TIDY3D_TPU_MEM_CHECK", "1") == "0":
+            return None
+        env_limit = os.environ.get("TIDY3D_TPU_HBM_BYTES")
+        est = self.estimate_device_memory()
+        for name, d in est["devices"].items():
+            dev = torch.device(name)
+            if env_limit:
+                limit = int(float(env_limit))
+            elif dev.type == "cuda":
+                limit = torch.cuda.get_device_properties(dev).total_memory
+            else:
+                continue
+            if d["total"] > limit:
+                gib = 1 << 30
+                raise SetupError(
+                    f"Simulation needs an estimated {d['total'] / gib:.2f} "
+                    f"GiB of device memory on {name} (constants "
+                    f"{d['consts'] / gib:.2f} + state {d['state'] / gib:.2f}"
+                    f" + halo planes {d['halo'] / gib:.2f} + step "
+                    f"temporaries {d['work'] / gib:.2f} + working margin "
+                    f"{d['margin'] / gib:.2f}) but the device limit is "
+                    f"{limit / gib:.2f} GiB. Reduce the grid/monitor "
+                    "footprint, or shard the run over more devices "
+                    "(TIDY3D_TPU_SHARD=auto).")
+        return est
+
+
+def _named(tree, prefix: str = "", skip=("alt",)):
+    """``(name, tensor)`` of every tensor in a state, named by its place:
+    dict keys and list indices joined by dots, a ``(re, im)`` pair's parts
+    ``re`` and ``im``; keys in ``skip`` are left out."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix[:-1], tree
+        return
+    if isinstance(tree, dict):
+        items = [(k, v) for k, v in tree.items() if k not in skip]
+    elif isinstance(tree, tuple) and len(tree) == 2:
+        items = zip(("re", "im"), tree)
+    else:
+        items = enumerate(tree)
+    for key, value in items:
+        yield from _named(value, f"{prefix}{key}.", skip)
+
+
+def _nbytes(obj) -> int:
+    """Bytes of every tensor in nested dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    return 0

@@ -1,17 +1,26 @@
-"""Throughput counters of a solver run: the port's copy of
-``RunMetrics`` from ``tidy3d_tpu/solver/profiling.py``.
+"""Run telemetry of the port: the counterpart of
+``tidy3d_tpu/solver/profiling.py``.
 
-Every run records a :class:`RunMetrics` (Gcell·steps/s, wall, transfer and
-compile times, per-step cost), surfaced in the SimulationData log. The JAX
-package's device-trace context (``maybe_profile``, ``jax.profiler``) has no
-counterpart here yet: its ``torch.profiler`` twin is a roadmap item.
+* every run records a :class:`RunMetrics` (Gcell·steps/s, wall, transfer and
+  compile times, per-step cost), surfaced in the SimulationData log;
+* set ``TIDY3D_TPU_PROFILE=/path/to/dir`` to capture a ``torch.profiler``
+  trace of the run (``maybe_profile``): host activity always, the CUDA
+  kernels on a CUDA device, with the runner's ranges ``fdtd.monitors``,
+  ``fdtd.poles`` and ``fdtd.halo_exchange``. It is written as a Chrome
+  trace (``chrome://tracing``, Perfetto) into that directory, where the
+  JAX package writes its ``jax.profiler`` trace for TensorBoard.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 @dataclass
@@ -57,3 +66,26 @@ class RunMetrics:
             compile_time=getattr(runner, "compile_time", 0.0),
             final_decay=getattr(runner, "final_decay", 1.0),
         )
+
+
+@contextlib.contextmanager
+def maybe_profile(device="cpu"):
+    """A ``torch.profiler`` trace of the block, enabled by
+    ``TIDY3D_TPU_PROFILE=<dir>``: CPU activity, and CUDA activity when
+    ``device`` is a CUDA device. The trace goes to
+    ``<dir>/tidy3d_tpu_torch_<pid>_<ns>.pt.trace.json``; the context yields
+    that path, or None when profiling is off."""
+    trace_dir = os.environ.get("TIDY3D_TPU_PROFILE")
+    if not trace_dir:
+        yield None
+        return
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"tidy3d_tpu_torch_{os.getpid()}_"
+                                   f"{time.time_ns()}.pt.trace.json")
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+

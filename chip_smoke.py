@@ -94,7 +94,11 @@ Phases (any failure exits non-zero):
     SiO2, a mode source of mode 0, on one 2 x 2 um plane a mode monitor of
     2 modes and 11 frequencies, a mode-solver monitor and a flux monitor,
     a permittivity monitor on z = 0) on the default tier, launch counts
-    set to 0 just before and read just after: k-step launches only; the
+    set to 0 just before and read just after: k-step launches only; every
+    mode solve (the source's in ``lower()``, the monitors') under
+    ``TIDY3D_TPU_MODE_SOLVER=auto``, so on the card's filter, with no
+    fallback to ARPACK, their host seconds beside phase 26's ARPACK and
+    filter seconds of the mode monitor's solve; the
     forward mode-0 power within 5 % of the flux through the plane,
     ``|a+|^2 - |a-|^2`` within 1 % of it (the reference's backward
     amplitude is a grid artifact here, ``labs/builder_grid_error.py``),
@@ -172,7 +176,27 @@ Phases (any failure exits non-zero):
     (must be 0), shared bytes and blocks per SM, and the SASS classes of
     its repeat loop, whose shared loads and stores must be the edge rows'
     only (6 of each, 16 bytes);
-26. the JSON summary lines; the last line is the contract line. Each
+26. (run before phase 16) the device mode solver
+    (``plugins/mode/device_solver.py``: the Chebyshev-filtered subspace
+    iteration, float32 matmuls on the card without TF32, each degree
+    bucket of the filter one captured CUDA graph) forced by
+    ``TIDY3D_TPU_MODE_SOLVER=filter`` on the card against ARPACK on the
+    host, on the waveguide's source plane (100 x 100, 2N = 20000) and on
+    a 200 x 200 plane of the same strip at dl = 0.01 um (2N = 80000), 2
+    modes at 1.55 um: n_eff within 2e-5 and each mode's Ex and Ey overlap
+    with ARPACK's above 0.999 (the bars of the JAX package's
+    ``tests/test_plugins/test_mode_tpu.py``), no fallback; each route's
+    host seconds, the filter's outer iterations, final degree, passes and
+    the split of its seconds (device loop, basis fetch, host float64
+    polish, refinement); one filter pass on the solve's own operator,
+    eager and as a graph, at degrees 50 and 200 (CUDA events), the ATen
+    operations a pass dispatches and the kernels the profiler records;
+    then the mode monitor's 11-frequency solve by both routes (the
+    filter's 11 solves may leave at most 64 MiB allocated);
+27. ``web.Job(...).run()`` of the 64x48x80 mixed case with the broadband
+    DFT monitors, launch counts set to 0 just before and read just after:
+    the launches and the flux of ``web.run`` of the same case;
+28. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -227,6 +251,10 @@ TOL_BALANCE = 1e-2
 # cell apart across each surface, an error of order k dl = 0.2 at dl =
 # 0.05 um that halves with dl (labs/builder_grid_error.py)
 TOL_PATTERN = 0.1
+# the device mode solver against ARPACK on the host: n_eff and the field
+# overlap of each mode (tests/test_plugins/test_mode_tpu.py:57,62)
+TOL_NEFF = 2e-5
+MIN_OVERLAP = 0.999
 N_LAB = 384             # the step labs' default n
 OUT_DIR = "chiprun_out"
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # git-ignored
@@ -446,6 +474,15 @@ def waveguide_case(td, monitors: bool = True):
             mode_spec=td.ModeSpec(num_modes=1), mode_index=0)],
         monitors=mons, boundary_spec=td.BoundarySpec.all_sides(td.PML()),
         grid_spec=td.GridSpec.uniform(dl=dl))
+
+
+def fine_plane_case(td):
+    """The waveguide's strip at dl = 0.01 um for a 200 x 200 mode plane of
+    2 x 2 um (2N = 80000): a simulation built for its grid, not run."""
+    sim = waveguide_case(td, monitors=False)
+    return sim.copy(update=dict(
+        size=(1.0, 2.4, 2.4), sources=[], monitors=[],
+        grid_spec=td.GridSpec.uniform(dl=0.01)))
 
 
 FAR_THETA = np.deg2rad(np.arange(30, 151, 10))
@@ -1230,18 +1267,33 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
                 bound=sh_bound, **res)
 
 
-def run_waveguide(td, smi: str) -> int:
+def run_waveguide(td, smi: str, modes: dict) -> int:
     """Phase 16: the 384^3 waveguide through ``web.run`` on the default
-    tier (k-step launches only), mode 0 forward against the flux, the power
-    balance of both directions, the permittivity plane against the plan;
-    then the
-    same case with the flux plane only, for the cost of the new monitors.
-    Returns the k-step launches."""
+    tier (k-step launches only), every mode solve under ``auto`` (the
+    device filter on the card, no fallback), mode 0 forward against the
+    flux, the power balance of both directions, the permittivity plane
+    against the plan; then the same case with the flux plane only, for the
+    cost of the new monitors. ``modes`` holds phase 26's ARPACK and filter
+    seconds of the mode monitor's solve. Returns the k-step launches."""
+    from tidy3d_tpu_torch.plugins.mode import device_solver
     from tidy3d_tpu_torch.solver.lowering import lower
 
     none = {"family": 0, "fused": 0, "kstep": 0}
+    os.environ.pop("TIDY3D_TPU_MODE_SOLVER", None)     # auto
+    n_rec, fallbacks = len(device_solver.RECORDS), device_solver.FALLBACKS
     w = web_run(td, waveguide_case(td), "waveguide, default tier", smi,
                 field=None)
+    recs = device_solver.RECORDS[n_rec:]
+    # the source's solve in lower(), the mode monitor's 11, the mode-solver
+    # monitor's one: all on the card's filter
+    assert [r["num_modes"] for r in recs] == [1] + [2] * 12, recs
+    assert all(r["device"] == "cuda" for r in recs), recs
+    assert device_solver.FALLBACKS == fallbacks
+    log(f"[waveguide] mode solves on the card's filter (auto): source "
+        f"{recs[0]['total_s']:.3f} s, mode monitor {w.host['mode']:.3f} s "
+        f"(11 frequencies; ARPACK on the host {modes['arpack_s']:.3f} s, "
+        f"the filter alone {modes['filter_s']:.3f} s in phase 26), "
+        f"mode-solver monitor {w.host['modes']:.3f} s; 0 fallbacks | {smi}")
     assert w.tier == "kstep (k=2)", w.tier
     assert w.launches == dict(none, kstep=w.steps // 2), w.launches
     amps = w.data["mode"].amps
@@ -1275,11 +1327,206 @@ def run_waveguide(td, smi: str) -> int:
                    "waveguide without the new monitors, default tier", smi,
                    field=None)
     assert base.launches == dict(none, kstep=base.steps // 2)
+    assert device_solver.FALLBACKS == fallbacks
     log(f"[waveguide] Gcell*steps/s {w.rate} with the mode, mode-solver and "
         f"permittivity monitors, {base.rate} without; steps {w.steps} / "
         f"{base.steps}; peak device memory {w.peak / 2**30:.3f} / "
         f"{base.peak / 2**30:.3f} GiB | {smi}")
     return w.launches["kstep"] + base.launches["kstep"]
+
+
+def _overlap(a, b) -> float:
+    return float(np.abs(np.vdot(a.ravel(), b.ravel()))
+                 / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def mode_solve(td, sim, plane, spec, freqs, route: str, device: str):
+    """A ``ModeSolver`` of ``plane`` under ``TIDY3D_TPU_MODE_SOLVER=route``
+    on ``device``: the data, the host seconds and the device solver's
+    records of the solve."""
+    from tidy3d_tpu_torch.plugins.mode import device_solver
+    from tidy3d_tpu_torch.plugins.mode.mode_solver import ModeSolver
+
+    old = os.environ.get("TIDY3D_TPU_MODE_SOLVER")
+    os.environ["TIDY3D_TPU_MODE_SOLVER"] = route
+    n_rec = len(device_solver.RECORDS)
+    try:
+        t0 = time.perf_counter()
+        data = ModeSolver(simulation=sim, plane=plane, mode_spec=spec,
+                          freqs=list(freqs), colocate=False).solve(device)
+        secs = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("TIDY3D_TPU_MODE_SOLVER", None)
+        else:
+            os.environ["TIDY3D_TPU_MODE_SOLVER"] = old
+    return data, secs, device_solver.RECORDS[n_rec:]
+
+
+def filter_pass_costs(apply_m, rec: dict, smi: str) -> dict:
+    """One filter pass on the solve's own operator at its block width:
+    eager and captured-graph ms per pass (CUDA events) at degrees 50 and
+    200, the ATen operations one eager pass of degree 50 dispatches (views
+    included) and the kernel records the profiler sees in it."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tidy3d_tpu_torch.plugins.mode import device_solver
+
+    nx, ny = apply_m.shape2d
+    n2 = 2 * nx * ny
+    x = torch.randn((n2, rec["k_sub"]), device="cuda")
+
+    def block(q):
+        return apply_m(q.reshape(2, nx, ny, -1)).reshape(n2, -1)
+
+    args = (rec["lo"], 0.0, rec["lam_hi"])
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            Count.ops += 1
+            return func(*a, **(kw or {}))
+
+    out = {}
+    with device_solver.full_f32_matmul():
+        graph = device_solver._GraphFilter(block, (n2, rec["k_sub"]),
+                                           x.device)
+        for deg in (50, 200):
+            eager = cuda_ms(lambda: device_solver._chebyshev_filter(
+                block, x, *args, deg), 3)
+            graphed = cuda_ms(lambda: graph(x, *args, deg), 5)
+            out[deg] = (eager, graphed)
+        with Count():
+            device_solver._chebyshev_filter(block, x, *args, 50)
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            device_solver._chebyshev_filter(block, x, *args, 50)
+            sync()
+    records = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    log(f"[mode] filter pass on {nx}x{ny}, block {rec['k_sub']} columns: "
+        f"degree 50 eager {out[50][0]:.3f} ms, graph {out[50][1]:.3f} ms; "
+        f"degree 200 eager {out[200][0]:.3f} ms, graph {out[200][1]:.3f} "
+        f"ms; a pass of degree 50 dispatches {Count.ops} ATen operations "
+        f"(views included, {Count.ops / 50:.1f} a step) and launches "
+        f"{records} kernels ({records / 50:.1f} a step, profiler records) "
+        f"| {smi}")
+    return dict(ms=out, ops=Count.ops, records=records)
+
+
+def run_mode_solver(td, smi: str) -> dict:
+    """Phase 26: the device mode solver on the card against ARPACK on the
+    host, on the waveguide's source plane (100 x 100) and on a 200 x 200
+    plane of the same strip at dl = 0.01, 2 modes at 1.55 um: n_eff within
+    ``TOL_NEFF``, each mode's Ex and Ey overlap above ``MIN_OVERLAP``, no
+    fallback; each route's host seconds, the filter's outer iterations,
+    final degree and split; one filter pass's cost; then the mode
+    monitor's 11-frequency solve by both routes. Returns the ARPACK and
+    filter seconds of that solve."""
+    from tidy3d_tpu_torch.plugins.mode import device_solver
+
+    sim = waveguide_case(td)
+    freq0 = td.C_0 / 1.55
+    spec = td.ModeSpec(num_modes=2)
+    fallbacks = device_solver.FALLBACKS
+    made = []
+    make = device_solver.make_apply_real
+
+    def keep(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+
+    for what, case, plane in (
+            ("100x100 source plane", sim, sim.sources[0].geometry),
+            ("200x200 plane at dl 0.01", fine_plane_case(td),
+             td.Box(center=(0, 0, 0), size=(0, 2.0, 2.0)))):
+        ref, t_arpack, recs = mode_solve(td, case, plane, spec, [freq0],
+                                         "arpack", "cpu")
+        assert not recs, recs
+        device_solver.make_apply_real = keep
+        try:
+            got, t_filter, recs = mode_solve(td, case, plane, spec, [freq0],
+                                             "filter", "cuda")
+        finally:
+            device_solver.make_apply_real = make
+        assert len(recs) == 1 and recs[0]["device"] == "cuda", recs
+        rec = recs[0]
+        assert not rec["fallback"] and device_solver.FALLBACKS == fallbacks
+        n_ref = np.asarray(ref.n_complex.values)[0]
+        n_got = np.asarray(got.n_complex.values)[0]
+        d_neff = float(np.max(np.abs(n_got.real - n_ref.real)))
+        overlaps = [_overlap(getattr(ref, c).values[..., 0, m],
+                             getattr(got, c).values[..., 0, m])
+                    for m in range(2) for c in ("Ex", "Ey")]
+        nx, ny = rec["shape"]
+        log(f"[mode] {what} ({nx}x{ny}, 2N = {2 * nx * ny}): ARPACK (host) "
+            f"{t_arpack:.3f} s, filter (card) {t_filter:.3f} s; n_eff "
+            f"{n_got.real.tolist()} against {n_ref.real.tolist()}, max "
+            f"|dn_eff| {d_neff:.2e} (tol {TOL_NEFF:g}); overlaps "
+            f"{[round(o, 8) for o in overlaps]}; {rec['outer']} outer "
+            f"iterations, final degree {rec['degree']}, {rec['passes']} "
+            f"passes of {rec['steps']} steps, block {rec['k_sub']}; device "
+            f"loop {rec['device_s']:.3f} s, basis fetch "
+            f"{rec['fetch_s']:.4f} s, host polish {rec['polish_s']:.3f} s, "
+            f"refinement {rec['refine_s']:.3f} s | {smi}")
+        assert d_neff <= TOL_NEFF, (n_got, n_ref)
+        assert min(overlaps) > MIN_OVERLAP, overlaps
+        if what.startswith("100x100"):
+            filter_pass_costs(made[-1], rec, smi)
+    mon = next(m for m in sim.monitors if m.name == "mode")
+    _, t_arpack, _ = mode_solve(td, sim, mon.geometry, mon.mode_spec,
+                                mon.freqs, "arpack", "cpu")
+    held = torch.cuda.memory_allocated()
+    _, t_filter, recs = mode_solve(td, sim, mon.geometry, mon.mode_spec,
+                                   mon.freqs, "filter", "cuda")
+    held = torch.cuda.memory_allocated() - held
+    assert len(recs) == 11 and device_solver.FALLBACKS == fallbacks
+    # the solves' graphs and blocks are freed: 11 solves hold no more than
+    # a GEMM workspace
+    assert held <= 64 * 2**20, held
+    split = {k: sum(r[k] for r in recs)
+             for k in ("device_s", "fetch_s", "polish_s", "refine_s")}
+    log(f"[mode] mode monitor (11 frequencies, 2 modes, 100x100): ARPACK "
+        f"(host) {t_arpack:.3f} s, filter (card) {t_filter:.3f} s; device "
+        f"loop {split['device_s']:.3f} s, basis fetch {split['fetch_s']:.4f}"
+        f" s, host polish {split['polish_s']:.3f} s, refinement "
+        f"{split['refine_s']:.3f} s; outer iterations "
+        f"{[r['outer'] for r in recs]}; device memory held after the "
+        f"solves {held / 2**20:.1f} MiB | {smi}")
+    return {"arpack_s": t_arpack, "filter_s": t_filter}
+
+
+def run_job(td, smi: str) -> int:
+    """Phase 27: ``web.Job(...).run()`` of the 64x48x80 mixed case with the
+    broadband DFT monitors, its launch counts set to 0 just before and read
+    just after: the launches and the flux of ``web.run`` of the same case.
+    Returns the k-step launches."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    freqs = np.linspace(td.C_0 / 1.55 * 0.95, td.C_0 / 1.55 * 1.05,
+                        11).tolist()
+    sim = mixed_case(td)
+    sim = sim.copy(update=dict(monitors=_dft_monitors(td, sim.size, freqs)))
+    runs = {}
+    for how in ("web.run", "web.Job"):
+        step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+        if how == "web.run":
+            data = td.web.run(sim, task_name="chip_smoke", verbose=False)
+        else:
+            data = td.web.Job(simulation=sim, task_name="chip_smoke_job",
+                              verbose=False).run()
+        runs[how] = (data, {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
+                            "kstep": kstep.LAUNCHES})
+    (want, n_want), (got, n_got) = runs["web.run"], runs["web.Job"]
+    flux = np.asarray(got["flux"].flux.values)
+    log(f"[job] web.Job of the 64x48x80 mixed case: launches {n_got} "
+        f"(web.run {n_want}), log: "
+        f"{' | '.join(got.log.splitlines()[2:])}; flux {flux.tolist()}")
+    assert n_got == n_want and n_got["kstep"] > 0, (n_got, n_want)
+    assert np.all(np.isfinite(flux)) and np.all(flux != 0)
+    assert np.array_equal(flux, want["flux"].flux.values)
+    return n_got["kstep"]
 
 
 def run_farfield(td, smi: str, rate_without: float) -> int:
@@ -2111,11 +2358,15 @@ def main() -> int:
     shard = run_sharded(td, dev, smi, full_case(td), plan, plan_d)
     torch.cuda.empty_cache()
 
+    # 26. the device mode solver against ARPACK
+    modes = run_mode_solver(td, smi)
     # 16-18. mode, mode-solver, permittivity, projection and diffraction
     # monitors through web.run
-    n_kstep += run_waveguide(td, smi)
+    n_kstep += run_waveguide(td, smi, modes)
     n_kstep += run_farfield(td, smi, rates_k["broadband"])
     bloch["launches"] += run_diffraction(td, smi, bloch["rate_planewave"])
+    # 27. web.Job
+    n_kstep += run_job(td, smi)
     # 19. checkpoint and resume
     run_resume(td, dev, plan_d, smi)
     del plan, plan_d

@@ -18,10 +18,12 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
 
+from tidy3d_tpu_torch.plugins.mode import device_solver
 from tidy3d_tpu_torch.solver.lowering import lower
 
 # first: where h5py is missing it makes the JAX package importable
@@ -29,6 +31,13 @@ from tests.torch_cases import BLOCH, DISPERSIVE, MONITOR_CASES, SIMS, \
     lower_reference, monitors
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _mode_solves_on_the_cpu():
+    """The mode sources' solves in a bare ``lower()`` run on the CPU."""
+    with device_solver.solve_on("cpu"):
+        yield
 PORT = os.path.join(REPO, "tidy3d_tpu_torch")
 FOREIGN = ("tidy3d_tpu", "jax", "jaxlib")
 
@@ -112,6 +121,31 @@ _BLOCKED = textwrap.dedent("""
                       device="cpu", verbose=False)
     assert "2 x-shards" in data.log
     assert data["flux"].flux.values.shape == (3,)
+    os.environ.pop("TIDY3D_TPU_SHARD")
+    # the device mode solver, forced onto the CPU, on the 72 x 48 strip of
+    # tests/test_plugins/test_mode_tpu.py (eps on one grid for all three)
+    import numpy as np
+    import torch
+    from tidy3d_tpu_torch.plugins.mode import compute_modes, device_solver
+    torch.set_num_threads(1)     # small GEMMs beside the suite's workers
+    os.environ["TIDY3D_TPU_MODE_SOLVER"] = "filter"
+    x_b, y_b = ((np.arange(n + 1) - n / 2) * 0.025 for n in (72, 48))
+    xx, yy = np.meshgrid(x_b[:-1], y_b[:-1], indexing="ij")
+    eps = np.where((abs(xx) < 0.25) & (abs(yy) < 0.125), 9.0, 1.444**2)
+    _, n_eff = compute_modes([eps.astype(complex)] * 3, (x_b, y_b),
+                             td.C_0 / 1.55, td.ModeSpec(num_modes=3,
+                                                        target_neff=2.2),
+                             device="cpu")
+    assert device_solver.SOLVES == 1 and device_solver.FALLBACKS == 0
+    assert 1.444 < n_eff[0].real < 3.0, n_eff
+    # the web layer, the lsf converter and the new exports
+    job = td.web.Job(simulation=SIMS["pml_all"](monitors=monitors()[1:2],
+                                                run_time=5e-15),
+                     task_name="job", device="cpu", verbose=False)
+    assert job.run()["flux"].flux.values.shape == (3,)
+    from tidy3d_tpu_torch.web.lsf_converter import convert_lsf_to_python
+    assert "import tidy3d_tpu_torch as td" in convert_lsf_to_python("addrect;")
+    assert td.ModeData and td.Graphene and td.ModulationSpec and td.config
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("MODULES", len(list(pkgutil.walk_packages(
         tidy3d_tpu_torch.__path__, "tidy3d_tpu_torch."))), "BLOCKED", loaded)
@@ -126,6 +160,44 @@ def test_the_port_imports_and_runs_with_both_blocked():
                           timeout=300, check=False)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BLOCKED []" in proc.stdout, proc.stdout[-2000:]
+
+
+def _public_names(pkg) -> set:
+    """The names a package binds at its top level (submodules other than
+    ``web`` left out)."""
+    return {name for name in dir(pkg) if not name.startswith("_")
+            and (name == "web"
+                 or not isinstance(getattr(pkg, name), types.ModuleType))}
+
+
+def _eme_or_heat(obj) -> bool:
+    return (getattr(obj, "__module__", None) or "").startswith(
+        ("tidy3d_tpu.components.eme", "tidy3d_tpu.components.heat"))
+
+
+@pytest.mark.parametrize("where", ["top", "web"])
+def test_public_names_are_the_references(where):
+    """The port binds the JAX package's top-level and ``web`` names, but
+    for the EME and heat solvers, which are not ported yet."""
+    import tidy3d_tpu
+    import tidy3d_tpu_torch
+
+    ref, port = tidy3d_tpu, tidy3d_tpu_torch
+    if where == "web":
+        ref, port = ref.web, port.web
+        assert sorted(port.__all__) == sorted(ref.__all__)
+        assert len(port.__all__) == 14
+    want = {name for name in _public_names(ref)
+            if not _eme_or_heat(getattr(ref, name))}
+    got = _public_names(port)
+    assert got == want, (sorted(want - got), sorted(got - want))
+    if where == "top":
+        assert len(_public_names(ref) - want) == 32
+        for name in ("ModeData", "ModeSolverData", "DiffractionData",
+                     "PermittivityData", "FieldDataset", "Updater",
+                     "Graphene", "RunTimeSpec", "LumpedResistor", "config"):
+            assert getattr(port, name).__module__.startswith(
+                "tidy3d_tpu_torch"), name
 
 
 def _equal(a, b, path: str):

@@ -26,6 +26,7 @@ import torch
 
 import tidy3d_tpu_torch as tt
 from tidy3d_tpu_torch.exceptions import SetupError
+from tidy3d_tpu_torch.plugins.mode import device_solver
 from tidy3d_tpu_torch.solver import fdtd as port_fdtd
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 from tidy3d_tpu_torch.solver.lowering import lower
@@ -53,6 +54,10 @@ def _env(monkeypatch):
     for key in ("TIDY3D_TPU_KSTEP", "TIDY3D_TPU_SHARD", "TIDY3D_TPU_PROFILE",
                 "TIDY3D_TPU_HBM_BYTES", "TIDY3D_TPU_MEM_CHECK"):
         monkeypatch.delenv(key, raising=False)
+    # the mode solves of a bare lower() (mode sources) on the CPU too, as
+    # web.run(device="cpu") runs its own
+    with device_solver.solve_on("cpu"):
+        yield
 
 
 def _values(data) -> dict:

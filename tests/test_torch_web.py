@@ -10,7 +10,6 @@ import os
 import subprocess
 import sys
 import textwrap
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -21,6 +20,7 @@ from tests.torch_cases import SIMS, monitors, to_reference
 from tidy3d_tpu import web as ref_web
 
 import tidy3d_tpu_torch as tt
+from tidy3d_tpu_torch.exceptions import WebError
 
 TOL = 2e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,15 +66,11 @@ def test_web_run_refuses_what_is_not_ported():
     box = tt.Box(center=(0, 0, 0.1), size=(0.2, 0.2, 0.2))
     kerr = tt.Medium(permittivity=2.0, nonlinear_spec=tt.NonlinearSpec(
         models=[tt.KerrNonlinearity(n2=1e-3)]))
-    # the port has no copy of the time-modulation schema yet: the lowering
-    # reads these attributes of a medium's ``modulation_spec``
-    modulation = SimpleNamespace(
-        applied_modulation=True, conductivity=None,
-        permittivity=SimpleNamespace(
-            negligible_modulation=False,
-            time_modulation=SimpleNamespace(freq0=1e13, phase=0.0,
-                                            amplitude=1.0),
-            space_modulation=SimpleNamespace(amplitude=0.1, phase=0.0)))
+    # the schema is the port's copy of ``components/time_modulation.py``:
+    # constructible, refused by the runner
+    modulation = tt.ModulationSpec(permittivity=tt.SpaceTimeModulation(
+        time_modulation=tt.ContinuousWaveTimeModulation(freq0=1e13,
+                                                        amplitude=0.1)))
     modulated = tt.Medium(permittivity=2.0, modulation_spec=modulation)
     for medium, match in ((kerr, "nonlinear media"),
                           (modulated, "time-modulated media")):
@@ -82,6 +78,68 @@ def test_web_run_refuses_what_is_not_ported():
             tt.Structure(geometry=box, medium=medium)]))
         with pytest.raises(NotImplementedError, match=match):
             tt.web.run(sim, device="cpu", verbose=False)
+
+
+@pytest.mark.parametrize("knob", ["TIDY3D_TPU_PSI_DTYPE",
+                                  "TIDY3D_TPU_Q_DTYPE"])
+def test_web_run_refuses_bf16_storage(monkeypatch, knob):
+    """The JAX package's k-step kernel stores psi or the pole state in
+    bf16 under these knobs; the port refuses them on every tier before
+    any launch, as it refuses ``TIDY3D_TPU_PRECISION``."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    monkeypatch.setenv(knob, "bfloat16")
+    launches = (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES)
+    for tier in ("auto", "kstep", "fused", "pallas2"):
+        monkeypatch.setenv("TIDY3D_TPU_KERNEL", tier)
+        with pytest.raises(NotImplementedError,
+                           match=f"'bfloat16' \\({knob}\\) is not ported"):
+            tt.web.run(SIMS["pml_all"](), device="cpu", verbose=False)
+    assert (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES) == launches
+    # float32 (or unset) runs
+    monkeypatch.setenv(knob, "float32")
+    monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
+    data = tt.web.run(SIMS["pml_all"](monitors=monitors()[1:2],
+                                      run_time=5e-15),
+                      device="cpu", verbose=False)
+    assert np.all(np.isfinite(data["flux"].flux.values))
+
+
+def test_job_and_batch_match_web_run():
+    """``web.Job`` and ``web.Batch`` (and ``run_async``) on the CPU give
+    the ``SimulationData`` of ``web.run``: the same flux and fields."""
+    sims = {"a": SIMS["pml_all"](monitors=monitors(), run_time=5e-15),
+            "b": SIMS["periodic"](monitors=monitors(), run_time=5e-15)}
+    want = {name: tt.web.run(sim, device="cpu", verbose=False)
+            for name, sim in sims.items()}
+
+    def same(got, ref):
+        assert isinstance(got, tt.SimulationData)
+        for mon in ("flux", "field"):
+            for name in ("flux", "Ex", "Ez", "Hy"):
+                r = getattr(ref[mon], name, None)
+                if r is not None:
+                    assert np.array_equal(getattr(got[mon], name).values,
+                                          r.values), (mon, name)
+
+    job = tt.web.Job(simulation=sims["a"], task_name="a", device="cpu",
+                     verbose=False)
+    same(job.run(), want["a"])
+    assert job.status == "success"
+    batch = tt.web.Batch(simulations=sims, device="cpu", verbose=False)
+    results = batch.run()
+    assert sorted(results.keys()) == ["a", "b"]
+    for name, data in results.items():
+        same(data, want[name])
+    for name, data in tt.web.run_async(sims, device="cpu",
+                                       verbose=False).items():
+        same(data, want[name])
+    # the default device is the card: without one the task fails there
+    if not torch.cuda.is_available():
+        job = tt.web.Job(simulation=sims["a"], task_name="gpu",
+                         verbose=False)
+        with pytest.raises(WebError, match="no CUDA device"):
+            job.run()
 
 
 def test_web_run_defaults_to_the_gpu():

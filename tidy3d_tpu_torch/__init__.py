@@ -3,10 +3,11 @@
 The package stands alone: it imports torch, numpy, scipy and pydantic, and
 nothing of ``tidy3d_tpu`` or JAX. Its schema (``components``), the
 lowering to a ``SimulationPlan`` (``solver.lowering``), the CPML and field
-sources, the CPU mode solver and the material library are copies of the
+sources, the host mode solver and the material library are copies of the
 JAX-free modules of ``tidy3d_tpu`` under the same relative paths. What runs
-on the device — the time-stepping runner and its kernels — is this
-package's own: PyTorch around hand-written CUDA kernels for Hopper.
+on the device — the time-stepping runner and its kernels, and the mode
+solver's Chebyshev filter — is this package's own: PyTorch around
+hand-written CUDA kernels for Hopper.
 
     import tidy3d_tpu_torch as td
     sim = td.Simulation(...)
@@ -14,11 +15,14 @@ package's own: PyTorch around hand-written CUDA kernels for Hopper.
                                       # plain PyTorch path
 
 A simulation of either package crosses to the other through its JSON:
-``tidy3d_tpu.Simulation.parse_raw(sim.json())`` and back.
+``tidy3d_tpu.Simulation.parse_raw(sim.json())`` and back. The top-level
+and ``web`` names are the JAX package's, but for its EME and heat solvers,
+which are not ported yet.
 """
 
 from . import _malloc  # noqa: F401  (glibc tuning; must run before numpy allocs)
 from .constants import C_0, EPSILON_0, ETA_0, HBAR, K_B, MU_0, Q_e, inf
+from .config import config
 from .log import log, set_logging_console, set_logging_file, set_logging_level
 from .version import __version__
 
@@ -153,25 +157,76 @@ from .components.subpixel_spec import (
 
 # --- data ------------------------------------------------------------------ #
 from .components.data.data_array import (
+    ChargeDataArray,
     DataArray,
+    DiffractionDataArray,
+    FieldProjectionAngleDataArray,
+    FieldProjectionCartesianDataArray,
+    FieldProjectionKSpaceDataArray,
     FluxDataArray,
     FluxTimeDataArray,
     FreqDataArray,
+    FreqModeDataArray,
+    GroupIndexDataArray,
+    HeatDataArray,
+    ModeAmpsDataArray,
+    ModeIndexDataArray,
     ScalarFieldDataArray,
     ScalarFieldTimeDataArray,
+    ScalarModeFieldDataArray,
     SpatialDataArray,
     TimeDataArray,
 )
+from .components.data.dataset import (
+    FieldDataset,
+    FieldTimeDataset,
+    ModeSolverDataset,
+    PermittivityDataset,
+)
 from .components.data.monitor_data import (
+    DiffractionData,
     FieldData,
     FieldTimeData,
     FluxData,
     FluxTimeData,
+    ModeData,
+    ModeSolverData,
+    PermittivityData,
 )
 from .components.data.sim_data import SimulationData
 
+# --- lumped elements / perturbations / modulation -------------------------- #
+from .components.lumped_element import CoaxialLumpedResistor, LumpedResistor
+from .components.parameter_perturbation import (
+    CustomChargePerturbation,
+    CustomHeatPerturbation,
+    IndexPerturbation,
+    LinearChargePerturbation,
+    LinearHeatPerturbation,
+    ParameterPerturbation,
+    PermittivityPerturbation,
+)
+from .components.time_modulation import (
+    ContinuousWaveTimeModulation,
+    ModulationSpec,
+    SpaceTimeModulation,
+    SpatialModulationCustom,
+    SpatialModulationUniform,
+)
+from .components.run_time_spec import RunTimeSpec
+from .updater import Updater
+
+from .components.data.unstructured import (
+    CellDataArray,
+    IndexedDataArray,
+    PointDataArray,
+    TetrahedralGridDataset,
+    TriangularGridDataset,
+)
+
 # --- material library ------------------------------------------------------ #
 from .material_library.material_library import material_library
+from .material_library.parametric_materials import Graphene
 
 # --- execution ------------------------------------------------------------- #
 from . import web

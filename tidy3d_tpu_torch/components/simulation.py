@@ -1,6 +1,6 @@
 """The FDTD Simulation specification.
 
-Behavioral model: /root/reference/tidy3d/components/simulation.py
+Behavioral model: the upstream tidy3d components/simulation.py
 (Simulation:1580, AbstractYeeGridSimulation:141): structures + sources +
 monitors + boundaries + grid_spec + symmetry + run_time, with derived grid
 (:4296), CFL time step (:4194), time mesh (:4214), Nyquist stride (:4414),
@@ -193,9 +193,10 @@ class Simulation(Box):
                     z: float = None, gds_layer_dtype_map=None) -> None:
         """Export structure cross-sections at a plane to a GDSII file
         (reference: simulation.py Simulation.to_gds_file)."""
-        raise NotImplementedError(
-            "GDSII export (components/gds.py) is not ported yet "
-            "(ROADMAP.md: schema extras)")
+        from .gds import simulation_to_gds_file
+
+        simulation_to_gds_file(self, fname, z=z, y=y, x=x,
+                               gds_layer_dtype_map=gds_layer_dtype_map)
 
     @pydantic.model_validator(mode="before")
     @classmethod
@@ -1082,11 +1083,12 @@ class Simulation(Box):
     # ------------------------------------------------------------------ #
 
     def plot_3d(self, width=800, height=800, path=None):
-        """Interactive 3D viewer (reference ``simulation.py:4169``
-        ``plot_3d``): not ported yet."""
-        raise NotImplementedError(
-            "the 3D viewer (components/viz3d.py) is not ported yet "
-            "(ROADMAP.md: schema extras)")
+        """Interactive self-contained 3D viewer (reference
+        ``simulation.py:4169`` ``plot_3d`` -> hosted widget; here a
+        zero-dependency inline HTML renderer, see ``viz3d.py``)."""
+        from .viz3d import plot_sim_3d
+
+        return plot_sim_3d(self, width=width, height=height, path=path)
 
     def plot(self, x: float = None, y: float = None, z: float = None,
              ax: Ax = None, **kwargs):

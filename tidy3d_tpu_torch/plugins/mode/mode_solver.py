@@ -1,6 +1,6 @@
 """ModeSolver: user-facing mode solving on a plane of a Simulation.
 
-Behavioral model: /root/reference/tidy3d/plugins/mode/mode_solver.py
+Behavioral model: the upstream tidy3d plugins/mode/mode_solver.py
 (ModeSolver:97 — plane discretization, per-freq solve loop, eps construction
 on the Yee cross-section, normalization, group index, to_source/to_monitor).
 
@@ -35,6 +35,7 @@ from ...components.types import Direction, FreqArray, annotate_type
 from ...constants import C_0
 from ...exceptions import SetupError, ValidationError
 from ...log import log
+from .device_solver import solve_on
 from .solver import compute_modes
 
 # fraction of cells under which we warn the plane is too coarse
@@ -417,8 +418,14 @@ class ModeSolver(Tidy3dBaseModel):
             )
         return data.copy(update=update)
 
-    def solve(self) -> ModeSolverData:
-        return self.data
+    def solve(self, device=None) -> ModeSolverData:
+        """The mode data; a plane routed to the device filter runs it on
+        ``device`` (None: the innermost ``device_solver.solve_on`` scope's,
+        else CUDA)."""
+        if device is None:
+            return self.data
+        with solve_on(device):
+            return self.data
 
     # ------------------------------------------------------------------ #
     # exports

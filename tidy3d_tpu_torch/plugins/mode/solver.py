@@ -1,7 +1,7 @@
 """Vector finite-difference waveguide mode eigensolver on a 2D Yee cross
 section.
 
-Role model: /root/reference/tidy3d/plugins/mode/solver.py (EigSolver — sparse
+Role model: the upstream tidy3d plugins/mode/solver.py (EigSolver — sparse
 operator assembly + ARPACK shift-invert). This implementation re-derives the
 discrete eigenproblem directly from the staggered Yee equations (see below),
 assembles sparse operators, and solves with shift-invert ARPACK on host.
@@ -22,7 +22,6 @@ transverse-E eigenproblem  (-A B) e_t = beta^2 e_t.
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -80,6 +79,7 @@ def compute_modes(
     mode_spec,
     direction: str = "+",
     solver_basis_fields=None,
+    device=None,
 ) -> Tuple[dict, np.ndarray]:
     """Solve for waveguide modes on a 2D Yee cross-section.
 
@@ -93,6 +93,10 @@ def compute_modes(
         (len Nx+1, Ny+1).
     freq : frequency [Hz].
     mode_spec : ModeSpec.
+    device : where the device filter runs when it is routed there
+        (``plugins/mode/device_solver.py``); None takes the innermost
+        ``device_solver.solve_on`` scope's, else CUDA. Small planes (dense
+        eig) and ARPACK stay on the host on any device.
 
     Returns
     -------
@@ -286,15 +290,34 @@ def compute_modes(
     if 2 * N <= DENSE_SIZE_CUTOFF:
         vals, vecs = np.linalg.eig(M.toarray())
     else:
-        if os.environ.get("TIDY3D_TPU_MODE_SOLVER", "auto").lower() \
-                == "filter":
-            raise NotImplementedError(
-                "the device mode solver (plugins/mode/tpu_solver.py) is not "
-                "ported yet (ROADMAP.md: device mode solver)")
-        vals, vecs = _eigs_arpack_robust(
-            M, N, num_modes, sigma, k0, n_max,
-            real_problem=_is_real_problem(
-                npml_x, npml_y, eps_xx, eps_yy, eps_zz))
+        from .device_solver import use_filter_path
+
+        if use_filter_path(2 * N, has_offaxis=False, device=device):
+            # the device filter iterates on an UNSTRETCHED (sigma=0,
+            # PEC-backed) real proxy whose top spectrum is exactly the
+            # guided modes; stretched matrices would introduce spurious
+            # top eigenvalues (complex CPML spectrum / metric mismatch)
+            ones_x = np.ones(nx, dtype=complex)
+            ones_y = np.ones(ny, dtype=complex)
+            Dxf_p, Dxb_p = (Dxf_1d, Dxb_1d) if uniform_x else \
+                _derivative_mats(x_b, ones_x, ones_x)
+            Dyf_p, Dyb_p = (Dyf_1d, Dyb_1d) if uniform_y else \
+                _derivative_mats(y_b, ones_y, ones_y)
+            out = _eigs_filter_device(
+                Dxf_p, Dxb_p, Dyf_p, Dyb_p,
+                eps_xx, eps_yy, eps_zz, mu_xx, mu_yy, mu_zz,
+                mask_x, mask_y, mask_z, k0, num_modes, n_max, M,
+                sigma=sigma,
+                true_is_real=_is_real_problem(
+                    npml_x, npml_y, eps_xx, eps_yy, eps_zz),
+                device=device)
+            if out is not None:
+                vals, vecs = out
+        if vals is None:
+            vals, vecs = _eigs_arpack_robust(
+                M, N, num_modes, sigma, k0, n_max,
+                real_problem=_is_real_problem(
+                    npml_x, npml_y, eps_xx, eps_yy, eps_zz))
 
     beta = np.sqrt(vals.astype(complex))
     # choose forward-propagating branch: Re(beta) >= 0 (decaying for lossy)
@@ -454,6 +477,59 @@ def _eigs_arpack_robust(M, N, num_modes, sigma, k0, n_max, real_problem):
         log.info("mode solver: only %d/%d physical pairs at shift %.3g; "
                  "retrying at %.3g" % (len(keep), num_modes, sigma, sigma_try))
     return vals, vecs
+
+
+def _eigs_filter_device(Dxf_1d, Dxb_1d, Dyf_1d, Dyb_1d,
+                        eps_xx, eps_yy, eps_zz, mu_xx, mu_yy, mu_zz,
+                        mask_x, mask_y, mask_z, k0, num_modes, n_max, M,
+                        sigma=None, true_is_real=True, device=None):
+    """Device eigensolve of the diagonal-path beta^2 problem via the
+    matrix-free Chebyshev filter (device_solver.py) on ``device``. Returns
+    (vals, vecs) or None on non-convergence (caller falls back to ARPACK).
+
+    PEC handling differs from the sparse path: instead of the ``eps=-1e8``
+    penalty diagonal (which inflates the spectral radius by 1e8 and defeats
+    polynomial filtering), E DOFs at PEC points are pinned to zero through
+    the masks. The final Rayleigh-Ritz runs against the sparse penalty
+    operator ``M``; pinned vectors are exactly in its nullspace at those
+    DOFs, so the two representations agree on the kept modes.
+    """
+    from .device_solver import (assemble_real_proxy, chebyshev_eigs,
+                                make_apply_real, solve_device)
+
+    nx, ny = eps_xx.shape
+    pec_x = np.real(eps_xx) <= -1e7
+    pec_y = np.real(eps_yy) <= -1e7
+    pec_z = np.real(eps_zz) <= -1e7
+    mask_x_f = mask_x * (~pec_x)
+    mask_y_f = mask_y * (~pec_y)
+    inv_eps_z = np.where(pec_z, 0.0, mask_z / np.real(eps_zz))
+    eps_x_f = np.where(pec_x, 1.0, np.real(eps_xx))
+    eps_y_f = np.where(pec_y, 1.0, np.real(eps_yy))
+
+    apply_real = make_apply_real(
+        np.asarray(Dxf_1d.toarray()), np.asarray(Dxb_1d.toarray()),
+        np.asarray(Dyf_1d.toarray()), np.asarray(Dyb_1d.toarray()),
+        eps_x_f, eps_y_f, inv_eps_z,
+        np.asarray(mu_xx), np.asarray(mu_yy), 1.0 / np.asarray(mu_zz),
+        mask_x_f, mask_y_f, k0, device=solve_device(device))
+    lam_hi = (n_max * k0) ** 2
+    # radiation-continuum edge: the cladding light line, estimated from the
+    # densest non-PEC material on the plane's outer frame (where radiation
+    # modes live). Guided modes sit strictly above it.
+    frame = np.zeros((nx, ny), dtype=bool)
+    frame[0, :] = frame[-1, :] = frame[:, 0] = frame[:, -1] = True
+    eps_frame = [np.real(e)[frame & ~p]
+                 for e, p in ((eps_xx, pec_x), (eps_yy, pec_y))]
+    eps_clad = max((float(v.max()) for v in eps_frame if v.size), default=1.0)
+    lam_edge = eps_clad * k0**2
+    m_proxy = assemble_real_proxy(
+        Dxf_1d.toarray(), Dxb_1d.toarray(), Dyf_1d.toarray(),
+        Dyb_1d.toarray(), eps_x_f, eps_y_f, inv_eps_z,
+        mu_xx, mu_yy, 1.0 / np.asarray(mu_zz), mask_x_f, mask_y_f, k0)
+    return chebyshev_eigs(apply_real, (nx, ny), num_modes, lam_hi, m_host=M,
+                          lam_edge=lam_edge, m_proxy=m_proxy, sigma=sigma,
+                          true_is_real=true_is_real)
 
 
 def _shear_tensor(angle_theta: float, angle_phi: float) -> np.ndarray:

@@ -156,6 +156,16 @@ def _check_supported(plan: SimulationPlan, precision) -> None:
         raise NotImplementedError(
             f"field storage precision '{prec}' is not ported yet; only "
             "float32 runs")
+    # the JAX package's k-step kernel stores psi or the pole state in bf16
+    # under these knobs (pallas_kstep.py:158-175); every tier here refuses
+    # them rather than run float32 unasked
+    for knob, what in (("TIDY3D_TPU_PSI_DTYPE", "psi"),
+                       ("TIDY3D_TPU_Q_DTYPE", "pole state")):
+        value = os.environ.get(knob, "")
+        if value == "bfloat16":
+            raise NotImplementedError(
+                f"{what} storage precision '{value}' ({knob}) is not ported "
+                "yet; only float32 runs")
 
 
 def bloch_phases(plan: SimulationPlan):

@@ -70,6 +70,7 @@ from ..components.monitor import (
 from ..components.simulation import Simulation
 from ..constants import C_0
 from ..log import log
+from ..plugins.mode.device_solver import solve_on
 from ..plugins.mode.mode_solver import ModeSolver
 from ..solver.distributed import sharding_plan_from_env
 from ..solver.fdtd import FDTDRunner
@@ -110,7 +111,10 @@ def run(
         raise RuntimeError("web.run: no CUDA device is available; pass "
                            "device='cpu' to run the plain PyTorch path")
     simulation.validate_pre_upload()
-    plan = lower(simulation)
+    # every mode solve of the run (the mode sources' in lower(), the mode
+    # and mode-solver monitors') runs its device stage on this device
+    with solve_on(device):
+        plan = lower(simulation)
     if verbose:
         nx, ny, nz = plan.shape
         log.info(f"[{task_name}] lowered: grid {nx}x{ny}x{nz}, "
@@ -142,7 +146,9 @@ def run(
         log.info(f"[{task_name}] solved {runner.steps_run} steps in "
                  f"{runner.wall_time:.2f}s ({rate / 1e9:.2f} "
                  "Gcell*steps/s).")
-    sim_data = assemble_sim_data(simulation, plan, raw, runner, task_name)
+    with solve_on(device):
+        sim_data = assemble_sim_data(simulation, plan, raw, runner,
+                                     task_name)
     if path is not None:
         sim_data.to_file(path)
     return sim_data
@@ -477,8 +483,9 @@ def _make_diffraction_data(simulation, mp, raw_mon) -> DiffractionData:
 
 def _make_mode_data(simulation, mp, raw_mon):
     """ModeData (the DFT fields' overlaps with the solver's modes in both
-    directions) or ModeSolverData (the modes), from the CPU mode solver
-    (``tidy3d_tpu/web/run.py:455-524``)."""
+    directions) or ModeSolverData (the modes), from the mode solver on the
+    run's device (``web.run``'s ``solve_on`` scope;
+    ``tidy3d_tpu/web/run.py:455-524``)."""
     monitor = mp.monitor
     freqs = np.asarray(mp.freqs)
     mode_spec = monitor.mode_spec

@@ -7,9 +7,9 @@ Phases (any failure exits non-zero):
 1. the card's name and power limit, the torch and CUDA versions;
 2. build the six kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
    ``fused.cu``, ``kstep.cu`` and the labs' ``lab_step.cu``,
-   ``lab_kstep.cu``, ``lab_pole.cu``) with nvcc for sm_90a, one nvcc
-   process each, started together, and print their register and spill
-   reports; for every instantiation of the k-step kernel (0 to 8 pole slots
+   ``lab_kstep.cu``, ``lab_pole.cu``) and phase 28's bf16 variants of the
+   first three (six libraries) with nvcc for sm_90a, one nvcc process
+   each, started together, and print their register and spill reports; for every instantiation of the k-step kernel (0 to 8 pole slots
    and Bloch, each bulk and shell) its registers, spills and blocks of 512
    threads per SM (the CUDA occupancy calculator);
 3. the family-update kernel against its plain PyTorch version for one E and
@@ -196,7 +196,31 @@ Phases (any failure exits non-zero):
 27. ``web.Job(...).run()`` of the 64x48x80 mixed case with the broadband
     DFT monitors, launch counts set to 0 just before and read just after:
     the launches and the flux of ``web.run`` of the same case;
-28. the JSON summary lines; the last line is the contract line. Each
+28. (run after phase 9) bf16 storage: each bf16 library's build seconds
+    and registers and spills, the blocks per SM of the family and fused
+    kernels (float32 and bf16) and of every k-step instantiation in the
+    four bf16 combinations (psi; Q; psi and Q; all
+    three); each bf16 kernel against its bf16 plain version, to 1e-2 of the
+    largest magnitude (both round once where they store; a product the
+    kernel contracts into an FMA may move a stored value by one bf16 step),
+    with the share of bit-equal values: one family half-step (E and H) at
+    64x48x80 and 384^3, one fused step on the 384^3 dispersive case, one
+    k-step group on the 384^3 broadband and dispersive cases, on the 280^3
+    7-pole Au case with the pole state alone in bf16, on the 256^3 Bloch
+    dipole and on 4 virtual x-shards of the dispersive case; kernel and
+    plain ms and the bound at the bf16 bytes; 200 k-step steps of the
+    dispersive case in bf16, kernel against plain in turns (to 1e-2);
+    ``TIDY3D_TPU_HBM_BYTES`` between the bf16 and the float32 estimate of
+    the dispersive case: the float32 ``web.run`` raises ``SetupError`` with
+    no launch, the bf16 one (``TIDY3D_TPU_PRECISION=bfloat16``, the default
+    tier) runs with k-step launches only, its flux within 5e-2 of phase 9's
+    float32 flux, its Gcell*steps/s and peak memory beside float32's; then
+    short bf16 ``web.run``s (launch counts set to 0 just before each, read
+    just after) of the 64x48x80 mixed case on the two-phase and the fused
+    tier, of the Bloch dipole, and of the mixed case with the pole state
+    alone in bf16 on the kstep tier, and 20 steps of the 4-shard bf16
+    runner;
+29. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -211,7 +235,8 @@ Phases (any failure exits non-zero):
     instantiations, the k-step lab's entries their registers, shared
     bytes, threads, blocks per SM and x chunks, the step lab's stencil
     entries and ``curl_mix``'s their resources and SASS classes, and
-    ``pole_chan_bf16``'s its SASS classes.
+    ``pole_chan_bf16``'s its SASS classes. The bf16 entries (phase 28)
+    carry the share of their values bit-equal to the plain version's.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -240,6 +265,12 @@ NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
 TOL_FLUX = 2e-2         # a strided DFT against an every-step one
+# a bf16 kernel against its bf16 plain version, relative to the largest
+# magnitude: both round once at the same stores, and where one contracts a
+# product into an FMA the other rounds twice, which may move a stored value
+# by one bf16 step (2^-8 of it at most)
+TOL_BF16 = 1e-2
+TOL_BF16_FLUX = 5e-2    # a bf16 run's flux against the float32 run's
 TOL_BF16 = 1e-2         # bf16 storage: one bf16 ulp is 2^-8 of a value
 TOL_RESUME = 1e-6       # a resumed run against an uninterrupted one
 TOL_MODE_FLUX = 5e-2    # forward mode-0 power against the plane's flux
@@ -281,6 +312,15 @@ def sync() -> None:
 # --------------------------------------------------------------------------- #
 # cases
 # --------------------------------------------------------------------------- #
+
+
+def mixed_dft_case(td, dispersive: bool = False):
+    """``mixed_case`` with the broadband case's field plane and flux box at
+    11 frequencies around 1.55 um."""
+    freqs = np.linspace(td.C_0 / 1.55 * 0.95, td.C_0 / 1.55 * 1.05,
+                        11).tolist()
+    sim = mixed_case(td, dispersive)
+    return sim.copy(update=dict(monitors=_dft_monitors(td, sim.size, freqs)))
 
 
 def _dft_monitors(td, size, freqs):
@@ -579,13 +619,14 @@ def group_bound(runner, state, k: int):
     return bound(*group_work(runner, state, k))
 
 
-def kstep_registers() -> dict:
+def kstep_registers(label: str = "kstep") -> dict:
     """``{(pole slots, bloch, bulk): (registers, spill stores, spill
-    loads)}`` of each instantiation of ``csrc/kstep.cu`` (ptxas's report)."""
+    loads)}`` of each instantiation of ``csrc/kstep.cu`` in the library
+    ``label`` (ptxas's report)."""
     from tidy3d_tpu_torch.labs import _common
 
     out = {}
-    for mangled, regs in _common.registers("kstep").items():
+    for mangled, regs in _common.registers(label).items():
         m = re.search(r"kstep_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
         if m:
             out[(int(m.group(1)), m.group(2) == "1",
@@ -593,17 +634,43 @@ def kstep_registers() -> dict:
     return out
 
 
-def kstep_resources(num_poles: int, bloch: bool) -> dict:
+def kstep_resources(num_poles: int, bloch: bool,
+                    storage=(torch.float32,) * 3) -> dict:
     """Registers and blocks per SM of the bulk and the shell instantiation
-    the k-step kernel runs for ``num_poles`` pole slots (or Bloch)."""
-    from tidy3d_tpu_torch.solver.kernels import kstep
+    the k-step kernel runs for ``num_poles`` pole slots (or Bloch), in the
+    library of the storage types ``storage``."""
+    from tidy3d_tpu_torch import _build
+    from tidy3d_tpu_torch.solver.kernels import kstep, step
 
-    regs = kstep_registers()
+    regs = kstep_registers(_build.label("kstep",
+                                        step.storage_defines(*storage)))
     parts = {"bulk": True, "shell": False}
     return {"registers": {name: regs[(num_poles, bloch, bulk)][0]
                           for name, bulk in parts.items()},
-            "blocks_per_sm": {name: kstep.occupancy(num_poles, bloch, bulk)
+            "blocks_per_sm": {name: kstep.occupancy(num_poles, bloch, bulk,
+                                                    storage)
                               for name, bulk in parts.items()}}
+
+
+def onestep_resources(storage) -> dict:
+    """Registers (ptxas) and blocks per SM (the occupancy calculator) of
+    the family kernel's E and H instantiations and of the fused kernel,
+    in the libraries of the storage types ``storage``."""
+    from tidy3d_tpu_torch import _build
+    from tidy3d_tpu_torch.labs import _common
+    from tidy3d_tpu_torch.solver.kernels import fused, step
+
+    defines = step.storage_defines(*storage)
+    fam = _common.registers(_build.label("step", defines))
+    fus = _common.registers(_build.label("fused", defines))
+    return {
+        "family": {
+            "registers": {f: next(r for m, (r, _, _) in fam.items()
+                                  if f"ILb{int(f == 'E')}E" in m)
+                          for f in "EH"},
+            "blocks_per_sm": {f: step.occupancy(f, storage) for f in "EH"}},
+        "fused": {"registers": next(r for r, _, _ in fus.values()),
+                  "blocks_per_sm": fused.occupancy(storage)}}
 
 
 def lists_per_group(runner) -> int:
@@ -619,17 +686,24 @@ def lists_per_group(runner) -> int:
 
 
 def max_abs(d: dict) -> float:
-    return max(float(v.abs().max()) for v in d.values())
+    return max(float(v.float().abs().max()) for v in d.values())
 
 
 def max_diff(a: dict, b: dict) -> float:
+    """The largest difference, taken in float32 (bf16 widened exactly)."""
     assert set(a) == set(b), (sorted(a), sorted(b))
-    return max(float((a[k] - b[k]).abs().max()) for k in a)
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
 def rel_err(got: dict, ref: dict) -> float:
-    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    assert all(bool(torch.isfinite(v.float()).all()) for v in got.values())
     return max_diff(got, ref) / max(max_abs(ref), 1e-30)
+
+
+def equal_share(got: dict, ref: dict) -> float:
+    """The share of values of ``got`` bit-equal to ``ref``'s."""
+    same = sum(int((got[k] == ref[k]).sum()) for k in ref)
+    return same / sum(v.numel() for v in ref.values())
 
 
 # --------------------------------------------------------------------------- #
@@ -919,9 +993,10 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         values = data[field].Ez.values
         assert values.shape[-1] == 11 and np.all(np.isfinite(values))
         assert np.any(values != 0)
+    tier, storage = lines[-1].split("kernel tier: ")[1].split(" [storage: ")
     return SimpleNamespace(
         data=data, flux=flux, steps=steps_run, launches=launches, rate=rate,
-        tier=lines[-1].split("kernel tier: ")[1], peak=peak,
+        tier=tier, storage=storage.rstrip("]"), peak=peak,
         device_launches=device_launches, host=host, total_s=total_s)
 
 
@@ -1504,10 +1579,7 @@ def run_job(td, smi: str) -> int:
     Returns the k-step launches."""
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
-    freqs = np.linspace(td.C_0 / 1.55 * 0.95, td.C_0 / 1.55 * 1.05,
-                        11).tolist()
-    sim = mixed_case(td)
-    sim = sim.copy(update=dict(monitors=_dft_monitors(td, sim.size, freqs)))
+    sim = mixed_dft_case(td)
     runs = {}
     for how in ("web.run", "web.Job"):
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
@@ -2110,6 +2182,385 @@ def raw_err(ref: dict, got: dict) -> float:
     return worst
 
 
+def bf16_variants() -> list:
+    """``(name, defines)`` of the bf16 kernel libraries: the family and
+    fused kernels storing everything in bf16, and the k-step kernel in the
+    four combinations beside float32 (psi; Q; psi and Q; all three)."""
+    from tidy3d_tpu_torch.solver.kernels import step
+
+    bf, f = torch.bfloat16, torch.float32
+    out = [(name, step.storage_defines(bf, bf, bf))
+           for name in ("step", "fused")]
+    return out + [("kstep", step.storage_defines(*c)) for c in (
+        (f, bf, f), (f, f, bf), (f, bf, bf), (bf, bf, bf))]
+
+
+def bf16_compare(got: dict, ref: dict, what: str) -> tuple:
+    """``(largest relative difference, largest absolute difference, share
+    of bit-equal values)`` of a bf16 kernel's flat output against its plain
+    version's, each of fields, psi and pole currents relative to its own
+    largest magnitude; asserts ``TOL_BF16``."""
+    worst_rel = worst_abs = 0.0
+    for group in ("E", "H", "psi", "Q"):
+        keys = [key for key in ref if key.split(":")[0].rstrip(
+            "0123456789") == group]
+        if not keys:
+            continue
+        g = {key: got[key] for key in keys}
+        r = {key: ref[key] for key in keys}
+        worst_abs = max(worst_abs, max_diff(g, r))
+        worst_rel = max(worst_rel, rel_err(g, r))
+    share = equal_share(got, ref)
+    log(f"[bf16] {what}: kernel vs plain max rel err {worst_rel:.3e} (max "
+        f"abs {worst_abs:.3e}, tol {TOL_BF16:g}), {share:.4%} of the values "
+        f"bit-equal")
+    assert worst_rel <= TOL_BF16, f"{what}: rel err {worst_rel:.3e}"
+    return worst_rel, worst_abs, share
+
+
+def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
+    """Phase 28: bf16 storage on the card. The bf16 libraries' build
+    seconds and resources; each bf16 kernel against its bf16 plain version
+    at full size; 200 k-step steps in turns; ``web.run`` of the dispersive
+    case in bf16 (against ``w_f32``, phase 9's float32 run) under a memory
+    limit that refuses the float32 run; short ``web.run``s that launch the
+    other instantiations on their main paths. Returns the kernels line's
+    bf16 entries."""
+    from tidy3d_tpu_torch import _build, convert
+    from tidy3d_tpu_torch.exceptions import SetupError
+    from tidy3d_tpu_torch.labs import _common
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    bf, f = torch.bfloat16, torch.float32
+    bf16 = (bf, bf, bf)
+    t_phase = time.perf_counter()
+    # the libraries (built with the others in phase 2)
+    for name, defines in bf16_variants():
+        label = _build.label(name, defines)
+        info = _build.BUILDS[label]
+        regs = _common.registers(label)
+        log(f"[bf16] build {label}: built={info.built} in {info.seconds:.2f} "
+            f"s (all sources in parallel), {len(regs)} kernels")
+        if name != "kstep":
+            for mangled, (r, st_, ld_) in sorted(regs.items()):
+                log(f"[bf16] {label} {mangled}: {r} registers, spill "
+                    f"{st_}/{ld_} B")
+            continue
+        storage = tuple(bf if f"T3D_{k}_BF16" in defines else f
+                        for k in ("FIELD", "PSI", "Q"))
+        rows = []
+        for (np_, bl, bulk), (r, st_, ld_) in sorted(
+                kstep_registers(label).items()):
+            occ = kstep.occupancy(np_, bl, bulk, storage)
+            rows.append(f"{'Bloch' if bl else f'NP={np_}'} "
+                        f"{'bulk' if bulk else 'shell'} {r} regs, spill "
+                        f"{st_}/{ld_} B, {occ} blocks/SM")
+        log(f"[bf16] {label}: " + "; ".join(rows))
+    onestep = {}
+    for what, storage in (("float32", (f, f, f)), ("bf16", bf16)):
+        onestep[what] = onestep_resources(storage)
+        log(f"[bf16] {what} libraries: family kernel "
+            f"{onestep[what]['family']}, fused kernel "
+            f"{onestep[what]['fused']}")
+    res = {}
+
+    # one family half-step (E and H), kernel against plain
+    def family(runner, seed, what, reps):
+        state = random_state(runner, seed)
+        worst, src = (0.0, 0.0, 1.0), state["H"]
+        for fam in ("E", "H"):
+            before = step.LAUNCHES
+            kf, kp = step.family_update(fam, state, runner.consts, src,
+                                        runner.meta)
+            sync()
+            assert step.LAUNCHES == before + 1, "kernel did not launch"
+            assert {v.dtype for v in kf.values()} == {bf}
+            rf, rp = step.family_update_reference(fam, state, runner.consts,
+                                                  src, runner.meta)
+            e = bf16_compare(flat_state({"E": kf, "psi": kp, "Q": []}),
+                             flat_state({"E": rf, "psi": rp, "Q": []}),
+                             f"{what} family {fam}")
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]),
+                     min(worst[2], e[2]))
+            src = rf
+        if not reps:
+            return worst, None
+        nE = src
+
+        def pair(fn):
+            def once():
+                e_, _ = fn("E", state, runner.consts, state["H"],
+                           runner.meta)
+                fn("H", state, runner.consts, e_, runner.meta)
+            return once
+
+        k_ms = cuda_ms(pair(step.family_update), reps) / 2
+        p_ms = cuda_ms(pair(step.family_update_reference), 2) / 2
+        ncell = int(np.prod(runner.shape))
+        bnd = bound(
+            (3 * nbytes(state["E"], state["H"]) + 2 * nbytes(state["psi"])
+             + nbytes(stepping_consts(runner))) / 2,
+            OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"]) / 2)
+        del nE
+        log(f"[bf16] {what}: family kernel {k_ms:.3f} ms/launch, plain "
+            f"{p_ms:.3f}; bound {bnd[0]:.3f} ms by {bnd[1]}, ratio "
+            f"{k_ms / bnd[0]:.2f} | {smi}")
+        return worst, (k_ms, p_ms, bnd)
+
+    mixed = lower(mixed_case(td, dispersive=True))
+    family(FDTDRunner(mixed, device=dev, precision="bfloat16",
+                      kernel="pallas2"), 21, "64x48x80 mixed, 1 pole", 0)
+    res["family"] = family(FDTDRunner(plan, device=dev, precision="bfloat16",
+                                      kernel="pallas2"), 22,
+                           f"{plan.shape} broadband", 20)
+
+    # one fused step on the dispersive case
+    fr = FDTDRunner(plan_d, device=dev, precision="bfloat16", kernel="fused")
+    state = random_state(fr, 23)
+    src = step_sources(fr)
+    before = fused.LAUNCHES
+    got = fused.fused_step(state, fr.consts, fr.meta, src)
+    sync()
+    assert fused.LAUNCHES == before + 1, "fused kernel did not launch"
+    ref = fused.fused_step_reference(state, fr.consts, fr.meta, src)
+    e_fused = bf16_compare(
+        flat_state({"E": got[0], "H": got[1], "psi": got[2], "Q": []}),
+        flat_state({"E": ref[0], "H": ref[1], "psi": ref[2], "Q": []}),
+        f"{plan_d.shape} dispersive fused step")
+    del got, ref
+    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src),
+                   20)
+    fp_ms = timed(lambda: fused.fused_step_reference(state, fr.consts,
+                                                     fr.meta, src))[1]
+    ncell = int(np.prod(plan_d.shape))
+    f_bnd = bound(
+        2 * nbytes(state["E"], state["H"], state["psi"])
+        + nbytes(state["Q"], stepping_consts(fr)),
+        2 * OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"])
+        + 4 * 3 * len(state["Q"]) * ncell)
+    log(f"[bf16] {plan_d.shape} dispersive: fused kernel {f_ms:.3f} ms/step, "
+        f"plain {fp_ms:.3f}; bound {f_bnd[0]:.3f} ms by {f_bnd[1]}, ratio "
+        f"{f_ms / f_bnd[0]:.2f} | {smi}")
+    res["fused"] = (e_fused, (f_ms, fp_ms, f_bnd))
+    del state, fr
+
+    # one k-step group: broadband and dispersive in bf16, the 7-pole Au
+    # case with the pole state alone in bf16, the Bloch dipole in bf16
+    def group(runner, seed, what, reps=10):
+        st = random_state(runner, seed)
+        k, t0 = runner.k, 36
+        before = kstep.LAUNCHES
+        got = kstep.kstep_group(st, runner.consts, runner.meta,
+                                runner.tables, t0, k, out=st["alt"])
+        sync()
+        assert kstep.LAUNCHES == before + 1, "k-step kernel did not launch"
+        assert step.storage_of(got, kstep.COPIES[:1 + runner.is_complex]) \
+            == runner.storage
+        ref, p_ms = timed(lambda: kstep.kstep_group_reference(
+            st, runner.consts, runner.meta, runner.tables, t0, k))
+        err = bf16_compare(flat_state(got), flat_state(ref),
+                           f"{what} k-step group ({runner.storage_name})")
+        del got, ref
+        g_ms = cuda_ms(lambda: kstep.kstep_group(
+            st, runner.consts, runner.meta, runner.tables, t0, k,
+            out=st["alt"]), reps)
+        bnd = group_bound(runner, st, k)
+        r = kstep_resources(len(runner.plan.poles), runner.is_complex,
+                            runner.storage)
+        log(f"[bf16] {what}: k-step kernel {g_ms:.3f} ms/group, plain "
+            f"{p_ms:.3f}; bound {bnd[0]:.3f} ms/group by {bnd[1]} (the "
+            f"group's bytes at its storage types), ratio "
+            f"{g_ms / bnd[0]:.2f}; registers {r['registers']}, blocks per "
+            f"SM {r['blocks_per_sm']} | {smi}")
+        return err, (g_ms, p_ms, bnd), r
+
+    res["broadband"] = group(FDTDRunner(plan, device=dev,
+                                        precision="bfloat16",
+                                        kernel="kstep"), 24,
+                             f"{plan.shape} broadband")
+    kd = FDTDRunner(plan_d, device=dev, precision="bfloat16", kernel="kstep")
+    res["dispersive"] = group(kd, 25, f"{plan_d.shape} dispersive")
+    os.environ["TIDY3D_TPU_Q_DTYPE"] = "bfloat16"
+    try:
+        km = FDTDRunner(plan_m, device=dev, kernel="kstep")
+    finally:
+        del os.environ["TIDY3D_TPU_Q_DTYPE"]
+    assert km.storage == (f, f, bf), km.storage
+    res["q"] = group(km, 26, f"{plan_m.shape} 7-pole Au, Q in bf16", 5)
+    del km
+    plan_b = lower(bloch_case(td))
+    res["bloch"] = group(FDTDRunner(plan_b, device=dev, precision="bfloat16"),
+                         27, f"{plan_b.shape} Bloch dipole")
+
+    # 4 virtual x-shards of the dispersive case, one group
+    sr = sharded_runner(plan_d, [dev] * 4, precision="bfloat16")
+    glob = random_state(kd, 28)
+    states = convert.shard_states_from_reference(glob, sr)
+    del glob
+    before = kstep.SHARDED_LAUNCHES
+    news = shard_group(kstep.kstep_group, sr, states, 36)
+    sync()
+    assert kstep.SHARDED_LAUNCHES == before + 4, "sharded kernel idle"
+    got = flat_state(convert.shard_states_to_reference(news, sr,
+                                                       tensors=True))
+    ref, sp_ms = timed(lambda: convert.shard_states_to_reference(
+        shard_group(kstep.kstep_group_reference, sr, states, 36), sr,
+        tensors=True))
+    e_sh = bf16_compare(got, flat_state(ref), "4 x-shards dispersive group")
+    del got, ref
+    s_ms = cuda_ms(lambda: shard_group(kstep.kstep_group, sr, states, 36), 5)
+    s_bnd = group_bound(kd, kd.init_state(), kd.k)
+    log(f"[bf16] 4 x-shards dispersive: group {s_ms:.3f} ms (exchange and "
+        f"4 launches), plain {sp_ms:.3f}; unsharded bound {s_bnd[0]:.3f} ms "
+        f"| {smi}")
+    # the sharded runner's own loop: 20 steps, launch counts read around
+    kstep.SHARDED_LAUNCHES = 0
+    sr.run_steps(0, 20, sr.init_state())
+    sync()
+    res["sharded"] = (e_sh, (s_ms, sp_ms, s_bnd), kstep.SHARDED_LAUNCHES)
+    assert res["sharded"][2] == 4 * 20 // sr.k, res["sharded"][2]
+    del sr, states, news, kd
+
+    # 200 k-step steps of the dispersive case, kernel against plain
+    rates = compare_runners_bf16(plan_d, dev, smi)
+
+    # web.run of the dispersive case in bf16 under a limit between the
+    # bf16 and the float32 estimate: the float32 run refused, no launch
+    est = {name: FDTDRunner(plan_d, device=dev, precision=prec)
+           .estimate_device_memory()["total"]
+           for name, prec in (("f32", None), ("bf16", "bfloat16"))}
+    limit = (est["f32"] + est["bf16"]) // 2
+    assert est["bf16"] < limit < est["f32"], est
+    os.environ["TIDY3D_TPU_HBM_BYTES"] = str(limit)
+    try:
+        step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+        kstep.DEVICE_LAUNCHES = 0
+        try:
+            td.web.run(dispersive_case(td), task_name="chip_smoke",
+                       verbose=False)
+            raise AssertionError("the float32 run passed the memory gate")
+        except SetupError as err:
+            refused = str(err)
+        launches = (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES,
+                    kstep.DEVICE_LAUNCHES)
+        assert not any(launches), launches
+        log(f"[bf16] TIDY3D_TPU_HBM_BYTES={limit} (estimates: float32 "
+            f"{est['f32']}, bf16 {est['bf16']} B): the float32 web.run "
+            f"raised SetupError ({refused[:100]}...), launches {launches}")
+        os.environ["TIDY3D_TPU_PRECISION"] = "bfloat16"
+        w = web_run(td, dispersive_case(td), "dispersive bf16, default tier",
+                    smi)
+    finally:
+        del os.environ["TIDY3D_TPU_HBM_BYTES"]
+        os.environ.pop("TIDY3D_TPU_PRECISION", None)
+    assert w.storage == "fields bfloat16, psi bfloat16, Q bfloat16", \
+        w.storage
+    k = int(w.tier.split("k=")[1].rstrip(")"))
+    assert w.launches == {"family": 0, "fused": 0, "kstep": w.steps // k}, \
+        w.launches
+    dev_flux = float(np.max(np.abs(w.flux - w_f32.flux))
+                     / np.max(np.abs(w_f32.flux)))
+    log(f"[bf16] web.run dispersive: bf16 flux vs float32 flux max rel dev "
+        f"{dev_flux:.3e} (tol {TOL_BF16_FLUX:g}); Gcell*steps/s bf16 "
+        f"{w.rate} vs float32 {w_f32.rate}; peak memory bf16 "
+        f"{w.peak} B vs float32 {w_f32.peak} B "
+        f"({w.peak / w_f32.peak:.3f}) | {smi}")
+    assert dev_flux <= TOL_BF16_FLUX, dev_flux
+
+    # the other instantiations on short main paths (web.run, launch counts
+    # set to 0 just before each and read just after)
+    main = {"kstep": w.launches["kstep"]}
+    os.environ["TIDY3D_TPU_PRECISION"] = "bfloat16"
+    try:
+        for name, tier in (("family", "pallas2"), ("fused", "fused")):
+            wm = web_run(td, mixed_dft_case(td, dispersive=True),
+                         f"64x48x80 mixed bf16, {tier} tier", smi,
+                         tier=tier)
+            assert wm.launches[name] > 0 and sum(wm.launches.values()) == \
+                wm.launches[name], wm.launches
+            main[name] = wm.launches[name]
+        wb = web_run(td, bloch_case(td), "Bloch dipole bf16, default tier",
+                     smi)
+        assert wb.launches == {"family": 0, "fused": 0,
+                               "kstep": wb.steps // k}, wb.launches
+        main["bloch"] = wb.launches["kstep"]
+        os.environ["TIDY3D_TPU_PRECISION"] = "float32"
+        os.environ["TIDY3D_TPU_Q_DTYPE"] = "bfloat16"
+        wq = web_run(td, mixed_dft_case(td, dispersive=True),
+                     "64x48x80 mixed, Q in bf16, kstep tier", smi,
+                     tier="kstep")
+        assert wq.storage == "fields float32, psi float32, Q bfloat16"
+        assert wq.launches["kstep"] > 0 and sum(wq.launches.values()) == \
+            wq.launches["kstep"], wq.launches
+        main["q"] = wq.launches["kstep"]
+    finally:
+        os.environ.pop("TIDY3D_TPU_PRECISION", None)
+        os.environ.pop("TIDY3D_TPU_Q_DTYPE", None)
+    log(f"[bf16] phase 28 took {time.perf_counter() - t_phase:.1f} s; main "
+        f"path launches {main}")
+
+    src_step, src_fused = ("tidy3d_tpu_torch/csrc/step.cu",
+                           "tidy3d_tpu_torch/csrc/fused.cu")
+    kstep_src = "tidy3d_tpu_torch/csrc/kstep.cu"
+    kstep_tpu = "tidy3d_tpu/solver/kernels/pallas_kstep.py:1425"
+    (fe, (fk, fp, fb)) = res["family"]
+    out = [entry("family_update_bf16", src_step,
+                 "tidy3d_tpu/solver/kernels/pallas_step.py:118",
+                 main["family"], fe[1], fk, fp, fb, bit_equal=fe[2],
+                 **onestep["bf16"]["family"]),
+           entry("fused_step_bf16", src_fused,
+                 "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
+                 main["fused"], res["fused"][0][1], res["fused"][1][0],
+                 res["fused"][1][1], res["fused"][1][2],
+                 bit_equal=res["fused"][0][2], **onestep["bf16"]["fused"])]
+    for name, key, launches in (("kstep_group_bf16", "dispersive",
+                                 main["kstep"]),
+                                ("kstep_group_q_bf16", "q", main["q"]),
+                                ("kstep_group_bloch_bf16", "bloch",
+                                 main["bloch"])):
+        e, (g, p, b), r = res[key]
+        out.append(entry(name, kstep_src, kstep_tpu, launches, e[1], g, p, b,
+                         bit_equal=e[2], **r))
+    e, (g, p, b), n = res["sharded"]
+    out.append(entry("kstep_group_sharded_bf16", kstep_src,
+                     f"{kstep_tpu} with :1386", n, e[1], g, p, b,
+                     bit_equal=e[2]))
+    log(f"[bf16] broadband group: {res['broadband'][1][0]:.3f} ms vs bound "
+        f"{res['broadband'][1][2][0]:.3f}; 200-step rates {rates}")
+    return out
+
+
+def compare_runners_bf16(plan, dev, smi: str) -> dict:
+    """200 steps of ``plan`` on the kstep tier in bf16, kernel against
+    plain in turns plain, kernel, kernel, plain; fields within
+    ``TOL_BF16``. Returns the Gcell*steps/s of each."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+
+    ncell = int(np.prod(plan.shape))
+    runners = {name: FDTDRunner(plan, device=dev, precision="bfloat16",
+                                kernel="kstep", use_kernel=name == "kernel")
+               for name in ("plain", "kernel")}
+    rates = {"plain": [], "kernel": []}
+    finals = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        st, secs = run_steps_timed(runners[name], STEPS_COMPARE)
+        rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
+        finals[name] = {f"{fam}:{c}": v for fam in ("E", "H")
+                        for c, v in st[fam].items()}
+        del st
+    err = rel_err(finals["kernel"], finals["plain"])
+    log(f"[bf16] dispersive {plan.shape}, kstep tier in bf16: "
+        f"{STEPS_COMPARE} steps kernel vs plain max rel err {err:.3e} (tol "
+        f"{TOL_BF16:g}), {equal_share(finals['kernel'], finals['plain']):.4%}"
+        f" bit-equal; Gcell*steps/s plain {rates['plain']} kernel "
+        f"{rates['kernel']} | {smi}")
+    assert max_abs(finals["plain"]) > 0
+    assert err <= TOL_BF16, f"200 bf16 steps: rel err {err:.3e}"
+    return rates
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2132,7 +2583,8 @@ def main() -> int:
 
     # 2. build the six kernel sources, in parallel
     sources = ["step", "fused", "kstep", "lab_step", "lab_kstep", "lab_pole"]
-    _build.load_all(sources)
+    # with the bf16 variants of phase 28: one nvcc each, all at once
+    _build.load_all(sources + bf16_variants())
     for name in sources:
         info = _build.BUILDS[name]
         log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
@@ -2300,7 +2752,6 @@ def main() -> int:
                                kernel="kstep")
     rates_km = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
                                kernel="kstep")
-    del plan_m
 
     # 8. profile windows
     p2 = profile_window(FDTDRunner(plan, device=dev, kernel="pallas2"),
@@ -2331,7 +2782,7 @@ def main() -> int:
                   tier="fused")
     assert wfb.launches == dict(none, fused=wfb.steps), wfb.launches
     n_kstep = 0
-    rates_k = {}
+    rates_k, w_k = {}, {}
     for what, sim, wf in (("dispersive", dispersive_case(td), wfd),
                           ("broadband", full_case(td), wfb)):
         w = web_run(td, sim, f"{what}, default tier", smi)
@@ -2347,9 +2798,17 @@ def main() -> int:
         assert err <= TOL_FLUX, f"{what}: kstep flux rel err {err:.3e}"
         n_kstep += w.launches["kstep"]
         rates_k[what] = w.rate
+        w_k[what] = w
     log(f"[web.run] Gcell*steps/s: broadband two-phase {w2.rate}, fused "
         f"{wfb.rate}, kstep {rates_k['broadband']}; dispersive fused "
         f"{wfd.rate}, kstep {rates_k['dispersive']} | {smi}")
+
+    # 28. bf16 storage: every bf16 kernel against its plain version, the
+    # bf16 web.run and the memory gate
+    bf16_entries = run_bf16(td, dev, smi, plan, plan_d, plan_m,
+                            w_k["dispersive"])
+    del plan_m, w_k
+    torch.cuda.empty_cache()
 
     # 10-11. Bloch (complex) runs
     bloch = run_bloch(td, dev, smi)
@@ -2409,7 +2868,7 @@ def main() -> int:
               shard["ms"], shard["plain_ms"], shard["bound"],
               registers=shard["registers"],
               blocks_per_sm=shard["blocks_per_sm"]),
-    ] + labs}
+    ] + bf16_entries + labs}
     log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(kernels))

@@ -1,7 +1,8 @@
 """Lab: the k-step kernel's group time on the full-size cases of
 ``chip_smoke.py``, to compare two trees of the port in one run on the card.
 
-    python3 labs/kstep_cases.py [--root DIR] [--poles 3,4,5,6] [case ...]
+    python3 labs/kstep_cases.py [--root DIR] [--poles 3,4,5,6]
+        [--precision bfloat16] [case ...]
 
 Imports ``tidy3d_tpu_torch`` and ``chip_smoke`` from DIR (default: the
 checkout that holds this script), so that a second tree (an unpacked
@@ -17,6 +18,10 @@ adds the Au case's geometry filled with a Lorentz medium of each number
 of poles given. Where the tree reports them, it prints the kernel's
 registers and spills (ptxas) and blocks per SM of each instantiation. The
 last line is the card's name and power limit. Needs a CUDA device.
+
+``--precision bfloat16`` runs the cases (not ``sharded``) with the fields,
+psi and pole currents stored in bf16, the kernel held to its plain version
+to ``chip_smoke.TOL_BF16`` (1e-2) and the bound at the bf16 bytes.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ def lorentz_case(td, chip_smoke, poles: int):
         update=dict(medium=td.Lorentz(eps_inf=2.0, coeffs=coeffs)))]))
 
 
-def time_case(case, make_sim, chip_smoke, td, dev, smi) -> None:
+def time_case(case, make_sim, chip_smoke, td, dev, smi,
+              precision=None) -> None:
     """One case: one group against plain, then 20 timed groups."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.kernels import kstep
@@ -53,9 +59,25 @@ def time_case(case, make_sim, chip_smoke, td, dev, smi) -> None:
     plan = lower(make_sim(td))
     lower_s = time.perf_counter() - t0
     ncell = int(np.prod(plan.shape))
-    runner = FDTDRunner(plan, device=dev, kernel="kstep")
+    runner = FDTDRunner(plan, device=dev, kernel="kstep",
+                        **({"precision": precision} if precision else {}))
     k = runner.k
-    if case == "sharded":
+    if precision:
+        st = chip_smoke.random_state(runner, 9)
+        got = kstep.kstep_group(st, runner.consts, runner.meta,
+                                runner.tables, 36, k, out=st["alt"])
+        ref = kstep.kstep_group_reference(st, runner.consts, runner.meta,
+                                          runner.tables, 36, k)
+        chip_smoke.bf16_compare(chip_smoke.flat_state(got),
+                                chip_smoke.flat_state(ref),
+                                f"{plan.shape} {case}, {precision}")
+        del got, ref
+        bnd = chip_smoke.group_bound(runner, st, k)
+
+        def group():
+            return kstep.kstep_group(st, runner.consts, runner.meta,
+                                     runner.tables, 36, k, out=st["alt"])
+    elif case == "sharded":
         sr = chip_smoke.sharded_runner(plan, [dev] * 4)
         _, states = chip_smoke.compare_sharded_group(
             kstep, runner, sr, 14, f"{plan.shape} dispersive, 4 shards")
@@ -89,6 +111,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--poles", default="")
+    ap.add_argument("--precision", default=None)
     ap.add_argument("cases", nargs="*")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -106,24 +129,33 @@ def main(argv=None) -> int:
     smi = _common.nvidia_smi()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    _build.load_all(["kstep"])
-    print(f"[tree] {root}: kstep.cu built in {time.perf_counter() - t0:.1f}"
+    label = "kstep"
+    if args.precision:
+        from tidy3d_tpu_torch.solver.kernels import step
+
+        bf = torch.bfloat16
+        label = _build.label("kstep", step.storage_defines(bf, bf, bf))
+        _build.load_all([("kstep", step.storage_defines(bf, bf, bf))])
+    else:
+        _build.load_all(["kstep"])
+    print(f"[tree] {root}: {label} built in {time.perf_counter() - t0:.1f}"
           f" s", flush=True)
     for mangled, (regs, st, ld) in sorted(
-            _common.registers("kstep").items()):
+            _common.registers(label).items()):
         print(f"[ptxas] {mangled}: {regs} registers, spill {st}/{ld} B",
               flush=True)
     occupancy = getattr(kstep, "occupancy", None)
     if occupancy is not None:
+        kw = {"storage": (torch.bfloat16,) * 3} if args.precision else {}
         rows = [f"{name} {'bulk' if bulk else 'shell'} "
-                f"{occupancy(np_, bloch, bulk)}"
+                f"{occupancy(np_, bloch, bulk, **kw)}"
                 for name, np_, bloch in [(f"NP={n}", n, False)
                                          for n in range(9)]
                 + [("Bloch", 0, True)] for bulk in (True, False)]
         print(f"[occupancy] blocks per SM: {'; '.join(rows)}", flush=True)
 
-    cases = args.cases or ["broadband", "dispersive", "au", "bloch",
-                           "sharded"]
+    cases = args.cases or ["broadband", "dispersive", "au", "bloch"] + (
+        [] if args.precision else ["sharded"])
     sims = {"broadband": chip_smoke.full_case,
             "dispersive": chip_smoke.dispersive_case,
             "au": chip_smoke.metal_case, "bloch": chip_smoke.bloch_case,
@@ -133,7 +165,8 @@ def main(argv=None) -> int:
             td, chip_smoke, n))(n)
         cases.append(f"lorentz{n}")
     for case in cases:
-        time_case(case, sims[case], chip_smoke, td, dev, smi)
+        time_case(case, sims[case], chip_smoke, td, dev, smi,
+                  args.precision)
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

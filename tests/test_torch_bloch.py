@@ -367,7 +367,9 @@ def test_angled_plane_wave_physics():
         grid_spec=tt.GridSpec.uniform(dl=0.05))
     assert sim.complex_fields
     data = tt.web.run(sim, device="cpu", verbose=False)
-    assert data.log.splitlines()[-1] == "kernel tier: kstep (k=2)"
+    assert data.log.splitlines()[-1] == (
+        "kernel tier: kstep (k=2)"
+        " [storage: fields float32, psi float32, Q float32]")
     fwd = np.abs(data["fwd"].Ez.values).max()
     bwd = np.abs(data["bwd"].Ez.values).max()
     assert abs(fwd - 1.0) < 0.01

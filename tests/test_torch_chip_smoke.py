@@ -129,3 +129,32 @@ def test_new_cases_build(make):
     if make == "waveguide_case":
         assert [m.name for m in chip_smoke.waveguide_case(
             td, monitors=False).monitors] == ["flux"]
+
+
+def test_bf16_phase_pieces():
+    """Phase 28's libraries (six bf16 variants, labelled by their defines),
+    its comparison (float32 differences, the bit-equal share, the bar) and
+    its short main-path case."""
+    import torch
+
+    from tidy3d_tpu_torch import _build
+
+    labels = [_build.label(*v) for v in chip_smoke.bf16_variants()]
+    assert labels == [
+        "step[T3D_FIELD_BF16,T3D_PSI_BF16,T3D_Q_BF16]",
+        "fused[T3D_FIELD_BF16,T3D_PSI_BF16,T3D_Q_BF16]",
+        "kstep[T3D_PSI_BF16]", "kstep[T3D_Q_BF16]",
+        "kstep[T3D_PSI_BF16,T3D_Q_BF16]",
+        "kstep[T3D_FIELD_BF16,T3D_PSI_BF16,T3D_Q_BF16]"]
+    ref = {"E:Ex": torch.tensor([1.0, 2.0, -4.0], dtype=torch.bfloat16),
+           "psi:Ex|1|lo": torch.tensor([0.5, 0.25], dtype=torch.bfloat16)}
+    got = dict(ref, **{"E:Ex": torch.tensor([1.0, 2.0, -4.03125],
+                                            dtype=torch.bfloat16)})
+    rel, ab, share = chip_smoke.bf16_compare(got, ref, "test")
+    assert (rel, ab) == (0.03125 / 4, 0.03125) and share == 0.8
+    with pytest.raises(AssertionError, match="rel err"):
+        chip_smoke.bf16_compare(dict(ref, **{"E:Ex": ref["E:Ex"] * 1.5}),
+                                ref, "test")
+    sim = chip_smoke.mixed_dft_case(td, dispersive=True)
+    assert [m.name for m in sim.monitors] == ["field", "flux"]
+    assert len(sim.monitors[1].freqs) == 11

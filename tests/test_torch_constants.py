@@ -80,9 +80,11 @@ def test_unsupported_plans_raise(monkeypatch):
     sim = SIMS["pml_all"]().copy(update=dict(structures=[disp]))
     with pytest.raises(NotImplementedError, match="dispersive pole slots"):
         FDTDRunner(lower(sim), device="cpu")
-    with pytest.raises(NotImplementedError, match="precision"):
+    # bfloat16 storage runs (test_bf16_precision_runs_on_every_tier); an
+    # unknown storage precision is refused
+    with pytest.raises(NotImplementedError, match="precision 'float16'"):
         FDTDRunner(lower(SIMS["pml_all"]()), device="cpu",
-                   precision="bfloat16")
+                   precision="float16")
     # Bloch runs step on the kstep tier, but not with dispersive poles
     bloch = SIMS["pml_all"]().copy(update=dict(
         structures=[disp.copy(update=dict(medium=td.Lorentz(
@@ -92,3 +94,24 @@ def test_unsupported_plans_raise(monkeypatch):
             z=td.Boundary.pml())))
     with pytest.raises(NotImplementedError, match="Bloch"):
         FDTDRunner(lower(bloch), device="cpu")
+
+
+@pytest.mark.parametrize("tier", ["kstep", "fused", "pallas2"])
+def test_bf16_precision_runs_on_every_tier(tier):
+    """``precision="bfloat16"`` runs on every tier: fields, psi and pole
+    currents stored in bfloat16, as the JAX package stores them on each
+    tier (``_cast_state``; the k-step kernel's psi and Q types default to
+    the fields'), the monitor accumulators in float32."""
+    import torch
+
+    sim = SIMS["pml_all"]()
+    runner = FDTDRunner(lower(sim), device="cpu", precision="bfloat16",
+                        kernel=tier)
+    assert runner.tier == tier
+    bf16 = torch.bfloat16
+    assert runner.storage == (bf16, bf16, bf16)
+    state = runner.run_steps(0, 4, runner.init_state())
+    assert {v.dtype for fam in ("E", "H", "psi")
+            for v in state[fam].values()} == {bf16}
+    assert all(torch.isfinite(v.float()).all() for v in state["E"].values())
+    assert max(float(v.float().abs().max()) for v in state["E"].values()) > 0

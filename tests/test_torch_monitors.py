@@ -324,7 +324,9 @@ def test_web_run_gate_refuses_before_the_loop(monkeypatch):
 def test_web_run_logs_memory_and_host_seconds():
     data = _port(MONITOR_CASES["waveguide"]())
     lines = data.log.splitlines()
-    assert lines[-1] == "kernel tier: fused"
+    assert lines[-1] == (
+        "kernel tier: fused"
+        " [storage: fields float32, psi float32, Q float32]")
     mem = next(line for line in lines if line.startswith("device memory:"))
     assert "peak 0 B" in mem and "on cpu" in mem
     host = next(line for line in lines

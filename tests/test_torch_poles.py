@@ -213,7 +213,9 @@ def test_tier_selection(monkeypatch):
 def test_web_run_logs_the_tier(monkeypatch):
     monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
     data = tt.web.run(SIMS["pml_all"](), device="cpu", verbose=False)
-    assert data.log.splitlines()[-1] == "kernel tier: fused"
+    assert data.log.splitlines()[-1] == (
+        "kernel tier: fused"
+        " [storage: fields float32, psi float32, Q float32]")
 
 
 # --------------------------------------------------------------------------- #

@@ -82,27 +82,29 @@ def test_web_run_refuses_what_is_not_ported():
 
 @pytest.mark.parametrize("knob", ["TIDY3D_TPU_PSI_DTYPE",
                                   "TIDY3D_TPU_Q_DTYPE"])
-def test_web_run_refuses_bf16_storage(monkeypatch, knob):
+def test_web_run_bf16_storage_knobs(monkeypatch, knob):
     """The JAX package's k-step kernel stores psi or the pole state in
-    bf16 under these knobs; the port refuses them on every tier before
-    any launch, as it refuses ``TIDY3D_TPU_PRECISION``."""
+    bf16 under these knobs (``pallas_kstep.py:158-175``) and its one-step
+    tiers read neither; the port runs them on every tier at those types
+    and names them on the ``kernel tier:`` line."""
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     monkeypatch.setenv(knob, "bfloat16")
+    kind = {"TIDY3D_TPU_PSI_DTYPE": "psi", "TIDY3D_TPU_Q_DTYPE": "Q"}[knob]
     launches = (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES)
-    for tier in ("auto", "kstep", "fused", "pallas2"):
+    sim = SIMS["pml_all"](monitors=monitors()[1:2], run_time=5e-15)
+    for tier, name in (("auto", "fused"), ("kstep", "kstep (k=2)"),
+                       ("fused", "fused"), ("pallas2", "pallas2")):
         monkeypatch.setenv("TIDY3D_TPU_KERNEL", tier)
-        with pytest.raises(NotImplementedError,
-                           match=f"'bfloat16' \\({knob}\\) is not ported"):
-            tt.web.run(SIMS["pml_all"](), device="cpu", verbose=False)
+        data = tt.web.run(sim, device="cpu", verbose=False)
+        types = {what: "float32" for what in ("fields", "psi", "Q")}
+        if name.startswith("kstep"):
+            types[kind] = "bfloat16"
+        assert data.log.splitlines()[-1] == (
+            f"kernel tier: {name} [storage: fields {types['fields']}, "
+            f"psi {types['psi']}, Q {types['Q']}]")
+        assert np.all(np.isfinite(data["flux"].flux.values))
     assert (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES) == launches
-    # float32 (or unset) runs
-    monkeypatch.setenv(knob, "float32")
-    monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
-    data = tt.web.run(SIMS["pml_all"](monitors=monitors()[1:2],
-                                      run_time=5e-15),
-                      device="cpu", verbose=False)
-    assert np.all(np.isfinite(data["flux"].flux.values))
 
 
 def test_job_and_batch_match_web_run():

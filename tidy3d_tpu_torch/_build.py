@@ -7,6 +7,11 @@ anew, an unchanged one loads the library already built. The build happens at
 first use, in the process that needs it; nothing is built at import.
 ``load_all`` compiles several sources at once, one nvcc process each.
 
+A *variant* of a source is the source built with preprocessor defines (the
+kernels' storage types, ``-DT3D_FIELD_BF16`` and the like): it is a library
+of its own, named ``label(name, defines)`` (``kstep[T3D_Q_BF16]``), whose
+hash covers the defines, so that a run builds only the variants it uses.
+
 The library is bound with ``ctypes``; the wrappers set ``argtypes`` and pass
 every pointer and the stream as ``ctypes.c_void_p``.
 """
@@ -56,36 +61,54 @@ def _nvcc() -> str:
         "kernels of tidy3d_tpu_torch cannot be built")
 
 
-def _target(name: str):
+def label(name: str, defines=()) -> str:
+    """The name of a source's variant: ``name``, with its defines in
+    brackets (``kstep[T3D_PSI_BF16,T3D_Q_BF16]``)."""
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def _spec(item):
+    """``(name, defines)`` of a ``load_all`` item: a source's name, or a
+    ``(name, defines)`` pair."""
+    if isinstance(item, str):
+        return item, ()
+    name, defines = item
+    return name, tuple(defines)
+
+
+def _target(name: str, defines=()):
     src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so", flags
 
 
-def load_all(names) -> dict:
-    """The loaded libraries of ``csrc/<name>.cu`` for each name, keyed by
-    name. The libraries not built yet are compiled together, one nvcc
-    process per source, all started at once."""
+def load_all(items) -> dict:
+    """The loaded library of each item, a source's name (``csrc/<name>.cu``)
+    or a ``(name, defines)`` variant, keyed by ``label``. The libraries not
+    built yet are compiled together, one nvcc process each, all started at
+    once."""
     t0 = time.perf_counter()
+    specs = {label(*_spec(item)): _spec(item) for item in items}
     jobs = {}
-    for name in names:
-        if name in _LIBS or name in jobs:
+    for key, (name, defines) in specs.items():
+        if key in _LIBS:
             continue
-        src, so = _target(name)
+        src, so, flags = _target(name, defines)
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.Popen([_nvcc(), *flags, "-o", str(tmp),
                                  str(src)], stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
-        jobs[name] = (proc, src, so, tmp)
+        jobs[key] = (proc, src, so, tmp)
     failed = []
-    for name, (proc, src, so, tmp) in jobs.items():
+    for key, (proc, src, so, tmp) in jobs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed to build {src.name} "
+            failed.append(f"nvcc failed to build {key} "
                           f"(exit {proc.returncode}):\n{err}")
             continue
         so.with_suffix(".ptxas.txt").write_text(out + err)
@@ -93,21 +116,22 @@ def load_all(names) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    for name in names:
-        if name in _LIBS:
+    for key, (name, defines) in specs.items():
+        if key in _LIBS:
             continue
-        _, so = _target(name)
+        _, so, _ = _target(name, defines)
         report = so.with_suffix(".ptxas.txt")
-        _LIBS[name] = ctypes.CDLL(str(so))
-        BUILDS[name] = BuildInfo(
-            path=str(so), built=name in jobs, seconds=seconds,
+        _LIBS[key] = ctypes.CDLL(str(so))
+        BUILDS[key] = BuildInfo(
+            path=str(so), built=key in jobs, seconds=seconds,
             ptxas=report.read_text() if report.exists() else "")
-    return {name: _LIBS[name] for name in names}
+    return {key: _LIBS[key] for key in specs}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return load_all([name])[name]
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
+    built first if needed."""
+    return load_all([(name, defines)])[label(name, defines)]
 
 
 def check_struct(lib: ctypes.CDLL, size_fn: str, struct) -> None:

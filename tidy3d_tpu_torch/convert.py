@@ -11,6 +11,12 @@ natural layout (the slab width on its own axis); the Pallas tiers store the
 z slabs transposed as ``(x, z-slab, y)`` (``tidy3d_tpu/solver/fdtd.py:
 803-809``). The port always uses the natural layout. ``z_transposed=True``
 names the Pallas layout on the numpy side.
+
+Storage types: an array is carried to the port at the runner's type for
+its kind (``runner.dtype`` for the fields, ``psi_dtype``, ``q_dtype``),
+through float32: a bfloat16 array of the reference widens to float32
+exactly and narrows back exactly. A port tensor comes back as float32
+numpy, exactly (``_numpy``).
 """
 
 from __future__ import annotations
@@ -25,15 +31,29 @@ def _is_z_slab(key: str) -> bool:
     return key.split("|")[1] == "2"
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as float32 numpy (a bfloat16 one widened exactly)."""
+    t = t.detach()
+    return (t if t.dtype == torch.float32 else t.float()).cpu().numpy()
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    """A numpy array (or tensor) as a new tensor of ``dtype`` on
+    ``device``, through float32."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a, np.float32))
+    return a.to(device=device, dtype=dtype, copy=True).contiguous()
+
+
 def state_from_reference(state_np: dict, runner, z_transposed: bool = False
                          ) -> dict:
     """Port state (tensors on ``runner.device``, empty monitor
     accumulators) from the reference's E/H/psi numpy dicts (both copies of
     a complex run) and, where the plan has poles, its ``Q`` list."""
 
-    def put(a):
+    def put(a, dtype=runner.dtype):
         # a copy: the runner updates the pole currents in place
-        return torch.from_numpy(np.array(a, np.float32)).to(runner.device)
+        return _tensor(a, dtype, runner.device)
 
     state = runner.init_state()
     if ("E1" in state_np) != ("E1" in state):
@@ -46,7 +66,7 @@ def state_from_reference(state_np: dict, runner, z_transposed: bool = False
         for key, v in state_np[p].items():
             if z_transposed and _is_z_slab(key):
                 v = np.transpose(v, (0, 2, 1))
-            psi[key] = put(v)
+            psi[key] = put(v, runner.psi_dtype)
         if set(psi) != set(state[p]):
             raise ValueError("psi slabs differ from the port's: "
                              f"{sorted(set(psi) ^ set(state[p]))}")
@@ -59,8 +79,8 @@ def state_from_reference(state_np: dict, runner, z_transposed: bool = False
     if len(Q) != len(state["Q"]):
         raise ValueError(f"{len(Q)} pole currents given, the plan has "
                          f"{len(state['Q'])} poles")
-    state["Q"] = [{c: (put(qr), put(qi)) for c, (qr, qi) in Qp.items()}
-                  for Qp in Q]
+    state["Q"] = [{c: (put(qr, runner.q_dtype), put(qi, runner.q_dtype))
+                   for c, (qr, qi) in Qp.items()} for Qp in Q]
     return state
 
 
@@ -71,14 +91,14 @@ def state_to_reference(state: dict, z_transposed: bool = False) -> dict:
     out = {}
     for e, h, p in _COPIES[:1 + ("E1" in state)]:
         for fam in (e, h):
-            out[fam] = {c: v.cpu().numpy() for c, v in state[fam].items()}
+            out[fam] = {c: _numpy(v) for c, v in state[fam].items()}
         out[p] = {}
         for key, v in state[p].items():
-            a = v.cpu().numpy()
+            a = _numpy(v)
             if z_transposed and _is_z_slab(key):
                 a = np.ascontiguousarray(np.transpose(a, (0, 2, 1)))
             out[p][key] = a
-    out["Q"] = [{c: (qr.cpu().numpy(), qi.cpu().numpy())
+    out["Q"] = [{c: (_numpy(qr), _numpy(qi))
                  for c, (qr, qi) in Qp.items()} for Qp in state.get("Q", [])]
     if "E1" in state:
         out["Q1"] = []
@@ -95,36 +115,38 @@ def shard_states_from_reference(state_np: dict, runner) -> list:
     lay = runner.layout
     states = runner.init_state()["shards"]
     for s, (sh, st) in enumerate(zip(runner.shards, states)):
-        def put(a):
+        def put(a, dtype=runner.dtype):
             if not isinstance(a, torch.Tensor):
                 a = torch.from_numpy(np.array(a, np.float32))
             if a.shape[0] == lay.nx:
                 a = lay.take(a, s)
-            return a.to(sh.device, copy=True).contiguous()
+            return _tensor(a, dtype, sh.device)
 
         for fam in ("E", "H"):
             st[fam] = {c: put(v) for c, v in state_np[fam].items()}
-        st["psi"] = {key: put(state_np["psi"][key]) for key in st["psi"]}
+        st["psi"] = {key: put(state_np["psi"][key], runner.psi_dtype)
+                     for key in st["psi"]}
         Q = state_np.get("Q", [])
         if len(Q) != len(st["Q"]):
             raise ValueError(f"{len(Q)} pole currents given, the plan has "
                              f"{len(st['Q'])} poles")
-        st["Q"] = [{c: (put(qr), put(qi)) for c, (qr, qi) in Qp.items()}
-                   for Qp in Q]
+        st["Q"] = [{c: (put(qr, runner.q_dtype), put(qi, runner.q_dtype))
+                    for c, (qr, qi) in Qp.items()} for Qp in Q]
     return states
 
 
 def shard_states_to_reference(states: list, runner,
                               tensors: bool = False) -> dict:
-    """The global state (E/H/psi dicts and ``Q`` list, of numpy arrays, or
-    with ``tensors`` of tensors on the first shard's device) from the
-    shards' states: the owned planes of each x-spanning array joined in x
-    order, and each x psi slab from the edge shard that holds it."""
+    """The global state (E/H/psi dicts and ``Q`` list, of float32 numpy
+    arrays, or with ``tensors`` of tensors of their own types on the first
+    shard's device) from the shards' states: the owned planes of each
+    x-spanning array joined in x order, and each x psi slab from the edge
+    shard that holds it."""
     lay = runner.layout
     dev = states[0]["E"]["Ex"].device
 
     def one(a):
-        return a.to(dev) if tensors else a.cpu().numpy()
+        return a.to(dev) if tensors else _numpy(a)
 
     def join(arrays):
         parts = [one(lay.owned(a)) for a in arrays]

@@ -6,7 +6,7 @@
 // PallasFusedStepper.x_fixup (:579, pallas_call at :897), together with the
 // XLA corrections of FDTDRunner._step_fused (tidy3d_tpu/solver/fdtd.py:1505).
 // It computes what the XLA step FDTDRunner._step (fdtd.py:1614) computes up to
-// the H half-step, for real float32 runs with up to MAX_POLES poles:
+// the H half-step, for real runs with up to MAX_POLES poles:
 //
 //   E' = ca_E * E + cb_E * (curl H + psi_E' - sum_p Re(Gc_p Q_p)),
 //        zeroed on the PEC lo walls, plus the J source terms of this step
@@ -35,6 +35,18 @@
 // Tiles that lie in the bulk (no psi slab, no wall, no source box) take a
 // path without those branches; most of a large grid does.
 //
+// Storage. The fields, the psi slabs and the pole currents are stored as
+// float32 or bfloat16, each chosen at compile time (T3D_FIELD_BF16,
+// T3D_PSI_BF16, T3D_Q_BF16: one library per combination). A value is
+// widened to float32 where it is loaded and everything is computed in
+// float32; E', H' and psi' are rounded once, to nearest even, where they are
+// stored, as step_update loads bf16, computes in f32 and rounds at its
+// stores (pallas_fused.py:381, :487, :551). The shared tile keeps E' in
+// float32, so H' reads the E' that was computed, not the stored one, as
+// step_update's H half-step does. The J terms are added to E' before its
+// store: the TPU tier adds them after the kernel, rounded to bf16, and
+// carries them into H' with one more rounding (fdtd.py:1505-1524).
+//
 // The floor is HBM bandwidth: 24 B read (E, H) and 24 B written (E', H') per
 // cell, plus 24 B per pole (Q), plus the per-cell ca/cb arrays where the
 // medium varies and the psi slabs. The neighbour reads of the E stencil (x-1
@@ -44,6 +56,7 @@
 // HBM: the variants that lowered either were the ones that ran faster
 // (PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +71,35 @@ constexpr int OY = TY - 1;
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
 
+#ifdef T3D_FIELD_BF16
+typedef __nv_bfloat16 field_t;
+#else
+typedef float field_t;
+#endif
+#ifdef T3D_PSI_BF16
+typedef __nv_bfloat16 psi_t;
+#else
+typedef float psi_t;
+#endif
+#ifdef T3D_Q_BF16
+typedef __nv_bfloat16 q_t;
+#else
+typedef float q_t;
+#endif
+
+// A stored value, widened to float32 (exact) through the read-only path.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// A float32 value stored, rounded to nearest even in bfloat16.
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
 // One J source term: E'_comp[lo:hi] += term * w (term is the hi - lo box,
 // contiguous, with -cb folded in).
 struct SrcBox {
@@ -70,25 +112,25 @@ struct SrcBox {
 
 // Mirrored by FusedParams in tidy3d_tpu_torch/solver/kernels/fused.py.
 struct FusedParams {
-    const float* e_old[3];
-    const float* h_old[3];
-    float* e_new[3];
-    float* h_new[3];
+    const field_t* e_old[3];
+    const field_t* h_old[3];
+    field_t* e_new[3];
+    field_t* h_new[3];
     const float* ca_e[3];      // per-cell coefficient, or null for the scalar
     const float* cb_e[3];
     const float* ca_h[3];
     const float* cb_h[3];
     const float* inv_e[3];     // E stencil inverse steps (kappa folded in)
     const float* inv_h[3];     // H stencil inverse steps
-    const float* psi_in_e[12];  // [(2 * comp + slot) * 2 + side]: slot 0 is
-    float* psi_out_e[12];       // axis comp+1, slot 1 axis comp+2
-    const float* psi_in_h[12];
-    float* psi_out_h[12];
+    const psi_t* psi_in_e[12];  // [(2 * comp + slot) * 2 + side]: slot 0 is
+    psi_t* psi_out_e[12];       // axis comp+1, slot 1 axis comp+2
+    const psi_t* psi_in_h[12];
+    psi_t* psi_out_h[12];
     const float* pml_b_e[6];   // [2 * axis + side]
     const float* pml_c_e[6];
     const float* pml_b_h[6];
     const float* pml_c_h[6];
-    const float* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
+    const q_t* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
     SrcBox src[MAX_SOURCES];
     float ca_s_e[3];
     float cb_s_e[3];
@@ -117,7 +159,7 @@ typedef float Plane[3][TY][TZ];
 // psi' = b * psi + c * d for the slab of (comp, slot) on axis a that holds
 // cell c, if one does; written back only by the cell's owner.
 __device__ __forceinline__ bool psi_step(
-    const float* const* psi_in, float* const* psi_out,
+    const psi_t* const* psi_in, psi_t* const* psi_out,
     const float* const* pml_b, const float* const* pml_c, const int32_t* w,
     const int32_t* n, int comp, int slot, int a, const int* c, float d,
     bool owner, float* psi) {
@@ -133,9 +175,9 @@ __device__ __forceinline__ bool psi_step(
         l[a] = loc;
         const int off = (l[0] * dim[1] + l[1]) * dim[2] + l[2];
         const float v = __ldg(pml_b[2 * a + side] + loc) *
-                            __ldg(psi_in[idx] + off) +
+                            ld(psi_in[idx] + off) +
                         __ldg(pml_c[2 * a + side] + loc) * d;
-        if (owner) psi_out[idx][off] = v;
+        if (owner) st(psi_out[idx] + off, v);
         *psi = v;
         return true;
     }
@@ -146,19 +188,19 @@ __device__ __forceinline__ bool psi_step(
 // the bulk).
 template <bool BULK>
 __device__ __forceinline__ float diff_back(const FusedParams& p,
-                                           const float* __restrict__ F,
+                                           const field_t* __restrict__ F,
                                            int cell, const int* c,
                                            const int* stride, int a) {
-    const float f = __ldg(F + cell);
+    const float f = ld(F + cell);
     float prev;
     if (BULK || c[a] > 0) {
-        prev = __ldg(F + cell - stride[a]);
+        prev = ld(F + cell - stride[a]);
     } else if (p.bk_lo[a] == WALL_PEC) {
         prev = 0.0f;
     } else if (p.bk_lo[a] == WALL_PMC) {
         prev = f;
     } else {
-        prev = __ldg(F + cell + (p.n[a] - 1) * stride[a]);
+        prev = ld(F + cell + (p.n[a] - 1) * stride[a]);
     }
     return (f - prev) * __ldg(p.inv_e[a] + c[a]);
 }
@@ -184,13 +226,13 @@ __device__ __forceinline__ float e_value(const FusedParams& p, int i,
                           p.w_e, p.n, i, 1, k, c, d2, owner, &psi))
         rhs = rhs - psi;
     for (int q = 0; q < p.num_poles; ++q) {
-        const float qr = __ldg(p.q[(q * 3 + i) * 2] + cell);
-        const float qi = __ldg(p.q[(q * 3 + i) * 2 + 1] + cell);
+        const float qr = ld(p.q[(q * 3 + i) * 2] + cell);
+        const float qi = ld(p.q[(q * 3 + i) * 2 + 1] + cell);
         rhs = rhs - (p.gc_re[q] * qr - p.gc_im[q] * qi);
     }
     const float ca = p.ca_e[i] ? __ldg(p.ca_e[i] + cell) : p.ca_s_e[i];
     const float cb = p.cb_e[i] ? __ldg(p.cb_e[i] + cell) : p.cb_s_e[i];
-    float out = ca * __ldg(p.e_old[i] + cell) + cb * rhs;
+    float out = ca * ld(p.e_old[i] + cell) + cb * rhs;
     if (BULK) return out;
     if ((p.pec_lo[j] && c[j] == 0) || (p.pec_lo[k] && c[k] == 0)) out = 0.0f;
     for (int s = 0; s < p.num_src; ++s) {
@@ -242,7 +284,7 @@ __device__ __forceinline__ void fill_slot(const FusedParams& p, Plane& s,
         float v = 0.0f;
         if (valid) {
             v = e_value<BULK>(p, i, c, stride, owner);
-            if (owner) p.e_new[i][cell] = v;
+            if (owner) st(p.e_new[i] + cell, v);
         }
         s[i][ty][tz] = v;
     }
@@ -305,7 +347,7 @@ __device__ __forceinline__ void h_update(const FusedParams& p,
             rhs = rhs - psi;
         const float ca = p.ca_h[i] ? __ldg(p.ca_h[i] + cell) : p.ca_s_h[i];
         const float cb = p.cb_h[i] ? __ldg(p.cb_h[i] + cell) : p.cb_s_h[i];
-        p.h_new[i][cell] = ca * __ldg(p.h_old[i] + cell) - cb * rhs;
+        st(p.h_new[i] + cell, ca * ld(p.h_old[i] + cell) - cb * rhs);
     }
 }
 
@@ -358,6 +400,21 @@ fused_step_kernel(const FusedParams p) {
 }
 
 extern "C" int t3d_fused_params_size() { return (int)sizeof(FusedParams); }
+
+// The bytes of the field, psi and pole-current values this library stores.
+extern "C" void t3d_fused_storage(int32_t* out) {
+    out[0] = (int32_t)sizeof(field_t);
+    out[1] = (int32_t)sizeof(psi_t);
+    out[2] = (int32_t)sizeof(q_t);
+}
+
+// Blocks of the kernel that fit on an SM (negative: a CUDA error).
+extern "C" int t3d_fused_occupancy() {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, (const void*)fused_step_kernel, TZ * TY, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+}
 
 extern "C" int t3d_fused_step(const FusedParams* p, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;

@@ -3,9 +3,9 @@
 //
 // Replaces the TPU kernel PallasKStepper.step_group
 // (tidy3d_tpu/solver/kernels/pallas_kstep.py:1425, _region_call at :1468,
-// pallas_call at :1785) for float32 runs: real ones with up to MAX_POLES
-// pole slots, and pole-free Bloch (complex) ones with their two copies (the
-// Bloch part below). One call computes K substeps; substep j (0-based), as
+// pallas_call at :1785): real runs with up to MAX_POLES pole slots, and
+// pole-free Bloch (complex) ones with their two copies (the Bloch part
+// below), at the storage types below. One call computes K substeps; substep j (0-based), as
 // the substep loop of pallas_kstep.py:2474-2590 orders it and the XLA step
 // FDTDRunner._step (tidy3d_tpu/solver/fdtd.py:1614) specifies:
 //
@@ -120,6 +120,29 @@
 // imaginary (c = 1) part. Only owners write, and an owned cell is never
 // virtual.
 //
+// Storage. The fields, the psi slabs and the pole currents are stored as
+// float32 or bfloat16, each chosen at compile time (T3D_FIELD_BF16,
+// T3D_PSI_BF16, T3D_Q_BF16), one library per combination, as the TPU kernel
+// takes dtype, psi_dtype and q_dtype (pallas_kstep.py:132, :158-175). A
+// value is widened to float32 where it is loaded and everything is computed
+// in float32. The fields and the pole currents round once, at the group's
+// store: levels 1 and 2 pass them on in float32 (the rings, the carries),
+// as the TPU kernel keeps its substep values and writes back with one cast
+// (:2590-2600). psi rounds where the TPU kernel's single-region form (the
+// one it runs for Bloch runs and small grids) rounds it: the x and y psi
+// live in scratch at psi_dtype between substeps (:1769, :2120-2130), so
+// level 1's x and y psi pass to level 2 rounded; the packed z psi is a
+// float32 value until its store (:2386, :2602). A level uses its own new
+// psi unrounded, as :2346-2348 do. (The TPU kernel's split-region form
+// keeps x and y psi in float32 too.) Level 0 of bfloat16 fields: cp.async
+// copies 4, 8 or 16 bytes, not a 2-byte value, so a bulk block stages each
+// row as 4-byte pairs of bf16 values from an even z (a tile row of 32
+// columns and the z - 1 one in 17 pairs), kept in bf16 and widened where
+// level 1 reads them; where nz is odd or an array is not 4-byte aligned,
+// the same pairs are loaded two values at a time (stage_pairs). A shell
+// block, whose columns may be walls, wraps or virtual cells, loads its
+// entries one by one, widened into the float32 tiles.
+//
 // Sharded runs (shard-local mode, xpad = K). It replaces the sharded mode
 // of the same TPU kernel (pallas_kstep.py:109-115, the halo exchange
 // _exchange_halos at :1386): an x-slab decomposition in which each shard
@@ -138,11 +161,50 @@
 // masks and source boxes in the shard's local coordinates. Unsharded runs
 // are the case xpad = 0 with no halo side.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr int MAX_POLES = 8;     // MAX_POLES in solver/kernels/step.py
 constexpr int NQ = 6 * MAX_POLES;
+
+#ifdef T3D_FIELD_BF16
+typedef __nv_bfloat16 field_t;
+#else
+typedef float field_t;
+#endif
+#ifdef T3D_PSI_BF16
+typedef __nv_bfloat16 psi_t;
+#else
+typedef float psi_t;
+#endif
+#ifdef T3D_Q_BF16
+typedef __nv_bfloat16 q_t;
+#else
+typedef float q_t;
+#endif
+
+// A stored value, widened to float32 (exact) through the read-only path.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// A float32 value stored, rounded to nearest even in bfloat16.
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
+// v as a psi slab stores it (rounded in bfloat16 storage), in float32.
+__device__ __forceinline__ float psi_rounded(float v) {
+#ifdef T3D_PSI_BF16
+    return __bfloat162float(__float2bfloat16_rn(v));
+#else
+    return v;
+#endif
+}
 constexpr int SRC_INTS = 12;     // SRC_INTS in solver/kernels/kstep.py
 constexpr int K = 2;             // substeps per launch: KS in kstep.py
 static_assert(K == 2, "the march is written for two levels");
@@ -164,6 +226,27 @@ constexpr int OZ = TZ - HALO_LO - HALO_HI;
 __host__ __device__ constexpr int min_blocks(int np) { return np <= 1 ? 2 : 1; }
 constexpr int SZ = TZ + 1;           // a staged H row: the z - 1 column
 constexpr int STILE = (TY + 1) * SZ; // a staged H tile: the y - 1 row too
+// A bf16 row staged in pairs: 17 pairs from the even z at or below the
+// tile's z - 1 column (the bulk of a bf16 run; it fits a float row).
+constexpr int NPAIR = (TZ + 2) / 2;
+constexpr int RW = 2 * NPAIR;
+static_assert(TY * RW <= 2 * TILE && (TY + 1) * RW <= 2 * STILE,
+              "a tile of bf16 pairs fits the float32 tile it replaces");
+#ifdef T3D_FIELD_BF16
+constexpr bool FIELD_BF16 = true;
+#else
+constexpr bool FIELD_BF16 = false;
+#endif
+// Whether an instantiation stages level 0 in bf16 pairs, and the strides
+// of its staged tiles in their elements (floats, or bf16 values).
+template <bool BULK>
+__host__ __device__ constexpr bool pairs() { return BULK && FIELD_BF16; }
+template <bool BULK>
+__host__ __device__ constexpr int e_comp() { return pairs<BULK>() ? 2 * TILE : TILE; }
+template <bool BULK>
+__host__ __device__ constexpr int h_comp() { return pairs<BULK>() ? 2 * STILE : STILE; }
+template <bool BULK>
+__host__ __device__ constexpr int h_row() { return pairs<BULK>() ? RW : SZ; }
 
 // Shared memory, in floats: the E rings of levels 1 and 2 and the H ring
 // of level 1 (two planes each), the staged level 0 (two planes of E, two
@@ -180,26 +263,26 @@ enum { POLE_ZERO = 0, POLE_MASK = 1, POLE_DENSE = 2 };
 
 // Mirrored by KStepParams in tidy3d_tpu_torch/solver/kernels/kstep.py.
 struct KStepParams {
-    const float* e_old[2][3];  // input set, [copy][comp]: copy 1 (the
-    const float* h_old[2][3];  // imaginary part) only in a complex run
-    float* e_new[2][3];        // output set
-    float* h_new[2][3];
+    const field_t* e_old[2][3];  // input set, [copy][comp]: copy 1 (the
+    const field_t* h_old[2][3];  // imaginary part) only in a complex run
+    field_t* e_new[2][3];        // output set
+    field_t* h_new[2][3];
     const float* ca_e[3];      // per-cell coefficient, or null for the scalar
     const float* cb_e[3];
     const float* ca_h[3];
     const float* cb_h[3];
     const float* inv_e[3];     // E stencil inverse steps (kappa folded in)
     const float* inv_h[3];     // H stencil inverse steps
-    const float* psi_in_e[2][12];  // [copy][(2 * comp + slot) * 2 + side]:
-    float* psi_out_e[2][12];       // slot 0 is axis comp+1, slot 1 axis
-    const float* psi_in_h[2][12];  // comp+2
-    float* psi_out_h[2][12];
+    const psi_t* psi_in_e[2][12];  // [copy][(2 * comp + slot) * 2 + side]:
+    psi_t* psi_out_e[2][12];       // slot 0 is axis comp+1, slot 1 axis
+    const psi_t* psi_in_h[2][12];  // comp+2
+    psi_t* psi_out_h[2][12];
     const float* pml_b_e[6];   // [2 * axis + side]
     const float* pml_c_e[6];
     const float* pml_b_h[6];
     const float* pml_c_h[6];
-    const float* q[NQ];        // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
-    float* q_out[NQ];
+    const q_t* q[NQ];          // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
+    q_t* q_out[NQ];
     const float* pole_b[NQ];   // [(pole * 3 + comp) * 2 + part]: the mask
                                // (part 0) or the dense re/im residue maps
     const int32_t* src_box[2]; // [0 J, 1 M]: num_src rows of SRC_INTS ints:
@@ -239,6 +322,8 @@ struct KStepParams {
                                // side of every x-spanning array (0: none)
     int32_t x_halo[2];         // the (lo, hi) x side reads its halo planes
                                // (a neighbour shard) instead of a wall
+    int32_t pair_async;        // bf16 pairs are 4-byte aligned (nz even,
+                               // aligned arrays): stage them by cp.async
 };
 
 static_assert(sizeof(KStepParams) + sizeof(void*) <= 4096,
@@ -268,6 +353,12 @@ struct Carry {
 struct Col {
     int ty, tz, tid;
     int sidx;             // the column's entry in a staged H tile
+    int eidx;             // and in a staged E tile
+    int pair_off;         // bf16 pairs: the y-z offset of the H pair this
+                          // thread stages (-1: none), its E pair's is one
+                          // row further
+    int pair_dst;         // and the pair's entry in the staged tiles
+    bool pair_e;          // the thread stages an E pair too
     int cy, cz;           // the column's (wrapped) y and z
     bool in_yz;           // the column lies in the domain
     bool own_yz;          // the block owns the column
@@ -311,12 +402,12 @@ __device__ __forceinline__ Rot cell_rot(const KStepParams& p, const Col& t,
 // The value of copy cp at idx (f: copy cp's array, g: the other copy's),
 // seen from a cell whose phase is r: for a virtual cell (r != 1) copy cp
 // of r (F0 + i F1), which reads the other copy there.
-template <bool BL>
-__device__ __forceinline__ float load0(const float* f, const float* g,
-                                       int cp, int64_t idx, Rot r) {
-    const float v = __ldg(f + idx);
+template <bool BL, typename T>
+__device__ __forceinline__ float load0(const T* f, const T* g, int cp,
+                                       int64_t idx, Rot r) {
+    const float v = ld(f + idx);
     if (!BL || is_one(r)) return v;
-    const float w = __ldg(g + idx);
+    const float w = ld(g + idx);
     return cp == 0 ? r.c * v - r.s * w : r.c * v + r.s * w;
 }
 
@@ -326,7 +417,7 @@ __device__ __forceinline__ int wrap_index(int v, int n) {
 }
 
 // Asynchronous 4-byte copy from device to shared memory.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                  "l"(src)
@@ -359,6 +450,16 @@ __device__ __forceinline__ float* stage_e(float* sm, int x) {
 
 __device__ __forceinline__ float* stage_h(float* sm, int x) {
     return sm + STAGE_H + (x & 1) * 3 * STILE;
+}
+
+// Entry idx of a staged tile, in float32: a float, or in a bulk block of a
+// bf16 run a bf16 value.
+template <bool BULK>
+__device__ __forceinline__ float staged(const float* tile, int idx) {
+    if constexpr (pairs<BULK>())
+        return __bfloat162float(
+            reinterpret_cast<const __nv_bfloat16*>(tile)[idx]);
+    return tile[idx];
 }
 
 // psi of level 1 at plane x, E (idx 0-5) and H (6-11), per thread,
@@ -481,8 +582,9 @@ __device__ __forceinline__ int stage_column(const KStepParams& p,
 
 // Level 0 of one staged entry (y-z offset off, phase r) at padded plane
 // offset base: E (e, 3 tiles apart; null: none) and H (h, 3 tiles of
-// STILE apart). A plain entry is copied asynchronously; a virtual one is
-// loaded and rotated; one outside the domain holds zeros.
+// STILE apart). A plain float32 entry is copied asynchronously, a plain
+// bfloat16 one loaded and widened; a virtual one is loaded and rotated;
+// one outside the domain holds zeros.
 template <bool BL>
 __device__ __forceinline__ void stage_entry(const KStepParams& p, int cp,
                                             int base, int off, Rot r,
@@ -494,12 +596,21 @@ __device__ __forceinline__ void stage_entry(const KStepParams& p, int cp,
     }
     const int idx = base + off;
     if (!BL || is_one(r)) {
+#ifdef T3D_FIELD_BF16
+        if (e) {
+#pragma unroll
+            for (int i = 0; i < 3; ++i) e[i * TILE] = ld(p.e_old[cp][i] + idx);
+        }
+#pragma unroll
+        for (int i = 0; i < 3; ++i) h[i * STILE] = ld(p.h_old[cp][i] + idx);
+#else
         if (e) {
 #pragma unroll
             for (int i = 0; i < 3; ++i) cp_async4(e + i * TILE, p.e_old[cp][i] + idx);
         }
 #pragma unroll
         for (int i = 0; i < 3; ++i) cp_async4(h + i * STILE, p.h_old[cp][i] + idx);
+#endif
         return;
     }
     if (e) {
@@ -514,6 +625,37 @@ __device__ __forceinline__ void stage_entry(const KStepParams& p, int cp,
                                  r);
 }
 
+// A bulk block of a bf16 run: stages this thread's pairs of plane x (a
+// domain plane), the H pair and with_e the E pair, each component's.
+template <bool BULK>
+__device__ __forceinline__ void stage_pairs(const KStepParams& p,
+                                            const Col& t, float* sm, int x,
+                                            bool with_e) {
+    if (t.pair_off < 0) return;
+    const int64_t idx = (int64_t)(x + p.xpad) * t.stride0 + t.pair_off;
+    __nv_bfloat16* sh =
+        reinterpret_cast<__nv_bfloat16*>(stage_h(sm, x)) + t.pair_dst;
+    __nv_bfloat16* se =
+        reinterpret_cast<__nv_bfloat16*>(stage_e(sm, x)) + t.pair_dst;
+    const bool e = with_e && t.pair_e;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const field_t* hs = p.h_old[t.cp][i] + idx;
+        const field_t* es = p.e_old[t.cp][i] + idx + p.n[2];
+        if (p.pair_async) {
+            cp_async4(sh + i * 2 * STILE, hs);
+            if (e) cp_async4(se + i * 2 * TILE, es);
+        } else {
+            sh[i * 2 * STILE] = hs[0];
+            sh[i * 2 * STILE + 1] = hs[1];
+            if (e) {
+                se[i * 2 * TILE] = es[0];
+                se[i * 2 * TILE + 1] = es[1];
+            }
+        }
+    }
+}
+
 // Stages level 0 of plane x (unwrapped) into its buffers, E too if with_e.
 // A plane past a PMC lo wall is the wall plane; past a PEC lo wall, and
 // outside a non-periodic domain, the column's own H entry (the only one a
@@ -521,6 +663,10 @@ __device__ __forceinline__ void stage_entry(const KStepParams& p, int cp,
 template <bool BL, bool BULK>
 __device__ __forceinline__ void stage(const KStepParams& p, const Col& t,
                                       float* sm, int x, bool with_e) {
+    if constexpr (pairs<BULK>()) {
+        stage_pairs<BULK>(p, t, sm, x, with_e);
+        return;
+    }
     float* se = stage_e(sm, x) + t.tid;
     float* sh = stage_h(sm, x);
     int sx = x;
@@ -601,10 +747,11 @@ template <int NP, int L, bool BL, bool BULK>
 __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                                         float* sm, int x, const float* h0p,
                                         float* h0c, Carry<NP>& cr) {
-    const float* sh = stage_h(sm, x) + t.sidx;
+    const float* sh = stage_h(sm, x);
     if (L == 1) {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) h0c[i] = sh[i * STILE];
+        for (int i = 0; i < 3; ++i)
+            h0c[i] = staged<BULK>(sh, i * h_comp<BULK>() + t.sidx);
     }
     int cx = x;
     const bool plane = BULK || plane_of(p, t, x, &cx);
@@ -621,7 +768,8 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
         float eo[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-            eo[i] = L == 1 ? stage_e(sm, x)[i * TILE + t.tid]
+            eo[i] = L == 1 ? staged<BULK>(stage_e(sm, x),
+                                          i * e_comp<BULK>() + t.eidx)
                            : e_ring(sm, 1, x, i)[t.tid];
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
@@ -633,8 +781,14 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                 // neighbours one row and one column back in the tile
                 hk = h0c[k];
                 hj = h0c[j];
-                hk_b = j == 0 ? h0p[k] : sh[k * STILE - (j == 1 ? SZ : 1)];
-                hj_b = k == 0 ? h0p[j] : sh[j * STILE - (k == 1 ? SZ : 1)];
+                hk_b = j == 0 ? h0p[k]
+                              : staged<BULK>(sh, k * h_comp<BULK>() + t.sidx -
+                                                     (j == 1 ? h_row<BULK>()
+                                                             : 1));
+                hj_b = k == 0 ? h0p[j]
+                              : staged<BULK>(sh, j * h_comp<BULK>() + t.sidx -
+                                                     (k == 1 ? h_row<BULK>()
+                                                             : 1));
             } else {
                 hk = h_ring(sm, x, k)[t.tid];
                 hj = h_ring(sm, x, j)[t.tid];
@@ -667,8 +821,10 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                         __ldg(p.pml_c_e[2 * a + side] + loc) *
                             (slot == 0 ? d1 : d2);
                     rhs = slot == 0 ? rhs + v : rhs - v;
-                    if (L == 1) psi_slot(sm, x, idx)[t.tid] = v;
-                    if (owner) p.psi_out_e[cp][pidx][off] = v;
+                    if (L == 1)
+                        psi_slot(sm, x, idx)[t.tid] =
+                            a == 2 ? v : psi_rounded(v);
+                    if (owner) st(p.psi_out_e[cp][pidx] + off, v);
                 }
             }
             // this component's pole currents: Q from device memory at
@@ -678,8 +834,8 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
             for (int q = 0; q < NP; ++q) {
                 const int qx = (q * 3 + i) * 2;
                 if constexpr (L == 1) {
-                    qc[2 * q] = __ldg(p.q[qx] + cell);
-                    qc[2 * q + 1] = __ldg(p.q[qx + 1] + cell);
+                    qc[2 * q] = ld(p.q[qx] + cell);
+                    qc[2 * q + 1] = ld(p.q[qx + 1] + cell);
                 } else {
                     qc[2 * q] = cr.q[qx];
                     qc[2 * q + 1] = cr.q[qx + 1];
@@ -696,7 +852,7 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
             if (t.src[0])
                 out = add_sources<BL>(p, 0, i, c, step, out, cp, rc);
             e_ring(sm, L, x, i)[t.tid] = out;
-            if (owner) p.e_new[cp][i][cell] = out;
+            if (owner) st(p.e_new[cp][i] + cell, out);
             if constexpr (L == 1) {
                 // Q1 = A Q + B (E1 + E), after J, handed to level 2
 #pragma unroll
@@ -717,8 +873,8 @@ __device__ __forceinline__ void e_level(const KStepParams& p, const Col& t,
                     const int qx = (q * 3 + i) * 2;
                     const Rot q2 = pole_update(p, q, i, cell, qc[2 * q],
                                                qc[2 * q + 1], out + eo[i]);
-                    p.q_out[qx][cell] = q2.c;
-                    p.q_out[qx + 1][cell] = q2.s;
+                    st(p.q_out[qx] + cell, q2.c);
+                    st(p.q_out[qx + 1] + cell, q2.s);
                 }
             }
         }
@@ -788,8 +944,10 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
                         __ldg(p.pml_c_h[2 * a + side] + loc) *
                             (slot == 0 ? d1 : d2);
                     rhs = slot == 0 ? rhs + v : rhs - v;
-                    if (L == 1) psi_slot(sm, x, 6 + idx)[t.tid] = v;
-                    if (owner) p.psi_out_h[cp][pidx][off] = v;
+                    if (L == 1)
+                        psi_slot(sm, x, 6 + idx)[t.tid] =
+                            a == 2 ? v : psi_rounded(v);
+                    if (owner) st(p.psi_out_h[cp][pidx] + off, v);
                 }
             }
             const float hv = L == 1 ? ho[i] : h_ring(sm, x, i)[t.tid];
@@ -799,7 +957,7 @@ __device__ __forceinline__ void h_level(const KStepParams& p, const Col& t,
             if (t.src[1])
                 out = add_sources<BL>(p, 1, i, c, step, out, cp, rc);
             if (L == 1) h_ring(sm, x, i)[t.tid] = out;
-            if (owner) p.h_new[cp][i][cell] = out;
+            if (owner) st(p.h_new[cp][i] + cell, out);
         }
         return;
     }
@@ -830,6 +988,7 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
     t.tz = threadIdx.x;
     t.tid = t.ty * TZ + t.tz;
     t.sidx = (t.ty + 1) * SZ + t.tz + 1;
+    t.eidx = t.tid;
     const int gz = (p.n[2] + OZ - 1) / OZ;
     const int gy = (p.n[1] + OY - 1) / OY;
     const int gx = (p.n[0] + BX - 1) / BX;
@@ -859,6 +1018,20 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
         t.x_sidx = (t.tid - TZ + 1) * SZ;
     }
     if (t.tid >= TZ + TY) t.x_sidx = -1;
+    if (pairs<BULK>()) {
+        // rows of 17 bf16 pairs from the even z0 at or below zbase - 1 (a
+        // bulk tile has zbase >= 1): thread tid < 17 * 17 stages pair tid
+        // % 17 of H row tid / 17 (y = ybase - 1 + row) and, below 16 * 17,
+        // of E row tid / 17 (y = ybase + row)
+        const int z0 = (zbase - 1) & ~1;
+        const int row = t.tid / NPAIR, pair = t.tid % NPAIR;
+        t.sidx = (t.ty + 1) * RW + uz - z0;
+        t.eidx = t.ty * RW + uz - z0;
+        t.pair_off = row <= TY ? (ybase - 1 + row) * p.n[2] + z0 + 2 * pair
+                               : -1;
+        t.pair_dst = row * RW + 2 * pair;
+        t.pair_e = row < TY;
+    }
     if (BULK) {
         // a bulk tile lies inside the domain: no wrap, no wall, no phase
         t.in_yz = true;
@@ -920,7 +1093,8 @@ __device__ __forceinline__ void march(const KStepParams& p, int id,
     cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 3; ++i) h0p[i] = stage_h(sm, m0 - 1)[i * STILE + t.sidx];
+    for (int i = 0; i < 3; ++i)
+        h0p[i] = staged<BULK>(stage_h(sm, m0 - 1), i * h_comp<BULK>() + t.sidx);
     __syncthreads();
     stage<BL, BULK>(p, t, sm, m0 + 1, true);
     cp_async_commit();
@@ -1012,6 +1186,13 @@ static cudaError_t prepare(KernelFn fn, bool bulk) {
 }
 
 extern "C" int t3d_kstep_params_size() { return (int)sizeof(KStepParams); }
+
+// The bytes of the field, psi and pole-current values this library stores.
+extern "C" void t3d_kstep_storage(int32_t* out) {
+    out[0] = (int32_t)sizeof(field_t);
+    out[1] = (int32_t)sizeof(psi_t);
+    out[2] = (int32_t)sizeof(q_t);
+}
 
 // The geometry the host's block lists count in: the tile (TY, TZ), the
 // owned box (BX, OY, OZ) and the cone's halo (HALO_LO, HALO_HI).

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel PallasStepper.family_update
 // (tidy3d_tpu/solver/kernels/pallas_step.py:118, pallas_call at :417) and
 // computes what FDTDRunner._update_field_family (tidy3d_tpu/solver/fdtd.py:982)
-// specifies, for real float32 runs with up to MAX_POLES dispersive poles.
+// specifies, for real runs with up to MAX_POLES dispersive poles.
 // One launch updates one family (E from H, or H from E^{n+1}) for all three
 // components:
 //
@@ -23,30 +23,69 @@
 // kernel did the x slabs as an XLA post-pass only because x slabs do not
 // block along its x grid.)
 //
+// Storage. The fields, the psi slabs and the pole currents are stored as
+// float32 or bfloat16, each chosen at compile time (T3D_FIELD_BF16,
+// T3D_PSI_BF16, T3D_Q_BF16: one library per combination): a value is
+// widened to float32 where it is loaded, everything is computed in float32
+// and out and psi_out are rounded once, to nearest even, where they are
+// stored, as the TPU kernel loads bf16, computes in f32 and rounds at its
+// store (pallas_step.py:65, :363, :411). The coefficients stay float32.
+//
 // Design: one thread per cell, z fastest, so a warp reads 32 neighbouring
-// floats of each array; a 3D launch grid (x planes, y rows, z cells), so no
-// thread divides to find its cell; 64-bit offsets; float32 throughout. The
+// values of each array; a 3D launch grid (x planes, y rows, z cells), so no
+// thread divides to find its cell; 64-bit offsets; float32 arithmetic. The
 // bound is HBM bandwidth: 36 B per cell (3 source, 3 old and 3 new float32 values), plus
 // the per-cell ca/cb arrays where the medium varies, plus the re-reads of the
 // x and y neighbour planes and the psi slabs where L2 does not hold them.
 // At 3.35 TB/s that is about 10.7 ps per cell and family at best; each pole
-// adds 24 B per cell to the E family (its 3 qr and 3 qi values).
+// adds 24 B per cell to the E family (its 3 qr and 3 qi values). bfloat16
+// storage halves the bytes of the values stored in it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 constexpr int MAX_POLES = 8;  // MAX_POLES in solver/kernels/step.py
 
+#ifdef T3D_FIELD_BF16
+typedef __nv_bfloat16 field_t;
+#else
+typedef float field_t;
+#endif
+#ifdef T3D_PSI_BF16
+typedef __nv_bfloat16 psi_t;
+#else
+typedef float psi_t;
+#endif
+#ifdef T3D_Q_BF16
+typedef __nv_bfloat16 q_t;
+#else
+typedef float q_t;
+#endif
+
+// A stored value, widened to float32 (exact) through the read-only path.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// A float32 value stored, rounded to nearest even in bfloat16.
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+}
+
 // Mirrored by FamilyParams in tidy3d_tpu_torch/solver/kernels/step.py.
 struct FamilyParams {
-    const float* src[3];      // source components (H for E, E^{n+1} for H)
-    const float* old[3];      // the family's current components
-    float* out[3];            // the family's new components
+    const field_t* src[3];    // source components (H for E, E^{n+1} for H)
+    const field_t* old[3];    // the family's current components
+    field_t* out[3];          // the family's new components
     const float* ca[3];       // per-cell coefficient, or null for ca_s
     const float* cb[3];       // per-cell coefficient, or null for cb_s
     const float* inv[3];      // inverse steps per axis (kappa folded in)
-    const float* psi_in[12];  // [(2 * comp + slot) * 2 + side]: slot 0 is
-    float* psi_out[12];       // axis j = comp+1, slot 1 axis k = comp+2
+    const psi_t* psi_in[12];  // [(2 * comp + slot) * 2 + side]: slot 0 is
+    psi_t* psi_out[12];       // axis j = comp+1, slot 1 axis k = comp+2
     const float* pml_b[6];    // [2 * axis + side], width w[2 * axis + side]
     const float* pml_c[6];
     float ca_s[3];
@@ -59,7 +98,7 @@ struct FamilyParams {
     int32_t num_poles;        // E family: pole slots in use (<= MAX_POLES)
     float gc_re[MAX_POLES];   // Re and Im of Gc = a (A + 1) per pole
     float gc_im[MAX_POLES];
-    const float* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
+    const q_t* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
 };
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
@@ -71,34 +110,34 @@ constexpr int BLOCK_Y = 8;
 // sgn * (F - F_shifted) * inv along axis a at this cell.
 template <bool IS_E>
 __device__ __forceinline__ float diff_along(const FamilyParams& p,
-                                            const float* __restrict__ F,
+                                            const field_t* __restrict__ F,
                                             int64_t cell, const int64_t* c,
                                             const int64_t* stride, int a) {
-    const float f = __ldg(F + cell);
+    const float f = ld(F + cell);
     const float inv = __ldg(p.inv[a] + c[a]);
     const int64_t na = p.n[a];
     if (IS_E) {
         float prev;
         if (c[a] > 0) {
-            prev = __ldg(F + cell - stride[a]);
+            prev = ld(F + cell - stride[a]);
         } else if (p.bkind[a] == WALL_PEC) {
             prev = 0.0f;
         } else if (p.bkind[a] == WALL_PMC) {
             prev = f;
         } else {
-            prev = __ldg(F + cell + (na - 1) * stride[a]);
+            prev = ld(F + cell + (na - 1) * stride[a]);
         }
         return (f - prev) * inv;
     }
     float nxt;
     if (c[a] < na - 1) {
-        nxt = __ldg(F + cell + stride[a]);
+        nxt = ld(F + cell + stride[a]);
     } else if (p.bkind[a] == WALL_PEC) {
         nxt = 0.0f;
     } else if (p.bkind[a] == WALL_PMC) {
         nxt = f;
     } else {
-        nxt = __ldg(F + cell - (na - 1) * stride[a]);
+        nxt = ld(F + cell - (na - 1) * stride[a]);
     }
     return (nxt - f) * inv;
 }
@@ -120,9 +159,9 @@ __device__ __forceinline__ bool psi_update(const FamilyParams& p, int comp,
         l[a] = loc;
         const int64_t off = (l[0] * dim[1] + l[1]) * dim[2] + l[2];
         const float v = __ldg(p.pml_b[2 * a + side] + loc) *
-                            __ldg(p.psi_in[idx] + off) +
+                            ld(p.psi_in[idx] + off) +
                         __ldg(p.pml_c[2 * a + side] + loc) * d;
-        p.psi_out[idx][off] = v;
+        st(p.psi_out[idx] + off, v);
         *psi = v;
         return true;
     }
@@ -154,14 +193,14 @@ family_update_kernel(const FamilyParams p) {
         if (psi_update(p, i, 1, k, c, d2, &psi)) rhs = rhs - psi;
         if (IS_E) {
             for (int q = 0; q < p.num_poles; ++q) {
-                const float qr = __ldg(p.q[(q * 3 + i) * 2] + cell);
-                const float qi = __ldg(p.q[(q * 3 + i) * 2 + 1] + cell);
+                const float qr = ld(p.q[(q * 3 + i) * 2] + cell);
+                const float qi = ld(p.q[(q * 3 + i) * 2 + 1] + cell);
                 rhs = rhs - (p.gc_re[q] * qr - p.gc_im[q] * qi);
             }
         }
         const float ca = p.ca[i] ? __ldg(p.ca[i] + cell) : p.ca_s[i];
         const float cb = p.cb[i] ? __ldg(p.cb[i] + cell) : p.cb_s[i];
-        const float old = __ldg(p.old[i] + cell);
+        const float old = ld(p.old[i] + cell);
         float out;
         if (IS_E) {
             out = ca * old + cb * rhs;
@@ -170,11 +209,30 @@ family_update_kernel(const FamilyParams p) {
         } else {
             out = ca * old - cb * rhs;
         }
-        p.out[i][cell] = out;
+        st(p.out[i] + cell, out);
     }
 }
 
 extern "C" int t3d_family_params_size() { return (int)sizeof(FamilyParams); }
+
+// The bytes of the field, psi and pole-current values this library stores.
+extern "C" void t3d_family_storage(int32_t* out) {
+    out[0] = (int32_t)sizeof(field_t);
+    out[1] = (int32_t)sizeof(psi_t);
+    out[2] = (int32_t)sizeof(q_t);
+}
+
+// Blocks of the E (is_e) or H instantiation that fit on an SM (negative: a
+// CUDA error).
+extern "C" int t3d_family_occupancy(int is_e) {
+    int blocks = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks,
+        is_e ? (const void*)family_update_kernel<true>
+             : (const void*)family_update_kernel<false>,
+        BLOCK_Z * BLOCK_Y, 0);
+    return err == cudaSuccess ? blocks : -(int)err;
+}
 
 extern "C" int t3d_family_update(const FamilyParams* p, void* stream) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;

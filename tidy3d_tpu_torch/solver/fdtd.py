@@ -76,10 +76,24 @@ sharded on the kstep tier or raises, and mixed 2D/3D decompositions and
 sharded Bloch runs, which the JAX package sends to its GSPMD XLA path,
 raise ``NotImplementedError``.
 
-Covered: float32, linear runs, real with up to ``MAX_POLES`` dispersive
+Covered: linear runs, real with up to ``MAX_POLES`` dispersive
 (pole-residue) pole slots, or complex without poles (unsharded). Nonlinear
-media, time modulation, Bloch runs with poles (the JAX package runs them on
-its XLA path only) and bfloat16 storage raise ``NotImplementedError``.
+media, time modulation and Bloch runs with poles (the JAX package runs them
+on its XLA path only) raise ``NotImplementedError``.
+
+Storage types (``storage_types``), as the JAX package picks them
+(``tidy3d_tpu/solver/fdtd.py:115-122``, ``pallas_kstep.py:158-175``): the
+fields are bfloat16 under ``precision="bfloat16"`` (or ``"bf16"``, or
+``TIDY3D_TPU_PRECISION``), float32 otherwise; on the kstep tier the psi
+slabs are bfloat16 under ``TIDY3D_TPU_PSI_DTYPE=bfloat16`` and the pole
+currents under ``TIDY3D_TPU_Q_DTYPE=bfloat16``, each the fields' type
+otherwise; on the one-step tiers psi and the pole currents take the
+fields' type. Every kernel computes in float32 and rounds where it stores;
+the monitor accumulators stay float32. On the one-step tiers the source
+terms are rounded to the fields' type and then added, and a bfloat16 pole
+update computes as the reference's ``_update_poles`` does under JAX's
+promotion rules (``update_poles``); both round at their stores as
+``FDTDRunner._cast_state`` does.
 
 ``estimate_device_memory`` counts the bytes each device holds for the run
 (its constants, the state with its second buffer set, the shards' halo
@@ -138,6 +152,41 @@ def _axis_reshape(vec: np.ndarray, axis: int) -> np.ndarray:
     return vec.reshape(shape)
 
 
+def field_dtype(precision=None) -> torch.dtype:
+    """The fields' storage type: bfloat16 for ``bf16`` or ``bfloat16``,
+    float32 for ``float32`` (``f32``, ``fp32``), from ``precision`` or
+    else ``TIDY3D_TPU_PRECISION``; any other value raises."""
+    prec = precision or os.environ.get("TIDY3D_TPU_PRECISION", "float32")
+    value = str(prec).lower()
+    if value in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if value in ("float32", "f32", "fp32"):
+        return torch.float32
+    raise NotImplementedError(
+        f"field storage precision '{prec}': the port stores float32 or "
+        "bfloat16")
+
+
+def storage_types(precision, tier: str) -> Tuple[torch.dtype, ...]:
+    """``(field, psi, q)``: the storage types of the fields, the psi slabs
+    and the pole currents of a run on ``tier``. The kstep tier reads
+    ``TIDY3D_TPU_PSI_DTYPE`` and ``TIDY3D_TPU_Q_DTYPE`` (``bfloat16``, else
+    the fields' type), as the JAX package's k-step kernel does
+    (``pallas_kstep.py:158-175``); the one-step tiers store psi and the
+    pole currents at the fields' type, as the JAX package's do."""
+    field = field_dtype(precision)
+    if tier != "kstep":
+        return field, field, field
+    return (field,) + tuple(
+        torch.bfloat16 if os.environ.get(knob, "") == "bfloat16" else field
+        for knob in ("TIDY3D_TPU_PSI_DTYPE", "TIDY3D_TPU_Q_DTYPE"))
+
+
+def type_name(dtype: torch.dtype) -> str:
+    """``float32`` or ``bfloat16``."""
+    return str(dtype).removeprefix("torch.")
+
+
 def _check_supported(plan: SimulationPlan, precision) -> None:
     if len(plan.poles) > MAX_POLES:
         raise NotImplementedError(
@@ -151,21 +200,7 @@ def _check_supported(plan: SimulationPlan, precision) -> None:
         raise NotImplementedError(
             "Bloch boundaries with dispersive poles are not ported yet (the "
             "JAX package runs them on its XLA path only)")
-    prec = precision or os.environ.get("TIDY3D_TPU_PRECISION", "float32")
-    if str(prec).lower() not in ("float32", "f32", "fp32"):
-        raise NotImplementedError(
-            f"field storage precision '{prec}' is not ported yet; only "
-            "float32 runs")
-    # the JAX package's k-step kernel stores psi or the pole state in bf16
-    # under these knobs (pallas_kstep.py:158-175); every tier here refuses
-    # them rather than run float32 unasked
-    for knob, what in (("TIDY3D_TPU_PSI_DTYPE", "psi"),
-                       ("TIDY3D_TPU_Q_DTYPE", "pole state")):
-        value = os.environ.get(knob, "")
-        if value == "bfloat16":
-            raise NotImplementedError(
-                f"{what} storage precision '{value}' ({knob}) is not ported "
-                "yet; only float32 runs")
+    field_dtype(precision)
 
 
 def bloch_phases(plan: SimulationPlan):
@@ -563,7 +598,14 @@ def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
     complex products written out in real and imaginary parts as the
     reference writes them. ``E^{n+1} + E^n`` is formed once per component
     and its product with a support mask once per (mask, component), so the
-    poles of one metal share them."""
+    poles of one metal share them.
+
+    Stored in bfloat16 (fields or currents), the update is
+    ``_update_poles_stored``."""
+    tensors = list(new_e.values()) + [t for Qp in Q for pair in Qp.values()
+                                      for t in pair]
+    if any(t.dtype != torch.float32 for t in tensors):
+        return _update_poles_stored(new_e, old_e, Q, consts)
     cache = {}
     for pi, ((A, _), metas, Qp) in enumerate(zip(
             consts["pole_scalars"], consts["pole_B_meta"], Q)):
@@ -594,6 +636,47 @@ def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
                 b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
                 qr.addcmul_(b_re, esum)
                 qi.addcmul_(b_im, esum)
+    return Q
+
+
+def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
+                         consts: dict) -> list:
+    """``update_poles`` on bfloat16 fields and currents, with the
+    arithmetic of the reference's ``_update_poles`` (``fdtd.py:1145-1184``)
+    under JAX's promotion rules, which PyTorch's share: a Python scalar
+    keeps a tensor's type, so ``A Q`` and its sum, and ``E^{n+1} + E^n``,
+    round to bfloat16 at each operation; the float32 masks and residues
+    promote the residue term, and the sum, to float32. Each new current is
+    written back, rounded once more to its type, as ``_cast_state`` casts
+    the carry."""
+    cache = {}
+    for pi, ((A, _), metas, Qp) in enumerate(zip(
+            consts["pole_scalars"], consts["pole_B_meta"], Q)):
+        for ci, comp in enumerate(E_COMPS):
+            qr, qi = Qp[comp]
+            nqr = qr * A.real - qi * A.imag
+            nqi = qr * A.imag + qi * A.real
+            m = metas[ci]
+            if m["kind"] != "zero":
+                if ("e", ci) not in cache:
+                    cache[("e", ci)] = new_e[comp] + old_e[comp]
+                esum = cache[("e", ci)]
+                if m["kind"] == "mask":
+                    mkey = (m["mask_id"], ci)
+                    if mkey not in cache:
+                        cache[mkey] = consts["pole_masks"][m["mask_id"]] \
+                            * esum
+                    b_re, b_im = m["B0"]
+                    if b_re:
+                        nqr = nqr + b_re * cache[mkey]
+                    if b_im:
+                        nqi = nqi + b_im * cache[mkey]
+                else:
+                    b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
+                    nqr = nqr + b_re * esum
+                    nqi = nqi + b_im * esum
+            qr.copy_(nqr)
+            qi.copy_(nqi)
     return Q
 
 
@@ -694,7 +777,6 @@ class FDTDRunner:
         self.plan = plan
         self.shape = tuple(plan.shape)
         self.num_steps = plan.num_steps
-        self.dtype = torch.float32
         self.use_kernel = use_kernel
         self.host_consts, self.pml_meta = build_constants(plan)
         sharded = sharding_plan is not None
@@ -713,6 +795,10 @@ class FDTDRunner:
         self.tier, self.k = select_tier(
             plan, {fam: len(v) for fam, v in self._sources.items()},
             self.device, kernel, sharded=sharded)
+        # the storage types of the fields, the psi slabs and the pole
+        # currents (compute is float32 everywhere)
+        self.dtype, self.psi_dtype, self.q_dtype = storage_types(
+            precision, self.tier)
         # monitors accumulate after group g only where (g + 1) % B == 0
         self.mon_group_stride = 1
         self.tables = None
@@ -863,8 +949,11 @@ class FDTDRunner:
                 for s in self._sources[family]]
 
     def _inject(self, family: str, fields: dict, step: int):
+        """Adds the source terms of ``family`` at ``step``, each rounded to
+        the fields' type first, as the reference adds
+        ``delta.astype(dtype)`` (``tidy3d_tpu/solver/fdtd.py:1522-1527``)."""
         for comp, sl, term, w in self.step_sources(family, step):
-            fields[comp][sl].add_(term * w)
+            fields[comp][sl].add_((term * w).to(fields[comp].dtype))
 
     # ------------------------------------------------------------------ #
     # state
@@ -895,16 +984,18 @@ class FDTDRunner:
         complex run) of the run or of one shard."""
         shape = meta.array_shape
 
-        def zeros(s):
-            return torch.zeros(s, dtype=self.dtype, device=device)
+        def zeros(s, dtype=self.dtype):
+            return torch.zeros(s, dtype=dtype, device=device)
 
-        out = {"Q": [{c: (zeros(shape), zeros(shape)) for c in E_COMPS}
+        out = {"Q": [{c: (zeros(shape, self.q_dtype),
+                          zeros(shape, self.q_dtype)) for c in E_COMPS}
                      for _ in self.plan.poles]}
         # copy 1 of a complex run: the imaginary part
         for e, h, p in kstep_kernels.COPIES[:1 + self.is_complex]:
             out[e] = {c: zeros(shape) for c in E_COMPS}
             out[h] = {c: zeros(shape) for c in H_COMPS}
-            out[p] = {k: zeros(s) for k, s in self.psi_shapes(meta).items()}
+            out[p] = {k: zeros(s, self.psi_dtype)
+                      for k, s in self.psi_shapes(meta).items()}
         return out
 
     def init_state(self, device=None) -> dict:
@@ -1110,6 +1201,29 @@ class FDTDRunner:
             return f"kstep (k={self.k})"
         return f"kstep (k={self.k}, {len(self.shards)} x-shards)"
 
+    @property
+    def storage(self) -> Tuple[torch.dtype, ...]:
+        """``(field, psi, q)``: the storage types of the run's state."""
+        return self.dtype, self.psi_dtype, self.q_dtype
+
+    def kernel_storages(self) -> list:
+        """The storage types ``(field, psi, q)`` of the kernel libraries
+        this run launches, as the wrappers read them from the state (a kind
+        of which a state holds nothing takes the fields' type): one, or one
+        per distinct shard."""
+        state = self.init_state(device="meta")
+        states = state["shards"] if self.shards is not None else [state]
+        copies = kstep_kernels.COPIES[:1 + self.is_complex]
+        return sorted({step_kernels.storage_of(st, copies) for st in states},
+                      key=str)
+
+    @property
+    def storage_name(self) -> str:
+        """The storage types as the run log names them: ``fields float32,
+        psi bfloat16, Q float32``."""
+        return ", ".join(f"{what} {type_name(dt)}" for what, dt in zip(
+            ("fields", "psi", "Q"), self.storage))
+
     def _max_field(self, state) -> torch.Tensor:
         """The largest |E| over both copies of a complex run
         (``tidy3d_tpu/solver/fdtd.py:1765-1776``), over the owned planes of
@@ -1117,9 +1231,9 @@ class FDTDRunner:
         if self.shards is not None:
             dev = self.shards[0].device
             return torch.stack([
-                self.layout.owned(st["E"][c]).abs().amax().to(dev)
+                self.layout.owned(st["E"][c]).abs().amax().float().to(dev)
                 for st in state["shards"] for c in E_COMPS]).amax()
-        return torch.stack([state[e][c].abs().amax() for c in E_COMPS
+        return torch.stack([state[e][c].abs().amax().float() for c in E_COMPS
                             for e in ("E", "E1") if e in state]).amax()
 
     # ------------------------------------------------------------------ #
@@ -1208,8 +1322,9 @@ class FDTDRunner:
         t0 = _time.perf_counter()
         if self.use_kernel:
             for dev in self.devices:
-                {"kstep": kstep_kernels, "fused": fused_kernels,
-                 "pallas2": step_kernels}[self.tier].prepare(dev)
+                for storage in self.kernel_storages():
+                    {"kstep": kstep_kernels, "fused": fused_kernels,
+                     "pallas2": step_kernels}[self.tier].prepare(dev, storage)
         self.compile_time = _time.perf_counter() - t0
 
         cuda_devices = [dev for dev in self.devices if dev.type == "cuda"]
@@ -1268,12 +1383,14 @@ class FDTDRunner:
 
     def _checkpoint_meta(self) -> dict:
         """The run's identity in a checkpoint: a file of another grid,
-        tier, k or decomposition is refused."""
+        tier, k, decomposition or storage types is refused."""
         return {"__version__": np.asarray(CHECKPOINT_VERSION),
                 "__grid_shape__": np.asarray(self.shape),
                 "__tier__": np.asarray(self.tier),
                 "__k__": np.asarray(self.k),
-                "__decomp__": np.asarray(self.decomp)}
+                "__decomp__": np.asarray(self.decomp),
+                "__storage__": np.asarray([type_name(dt)
+                                           for dt in self.storage])}
 
     def save_checkpoint(self, path: str, state: dict, chunk_idx: int,
                         max_ever: float, cur: float) -> int:
@@ -1285,9 +1402,10 @@ class FDTDRunner:
         ``shards.1.psi.Ex|1|lo``), beside the run's identity
         (``_checkpoint_meta``), ``__chunk_idx__``, ``__max_ever__`` and
         ``__cur__`` (the last chunk's field maximum, which the shutoff test
-        reads). Returns the file's bytes."""
+        reads). A bfloat16 tensor is saved as its bits (``int16``). Returns
+        the file's bytes."""
         t0 = _time.perf_counter()
-        arrays = {name: t.cpu().numpy() for name, t in _named(state)}
+        arrays = {name: _to_numpy_bits(t) for name, t in _named(state)}
         arrays.update(self._checkpoint_meta())
         arrays["__chunk_idx__"] = np.asarray(chunk_idx)
         arrays["__max_ever__"] = np.asarray(max_ever)
@@ -1329,7 +1447,7 @@ class FDTDRunner:
                         f"Checkpoint at '{path}': '{name}' has shape "
                         f"{arr.shape}, this run {tuple(t.shape)}: refusing "
                         "to resume.")
-                t.copy_(torch.from_numpy(arr))
+                t.copy_(_from_numpy_bits(arr, t.dtype))
                 names.add(name)
             extra = [n for n in data.files
                      if not n.startswith("__") and n not in names]
@@ -1362,8 +1480,10 @@ class FDTDRunner:
     def _pole_work(self, cells: int) -> int:
         """Bytes of the one-step tiers' pole-update temporaries
         (``update_poles``): the sum E' + E of each component with a
-        residue, each (mask, component) product and one rotation
-        temporary."""
+        residue (at the fields' type), each (mask, component) product
+        (float32) and the rotation temporaries: one float32 field in
+        place, and in bfloat16 (``_update_poles_stored``) the new re and
+        im currents, float32 at most, with two bfloat16 products."""
         comps, masks = set(), set()
         for metas in self.host_consts["pole_B_meta"]:
             for ci, m in enumerate(metas):
@@ -1371,8 +1491,11 @@ class FDTDRunner:
                     comps.add(ci)
                 if m["kind"] == "mask":
                     masks.add((m["mask_id"], ci))
-        n = len(comps) + len(masks) + bool(self.plan.poles)
-        return 4 * cells * n
+        if not self.plan.poles:
+            return 0
+        e = torch.empty((), dtype=self.dtype).element_size()
+        rot = 4 if self.q_dtype == torch.float32 else 2 * 4 + 2 * 2
+        return cells * (e * len(comps) + 4 * len(masks) + rot)
 
     def estimate_device_memory(self) -> dict:
         """Bytes this run holds on each device (the port of
@@ -1422,7 +1545,7 @@ class FDTDRunner:
                 add(dev, "halo", halo)
             cells = int(np.prod(st["E"]["Ex"].shape))
             add(dev, "work", self._pole_work(cells) if self.tier != "kstep"
-                and self.plan.poles else 4 * cells)
+                and self.plan.poles else st["E"]["Ex"].element_size() * cells)
         for d in per.values():
             d["margin"] = (d["state"] + d["halo"]) // 2 + MARGIN_BYTES
             d["total"] = sum(d[key] for key in keys)
@@ -1479,6 +1602,26 @@ def _named(tree, prefix: str = "", skip=("alt",)):
         items = enumerate(tree)
     for key, value in items:
         yield from _named(value, f"{prefix}{key}.", skip)
+
+
+def _to_numpy_bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy: a bfloat16 one as its bits in ``int16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
+
+
+def _from_numpy_bits(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor that ``_to_numpy_bits`` saved as ``arr``, of ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype == torch.bfloat16:
+        if t.dtype != torch.int16:
+            raise SetupError(f"a bfloat16 array saved as {t.dtype}")
+        return t.view(torch.bfloat16)
+    if t.dtype != dtype:
+        raise SetupError(f"a {dtype} array saved as {t.dtype}")
+    return t
 
 
 def _nbytes(obj) -> int:

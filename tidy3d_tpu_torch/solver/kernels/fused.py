@@ -13,6 +13,12 @@ the runner adds afterwards, as ``_step_fused`` does.
 term * w``, with ``term`` of the slice's shape and ``w`` this step's
 waveform value.
 
+Storage (``step.STORAGE``): the state's fields, psi and pole currents are
+float32 or bfloat16. Both versions widen them to float32, compute E' with
+its J terms in float32, take H' from that float32 E', and round E', H' and
+psi' once where they are stored, as ``PallasFusedStepper.step_update``
+computes H from its unrounded E (``pallas_fused.py:487-551``).
+
 Dispatch is by device: a CPU tensor goes to ``fused_step_reference`` (the
 two family updates of ``step.py`` with the injection between them); a CUDA
 tensor launches the hand-written kernel in ``csrc/fused.cu`` or raises.
@@ -29,7 +35,7 @@ import torch
 from ..lowering import E_COMPS, H_COMPS
 
 from . import step
-from .step import MAX_POLES, StepMeta, _check_field
+from .step import MAX_POLES, StepMeta, _check_field, storage_of
 
 LAUNCHES = 0
 MAX_SOURCES = 32    # J source boxes the kernel takes (csrc/fused.cu)
@@ -54,17 +60,24 @@ def unsupported_reason(num_sources: int) -> Optional[str]:
 
 
 def fused_step_reference(state: dict, consts: dict, meta: StepMeta,
-                         sources: List[Source]):
-    """Plain PyTorch step on any device: E family, J injection, H family."""
+                         sources: List[Source], store: bool = True):
+    """Plain PyTorch step on any device: E family, J injection, H family,
+    in float32; E', H' and the new psi rounded to the state's types (or
+    left in float32 with ``store=False``)."""
     new_e, psi_e = step.family_update_reference("E", state, consts,
-                                                state["H"], meta)
+                                                state["H"], meta, store=False)
     for comp, sl, term, w in sources:
         new_e[comp][sl].add_(term * w)
     new_h, psi_h = step.family_update_reference("H", state, consts, new_e,
-                                                meta)
+                                                meta, store=False)
     new_psi = dict(state["psi"])
     new_psi.update(psi_e)
     new_psi.update(psi_h)
+    if store:
+        new_e = {c: v.to(state["E"][c].dtype) for c, v in new_e.items()}
+        new_h = {c: v.to(state["H"][c].dtype) for c, v in new_h.items()}
+        new_psi = {key: v.to(state["psi"][key].dtype)
+                   for key, v in new_psi.items()}
     return new_e, new_h, new_psi
 
 
@@ -108,23 +121,41 @@ class FusedParams(ctypes.Structure):
     ]
 
 
-def _library():
+def _library(storage=(torch.float32,) * 3):
     from ... import _build
 
-    lib = _build.load("fused")
+    lib = _build.load("fused", step.storage_defines(*storage))
     fn = lib.t3d_fused_step
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_fused_params_size", FusedParams)
+        step.check_storage(lib, "t3d_fused_storage", storage)
         fn.argtypes = [ctypes.POINTER(FusedParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def prepare(device) -> None:
-    """Build and load the kernel library for ``device`` (a no-op on the
-    CPU); the runner times this as its compile step."""
+def occupancy(storage=(torch.float32,) * 3) -> int:
+    """Blocks per SM of the kernel in the library of the storage types
+    ``(field, psi, q)`` (the CUDA occupancy calculator); needs the card."""
+    from ... import _build
+
+    _library(storage)
+    fn = _build.load("fused",
+                     step.storage_defines(*storage)).t3d_fused_occupancy
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    blocks = fn()
+    if blocks < 0:
+        raise RuntimeError(f"fused occupancy: CUDA error {-blocks}")
+    return blocks
+
+
+def prepare(device, storage=(torch.float32,) * 3) -> None:
+    """Build and load the kernel library of the storage types ``(field,
+    psi, q)`` for ``device`` (a no-op on the CPU); the runner times this as
+    its compile step."""
     if torch.device(device).type == "cuda":
-        _library()
+        _library(storage)
 
 
 def _source_box(sl, shape):
@@ -149,6 +180,7 @@ def _fused_step_cuda(state, consts, meta, sources):
     if shape[0] * shape[1] * shape[2] >= 2 ** 31:
         raise ValueError(f"grid {shape}: the fused kernel takes fewer than "
                          "2^31 cells")
+    storage = storage_of(state)
     p = FusedParams()
     for a in range(3):
         p.n[a] = shape[a]
@@ -167,16 +199,17 @@ def _fused_step_cuda(state, consts, meta, sources):
     for fam, comps, old, new, out in (("E", E_COMPS, p.e_old, p.e_new, new_e),
                                       ("H", H_COMPS, p.h_old, p.h_new, new_h)):
         for i, comp in enumerate(comps):
-            old[i] = _check_field(state[fam][comp], shape, comp).data_ptr()
-            out[comp] = torch.empty(shape, dtype=torch.float32, device=device)
+            old[i] = _check_field(state[fam][comp], shape, comp,
+                                  storage[0]).data_ptr()
+            out[comp] = torch.empty(shape, dtype=storage[0], device=device)
             new[i] = out[comp].data_ptr()
 
     new_psi = dict(state["psi"])
     for fam in ("E", "H"):
         new_psi.update(step.set_family_params(fam, state, consts, meta, {
             name: getattr(p, f"{name}_{fam.lower()}")
-            for name in step.FAMILY_FIELDS}))
-    step.set_pole_params(p, state, consts, shape)
+            for name in step.FAMILY_FIELDS}, psi_dtype=storage[1]))
+    step.set_pole_params(p, state, consts, shape, storage[2])
 
     p.num_src = len(sources)
     for s, (comp, sl, term, w) in enumerate(sources):
@@ -190,7 +223,7 @@ def _fused_step_cuda(state, consts, meta, sources):
             box_src.hi[a] = hi[a]
         box_src.w = float(w)
 
-    step.launch(_library(), p, device, "fused_step")
+    step.launch(_library(storage), p, device, "fused_step")
     LAUNCHES += 1
     return new_e, new_h, new_psi
 

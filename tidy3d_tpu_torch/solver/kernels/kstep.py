@@ -21,6 +21,15 @@ the sources: each term is complex, ``term + i term_im`` driven by ``w[key]
 + i w[key_im]`` (``SourceTerm``), and adds its real part to copy 0 and its
 imaginary part to copy 1.
 
+Storage (``step.STORAGE``): the fields, the psi slabs and the pole
+currents are each float32 or bfloat16 (``FDTDRunner`` takes the JAX
+package's knobs). Both versions widen them to float32, step the k substeps
+in float32 and round the fields and the pole currents once, at the group's
+store; the x and y psi round after every substep and the z psi at the
+store, as the JAX package's single-region kernel holds them
+(``pallas_kstep.py:1769,2100-2130,2386,2590-2620``). The kernel is built
+once per combination (``step.storage_defines``), at its first use.
+
 Dispatch is by device: a CPU tensor goes to ``kstep_group_reference``, the
 k substeps written from the one-step functions the port already has; a
 CUDA tensor launches the hand-written kernel in ``csrc/kstep.cu`` or
@@ -277,7 +286,9 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
                           out: dict = None) -> dict:
     """Plain PyTorch group on any device: k substeps, each the fused
     step's plain version with the J sources, then the M sources, then the
-    pole update, in the order of the substep loop of ``pallas_kstep.py``.
+    pole update, in the order of the substep loop of ``pallas_kstep.py``,
+    in float32; the x and y psi round to their storage type after each
+    substep, and everything to its storage type at the end (``_stored``).
     A complex run (``"E1"`` in ``state``) takes the two-copy substep of
     ``_bloch_substep``. A shard of a sharded run (``meta.xpad``) takes
     ``_shard_group``. ``out`` is accepted for the kernel's signature and
@@ -286,23 +297,39 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
 
     if meta.xpad:
         return _shard_group(state, consts, meta, tables, t0, k)
-    if "E1" in state:
-        cur = {key: state[key] for pair in COPIES for key in pair}
-        for t in range(t0, t0 + k):
-            cur = _bloch_substep(cur, consts, meta, tables, t)
-        return dict(cur, Q=[])
-    Q = [{c: (qr.clone(), qi.clone()) for c, (qr, qi) in Qp.items()}
-         for Qp in state["Q"]]
-    cur = {"E": state["E"], "H": state["H"], "psi": state["psi"], "Q": Q}
+    copies = COPIES[:1 + ("E1" in state)]
+    storage = step.storage_of(state, copies)
+    cur = {key: {c: step.f32(v) for c, v in state[key].items()}
+           for pair in copies for key in pair}
+    cur["Q"] = [{c: (step.f32(qr).clone(), step.f32(qi).clone())
+                 for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]
     for t in range(t0, t0 + k):
-        new_e, new_h, psi = fused.fused_step_reference(
-            cur, consts, meta, tables.at("E", t))
-        for comp, sl, term, w in tables.at("H", t):
-            new_h[comp][sl].add_(term * w)
-        if Q:
-            update_poles(new_e, cur["E"], Q, consts)
-        cur = {"E": new_e, "H": new_h, "psi": psi, "Q": Q}
-    return cur
+        if len(copies) == 2:
+            cur = dict(_bloch_substep(cur, consts, meta, tables, t), Q=[])
+        else:
+            new_e, new_h, psi = fused.fused_step_reference(
+                cur, consts, meta, tables.at("E", t), store=False)
+            for comp, sl, term, w in tables.at("H", t):
+                new_h[comp][sl].add_(term * w)
+            if cur["Q"]:
+                update_poles(new_e, cur["E"], cur["Q"], consts)
+            cur = {"E": new_e, "H": new_h, "psi": psi, "Q": cur["Q"]}
+        for _, _, p in copies:
+            cur[p] = {key: v if key.split("|")[1] == "2" else
+                      v.to(storage[1]).float() for key, v in cur[p].items()}
+    return _stored(cur, storage, copies)
+
+
+def _stored(cur: dict, storage, copies) -> dict:
+    """A group's float32 state rounded to the storage types ``(field, psi,
+    q)``."""
+    out = {"Q": [{c: (qr.to(storage[2]), qi.to(storage[2]))
+                  for c, (qr, qi) in Qp.items()} for Qp in cur["Q"]]}
+    for e, h, p in copies:
+        out[e] = {c: v.to(storage[0]) for c, v in cur[e].items()}
+        out[h] = {c: v.to(storage[0]) for c, v in cur[h].items()}
+        out[p] = {key: v.to(storage[1]) for key, v in cur[p].items()}
+    return out
 
 
 def _x_cut(v, start: int, stop: int, nx: int):
@@ -380,14 +407,14 @@ def _bloch_substep(cur: dict, consts: dict, meta: StepMeta,
     ``FDTDRunner._step`` takes it (``tidy3d_tpu/solver/fdtd.py:1614-1723``):
     each copy's E from its own H and, across a Bloch wrap, the other copy's
     H; the J sources; each copy's H from its E' and the other copy's E';
-    the M sources."""
+    the M sources; in float32 (nothing is rounded to a storage type)."""
     views = [{"E": cur[e], "H": cur[h], "psi": cur[p], "Q": []}
              for e, h, p in COPIES]
     new_e, psi = [], [dict(v["psi"]) for v in views]
     for c, view in enumerate(views):
         ne, pe = step.family_update_reference(
             "E", view, consts, view["H"], meta, partner=views[1 - c]["H"],
-            part=c)
+            part=c, store=False)
         new_e.append(ne)
         psi[c].update(pe)
     for comp, sl, *adds in tables.copy_adds("E", t):
@@ -396,7 +423,8 @@ def _bloch_substep(cur: dict, consts: dict, meta: StepMeta,
     new_h = []
     for c, view in enumerate(views):
         nh, ph = step.family_update_reference(
-            "H", view, consts, new_e[c], meta, partner=new_e[1 - c], part=c)
+            "H", view, consts, new_e[c], meta, partner=new_e[1 - c], part=c,
+            store=False)
         new_h.append(nh)
         psi[c].update(ph)
     for comp, sl, *adds in tables.copy_adds("H", t):
@@ -546,16 +574,18 @@ class KStepParams(ctypes.Structure):
         ("wf_len", ctypes.c_int32), ("t0", ctypes.c_int32),
         ("k", ctypes.c_int32), ("ncopy", ctypes.c_int32),
         ("xpad", ctypes.c_int32), ("x_halo", ctypes.c_int32 * 2),
+        ("pair_async", ctypes.c_int32),
     ]
 
 
-def _library():
+def _library(storage=(torch.float32,) * 3):
     from ... import _build
 
-    lib = _build.load("kstep")
+    lib = _build.load("kstep", step.storage_defines(*storage))
     fn = lib.t3d_kstep_group
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_kstep_params_size", KStepParams)
+        step.check_storage(lib, "t3d_kstep_storage", storage)
         tile = (ctypes.c_int32 * 7)()
         lib.t3d_kstep_tile.argtypes = [ctypes.c_void_p]
         lib.t3d_kstep_tile.restype = None
@@ -574,27 +604,30 @@ def _library():
     return lib
 
 
-def occupancy(num_poles: int, bloch: bool, bulk: bool) -> int:
-    """Blocks per SM of one instantiation of the kernel (the CUDA
-    occupancy calculator); needs the card."""
-    blocks = _library().t3d_kstep_occupancy(num_poles, int(bloch),
-                                            int(bulk))
+def occupancy(num_poles: int, bloch: bool, bulk: bool,
+              storage=(torch.float32,) * 3) -> int:
+    """Blocks per SM of one instantiation of the kernel, in the library of
+    the storage types ``(field, psi, q)`` (the CUDA occupancy calculator);
+    needs the card."""
+    blocks = _library(storage).t3d_kstep_occupancy(num_poles, int(bloch),
+                                                   int(bulk))
     if blocks < 0:
         raise RuntimeError(f"kstep occupancy: CUDA error {-blocks}")
     return blocks
 
 
-def prepare(device) -> None:
-    """Build and load the kernel library for ``device`` (a no-op on the
-    CPU); the runner times this as its compile step."""
+def prepare(device, storage=(torch.float32,) * 3) -> None:
+    """Build and load the kernel library of the storage types ``(field,
+    psi, q)`` for ``device`` (a no-op on the CPU); the runner times this as
+    its compile step."""
     if torch.device(device).type == "cuda":
-        _library()
+        _library(storage)
 
 
-def _set_pole_params(p, state, out, consts, shape) -> None:
-    """The pole scalars, the input and output Q pointers and the residue
-    maps of each (pole, component)."""
-    step.set_pole_params(p, state, consts, shape)
+def _set_pole_params(p, state, out, consts, shape, dtype) -> None:
+    """The pole scalars, the input and output Q pointers (currents of type
+    ``dtype``) and the residue maps of each (pole, component)."""
+    step.set_pole_params(p, state, consts, shape, dtype)
     if len(out["Q"]) != p.num_poles:
         raise ValueError(f"out holds {len(out['Q'])} pole currents, the "
                          f"plan {p.num_poles} poles")
@@ -607,7 +640,7 @@ def _set_pole_params(p, state, out, consts, shape) -> None:
             for part in range(2):
                 p.q_out[qx + part] = _check_field(
                     out["Q"][pi][comp][part], shape,
-                    f"out Q{pi}_{comp}").data_ptr()
+                    f"out Q{pi}_{comp}", dtype).data_ptr()
             m = metas[ci]
             p.pole_kind[pi * 3 + ci] = _POLE_KIND[m["kind"]]
             if m["kind"] == "mask":
@@ -627,6 +660,7 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     shape = meta.array_shape
     device = state["E"][E_COMPS[0]].device
     copies = COPIES[:1 + ("E1" in state)]
+    storage = step.storage_of(state, copies)
     reason = unsupported_reason(k, {
         fam: int(boxes.shape[0]) for fam, boxes in tables.boxes.items()})
     if reason is not None:
@@ -684,8 +718,10 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
         for fam, comps, old, new in ((e, E_COMPS, p.e_old, p.e_new),
                                      (h, H_COMPS, p.h_old, p.h_new)):
             for i, comp in enumerate(comps):
-                src = _check_field(state[fam][comp], shape, f"{fam} {comp}")
-                dst = _check_field(out[fam][comp], shape, f"out {fam} {comp}")
+                src = _check_field(state[fam][comp], shape, f"{fam} {comp}",
+                                   storage[0])
+                dst = _check_field(out[fam][comp], shape,
+                                   f"out {fam} {comp}", storage[0])
                 if src.data_ptr() == dst.data_ptr():
                     raise ValueError(f"{fam} {comp}: the output set aliases "
                                      "the input")
@@ -699,9 +735,9 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
             arrays["psi_out"] = arrays["psi_out"][c]
             psi.update(step.set_family_params(
                 fam, {"psi": state[pk]}, consts, meta, arrays,
-                psi_out=out[pk]))
+                psi_out=out[pk], psi_dtype=storage[1]))
         new_psi.append(psi)
-    _set_pole_params(p, state, out, consts, shape)
+    _set_pole_params(p, state, out, consts, shape, storage[2])
 
     for f, fam in enumerate("EH"):
         boxes = tables.boxes[fam]
@@ -709,6 +745,11 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
             raise ValueError("source tables on another device")
         p.num_src[f] = boxes.shape[0]
         p.src_box[f] = boxes.data_ptr() if boxes.shape[0] else None
+    # bf16 level 0 is staged in 4-byte pairs along z (bulk blocks): by
+    # cp.async where every pair is 4-byte aligned
+    p.pair_async = int(shape[2] % 2 == 0 and all(
+        ptr % 4 == 0 for arr in (p.e_old, p.h_old) for c in range(len(copies))
+        for ptr in arr[c]))
     p.src_term = tables.terms.data_ptr()
     p.wf = tables.wf.data_ptr()
     p.wf_len = tables.wf.shape[1]
@@ -718,7 +759,7 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     bulk, shell = block_lists(meta, k, len(copies), device)
     stream = torch.cuda.current_stream(device)
     with torch.cuda.device(device):
-        err = _library().t3d_kstep_group(
+        err = _library(storage).t3d_kstep_group(
             ctypes.byref(p), bulk.data_ptr(), bulk.numel(),
             shell.data_ptr(), shell.numel(), done_word(stream).data_ptr(),
             ctypes.c_void_p(stream.cuda_stream))

@@ -9,6 +9,13 @@ returns ``(new_fields, new_psi)`` with the semantics of
 for real runs, with the ``-Re(Gc Q)`` term of up to ``MAX_POLES``
 dispersive poles in the E update) and ``PallasStepper.family_update``.
 
+Storage: the fields, the psi slabs and the pole currents are float32 or
+bfloat16 tensors (``STORAGE``), as the run stores them. Both versions load
+them widened to float32, compute in float32 and round the new fields and
+psi once, where they are stored, as ``PallasStepper.family_update`` does
+(``pallas_step.py:65,363,400-411``); the kernel is built once per
+combination of storage types (``storage_defines``).
+
 Dispatch is by device: a CPU tensor goes to ``family_update_reference``, a
 direct port of the XLA region-concat body; a CUDA tensor launches the
 hand-written kernel in ``csrc/step.cu`` or raises. ``LAUNCHES`` counts the
@@ -27,6 +34,7 @@ from ..lowering import E_COMPS, H_COMPS
 
 LAUNCHES = 0
 MAX_POLES = 8       # pole slots the kernels take (csrc/*.cu MAX_POLES)
+STORAGE = (torch.float32, torch.bfloat16)   # the storage types of the state
 
 _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
 
@@ -173,6 +181,44 @@ def _region_ranges(n: int, w_lo: int, w_hi: int):
     return regions
 
 
+def f32(t):
+    """A stored tensor widened to float32 (exact for bfloat16)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def storage_defines(field, psi, q) -> tuple:
+    """The defines of the kernels' library for the storage types of the
+    fields, the psi slabs and the pole currents (none for float32)."""
+    for dt in (field, psi, q):
+        if dt not in STORAGE:
+            raise ValueError(f"storage type {dt}: the kernels store "
+                             f"{', '.join(map(str, STORAGE))}")
+    return tuple(name for name, dt in (("T3D_FIELD_BF16", field),
+                                       ("T3D_PSI_BF16", psi),
+                                       ("T3D_Q_BF16", q))
+                 if dt == torch.bfloat16)
+
+
+def storage_of(state: dict, copies=(("E", "H", "psi"),)) -> tuple:
+    """``(field, psi, q)``: the storage types of a state's fields, psi
+    slabs and pole currents; each kind must be of one type (a kind the
+    state has none of takes the fields' type)."""
+    kinds = {"field": [], "psi": [], "q": []}
+    for e, h, p in copies:
+        kinds["field"] += list(state[e].values()) + list(state[h].values())
+        kinds["psi"] += list(state[p].values())
+    for Qp in state.get("Q", []):
+        for qr, qi in Qp.values():
+            kinds["q"] += [qr, qi]
+    out = []
+    for kind, ts in kinds.items():
+        dts = {t.dtype for t in ts}
+        if len(dts) > 1:
+            raise ValueError(f"{kind} tensors of several types: {dts}")
+        out.append(dts.pop() if dts else out[0])
+    return tuple(out)
+
+
 def pole_terms(state: dict, consts: dict):
     """``[(Re Gc, Im Gc, Q_p)]`` per pole: the E update subtracts
     ``Re(Gc) qr - Im(Gc) qi`` of each pole (``fdtd.py:1089-1093``)."""
@@ -188,14 +234,20 @@ def pole_terms(state: dict, consts: dict):
 
 def family_update_reference(family: str, state: dict, consts: dict,
                             src_fields: dict, meta: StepMeta,
-                            partner: dict = None, part: int = 0):
+                            partner: dict = None, part: int = 0,
+                            store: bool = True):
     """Plain PyTorch family update on any device: the field is assembled as
     a region concat over the two derivative axes (j, k) of each component,
     with the psi terms in the slab pieces only, and the E update subtracts
     the pole currents' term. In a complex run ``state`` and ``src_fields``
     are copy ``part`` and ``partner`` holds the other copy's
     ``src_fields``, which enters where a stencil wraps across a Bloch
-    axis."""
+    axis.
+
+    Every input is widened to float32 and the update computed in float32;
+    the new fields and psi are rounded to the types of ``state``'s fields
+    and psi (its stores), or left in float32 with ``store=False`` (for a
+    caller that goes on computing with them)."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     other = H_COMPS if is_e else E_COMPS
@@ -204,17 +256,18 @@ def family_update_reference(family: str, state: dict, consts: dict,
     fam = "dual" if is_e else "primal"
     sign_shift = 1.0 if is_e else -1.0  # backward vs forward difference
     shape, boundaries = meta.shape, meta.boundaries
-    poles = pole_terms(state, consts) if is_e else []
+    poles = [(gr, gi, {c: (f32(qr), f32(qi)) for c, (qr, qi) in Qp.items()})
+             for gr, gi, Qp in pole_terms(state, consts)] if is_e else []
 
     new_fields, new_psi = {}, {}
     for i, comp in enumerate(out_comps):
         j, k = (i + 1) % 3, (i + 2) % 3
-        Fk = src_fields[other[k]]
-        Fj = src_fields[other[j]]
-        Fk_p = partner[other[k]] if partner is not None else None
-        Fj_p = partner[other[j]] if partner is not None else None
+        Fk = f32(src_fields[other[k]])
+        Fj = f32(src_fields[other[j]])
+        Fk_p = f32(partner[other[k]]) if partner is not None else None
+        Fj_p = f32(partner[other[j]]) if partner is not None else None
         ca, cb = coeffs[comp]
-        F_old = state[family][comp]
+        F_old = f32(state[family][comp])
 
         def d1_of(sl):
             shifted = _shift_take(Fk, sl, j, is_e, boundaries, Fk_p,
@@ -237,7 +290,7 @@ def family_update_reference(family: str, state: dict, consts: dict,
                 key = f"{comp}|{axis}|{side}"
                 if width and key in state["psi"]:
                     sl = _slab_slices(shape, axis, side, width)
-                    psi_new = pml[f"b_{side}"] * state["psi"][key] \
+                    psi_new = pml[f"b_{side}"] * f32(state["psi"][key]) \
                         + pml[f"c_{side}"] * d_of(sl)
                     new_psi[key] = psi_new
                     out[side] = (psi_new, sl)
@@ -289,6 +342,11 @@ def family_update_reference(family: str, state: dict, consts: dict,
             rows.append(cols[0] if len(cols) == 1 else torch.cat(cols, dim=k))
         new_fields[comp] = rows[0] if len(rows) == 1 \
             else torch.cat(rows, dim=j)
+    if store:
+        new_fields = {c: v.to(state[family][c].dtype)
+                      for c, v in new_fields.items()}
+        new_psi = {key: v.to(state["psi"][key].dtype)
+                   for key, v in new_psi.items()}
     return new_fields, new_psi
 
 
@@ -320,30 +378,62 @@ class FamilyParams(ctypes.Structure):
     ]
 
 
-def _library():
+def check_storage(lib, fn_name: str, storage) -> None:
+    """Raises unless the library's ``fn_name`` reports the element sizes
+    of ``storage`` (field, psi, q), the types it was built for."""
+    sizes = (ctypes.c_int32 * 3)()
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = None
+    fn(sizes)
+    want = tuple(torch.empty((), dtype=dt).element_size() for dt in storage)
+    if tuple(sizes) != want:
+        raise RuntimeError(f"{fn_name}: the library stores {tuple(sizes)} "
+                           f"bytes a value, the storage types {want}")
+
+
+def _library(storage=(torch.float32,) * 3):
     from ... import _build
 
-    lib = _build.load("step")
+    lib = _build.load("step", storage_defines(*storage))
     fn = lib.t3d_family_update
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_family_params_size", FamilyParams)
+        check_storage(lib, "t3d_family_storage", storage)
         fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def prepare(device) -> None:
-    """Build and load the kernel library for ``device`` (a no-op on the
-    CPU); the runner times this as its compile step."""
+def occupancy(family: str, storage=(torch.float32,) * 3) -> int:
+    """Blocks per SM of the E or H instantiation of the kernel in the
+    library of the storage types ``(field, psi, q)`` (the CUDA occupancy
+    calculator); needs the card."""
+    from ... import _build
+
+    _library(storage)
+    fn = _build.load("step", storage_defines(*storage)).t3d_family_occupancy
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    blocks = fn(int(family == "E"))
+    if blocks < 0:
+        raise RuntimeError(f"family occupancy: CUDA error {-blocks}")
+    return blocks
+
+
+def prepare(device, storage=(torch.float32,) * 3) -> None:
+    """Build and load the kernel library of the storage types ``(field,
+    psi, q)`` for ``device`` (a no-op on the CPU); the runner times this as
+    its compile step."""
     if torch.device(device).type == "cuda":
-        _library()
+        _library(storage)
 
 
-def _check_field(t, shape, name):
+def _check_field(t, shape, name, dtype=torch.float32):
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
@@ -362,10 +452,10 @@ def _vec(t, n, name):
     return v
 
 
-def set_pole_params(p, state, consts, shape) -> None:
+def set_pole_params(p, state, consts, shape, dtype=torch.float32) -> None:
     """Fills ``num_poles``, ``gc_re``/``gc_im`` and the pole-current
     pointers ``q[(pole * 3 + comp) * 2 + (0 re, 1 im)]`` of a kernel's
-    parameter struct."""
+    parameter struct; the currents are of type ``dtype``."""
     poles = pole_terms(state, consts)
     if len(poles) > MAX_POLES:
         raise ValueError(f"{len(poles)} poles: the kernels take at most "
@@ -377,7 +467,7 @@ def set_pole_params(p, state, consts, shape) -> None:
         for ci, comp in enumerate(E_COMPS):
             for part in range(2):
                 p.q[(pi * 3 + ci) * 2 + part] = _check_field(
-                    Qp[comp][part], shape, f"Q{pi}_{comp}").data_ptr()
+                    Qp[comp][part], shape, f"Q{pi}_{comp}", dtype).data_ptr()
 
 
 # the per-family arrays of a kernel's parameter struct (the fused kernel's
@@ -388,13 +478,13 @@ FAMILY_FIELDS = ("ca", "cb", "ca_s", "cb_s", "inv", "w", "pml_b", "pml_c",
 
 def set_family_params(family: str, state: dict, consts: dict,
                       meta: StepMeta, arrays: dict,
-                      psi_out: dict = None) -> dict:
+                      psi_out: dict = None, psi_dtype=torch.float32) -> dict:
     """Fills the per-family fields of a kernel's parameter struct: the
     ca/cb pointers or scalars, the inverse steps, the psi slab widths,
-    their CPML b/c vectors and the psi pointers. ``arrays`` maps each name
-    of ``FAMILY_FIELDS`` to the struct's array for this family. Returns
-    the new psi buffers, keyed as the state's: those of ``psi_out`` where
-    given, new ones otherwise."""
+    their CPML b/c vectors and the psi pointers (psi slabs of type
+    ``psi_dtype``). ``arrays`` maps each name of ``FAMILY_FIELDS`` to the
+    struct's array for this family. Returns the new psi buffers, keyed as
+    the state's: those of ``psi_out`` where given, new ones otherwise."""
     is_e = family == "E"
     comps = E_COMPS if is_e else H_COMPS
     coeffs = consts["coeffs_E"] if is_e else consts["coeffs_H"]
@@ -439,9 +529,11 @@ def set_family_params(family: str, state: dict, consts: dict,
                     raise ValueError(f"missing psi slab '{key}'")
                 psi_shape = list(shape)
                 psi_shape[a] = width
-                psi = _check_field(state["psi"][key], psi_shape, key)
+                psi = _check_field(state["psi"][key], psi_shape, key,
+                                   psi_dtype)
                 out = torch.empty_like(psi) if psi_out is None \
-                    else _check_field(psi_out[key], psi_shape, key)
+                    else _check_field(psi_out[key], psi_shape, key,
+                                      psi_dtype)
                 idx = (2 * i + slot) * 2 + s
                 arrays["psi_in"][idx] = psi.data_ptr()
                 arrays["psi_out"][idx] = out.data_ptr()
@@ -466,6 +558,9 @@ def _family_update_cuda(family, state, consts, src_fields, meta):
     src_comps = H_COMPS if is_e else E_COMPS
     shape = tuple(meta.shape)
     device = src_fields[src_comps[0]].device
+    storage = storage_of({"E": state[family], "H": src_fields,
+                          "psi": state["psi"],
+                          "Q": state["Q"] if is_e else []})
 
     p = FamilyParams()
     for a in range(3):
@@ -479,17 +574,19 @@ def _family_update_cuda(family, state, consts, src_fields, meta):
 
     new_fields = {}
     for i, (sc, oc) in enumerate(zip(src_comps, out_comps)):
-        p.src[i] = _check_field(src_fields[sc], shape, sc).data_ptr()
-        p.old[i] = _check_field(state[family][oc], shape, oc).data_ptr()
-        new_fields[oc] = torch.empty(shape, dtype=torch.float32,
-                                     device=device)
+        p.src[i] = _check_field(src_fields[sc], shape, sc,
+                                storage[0]).data_ptr()
+        p.old[i] = _check_field(state[family][oc], shape, oc,
+                                storage[0]).data_ptr()
+        new_fields[oc] = torch.empty(shape, dtype=storage[0], device=device)
         p.out[i] = new_fields[oc].data_ptr()
     new_psi = set_family_params(family, state, consts, meta, {
-        name: getattr(p, name) for name in FAMILY_FIELDS})
+        name: getattr(p, name) for name in FAMILY_FIELDS},
+        psi_dtype=storage[1])
     if is_e:
-        set_pole_params(p, state, consts, shape)
+        set_pole_params(p, state, consts, shape, storage[2])
 
-    launch(_library(), p, device, "family_update")
+    launch(_library(storage), p, device, "family_update")
     LAUNCHES += 1
     return new_fields, new_psi
 

@@ -121,7 +121,10 @@ class XSlabs:
         order on every shard. Each shard's lo halo planes take its left
         neighbour's top ``pad`` core planes, its hi halo planes its right
         neighbour's bottom ``pad``; shard 0's left neighbour is the last
-        shard, and a lone shard is its own neighbour. Only halo planes are
+        shard, and a lone shard is its own neighbour. A plane keeps its
+        array's storage type (float32 or bfloat16: the shards' arrays of
+        one kind share it), as the reference casts each halo to its
+        array's type (``pallas_kstep.py:1408-1411``). Only halo planes are
         written and only core planes read, so the copies commute, and each
         is one contiguous block (x is the slowest axis). When every shard
         lies on one device, all the copies go in one ``_foreach_copy_``

@@ -15,11 +15,14 @@ for a sharded run as in the JAX package
 (``solver/distributed.sharding_plan_from_env``): x-slabs, or one y or z
 axis rotated onto x, over the visible CUDA devices (on the CPU, over
 virtual shards). The runner decides what media it takes
-(``solver/fdtd.py``: linear, float32, up to 8 dispersive pole slots in a
-real run, none in a Bloch (complex) run) and which kernel tier steps the
-run. The log adds to the reference's the peak and the estimate of device
-memory, the host seconds of each monitor's data and the kernel tier (and
-k on the kstep tier).
+(``solver/fdtd.py``: linear, up to 8 dispersive pole slots in a real run,
+none in a Bloch (complex) run), which kernel tier steps the run and at
+which storage types (``TIDY3D_TPU_PRECISION``, and on the kstep tier
+``TIDY3D_TPU_PSI_DTYPE`` and ``TIDY3D_TPU_Q_DTYPE``). The log adds to the
+reference's the peak and the estimate of device memory, the host seconds
+of each monitor's data and the kernel tier (with k on the kstep tier) and
+its storage types: ``kernel tier: kstep (k=2) [storage: fields bfloat16,
+psi bfloat16, Q bfloat16]``.
 
 ``run`` takes this package's ``Simulation``. One of the JAX package crosses
 over through its JSON: ``tidy3d_tpu_torch.Simulation.parse_raw(sim.json())``.
@@ -127,7 +130,8 @@ def run(
                  f"{int(np.prod(sharding_plan.decomp))} shards")
     runner = FDTDRunner(plan, device=device, sharding_plan=sharding_plan)
     if verbose:
-        log.info(f"[{task_name}] kernel tier: {runner.tier_name}")
+        log.info(f"[{task_name}] kernel tier: {runner.tier_name} "
+                 f"[storage: {runner.storage_name}]")
     # refuse an over-budget plan with a SetupError before anything is
     # launched (tidy3d_tpu/web/run.py:91-94)
     runner.check_memory_budget()
@@ -215,7 +219,7 @@ def assemble_sim_data(simulation, plan, raw, runner,
         f"estimate {est['total']} B on {est['device']}",
         "monitor data host seconds: " + ", ".join(
             f"{name} {secs:.3f}" for name, secs in host_s.items()),
-        f"kernel tier: {runner.tier_name}",
+        f"kernel tier: {runner.tier_name} [storage: {runner.storage_name}]",
     ]
     sim_data = SimulationData(
         simulation=simulation, data=tuple(data_list),

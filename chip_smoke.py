@@ -220,7 +220,30 @@ Phases (any failure exits non-zero):
     tier, of the Bloch dipole, and of the mixed case with the pole state
     alone in bf16 on the kstep tier, and 20 steps of the 4-shard bf16
     runner;
-29. the JSON summary lines; the last line is the contract line. Each
+29. (run after phase 21) inverse design on the card
+    (``plugins/invdes``, ``plugins/adjoint``, ``web/autograd.py``), the
+    launch counts set to 0 just before and read just after: (a) the
+    production route on a waveguide-offset problem of the waveguide's
+    materials (``invdes_case``: 274 x 204 x 104 cells at dl = 0.02 um, a
+    100 x 100 x 12 design region, eps in [2.085, 12.1], a mode source and
+    a one-frequency mode monitor, the default shutoff): the adjoint
+    gradient at density 0.5, then 3 ``AdamOptimizer`` steps, each two
+    ``web.run`` solves that must take the k-step tier; per iteration the
+    host seconds of the forward run, the adjoint run, the mode solves, the
+    objective's VJP and the gradient assembly, each run's ``kernel tier:``
+    line, source terms, Gcell*steps/s and peak memory; the objective must
+    rise; the gradient against central differences of two more
+    ``web.run``s along the uniform direction (within 20 %) and of two on
+    an 8 x 8 cell block over the whole depth at the largest |g| (within
+    10 %); only k-step launches; (b) the 2D coupling case of
+    ``tests/test_plugins/test_adjoint_invdes.py`` (108 x 85 x 1 cells):
+    the adjoint gradient on the card against the CPU, both forced to the
+    k-step tier, and ``TopologyObjective.value_and_grad`` (autograd, no
+    kernel: no launch) on the card against the CPU, each within 1e-3 of
+    max |g|; the autodiff gradient against central differences at the
+    largest pixel (within 2 %); the autodiff route's ms per forward and
+    backward step and its peak memory at 20 and 5 checkpoint chunks;
+30. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -549,6 +572,106 @@ def diffraction_case(td):
         center=(x, 0, 0), size=(0, td.inf, td.inf), freqs=[td.C_0 / 1.55],
         name="diff", normal_dir="+")
     return sim.copy(update=dict(monitors=list(sim.monitors) + [diff]))
+
+
+INVDES_STEPS = 3         # Adam steps of phase 29
+INVDES_LR = 0.05
+TOL_FD_UNIFORM = 0.2     # tests/test_plugins/test_adjoint_invdes.py:86-87
+TOL_FD_BLOCK = 0.1
+TOL_FD_PIXEL = 0.02      # the autodiff route's bar in the JAX package's test
+TOL_CARD_CPU = 1e-3      # of max |g|: one tier on the card and on the CPU
+FD_BLOCK = (8, 8)        # x, y cells of the block FD, the whole depth in z
+INVDES_SHAPE = (100, 100, 12)   # the design region's cells
+CHUNKS = (20, 5)         # checkpoint chunk counts of the autodiff timing
+
+
+def invdes_case(td):
+    """The waveguide's materials as a waveguide-offset problem (5.0 x 3.6 x
+    1.6 um at dl = 0.02 um in a 12-layer PML: 274 x 204 x 104 = 5.8 M
+    cells): the Si input strip (eps 12.1, 0.5 x 0.22 um) along x at y = 0
+    up to x = -1 um, the output strip from x = +1 um at y = +0.5 um, in
+    SiO2 (eps 2.085); a mode source of mode 0 on the input at x = -2 um, a
+    one-frequency mode monitor (1.55 um) on the output at x = +2 um; the
+    default shutoff. The design region is ``invdes_region``."""
+    freq0 = td.C_0 / 1.55
+    plane = dict(size=(0, 2.0, 1.4))
+    strip = dict(size=(4.0, 0.5, 0.22))
+    si = td.Medium(permittivity=12.1)
+    return td.Simulation(
+        center=(0, 0, 0), size=(5.0, 3.6, 1.6), run_time=3e-13,
+        medium=td.Medium(permittivity=2.085),
+        structures=[
+            td.Structure(geometry=td.Box(center=(-3.0, 0, 0), **strip),
+                         medium=si),
+            td.Structure(geometry=td.Box(center=(3.0, 0.5, 0), **strip),
+                         medium=si)],
+        sources=[td.ModeSource(
+            center=(-2.0, 0, 0), **plane, direction="+",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 10),
+            mode_spec=td.ModeSpec(num_modes=1), mode_index=0)],
+        monitors=[td.ModeMonitor(
+            center=(2.0, 0.5, 0), **plane, freqs=[freq0],
+            mode_spec=td.ModeSpec(num_modes=1), name="out")],
+        boundary_spec=td.BoundarySpec.all_sides(td.PML()),
+        grid_spec=td.GridSpec.uniform(dl=0.02))
+
+
+def invdes_region(td_invdes):
+    """The 2.0 x 2.0 x 0.22 um design region between the strips (100 x 100
+    x 12 cells: the strips' z faces lie inside the edge cells), eps in
+    [2.085, 12.1], no filter."""
+    return td_invdes.TopologyDesignRegion(
+        center=(0, 0.24, 0), size=(2.0, 2.0, 0.22), eps_bounds=(2.085, 12.1))
+
+
+def coupling_case(td):
+    """The 2D coupling case of ``tests/test_plugins/test_adjoint_invdes.py``
+    (108 x 85 x 1 cells, 724 steps): an Ez dipole, an eps 4 strip and a
+    one-mode monitor at 1.5 um; its design region is ``coupling_region``,
+    eps in [1, 6]."""
+    f0 = td.C_0 / 1.5
+    return td.Simulation(
+        center=(0, 0, 0), size=(5, 3.6, 0), run_time=1e-13,
+        sources=[td.PointDipole(
+            center=(-1.4, 0, 0),
+            source_time=td.GaussianPulse(freq0=f0, fwidth=f0 / 6),
+            polarization="Ez")],
+        monitors=[td.ModeMonitor(
+            center=(1.8, 0, 0), size=(0, 2.6, td.inf), freqs=[f0],
+            name="out", mode_spec=td.ModeSpec(num_modes=1,
+                                              target_neff=2.0))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(1.55, 0, 0), size=(1.7, 0.4, td.inf)),
+            medium=td.Medium(permittivity=4.0))],
+        shutoff=0.0,
+        boundary_spec=td.BoundarySpec(x=td.Boundary.pml(),
+                                      y=td.Boundary.pml(),
+                                      z=td.Boundary.periodic()),
+        grid_spec=td.GridSpec.uniform(dl=0.06))
+
+
+def coupling_region(td) -> dict:
+    """The center and size of the coupling case's design region (21 x 31 x
+    1 cells)."""
+    return dict(center=(-0.1, 0, 0), size=(1.2, 1.8, td.inf))
+
+
+def fd_block(g: np.ndarray, size=FD_BLOCK) -> tuple:
+    """The slices of the ``size`` x-y block, over the whole z depth, centred
+    on the largest |g| of the x-y map of |g| summed over z, moved inside
+    the array where it would cross an edge."""
+    col = np.abs(g).sum(axis=2)
+    ix, iy = np.unravel_index(np.argmax(col), col.shape)
+    out = []
+    for i, n, w in ((ix, col.shape[0], size[0]), (iy, col.shape[1], size[1])):
+        lo = min(max(i - w // 2, 0), n - w)
+        out.append(slice(lo, lo + w))
+    return tuple(out) + (slice(None),)
+
+
+def log_rate(lines: list) -> float:
+    """Gcell*steps/s of a ``web.run`` log."""
+    return float(log_field(lines, "throughput: ").split()[0])
 
 
 def random_state(runner, seed: int) -> dict:
@@ -1834,6 +1957,281 @@ def run_memory(td, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+class ModeSolveClock:
+    """Times every mode solve (``plugins/mode/mode_solver.compute_modes``)
+    while it is entered: ``solves`` holds ``(end perf_counter, host
+    seconds)`` of each."""
+
+    def __enter__(self):
+        from tidy3d_tpu_torch.plugins.mode import mode_solver
+
+        self.module, self.inner = mode_solver, mode_solver.compute_modes
+        self.solves = []
+
+        def timed_solve(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.inner(*args, **kwargs)
+            t1 = time.perf_counter()
+            self.solves.append((t1, t1 - t0))
+            return out
+
+        mode_solver.compute_modes = timed_solve
+        return self
+
+    def __exit__(self, *exc):
+        self.module.compute_modes = self.inner
+
+    def seconds(self, start: float, end: float) -> float:
+        """Host seconds of the solves that ended in ``[start, end]``."""
+        return sum(s for t, s in self.solves if start <= t <= end)
+
+
+def split_record(rec: dict, clock: ModeSolveClock) -> dict:
+    """One ``run_structure_gradients`` call's host seconds: the forward run
+    and the adjoint run without their mode solves and kernel builds, the
+    mode solves (the source's and the monitor's in the forward run, the
+    re-solve on the monitor plane that makes the adjoint currents, the
+    adjoint run's), the kernel builds, the objective's VJP with the
+    adjoint simulation's set-up and the gradient assembly; and each run's
+    tier, source terms, steps, Gcell*steps/s and peak device memory from
+    its log."""
+    stages = ("forward", "vjp", "adjoint", "assembly")
+    t, mode = rec["started"], {}
+    for stage in stages:
+        end = t + rec[f"{stage}_s"]
+        mode[stage] = clock.seconds(t, end)
+        t = end
+    out = {"mode_s": sum(mode.values()), "build_s": 0.0}
+    for run in ("forward", "adjoint"):
+        lines = rec[f"{run}_log"].splitlines()
+        wall = log_field(lines, "wall time: ")
+        build = float(wall.split(" s compile")[0].rsplit("+", 1)[1])
+        out["build_s"] += build
+        out[run] = {"tier": log_field(lines, "kernel tier: "),
+                    "sources": log_field(lines, "source terms: "),
+                    "rate": log_rate(lines),
+                    "peak": log_memory(lines)["peak"],
+                    "steps": log_field(lines, "steps run: ")}
+        out[f"{run}_s"] = rec[f"{run}_s"] - mode[run] - build
+    out["vjp_s"] = rec["vjp_s"] - mode["vjp"]
+    out["assembly_s"] = rec["assembly_s"] - mode["assembly"]
+    return out
+
+
+def objective_of(td, data) -> float:
+    """|mode 0 amplitude|^2 forward at the ``out`` monitor: the objective
+    of ``InverseDesign(output_monitor_name="out")``."""
+    amps = data["out"].amps.sel(direction="+", mode_index=0).values
+    return float(np.sum(np.abs(amps) ** 2))
+
+
+def run_invdes_3d(td, smi: str, clock: ModeSolveClock) -> None:
+    """Phase 29a: the production route (two ``web.run`` solves on the k-step
+    kernel per iteration) on ``invdes_case``: the adjoint gradient at the
+    uniform density 0.5, ``INVDES_STEPS`` Adam steps, then central
+    differences of the objective along the uniform direction and on the
+    ``fd_block`` block at the largest |g|."""
+    from tidy3d_tpu_torch.plugins import invdes
+    from tidy3d_tpu_torch.web import autograd as web_autograd
+
+    sim = invdes_case(td)
+    region = invdes_region(invdes)
+    design = invdes.InverseDesign(simulation=sim, design_region=region,
+                                  output_monitor_name="out")
+    assert design.device == "cuda" and design.method == "adjoint"
+    shape = region.params_shape(sim)
+    log(f"[invdes] grid {sim.grid.num_cells} = "
+        f"{int(np.prod(sim.grid.num_cells))} cells, design region {shape}")
+    assert shape == INVDES_SHAPE, shape
+    rho0 = design.initial_parameters().astype(np.float32)
+
+    def record(what, rec):
+        r = split_record(rec, clock)
+        for run in ("forward", "adjoint"):
+            log(f"[invdes] {what} {run} run: kernel tier: {r[run]['tier']}; "
+                f"source terms {r[run]['sources']}; {r[run]['steps']} steps;"
+                f" {r[run]['rate']} Gcell*steps/s; peak device memory "
+                f"{r[run]['peak']} B")
+            assert r[run]["tier"].startswith("kstep (k=2)"), r[run]
+        log(f"[invdes] {what} host seconds: forward run {r['forward_s']:.3f}"
+            f", adjoint run {r['adjoint_s']:.3f}, mode solves "
+            f"{r['mode_s']:.3f}, objective VJP and adjoint set-up "
+            f"{r['vjp_s']:.3f}, gradient assembly {r['assembly_s']:.3f}, "
+            f"kernel build {r['build_s']:.3f} | {smi}")
+
+    n = len(web_autograd.RECORDS)
+    v0, g0 = design._density_value_and_grad_adjoint(rho0)
+    record("gradient at 0.5", web_autograd.RECORDS[n])
+    assert g0.shape == shape and np.all(np.isfinite(g0)) and v0 > 0
+
+    n = len(web_autograd.RECORDS)
+    t0 = time.perf_counter()
+    result = invdes.AdamOptimizer(design=design, num_steps=INVDES_STEPS,
+                                  learning_rate=INVDES_LR).run(rho0)
+    adam_s = time.perf_counter() - t0
+    recs = web_autograd.RECORDS[n:]
+    assert len(recs) == INVDES_STEPS, len(recs)
+    for i, rec in enumerate(recs):
+        record(f"Adam iteration {i + 1}", rec)
+    hist = list(result.objective_history)
+    log(f"[invdes] Adam ({INVDES_STEPS} steps, learning rate {INVDES_LR}): "
+        f"objective {hist} in {adam_s:.1f} s; the first "
+        f"{abs(hist[0] - v0) / v0:.2e} from the gradient run's {v0}")
+    assert hist[-1] > hist[0], hist
+    assert abs(hist[0] - v0) <= 1e-5 * v0, (hist[0], v0)
+
+    def objective(rho) -> float:
+        data = td.web.run(design.to_simulation(rho), task_name="invdes_fd",
+                          verbose=False)
+        return objective_of(td, data)
+
+    t0 = time.perf_counter()
+    h = 5e-3
+    fd_u = (objective(rho0 + h / 2) - objective(rho0 - h / 2)) / h
+    err_u = abs(float(np.sum(g0)) / fd_u - 1.0)
+    block = fd_block(g0)
+    mask = np.zeros(shape, np.float32)
+    mask[block] = 1.0
+    hb = 0.02
+    fd_b = (objective(rho0 + hb * mask) - objective(rho0 - hb * mask)) \
+        / (2 * hb)
+    g_b = float(np.sum(g0[block]))
+    err_b = abs(g_b / fd_b - 1.0)
+    log(f"[invdes] adjoint against central differences at 0.5: uniform "
+        f"sum(g) {float(np.sum(g0)):.6e} vs FD {fd_u:.6e} (rel {err_u:.3e}, "
+        f"tol {TOL_FD_UNIFORM}); block {block[:2]} x all z: sum(g) "
+        f"{g_b:.6e} vs FD {fd_b:.6e} (rel {err_b:.3e}, tol "
+        f"{TOL_FD_BLOCK}); 4 runs in {time.perf_counter() - t0:.1f} s")
+    assert err_u <= TOL_FD_UNIFORM and err_b <= TOL_FD_BLOCK, (err_u, err_b)
+
+
+def run_invdes_2d(td, smi: str) -> int:
+    """Phase 29b: the coupling case on both routes, card against CPU on one
+    tier, the autodiff route against central differences, its ms per
+    forward + backward step and peak memory at ``CHUNKS``. Returns the
+    k-step launches of the adjoint route on the card."""
+    from tidy3d_tpu_torch.plugins import invdes
+    from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
+    from tidy3d_tpu_torch.solver.fdtd import AUTODIFF_TIER
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    sim = coupling_case(td)
+    region = td.Box(**coupling_region(td))
+    rho = 0.5 * np.ones((21, 31, 1), np.float32)
+
+    # the adjoint route on the k-step tier: the kernel on the card, its
+    # plain version on the CPU
+    old = os.environ.get("TIDY3D_TPU_KERNEL")
+    os.environ["TIDY3D_TPU_KERNEL"] = "kstep"
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            design = invdes.InverseDesign(
+                simulation=sim, output_monitor_name="out", device=dev,
+                design_region=invdes.TopologyDesignRegion(
+                    **coupling_region(td), eps_bounds=(1.0, 6.0)))
+            t0 = time.perf_counter()
+            out[dev] = design._density_value_and_grad_adjoint(rho)
+            log(f"[invdes 2D] adjoint route on {dev} (kstep): value "
+                f"{out[dev][0]}, {time.perf_counter() - t0:.2f} s")
+    finally:
+        if old is None:
+            os.environ.pop("TIDY3D_TPU_KERNEL", None)
+        else:
+            os.environ["TIDY3D_TPU_KERNEL"] = old
+    n_adjoint = kstep.LAUNCHES
+    assert n_adjoint > 0 and step.LAUNCHES == fused.LAUNCHES == 0
+    (v_c, g_c), (v_h, g_h) = out["cuda"], out["cpu"]
+    err_adj = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
+    log(f"[invdes 2D] adjoint gradient card vs CPU: {err_adj:.3e} of max "
+        f"|g| (tol {TOL_CARD_CPU:g}); values {abs(v_c - v_h) / v_h:.3e} "
+        "apart")
+    assert err_adj <= TOL_CARD_CPU, err_adj
+
+    # the autodiff route: no kernel
+    topo = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        topo[dev] = TopologyObjective(sim, region, eps_min=1.0, eps_max=6.0,
+                                      mode_monitor_name="out", device=dev)
+        step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+        out[dev] = topo[dev].value_and_grad(rho)
+        launches = (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES)
+        log(f"[invdes 2D] autodiff on {topo[dev].runner.device}: value "
+            f"{out[dev][0]}, {time.perf_counter() - t0:.2f} s (set-up "
+            f"included), kernel launches {launches}")
+        assert launches == (0, 0, 0), launches
+    (v_c, g_c), (v_h, g_h) = out["cuda"], out["cpu"]
+    err_ad = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
+    log(f"[invdes 2D] autodiff gradient card vs CPU: {err_ad:.3e} of max "
+        f"|g| (tol {TOL_CARD_CPU:g}); values {abs(v_c - v_h) / v_h:.3e} "
+        "apart")
+    assert err_ad <= TOL_CARD_CPU, err_ad
+    card = topo["cuda"]
+    idx = np.unravel_index(np.argmax(np.abs(g_c)), g_c.shape)
+    h = 5e-3
+    rp, rm = rho.copy(), rho.copy()
+    rp[idx] += h
+    rm[idx] -= h
+    fd = (card.value(rp) - card.value(rm)) / (2 * h)
+    err_fd = abs(fd - g_c[idx]) / abs(fd)
+    log(f"[invdes 2D] autodiff on the card vs central differences at pixel "
+        f"{idx}: {g_c[idx]:.6e} vs {fd:.6e} (rel {err_fd:.3e}, tol "
+        f"{TOL_FD_PIXEL})")
+    assert err_fd <= TOL_FD_PIXEL, err_fd
+
+    for chunks in CHUNKS:
+        t = topo["cuda"]
+        t.run_fn = t.runner.make_differentiable_run(checkpoint_chunks=chunks)
+        dens = torch.as_tensor(rho, device="cuda")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        r = dens.clone().requires_grad_(True)
+        val = t.loss(r)
+        sync()
+        t1 = time.perf_counter()
+        torch.autograd.grad(val, r)
+        sync()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() - base
+        steps = t.runner.checkpoint_chunks[0] * t.runner.checkpoint_chunks[1]
+        log(f"[invdes 2D] {AUTODIFF_TIER}: {chunks} chunks of "
+            f"{t.runner.checkpoint_chunks[0]} steps: forward "
+            f"{(t1 - t0) / steps * 1e3:.3f} ms/step, backward (recompute "
+            f"included) {(t2 - t1) / steps * 1e3:.3f} ms/step, forward + "
+            f"backward {(t2 - t0) / steps * 1e3:.3f} ms/step; peak device "
+            f"memory {peak} B above the {base} B held before | {smi}")
+    return n_adjoint
+
+
+def run_invdes(td, smi: str) -> int:
+    """Phase 29: inverse design on the card; the launch counts set to 0
+    just before and read just after. Returns the k-step launches."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    t_phase = time.perf_counter()
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    with ModeSolveClock() as clock:
+        run_invdes_3d(td, smi, clock)
+    n = kstep.LAUNCHES
+    assert n > 0 and step.LAUNCHES == fused.LAUNCHES == 0, \
+        (n, step.LAUNCHES, fused.LAUNCHES)
+    log(f"[invdes] 3D: {n} k-step launches, no other kernel; "
+        f"{len(clock.solves)} mode solves, "
+        f"{sum(sec for _, sec in clock.solves):.3f} host s")
+    t_3d = time.perf_counter() - t_phase
+    kstep.LAUNCHES = 0
+    n2 = run_invdes_2d(td, smi)
+    log(f"[invdes] 2D: {n2} k-step launches on the adjoint route")
+    n += n2
+    log(f"[invdes] phase 29 took {time.perf_counter() - t_phase:.1f} s (3D "
+        f"{t_3d:.1f} s)")
+    return n
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
           library_ms=None, **extra) -> dict:
     """One kernel's entry of the kernels line (``extra``: more keys, as the
@@ -2229,7 +2627,7 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     from tidy3d_tpu_torch import _build, convert
     from tidy3d_tpu_torch.exceptions import SetupError
     from tidy3d_tpu_torch.labs import _common
-    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, halo_arrays
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
     from tidy3d_tpu_torch.solver.lowering import lower
 
@@ -2411,10 +2809,15 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     e_sh = bf16_compare(got, flat_state(ref), "4 x-shards dispersive group")
     del got, ref
     s_ms = cuda_ms(lambda: shard_group(kstep.kstep_group, sr, states, 36), 5)
-    s_bnd = group_bound(kd, kd.init_state(), kd.k)
+    # the unsharded group's bytes plus the halo planes each exchange reads
+    # and writes, at their bf16 sizes (as phase 12's float32 bound)
+    u_bytes, u_ops = group_work(kd, kd.init_state(), kd.k)
+    halo_bytes = sum(2 * 2 * kd.k * a[0].numel() * a.element_size()
+                     for st in states for a in halo_arrays(st))
+    s_bnd = bound(u_bytes + halo_bytes, u_ops)
     log(f"[bf16] 4 x-shards dispersive: group {s_ms:.3f} ms (exchange and "
-        f"4 launches), plain {sp_ms:.3f}; unsharded bound {s_bnd[0]:.3f} ms "
-        f"| {smi}")
+        f"4 launches), plain {sp_ms:.3f}; bound {s_bnd[0]:.3f} ms by "
+        f"{s_bnd[1]} (unsharded {bound(u_bytes, u_ops)[0]:.3f}) | {smi}")
     # the sharded runner's own loop: 20 steps, launch counts read around
     kstep.SHARDED_LAUNCHES = 0
     sr.run_steps(0, 20, sr.init_state())
@@ -2833,6 +3236,9 @@ def main() -> int:
     n_kstep += run_profiled(smi)
     # 21. the memory estimate against every run's peak, and the gate
     run_memory(td, smi)
+    # 29. inverse design on the card: the two-solve adjoint on the k-step
+    # kernel, Adam, central differences; the autodiff route
+    n_kstep += run_invdes(td, smi)
 
     # 22-25. the labs: their entry points, then each kernel against plain
     lab_counts = run_lab_mains(smi)

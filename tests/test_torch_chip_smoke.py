@@ -2,8 +2,10 @@
 profiler window (the union of the device events' intervals, so that the
 two overlapping launches of a k-step group count once), the device
 launches a k-step group makes (one per non-empty block list, per shard),
-the records a profiler trace holds, the memory line of a run's log and the
-full-size cases of the new monitors (built, not run).
+the records a profiler trace holds, the memory line of a run's log, the
+full-size cases of the new monitors (built, not run) and phase 29's pieces:
+its cases, the block of its finite-difference check and the split of an
+adjoint call's seconds into runs, mode solves and kernel builds.
 """
 
 import json
@@ -158,3 +160,63 @@ def test_bf16_phase_pieces():
     sim = chip_smoke.mixed_dft_case(td, dispersive=True)
     assert [m.name for m in sim.monitors] == ["field", "flux"]
     assert len(sim.monitors[1].freqs) == 11
+
+
+def test_invdes_cases_build():
+    """Phase 29's cases: the 3D waveguide-offset problem at 5.8 M cells
+    with its 100 x 100 x 12 design region (built, not run), and the 2D
+    coupling case equal to the tests' own."""
+    from tidy3d_tpu_torch.plugins import invdes
+    from tests.torch_cases import COUPLING_REGION, coupling
+
+    sim = chip_smoke.invdes_case(td)
+    assert tuple(sim.grid.num_cells) == (274, 204, 104)
+    assert chip_smoke.invdes_region(invdes).params_shape(sim) == \
+        chip_smoke.INVDES_SHAPE
+    assert [m.name for m in sim.monitors] == ["out"]
+    assert chip_smoke.coupling_case(td).json() == coupling().json()
+    assert chip_smoke.coupling_region(td) == COUPLING_REGION
+
+
+@pytest.mark.parametrize("peak, want", [
+    ((50, 50), (slice(46, 54), slice(46, 54))),
+    ((0, 99), (slice(0, 8), slice(92, 100))),
+    ((99, 3), (slice(92, 100), slice(0, 8))),
+])
+def test_fd_block_is_centred_on_the_largest_gradient(peak, want):
+    g = np.random.default_rng(0).uniform(-1, 1, (100, 100, 12)) * 1e-3
+    g[peak[0], peak[1], 5] = -2.0
+    block = chip_smoke.fd_block(g)
+    assert block == want + (slice(None),)
+    assert g[block].shape == (8, 8, 12)
+
+
+def test_split_record_and_mode_solve_clock():
+    """``split_record`` takes each run's mode solves out of its seconds by
+    the solves' end times and reads the runs' logs; the clock times
+    ``compute_modes`` while entered and restores it after."""
+    from tidy3d_tpu_torch.plugins.mode import mode_solver
+
+    inner = mode_solver.compute_modes
+    with chip_smoke.ModeSolveClock() as clock:
+        assert mode_solver.compute_modes is not inner
+        clock.solves += [(10.5, 0.25), (13.2, 0.5), (20.0, 9.0)]
+    assert mode_solver.compute_modes is inner
+    sim = SIMS["pml_all"](monitors=monitors()[:1], run_time=5e-15)
+    log_ = td.web.run(sim, device="cpu", verbose=False).log
+    rec = {"started": 10.0, "forward_s": 1.0, "vjp_s": 2.0, "adjoint_s": 1.0,
+           "assembly_s": 0.1, "forward_log": log_, "adjoint_log": log_}
+    # the solves end in the forward run (10.5), the VJP stage (12.5) and
+    # the adjoint run (13.2); the one at 20.0 is after the call
+    clock.solves.insert(1, (12.5, 0.125))
+    r = chip_smoke.split_record(rec, clock)
+    build = float(log_.split(" s compile")[0].rsplit("+", 1)[1])
+    assert r["build_s"] == 2 * build
+    assert r["forward_s"] == pytest.approx(0.75 - build)
+    assert r["adjoint_s"] == pytest.approx(0.5 - build)
+    assert r["vjp_s"] == 1.875 and r["mode_s"] == 0.875
+    assert r["assembly_s"] == 0.1
+    assert r["forward"]["tier"].startswith("fused")
+    assert r["forward"]["sources"] == "E 1, H 0"
+    # a CPU run of a few cells logs 0.000 Gcell*steps/s at this precision
+    assert r["forward"]["rate"] >= 0 and r["forward"]["peak"] == 0

@@ -402,3 +402,36 @@ MONITOR_CASES = {
     "diffraction_bloch": lambda **kw: bloch_planewave(**kw).copy(
         update=dict(monitors=diffraction_monitors())),
 }
+
+
+# Differentiation: the coupling case of the JAX package's adjoint tests
+
+COUPLING_FREQ0 = C_0 / 1.5
+COUPLING_REGION = dict(center=(-0.1, 0, 0), size=(1.2, 1.8, td.inf))
+
+
+def coupling(run_time=1e-13):
+    """The 2D coupling case of ``tests/test_plugins/test_adjoint_invdes.py``
+    (108 x 85 x 1 cells at dl = 0.06, 724 steps at the default run time):
+    an Ez dipole, an eps 4 strip to the right and a one-mode monitor on it
+    at 1.5 um, PML in x and y, periodic z, no shutoff. The design region
+    is ``COUPLING_REGION`` (21 x 31 x 1 cells)."""
+    f0 = COUPLING_FREQ0
+    return td.Simulation(
+        center=(0, 0, 0), size=(5, 3.6, 0), run_time=run_time,
+        sources=[td.PointDipole(
+            center=(-1.4, 0, 0),
+            source_time=td.GaussianPulse(freq0=f0, fwidth=f0 / 6),
+            polarization="Ez")],
+        monitors=[td.ModeMonitor(
+            center=(1.8, 0, 0), size=(0, 2.6, td.inf), freqs=[f0],
+            name="out", mode_spec=td.ModeSpec(num_modes=1,
+                                              target_neff=2.0))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(1.55, 0, 0), size=(1.7, 0.4, td.inf)),
+            medium=td.Medium(permittivity=4.0))],
+        shutoff=0.0,
+        boundary_spec=td.BoundarySpec(x=td.Boundary.pml(),
+                                      y=td.Boundary.pml(),
+                                      z=td.Boundary.periodic()),
+        grid_spec=td.GridSpec.uniform(dl=0.06))

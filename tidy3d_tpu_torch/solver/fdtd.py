@@ -104,6 +104,19 @@ checked; ``TIDY3D_TPU_MEM_CHECK=0`` turns it off), as
 ``tidy3d_tpu/solver/fdtd.py:545-630`` does. ``run`` records the peak of
 ``torch.cuda.max_memory_allocated`` in ``hbm_peak_bytes``.
 
+``make_differentiable_run`` returns ``fn(consts) -> (mon_out,
+final_state)``, the monitor accumulators as a reverse-mode differentiable
+function of the constant tree, as ``tidy3d_tpu/solver/fdtd.py:1908-1955``
+does. It runs no kernel, by design: the JAX package turns its three
+Pallas tiers off while it differentiates (``pallas_call`` has no
+transpose) and takes ``jax.grad`` through its XLA step under
+``jax.checkpoint``; the port takes PyTorch autograd through the plain
+out-of-place step sequence of the ``pallas2`` tier (``_diff_step``) under
+``torch.utils.checkpoint``, one chunk at a time, on the runner's device
+(``AUTODIFF_TIER``, the ``kernel tier:`` line such a run logs). Real
+float32 runs only: Bloch runs, bfloat16 storage and sharded runs raise
+``NotImplementedError``.
+
 ``run_checkpointed`` saves the state every few chunks into a ``.npz`` of
 named arrays (``save_checkpoint``), resumes from it when the file exists
 (``load_checkpoint``, which refuses a file of another grid, tier, k or
@@ -122,6 +135,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch.profiler import record_function
 
 from ..constants import EPSILON_0
@@ -140,6 +154,11 @@ SHUTOFF_MIN_CHUNKS = 4
 CHECKPOINT_VERSION = 1
 # the working margin of the memory estimate: half the state plus this
 MARGIN_BYTES = 256 << 20
+
+# what the differentiable run steps with (make_differentiable_run)
+AUTODIFF_TIER = ("autodiff: PyTorch autograd through the plain pallas2 step "
+                 "sequence, checkpointed per chunk (no kernel: the JAX "
+                 "package differentiates its XLA step)")
 
 # TIDY3D_TPU_KERNEL value -> requested tier ("auto" chooses)
 _KERNEL_ENV = {"auto": "auto", "kstep": "kstep", "fused": "fused",
@@ -639,16 +658,15 @@ def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
     return Q
 
 
-def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
-                         consts: dict) -> list:
-    """``update_poles`` on bfloat16 fields and currents, with the
-    arithmetic of the reference's ``_update_poles`` (``fdtd.py:1145-1184``)
-    under JAX's promotion rules, which PyTorch's share: a Python scalar
-    keeps a tensor's type, so ``A Q`` and its sum, and ``E^{n+1} + E^n``,
-    round to bfloat16 at each operation; the float32 masks and residues
-    promote the residue term, and the sum, to float32. Each new current is
-    written back, rounded once more to its type, as ``_cast_state`` casts
-    the carry."""
+def _pole_currents(new_e: dict, old_e: dict, Q: list, consts: dict):
+    """Yields ``(p, comp, qr', qi')``, the new currents of pole p, one
+    component at a time, with the arithmetic of the reference's
+    ``_update_poles`` (``fdtd.py:1145-1184``) as new tensors: ``A Q`` and
+    its sum, and ``E^{n+1} + E^n``, at the state's types (a Python scalar
+    keeps a tensor's type under PyTorch's promotion rules, as under JAX's);
+    the float32 masks and residues promote the residue term, and the sum,
+    to float32. ``E^{n+1} + E^n`` is formed once per component and its
+    product with a support mask once per (mask, component)."""
     cache = {}
     for pi, ((A, _), metas, Qp) in enumerate(zip(
             consts["pole_scalars"], consts["pole_B_meta"], Q)):
@@ -675,9 +693,29 @@ def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
                     b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
                     nqr = nqr + b_re * esum
                     nqi = nqi + b_im * esum
-            qr.copy_(nqr)
-            qi.copy_(nqi)
+            yield pi, comp, nqr, nqi
+
+
+def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
+                         consts: dict) -> list:
+    """``update_poles`` on bfloat16 fields and currents: the currents of
+    ``_pole_currents``, each written back as soon as it is formed, rounded
+    once more to its type, as ``_cast_state`` casts the carry."""
+    for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
+        qr, qi = Q[pi][comp]
+        qr.copy_(nqr)
+        qi.copy_(nqi)
     return Q
+
+
+def pole_update(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
+    """The pole-current update out of place, for the differentiable run:
+    the new ``[{comp: (qr, qi)}]`` of ``_pole_currents``, ``Q`` left as it
+    is."""
+    out = [{} for _ in Q]
+    for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
+        out[pi][comp] = (nqr, nqi)
+    return out
 
 
 def _dev(x, device):
@@ -792,9 +830,8 @@ class FDTDRunner:
             kstep_kernels.COPIES[1] if self.is_complex else ())
         self._sources = {"E": [], "H": []}
         self._build_sources()
-        self.tier, self.k = select_tier(
-            plan, {fam: len(v) for fam, v in self._sources.items()},
-            self.device, kernel, sharded=sharded)
+        self.tier, self.k = select_tier(plan, self.num_sources, self.device,
+                                        kernel, sharded=sharded)
         # the storage types of the fields, the psi slabs and the pole
         # currents (compute is float32 everywhere)
         self.dtype, self.psi_dtype, self.q_dtype = storage_types(
@@ -1202,6 +1239,13 @@ class FDTDRunner:
         return f"kstep (k={self.k}, {len(self.shards)} x-shards)"
 
     @property
+    def num_sources(self) -> Dict[str, int]:
+        """The source terms per family (``"E"``, ``"H"``), as the tiers'
+        source-table caps count them (a Bloch run's (re, im) pair is
+        one)."""
+        return {fam: len(terms) for fam, terms in self._sources.items()}
+
+    @property
     def storage(self) -> Tuple[torch.dtype, ...]:
         """``(field, psi, q)``: the storage types of the run's state."""
         return self.dtype, self.psi_dtype, self.q_dtype
@@ -1375,6 +1419,198 @@ class FDTDRunner:
             if self.shards is not None else [state["mon"]]
         out = self._raw_monitors(parts)
         self.transfer_time = _time.perf_counter() - t1
+        return out
+
+    # ------------------------------------------------------------------ #
+    # the differentiable run
+    # ------------------------------------------------------------------ #
+
+    def make_differentiable_run(self, num_steps: int = None,
+                                checkpoint_chunks: int = None):
+        """A reverse-mode differentiable run: ``fn(consts) -> (mon_out,
+        final_state)`` (the port of ``fdtd.py:1908-1955``). ``consts`` is
+        the runner's constant tree (``self.consts``, which this call gives
+        the keys ``waveforms`` and ``src_profiles``, the reference's
+        leaves of the source terms); any of its tensors may require grad.
+        The loop runs ``num_steps`` (default: the plan's) in chunks of
+        ``ceil(num_steps / checkpoint_chunks)`` steps (default
+        ``NUM_CHUNKS`` chunks), each under ``torch.utils.checkpoint``, so
+        that the backward pass holds one chunk's graph at a time and the
+        states between chunks; the time tables are padded to the chunk
+        grid. A step is ``_diff_step``, the plain out-of-place step of the
+        ``pallas2`` tier: autograd, no kernel (``AUTODIFF_TIER``). There is
+        no shutoff. ``mon_out`` holds, per monitor, each DFT accumulator
+        pair stacked as one ``(2, ...)`` tensor (re, im) and each time
+        monitor's samples. The DFT tables are the runner's own (every step
+        on the one-step tiers, Nyquist-strided on the kstep tier)."""
+        if self.shards is not None:
+            raise NotImplementedError(
+                "a differentiable sharded run is not ported (the JAX "
+                "package differentiates unsharded runs only)")
+        if self.is_complex:
+            raise NotImplementedError(
+                "a differentiable Bloch (complex) run is not ported yet "
+                "(ROADMAP.md: autodiff on Bloch runs)")
+        if self.storage != (torch.float32,) * 3:
+            raise NotImplementedError(
+                f"a differentiable run with storage {self.storage_name}: "
+                "the autodiff route is float32 only (ROADMAP.md: autodiff "
+                "in bfloat16)")
+        num_steps = num_steps or self.num_steps
+        chunk_size = -(-num_steps // (checkpoint_chunks or NUM_CHUNKS))
+        num_chunks = -(-num_steps // chunk_size)
+        self._pad_time_tables(num_chunks * chunk_size)
+        self.consts["waveforms"] = torch.from_numpy(
+            self._waveforms).to(self.device)
+        self.consts["src_profiles"] = [
+            _dev(np.asarray(np.real(p), np.float32), self.device)
+            for p in self.host_consts["src_profiles"]]
+        self.checkpoint_chunks = (chunk_size, num_chunks)
+
+        def chunk(start, state, consts):
+            for n in range(chunk_size):
+                state = self._diff_step(start + n, state, consts)
+            return state
+
+        def run_fn(consts):
+            init = self.init_state()
+            state = {key: init[key] for key in ("E", "H", "psi", "Q", "mon")}
+            for ci in range(num_chunks):
+                # a step draws no random numbers: no RNG state to keep
+                state = torch.utils.checkpoint.checkpoint(
+                    chunk, ci * chunk_size, state, consts,
+                    use_reentrant=False, preserve_rng_state=False)
+            mon_out = [{comp: torch.stack(arr) if isinstance(arr, tuple)
+                        else arr for comp, arr in acc.items()}
+                       for acc in state["mon"]]
+            return mon_out, state
+
+        return run_fn
+
+    def _diff_step(self, step: int, state: dict, consts: dict) -> dict:
+        """One step out of place, in the order of the reference's XLA
+        ``_step`` (``fdtd.py:1614-1723``): the plain E family, the J
+        sources, the pole update, the plain H family, the M sources and the
+        monitors; a new state, ``state`` left as it is."""
+        nE, psi_E = self._diff_family("E", state, consts, state["H"])
+        nE = self._add_sources("E", nE, step, consts)
+        Q = pole_update(nE, state["E"], state["Q"], consts)
+        nH, psi_H = self._diff_family("H", state, consts, nE)
+        nH = self._add_sources("H", nH, step, consts)
+        psi = dict(state["psi"], **psi_E, **psi_H)
+        mon = self._accumulate(step, nE, nH, state["mon"], consts)
+        return {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
+
+    def _diff_family(self, family: str, state: dict, consts: dict,
+                     src_fields: dict) -> Tuple[dict, dict]:
+        """``step_kernels.family_update_reference`` with whole-array
+        operations, for the differentiable run: each derivative over the
+        whole grid, each psi slab from its slice of it, and an axis's slab
+        terms added as one array with zeros between the slabs (adding a
+        zero leaves a value as it is). The same float32 operations on every
+        cell give the same values, in a few times fewer and larger
+        operations for autograd to record. Real runs, float32 state."""
+        is_e = family == "E"
+        out_comps, other = (E_COMPS, H_COMPS) if is_e else (H_COMPS, E_COMPS)
+        coeffs = consts["coeffs_E" if is_e else "coeffs_H"]
+        inv = consts["inv_dual" if is_e else "inv_primal"]
+        fam = "dual" if is_e else "primal"
+        meta, shape = self.meta, self.meta.shape
+        whole = (slice(None),) * 3
+        poles = step_kernels.pole_terms(state, consts) if is_e else []
+        new_fields, new_psi = {}, {}
+        for i, comp in enumerate(out_comps):
+            j, k = (i + 1) % 3, (i + 2) % 3
+            d, slab_terms = {}, {}
+            for axis, src in ((j, src_fields[other[k]]),
+                              (k, src_fields[other[j]])):
+                shifted = step_kernels._shift_take(src, whole, axis, is_e,
+                                                   meta.boundaries)
+                d[axis] = (src - shifted) * inv[axis]
+                if not is_e:
+                    d[axis] = -d[axis]
+                pml = consts["pml"].get(f"{fam}{axis}")
+                slabs = {}
+                for side, width in zip(("lo", "hi"),
+                                       meta.pml_meta[(fam, axis)]):
+                    key = f"{comp}|{axis}|{side}"
+                    if width and key in state["psi"]:
+                        sl = step_kernels._slab_slices(shape, axis, side,
+                                                       width)
+                        new_psi[key] = pml[f"b_{side}"] * state["psi"][key] \
+                            + pml[f"c_{side}"] * d[axis][sl]
+                        slabs[side] = new_psi[key]
+                if slabs:
+                    slab_terms[axis] = _slab_array(slabs, shape, axis)
+            rhs = d[j] - d[k]
+            if j in slab_terms:
+                rhs = rhs + slab_terms[j]
+            if k in slab_terms:
+                rhs = rhs - slab_terms[k]
+            for gc_re, gc_im, Qp in poles:
+                qr, qi = Qp[comp]
+                rhs = rhs - (gc_re * qr - gc_im * qi)
+            ca, cb = coeffs[comp]
+            old = state[family][comp]
+            if is_e:
+                new = ca * old + cb * rhs
+                for mask in consts["wall_masks"].get(comp, ()):
+                    new = new * mask
+            else:
+                new = ca * old - cb * rhs
+            new_fields[comp] = new
+        return new_fields, new_psi
+
+    def _add_sources(self, family: str, fields: dict, step: int,
+                     consts: dict) -> dict:
+        """The fields with the current sources of ``family`` at ``step``
+        added out of place, each ``-c_b profile w(t)`` from ``consts`` (the
+        reference's ``_source_deltas``, ``fdtd.py:1127-1143``)."""
+        comps = E_COMPS if family == "E" else H_COMPS
+        coeffs = consts["coeffs_E" if family == "E" else "coeffs_H"]
+        out = dict(fields)
+        for si, sp in enumerate(self.plan.sources):
+            if sp.comp not in comps or sp.waveform_key is None:
+                continue
+            _, cb = coeffs[sp.comp]
+            cb_sl = cb[sp.slices] if torch.is_tensor(cb) and cb.ndim else cb
+            delta = -cb_sl * consts["src_profiles"][si] \
+                * consts["waveforms"][sp.waveform_key, step]
+            new = out[sp.comp].clone()
+            new[sp.slices] = new[sp.slices] + delta
+            out[sp.comp] = new
+        return out
+
+    def _accumulate(self, step: int, nE: dict, nH: dict, mon: list,
+                    consts: dict) -> list:
+        """``_accumulate_monitors`` out of place: new DFT accumulators
+        ``acc + vals * cos`` (and ``sin``), time samples by
+        ``index_copy``."""
+        dft = consts["dft"]
+        out = []
+        for mi, (mp, acc) in enumerate(zip(self.plan.monitors, mon)):
+            if mp.kind == "field" and str(mi) in dft:
+                cos_e, sin_e, cos_h, sin_h = dft[str(mi)]
+                ph = {"E": (cos_e[step], sin_e[step]),
+                      "H": (cos_h[step], sin_h[step])}
+                new = {}
+                for comp, sl in _owned(mp, mp.slices):
+                    vals = (nE if comp in E_COMPS else nH)[comp][
+                        sl].unsqueeze(-1)
+                    cos_t, sin_t = ph[comp[0]]
+                    re, im = acc[comp]
+                    new[comp] = (re + vals * cos_t, im + vals * sin_t)
+                out.append(new)
+            elif mp.kind == "field_time" and mp.t_start <= step < mp.t_stop \
+                    and (step - mp.t_start) % mp.t_interval == 0:
+                idx = torch.tensor([(step - mp.t_start) // mp.t_interval],
+                                   device=self.device)
+                out.append({comp: acc[comp].index_copy(
+                    0, idx, (nE if comp in E_COMPS else nH)[comp][
+                        sl].unsqueeze(0))
+                    for comp, sl in _owned(mp, mp.slices)})
+            else:
+                out.append(acc)
         return out
 
     # ------------------------------------------------------------------ #
@@ -1585,6 +1821,22 @@ class FDTDRunner:
                     "footprint, or shard the run over more devices "
                     "(TIDY3D_TPU_SHARD=auto).")
         return est
+
+
+def _slab_array(slabs: dict, shape, axis: int) -> torch.Tensor:
+    """The psi slabs of one axis (``{"lo": t, "hi": t}``, either or both)
+    placed along ``axis`` in an array of ``shape``, zero between them."""
+    some = next(iter(slabs.values()))
+    w_lo = slabs["lo"].shape[axis] if "lo" in slabs else 0
+    w_hi = slabs["hi"].shape[axis] if "hi" in slabs else 0
+    mid = list(some.shape)
+    mid[axis] = shape[axis] - w_lo - w_hi
+    if mid[axis] < 0:
+        raise NotImplementedError(
+            f"psi slabs of {w_lo} and {w_hi} cells overlap on an axis of "
+            f"{shape[axis]}")
+    parts = [slabs.get("lo"), some.new_zeros(mid), slabs.get("hi")]
+    return torch.cat([p for p in parts if p is not None], dim=axis)
 
 
 def _named(tree, prefix: str = "", skip=("alt",)):

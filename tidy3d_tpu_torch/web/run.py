@@ -20,9 +20,10 @@ none in a Bloch (complex) run), which kernel tier steps the run and at
 which storage types (``TIDY3D_TPU_PRECISION``, and on the kstep tier
 ``TIDY3D_TPU_PSI_DTYPE`` and ``TIDY3D_TPU_Q_DTYPE``). The log adds to the
 reference's the peak and the estimate of device memory, the host seconds
-of each monitor's data and the kernel tier (with k on the kstep tier) and
-its storage types: ``kernel tier: kstep (k=2) [storage: fields bfloat16,
-psi bfloat16, Q bfloat16]``.
+of each monitor's data, the source terms per family (``source terms: E
+4, H 4``: the count the tiers' source-table caps read) and the kernel tier
+(with k on the kstep tier) and its storage types: ``kernel tier: kstep
+(k=2) [storage: fields bfloat16, psi bfloat16, Q bfloat16]``.
 
 ``run`` takes this package's ``Simulation``. One of the JAX package crosses
 over through its JSON: ``tidy3d_tpu_torch.Simulation.parse_raw(sim.json())``.
@@ -219,6 +220,8 @@ def assemble_sim_data(simulation, plan, raw, runner,
         f"estimate {est['total']} B on {est['device']}",
         "monitor data host seconds: " + ", ".join(
             f"{name} {secs:.3f}" for name, secs in host_s.items()),
+        "source terms: " + ", ".join(
+            f"{fam} {n}" for fam, n in runner.num_sources.items()),
         f"kernel tier: {runner.tier_name} [storage: {runner.storage_name}]",
     ]
     sim_data = SimulationData(

@@ -228,7 +228,11 @@ Phases (any failure exits non-zero):
     100 x 100 x 12 design region, eps in [2.085, 12.1], a mode source and
     a one-frequency mode monitor, the default shutoff): the adjoint
     gradient at density 0.5, then 3 ``AdamOptimizer`` steps, each two
-    ``web.run`` solves that must take the k-step tier; per iteration the
+    ``web.run`` solves that must take the k-step tier and the region's
+    conic filter, tanh projection and erosion-dilation penalty (with their
+    gradients) on the card; the region's transformation and penalty, with
+    their gradients, on the card against the CPU within 1e-3 of max, and
+    timed; per iteration the
     host seconds of the forward run, the adjoint run, the mode solves, the
     objective's VJP and the gradient assembly, each run's ``kernel tier:``
     line, source terms, Gcell*steps/s and peak memory; the objective must
@@ -242,7 +246,9 @@ Phases (any failure exits non-zero):
     kernel: no launch) on the card against the CPU, each within 1e-3 of
     max |g|; the autodiff gradient against central differences at the
     largest pixel (within 2 %); the autodiff route's ms per forward and
-    backward step and its peak memory at 20 and 5 checkpoint chunks;
+    backward step, its peak memory and the garbage collections in the
+    timed window at 20 and 5 checkpoint chunks (``run_autodiff_timing``
+    times the same alone, in a process of its own);
 30. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
@@ -582,6 +588,9 @@ TOL_FD_PIXEL = 0.02      # the autodiff route's bar in the JAX package's test
 TOL_CARD_CPU = 1e-3      # of max |g|: one tier on the card and on the CPU
 FD_BLOCK = (8, 8)        # x, y cells of the block FD, the whole depth in z
 INVDES_SHAPE = (100, 100, 12)   # the design region's cells
+INVDES_RADIUS = 0.1      # um: the conic filter's radius, 11 cells an axis
+INVDES_BETA = 2.0        # the tanh projection's strength
+INVDES_PENALTY = 0.01    # the erosion-dilation penalty's weight
 CHUNKS = (20, 5)         # checkpoint chunk counts of the autodiff timing
 
 
@@ -619,9 +628,12 @@ def invdes_case(td):
 def invdes_region(td_invdes):
     """The 2.0 x 2.0 x 0.22 um design region between the strips (100 x 100
     x 12 cells: the strips' z faces lie inside the edge cells), eps in
-    [2.085, 12.1], no filter."""
+    [2.085, 12.1]; its parameters go through a conic filter of radius
+    ``INVDES_RADIUS`` and a tanh projection of strength ``INVDES_BETA``,
+    with the erosion-dilation penalty at weight ``INVDES_PENALTY``."""
     return td_invdes.TopologyDesignRegion(
-        center=(0, 0.24, 0), size=(2.0, 2.0, 0.22), eps_bounds=(2.085, 12.1))
+        center=(0, 0.24, 0), size=(2.0, 2.0, 0.22), eps_bounds=(2.085, 12.1),
+        radius=INVDES_RADIUS, beta=INVDES_BETA, penalty_weight=INVDES_PENALTY)
 
 
 def coupling_case(td):
@@ -735,6 +747,19 @@ def group_work(runner, state, k: int):
     ops = k * (copies * 2 * OPS_FAMILY * ncell + OPS_PSI * psi
                + OPS_POLE * 3 * len(state["Q"]) * ncell)
     return 2 * nbytes(fields) + nbytes(stepping_consts(runner)), ops
+
+
+def sharded_bound(runner, state, states, k: int) -> tuple:
+    """``(bound, unsharded bound, halo bytes)`` of one group on x-shards:
+    the bytes of the unsharded group (``runner`` and ``state``, of the
+    whole grid) plus the halo planes each exchange reads and writes, at
+    the shard states' (``states``) storage sizes, and its operations."""
+    from tidy3d_tpu_torch.solver.fdtd import halo_arrays
+
+    u_bytes, u_ops = group_work(runner, state, k)
+    halo = sum(2 * 2 * k * a[0].numel() * a.element_size()
+               for st in states for a in halo_arrays(st))
+    return bound(u_bytes + halo, u_ops), bound(u_bytes, u_ops), halo
 
 
 def group_bound(runner, state, k: int):
@@ -1326,12 +1351,8 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     host_ms = (time.perf_counter() - t0) / 10 * 1e3
     sync()
     glob = ur.init_state()
-    halo_bytes = sum(2 * 2 * k * a[0].numel() * a.element_size()
-                     for st in states for a in halo_arrays(st))
     copies = 2 * sum(len(halo_arrays(st)) for st in states)
-    u_bytes, u_ops = group_work(ur, glob, k)
-    u_bound = bound(u_bytes, u_ops)
-    sh_bound = bound(u_bytes + halo_bytes, u_ops)
+    sh_bound, u_bound, halo_bytes = sharded_bound(ur, glob, states, k)
     u_ms = cuda_ms(lambda: kstep.kstep_group(glob, ur.consts, ur.meta,
                                              ur.tables, 36, k,
                                              out=glob["alt"]), 10)
@@ -1986,6 +2007,59 @@ class ModeSolveClock:
         return sum(s for t, s in self.solves if start <= t <= end)
 
 
+class RegionClock:
+    """Records every ``TopologyDesignRegion.transform`` and ``penalty`` call
+    while it is entered: ``calls`` holds ``(name, device of the
+    parameters, host seconds)``, the card synchronised around each."""
+
+    def __enter__(self):
+        from tidy3d_tpu_torch.plugins.invdes.region import \
+            TopologyDesignRegion
+
+        self.cls, self.calls = TopologyDesignRegion, []
+        self.inner = {name: getattr(TopologyDesignRegion, name)
+                      for name in ("transform", "penalty")}
+
+        def timed(name, fn):
+            def call(region, params, *args, **kwargs):
+                if torch.cuda.is_available():
+                    sync()
+                t0 = time.perf_counter()
+                out = fn(region, params, *args, **kwargs)
+                if torch.cuda.is_available():
+                    sync()
+                self.calls.append((name, str(getattr(params, "device",
+                                                     "numpy")),
+                                   time.perf_counter() - t0))
+                return out
+            return call
+
+        for name, fn in self.inner.items():
+            setattr(TopologyDesignRegion, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.cls, name, fn)
+
+
+def region_ops(region, params, cotangent, dl: float, device) -> list:
+    """The region's transformation at ``params`` and its VJP of
+    ``cotangent``, its penalty and the penalty's gradient, on ``device``
+    (four tensors), as ``InverseDesign.objective_fn`` takes them."""
+    from tidy3d_tpu_torch.plugins.autograd.functions import full_f32_conv
+
+    with full_f32_conv():
+        p = torch.as_tensor(params, device=device).requires_grad_(True)
+        density = region.transform(p, dl=dl)
+        (vjp,) = torch.autograd.grad(
+            density, p, torch.as_tensor(cotangent, device=device))
+        q = torch.as_tensor(params, device=device).requires_grad_(True)
+        pen = region.penalty(q, dl=dl)
+        (g_pen,) = torch.autograd.grad(pen, q)
+    return [density.detach(), vjp, pen.detach(), g_pen]
+
+
 def split_record(rec: dict, clock: ModeSolveClock) -> dict:
     """One ``run_structure_gradients`` call's host seconds: the forward run
     and the adjoint run without their mode solves and kernel builds, the
@@ -2032,6 +2106,7 @@ def run_invdes_3d(td, smi: str, clock: ModeSolveClock) -> None:
     differences of the objective along the uniform direction and on the
     ``fd_block`` block at the largest |g|."""
     from tidy3d_tpu_torch.plugins import invdes
+    from tidy3d_tpu_torch.plugins.autograd.functions import full_f32_conv
     from tidy3d_tpu_torch.web import autograd as web_autograd
 
     sim = invdes_case(td)
@@ -2059,30 +2134,45 @@ def run_invdes_3d(td, smi: str, clock: ModeSolveClock) -> None:
             f"{r['vjp_s']:.3f}, gradient assembly {r['assembly_s']:.3f}, "
             f"kernel build {r['build_s']:.3f} | {smi}")
 
-    n = len(web_autograd.RECORDS)
+    web_autograd.RECORDS.clear()
     v0, g0 = design._density_value_and_grad_adjoint(rho0)
-    record("gradient at 0.5", web_autograd.RECORDS[n])
+    record("gradient at 0.5", web_autograd.RECORDS[0])
     assert g0.shape == shape and np.all(np.isfinite(g0)) and v0 > 0
 
-    n = len(web_autograd.RECORDS)
+    web_autograd.RECORDS.clear()
     t0 = time.perf_counter()
-    result = invdes.AdamOptimizer(design=design, num_steps=INVDES_STEPS,
-                                  learning_rate=INVDES_LR).run(rho0)
+    with RegionClock() as regions:
+        result = invdes.AdamOptimizer(design=design, num_steps=INVDES_STEPS,
+                                      learning_rate=INVDES_LR).run(rho0)
     adam_s = time.perf_counter() - t0
-    recs = web_autograd.RECORDS[n:]
+    recs = list(web_autograd.RECORDS)
     assert len(recs) == INVDES_STEPS, len(recs)
     for i, rec in enumerate(recs):
         record(f"Adam iteration {i + 1}", rec)
+    for name in ("transform", "penalty"):
+        calls = [c for c in regions.calls if c[0] == name]
+        log(f"[invdes] Adam: {len(calls)} {name} calls, parameters on "
+            f"{sorted({c[1] for c in calls})}, forward host s "
+            f"{[round(c[2], 4) for c in calls]}")
+        assert len(calls) == INVDES_STEPS, calls
+        assert all(c[1].startswith("cuda") for c in calls), calls
+    with full_f32_conv():
+        pen0 = float(region.penalty(torch.as_tensor(rho0, device="cuda"),
+                                    dl=design._dl))
     hist = list(result.objective_history)
     log(f"[invdes] Adam ({INVDES_STEPS} steps, learning rate {INVDES_LR}): "
-        f"objective {hist} in {adam_s:.1f} s; the first "
-        f"{abs(hist[0] - v0) / v0:.2e} from the gradient run's {v0}")
+        f"objective (|amp|^2 - penalty) {hist} in {adam_s:.1f} s; the "
+        f"first plus the penalty {pen0:.6e} at 0.5 is "
+        f"{abs(hist[0] + pen0 - v0) / v0:.2e} from the gradient run's {v0}")
     assert hist[-1] > hist[0], hist
-    assert abs(hist[0] - v0) <= 1e-5 * v0, (hist[0], v0)
+    assert abs(hist[0] + pen0 - v0) <= 1e-5 * v0, (hist[0], pen0, v0)
+    run_region_ops(region, sim, g0, design._dl, smi)
 
     def objective(rho) -> float:
-        data = td.web.run(design.to_simulation(rho), task_name="invdes_fd",
-                          verbose=False)
+        """The objective at density ``rho`` (no transformation)."""
+        sim_rho = sim.copy(update=dict(structures=tuple(sim.structures) + (
+            region.to_structure(rho, sim),)))
+        data = td.web.run(sim_rho, task_name="invdes_fd", verbose=False)
         return objective_of(td, data)
 
     t0 = time.perf_counter()
@@ -2105,6 +2195,34 @@ def run_invdes_3d(td, smi: str, clock: ModeSolveClock) -> None:
     assert err_u <= TOL_FD_UNIFORM and err_b <= TOL_FD_BLOCK, (err_u, err_b)
 
 
+def run_region_ops(region, sim, cotangent, dl: float, smi: str) -> None:
+    """The design region's transformation with its VJP of ``cotangent`` and
+    its penalty with its gradient (``region_ops``), at the region's seeded
+    random parameters: the card against the CPU, within ``TOL_CARD_CPU``
+    of each output's largest magnitude, and both timed."""
+    params = region.random_parameters(sim).astype(np.float32)
+    cot = np.asarray(cotangent, np.float32)
+    card = region_ops(region, params, cot, dl, "cuda")
+    cpu = region_ops(region, params, cot, dl, "cpu")
+    errs = []
+    for got, want in zip(card, cpu):
+        want = want.numpy()
+        errs.append(float(np.max(np.abs(got.cpu().numpy() - want))
+                          / np.max(np.abs(want))))
+    ms = cuda_ms(lambda: region_ops(region, params, cot, dl, "cuda"), 5)
+    t0 = time.perf_counter()
+    region_ops(region, params, cot, dl, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[invdes] region on the card (conic filter radius {region.radius}"
+        f" um, beta {region.beta}, penalty weight {region.penalty_weight},"
+        f" {params.shape}): transformation, VJP, penalty and its gradient "
+        f"{ms:.3f} ms (CUDA events), CPU {cpu_ms:.1f} ms (host clock); card"
+        f" vs CPU: density {errs[0]:.2e}, VJP {errs[1]:.2e}, penalty "
+        f"{errs[2]:.2e}, its gradient {errs[3]:.2e} of max (tol "
+        f"{TOL_CARD_CPU:g}) | {smi}")
+    assert max(errs) <= TOL_CARD_CPU, errs
+
+
 def run_invdes_2d(td, smi: str) -> int:
     """Phase 29b: the coupling case on both routes, card against CPU on one
     tier, the autodiff route against central differences, its ms per
@@ -2112,7 +2230,6 @@ def run_invdes_2d(td, smi: str) -> int:
     k-step launches of the adjoint route on the card."""
     from tidy3d_tpu_torch.plugins import invdes
     from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
-    from tidy3d_tpu_torch.solver.fdtd import AUTODIFF_TIER
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     sim = coupling_case(td)
@@ -2181,30 +2298,90 @@ def run_invdes_2d(td, smi: str) -> int:
     assert err_fd <= TOL_FD_PIXEL, err_fd
 
     for chunks in CHUNKS:
-        t = topo["cuda"]
-        t.run_fn = t.runner.make_differentiable_run(checkpoint_chunks=chunks)
-        dens = torch.as_tensor(rho, device="cuda")
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        sync()
+        time_autodiff(topo["cuda"], rho, chunks, smi)
+    return n_adjoint
+
+
+class GcClock:
+    """Counts Python's garbage collections and their host seconds while it
+    is entered (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.count, self.seconds, self._t0 = 0, 0.0, None
+        gc.callbacks.append(self._call)
+        return self
+
+    def _call(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.count += 1
+            self.seconds += time.perf_counter() - self._t0
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._call)
+
+
+def time_autodiff(topo, rho, chunks: int, smi: str) -> float:
+    """The autodiff route's host ms per forward + backward step of
+    ``topo`` (a ``TopologyObjective`` on the card) at density ``rho`` in
+    ``chunks`` checkpoint chunks, the card synchronised at the ends; logs
+    the forward and backward ms per step, the peak device memory, and the
+    garbage collections in the timed window with their host seconds and
+    the objects Python tracks."""
+    import gc
+
+    from tidy3d_tpu_torch.solver.fdtd import AUTODIFF_TIER
+
+    topo.run_fn = topo.runner.make_differentiable_run(
+        checkpoint_chunks=chunks)
+    dens = torch.as_tensor(rho, device="cuda")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    with GcClock() as gcs:
         t0 = time.perf_counter()
         r = dens.clone().requires_grad_(True)
-        val = t.loss(r)
+        val = topo.loss(r)
         sync()
         t1 = time.perf_counter()
         torch.autograd.grad(val, r)
         sync()
         t2 = time.perf_counter()
-        peak = torch.cuda.max_memory_allocated() - base
-        steps = t.runner.checkpoint_chunks[0] * t.runner.checkpoint_chunks[1]
-        log(f"[invdes 2D] {AUTODIFF_TIER}: {chunks} chunks of "
-            f"{t.runner.checkpoint_chunks[0]} steps: forward "
-            f"{(t1 - t0) / steps * 1e3:.3f} ms/step, backward (recompute "
-            f"included) {(t2 - t1) / steps * 1e3:.3f} ms/step, forward + "
-            f"backward {(t2 - t0) / steps * 1e3:.3f} ms/step; peak device "
-            f"memory {peak} B above the {base} B held before | {smi}")
-    return n_adjoint
+    peak = torch.cuda.max_memory_allocated() - base
+    size, n = topo.runner.checkpoint_chunks
+    steps = size * n
+    log(f"[invdes 2D] {AUTODIFF_TIER}: {chunks} chunks of {size} steps: "
+        f"forward {(t1 - t0) / steps * 1e3:.3f} ms/step, backward "
+        f"(recompute included) {(t2 - t1) / steps * 1e3:.3f} ms/step, "
+        f"forward + backward {(t2 - t0) / steps * 1e3:.3f} ms/step; peak "
+        f"device memory {peak} B above the {base} B held before; "
+        f"{gcs.count} garbage collections in the window, "
+        f"{gcs.seconds:.3f} host s, {len(gc.get_objects())} objects "
+        f"tracked | {smi}")
+    return (t2 - t0) / steps * 1e3
+
+
+def run_autodiff_timing(td, smi: str) -> None:
+    """Phase 29b's autodiff timing alone (a ``TopologyObjective`` of the
+    coupling case on the card at density 0.5, one value and gradient
+    first, as phase 29b takes them before it times, then ``time_autodiff``
+    at each of ``CHUNKS``), for a process of its own: the numbers to set
+    beside those phase 29 takes after every earlier phase."""
+    from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
+
+    topo = TopologyObjective(coupling_case(td), td.Box(**coupling_region(td)),
+                             eps_min=1.0, eps_max=6.0,
+                             mode_monitor_name="out", device="cuda")
+    rho = 0.5 * np.ones((21, 31, 1), np.float32)
+    topo.value_and_grad(rho)
+    for chunks in CHUNKS:
+        time_autodiff(topo, rho, chunks, smi)
 
 
 def run_invdes(td, smi: str) -> int:
@@ -2627,7 +2804,7 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     from tidy3d_tpu_torch import _build, convert
     from tidy3d_tpu_torch.exceptions import SetupError
     from tidy3d_tpu_torch.labs import _common
-    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, halo_arrays
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
     from tidy3d_tpu_torch.solver.lowering import lower
 
@@ -2809,15 +2986,11 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     e_sh = bf16_compare(got, flat_state(ref), "4 x-shards dispersive group")
     del got, ref
     s_ms = cuda_ms(lambda: shard_group(kstep.kstep_group, sr, states, 36), 5)
-    # the unsharded group's bytes plus the halo planes each exchange reads
-    # and writes, at their bf16 sizes (as phase 12's float32 bound)
-    u_bytes, u_ops = group_work(kd, kd.init_state(), kd.k)
-    halo_bytes = sum(2 * 2 * kd.k * a[0].numel() * a.element_size()
-                     for st in states for a in halo_arrays(st))
-    s_bnd = bound(u_bytes + halo_bytes, u_ops)
+    # at the bf16 sizes, as phase 12's float32 bound
+    s_bnd, u_bnd, _ = sharded_bound(kd, kd.init_state(), states, kd.k)
     log(f"[bf16] 4 x-shards dispersive: group {s_ms:.3f} ms (exchange and "
         f"4 launches), plain {sp_ms:.3f}; bound {s_bnd[0]:.3f} ms by "
-        f"{s_bnd[1]} (unsharded {bound(u_bytes, u_ops)[0]:.3f}) | {smi}")
+        f"{s_bnd[1]} (unsharded {u_bnd[0]:.3f}) | {smi}")
     # the sharded runner's own loop: 20 steps, launch counts read around
     kstep.SHARDED_LAUNCHES = 0
     sr.run_steps(0, 20, sr.init_state())

@@ -4,8 +4,9 @@ two overlapping launches of a k-step group count once), the device
 launches a k-step group makes (one per non-empty block list, per shard),
 the records a profiler trace holds, the memory line of a run's log, the
 full-size cases of the new monitors (built, not run) and phase 29's pieces:
-its cases, the block of its finite-difference check and the split of an
-adjoint call's seconds into runs, mode solves and kernel builds.
+its cases, the block of its finite-difference check, the split of an
+adjoint call's seconds into runs, mode solves and kernel builds, and the
+clock and the operations of its design region.
 """
 
 import json
@@ -171,8 +172,10 @@ def test_invdes_cases_build():
 
     sim = chip_smoke.invdes_case(td)
     assert tuple(sim.grid.num_cells) == (274, 204, 104)
-    assert chip_smoke.invdes_region(invdes).params_shape(sim) == \
-        chip_smoke.INVDES_SHAPE
+    region = chip_smoke.invdes_region(invdes)
+    assert region.params_shape(sim) == chip_smoke.INVDES_SHAPE
+    # the filter, the projection and the penalty all run
+    assert region.radius > 0 and region.beta > 1 and region.penalty_weight > 0
     assert [m.name for m in sim.monitors] == ["out"]
     assert chip_smoke.coupling_case(td).json() == coupling().json()
     assert chip_smoke.coupling_region(td) == COUPLING_REGION
@@ -220,3 +223,50 @@ def test_split_record_and_mode_solve_clock():
     assert r["forward"]["sources"] == "E 1, H 0"
     # a CPU run of a few cells logs 0.000 Gcell*steps/s at this precision
     assert r["forward"]["rate"] >= 0 and r["forward"]["peak"] == 0
+
+
+def test_region_clock_and_region_ops():
+    """``RegionClock`` records each transformation and penalty call with the
+    device of its parameters and restores the class after; ``region_ops``
+    gives the transformation, its VJP, the penalty and its gradient, the
+    VJP equal to the transformation's Jacobian applied by hand on a one-hot
+    cotangent."""
+    import torch
+
+    from tidy3d_tpu_torch.plugins import invdes
+
+    region = invdes.TopologyDesignRegion(
+        center=(0, 0, 0), size=(0.4, 0.4, 0.2), radius=0.06, beta=2.0,
+        penalty_weight=0.01)
+    params = np.random.default_rng(0).uniform(0, 1, (8, 8, 4)).astype(
+        np.float32)
+    cls = invdes.TopologyDesignRegion
+    inner = cls.transform
+    with chip_smoke.RegionClock() as clock:
+        assert cls.transform is not inner
+        out = chip_smoke.region_ops(region, params, np.ones_like(params),
+                                    0.02, "cpu")
+    assert cls.transform is inner
+    assert [(c[0], c[1]) for c in clock.calls] == [("transform", "cpu"),
+                                                  ("penalty", "cpu")]
+    density, vjp, pen, g_pen = out
+    assert density.shape == vjp.shape == g_pen.shape == params.shape
+    assert pen.ndim == 0 and float(pen) > 0
+    np.testing.assert_array_equal(
+        density, region.transform(torch.as_tensor(params), dl=0.02))
+    cot = np.zeros_like(params)
+    cot[3, 4, 1] = 1.0
+    _, vjp1, _, _ = chip_smoke.region_ops(region, params, cot, 0.02, "cpu")
+    p = torch.as_tensor(params).requires_grad_(True)
+    region.transform(p, dl=0.02)[3, 4, 1].backward()
+    np.testing.assert_allclose(vjp1, p.grad, rtol=0, atol=1e-7)
+
+
+def test_gc_clock_counts_collections():
+    import gc
+
+    with chip_smoke.GcClock() as clock:
+        gc.collect()
+        gc.collect()
+    assert clock.count == 2 and clock.seconds >= 0
+    assert clock._call not in gc.callbacks

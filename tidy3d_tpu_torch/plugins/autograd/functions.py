@@ -6,11 +6,14 @@ returns a tensor that autograd differentiates; results follow the JAX
 package's: ``pad`` has numpy's modes, ``convolve`` is a true convolution
 (the flipped kernel), the grey morphology takes ties of the maximum as
 ``jnp.maximum`` does (half the gradient to each side), and
-``value_and_grad`` / ``grad`` return in JAX's order.
+``value_and_grad`` / ``grad`` return in JAX's order. A tensor on the card
+is computed on the card; convolutions there run in full float32
+(``full_f32_conv``), as the JAX package's float32 ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Literal, Tuple, Union
 
 import numpy as np
@@ -64,6 +67,19 @@ def pad(array, pad_width, *, mode: PaddingType = "constant",
     return out
 
 
+@contextlib.contextmanager
+def full_f32_conv():
+    """Float32 convolutions in full precision inside the block (cuDNN's
+    TF32 off), whatever the process set outside it. A caller that takes a
+    convolution's gradient holds the block over the backward pass too."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def convolve(array, kernel, *, padding: PaddingType = "constant",
              mode: str = "same"):
     """N-D convolution (N = 1, 2, 3) with selectable padding, as
@@ -71,7 +87,7 @@ def convolve(array, kernel, *, padding: PaddingType = "constant",
     ``conv{N}d``. ``same`` pads ``(k // 2, k - 1 - k // 2)`` per axis
     (zeros for ``constant``), ``full`` pads ``k - 1`` zeros each side."""
     array = _tensor(array)
-    kernel = _tensor(kernel)
+    kernel = _tensor(kernel).to(array.device)
     if array.is_floating_point():
         kernel = kernel.to(array.dtype)
     if mode == "same":
@@ -88,7 +104,8 @@ def convolve(array, kernel, *, padding: PaddingType = "constant",
             "the port convolves 1-, 2- and 3-D arrays")
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
     flipped = torch.flip(kernel, dims=tuple(range(nd)))
-    return conv(array[None, None], flipped[None, None])[0, 0]
+    with full_f32_conv():
+        return conv(array[None, None], flipped[None, None])[0, 0]
 
 
 # --------------------------------------------------------------------------- #

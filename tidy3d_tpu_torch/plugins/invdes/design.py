@@ -6,11 +6,13 @@ Two gradient methods, as the JAX package's: ``adjoint`` (two ``web.run``
 solves on the kernels, the production route) and ``autodiff`` (autograd
 through the checkpointed time loop, ``plugins/adjoint/topology.py``). The
 transformation's VJP and the penalty's gradient are taken by
-``torch.autograd`` on the host.
+``torch.autograd`` on ``device`` too.
 
 ``device`` (default ``"cuda"``, as every entry point of the port) is where
-the solves run; the JAX package's ``InverseDesign`` has no such field, its
-solves run on the one device JAX was given.
+the solves, the region's transformation and its penalty run; the JAX
+package's ``InverseDesign`` has no such field, it runs on the one device
+JAX was given. The Adam update of ``optimizer.py`` stays in numpy on the
+host, as a few float32 operations on the parameters.
 """
 
 from __future__ import annotations
@@ -112,34 +114,40 @@ class InverseDesign(Tidy3dBaseModel):
 
     def objective_fn(self, params) -> Tuple[float, np.ndarray]:
         """(value, gradient wrt raw params): maximize |amp|^2 - penalties.
-        ``params`` are taken as float32, as the JAX package takes them."""
+        ``params`` are taken as float32, as the JAX package takes them; the
+        transformation, the penalty and their gradients run on
+        ``device``."""
         import torch
+
+        from ..autograd.functions import full_f32_conv
 
         region = self.design_region
 
         def leaf():
-            return torch.as_tensor(np.asarray(params, np.float32)
-                                   ).requires_grad_(True)
+            return torch.as_tensor(np.asarray(params, np.float32),
+                                   device=self.device).requires_grad_(True)
 
-        p = leaf()
-        density = region.transform(p, dl=self._dl)
-        if self.method == "adjoint":
-            value, grad_density = self._density_value_and_grad_adjoint(
-                density.detach().numpy())
-        else:
-            value, grad_density = self._topology.value_and_grad(
-                density.detach().numpy())
-        (grad_params,) = torch.autograd.grad(
-            density, p, torch.as_tensor(np.asarray(grad_density, np.float32)))
-        penalty_val = 0.0
-        if region.penalty_weight > 0:
+        with full_f32_conv():
             p = leaf()
-            pen = region.penalty(p, dl=self._dl)
-            if torch.is_tensor(pen):
-                (pen_grad,) = torch.autograd.grad(pen, p)
-                penalty_val = float(pen.detach())
-                grad_params = grad_params - pen_grad
-        return value - penalty_val, grad_params.numpy()
+            density = region.transform(p, dl=self._dl)
+            rho = density.detach().cpu().numpy()
+            if self.method == "adjoint":
+                value, grad_density = \
+                    self._density_value_and_grad_adjoint(rho)
+            else:
+                value, grad_density = self._topology.value_and_grad(rho)
+            (grad_params,) = torch.autograd.grad(
+                density, p, torch.as_tensor(
+                    np.asarray(grad_density, np.float32), device=p.device))
+            penalty_val = 0.0
+            if region.penalty_weight > 0:
+                p = leaf()
+                pen = region.penalty(p, dl=self._dl)
+                if torch.is_tensor(pen):
+                    (pen_grad,) = torch.autograd.grad(pen, p)
+                    penalty_val = float(pen.detach())
+                    grad_params = grad_params - pen_grad
+        return value - penalty_val, grad_params.cpu().numpy()
 
     def initial_parameters(self) -> np.ndarray:
         return self.design_region.initial_parameters(self.simulation)

@@ -1491,75 +1491,20 @@ class FDTDRunner:
         """One step out of place, in the order of the reference's XLA
         ``_step`` (``fdtd.py:1614-1723``): the plain E family, the J
         sources, the pole update, the plain H family, the M sources and the
-        monitors; a new state, ``state`` left as it is."""
-        nE, psi_E = self._diff_family("E", state, consts, state["H"])
+        monitors; a new state, ``state`` left as it is. The families are
+        ``family_update_reference`` in float32, which builds new tensors."""
+        def family(name, src_fields):
+            return step_kernels.family_update_reference(
+                name, state, consts, src_fields, self.meta, store=False)
+
+        nE, psi_E = family("E", state["H"])
         nE = self._add_sources("E", nE, step, consts)
         Q = pole_update(nE, state["E"], state["Q"], consts)
-        nH, psi_H = self._diff_family("H", state, consts, nE)
+        nH, psi_H = family("H", nE)
         nH = self._add_sources("H", nH, step, consts)
         psi = dict(state["psi"], **psi_E, **psi_H)
         mon = self._accumulate(step, nE, nH, state["mon"], consts)
         return {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
-
-    def _diff_family(self, family: str, state: dict, consts: dict,
-                     src_fields: dict) -> Tuple[dict, dict]:
-        """``step_kernels.family_update_reference`` with whole-array
-        operations, for the differentiable run: each derivative over the
-        whole grid, each psi slab from its slice of it, and an axis's slab
-        terms added as one array with zeros between the slabs (adding a
-        zero leaves a value as it is). The same float32 operations on every
-        cell give the same values, in a few times fewer and larger
-        operations for autograd to record. Real runs, float32 state."""
-        is_e = family == "E"
-        out_comps, other = (E_COMPS, H_COMPS) if is_e else (H_COMPS, E_COMPS)
-        coeffs = consts["coeffs_E" if is_e else "coeffs_H"]
-        inv = consts["inv_dual" if is_e else "inv_primal"]
-        fam = "dual" if is_e else "primal"
-        meta, shape = self.meta, self.meta.shape
-        whole = (slice(None),) * 3
-        poles = step_kernels.pole_terms(state, consts) if is_e else []
-        new_fields, new_psi = {}, {}
-        for i, comp in enumerate(out_comps):
-            j, k = (i + 1) % 3, (i + 2) % 3
-            d, slab_terms = {}, {}
-            for axis, src in ((j, src_fields[other[k]]),
-                              (k, src_fields[other[j]])):
-                shifted = step_kernels._shift_take(src, whole, axis, is_e,
-                                                   meta.boundaries)
-                d[axis] = (src - shifted) * inv[axis]
-                if not is_e:
-                    d[axis] = -d[axis]
-                pml = consts["pml"].get(f"{fam}{axis}")
-                slabs = {}
-                for side, width in zip(("lo", "hi"),
-                                       meta.pml_meta[(fam, axis)]):
-                    key = f"{comp}|{axis}|{side}"
-                    if width and key in state["psi"]:
-                        sl = step_kernels._slab_slices(shape, axis, side,
-                                                       width)
-                        new_psi[key] = pml[f"b_{side}"] * state["psi"][key] \
-                            + pml[f"c_{side}"] * d[axis][sl]
-                        slabs[side] = new_psi[key]
-                if slabs:
-                    slab_terms[axis] = _slab_array(slabs, shape, axis)
-            rhs = d[j] - d[k]
-            if j in slab_terms:
-                rhs = rhs + slab_terms[j]
-            if k in slab_terms:
-                rhs = rhs - slab_terms[k]
-            for gc_re, gc_im, Qp in poles:
-                qr, qi = Qp[comp]
-                rhs = rhs - (gc_re * qr - gc_im * qi)
-            ca, cb = coeffs[comp]
-            old = state[family][comp]
-            if is_e:
-                new = ca * old + cb * rhs
-                for mask in consts["wall_masks"].get(comp, ()):
-                    new = new * mask
-            else:
-                new = ca * old - cb * rhs
-            new_fields[comp] = new
-        return new_fields, new_psi
 
     def _add_sources(self, family: str, fields: dict, step: int,
                      consts: dict) -> dict:
@@ -1821,22 +1766,6 @@ class FDTDRunner:
                     "footprint, or shard the run over more devices "
                     "(TIDY3D_TPU_SHARD=auto).")
         return est
-
-
-def _slab_array(slabs: dict, shape, axis: int) -> torch.Tensor:
-    """The psi slabs of one axis (``{"lo": t, "hi": t}``, either or both)
-    placed along ``axis`` in an array of ``shape``, zero between them."""
-    some = next(iter(slabs.values()))
-    w_lo = slabs["lo"].shape[axis] if "lo" in slabs else 0
-    w_hi = slabs["hi"].shape[axis] if "hi" in slabs else 0
-    mid = list(some.shape)
-    mid[axis] = shape[axis] - w_lo - w_hi
-    if mid[axis] < 0:
-        raise NotImplementedError(
-            f"psi slabs of {w_lo} and {w_hi} cells overlap on an axis of "
-            f"{shape[axis]}")
-    parts = [slabs.get("lo"), some.new_zeros(mid), slabs.get("hi")]
-    return torch.cat([p for p in parts if p is not None], dim=axis)
 
 
 def _named(tree, prefix: str = "", skip=("alt",)):

@@ -16,10 +16,10 @@ psi once, where they are stored, as ``PallasStepper.family_update`` does
 (``pallas_step.py:65,363,400-411``); the kernel is built once per
 combination of storage types (``storage_defines``).
 
-Dispatch is by device: a CPU tensor goes to ``family_update_reference``, a
-direct port of the XLA region-concat body; a CUDA tensor launches the
-hand-written kernel in ``csrc/step.cu`` or raises. ``LAUNCHES`` counts the
-kernel launches.
+Dispatch is by device: a CPU tensor goes to ``family_update_reference``,
+the XLA body's arithmetic in whole-array operations; a CUDA tensor
+launches the hand-written kernel in ``csrc/step.cu`` or raises.
+``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ class StepMeta:
 
 
 # --------------------------------------------------------------------------- #
-# the plain PyTorch version (port of the XLA region-concat body)
+# the plain PyTorch version (the XLA body's arithmetic on whole arrays)
 # --------------------------------------------------------------------------- #
 
 
@@ -79,16 +79,6 @@ def _is_trivial(sl) -> bool:
 
 def _take(arr, sl):
     return arr if _is_trivial(sl) else arr[sl]
-
-
-def _bslice(vec, sl):
-    """Slice a (1, n, 1)-style broadcast vector consistently with a 3D
-    slice."""
-    if not isinstance(vec, torch.Tensor) or _is_trivial(sl):
-        return vec
-    take = tuple(s if vec.shape[ax] != 1 else slice(None)
-                 for ax, s in enumerate(sl))
-    return vec if _is_trivial(take) else vec[take]
 
 
 def _wrap_col(F, axis: int, side: str, boundaries, Fp=None, cs=None,
@@ -169,18 +159,6 @@ def _slab_slices(shape, axis: int, side: str, width: int):
     return tuple(sl)
 
 
-def _region_ranges(n: int, w_lo: int, w_hi: int):
-    """[(start, stop, kind)] partition of [0, n): lo-slab / mid / hi-slab."""
-    regions = []
-    if w_lo:
-        regions.append((0, w_lo, "lo"))
-    if n - w_hi > w_lo:
-        regions.append((w_lo, n - w_hi, None))
-    if w_hi:
-        regions.append((n - w_hi, n, "hi"))
-    return regions
-
-
 def f32(t):
     """A stored tensor widened to float32 (exact for bfloat16)."""
     return t if t.dtype == torch.float32 else t.float()
@@ -236,11 +214,14 @@ def family_update_reference(family: str, state: dict, consts: dict,
                             src_fields: dict, meta: StepMeta,
                             partner: dict = None, part: int = 0,
                             store: bool = True):
-    """Plain PyTorch family update on any device: the field is assembled as
-    a region concat over the two derivative axes (j, k) of each component,
-    with the psi terms in the slab pieces only, and the E update subtracts
-    the pole currents' term. In a complex run ``state`` and ``src_fields``
-    are copy ``part`` and ``partner`` holds the other copy's
+    """Plain PyTorch family update on any device, in whole-array
+    operations: each derivative over the whole grid, each psi slab updated
+    from its slice of the derivative, an axis's psi terms added as one
+    array with zeros between its slabs (adding zero leaves a value as it
+    is), and the E update subtracts the pole currents' term. It builds new
+    tensors and leaves ``state`` as it is, so autograd goes through it (the
+    differentiable run steps on it). In a complex run ``state`` and
+    ``src_fields`` are copy ``part`` and ``partner`` holds the other copy's
     ``src_fields``, which enters where a stencil wraps across a Bloch
     axis.
 
@@ -256,98 +237,69 @@ def family_update_reference(family: str, state: dict, consts: dict,
     fam = "dual" if is_e else "primal"
     sign_shift = 1.0 if is_e else -1.0  # backward vs forward difference
     shape, boundaries = meta.shape, meta.boundaries
+    whole = (slice(None),) * 3
     poles = [(gr, gi, {c: (f32(qr), f32(qi)) for c, (qr, qi) in Qp.items()})
              for gr, gi, Qp in pole_terms(state, consts)] if is_e else []
 
     new_fields, new_psi = {}, {}
     for i, comp in enumerate(out_comps):
         j, k = (i + 1) % 3, (i + 2) % 3
-        Fk = f32(src_fields[other[k]])
-        Fj = f32(src_fields[other[j]])
-        Fk_p = f32(partner[other[k]]) if partner is not None else None
-        Fj_p = f32(partner[other[j]]) if partner is not None else None
-        ca, cb = coeffs[comp]
-        F_old = f32(state[family][comp])
-
-        def d1_of(sl):
-            shifted = _shift_take(Fk, sl, j, is_e, boundaries, Fk_p,
-                                  meta.bloch[j], part)
-            return sign_shift * (_take(Fk, sl) - shifted) * _bslice(inv[j], sl)
-
-        def d2_of(sl):
-            shifted = _shift_take(Fj, sl, k, is_e, boundaries, Fj_p,
-                                  meta.bloch[k], part)
-            return sign_shift * (_take(Fj, sl) - shifted) * _bslice(inv[k], sl)
-
-        # psi slab updates (full slabs, spanning corners)
-        w_lo_j, w_hi_j = meta.pml_meta[(fam, j)]
-        w_lo_k, w_hi_k = meta.pml_meta[(fam, k)]
-        psi1, psi2 = {}, {}
-        for axis, widths, d_of, out in ((j, (w_lo_j, w_hi_j), d1_of, psi1),
-                                        (k, (w_lo_k, w_hi_k), d2_of, psi2)):
+        d, slab_terms = {}, {}
+        for axis, name in ((j, other[k]), (k, other[j])):
+            F = f32(src_fields[name])
+            Fp = f32(partner[name]) if partner is not None else None
+            shifted = _shift_take(F, whole, axis, is_e, boundaries, Fp,
+                                  meta.bloch[axis], part)
+            d[axis] = sign_shift * (F - shifted) * inv[axis]
             pml = consts["pml"].get(f"{fam}{axis}")
-            for side, width in zip(("lo", "hi"), widths):
+            slabs = {}
+            for side, width in zip(("lo", "hi"), meta.pml_meta[(fam, axis)]):
                 key = f"{comp}|{axis}|{side}"
                 if width and key in state["psi"]:
                     sl = _slab_slices(shape, axis, side, width)
-                    psi_new = pml[f"b_{side}"] * f32(state["psi"][key]) \
-                        + pml[f"c_{side}"] * d_of(sl)
-                    new_psi[key] = psi_new
-                    out[side] = (psi_new, sl)
-
-        regions_j = _region_ranges(shape[j], w_lo_j if "lo" in psi1 else 0,
-                                   w_hi_j if "hi" in psi1 else 0)
-        regions_k = _region_ranges(shape[k], w_lo_k if "lo" in psi2 else 0,
-                                   w_hi_k if "hi" in psi2 else 0)
-        wall = consts["wall_masks"].get(comp, ()) if is_e else ()
-
-        def piece(rj, rk):
-            sl = [slice(None)] * 3
-            if not (rj[0] == 0 and rj[1] == shape[j]):
-                sl[j] = slice(rj[0], rj[1])
-            if not (rk[0] == 0 and rk[1] == shape[k]):
-                sl[k] = slice(rk[0], rk[1])
-            sl = tuple(sl)
-            rhs = d1_of(sl) - d2_of(sl)
-            if rj[2] is not None:
-                psi_new, slab_sl = psi1[rj[2]]
-                psl = [slice(None)] * 3
-                psl[j] = slice(rj[0] - slab_sl[j].start,
-                               rj[1] - slab_sl[j].start)
-                psl[k] = sl[k]
-                rhs = rhs + psi_new[tuple(psl)]
-            if rk[2] is not None:
-                psi_new, slab_sl = psi2[rk[2]]
-                psl = [slice(None)] * 3
-                psl[k] = slice(rk[0] - slab_sl[k].start,
-                               rk[1] - slab_sl[k].start)
-                psl[j] = sl[j]
-                rhs = rhs - psi_new[tuple(psl)]
-            for gc_re, gc_im, Qp in poles:
-                qr, qi = Qp[comp]
-                rhs = rhs - (gc_re * _take(qr, sl) - gc_im * _take(qi, sl))
-            ca_p = _take(ca, sl) if isinstance(ca, torch.Tensor) else ca
-            cb_p = _take(cb, sl) if isinstance(cb, torch.Tensor) else cb
-            if is_e:
-                out = ca_p * _take(F_old, sl) + cb_p * rhs
-                for mask in wall:
-                    out = out * _bslice(mask, sl)
-            else:
-                out = ca_p * _take(F_old, sl) - cb_p * rhs
-            return out
-
-        rows = []
-        for rj in regions_j:
-            cols = [piece(rj, rk) for rk in regions_k]
-            rows.append(cols[0] if len(cols) == 1 else torch.cat(cols, dim=k))
-        new_fields[comp] = rows[0] if len(rows) == 1 \
-            else torch.cat(rows, dim=j)
+                    new_psi[key] = pml[f"b_{side}"] * f32(state["psi"][key]) \
+                        + pml[f"c_{side}"] * d[axis][sl]
+                    slabs[side] = new_psi[key]
+            if slabs:
+                slab_terms[axis] = _slab_array(slabs, shape, axis)
+        rhs = d[j] - d[k]
+        if j in slab_terms:
+            rhs = rhs + slab_terms[j]
+        if k in slab_terms:
+            rhs = rhs - slab_terms[k]
+        for gc_re, gc_im, Qp in poles:
+            qr, qi = Qp[comp]
+            rhs = rhs - (gc_re * qr - gc_im * qi)
+        ca, cb = coeffs[comp]
+        old = f32(state[family][comp])
+        if is_e:
+            new = ca * old + cb * rhs
+            for mask in consts["wall_masks"].get(comp, ()):
+                new = new * mask
+        else:
+            new = ca * old - cb * rhs
+        new_fields[comp] = new
     if store:
         new_fields = {c: v.to(state[family][c].dtype)
                       for c, v in new_fields.items()}
         new_psi = {key: v.to(state["psi"][key].dtype)
                    for key, v in new_psi.items()}
     return new_fields, new_psi
+
+
+def _slab_array(slabs: dict, shape, axis: int) -> torch.Tensor:
+    """The psi slabs of one axis (``{"lo": t, "hi": t}``, either or both)
+    placed along ``axis`` in an array of ``shape``, zero between them."""
+    some = next(iter(slabs.values()))
+    w_lo = slabs["lo"].shape[axis] if "lo" in slabs else 0
+    w_hi = slabs["hi"].shape[axis] if "hi" in slabs else 0
+    mid = list(some.shape)
+    mid[axis] = shape[axis] - w_lo - w_hi
+    if mid[axis] < 0:
+        raise ValueError(f"psi slabs of {w_lo} and {w_hi} cells overlap on "
+                         f"an axis of {shape[axis]}")
+    parts = [slabs.get("lo"), some.new_zeros(mid), slabs.get("hi")]
+    return torch.cat([p for p in parts if p is not None], dim=axis)
 
 
 # --------------------------------------------------------------------------- #

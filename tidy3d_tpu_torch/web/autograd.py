@@ -27,8 +27,8 @@ timestamp the true sample times (tmesh + dt for E), so the half-step
 injection offsets cancel exactly (the JAX package verified it numerically
 against jax.grad through its solver, scripts/adjoint_map_check.py).
 
-``RECORDS`` holds, per call of ``run_structure_gradients``, the host
-seconds of its stages, in their order (``forward_s``, ``vjp_s``,
+``RECORDS`` holds, for each of the last ``RECORDS.maxlen`` calls of
+``run_structure_gradients``, the host seconds of its stages, in their order (``forward_s``, ``vjp_s``,
 ``adjoint_s``, ``assembly_s``), the ``time.perf_counter()`` at which the
 first began (``started``) and each run's log (``forward_log``,
 ``adjoint_log``: the kernel tier and the source-term counts among its
@@ -37,9 +37,10 @@ lines).
 
 from __future__ import annotations
 
+import collections
 import functools
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -57,7 +58,7 @@ from ..exceptions import SetupError
 from ..log import log
 
 PathLike = Tuple[str, str]
-RECORDS: List[dict] = []
+RECORDS: collections.deque = collections.deque(maxlen=32)
 
 
 def _monitor_fields(sim_data: SimulationData, names: Sequence[str]) -> Dict:

@@ -11,24 +11,32 @@ Phases (any failure exits non-zero):
    first three (six libraries) with nvcc for sm_90a, one nvcc process
    each, started together, and print their register and spill reports; for every instantiation of the k-step kernel (0 to 8 pole slots
    and Bloch, each bulk and shell) its registers, spills and blocks of 512
-   threads per SM (the CUDA occupancy calculator);
+   threads per SM (the CUDA occupancy calculator); the same for the
+   family kernel's E and H and the fused kernel's 0, 1, 2 and 7 pole-slot
+   instantiations, each bulk and shell, float32 and bf16, and the SASS
+   instruction classes and loads by width of their bulk march loops (the
+   bf16 loops must load bf16 pairs as 32-bit words, no 16-bit load);
 3. the family-update kernel against its plain PyTorch version for one E and
    one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
    PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
    (the E update's pole term) and on a random state of the full-size grid,
    to 1e-6 of the largest magnitude; kernel and plain times per launch at
-   the full size (CUDA events);
+   the full size (CUDA events) and the blocks of its bulk and shell
+   launches;
 4. 200 steps of the full-size broadband-DFT case (384^3 cells with CPML,
    an 11-frequency field monitor and flux box) on the two-phase tier, with
    the kernel and with the plain versions, timed in turns plain, kernel,
    kernel, plain; the fields must agree to 2e-5;
-5. the fused one-step kernel against its plain version for one step, on the
-   64x48x80 grid with a Lorentz pole and on the full-size dispersive case
-   (384^3, a one-pole Lorentz half-space), to 1e-6; kernel and plain times
-   per step at 384^3 (CUDA events), and of the plain pole update;
+5. the fused one-step kernel (the pole update inside) against its plain
+   version for one step, on the 64x48x80 grid with a Lorentz pole and on
+   the full-size dispersive case (384^3, a one-pole Lorentz half-space),
+   E', H', psi' and Q' each to 1e-6; kernel and plain times per step at
+   384^3 (CUDA events) beside the bound (Q' stored, the residues read), and
+   the broadband case's kernel time;
 6. 200 steps on the fused tier, kernel against plain versions, in turns
    plain, kernel, kernel, plain, on the 384^3 dispersive case and on the
-   280^3 7-pole Au half-space, to 2e-5;
+   280^3 7-pole Au half-space, fields and pole currents to 2e-5 (one step
+   of the Au case to 1e-6 first, and its kernel time);
 7. the k-step kernel against its plain version for one group of k = 2
    steps, on the 64x48x80 grid with a Lorentz pole, on the 384^3 broadband
    and dispersive cases and on the 280^3 Au case (7 poles), to 1e-6; kernel
@@ -39,10 +47,11 @@ Phases (any failure exits non-zero):
    turns, on the broadband, the dispersive and the Au case, to 2e-5;
 8. torch.profiler windows of 20 steps: device time of the two-phase tier on
    the broadband case, of the fused tier on the dispersive case split into
-   the fused kernel, the pole-update ops and the DFT/source ops, and of the
-   kstep tier on the dispersive case; the device's busy share (the union of
-   its events' intervals, overlapping kernels once, over the unprofiled
-   step time);
+   the fused kernel, the pole-update ops and the DFT/source ops (the fused
+   window must hold no ``fdtd.poles`` range: the kernel updates the
+   poles), and of the kstep tier on the dispersive case; the device's busy
+   share (the union of its events' intervals, overlapping kernels once,
+   over the unprofiled step time);
 9. ``tidy3d_tpu_torch.web.run``, each path with the launch counts set to 0
    just before it and read just after: the broadband case on the two-phase
    tier (2 family launches per step), the dispersive and the broadband case
@@ -204,7 +213,8 @@ Phases (any failure exits non-zero):
     largest magnitude (both round once where they store; a product the
     kernel contracts into an FMA may move a stored value by one bf16 step),
     with the share of bit-equal values: one family half-step (E and H) at
-    64x48x80 and 384^3, one fused step on the 384^3 dispersive case, one
+    64x48x80 and 384^3, one fused step on the 384^3 dispersive case (Q'
+    included), one
     k-step group on the 384^3 broadband and dispersive cases, on the 280^3
     7-pole Au case with the pole state alone in bf16, on the 256^3 Bloch
     dipole and on 4 virtual x-shards of the dispersive case; kernel and
@@ -249,7 +259,16 @@ Phases (any failure exits non-zero):
     backward step, its peak memory and the garbage collections in the
     timed window at 20 and 5 checkpoint chunks (``run_autodiff_timing``
     times the same alone, in a process of its own);
-30. the JSON summary lines; the last line is the contract line. Each
+30. (run after phase 28) ``web.run`` under the default tier of the 384^3
+    dispersive case with a point Ez field-time monitor at the dipole
+    (interval 1, default start) and a flux-time monitor on its flux box
+    (``timemonitor_case``), the launch counts set to 0 just before and
+    read just after: the log's tier is ``fused`` (the samples miss the
+    k-step group ends), one fused call a step and no family or k-step
+    launch; both time series finite and non-zero; the DFT flux within
+    2e-2 of phase 9's k-step run; Gcell*steps/s, peak memory and the
+    estimate, at least the peak;
+31. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -261,7 +280,8 @@ Phases (any failure exits non-zero):
     step or a lab kernel's function, so ``library_ms`` is null, but for the
     step lab's copy variant (``torch._foreach_copy_``). The k-step entries
     also carry the registers and blocks per SM of their bulk and shell
-    instantiations, the k-step lab's entries their registers, shared
+    instantiations, the family and fused entries those of theirs and the
+    SASS of their bulk march loops, the k-step lab's entries their registers, shared
     bytes, threads, blocks per SM and x chunks, the step lab's stencil
     entries and ``curl_mix``'s their resources and SASS classes, and
     ``pole_chan_bf16``'s its SASS classes. The bf16 entries (phase 28)
@@ -397,6 +417,20 @@ def dispersive_case(td):
             geometry=td.Box(center=(0, 0, size[2] / 4),
                             size=(size[0], size[1], size[2] / 2)),
             medium=lorentz(td))]))
+
+
+def timemonitor_case(td):
+    """Phase 30's case: the dispersive case with a point field-time monitor
+    (Ez at the dipole, every step from the default start) and a flux-time
+    monitor on its flux box, the time probes of a resonance search and a
+    time-domain flux; their samples miss the k-step tier's group ends."""
+    sim = dispersive_case(td)
+    flux = next(m for m in sim.monitors if m.name == "flux")
+    return sim.copy(update=dict(monitors=list(sim.monitors) + [
+        td.FieldTimeMonitor(center=sim.sources[0].center, size=(0, 0, 0),
+                            fields=["Ez"], interval=1, name="probe"),
+        td.FluxTimeMonitor(center=flux.center, size=flux.size,
+                           name="flux_time")]))
 
 
 def metal_case(td):
@@ -800,25 +834,80 @@ def kstep_resources(num_poles: int, bloch: bool,
                               for name, bulk in parts.items()}}
 
 
+ONESTEP_POLES = (0, 1, 2, 7)   # the fused kernel's instantiations reported
+
+
 def onestep_resources(storage) -> dict:
-    """Registers (ptxas) and blocks per SM (the occupancy calculator) of
-    the family kernel's E and H instantiations and of the fused kernel,
-    in the libraries of the storage types ``storage``."""
+    """Registers and bytes spilled (ptxas) and blocks per SM (the occupancy
+    calculator) of the family kernel's E and H instantiations and of the
+    fused kernel's at 0, 1, 2 and 7 pole slots, each bulk and shell (the
+    shell of pair-aligned arrays), in the libraries of the storage types
+    ``storage``."""
     from tidy3d_tpu_torch import _build
     from tidy3d_tpu_torch.labs import _common
     from tidy3d_tpu_torch.solver.kernels import fused, step
 
     defines = step.storage_defines(*storage)
-    fam = _common.registers(_build.label("step", defines))
-    fus = _common.registers(_build.label("fused", defines))
-    return {
-        "family": {
-            "registers": {f: next(r for m, (r, _, _) in fam.items()
-                                  if f"ILb{int(f == 'E')}E" in m)
-                          for f in "EH"},
-            "blocks_per_sm": {f: step.occupancy(f, storage) for f in "EH"}},
-        "fused": {"registers": next(r for r, _, _ in fus.values()),
-                  "blocks_per_sm": fused.occupancy(storage)}}
+    tables = {name: _common.registers(_build.label(name, defines))
+              for name in ("step", "fused")}
+
+    def row(name, symbol, blocks):
+        rows = [v for k, v in tables[name].items() if symbol in k]
+        assert len(rows) == 1, f"{name}: {len(rows)} kernels match {symbol}"
+        regs, st, ld = rows[0]
+        return {"registers": regs, "spill_bytes": st + ld,
+                "blocks_per_sm": blocks}
+
+    out = {"family": {}, "fused": {}}
+    for part, bulk in (("bulk", True), ("shell", False)):
+        for f in "EH":
+            out["family"][f"{f} {part}"] = row(
+                "step", f"family_update_kernelILb{int(f == 'E')}ELb"
+                f"{int(bulk)}ELb1E", step.occupancy(f, storage, bulk))
+        for np_ in ONESTEP_POLES:
+            out["fused"][f"NP={np_} {part}"] = row(
+                "fused", f"fused_step_kernelILi{np_}ELb{int(bulk)}ELb1E",
+                fused.occupancy(storage, np_, bulk))
+    return out
+
+
+def load_widths(ops: list) -> dict:
+    """Loads of a SASS loop by space and width: ``{"LDG.32": n, ...}`` (a
+    ``.U16`` or ``.S16`` load is 16 bits, ``.64`` and ``.128`` as named,
+    the rest 32; ``LDGSTS`` is an asynchronous copy into shared memory)."""
+    out: dict = {}
+    for op in ops:
+        base = op.split(".")[0]
+        if base not in ("LDG", "LDS", "LDGSTS"):
+            continue
+        mods = op.split(".")[1:]
+        width = 16 if {"U16", "S16"} & set(mods) else \
+            64 if "64" in mods else 128 if "128" in mods else 32
+        key = f"{base}.{width}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def onestep_sass(storage) -> dict:
+    """The SASS instruction classes (``_common.sass_classes``) and the
+    loads by width (``load_widths``) of the bulk march loops of the family
+    kernel (E and H) and the fused kernel (0 and 1 pole slots) in the
+    libraries of the storage types ``storage``."""
+    from tidy3d_tpu_torch import _build
+    from tidy3d_tpu_torch.labs import _common
+    from tidy3d_tpu_torch.solver.kernels import step
+
+    defines = step.storage_defines(*storage)
+    out = {}
+    for what, name, symbol in (
+            ("family E", "step", "family_update_kernelILb1ELb1ELb1E"),
+            ("family H", "step", "family_update_kernelILb0ELb1ELb1E"),
+            ("fused NP=0", "fused", "fused_step_kernelILi0ELb1ELb1E"),
+            ("fused NP=1", "fused", "fused_step_kernelILi1ELb1ELb1E")):
+        label = _build.label(name, defines)
+        out[what] = dict(_common.sass_classes(label, symbol),
+                         loads=load_widths(_common.sass_loop(label, symbol)))
+    return out
 
 
 def lists_per_group(runner) -> int:
@@ -891,23 +980,64 @@ def step_sources(runner) -> list:
     return runner.step_sources("E", min(40, runner.num_steps - 1))
 
 
+def group_errors(fg: dict, fr: dict) -> tuple:
+    """``(largest relative, largest absolute difference)`` of two flat
+    states, each of fields, psi and pole currents relative to its own
+    largest magnitude (over both copies of a complex run)."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for group in ("E", "H", "psi", "Q"):
+        keys = [key for key in fr if key.split(":")[0].rstrip(
+            "0123456789") == group]
+        if not keys:
+            continue
+        g = {key: fg[key] for key in keys}
+        r = {key: fr[key] for key in keys}
+        worst_abs = max(worst_abs, max_diff(g, r))
+        worst_rel = max(worst_rel, rel_err(g, r))
+    return worst_rel, worst_abs
+
+
+def fused_flat(out) -> dict:
+    """The flat state of a fused step's ``(E', H', psi', Q')``."""
+    return flat_state(dict(zip(("E", "H", "psi", "Q"), out)))
+
+
 def compare_fused(fused, runner, state, what: str) -> float:
-    """Fused kernel against plain version for one step (E', H', psi');
-    returns the largest absolute difference."""
+    """Fused kernel against plain version for one step (E', H', psi' and
+    Q'); returns the largest absolute difference."""
     src = step_sources(runner)
     before = fused.LAUNCHES
     got = fused.fused_step(state, runner.consts, runner.meta, src)
     sync()
     assert fused.LAUNCHES == before + 1, "fused kernel did not launch"
+    assert len(got[3]) == len(state["Q"])
     ref = fused.fused_step_reference(state, runner.consts, runner.meta, src)
-    worst_rel, worst_abs = 0.0, 0.0
-    for g, r in zip(got, ref):
-        worst_abs = max(worst_abs, max_diff(g, r))
-        worst_rel = max(worst_rel, rel_err(g, r))
+    worst_rel, worst_abs = group_errors(fused_flat(got), fused_flat(ref))
     log(f"[fused] {what}: fused kernel vs plain max rel err {worst_rel:.3e} "
-        f"(max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
+        f"(max abs {worst_abs:.3e}, tol {TOL_UPDATE:g}; E', H', psi' and "
+        f"{len(got[3])} poles' Q'); blocks of the bulk and shell launches "
+        f"and device launches {fused.LAST_BLOCKS}")
     assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
     return worst_abs
+
+
+def fused_work(runner, state):
+    """``(bytes, operations)`` of one fused step: E, H, psi, Q and the
+    constants (the pole residues included) read once, E', H', psi' and Q'
+    written once; both families, their psi and the pole terms and
+    updates."""
+    ncell = int(np.prod(runner.shape))
+    return (2 * nbytes(state["E"], state["H"], state["psi"], state["Q"])
+            + nbytes(stepping_consts(runner)),
+            2 * OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"])
+            + OPS_POLE * 3 * len(state["Q"]) * ncell)
+
+
+def q_buffers(state: dict) -> list:
+    """A second set of pole currents shaped as ``state``'s (the fused
+    kernel's output set)."""
+    return [{c: (torch.empty_like(qr), torch.empty_like(qi))
+             for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]
 
 
 def flat_state(state: dict) -> dict:
@@ -933,17 +1063,7 @@ def compare_kstep(kstep, runner, state, what: str) -> float:
     assert kstep.LAUNCHES == before + 1, "k-step kernel did not launch"
     ref = kstep.kstep_group_reference(state, runner.consts, runner.meta,
                                       runner.tables, t0, k)
-    fg, fr = flat_state(got), flat_state(ref)
-    worst_rel, worst_abs = 0.0, 0.0
-    for group in ("E", "H", "psi", "Q"):
-        keys = [key for key in fr if key.split(":")[0].rstrip(
-            "0123456789") == group]
-        if not keys:
-            continue
-        g = {key: fg[key] for key in keys}
-        r = {key: fr[key] for key in keys}
-        worst_abs = max(worst_abs, max_diff(g, r))
-        worst_rel = max(worst_rel, rel_err(g, r))
+    worst_rel, worst_abs = group_errors(flat_state(got), flat_state(ref))
     log(f"[kstep] {what}, k={k}: k-step kernel vs plain max rel err "
         f"{worst_rel:.3e} (max abs {worst_abs:.3e}, tol {TOL_UPDATE:g})")
     assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
@@ -969,18 +1089,24 @@ def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
     runners = {"plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
                "kernel": FDTDRunner(plan, device=dev, **kw)}
     rates = {"plain": [], "kernel": []}
-    finals = {}
+    finals, currents = {}, {}
     for name in ("plain", "kernel", "kernel", "plain"):
         st, secs = run_steps_timed(runners[name], STEPS_COMPARE)
         rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
         finals[name] = {f"{fam}:{c}": v for fam in ("E", "H", "E1", "H1")
                         if fam in st for c, v in st[fam].items()}
+        currents[name] = {k: v for k, v in flat_state(st).items()
+                          if k.startswith("Q")}
         del st
     err = rel_err(finals["kernel"], finals["plain"])
+    err_q = rel_err(currents["kernel"], currents["plain"]) \
+        if currents["plain"] else 0.0
     log(f"[steps] {what}, tier {runners['kernel'].tier}: {STEPS_COMPARE} "
-        f"steps kernel vs plain max rel err {err:.3e} (tol {TOL_STEPS:g})")
+        f"steps kernel vs plain max rel err {err:.3e}, pole currents "
+        f"{err_q:.3e} (tol {TOL_STEPS:g})")
     assert max_abs(finals["plain"]) > 0
     assert err <= TOL_STEPS, f"{what}: 200-step rel err {err:.3e}"
+    assert err_q <= TOL_STEPS, f"{what}: 200-step Q rel err {err_q:.3e}"
     log(f"[steps] {what} Gcell*steps/s: plain {rates['plain']} kernel "
         f"{rates['kernel']} | {smi}")
     return rates
@@ -1015,14 +1141,22 @@ def _device_busy_us(prof) -> float:
 def profile_window(runner, out_path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    def device_launches():
+        return step.DEVICE_LAUNCHES + fused.DEVICE_LAUNCHES \
+            + kstep.DEVICE_LAUNCHES
+
     state = runner.init_state()
     runner._pad_time_tables(NPROF + 4)
     state = runner.run_steps(0, 4, state)
     sync()
+    before = device_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         state = runner.run_steps(4, NPROF, state)
         sync()
+    made = device_launches() - before
     by_name = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
@@ -1052,10 +1186,9 @@ def profile_window(runner, out_path: str) -> dict:
                      if k.split("<")[0].split("(")[0].split()[-1] in (
                          "family_update_kernel", "fused_step_kernel",
                          "kstep_kernel")),
-        expected={"pallas2": 2 * NPROF, "fused": NPROF,
-                  "kstep": NPROF // runner.k * lists_per_group(runner)
-                  }[runner.tier],
+        expected=made,
         poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
+        poles_ranges=sum(e.name == "fdtd.poles" for e in prof.events()),
         monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
         busy_ms=_device_busy_us(prof) / 1e3,
         launches=sum(c for _, c in by_name.values()))
@@ -1071,7 +1204,7 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
             f"the {prof['expected']} kernel launches made: not measured")
         return
     per = {k: v / NPROF for k, v in prof.items()
-           if k not in ("recorded", "expected")}
+           if k not in ("recorded", "expected", "poles_ranges")}
     kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"]
     other = per["device_ms"] - kernel - per["poles_ms"]
     # the profiler slows the host loop, so the busy share compares the
@@ -1080,6 +1213,7 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
         f"kernels {kernel:.3f} ms (family {per['family_ms']:.3f}, fused "
         f"{per['fused_ms']:.3f}, k-step {per['kstep_ms']:.3f}) + "
         f"pole-update ops {per['poles_ms']:.3f} ms "
+        f"({prof['poles_ranges']} fdtd.poles ranges) "
         f"+ DFT/source ops {other:.3f} ms (of which the monitor range "
         f"{per['monitors_ms']:.3f} ms), {per['launches']:.0f} device "
         f"launches; busy {per['busy_ms']:.3f} ms (overlapping kernels "
@@ -2739,6 +2873,42 @@ def run_pole_lab(smi: str, launches: dict) -> list:
     return out
 
 
+def run_timemonitors(td, smi: str, flux_kstep: np.ndarray) -> int:
+    """Phase 30: ``web.run`` under the default tier of the dispersive case
+    with time monitors off the group ends (``timemonitor_case``), the launch
+    counts set to 0 just before it and read just after: the fused tier, one
+    fused call a step and no family or k-step launch, finite non-zero time
+    series, the DFT flux within ``TOL_FLUX`` of phase 9's k-step run
+    (``flux_kstep``), the memory estimate at least the peak. Returns the
+    fused calls."""
+    t_phase = time.perf_counter()
+    w = web_run(td, timemonitor_case(td), "dispersive with time monitors, "
+                "default tier", smi)
+    assert w.tier == "fused", w.tier
+    assert w.launches == {"family": 0, "fused": w.steps, "kstep": 0}, \
+        w.launches
+    assert w.device_launches == 0, w.device_launches
+    probe = np.asarray(w.data["probe"].Ez.values)
+    flux_t = np.asarray(w.data["flux_time"].flux.values)
+    for name, series in (("probe Ez", probe), ("flux_time", flux_t)):
+        assert series.size > 1 and np.all(np.isfinite(series)), name
+        assert np.any(series != 0), name
+    err = float(np.max(np.abs(w.flux - flux_kstep))
+                / np.max(np.abs(flux_kstep)))
+    what, est, peak, base = MEMORY[-1]
+    log(f"[timemon] {what}: kernel tier {w.tier}, {w.steps} steps, "
+        f"{w.launches['fused']} fused calls; probe {probe.shape} and "
+        f"flux-time {flux_t.shape} samples finite and non-zero (|flux_t| max "
+        f"{float(np.max(np.abs(flux_t))):.4e}); DFT flux vs the k-step run's "
+        f"max rel err {err:.3e} (tol {TOL_FLUX:g}); {w.rate} Gcell*steps/s; "
+        f"peak {peak - base} B, estimate {est} B (ratio "
+        f"{est / max(peak - base, 1):.3f}); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    assert err <= TOL_FLUX, f"time-monitor run: flux rel err {err:.3e}"
+    assert est >= peak - base, (est, peak, base)
+    return w.launches["fused"]
+
+
 def raw_err(ref: dict, got: dict) -> float:
     """The largest difference of two raw monitor sets, relative to the
     largest magnitude of each monitor."""
@@ -2899,27 +3069,23 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     got = fused.fused_step(state, fr.consts, fr.meta, src)
     sync()
     assert fused.LAUNCHES == before + 1, "fused kernel did not launch"
+    assert {qr.dtype for Qp in got[3] for qr, _ in Qp.values()} == {bf}
     ref = fused.fused_step_reference(state, fr.consts, fr.meta, src)
-    e_fused = bf16_compare(
-        flat_state({"E": got[0], "H": got[1], "psi": got[2], "Q": []}),
-        flat_state({"E": ref[0], "H": ref[1], "psi": ref[2], "Q": []}),
-        f"{plan_d.shape} dispersive fused step")
+    e_fused = bf16_compare(fused_flat(got), fused_flat(ref),
+                           f"{plan_d.shape} dispersive fused step (Q' "
+                           "included)")
     del got, ref
-    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src),
-                   20)
+    q_out = q_buffers(state)
+    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src,
+                                            q_out=q_out), 20)
     fp_ms = timed(lambda: fused.fused_step_reference(state, fr.consts,
                                                      fr.meta, src))[1]
-    ncell = int(np.prod(plan_d.shape))
-    f_bnd = bound(
-        2 * nbytes(state["E"], state["H"], state["psi"])
-        + nbytes(state["Q"], stepping_consts(fr)),
-        2 * OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"])
-        + 4 * 3 * len(state["Q"]) * ncell)
+    f_bnd = bound(*fused_work(fr, state))
     log(f"[bf16] {plan_d.shape} dispersive: fused kernel {f_ms:.3f} ms/step, "
         f"plain {fp_ms:.3f}; bound {f_bnd[0]:.3f} ms by {f_bnd[1]}, ratio "
         f"{f_ms / f_bnd[0]:.2f} | {smi}")
     res["fused"] = (e_fused, (f_ms, fp_ms, f_bnd))
-    del state, fr
+    del state, fr, q_out
 
     # one k-step group: broadband and dispersive in bf16, the 7-pole Au
     # case with the pole state alone in bf16, the Bloch dipole in bf16
@@ -3085,12 +3251,13 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     out = [entry("family_update_bf16", src_step,
                  "tidy3d_tpu/solver/kernels/pallas_step.py:118",
                  main["family"], fe[1], fk, fp, fb, bit_equal=fe[2],
-                 **onestep["bf16"]["family"]),
+                 instantiations=onestep["bf16"]["family"]),
            entry("fused_step_bf16", src_fused,
                  "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
                  main["fused"], res["fused"][0][1], res["fused"][1][0],
                  res["fused"][1][1], res["fused"][1][2],
-                 bit_equal=res["fused"][0][2], **onestep["bf16"]["fused"])]
+                 bit_equal=res["fused"][0][2],
+                 instantiations=onestep["bf16"]["fused"])]
     for name, key, launches in (("kstep_group_bf16", "dispersive",
                                  main["kstep"]),
                                 ("kstep_group_q_bf16", "q", main["q"]),
@@ -3145,7 +3312,7 @@ def main() -> int:
     import tidy3d_tpu_torch as td
     from tidy3d_tpu_torch.solver.lowering import lower
     from tidy3d_tpu_torch import _build
-    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, update_poles
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3174,6 +3341,25 @@ def main() -> int:
             f"{st}/{ld} B, {kstep.occupancy(np_, bl, bulk)} blocks of 512 "
             f"threads per SM")
     assert len(kstep_registers()) == 2 * (kstep.MAX_POLES + 2)
+    # the one-step kernels' instantiations and the SASS of their bulk march
+    # loops, float32 and bf16
+    onestep, sass = {}, {}
+    bf = torch.bfloat16
+    for what, storage in (("float32", (torch.float32,) * 3),
+                          ("bf16", (bf, bf, bf))):
+        onestep[what] = onestep_resources(storage)
+        for kern in ("family", "fused"):
+            log(f"[build] {what} {kern} kernel: " + "; ".join(
+                f"{k}: {v['registers']} regs, spill {v['spill_bytes']} B, "
+                f"{v['blocks_per_sm']} blocks of 256 threads per SM"
+                for k, v in onestep[what][kern].items()))
+        sass[what] = onestep_sass(storage)
+        for loop, cls in sass[what].items():
+            log(f"[build] {what} {loop} bulk march loop SASS: {cls}")
+    for loop, cls in sass["bf16"].items():
+        # bf16 pairs load as 32-bit words: no 16-bit load in a bulk loop
+        assert not any(k.endswith(".16") for k in cls["loads"]), (loop, cls)
+        assert cls["loads"].get("LDGSTS.32", 0) > 0, (loop, cls)
 
     # 3. one family update, kernel against plain
     mixed = FDTDRunner(lower(mixed_case(td)), device=dev, kernel="pallas2")
@@ -3194,6 +3380,8 @@ def main() -> int:
     kr = FDTDRunner(plan, device=dev, kernel="pallas2")
     state = random_state(kr, 2)
     err_full = compare_update(step, kr, state, f"{plan.shape} full")
+    log(f"[update] {plan.shape}: family kernel blocks of the bulk and "
+        f"shell launches and device launches {step.LAST_BLOCKS}")
 
     def update_pair(fn):
         def once():
@@ -3232,33 +3420,29 @@ def main() -> int:
     state = random_state(fr, 5)
     err_fused = compare_fused(fused, fr, state, f"{plan_d.shape} dispersive")
     src = step_sources(fr)
-    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src),
-                   20)
+    q_out = q_buffers(state)
+    f_ms = cuda_ms(lambda: fused.fused_step(state, fr.consts, fr.meta, src,
+                                            q_out=q_out), 20)
     fp_ms = cuda_ms(lambda: fused.fused_step_reference(
         state, fr.consts, fr.meta, src), 5)
-    # one step: E, H, psi, Q and the constants read, E', H', psi' written;
-    # the pole term (not the pole update) inside
-    fused_bound = bound(
-        2 * nbytes(state["E"], state["H"], state["psi"])
-        + nbytes(state["Q"], stepping_consts(fr)),
-        2 * OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"])
-        + 4 * 3 * len(state["Q"]) * ncell)
-    nE = {c: v.clone() for c, v in state["E"].items()}
-    pole_ms = cuda_ms(lambda: update_poles(nE, state["E"], state["Q"],
-                                           fr.consts), 10)
+    # one step: E, H, psi, Q and the constants read, E', H', psi', Q'
+    # written; the pole term and the pole update inside
+    fused_bound = bound(*fused_work(fr, state))
     log(f"[fused] {plan_d.shape} dispersive: fused kernel {f_ms:.3f} "
-        f"ms/step ({96 * ncell / (f_ms * 1e-3) / 1e9:.0f} GB/s at 96 "
-        f"B/cell), plain {fp_ms:.3f} ms/step; plain pole update "
-        f"{pole_ms:.3f} ms/step | {smi}")
+        f"ms/step with the pole update ({fused_bound[0]:.3f} ms bound by "
+        f"{fused_bound[1]}, ratio {f_ms / fused_bound[0]:.2f}), plain "
+        f"{fp_ms:.3f} ms/step | {smi}")
     fb = FDTDRunner(plan, device=dev, kernel="fused")
     st_b = random_state(fb, 6)
     src_b = step_sources(fb)
     fb_ms = cuda_ms(lambda: fused.fused_step(st_b, fb.consts, fb.meta,
                                              src_b), 20)
+    fb_bound = bound(*fused_work(fb, st_b))
     log(f"[fused] {plan.shape} broadband: fused kernel {fb_ms:.3f} ms/step "
-        f"({48 * ncell / (fb_ms * 1e-3) / 1e9:.0f} GB/s at 48 B/cell) vs "
-        f"two family launches {2 * k_ms:.3f} ms | {smi}")
-    del state, nE, st_b, fb
+        f"({fb_bound[0]:.3f} ms bound by {fb_bound[1]}, ratio "
+        f"{fb_ms / fb_bound[0]:.2f}) vs two family launches "
+        f"{2 * k_ms:.3f} ms | {smi}")
+    del state, q_out, st_b, fb
 
     # 6. 200 steps on the fused tier: dispersive 384^3 and 7-pole Au 280^3
     rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
@@ -3271,14 +3455,14 @@ def main() -> int:
     st_m = random_state(mr, 7)
     err_metal = compare_fused(fused, mr, st_m, f"{plan_m.shape} 7-pole Au")
     src_m = step_sources(mr)
+    q_m = q_buffers(st_m)
     m_ms = cuda_ms(lambda: fused.fused_step(st_m, mr.consts, mr.meta,
-                                            src_m), 10)
-    nE_m = {c: v.clone() for c, v in st_m["E"].items()}
-    mpole_ms = cuda_ms(lambda: update_poles(nE_m, st_m["E"], st_m["Q"],
-                                            mr.consts), 5)
-    log(f"[metal] {plan_m.shape}: fused kernel {m_ms:.3f} ms/step, plain "
-        f"pole update {mpole_ms:.3f} ms/step | {smi}")
-    del st_m, nE_m, mr
+                                            src_m, q_out=q_m), 10)
+    m_bound = bound(*fused_work(mr, st_m))
+    log(f"[metal] {plan_m.shape}: fused kernel {m_ms:.3f} ms/step with the "
+        f"7 poles' update ({m_bound[0]:.3f} ms bound by {m_bound[1]}, ratio "
+        f"{m_ms / m_bound[0]:.2f}) | {smi}")
+    del st_m, q_m, mr
     rates_m = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
                               kernel="fused")
 
@@ -3291,8 +3475,8 @@ def main() -> int:
     ks_ms, ks_bound, ks_res, ks_lists = {}, {}, {}, {}
     for what, kplan, nc, seed, fused_ms in (
             ("broadband", plan, ncell, 9, fb_ms),
-            ("dispersive", plan_d, ncell, 10, f_ms + pole_ms),
-            ("7-pole Au", plan_m, ncell_m, 11, m_ms + mpole_ms)):
+            ("dispersive", plan_d, ncell, 10, f_ms),
+            ("7-pole Au", plan_m, ncell_m, 11, m_ms)):
         kr = FDTDRunner(kplan, device=dev, kernel="kstep")
         assert kr.k == 2, kr.k
         st = random_state(kr, seed)
@@ -3316,7 +3500,7 @@ def main() -> int:
             f"Gcell*steps/s), plain {gp_ms:.3f} ms/group = {gp_ms / k:.3f} "
             f"ms/step; bound {ks_bound[what][0]:.3f} ms/group by "
             f"{ks_bound[what][1]}, ratio {g_ms / ks_bound[what][0]:.2f}; "
-            f"fused kernel + plain pole update {fused_ms:.3f} ms/step | "
+            f"fused kernel (pole update inside) {fused_ms:.3f} ms/step | "
             f"{smi}")
         log(f"[kstep] {what}: {nb} bulk and {ns} shell blocks "
             f"({nb / (nb + ns):.1%} bulk), {ks_lists[what]} device launches "
@@ -3339,6 +3523,8 @@ def main() -> int:
     report_profile(pf, "dispersive, fused tier",
                    ncell / (float(np.mean(rates_d["kernel"])) * 1e9) * 1e3,
                    smi)
+    # the fused tier updates the poles inside its kernel: no plain update
+    assert pf["poles_ranges"] == 0, pf["poles_ranges"]
     del fr
     pk = profile_window(FDTDRunner(plan_d, device=dev, kernel="kstep"),
                         os.path.join(OUT_DIR, "chip_smoke_prof_kstep.txt"))
@@ -3383,6 +3569,9 @@ def main() -> int:
     # bf16 web.run and the memory gate
     bf16_entries = run_bf16(td, dev, smi, plan, plan_d, plan_m,
                             w_k["dispersive"])
+    # 30. the fused tier on the default path: time monitors off the group
+    # ends
+    n_fused_auto = run_timemonitors(td, smi, w_k["dispersive"].flux)
     del plan_m, w_k
     torch.cuda.empty_cache()
 
@@ -3430,11 +3619,16 @@ def main() -> int:
         entry("family_update", "tidy3d_tpu_torch/csrc/step.cu",
               "tidy3d_tpu/solver/kernels/pallas_step.py:118",
               w2.launches["family"], max(err_full, err_family_poles), k_ms,
-              p_ms, fam_bound),
+              p_ms, fam_bound, instantiations=onestep["float32"]["family"],
+              sass={f: sass["float32"][f"family {f}"] for f in "EH"},
+              sass_bf16={f: sass["bf16"][f"family {f}"] for f in "EH"}),
         entry("fused_step", "tidy3d_tpu_torch/csrc/fused.cu",
               "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
-              wfd.launches["fused"] + wfb.launches["fused"],
-              max(err_fused, err_metal), f_ms, fp_ms, fused_bound),
+              wfd.launches["fused"] + wfb.launches["fused"] + n_fused_auto,
+              max(err_fused, err_metal), f_ms, fp_ms, fused_bound,
+              instantiations=onestep["float32"]["fused"],
+              sass=sass["float32"]["fused NP=1"],
+              sass_bf16=sass["bf16"]["fused NP=1"]),
         entry("kstep_group", kstep_src, kstep_tpu, n_kstep, max(err_kstep),
               ks_ms["dispersive"][0], ks_ms["dispersive"][1],
               ks_bound["dispersive"], **ks_res["dispersive"]),

@@ -613,7 +613,7 @@ def test_family_and_fused_kernels_match_plain(case, cuda):
             for fn in (fused_kernels.fused_step,
                        fused_kernels.fused_step_reference)]
     got, ref = (_flat(convert.state_to_reference(
-        {"E": e, "H": h, "psi": p})) for e, h, p in outs)
+        {"E": e, "H": h, "psi": p, "Q": q})) for e, h, p, q in outs)
     _report(f"{case} fused kernel vs plain", _errors(ref, got))
 
 

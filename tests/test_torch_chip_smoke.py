@@ -270,3 +270,62 @@ def test_gc_clock_counts_collections():
         gc.collect()
     assert clock.count == 2 and clock.seconds >= 0
     assert clock._call not in gc.callbacks
+
+
+def test_timemonitor_case_builds():
+    """Phase 30's case: the dispersive case's monitors, a point Ez probe
+    at the dipole sampled every step from the start and a flux-time
+    monitor on the flux box (built, not run)."""
+    sim = chip_smoke.timemonitor_case(td)
+    assert [m.name for m in sim.monitors] == ["field", "flux", "probe",
+                                             "flux_time"]
+    probe, flux_t = sim.monitors[2:]
+    assert isinstance(probe, td.FieldTimeMonitor)
+    assert tuple(probe.size) == (0, 0, 0) and probe.fields == ("Ez",)
+    assert tuple(probe.center) == tuple(sim.sources[0].center)
+    assert probe.start == 0 and probe.interval == 1
+    assert isinstance(flux_t, td.FluxTimeMonitor) and flux_t.start == 0
+    assert tuple(flux_t.size) == tuple(sim.monitors[1].size)
+    assert len(sim.structures) == 1
+
+
+def test_load_widths_reads_the_sass_modifiers():
+    ops = ["LDG.E.64.CONSTANT", "LDG.E", "LDG.E.U16.CONSTANT", "LDS.64",
+           "LDS.U16", "LDGSTS.E.BYPASS.LTC128B", "LDGSTS.E.64", "STG.E.64",
+           "FFMA", "LDS.128"]
+    assert chip_smoke.load_widths(ops) == {
+        "LDG.64": 1, "LDG.32": 1, "LDG.16": 1, "LDS.64": 1, "LDS.16": 1,
+        "LDGSTS.32": 1, "LDGSTS.64": 1, "LDS.128": 1}
+
+
+def test_fused_work_counts_the_pole_currents_both_ways():
+    """A fused step's bound reads E, H, psi and Q and writes them once,
+    with the residues among the constants; the group errors compare Q'."""
+    import torch
+
+    from tests.torch_cases import DISPERSIVE
+
+    runner = FDTDRunner(lower(DISPERSIVE["lorentz_mixed"]()), device="cpu",
+                        kernel="fused")
+    state = runner.init_state()
+    nbytes, ops = chip_smoke.fused_work(runner, state)
+    ncell = int(np.prod(runner.shape))
+    q = 6 * 4 * ncell
+    assert chip_smoke.nbytes(state["Q"]) == q
+    assert nbytes == 2 * chip_smoke.nbytes(
+        state["E"], state["H"], state["psi"]) + 2 * q + chip_smoke.nbytes(
+        chip_smoke.stepping_consts(runner))
+    assert ops == (2 * chip_smoke.OPS_FAMILY * ncell
+                   + chip_smoke.OPS_PSI * chip_smoke.numel(state["psi"])
+                   + chip_smoke.OPS_POLE * 3 * ncell)
+    out = runner.step(40, dict(state))
+    flat = chip_smoke.fused_flat((out["E"], out["H"], out["psi"], out["Q"]))
+    assert {k.split(":")[0] for k in flat} >= {"E", "H", "psi", "Q0"}
+    moved = dict(flat, **{"Q0:Ex:re": flat["Q0:Ex:re"] + 1.0})
+    rel, ab = chip_smoke.group_errors(moved, flat)
+    assert ab == 1.0 and rel > 0
+    assert chip_smoke.group_errors(flat, flat) == (0.0, 0.0)
+    assert len(chip_smoke.q_buffers(state)) == 1
+    assert all(t.shape == state["E"]["Ex"].shape and t.dtype == torch.float32
+               for Qp in chip_smoke.q_buffers(state) for pair in Qp.values()
+               for t in pair)

@@ -190,14 +190,13 @@ def test_kernel_matches_plain(case, cuda):
     outs = []
     for fn in (fused_kernels.fused_step, fused_kernels.fused_step_reference):
         before = fused_kernels.LAUNCHES
-        nE, nH, psi = fn(convert.state_from_reference(st, port), port.consts,
-                         port.meta, src)
+        nE, nH, psi, Q = fn(convert.state_from_reference(st, port),
+                            port.consts, port.meta, src)
         torch.cuda.synchronize()
         assert fused_kernels.LAUNCHES == before + (
             fn is fused_kernels.fused_step)
-        outs.append({**{f"E:{c}": v.cpu().numpy() for c, v in nE.items()},
-                     **{f"H:{c}": v.cpu().numpy() for c, v in nH.items()},
-                     **{f"psi:{k}": v.cpu().numpy() for k, v in psi.items()}})
+        outs.append(_flat(convert.state_to_reference(
+            {"E": nE, "H": nH, "psi": psi, "Q": Q})))
     _check_groups(outs[1], outs[0], TOL_XLA, f"{case} fused kernel")
 
 

@@ -163,18 +163,25 @@ def opcode(instr: str) -> str:
     return instr.split()[1] if instr.startswith("@") else instr.split()[0]
 
 
+_SASS: dict = {}   # library path -> sass_functions of its cuobjdump
+
+
 def sass_loop(name: str, kernel: str) -> list:
     """The opcodes of the longest loop of the kernel whose mangled name
     holds ``kernel``, from ``cuobjdump -sass`` of ``csrc/<name>.cu``'s
-    library (built in this process or loaded as built)."""
+    library (built in this process or loaded as built; one dump a library
+    and process)."""
     from .. import _build
 
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
-                                                     "cuobjdump")
-    sass = sass_functions(subprocess.run(
-        [tool, "-sass", _build.BUILDS[name].path], capture_output=True,
-        text=True, check=True, timeout=300).stdout)
+    path = _build.BUILDS[name].path
+    if path not in _SASS:
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                         "cuobjdump")
+        _SASS[path] = sass_functions(subprocess.run(
+            [tool, "-sass", path], capture_output=True, text=True,
+            check=True, timeout=300).stdout)
+    sass = _SASS[path]
     names = [f for f in sass if kernel in f]
     if len(names) != 1:
         raise ValueError(f"{kernel}: {len(names)} functions match in {name}")

@@ -13,10 +13,11 @@ version for tensors on the CPU:
   of every substep inside), the monitors only at the group ends where a
   sample lands, on Nyquist-strided DFT tables, in the order of
   ``FDTDRunner._step_group``;
-* ``fused``: one launch of ``kernels.fused.fused_step`` per step (both
-  half-steps, J sources inside), then the H sources, the pole update and
-  the monitors, in the order of ``FDTDRunner._step_fused``;
-* ``pallas2``: two launches of ``kernels.step.family_update`` per step.
+* ``fused``: one call of ``kernels.fused.fused_step`` per step (both
+  half-steps, J sources and the pole update inside), then the H sources
+  and the monitors, in the order of ``FDTDRunner._step_fused``;
+* ``pallas2``: two calls of ``kernels.step.family_update`` per step, the
+  pole update (``update_poles``, plain PyTorch) between them.
 
 ``TIDY3D_TPU_KERNEL`` picks the tier as in the JAX package: ``auto`` (the
 default) takes, on a CUDA device, ``kstep`` when the k-step kernel takes the
@@ -42,11 +43,13 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
   adds ``profile * w(t)`` with ``w(t)`` passed as a scalar. The kstep tier
   keeps them on the device (``kernels.kstep.SourceTables``), where its
   kernel reads ``w(t0 + j)`` for substep j.
-* On the one-step tiers the pole currents are updated in place; the kstep
-  tier reads one buffer set and writes the other (ping-pong, allocated
-  once in ``init_state``).
-* The pole update and the monitor accumulation run inside the profiler
-  ranges ``fdtd.poles`` and ``fdtd.monitors``.
+* On the ``pallas2`` tier the pole currents are updated in place; the
+  kstep tier reads one buffer set and writes the other, and the fused tier
+  one pole-current set and the other (ping-pong, allocated once in
+  ``init_state`` as ``state["alt"]``).
+* The plain pole update of the ``pallas2`` tier and the monitor
+  accumulation run inside the profiler ranges ``fdtd.poles`` and
+  ``fdtd.monitors``.
 
 Bloch (complex) runs step two real copies of the fields (re and im: ``E``,
 ``H``, ``psi`` and ``E1``, ``H1``, ``psi1``) that mix only where a stencil
@@ -91,9 +94,11 @@ otherwise; on the one-step tiers psi and the pole currents take the
 fields' type. Every kernel computes in float32 and rounds where it stores;
 the monitor accumulators stay float32. On the one-step tiers the source
 terms are rounded to the fields' type and then added, and a bfloat16 pole
-update computes as the reference's ``_update_poles`` does under JAX's
-promotion rules (``update_poles``); both round at their stores as
-``FDTDRunner._cast_state`` does.
+update of the ``pallas2`` tier computes as the reference's
+``_update_poles`` does under JAX's promotion rules (``update_poles``);
+both round at their stores as ``FDTDRunner._cast_state`` does. The fused
+tier computes its pole update in float32 from E' rounded to the fields'
+type and rounds Q' once, where it stores it.
 
 ``estimate_device_memory`` counts the bytes each device holds for the run
 (its constants, the state with its second buffer set, the shards' halo
@@ -709,9 +714,9 @@ def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
 
 
 def pole_update(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
-    """The pole-current update out of place, for the differentiable run:
-    the new ``[{comp: (qr, qi)}]`` of ``_pole_currents``, ``Q`` left as it
-    is."""
+    """The pole-current update out of place, for the differentiable run
+    and the fused step's plain version (float32 currents there): the new
+    ``[{comp: (qr, qi)}]`` of ``_pole_currents``, ``Q`` left as it is."""
     out = [{} for _ in Q]
     for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
         out[pi][comp] = (nqr, nqi)
@@ -1056,6 +1061,10 @@ class FDTDRunner:
             # the ping-pong set: each group reads one set and writes the
             # other (allocated once; the runner swaps them)
             state["alt"] = self._fields(self.meta, device)
+        elif self.tier == "fused" and self.plan.poles:
+            # the fused kernel's second pole-current set: neighbouring
+            # blocks read Q while Q' is stored
+            state["alt"] = {"Q": self._fields(self.meta, device)["Q"]}
         return state
 
     def _init_monitor_acc(self, mi, mp, slices: dict = None, device=None):
@@ -1130,18 +1139,25 @@ class FDTDRunner:
         return mon
 
     def step(self, step: int, state: dict) -> dict:
-        """One leapfrog step from ``state`` (the pole currents update and
-        the monitors accumulate in place) on a one-step tier."""
+        """One leapfrog step from ``state`` on a one-step tier; the monitors
+        accumulate in place. On ``pallas2`` the pole currents update in
+        place; on ``fused`` the kernel writes them to the second set
+        (``state["alt"]["Q"]``), which the returned state swaps in."""
         if self.tier == "kstep":
             raise ValueError("the kstep tier steps in groups of k "
                              "(run_steps, step_group)")
         if self.tier == "fused":
-            fn = fused_kernels.fused_step if self.use_kernel \
-                else fused_kernels.fused_step_reference
-            nE, nH, psi = fn(state, self.consts, self.meta,
-                             self.step_sources("E", step))
+            sources = self.step_sources("E", step)
+            if self.use_kernel:
+                # Q' into the second pole-current set, which then swaps
+                # with the first
+                nE, nH, psi, Q = fused_kernels.fused_step(
+                    state, self.consts, self.meta, sources,
+                    q_out=state["alt"]["Q"] if "alt" in state else None)
+            else:
+                nE, nH, psi, Q = fused_kernels.fused_step_reference(
+                    state, self.consts, self.meta, sources)
             self._inject("H", nH, step)
-            Q = self._update_poles(nE, state)
         else:
             nE, psi_E = self._family_update("E", state, state["H"])
             self._inject("E", nE, step)
@@ -1153,7 +1169,10 @@ class FDTDRunner:
             psi.update(psi_H)
         with record_function("fdtd.monitors"):
             mon = self._accumulate_monitors(step, nE, nH, state["mon"])
-        return {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
+        new = {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
+        if "alt" in state:
+            new["alt"] = {"Q": state["Q"]}
+        return new
 
     def _update_poles(self, new_e, state):
         if not state["Q"]:
@@ -1659,7 +1678,7 @@ class FDTDRunner:
                       for sh in self.shards]
 
     def _pole_work(self, cells: int) -> int:
-        """Bytes of the one-step tiers' pole-update temporaries
+        """Bytes of the ``pallas2`` tier's pole-update temporaries
         (``update_poles``): the sum E' + E of each component with a
         residue (at the fields' type), each (mask, component) product
         (float32) and the rotation temporaries: one float32 field in
@@ -1688,10 +1707,12 @@ class FDTDRunner:
         * ``state``: fields, psi, pole currents, monitor accumulators and
           the second buffer set (the kstep tier's ping-pong set; on the
           one-step tiers the E, H and psi that each step allocates while
-          the old ones are live), halo planes excepted;
+          the old ones are live, and on the fused tier the second
+          pole-current set), halo planes excepted;
         * ``halo``: the k halo planes on each side of a shard's arrays;
-        * ``work``: a step's temporaries: on the one-step tiers the pole
-          update's (``_pole_work``), else one field for the field maximum;
+        * ``work``: a step's temporaries: on the ``pallas2`` tier the plain
+          pole update's (``_pole_work``), else one field for the field
+          maximum;
         * ``margin``: half of state and halo plus 256 MiB, as the
           reference keeps;
 
@@ -1715,9 +1736,11 @@ class FDTDRunner:
             if self.shards is not None else [self.device]
         padded = self.layout.padded if self.shards is not None else None
         for dev, st in zip(devices, shards):
-            if "alt" not in st:
-                # a one-step tier: the E, H and psi of the next step
-                st = dict(st, alt={key: st[key] for key in ("E", "H", "psi")})
+            if self.tier != "kstep":
+                # a one-step tier: the E, H and psi of the next step, beside
+                # the fused tier's second pole-current set
+                st = dict(st, alt=dict(st.get("alt", {}), **{
+                    key: st[key] for key in ("E", "H", "psi")}))
             for _, t in _named(st, skip=()):
                 n = t.numel() * t.element_size()
                 halo = n * 2 * self.k // padded \
@@ -1725,7 +1748,7 @@ class FDTDRunner:
                 add(dev, "state", n - halo)
                 add(dev, "halo", halo)
             cells = int(np.prod(st["E"]["Ex"].shape))
-            add(dev, "work", self._pole_work(cells) if self.tier != "kstep"
+            add(dev, "work", self._pole_work(cells) if self.tier == "pallas2"
                 and self.plan.poles else st["E"]["Ex"].element_size() * cells)
         for d in per.values():
             d["margin"] = (d["state"] + d["halo"]) // 2 + MARGIN_BYTES

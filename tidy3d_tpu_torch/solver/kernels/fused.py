@@ -1,11 +1,12 @@
 """The fused one-step update: the counterpart of ``pallas_fused.py``.
 
 ``fused_step(state, consts, meta, sources)`` computes one whole leapfrog
-step of the fields: the E half-step (curl H, CPML psi of all three axes,
-the pole currents' term, the PEC lo-wall masks), the J source terms of this
-step on E', and the H half-step from E' (with its psi). It returns
-``(new_E, new_H, new_psi)``, where ``new_psi`` holds every psi slab, and
-leaves ``state`` untouched. The semantics are those of the XLA step
+step of the fields and the pole currents: the E half-step (curl H, CPML psi
+of all three axes, the pole currents' term, the PEC lo-wall masks), the J
+source terms of this step on E', the pole update ``Q' = A Q + B (E' + E)``
+and the H half-step from E' (with its psi). It returns ``(new_E, new_H,
+new_psi, new_Q)``, where ``new_psi`` holds every psi slab, and leaves
+``state`` untouched. The semantics are those of the XLA step
 ``tidy3d_tpu.solver.fdtd.FDTDRunner._step`` up to the H-side sources, which
 the runner adds afterwards, as ``_step_fused`` does.
 
@@ -15,14 +16,22 @@ waveform value.
 
 Storage (``step.STORAGE``): the state's fields, psi and pole currents are
 float32 or bfloat16. Both versions widen them to float32, compute E' with
-its J terms in float32, take H' from that float32 E', and round E', H' and
-psi' once where they are stored, as ``PallasFusedStepper.step_update``
-computes H from its unrounded E (``pallas_fused.py:487-551``).
+its J terms in float32, take H' from that float32 E', take the pole
+update's ``E' + E`` from E' rounded to the field type (the E' the next step
+reads) and round E', H', psi' and Q' once where they are stored, as
+``PallasFusedStepper.step_update`` computes H from its unrounded E
+(``pallas_fused.py:487-551``).
 
 Dispatch is by device: a CPU tensor goes to ``fused_step_reference`` (the
-two family updates of ``step.py`` with the injection between them); a CUDA
-tensor launches the hand-written kernel in ``csrc/fused.cu`` or raises.
-``LAUNCHES`` counts the kernel launches.
+two family updates of ``step.py`` with the injection between them, and the
+out-of-place pole update of ``fdtd.pole_update`` in float32); a CUDA tensor
+launches the hand-written kernel in ``csrc/fused.cu`` or raises. The
+kernel writes Q' to ``q_out`` where the caller gives it (the runner's
+second pole-current set), else to new tensors. ``LAUNCHES`` counts the
+calls; each makes two device launches (``DEVICE_LAUNCHES``): the bulk
+tiles, on an instantiation without wall, psi slab and source code, then
+every tile on the shell instantiation, whose blocks for bulk tiles
+return at once.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from . import step
 from .step import MAX_POLES, StepMeta, _check_field, storage_of
 
 LAUNCHES = 0
+DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
 MAX_SOURCES = 32    # J source boxes the kernel takes (csrc/fused.cu)
 
 Source = Tuple[str, Tuple[slice, slice, slice], torch.Tensor, float]
@@ -62,8 +72,12 @@ def unsupported_reason(num_sources: int) -> Optional[str]:
 def fused_step_reference(state: dict, consts: dict, meta: StepMeta,
                          sources: List[Source], store: bool = True):
     """Plain PyTorch step on any device: E family, J injection, H family,
-    in float32; E', H' and the new psi rounded to the state's types (or
-    left in float32 with ``store=False``)."""
+    pole update, in float32, out of place; E', H', the new psi and Q'
+    rounded to the state's types (or left in float32 with ``store=False``,
+    and then ``E' + E`` takes the float32 E'). The pole update is
+    ``fdtd.pole_update`` on float32 currents."""
+    from ..fdtd import pole_update
+
     new_e, psi_e = step.family_update_reference("E", state, consts,
                                                 state["H"], meta, store=False)
     for comp, sl, term, w in sources:
@@ -73,12 +87,21 @@ def fused_step_reference(state: dict, consts: dict, meta: StepMeta,
     new_psi = dict(state["psi"])
     new_psi.update(psi_e)
     new_psi.update(psi_h)
+    stored_e = {c: v.to(state["E"][c].dtype).float() if store else v
+                for c, v in new_e.items()}
+    new_q = pole_update(
+        stored_e, {c: step.f32(v) for c, v in state["E"].items()},
+        [{c: (step.f32(qr), step.f32(qi)) for c, (qr, qi) in Qp.items()}
+         for Qp in state["Q"]], consts)
     if store:
         new_e = {c: v.to(state["E"][c].dtype) for c, v in new_e.items()}
         new_h = {c: v.to(state["H"][c].dtype) for c, v in new_h.items()}
         new_psi = {key: v.to(state["psi"][key].dtype)
                    for key, v in new_psi.items()}
-    return new_e, new_h, new_psi
+        new_q = [{c: (qr.to(old[c][0].dtype), qi.to(old[c][1].dtype))
+                  for c, (qr, qi) in Qp.items()}
+                 for Qp, old in zip(new_q, state["Q"])]
+    return new_e, new_h, new_psi, new_q
 
 
 # --------------------------------------------------------------------------- #
@@ -108,16 +131,23 @@ class FusedParams(ctypes.Structure):
         ("pml_b_e", ctypes.c_void_p * 6), ("pml_c_e", ctypes.c_void_p * 6),
         ("pml_b_h", ctypes.c_void_p * 6), ("pml_c_h", ctypes.c_void_p * 6),
         ("q", ctypes.c_void_p * (6 * MAX_POLES)),
+        ("q_out", ctypes.c_void_p * (6 * MAX_POLES)),
+        ("pole_b", ctypes.c_void_p * (6 * MAX_POLES)),
         ("src", SrcBox * MAX_SOURCES),
         ("ca_s_e", ctypes.c_float * 3), ("cb_s_e", ctypes.c_float * 3),
         ("ca_s_h", ctypes.c_float * 3), ("cb_s_h", ctypes.c_float * 3),
         ("gc_re", ctypes.c_float * MAX_POLES),
         ("gc_im", ctypes.c_float * MAX_POLES),
+        ("a_re", ctypes.c_float * MAX_POLES),
+        ("a_im", ctypes.c_float * MAX_POLES),
+        ("pole_b0", ctypes.c_float * (6 * MAX_POLES)),
+        ("pole_kind", ctypes.c_int32 * (3 * MAX_POLES)),
         ("n", _I3),
         ("w_e", ctypes.c_int32 * 6), ("w_h", ctypes.c_int32 * 6),
         ("bk_lo", _I3), ("bk_hi", _I3), ("pec_lo", _I3),
         ("bulk_lo", _I3), ("bulk_hi", _I3),
         ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32),
+        ("vec", ctypes.c_int32),
     ]
 
 
@@ -129,25 +159,36 @@ def _library(storage=(torch.float32,) * 3):
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_fused_params_size", FusedParams)
         step.check_storage(lib, "t3d_fused_storage", storage)
-        fn.argtypes = [ctypes.POINTER(FusedParams), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(FusedParams), ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def occupancy(storage=(torch.float32,) * 3) -> int:
-    """Blocks per SM of the kernel in the library of the storage types
-    ``(field, psi, q)`` (the CUDA occupancy calculator); needs the card."""
+def resources(num_poles: int, bulk: bool,
+              storage=(torch.float32,) * 3) -> dict:
+    """Threads, shared bytes, blocks per SM and registers of the bulk or
+    shell (pair-aligned arrays) instantiation for ``num_poles`` pole slots
+    in the library of the storage types ``(field, psi, q)`` (the CUDA
+    occupancy calculator); needs the card."""
     from ... import _build
 
     _library(storage)
-    fn = _build.load("fused",
-                     step.storage_defines(*storage)).t3d_fused_occupancy
-    fn.argtypes = []
+    fn = _build.load("fused", step.storage_defines(*storage)).t3d_fused_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    blocks = fn()
-    if blocks < 0:
-        raise RuntimeError(f"fused occupancy: CUDA error {-blocks}")
-    return blocks
+    out = (ctypes.c_int32 * 4)()
+    err = fn(num_poles, int(bulk), out)
+    if err:
+        raise RuntimeError(f"fused resources: CUDA error {err}")
+    return dict(zip(("threads", "shared_bytes", "blocks_per_sm",
+                     "registers"), out))
+
+
+def occupancy(storage=(torch.float32,) * 3, num_poles: int = 1,
+              bulk: bool = True) -> int:
+    """Blocks per SM of one instantiation (``resources``)."""
+    return resources(num_poles, bulk, storage)["blocks_per_sm"]
 
 
 def prepare(device, storage=(torch.float32,) * 3) -> None:
@@ -170,8 +211,12 @@ def _source_box(sl, shape):
     return lo, hi
 
 
-def _fused_step_cuda(state, consts, meta, sources):
-    global LAUNCHES
+# the last call's blocks (bulk and shell launches) and device launches
+LAST_BLOCKS = (0, 0, 0)
+
+
+def _fused_step_cuda(state, consts, meta, sources, q_out=None):
+    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS
     shape = tuple(meta.shape)
     device = state["E"][E_COMPS[0]].device
     if len(sources) > MAX_SOURCES:
@@ -209,7 +254,17 @@ def _fused_step_cuda(state, consts, meta, sources):
         new_psi.update(step.set_family_params(fam, state, consts, meta, {
             name: getattr(p, f"{name}_{fam.lower()}")
             for name in step.FAMILY_FIELDS}, psi_dtype=storage[1]))
-    step.set_pole_params(p, state, consts, shape, storage[2])
+    if q_out is None:
+        q_out = [{c: (torch.empty_like(qr), torch.empty_like(qi))
+                  for c, (qr, qi) in Qp.items()} for Qp in state["Q"]]
+    q_in = {t.data_ptr() for Qp in state["Q"] for pair in Qp.values()
+            for t in pair}
+    if any(t.data_ptr() in q_in for Qp in q_out for pair in Qp.values()
+           for t in pair):
+        raise ValueError("fused_step: q_out shares memory with the state's "
+                         "pole currents (neighbouring blocks read Q while "
+                         "Q' is stored)")
+    step.set_pole_update_params(p, state, q_out, consts, shape, storage[2])
 
     p.num_src = len(sources)
     for s, (comp, sl, term, w) in enumerate(sources):
@@ -223,18 +278,21 @@ def _fused_step_cuda(state, consts, meta, sources):
             box_src.hi[a] = hi[a]
         box_src.w = float(w)
 
-    step.launch(_library(storage), p, device, "fused_step")
+    blocks = step.launch_counted(_library(storage), p, device, "fused_step")
     LAUNCHES += 1
-    return new_e, new_h, new_psi
+    DEVICE_LAUNCHES += blocks[2]
+    LAST_BLOCKS = blocks
+    return new_e, new_h, new_psi, q_out
 
 
 def fused_step(state: dict, consts: dict, meta: StepMeta,
-               sources: List[Source]):
-    """One leapfrog step: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns ``(new_E, new_H, new_psi)``."""
+               sources: List[Source], q_out: list = None):
+    """One leapfrog step with the pole update: the CUDA kernel for CUDA
+    tensors (Q' into ``q_out`` where given), the plain version for CPU
+    tensors (new tensors). Returns ``(new_E, new_H, new_psi, new_Q)``."""
     device = state["E"][E_COMPS[0]].device
     if device.type == "cpu":
         return fused_step_reference(state, consts, meta, sources)
     if device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device '{device}'")
-    return _fused_step_cuda(state, consts, meta, sources)
+    return _fused_step_cuda(state, consts, meta, sources, q_out)

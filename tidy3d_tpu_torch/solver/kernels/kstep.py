@@ -83,8 +83,6 @@ MAX_SOURCES = 64             # source boxes per family (a TFSF box: 12)
 SRC_INTS = 12                # ints per box row (csrc/kstep.cu SRC_INTS)
 COPIES = ("E", "H", "psi"), ("E1", "H1", "psi1")   # state keys per copy
 
-_POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}
-
 # the kernel's geometry (csrc/kstep.cu TY, TZ, BX, HALO_LO, HALO_HI; all
 # checked against the library's report when it loads): TILE_Y rows and
 # TILE_Z columns of y-z columns, SLAB_X owned x planes per block, and a
@@ -285,16 +283,15 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
                           tables: SourceTables, t0: int, k: int,
                           out: dict = None) -> dict:
     """Plain PyTorch group on any device: k substeps, each the fused
-    step's plain version with the J sources, then the M sources, then the
-    pole update, in the order of the substep loop of ``pallas_kstep.py``,
-    in float32; the x and y psi round to their storage type after each
-    substep, and everything to its storage type at the end (``_stored``).
+    step's plain version with the J sources and the pole update (on the
+    float32 E'), then the M sources, in the order of the substep loop of
+    ``pallas_kstep.py``, in float32; the x and y psi round to their
+    storage type after each substep, and everything to its storage type at
+    the end (``_stored``).
     A complex run (``"E1"`` in ``state``) takes the two-copy substep of
     ``_bloch_substep``. A shard of a sharded run (``meta.xpad``) takes
     ``_shard_group``. ``out`` is accepted for the kernel's signature and
     not used."""
-    from ..fdtd import update_poles
-
     if meta.xpad:
         return _shard_group(state, consts, meta, tables, t0, k)
     copies = COPIES[:1 + ("E1" in state)]
@@ -307,13 +304,11 @@ def kstep_group_reference(state: dict, consts: dict, meta: StepMeta,
         if len(copies) == 2:
             cur = dict(_bloch_substep(cur, consts, meta, tables, t), Q=[])
         else:
-            new_e, new_h, psi = fused.fused_step_reference(
+            new_e, new_h, psi, new_q = fused.fused_step_reference(
                 cur, consts, meta, tables.at("E", t), store=False)
             for comp, sl, term, w in tables.at("H", t):
                 new_h[comp][sl].add_(term * w)
-            if cur["Q"]:
-                update_poles(new_e, cur["E"], cur["Q"], consts)
-            cur = {"E": new_e, "H": new_h, "psi": psi, "Q": cur["Q"]}
+            cur = {"E": new_e, "H": new_h, "psi": psi, "Q": new_q}
         for _, _, p in copies:
             cur[p] = {key: v if key.split("|")[1] == "2" else
                       v.to(storage[1]).float() for key, v in cur[p].items()}
@@ -624,37 +619,6 @@ def prepare(device, storage=(torch.float32,) * 3) -> None:
         _library(storage)
 
 
-def _set_pole_params(p, state, out, consts, shape, dtype) -> None:
-    """The pole scalars, the input and output Q pointers (currents of type
-    ``dtype``) and the residue maps of each (pole, component)."""
-    step.set_pole_params(p, state, consts, shape, dtype)
-    if len(out["Q"]) != p.num_poles:
-        raise ValueError(f"out holds {len(out['Q'])} pole currents, the "
-                         f"plan {p.num_poles} poles")
-    for pi, ((A, _), metas) in enumerate(zip(consts["pole_scalars"],
-                                             consts["pole_B_meta"])):
-        p.a_re[pi] = A.real
-        p.a_im[pi] = A.imag
-        for ci, comp in enumerate(E_COMPS):
-            qx = (pi * 3 + ci) * 2
-            for part in range(2):
-                p.q_out[qx + part] = _check_field(
-                    out["Q"][pi][comp][part], shape,
-                    f"out Q{pi}_{comp}", dtype).data_ptr()
-            m = metas[ci]
-            p.pole_kind[pi * 3 + ci] = _POLE_KIND[m["kind"]]
-            if m["kind"] == "mask":
-                p.pole_b[qx] = _check_field(
-                    consts["pole_masks"][m["mask_id"]], shape,
-                    f"pole mask {m['mask_id']}").data_ptr()
-                p.pole_b0[qx], p.pole_b0[qx + 1] = m["B0"]
-            elif m["kind"] == "dense":
-                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
-                p.pole_b[qx] = _check_field(b_re, shape, "B re").data_ptr()
-                p.pole_b[qx + 1] = _check_field(b_im, shape,
-                                                "B im").data_ptr()
-
-
 def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
     global LAUNCHES, SHARDED_LAUNCHES, DEVICE_LAUNCHES
     shape = meta.array_shape
@@ -737,7 +701,8 @@ def _kstep_group_cuda(state, consts, meta, tables, t0, k, out):
                 fam, {"psi": state[pk]}, consts, meta, arrays,
                 psi_out=out[pk], psi_dtype=storage[1]))
         new_psi.append(psi)
-    _set_pole_params(p, state, out, consts, shape, storage[2])
+    step.set_pole_update_params(p, state, out["Q"], consts, shape,
+                                storage[2])
 
     for f, fam in enumerate("EH"):
         boxes = tables.boxes[fam]

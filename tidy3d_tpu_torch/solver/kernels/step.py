@@ -33,6 +33,9 @@ import torch
 from ..lowering import E_COMPS, H_COMPS
 
 LAUNCHES = 0
+DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
+# the last call's blocks (bulk and shell launches) and device launches
+LAST_BLOCKS = (0, 0, 0)
 MAX_POLES = 8       # pole slots the kernels take (csrc/*.cu MAX_POLES)
 STORAGE = (torch.float32, torch.bfloat16)   # the storage types of the state
 
@@ -318,12 +321,15 @@ class FamilyParams(ctypes.Structure):
         ("psi_in", ctypes.c_void_p * 12), ("psi_out", ctypes.c_void_p * 12),
         ("pml_b", ctypes.c_void_p * 6), ("pml_c", ctypes.c_void_p * 6),
         ("ca_s", ctypes.c_float * 3), ("cb_s", ctypes.c_float * 3),
-        ("n", ctypes.c_int64 * 3),
+        ("n", ctypes.c_int32 * 3),
         ("w", ctypes.c_int32 * 6),
         ("bkind", ctypes.c_int32 * 3),
         ("pec_lo", ctypes.c_int32 * 3),
+        ("bulk_lo", ctypes.c_int32 * 3),
+        ("bulk_hi", ctypes.c_int32 * 3),
         ("is_e", ctypes.c_int32),
         ("num_poles", ctypes.c_int32),
+        ("vec", ctypes.c_int32),
         ("gc_re", ctypes.c_float * MAX_POLES),
         ("gc_im", ctypes.c_float * MAX_POLES),
         ("q", ctypes.c_void_p * (6 * MAX_POLES)),
@@ -352,25 +358,36 @@ def _library(storage=(torch.float32,) * 3):
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_family_params_size", FamilyParams)
         check_storage(lib, "t3d_family_storage", storage)
-        fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def occupancy(family: str, storage=(torch.float32,) * 3) -> int:
-    """Blocks per SM of the E or H instantiation of the kernel in the
+def resources(family: str, bulk: bool,
+              storage=(torch.float32,) * 3) -> dict:
+    """Threads, shared bytes, blocks per SM and registers of the E or H,
+    bulk or shell (pair-aligned arrays) instantiation of the kernel in the
     library of the storage types ``(field, psi, q)`` (the CUDA occupancy
     calculator); needs the card."""
     from ... import _build
 
     _library(storage)
-    fn = _build.load("step", storage_defines(*storage)).t3d_family_occupancy
-    fn.argtypes = [ctypes.c_int]
+    fn = _build.load("step", storage_defines(*storage)).t3d_family_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    blocks = fn(int(family == "E"))
-    if blocks < 0:
-        raise RuntimeError(f"family occupancy: CUDA error {-blocks}")
-    return blocks
+    out = (ctypes.c_int32 * 4)()
+    err = fn(int(family == "E"), int(bulk), out)
+    if err:
+        raise RuntimeError(f"family resources: CUDA error {err}")
+    return dict(zip(("threads", "shared_bytes", "blocks_per_sm",
+                     "registers"), out))
+
+
+def occupancy(family: str, storage=(torch.float32,) * 3,
+              bulk: bool = True) -> int:
+    """Blocks per SM of one instantiation (``resources``)."""
+    return resources(family, bulk, storage)["blocks_per_sm"]
 
 
 def prepare(device, storage=(torch.float32,) * 3) -> None:
@@ -420,6 +437,44 @@ def set_pole_params(p, state, consts, shape, dtype=torch.float32) -> None:
             for part in range(2):
                 p.q[(pi * 3 + ci) * 2 + part] = _check_field(
                     Qp[comp][part], shape, f"Q{pi}_{comp}", dtype).data_ptr()
+
+
+POLE_KIND = {"zero": 0, "mask": 1, "dense": 2}   # csrc/*.cu POLE_*
+
+
+def set_pole_update_params(p, state, q_out, consts, shape,
+                           dtype=torch.float32) -> None:
+    """``set_pole_params`` and what a kernel that updates the poles reads
+    besides: the output Q pointers (``q_out``, currents of type ``dtype``),
+    ``a_re``/``a_im``, and per (pole, component) ``pole_kind``, the residue
+    maps ``pole_b`` (the support mask, or the dense re/im maps) and the mask
+    kind's ``pole_b0``."""
+    set_pole_params(p, state, consts, shape, dtype)
+    if len(q_out) != p.num_poles:
+        raise ValueError(f"out holds {len(q_out)} pole currents, the "
+                         f"plan {p.num_poles} poles")
+    for pi, ((A, _), metas) in enumerate(zip(consts["pole_scalars"],
+                                             consts["pole_B_meta"])):
+        p.a_re[pi] = A.real
+        p.a_im[pi] = A.imag
+        for ci, comp in enumerate(E_COMPS):
+            qx = (pi * 3 + ci) * 2
+            for part in range(2):
+                p.q_out[qx + part] = _check_field(
+                    q_out[pi][comp][part], shape,
+                    f"out Q{pi}_{comp}", dtype).data_ptr()
+            m = metas[ci]
+            p.pole_kind[pi * 3 + ci] = POLE_KIND[m["kind"]]
+            if m["kind"] == "mask":
+                p.pole_b[qx] = _check_field(
+                    consts["pole_masks"][m["mask_id"]], shape,
+                    f"pole mask {m['mask_id']}").data_ptr()
+                p.pole_b0[qx], p.pole_b0[qx + 1] = m["B0"]
+            elif m["kind"] == "dense":
+                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
+                p.pole_b[qx] = _check_field(b_re, shape, "B re").data_ptr()
+                p.pole_b[qx + 1] = _check_field(b_im, shape,
+                                                "B im").data_ptr()
 
 
 # the per-family arrays of a kernel's parameter struct (the fused kernel's
@@ -503,13 +558,29 @@ def launch(fn, params, device, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def launch_counted(fn, params, device, what: str) -> tuple:
+    """``launch`` of an entry point that also reports its launches
+    (parameters, stream, counts): returns ``(bulk blocks, shell blocks,
+    device launches)``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counts = (ctypes.c_int32 * 3)()
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(params), ctypes.c_void_p(stream), counts)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    return tuple(counts)
+
+
 def _family_update_cuda(family, state, consts, src_fields, meta):
-    global LAUNCHES
+    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     src_comps = H_COMPS if is_e else E_COMPS
     shape = tuple(meta.shape)
     device = src_fields[src_comps[0]].device
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"grid {shape}: the family kernel takes fewer "
+                         "than 2^31 cells")
     storage = storage_of({"E": state[family], "H": src_fields,
                           "psi": state["psi"],
                           "Q": state["Q"] if is_e else []})
@@ -538,8 +609,10 @@ def _family_update_cuda(family, state, consts, src_fields, meta):
     if is_e:
         set_pole_params(p, state, consts, shape, storage[2])
 
-    launch(_library(storage), p, device, "family_update")
+    blocks = launch_counted(_library(storage), p, device, "family_update")
     LAUNCHES += 1
+    DEVICE_LAUNCHES += blocks[2]
+    LAST_BLOCKS = blocks
     return new_fields, new_psi
 
 

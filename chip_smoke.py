@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the six kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
-   ``fused.cu``, ``kstep.cu`` and the labs' ``lab_step.cu``,
+2. build the seven kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
+   ``fused.cu``, ``kstep.cu``, ``post_e.cu`` and the labs' ``lab_step.cu``,
    ``lab_kstep.cu``, ``lab_pole.cu``) and phase 28's bf16 variants of the
    first three (six libraries) with nvcc for sm_90a, one nvcc process
    each, started together, and print their register and spill reports; for every instantiation of the k-step kernel (0 to 8 pole slots
@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
    family kernel's E and H and the fused kernel's 0, 1, 2 and 7 pole-slot
    instantiations, each bulk and shell, float32 and bf16, and the SASS
    instruction classes and loads by width of their bulk march loops (the
-   bf16 loops must load bf16 pairs as 32-bit words, no 16-bit load);
+   bf16 loops must load bf16 pairs as 32-bit words, no 16-bit load); and
+   the registers, spills and blocks per SM of the family kernel's two-copy
+   (Bloch) E and H and pole-table E instantiations, the fused kernel's
+   pole-table ones (each bulk and shell) and post_e's;
 3. the family-update kernel against its plain PyTorch version for one E and
    one H half-step, on a 64x48x80 random state (PML on every axis, PEC and
    PMC walls, per-cell coefficients), on the same grid with a Lorentz pole
@@ -262,13 +265,43 @@ Phases (any failure exits non-zero):
 30. (run after phase 28) ``web.run`` under the default tier of the 384^3
     dispersive case with a point Ez field-time monitor at the dipole
     (interval 1, default start) and a flux-time monitor on its flux box
+    (interval 10)
     (``timemonitor_case``), the launch counts set to 0 just before and
     read just after: the log's tier is ``fused`` (the samples miss the
     k-step group ends), one fused call a step and no family or k-step
     launch; both time series finite and non-zero; the DFT flux within
     2e-2 of phase 9's k-step run; Gcell*steps/s, peak memory and the
     estimate, at least the peak;
-31. the JSON summary lines; the last line is the contract line. Each
+31. (run after phase 30) ``bloch_metal_case``, an Au grating on a Cr
+    layer over SiO2 (13 pole slots) under an oblique plane wave, Bloch x
+    and y, 192 x 192 x 512 cells: the default tier is pallas2; the family
+    kernel's two-copy instantiation against its plain version for one E
+    and H update of both copies and one whole step (1e-6), its ms beside
+    its bound; 200 steps in turns on the stack cut to 128 cells of depth
+    (2e-5, both copies' fields and Q, Q1); ``web.run``: 2 family calls a
+    step, each one two-copy call, no fused or k-step launch, the probe's
+    time series finite and non-zero, the estimate at least the peak; the
+    step split by CUDA events into the family calls, the pole update and
+    the sources and monitors;
+32-33. the broadband case with a 4 um Kerr + two-photon-absorption block
+    (and a point Ez probe at the dipole) and with a block whose
+    permittivity and conductivity are modulated: pallas2 under ``auto``;
+    post_e against its plain version (1e-6) and one whole step, post_e's
+    ms beside its bound and the eager plain version's; 200 steps in turns
+    (2e-5); the step split by CUDA events (family, post_e, sources and
+    monitors); ``web.run``, one post_e call a step; the Kerr term B E^2 at
+    the dipole at least 1e-3;
+34. ``many_poles_case``, Au on a Cr layer (13 slots, real) at 280^3:
+    forced fused and forced pallas2, one step against the plain versions
+    (1e-6), the pole-table fused step's and family launch's ms beside
+    their bounds, 200 steps of each in turns on the stack cut to 96 cells
+    of depth (2e-5); ``web.run`` under ``auto`` (a default-start time
+    probe): the fused tier, one pole-table call a step; a short forced
+    pallas2 ``web.run``: a pole-table family call a step;
+35. the JAX package's Kerr phase shift, two-photon absorption, chi3 =
+    Kerr and modulation sideband tests (2D, through ``web.run`` on the
+    card) with their own asserts (``physics_checks``);
+36. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -350,8 +383,24 @@ OPS_PSI = 4
 OPS_POLE = 16
 
 
+LOG_FILE = []   # the open log file under OUT_DIR, once main has one
+
+
 def log(msg: str) -> None:
+    """Prints ``msg`` and appends it to ``chip_smoke_log.txt`` under
+    ``OUT_DIR`` (the whole log, where the output keeps only its end)."""
     print(msg, flush=True)
+    for fh in LOG_FILE:
+        fh.write(msg + "\n")
+        fh.flush()
+
+
+STAMPS = {}     # phase -> seconds since the start of main, where it began
+T0 = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    STAMPS[phase] = round(time.perf_counter() - T0, 1)
 
 
 def sync() -> None:
@@ -422,15 +471,17 @@ def dispersive_case(td):
 def timemonitor_case(td):
     """Phase 30's case: the dispersive case with a point field-time monitor
     (Ez at the dipole, every step from the default start) and a flux-time
-    monitor on its flux box, the time probes of a resonance search and a
-    time-domain flux; their samples miss the k-step tier's group ends."""
+    monitor on its flux box (every 10th step from the default start: the
+    host builder took 93 s over every step's 3.9 GB), the time probes of a
+    resonance search and a time-domain flux; their samples miss the k-step
+    tier's group ends."""
     sim = dispersive_case(td)
     flux = next(m for m in sim.monitors if m.name == "flux")
     return sim.copy(update=dict(monitors=list(sim.monitors) + [
         td.FieldTimeMonitor(center=sim.sources[0].center, size=(0, 0, 0),
                             fields=["Ez"], interval=1, name="probe"),
         td.FluxTimeMonitor(center=flux.center, size=flux.size,
-                           name="flux_time")]))
+                           interval=10, name="flux_time")]))
 
 
 def metal_case(td):
@@ -736,10 +787,12 @@ def random_state(runner, seed: int) -> dict:
     for fam in ("psi", "psi1"):
         if fam in state:
             state[fam] = {k: 0.1 * rnd(v) for k, v in state[fam].items()}
-    state["Q"] = [{c: (rnd(qr) / abs(Gc), rnd(qi) / abs(Gc))
-                   for c, (qr, qi) in Qp.items()}
-                  for (_, Gc), Qp in zip(runner.consts["pole_scalars"],
-                                         state["Q"])]
+    for key in ("Q", "Q1"):
+        if key in state:
+            state[key] = [{c: (rnd(qr) / abs(Gc), rnd(qi) / abs(Gc))
+                           for c, (qr, qi) in Qp.items()}
+                          for (_, Gc), Qp in zip(
+                              runner.consts["pole_scalars"], state[key])]
     return state
 
 
@@ -863,12 +916,56 @@ def onestep_resources(storage) -> dict:
         for f in "EH":
             out["family"][f"{f} {part}"] = row(
                 "step", f"family_update_kernelILb{int(f == 'E')}ELb"
-                f"{int(bulk)}ELb1E", step.occupancy(f, storage, bulk))
+                f"{int(bulk)}ELb1ELb0E", step.occupancy(f, storage, bulk))
         for np_ in ONESTEP_POLES:
             out["fused"][f"NP={np_} {part}"] = row(
                 "fused", f"fused_step_kernelILi{np_}ELb{int(bulk)}ELb1E",
                 fused.occupancy(storage, np_, bulk))
     return out
+
+
+def log_new_instantiations() -> None:
+    """Phase 2's report of this slice's instantiations: registers, spills
+    (ptxas) and blocks per SM of the family kernel's two-copy (Bloch) E and
+    H and pole-table E instantiations, bulk and shell, the fused kernel's
+    pole-table ones, and post_e's."""
+    from tidy3d_tpu_torch.labs import _common
+    from tidy3d_tpu_torch.solver.kernels import fused, post_e, step
+
+    regs = {name: _common.registers(name) for name in ("step", "fused",
+                                                       "post_e")}
+
+    def ptxas(name, symbol):
+        rows = [v for k, v in regs[name].items() if symbol in k]
+        assert len(rows) == 1, f"{name}: {len(rows)} kernels match {symbol}"
+        return rows[0]
+
+    for part, bulk in (("bulk", True), ("shell", False)):
+        for f in "EH":
+            r, st, ld = ptxas("step", f"family_update_bloch_kernelILb"
+                              f"{int(f == 'E')}ELb{int(bulk)}ELb1E")
+            log(f"[build] family Bloch {f} {part}: {r} registers, spill "
+                f"{st + ld} B, {step.occupancy(f, bulk=bulk)} blocks of "
+                f"256 threads per SM (real), "
+                f"{step.resources(f, bulk, mode='bloch')['blocks_per_sm']} "
+                f"(Bloch)")
+        r, st, ld = ptxas("step", f"family_update_kernelILb1ELb{int(bulk)}"
+                          "ELb1ELb1E")
+        log(f"[build] family pole-table E {part}: {r} registers, spill "
+            f"{st + ld} B, "
+            f"{step.resources('E', bulk, mode='many')['blocks_per_sm']} "
+            f"blocks per SM")
+        r, st, ld = ptxas("fused", f"fused_step_kernelILin2ELb{int(bulk)}"
+                          "ELb1E")
+        log(f"[build] fused pole-table {part}: {r} registers, spill "
+            f"{st + ld} B, {fused.occupancy(num_poles=13, bulk=bulk)} "
+            "blocks per SM")
+    for vec in (True, False):
+        r, st, ld = ptxas("post_e", f"post_e_kernelILb{int(vec)}E")
+        log(f"[build] post_e {'pairs' if vec else 'cells'}: {r} registers, "
+            f"spill {st + ld} B, "
+            f"{post_e.resources(vec=vec)['blocks_per_sm']} blocks of 256 "
+            "threads per SM")
 
 
 def load_widths(ops: list) -> dict:
@@ -900,8 +997,8 @@ def onestep_sass(storage) -> dict:
     defines = step.storage_defines(*storage)
     out = {}
     for what, name, symbol in (
-            ("family E", "step", "family_update_kernelILb1ELb1ELb1E"),
-            ("family H", "step", "family_update_kernelILb0ELb1ELb1E"),
+            ("family E", "step", "family_update_kernelILb1ELb1ELb1ELb0E"),
+            ("family H", "step", "family_update_kernelILb0ELb1ELb1ELb0E"),
             ("fused NP=0", "fused", "fused_step_kernelILi0ELb1ELb1E"),
             ("fused NP=1", "fused", "fused_step_kernelILi1ELb1ELb1E")):
         label = _build.label(name, defines)
@@ -1044,9 +1141,11 @@ def flat_state(state: dict) -> dict:
     """Fields, psi and pole currents of a state, one entry per array."""
     out = {f"{fam}:{key}": v for fam in ("E", "H", "psi", "E1", "H1", "psi1")
            if fam in state for key, v in state[fam].items()}
-    for pi, Qp in enumerate(state["Q"]):
-        for c, (qr, qi) in Qp.items():
-            out[f"Q{pi}:{c}:re"], out[f"Q{pi}:{c}:im"] = qr, qi
+    for copy, key in enumerate(("Q", "Q1")):
+        for pi, Qp in enumerate(state.get(key, [])):
+            for c, (qr, qi) in Qp.items():
+                tag = f"Q{pi}:{c}" + (":1" if copy else "")
+                out[f"{tag}:re"], out[f"{tag}:im"] = qr, qi
     return out
 
 
@@ -1080,14 +1179,17 @@ def run_steps_timed(runner, steps: int):
     return state, time.perf_counter() - t0
 
 
-def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
+def compare_runners(plan, dev, ncell, what: str, smi: str, runners=None,
+                    **kw):
     """200 steps with the kernel and with the plain versions, in turns
     plain, kernel, kernel, plain (the fields of both copies of a complex
-    run compared); returns the Gcell*steps/s of each."""
+    run compared); returns the Gcell*steps/s of each. ``runners``: the
+    ``{"plain", "kernel"}`` runners of ``plan`` where already built."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 
-    runners = {"plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
-               "kernel": FDTDRunner(plan, device=dev, **kw)}
+    runners = runners or {
+        "plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
+        "kernel": FDTDRunner(plan, device=dev, **kw)}
     rates = {"plain": [], "kernel": []}
     finals, currents = {}, {}
     for name in ("plain", "kernel", "kernel", "plain"):
@@ -1113,12 +1215,21 @@ def compare_runners(plan, dev, ncell, what: str, smi: str, **kw):
 
 
 def _range_device_us(prof, name: str) -> float:
-    """Device time of the kernels launched inside profiler range ``name``."""
-    def walk(evt):
-        return sum(k.duration for k in evt.kernels) + \
-            sum(walk(c) for c in evt.cpu_children)
+    """Device time of the kernels launched inside profiler range ``name``
+    (the host-side ranges; each kernel counted once, however many of the
+    ops around it list it)."""
+    seen = {}
 
-    return sum(walk(e) for e in prof.events() if e.name == name)
+    def walk(evt):
+        for k in evt.kernels:
+            seen[id(k)] = k.duration
+        for c in evt.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type.name == "CPU":
+            walk(e)
+    return sum(seen.values())
 
 
 def _device_busy_us(prof) -> float:
@@ -1141,11 +1252,11 @@ def _device_busy_us(prof) -> float:
 def profile_window(runner, out_path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
 
     def device_launches():
         return step.DEVICE_LAUNCHES + fused.DEVICE_LAUNCHES \
-            + kstep.DEVICE_LAUNCHES
+            + kstep.DEVICE_LAUNCHES + post_e.DEVICE_LAUNCHES
 
     state = runner.init_state()
     runner._pad_time_tables(NPROF + 4)
@@ -1176,7 +1287,10 @@ def profile_window(runner, out_path: str) -> dict:
     return dict(
         device_ms=total,
         family_ms=sum(ms for k, (ms, _) in by_name.items()
-                      if "family_update_kernel" in k),
+                      if "family_update_kernel" in k
+                      or "family_update_bloch_kernel" in k),
+        post_e_ms=sum(ms for k, (ms, _) in by_name.items()
+                      if "post_e_kernel" in k),
         fused_ms=sum(ms for k, (ms, _) in by_name.items()
                      if "fused_step_kernel" in k),
         kstep_ms=sum(ms for k, (ms, _) in by_name.items()
@@ -1184,34 +1298,41 @@ def profile_window(runner, out_path: str) -> dict:
         # kernel launches of the tier recorded, against those made
         recorded=sum(n for k, (_, n) in by_name.items()
                      if k.split("<")[0].split("(")[0].split()[-1] in (
-                         "family_update_kernel", "fused_step_kernel",
-                         "kstep_kernel")),
+                         "family_update_kernel", "family_update_bloch_kernel",
+                         "fused_step_kernel", "kstep_kernel",
+                         "post_e_kernel")),
         expected=made,
         poles_ms=_range_device_us(prof, "fdtd.poles") / 1e3,
-        poles_ranges=sum(e.name == "fdtd.poles" for e in prof.events()),
+        poles_ranges=sum(e.name == "fdtd.poles"
+                         and e.device_type.name == "CPU"
+                         for e in prof.events()),
         monitors_ms=_range_device_us(prof, "fdtd.monitors") / 1e3,
         busy_ms=_device_busy_us(prof) / 1e3,
         launches=sum(c for _, c in by_name.values()))
 
 
-def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
+def report_profile(prof: dict, what: str, step_ms: float, smi: str):
+    """Logs a profile window's split per step and returns it (None where
+    the profiler's record is incomplete: not measured)."""
     if prof["device_ms"] <= 0:
         log(f"[profile] {what}: torch.profiler recorded no device time: not "
             "measured")
-        return
+        return None
     if prof["recorded"] != prof["expected"]:
         log(f"[profile] {what}: torch.profiler recorded {prof['recorded']} of "
             f"the {prof['expected']} kernel launches made: not measured")
-        return
+        return None
     per = {k: v / NPROF for k, v in prof.items()
            if k not in ("recorded", "expected", "poles_ranges")}
-    kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"]
+    kernel = per["family_ms"] + per["fused_ms"] + per["kstep_ms"] \
+        + per["post_e_ms"]
     other = per["device_ms"] - kernel - per["poles_ms"]
     # the profiler slows the host loop, so the busy share compares the
     # time the device was busy per step with the unprofiled step time
     log(f"[profile] {what} per step: device {per['device_ms']:.3f} ms = "
         f"kernels {kernel:.3f} ms (family {per['family_ms']:.3f}, fused "
-        f"{per['fused_ms']:.3f}, k-step {per['kstep_ms']:.3f}) + "
+        f"{per['fused_ms']:.3f}, k-step {per['kstep_ms']:.3f}, post_e "
+        f"{per['post_e_ms']:.3f}) + "
         f"pole-update ops {per['poles_ms']:.3f} ms "
         f"({prof['poles_ranges']} fdtd.poles ranges) "
         f"+ DFT/source ops {other:.3f} ms (of which the monitor range "
@@ -1219,6 +1340,7 @@ def report_profile(prof: dict, what: str, step_ms: float, smi: str) -> None:
         f"launches; busy {per['busy_ms']:.3f} ms (overlapping kernels "
         f"once); unprofiled step {step_ms:.3f} ms, device busy "
         f"{per['busy_ms'] / step_ms:.1%} | {smi}")
+    return per
 
 
 def web_run(td, sim, what: str, smi: str, tier: str = None,
@@ -1230,7 +1352,7 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     device memory."""
     from types import SimpleNamespace
 
-    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
 
     old = os.environ.get("TIDY3D_TPU_KERNEL")
     if tier is not None:
@@ -1241,11 +1363,19 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         base = torch.cuda.memory_allocated()
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
         kstep.DEVICE_LAUNCHES = 0
+        step.BLOCH_LAUNCHES = step.MANY_POLES_LAUNCHES = 0
+        fused.MANY_POLES_LAUNCHES = post_e.LAUNCHES = 0
         t0 = time.perf_counter()
         data = td.web.run(sim, task_name="chip_smoke", verbose=False)
         total_s = time.perf_counter() - t0
         launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
                     "kstep": kstep.LAUNCHES}
+        # the instantiations of this PR: the family kernel's two-copy and
+        # pole-table calls, the fused kernel's pole-table calls, post_e
+        extra = {"family_bloch": step.BLOCH_LAUNCHES,
+                 "family_many_poles": step.MANY_POLES_LAUNCHES,
+                 "fused_many_poles": fused.MANY_POLES_LAUNCHES,
+                 "post_e": post_e.LAUNCHES}
         device_launches = kstep.DEVICE_LAUNCHES
     finally:
         if old is None:
@@ -1263,7 +1393,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     MEMORY.append((what, mem["estimate"], mem["peak"], base))
     flux = np.asarray(data["flux"].flux.values)
     log(f"[web.run] {what}: {steps_run} steps, launches {launches} (k-step "
-        f"device launches {device_launches}), log: {' | '.join(lines[2:])}")
+        f"device launches {device_launches}; {extra}), log: "
+        f"{' | '.join(lines[2:])}")
     log(f"[web.run] {what}: total {total_s:.1f} s (lowering included), peak "
         f"device memory {peak / 2**30:.2f} GiB (the runner's "
         f"{mem['peak'] / 2**30:.3f}, estimate {mem['estimate'] / 2**30:.3f},"
@@ -1279,7 +1410,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     return SimpleNamespace(
         data=data, flux=flux, steps=steps_run, launches=launches, rate=rate,
         tier=tier, storage=storage.rstrip("]"), peak=peak,
-        device_launches=device_launches, host=host, total_s=total_s)
+        device_launches=device_launches, host=host, total_s=total_s,
+        extra=extra, memory=mem, base=base)
 
 
 def log_field(lines: list, prefix: str) -> str:
@@ -2543,6 +2675,748 @@ def run_invdes(td, smi: str) -> int:
     return n
 
 
+# --------------------------------------------------------------------------- #
+# phases 31-35: the plans the JAX package runs and the port refused before
+# (Bloch runs with poles, more than 8 pole slots, nonlinear and modulated
+# media)
+# --------------------------------------------------------------------------- #
+
+N_BM_XY, N_BM_Z = 192, 512   # bloch_metal_case: 18.9 M cells, PML in z
+N_BM_Z_TURNS = 128           # its 200-step turns: the stack cut in depth
+N_MP_Z_TURNS = 96            # many_poles_case's 200-step turns, likewise
+MIN_NL_RATIO = 1e-3          # the Kerr term against E at the dipole
+# the reference's own physics bars (tests/test_solver/test_nonlinear.py,
+# test_modulation.py), through the port
+PHYS_WL, PHYS_N0, PHYS_L = 1.5, 2.0, 2.0
+
+
+def au_cr(td) -> tuple:
+    """The default library Au (6 pole slots) and Cr (7): 13 slots."""
+    lib = td.material_library
+    fit = "RakicLorentzDrude1998"
+    return lib["Au"][fit], lib["Cr"][fit]
+
+
+def bloch_metal_case(td, nz: int = N_BM_Z):
+    """A gold grating (lines along y, half the period wide, 0.2 um thick)
+    on a 0.04 um chromium adhesion layer over SiO2 (eps 2.1): 192 x 192 x
+    nz cells at dl = 0.02 um (the stack's depth nz includes a 12-layer PML
+    on each z side; the grating's top at z = 0.2 um), Bloch x and y from a
+    plane wave going down at theta = 20, phi = 30 degrees
+    (``BlochBoundary.from_source``); 13 pole slots. Monitors, at fractions
+    of the depth h: an 11-frequency flux plane between the source (0.35 h)
+    and the grating (``flux``, 0.2 h) and one in the substrate
+    (``flux_below``, -0.2 h), and a point Ex field-time monitor above the
+    grating from the default start (``probe``, off the k-step tier's group
+    ends). ``run_time`` holds ~300 steps: the pulse (fwidth f0 / 2) reaches
+    its peak at the source."""
+    au, cr = au_cr(td)
+    freq0 = td.C_0 / 1.55
+    dl = 0.02
+    size = (N_BM_XY * dl, N_BM_XY * dl, round((nz - 24) * dl, 9))
+    h = size[2]
+    pw = td.PlaneWave(
+        center=(0, 0, 0.35 * h), size=(td.inf, td.inf, 0), direction="-",
+        source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 2),
+        pol_angle=0.0, angle_theta=np.deg2rad(20.0),
+        angle_phi=np.deg2rad(30.0))
+    bx, by = (td.BlochBoundary.from_source(source=pw, domain_size=size[a],
+                                           axis=a) for a in (0, 1))
+    freqs = np.linspace(freq0 * 0.95, freq0 * 1.05, 11).tolist()
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=1.15e-14, sources=[pw],
+        structures=[
+            td.Structure(geometry=td.Box(center=(0, 0, -0.04 - h / 2),
+                                         size=(td.inf, td.inf, h)),
+                         medium=td.Medium(permittivity=2.1)),
+            td.Structure(geometry=td.Box(center=(0, 0, -0.02),
+                                         size=(td.inf, td.inf, 0.04)),
+                         medium=cr),
+            td.Structure(geometry=td.Box(center=(0, 0, 0.1),
+                                         size=(size[0] / 2, td.inf, 0.2)),
+                         medium=au)],
+        monitors=[
+            td.FluxMonitor(center=(0, 0, 0.2 * h), size=(td.inf, td.inf, 0),
+                           freqs=freqs, name="flux"),
+            td.FluxMonitor(center=(0, 0, -0.2 * h),
+                           size=(td.inf, td.inf, 0), freqs=freqs,
+                           name="flux_below"),
+            td.FieldTimeMonitor(center=(0.1, 0.1, 0.1 * h + 0.2),
+                                size=(0, 0, 0), fields=["Ex"],
+                                name="probe")],
+        boundary_spec=td.BoundarySpec(
+            x=td.Boundary(minus=bx, plus=bx), y=td.Boundary(minus=by,
+                                                            plus=by),
+            z=td.Boundary.pml()),
+        grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def kerr_medium(td):
+    """Kerr (chi3 = 1e-3 um^2/V^2 at n0 = sqrt 2: B E^2 ~ 7e-3 at the
+    dipole's peak of ~3.8 V/um) and two-photon absorption (its
+    conductivity coefficient 2e-4 S um/V^2), ``num_iters`` at its default
+    (5)."""
+    n0 = float(np.sqrt(2.0))
+    eps0 = td.constants.EPSILON_0
+    n2 = 1e-3 / ((4.0 / 3.0) * n0 ** 2 * eps0 * td.C_0)
+    beta = 2e-4 / (td.C_0 ** 2 * eps0 ** 2 * n0 ** 2)
+    return td.Medium(permittivity=2.0, nonlinear_spec=td.NonlinearSpec(
+        models=[td.KerrNonlinearity(n2=n2),
+                td.TwoPhotonAbsorption(beta=beta)]))
+
+
+def modulated_medium(td):
+    """Permittivity (2 +- 0.2) and conductivity (0.02 +- 0.01 S/um, never
+    a gain) both modulated at f0 / 10 (one entry, two maps each)."""
+    freq0 = td.C_0 / 1.55
+
+    def stm(amplitude):
+        return td.SpaceTimeModulation(
+            time_modulation=td.ContinuousWaveTimeModulation(
+                freq0=freq0 / 10, amplitude=amplitude, phase=0.3),
+            space_modulation=td.SpatialModulationUniform(amplitude=1.0,
+                                                         phase=0.1))
+
+    return td.Medium(permittivity=2.0, conductivity=0.02,
+                     modulation_spec=td.ModulationSpec(
+                         permittivity=stm(0.2), conductivity=stm(0.01)))
+
+
+def block_case(td, medium, probe: bool = False):
+    """The broadband case (384^3) with a 4 um block of ``medium`` around
+    its dipole, and with ``probe`` a point Ez field-time monitor at the
+    dipole."""
+    sim = full_case(td)
+    src = sim.sources[0]
+    mons = list(sim.monitors)
+    if probe:
+        mons.append(td.FieldTimeMonitor(center=src.center, size=(0, 0, 0),
+                                        fields=["Ez"], name="probe"))
+    return sim.copy(update=dict(
+        structures=[td.Structure(geometry=td.Box(center=(0, 0, 0),
+                                                 size=(4.0, 4.0, 4.0)),
+                                 medium=medium)],
+        monitors=mons))
+
+
+def many_poles_case(td, nz: int = N_METAL + 24):
+    """The Au case's grid (280^3 with the PML, dl = 0.05) with the default
+    Au (6 slots) on a 0.1 um Cr layer (7): 13 slots; the Au case's dipole
+    pulse (fwidth f0 / 8, still rising at step 200: after a pulse of f0 /
+    2 has passed, the fields at step 200 are far below their peak, and
+    against them the rounding of the peak's steps breaks the 200-step bar
+    at every slot count, 6 and 7 too) 1.6 um below the Cr
+    (1.2 um at the depth of the 200-step turns); the broadband case's
+    field plane and flux box, and a point Ez field-time monitor from the
+    default start; ~300 steps."""
+    au, cr = au_cr(td)
+    freq0 = td.C_0 / 1.55
+    dl = 0.05
+    size = (N_METAL * dl, N_METAL * dl, round((nz - 24) * dl, 9))
+    freqs = np.linspace(freq0 * 0.95, freq0 * 1.05, 11).tolist()
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=2.9e-14,
+        sources=[td.PointDipole(
+            center=(0, 0, -min(1.6, size[2] / 3)), polarization="Ez",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 8))],
+        structures=[
+            td.Structure(geometry=td.Box(center=(0, 0, size[2] / 2 + 0.1),
+                                         size=(td.inf, td.inf, size[2])),
+                         medium=au),
+            td.Structure(geometry=td.Box(center=(0, 0, 0.05),
+                                         size=(td.inf, td.inf, 0.1)),
+                         medium=cr)],
+        monitors=_dft_monitors(td, size, freqs) + [td.FieldTimeMonitor(
+            center=(0, 0, -0.2), size=(0, 0, 0), fields=["Ez"],
+            name="probe")],
+        boundary_spec=td.BoundarySpec.all_sides(td.PML()),
+        grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def regs_blocks(res: dict) -> dict:
+    """``{instantiation: (registers, blocks per SM)}`` of resources."""
+    return {k: (v["registers"], v["blocks_per_sm"]) for k, v in res.items()}
+
+
+def check_memory(w) -> None:
+    """The run's estimate against its peak (both of the runner)."""
+    peak = w.peak - w.base
+    log(f"[memory] {MEMORY[-1][0]}: peak {peak} B, estimate "
+        f"{w.memory['estimate']} B, ratio "
+        f"{w.memory['estimate'] / max(peak, 1):.3f}")
+    assert w.memory["estimate"] >= peak, (w.memory, peak)
+
+
+def family_pair_work(runner, state) -> tuple:
+    """``(bytes, operations)`` of one family launch, half of an E and H
+    pair over every copy of the state: each reads 6 fields and writes 3,
+    its psi slabs read and written, the pole currents read by E."""
+    copies = [(e, h, p) for e, h, p in (("E", "H", "psi"),
+                                        ("E1", "H1", "psi1")) if e in state]
+    ncell = int(np.prod(runner.shape))
+    q = [state[key] for key in ("Q", "Q1") if key in state]
+    psi = sum(numel(state[p]) for _, _, p in copies)
+    return ((3 * nbytes([state[e] for e, _, _ in copies],
+                        [state[h] for _, h, _ in copies])
+             + 2 * nbytes([state[p] for _, _, p in copies]) + nbytes(q)
+             + nbytes(stepping_consts(runner))) / 2,
+            len(copies) * OPS_FAMILY * ncell + OPS_PSI * psi / 2
+            + 4 * 3 * len(runner.plan.poles) * len(copies) * ncell / 2)
+
+
+def compare_copies(step, runner, state, what: str) -> float:
+    """The family kernel against its plain version for one E and one H
+    update of every copy (``family_update_copies``), fields and psi to
+    1e-6; returns the largest absolute difference."""
+    views = runner._views(state)
+    worst_rel, worst_abs, newE = 0.0, 0.0, None
+    for fam in ("E", "H"):
+        srcs = [v["H"] for v in views] if fam == "E" else newE
+        before = step.LAUNCHES
+        got = step.family_update_copies(fam, views, runner.consts, srcs,
+                                        runner.meta)
+        sync()
+        assert step.LAUNCHES == before + 1, "kernel did not launch"
+        ref = step.family_update_copies_reference(fam, views, runner.consts,
+                                                  srcs, runner.meta)
+        for (gf, gp), (rf, rp) in zip(got, ref):
+            for g, r in ((gf, rf), (gp, rp)):
+                if r:
+                    worst_abs = max(worst_abs, max_diff(g, r))
+                    worst_rel = max(worst_rel, rel_err(g, r))
+        newE = [f for f, _ in ref]
+    log(f"[update] {what}: family kernel vs plain, {len(views)} copies, max "
+        f"rel err {worst_rel:.3e} (max abs {worst_abs:.3e}, tol "
+        f"{TOL_UPDATE:g}); blocks and device launches {step.LAST_BLOCKS}")
+    assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
+    return worst_abs
+
+
+def compare_step(runner, state, what: str, plain=None) -> float:
+    """One whole step of the runner's tier, kernels against plain versions
+    (``plain``: the runner of the plain versions, where already built), on
+    copies of ``state`` (fields, psi and pole currents of every copy to
+    1e-6); returns the largest absolute difference."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+
+    plain = plain or FDTDRunner(runner.plan, device=runner.device,
+                                use_kernel=False, kernel=runner.tier)
+
+    def clone(st):
+        return {k: (clone(v) if isinstance(v, dict) else
+                    [clone(x) for x in v] if isinstance(v, list) else
+                    tuple(t.clone() for t in v) if isinstance(v, tuple)
+                    else v.clone()) for k, v in st.items()}
+
+    t = min(40, runner.num_steps - 1)
+    got = runner.step(t, clone(state))
+    sync()
+    ref = plain.step(t, clone(state))
+    worst_rel, worst_abs = group_errors(flat_state(got), flat_state(ref))
+    log(f"[step] {what}, tier {runner.tier}: one step kernel vs plain max "
+        f"rel err {worst_rel:.3e} (max abs {worst_abs:.3e}, tol "
+        f"{TOL_UPDATE:g}; fields, psi and every copy's pole currents)")
+    assert worst_rel <= TOL_UPDATE, f"{what}: rel err {worst_rel:.3e}"
+    return worst_abs
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` by CUDA events, its calls queued behind
+    a sleep kernel (~30 ms) so that the host's launch gaps fall inside it
+    and only the device's own time is counted."""
+    fn()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1) / reps
+
+
+def step_split(runner, what: str, rate: float, smi: str) -> dict:
+    """Device ms a step of each part of a ``pallas2`` step (``device_ms``,
+    one part at a time on a random state of ``runner``): the two family
+    calls (every copy), post_e and the plain pole update of every copy,
+    the sources and the monitors; against the step time of ``rate``
+    Gcell*steps/s (torch.profiler drops some kernel records in this long
+    process: a window of it was "not measured" on these cases)."""
+    from tidy3d_tpu_torch.solver.fdtd import update_poles
+
+    state = random_state(runner, 36)
+    views = runner._views(state)
+    new_e = [{c: v.clone() for c, v in view["E"].items()} for view in views]
+    t = min(40, runner.num_steps - 1)
+
+    def family():
+        runner._family_update("E", views, [v["H"] for v in views])
+        runner._family_update("H", views, [v["E"] for v in views])
+
+    def passes():
+        for ne, view in zip(new_e, views):
+            runner._post_e(ne, view["E"], t)
+
+    def poles():
+        for ne, view in zip(new_e, views):
+            update_poles(ne, view["E"], view["Q"], runner.consts)
+
+    def sources_monitors():
+        for p, ne in enumerate(new_e):
+            runner._inject("E", ne, t, p)
+            runner._inject("H", views[p]["H"], t, p)
+        runner._accumulate_monitors(t, new_e[0], views[0]["H"],
+                                    state["mon"], *(new_e[1:] + [
+                                        v["H"] for v in views[1:]]))
+
+    out = {"family": device_ms(family, 5),
+           "post_e": device_ms(passes, 5) if "nl" in runner.consts
+           or runner.consts.get("mod") else 0.0,
+           "poles": device_ms(poles, 3) if runner.plan.poles else 0.0,
+           "sources_monitors": device_ms(sources_monitors, 5)}
+    step_ms = int(np.prod(runner.shape)) / (rate * 1e9) * 1e3
+    log(f"[split] {what} per step (device ms by CUDA events, part by part): "
+        f"{ {k: round(v, 3) for k, v in out.items()} } ms, sum "
+        f"{sum(out.values()):.3f} ms against the step's {step_ms:.3f} ms "
+        f"| {smi}")
+    return dict(out, step=step_ms)
+
+
+def run_bloch_metal(td, dev, smi: str) -> dict:
+    """Phase 31: ``bloch_metal_case`` (Bloch x and y with 13 pole slots):
+    the default tier is pallas2 with both copies; the two-copy family
+    kernel against plain for one E and H update and one whole step (1e-6),
+    its time beside the bound; 200 steps in turns on the stack cut to
+    ``N_BM_Z_TURNS`` cells of depth (2e-5, fields of both copies and Q,
+    Q1); ``web.run``, 2 family calls a step, each one
+    two-copy call, no fused or k-step launch, its memory estimate at least
+    its peak. Returns the entries of the two-copy and pole-table family
+    instantiations."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import step
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    t_phase = time.perf_counter()
+    plan = lower(bloch_metal_case(td))
+    ncell = int(np.prod(plan.shape))
+    assert plan.is_complex and len(plan.poles) == 13, len(plan.poles)
+    runner = FDTDRunner(plan, device=dev)
+    log(f"[bloch-metal] grid {plan.shape} = {ncell} cells, 13 pole slots, "
+        f"phases {plan.bloch_phases}, tier {runner.tier_name}, lowered and "
+        f"built in {time.perf_counter() - t_phase:.1f} s")
+    assert runner.tier == "pallas2" and runner.is_complex
+    state = random_state(runner, 31)
+    err = compare_copies(step, runner, state, f"{plan.shape} Bloch metal")
+    err = max(err, compare_step(runner, state, f"{plan.shape} Bloch metal"))
+    views = runner._views(state)
+
+    def pair(fn):
+        def once():
+            nE = [f for f, _ in fn("E", views, runner.consts,
+                                   [v["H"] for v in views], runner.meta)]
+            fn("H", views, runner.consts, nE, runner.meta)
+        return once
+
+    k_ms = cuda_ms(pair(step.family_update_copies), 5) / 2
+    p_ms = cuda_ms(pair(step.family_update_copies_reference), 2) / 2
+    bnd = bound(*family_pair_work(runner, state))
+    res = {f"{f} {part}": step.resources(f, part == "bulk", mode="bloch")
+           for f in "EH" for part in ("bulk", "shell")}
+    log(f"[bloch-metal] two-copy family kernel {k_ms:.3f} ms a launch (both "
+        f"copies, 13 slots in E), bound {bnd[0]:.3f} ms by {bnd[1]}, ratio "
+        f"{k_ms / bnd[0]:.2f}; plain {p_ms:.3f} ms; registers and blocks per "
+        f"SM {regs_blocks(res)} | {smi}")
+    del state, views
+    torch.cuda.empty_cache()
+    plan_t = lower(bloch_metal_case(td, nz=N_BM_Z_TURNS))
+    rates = compare_runners(plan_t, dev, int(np.prod(plan_t.shape)),
+                            f"Bloch metal {plan_t.shape} (depth cut)", smi)
+    del plan_t
+    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    w = web_run(td, bloch_metal_case(td), "Bloch metal, default tier", smi,
+                field=None)
+    split = step_split(runner, "Bloch metal, pallas2", w.rate, smi)
+    del runner
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    assert w.tier == "pallas2", w.tier
+    assert w.launches == dict(none, family=2 * w.steps), w.launches
+    assert w.extra["family_bloch"] == 2 * w.steps, w.extra
+    assert w.extra["family_many_poles"] == w.steps, w.extra
+    probe = np.asarray(w.data["probe"].Ex.values)
+    assert probe.size > 1 and np.all(np.isfinite(probe))
+    assert np.any(probe != 0)
+    check_memory(w)
+    log(f"[bloch-metal] web.run {w.rate} Gcell*steps/s, {w.steps} steps; "
+        f"phase 31 took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd, rate=w.rate,
+                launches=w.extra["family_bloch"], split=split, res=res)
+
+
+def post_e_work(new_e: dict, consts: dict) -> tuple:
+    """``(bytes, operations)`` of one post_e call: per component with a
+    pass E_lin and E read and E' written, each coefficient map read once;
+    per cell of such a component 14 operations a modulation entry and 14
+    a fixed-point sweep (as the kernel writes them)."""
+    from tidy3d_tpu_torch.solver.lowering import E_COMPS
+
+    maps, comps, entries = [], set(), 0
+    for ce in consts.get("mod", ()):
+        entries += 1
+        for key in ("Beps", "Bsig"):
+            for comp, pair in ce.get(key, {}).items():
+                comps.add(comp)
+                maps += [v for v in pair if isinstance(v, torch.Tensor)]
+    iters = consts.get("nl_num_iters", 0)
+    for kind in consts.get("nl", {}).values():
+        for comp, v in kind.items():
+            comps.add(comp)
+            if isinstance(v, torch.Tensor):
+                maps.append(v)
+    cells = new_e[E_COMPS[0]].numel()
+    field = new_e[E_COMPS[0]].element_size()
+    return (3 * field * cells * len(comps) + nbytes(maps),
+            14 * (entries + iters) * cells * len(comps))
+
+
+def run_post_e_case(td, dev, smi: str, name: str, medium, what: str):
+    """Phases 32 and 33: the block case with ``medium`` (384^3): pallas2
+    under ``auto``; one post_e call against its plain version (1e-6) and
+    one whole step (1e-6); post_e's time beside its bound and the eager
+    plain version's; 200 steps in turns (2e-5);
+    ``web.run`` over a third of the broadband run (~660 steps, past the
+    pulse's peak at the dipole), one post_e call a step (its dipole's Ez
+    at the probe gives the size of the Kerr term). Returns the case's
+    numbers."""
+    from tidy3d_tpu_torch.solver import nonlinear
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import post_e
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    t_phase = time.perf_counter()
+    kerr = name == "kerr"
+    sim = block_case(td, medium, probe=kerr)
+    plan = lower(sim)
+    ncell = int(np.prod(plan.shape))
+    runner = FDTDRunner(plan, device=dev)
+    plain = FDTDRunner(plan, device=dev, use_kernel=False)
+    assert runner.tier == plain.tier == "pallas2", runner.tier
+    state = random_state(runner, 32)
+    # E_lin of the order of E (H's curl moves E by about its own size)
+    state["H"] = {c: 1e-2 * v for c, v in state["H"].items()}
+    new_e = {c: v.clone() for c, v in state["E"].items()}
+    for c in new_e:
+        new_e[c].mul_(1.0 + 1e-3 * torch.rand_like(new_e[c]))
+    before = post_e.LAUNCHES
+    got = post_e.post_e({c: v.clone() for c, v in new_e.items()},
+                        state["E"], runner.consts, 40)
+    sync()
+    assert post_e.LAUNCHES == before + 1
+    ref = nonlinear.post_e_reference(new_e, state["E"], runner.consts, 40)
+    err_rel, err = rel_err(got, ref), max_diff(got, ref)
+    effect = rel_err(ref, new_e)
+    log(f"[{name}] post_e kernel vs plain max rel err {err_rel:.3e} (max "
+        f"abs {err:.3e}, tol {TOL_UPDATE:g}); the passes moved E by "
+        f"{effect:.3e} of its largest magnitude")
+    assert err_rel <= TOL_UPDATE and effect > 0
+    err = max(err, compare_step(runner, state, f"{plan.shape} {what}",
+                                plain))
+    bufs = {c: v.clone() for c, v in new_e.items()}
+    k_ms = cuda_ms(lambda: post_e.post_e(bufs, state["E"], runner.consts,
+                                         40), 20)
+    p_ms = cuda_ms(lambda: nonlinear.post_e_reference(
+        new_e, state["E"], runner.consts, 40), 3)
+    bnd = bound(*post_e_work(new_e, runner.consts))
+    log(f"[{name}] post_e {k_ms:.3f} ms a call at {plan.shape}, bound "
+        f"{bnd[0]:.3f} ms by {bnd[1]}, ratio {k_ms / bnd[0]:.2f}; eager "
+        f"plain {p_ms:.3f} ms | {smi}")
+    del state, new_e, got, ref, bufs
+    rates = compare_runners(plan, dev, ncell, f"{what} 384^3", smi,
+                            runners={"plain": plain, "kernel": runner})
+    split = step_split(runner, f"{what}, pallas2",
+                       float(np.mean(rates["kernel"])), smi)
+    del runner, plain
+    torch.cuda.empty_cache()
+    # a third of the broadband run: past the pulse's peak at the dipole
+    w = web_run(td, sim.copy(update=dict(run_time=sim.run_time / 3)),
+                f"{what}, default tier", smi)
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    assert w.tier == "pallas2", w.tier
+    assert w.launches == dict(none, family=2 * w.steps), w.launches
+    assert w.extra["post_e"] == w.steps, w.extra
+    check_memory(w)
+    ratio = None
+    if kerr:
+        # the Kerr term at the dipole against its field there: B E^2 with
+        # B = cb eps0 chi3 / dt at the dipole's cell
+        from tidy3d_tpu_torch.constants import EPSILON_0
+
+        e_max = float(np.max(np.abs(w.data["probe"].Ez.values)))
+        src = plan.sources[0].slices
+        cb = plan.coeffs_E["Ez"][1]
+        chi3 = plan.nonlinear["chi3"]["Ez"]
+        b_src = float(np.max(np.abs(
+            (cb[src] if np.ndim(cb) else cb) * EPSILON_0
+            * (chi3[src] if np.ndim(chi3) else chi3) / plan.dt)))
+        ratio = b_src * e_max ** 2
+        log(f"[{name}] |Ez| at the dipole up to {e_max:.4e} V/um: the Kerr "
+            f"term B E^2 = {ratio:.3e} of E there (at least "
+            f"{MIN_NL_RATIO:g})")
+        assert ratio >= MIN_NL_RATIO, ratio
+    log(f"[{name}] web.run {w.rate} Gcell*steps/s, {w.steps} steps; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd, rate=w.rate,
+                launches=w.extra["post_e"], split=split, ratio=ratio)
+
+
+def run_many_poles(td, dev, smi: str) -> dict:
+    """Phase 34: ``many_poles_case`` (13 slots, real): forced fused and
+    forced pallas2, one step each against its plain version (1e-6), the
+    pole-table fused and family kernels' times beside their bounds, 200
+    steps of each in turns on the stack cut to ``N_MP_Z_TURNS`` cells of
+    depth (2e-5); ``web.run`` under ``auto`` (a default-start time
+    monitor): the fused tier, one pole-table fused call a step; a short
+    forced pallas2 ``web.run`` for the pole-table family calls."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused, step
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    t_phase = time.perf_counter()
+    plan = lower(many_poles_case(td))
+    ncell = int(np.prod(plan.shape))
+    assert len(plan.poles) == 13 and not plan.is_complex
+    out = {}
+    for tier in ("fused", "pallas2"):
+        runner = FDTDRunner(plan, device=dev, kernel=tier)
+        state = random_state(runner, 34)
+        err = compare_step(runner, state, f"{plan.shape} Au/Cr 13 slots")
+        if tier == "fused":
+            src = step_sources(runner)
+            q_out = q_buffers(state)
+            k_ms = cuda_ms(lambda: fused.fused_step(
+                state, runner.consts, runner.meta, src, q_out=q_out), 10)
+            p_ms = cuda_ms(lambda: fused.fused_step_reference(
+                state, runner.consts, runner.meta, src), 2)
+            bnd = bound(*fused_work(runner, state))
+            res = {part: fused.resources(13, part == "bulk")
+                   for part in ("bulk", "shell")}
+            del q_out
+        else:
+            k_ms = cuda_ms(lambda: step.family_update(
+                "E", state, runner.consts, state["H"], runner.meta), 10)
+            p_ms = cuda_ms(lambda: step.family_update_reference(
+                "E", state, runner.consts, state["H"], runner.meta), 2)
+            # the E launch: H and E read and E' written, the 13 slots'
+            # currents read, the E slabs of psi read and written
+            bnd = bound(3 * nbytes(state["E"]) + nbytes(state["Q"])
+                        + nbytes(state["psi"])
+                        + nbytes(stepping_consts(runner)) / 2,
+                        OPS_FAMILY * ncell + OPS_PSI * numel(state["psi"]) / 2
+                        + 4 * 3 * 13 * ncell)
+            res = {part: step.resources("E", part == "bulk", mode="many")
+                   for part in ("bulk", "shell")}
+        what = "fused step" if tier == "fused" else "E family launch"
+        log(f"[many-poles] {tier}: {what} {k_ms:.3f} ms at {plan.shape} with "
+            f"13 slots from the table, bound {bnd[0]:.3f} ms by {bnd[1]}, "
+            f"ratio {k_ms / bnd[0]:.2f}; plain {p_ms:.3f} ms; registers and "
+            f"blocks per SM {regs_blocks(res)} | {smi}")
+        out[tier] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd,
+                         res=res)
+        del state, runner
+        torch.cuda.empty_cache()
+    plan_t = lower(many_poles_case(td, nz=N_MP_Z_TURNS))
+    for tier in ("fused", "pallas2"):
+        compare_runners(plan_t, dev, int(np.prod(plan_t.shape)),
+                        f"Au/Cr 13 slots {plan_t.shape} (depth cut)", smi,
+                        kernel=tier)
+    del plan_t
+    w = web_run(td, many_poles_case(td), "Au/Cr 13 slots, default tier",
+                smi)
+    none = {"family": 0, "fused": 0, "kstep": 0}
+    assert w.tier == "fused", w.tier
+    assert w.launches == dict(none, fused=w.steps), w.launches
+    assert w.extra["fused_many_poles"] == w.steps, w.extra
+    check_memory(w)
+    short = many_poles_case(td).copy(update=dict(run_time=1e-14))
+    w2 = web_run(td, short, "Au/Cr 13 slots, pallas2", smi, tier="pallas2")
+    assert w2.launches == dict(none, family=2 * w2.steps), w2.launches
+    assert w2.extra["family_many_poles"] == w2.steps, w2.extra
+    check_memory(w2)
+    log(f"[many-poles] web.run fused {w.rate}, pallas2 {w2.rate} "
+        f"Gcell*steps/s; phase 34 took {time.perf_counter() - t_phase:.1f} "
+        f"s | {smi}")
+    out["fused"].update(launches=w.extra["fused_many_poles"], rate=w.rate)
+    out["pallas2"].update(launches=w2.extra["family_many_poles"],
+                          rate=w2.rate)
+    return out
+
+
+def physics_cw(td, spec, amp: float, device) -> complex:
+    """The reference's ``_run_cw`` (``tests/test_solver/test_nonlinear.py``)
+    through the port: a CW plane wave through an index-matched nonlinear
+    slab; the steady-state phasor at the output point over the
+    amplitude."""
+    freq0 = td.C_0 / PHYS_WL
+    cw = td.ContinuousWave(freq0=freq0, fwidth=freq0 / 10, amplitude=amp)
+    slab = td.Structure(
+        geometry=td.Box(center=(0, 0, 0), size=(PHYS_L, td.inf, td.inf)),
+        medium=td.Medium(permittivity=PHYS_N0 ** 2, nonlinear_spec=spec))
+    pw = td.PlaneWave(center=(-2, 0, 0), size=(0, td.inf, td.inf),
+                      direction="+", source_time=cw, pol_angle=np.pi / 2)
+    mon = td.FieldTimeMonitor(center=(2, 0, 0), size=(0, 0, 0), name="out",
+                              start=2.2e-13)
+    sim = td.Simulation(
+        center=(0, 0, 0), size=(5.5, 0.4, 0), run_time=2.7e-13,
+        medium=td.Medium(permittivity=PHYS_N0 ** 2),
+        sources=[pw], monitors=[mon], structures=[slab], shutoff=0.0,
+        boundary_spec=td.BoundarySpec(x=td.Boundary.pml(),
+                                      y=td.Boundary.periodic(),
+                                      z=td.Boundary.periodic()),
+        grid_spec=td.GridSpec.uniform(dl=0.03))
+    data = td.web.run(sim, verbose=False, device=device)
+    assert "kernel tier: pallas2" in data.log
+    ez = np.asarray(data["out"].Ez.values)[0, 0, 0, :]
+    ts = np.asarray(data["out"].Ez.coords["t"])
+    c = np.sum(ez * np.cos(2 * np.pi * freq0 * ts))
+    s = np.sum(ez * np.sin(2 * np.pi * freq0 * ts))
+    return (c + 1j * s) / amp
+
+
+def physics_checks(td, device="cuda") -> dict:
+    """The reference's four physics tests through the port on ``device``,
+    with their asserts: Kerr self-phase modulation dphi = k0 n2 I L (within
+    12 %, |amplitude change| below 5 %), two-photon absorption T = 1 /
+    sqrt(1 + beta I L) (5 %, phase below 0.05), chi3 from n2 equals Kerr
+    (1e-3) (``tests/test_solver/test_nonlinear.py``) and the sidebands of a
+    phase-modulated slab at m / 2 (``test_modulation.py``). Returns the
+    measured values."""
+    eps0 = td.constants.EPSILON_0
+    i0 = 0.5 * td.C_0 * eps0 * PHYS_N0
+    out = {}
+    n2 = 10.0
+    spec = td.NonlinearSpec(models=[td.KerrNonlinearity(n2=n2, n0=PHYS_N0)],
+                            num_iters=10)
+    lo = physics_cw(td, spec, 0.02, device)
+    hi = kerr_hi = physics_cw(td, spec, 1.0, device)
+    dphi = np.angle(hi / lo)
+    theory = 2 * np.pi / PHYS_WL * n2 * i0 * PHYS_L
+    out["kerr_dphi_ratio"] = float(dphi / theory)
+    out["kerr_amplitude"] = float(abs(hi / lo))
+    assert abs(dphi / theory - 1.0) < 0.12, out
+    assert abs(abs(hi / lo) - 1.0) < 0.05, out
+    beta = 56.0
+    spec = td.NonlinearSpec(models=[td.TwoPhotonAbsorption(beta=beta,
+                                                           n0=PHYS_N0)],
+                            num_iters=10)
+    lo = physics_cw(td, spec, 0.02, device)
+    hi = physics_cw(td, spec, 1.0, device)
+    t_meas = abs(hi / lo)
+    t_theory = 1.0 / np.sqrt(1.0 + beta * i0 * PHYS_L)
+    out["tpa_ratio"] = float(t_meas / t_theory)
+    out["tpa_phase"] = float(np.angle(hi / lo))
+    assert abs(t_meas / t_theory - 1.0) < 0.05, out
+    assert abs(np.angle(hi / lo)) < 0.05, out
+    chi3 = (4.0 / 3.0) * PHYS_N0 ** 2 * eps0 * td.C_0 * n2
+    a = physics_cw(td, td.NonlinearSpec(
+        models=[td.NonlinearSusceptibility(chi3=chi3)], num_iters=10), 1.0,
+        device)
+    b = kerr_hi     # the Kerr run at amplitude 1 of the first check
+    out["chi3_vs_kerr"] = float(abs(a / b - 1.0))
+    assert abs(a / b - 1.0) < 1e-3, out
+    freq0 = td.C_0 / PHYS_WL
+    fm = freq0 / 10
+    deps = 0.08
+    m_idx = (2 * np.pi / PHYS_WL) * PHYS_L * deps / (2 * PHYS_N0)
+    mod = td.ModulationSpec(permittivity=td.SpaceTimeModulation(
+        time_modulation=td.ContinuousWaveTimeModulation(freq0=fm,
+                                                        amplitude=deps)))
+    sim = td.Simulation(
+        center=(0, 0, 0), size=(5.5, 0.4, 0), run_time=5e-13,
+        medium=td.Medium(permittivity=PHYS_N0 ** 2),
+        sources=[td.PlaneWave(
+            center=(-2, 0, 0), size=(0, td.inf, td.inf), direction="+",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 50),
+            pol_angle=np.pi / 2)],
+        monitors=[td.FieldMonitor(center=(2, 0, 0), size=(0, 0, 0),
+                                  freqs=[freq0 - fm, freq0, freq0 + fm],
+                                  name="out")],
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, 0),
+                            size=(PHYS_L, td.inf, td.inf)),
+            medium=td.Medium(permittivity=PHYS_N0 ** 2,
+                             modulation_spec=mod))],
+        shutoff=0.0, normalize_index=None,
+        boundary_spec=td.BoundarySpec(x=td.Boundary.pml(),
+                                      y=td.Boundary.periodic(),
+                                      z=td.Boundary.periodic()),
+        grid_spec=td.GridSpec.uniform(dl=0.03))
+    data = td.web.run(sim, verbose=False, device=device)
+    assert "kernel tier: pallas2" in data.log
+    lower_, carrier, upper = np.abs(
+        np.asarray(data["out"].Ez.values).reshape(-1, 3)).max(axis=0)
+    out["upper_ratio"] = float(upper / carrier / (m_idx / 2))
+    out["lower_ratio"] = float(lower_ / carrier / (m_idx / 2))
+    assert carrier > 5 * upper, out
+    assert abs(upper / carrier - m_idx / 2) / (m_idx / 2) < 0.1, out
+    assert abs(lower_ / carrier - m_idx / 2) / (m_idx / 2) < 0.35, out
+    return out
+
+
+def run_physics(td, smi: str) -> dict:
+    """Phase 35: ``physics_checks`` on the card, post_e launches counted."""
+    from tidy3d_tpu_torch.solver.kernels import post_e
+
+    t_phase = time.perf_counter()
+    post_e.LAUNCHES = 0
+    out = physics_checks(td, "cuda")
+    log(f"[physics] the reference's Kerr, TPA, chi3 and sideband asserts "
+        f"hold through the port on the card: {out}; {post_e.LAUNCHES} "
+        f"post_e calls; phase 35 took {time.perf_counter() - t_phase:.1f} s "
+        f"| {smi}")
+    assert post_e.LAUNCHES > 0
+    return out
+
+
+def run_fifteenth(td, dev, smi: str) -> list:
+    """Phases 31-35; returns their entries of the kernels line."""
+    bm = run_bloch_metal(td, dev, smi)
+    torch.cuda.empty_cache()
+    kerr = run_post_e_case(td, dev, smi, "kerr", kerr_medium(td),
+                           "Kerr + TPA block")
+    torch.cuda.empty_cache()
+    mod = run_post_e_case(td, dev, smi, "modulated", modulated_medium(td),
+                          "modulated block")
+    torch.cuda.empty_cache()
+    mp = run_many_poles(td, dev, smi)
+    torch.cuda.empty_cache()
+    run_physics(td, smi)
+    step_src = "tidy3d_tpu_torch/csrc/step.cu"
+    step_tpu = "tidy3d_tpu/solver/kernels/pallas_step.py:118"
+    return [
+        entry("family_update_bloch", step_src, step_tpu, bm["launches"],
+              bm["err"], bm["ms"], bm["plain_ms"], bm["bound"],
+              instantiations=bm["res"]),
+        entry("family_update_many_poles", step_src, step_tpu,
+              mp["pallas2"]["launches"], mp["pallas2"]["err"],
+              mp["pallas2"]["ms"], mp["pallas2"]["plain_ms"],
+              mp["pallas2"]["bound"], instantiations=mp["pallas2"]["res"]),
+        entry("fused_step_many_poles", "tidy3d_tpu_torch/csrc/fused.cu",
+              "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
+              mp["fused"]["launches"], mp["fused"]["err"],
+              mp["fused"]["ms"], mp["fused"]["plain_ms"],
+              mp["fused"]["bound"], instantiations=mp["fused"]["res"]),
+        entry("post_e", "tidy3d_tpu_torch/csrc/post_e.cu",
+              "tidy3d_tpu/solver/fdtd.py:1632",
+              kerr["launches"] + mod["launches"], max(kerr["err"],
+                                                      mod["err"]),
+              kerr["ms"], kerr["plain_ms"], kerr["bound"],
+              modulated_ms=mod["ms"], modulated_plain_ms=mod["plain_ms"],
+              modulated_bound_ms=mod["bound"][0]),
+    ]
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
           library_ms=None, **extra) -> dict:
     """One kernel's entry of the kernels line (``extra``: more keys, as the
@@ -3316,6 +4190,7 @@ def main() -> int:
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    LOG_FILE.append(open(os.path.join(OUT_DIR, "chip_smoke_log.txt"), "w"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3324,8 +4199,9 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build the six kernel sources, in parallel
-    sources = ["step", "fused", "kstep", "lab_step", "lab_kstep", "lab_pole"]
+    # 2. build the seven kernel sources, in parallel
+    sources = ["step", "fused", "kstep", "post_e", "lab_step", "lab_kstep",
+               "lab_pole"]
     # with the bf16 variants of phase 28: one nvcc each, all at once
     _build.load_all(sources + bf16_variants())
     for name in sources:
@@ -3360,7 +4236,9 @@ def main() -> int:
         # bf16 pairs load as 32-bit words: no 16-bit load in a bulk loop
         assert not any(k.endswith(".16") for k in cls["loads"]), (loop, cls)
         assert cls["loads"].get("LDGSTS.32", 0) > 0, (loop, cls)
+    log_new_instantiations()
 
+    stamp("3")
     # 3. one family update, kernel against plain
     mixed = FDTDRunner(lower(mixed_case(td)), device=dev, kernel="pallas2")
     assert mixed.shape == (64, 48, 80), mixed.shape
@@ -3402,10 +4280,12 @@ def main() -> int:
         f"{p_ms:.3f} ms/launch | {smi}")
     del state, kr
 
+    stamp("4")
     # 4. 200 steps on the two-phase tier, plain / kernel / kernel / plain
     rates_2 = compare_runners(plan, dev, ncell, "broadband 384^3", smi,
                               kernel="pallas2")
 
+    stamp("5")
     # 5. one fused step, kernel against plain; times at 384^3
     compare_fused(fused, mixed_d, random_state(mixed_d, 4),
                   "64x48x80 mixed, 1 pole")
@@ -3444,6 +4324,7 @@ def main() -> int:
         f"{2 * k_ms:.3f} ms | {smi}")
     del state, q_out, st_b, fb
 
+    stamp("6")
     # 6. 200 steps on the fused tier: dispersive 384^3 and 7-pole Au 280^3
     rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
                               kernel="fused")
@@ -3466,6 +4347,7 @@ def main() -> int:
     rates_m = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
                               kernel="fused")
 
+    stamp("7")
     # 7. the k-step kernel: one group against plain, times, 200 steps
     mk = FDTDRunner(lower(mixed_case(td, dispersive=True)), device=dev,
                     kernel="kstep")
@@ -3513,6 +4395,7 @@ def main() -> int:
     rates_km = compare_runners(plan_m, dev, ncell_m, "7-pole Au 280^3", smi,
                                kernel="kstep")
 
+    stamp("8")
     # 8. profile windows
     p2 = profile_window(FDTDRunner(plan, device=dev, kernel="pallas2"),
                         os.path.join(OUT_DIR, "chip_smoke_prof_pallas2.txt"))
@@ -3532,6 +4415,7 @@ def main() -> int:
                    ncell / (float(np.mean(rates_kd["kernel"])) * 1e9) * 1e3,
                    smi)
 
+    stamp("9")
     # 9. the main paths: web.run, launch counts read around each
     none = {"family": 0, "fused": 0, "kstep": 0}
     w2 = web_run(td, full_case(td), "broadband, two-phase tier", smi,
@@ -3565,43 +4449,60 @@ def main() -> int:
         f"{wfb.rate}, kstep {rates_k['broadband']}; dispersive fused "
         f"{wfd.rate}, kstep {rates_k['dispersive']} | {smi}")
 
+    stamp("28")
     # 28. bf16 storage: every bf16 kernel against its plain version, the
     # bf16 web.run and the memory gate
     bf16_entries = run_bf16(td, dev, smi, plan, plan_d, plan_m,
                             w_k["dispersive"])
+    stamp("30")
     # 30. the fused tier on the default path: time monitors off the group
     # ends
     n_fused_auto = run_timemonitors(td, smi, w_k["dispersive"].flux)
     del plan_m, w_k
     torch.cuda.empty_cache()
+    stamp("31-35")
+    # 31-35. Bloch with poles, more than 8 slots, nonlinear and modulated
+    # media: the two-copy and pole-table kernels and post_e
+    new_entries = run_fifteenth(td, dev, smi)
+    torch.cuda.empty_cache()
 
+    stamp("10-11")
     # 10-11. Bloch (complex) runs
     bloch = run_bloch(td, dev, smi)
 
+    stamp("12-15")
     # 12-15. sharded runs on virtual shards
     shard = run_sharded(td, dev, smi, full_case(td), plan, plan_d)
     torch.cuda.empty_cache()
 
+    stamp("26")
     # 26. the device mode solver against ARPACK
     modes = run_mode_solver(td, smi)
+    stamp("16-18")
     # 16-18. mode, mode-solver, permittivity, projection and diffraction
     # monitors through web.run
     n_kstep += run_waveguide(td, smi, modes)
     n_kstep += run_farfield(td, smi, rates_k["broadband"])
     bloch["launches"] += run_diffraction(td, smi, bloch["rate_planewave"])
+    stamp("27")
     # 27. web.Job
     n_kstep += run_job(td, smi)
+    stamp("19")
     # 19. checkpoint and resume
     run_resume(td, dev, plan_d, smi)
     del plan, plan_d
+    stamp("20")
     # 20. web.run under TIDY3D_TPU_PROFILE, in a process of its own
     n_kstep += run_profiled(smi)
+    stamp("21")
     # 21. the memory estimate against every run's peak, and the gate
     run_memory(td, smi)
+    stamp("29")
     # 29. inverse design on the card: the two-solve adjoint on the k-step
     # kernel, Adam, central differences; the autodiff route
     n_kstep += run_invdes(td, smi)
 
+    stamp("22-25")
     # 22-25. the labs: their entry points, then each kernel against plain
     lab_counts = run_lab_mains(smi)
     labs = run_lab_step(smi, lab_counts["kernel_lab"])
@@ -3641,8 +4542,10 @@ def main() -> int:
               shard["ms"], shard["plain_ms"], shard["bound"],
               registers=shard["registers"],
               blocks_per_sm=shard["blocks_per_sm"]),
-    ] + bf16_entries + labs}
-    log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
+    ] + new_entries + bf16_entries + labs}
+    stamp("36")
+    log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s; "
+        f"phases begun at (s): {STAMPS}")
     log(smi)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

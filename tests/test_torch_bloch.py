@@ -290,35 +290,44 @@ def test_tier_choice_and_refusals(monkeypatch):
     plan = lower(_sim("bloch_dipole"))
     one = {"E": 1, "H": 0}
     monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
-    # the kstep tier on every device: the one-step tiers have no copies
+    # the kstep tier on every device where it takes the run; the fused
+    # tier has no copies, the pallas2 tier steps them (the JAX package's
+    # XLA step)
     for device in ("cpu", "cuda"):
         assert port_fdtd.select_tier(plan, one, device) == ("kstep", K)
-    for tier in ("fused", "pallas2", "xla"):
-        with pytest.raises(ValueError, match="no Bloch copies"):
-            port_fdtd.select_tier(plan, one, "cpu", tier)
-        monkeypatch.setenv("TIDY3D_TPU_KERNEL", tier)
-        with pytest.raises(ValueError, match="no Bloch copies"):
-            FDTDRunner(plan, device="cpu")
+    for tier in ("pallas2", "xla"):
+        assert port_fdtd.select_tier(plan, one, "cpu", tier) == \
+            ("pallas2", 1)
+    with pytest.raises(ValueError, match="no Bloch copies"):
+        port_fdtd.select_tier(plan, one, "cpu", "fused")
+    monkeypatch.setenv("TIDY3D_TPU_KERNEL", "fused")
+    with pytest.raises(ValueError, match="no Bloch copies"):
+        FDTDRunner(plan, device="cpu")
     monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
-    # a time monitor off the group ends: kstep refuses, so the run does
+    # a time monitor off the group ends: kstep refuses, pallas2 takes it;
+    # a forced kstep raises
     off = lower(BLOCH["bloch_dipole"](monitors=[tt.FieldTimeMonitor(
         center=(0, 0, 0), size=(0.2, 0.2, 0.2), interval=3, name="t")]))
+    assert FDTDRunner(off, device="cpu").tier == "pallas2"
     with pytest.raises(ValueError, match="does not sample at the ends"):
-        FDTDRunner(off, device="cpu")
+        FDTDRunner(off, device="cpu", kernel="kstep")
+    for device in ("cpu", "cuda"):
+        assert port_fdtd.select_tier(plan, {"E": 65, "H": 0}, device) == \
+            ("pallas2", 1)
     with pytest.raises(ValueError, match="table takes 64"):
-        port_fdtd.select_tier(plan, {"E": 65, "H": 0}, "cpu")
+        port_fdtd.select_tier(plan, {"E": 65, "H": 0}, "cpu", "kstep")
     monkeypatch.setenv("TIDY3D_TPU_KSTEP", "0")
-    with pytest.raises(ValueError, match="disables it"):
-        FDTDRunner(plan, device="cpu")
+    assert FDTDRunner(plan, device="cpu").tier == "pallas2"
     monkeypatch.delenv("TIDY3D_TPU_KSTEP")
-    # Bloch with dispersive poles: the JAX package runs it on XLA only
+    # Bloch with dispersive poles: the k-step kernel refuses it
+    # (pallas_kstep.py:290-292), pallas2 steps it with Q1
     disp = BLOCH["bloch_dipole"]().copy(update=dict(structures=[
         tt.Structure(geometry=tt.Box(center=(0, 0, 0), size=(0.2,) * 3),
                      medium=DRUDE)]))
-    with pytest.raises(NotImplementedError, match="dispersive poles"):
-        FDTDRunner(lower(disp), device="cpu")
-    with pytest.raises(NotImplementedError, match="dispersive poles"):
-        tt.web.run(disp, device="cpu", verbose=False)
+    runner = FDTDRunner(lower(disp), device="cpu")
+    assert runner.tier == "pallas2" and "Q1" in runner.init_state()
+    with pytest.raises(ValueError, match="Bloch copies with dispersive"):
+        FDTDRunner(lower(disp), device="cpu", kernel="kstep")
 
 
 def test_a_trivial_phase_stays_periodic():

@@ -60,24 +60,36 @@ def test_web_run_matches_reference():
 
 
 def test_web_run_refuses_what_is_not_ported():
-    """What no tier of the port takes raises before the run: a nonlinear
-    (Kerr) medium and a time-modulated one (``solver/fdtd.py``
-    ``_check_supported``)."""
+    """A nonlinear Bloch run raises before the run, with the reference's
+    words (``tidy3d_tpu/solver/fdtd.py:124-127``); a nonlinear (Kerr) and a
+    time-modulated medium run on the ``pallas2`` tier and give the JAX
+    package's flux (``solver/nonlinear.py``)."""
     box = tt.Box(center=(0, 0, 0.1), size=(0.2, 0.2, 0.2))
     kerr = tt.Medium(permittivity=2.0, nonlinear_spec=tt.NonlinearSpec(
         models=[tt.KerrNonlinearity(n2=1e-3)]))
-    # the schema is the port's copy of ``components/time_modulation.py``:
-    # constructible, refused by the runner
     modulation = tt.ModulationSpec(permittivity=tt.SpaceTimeModulation(
         time_modulation=tt.ContinuousWaveTimeModulation(freq0=1e13,
                                                         amplitude=0.1)))
     modulated = tt.Medium(permittivity=2.0, modulation_spec=modulation)
-    for medium, match in ((kerr, "nonlinear media"),
-                          (modulated, "time-modulated media")):
-        sim = SIMS["pml_all"]().copy(update=dict(structures=[
-            tt.Structure(geometry=box, medium=medium)]))
-        with pytest.raises(NotImplementedError, match=match):
-            tt.web.run(sim, device="cpu", verbose=False)
+    for medium in (kerr, modulated):
+        sim = SIMS["pml_all"](monitors=monitors()).copy(update=dict(
+            structures=[tt.Structure(geometry=box, medium=medium)]))
+        got = tt.web.run(sim, device="cpu", verbose=False)
+        assert "kernel tier: pallas2" in got.log
+        ref = ref_web.run(to_reference(sim), verbose=False)
+        for mon in sim.monitors:
+            if hasattr(ref[mon.name], "flux"):
+                err = _rel(ref[mon.name].flux.values,
+                           got[mon.name].flux.values)
+                assert err <= TOL, f"{mon.name}: rel err {err:.2e}"
+    bloch = SIMS["pml_all"]().copy(update=dict(
+        structures=[tt.Structure(geometry=box, medium=kerr)],
+        boundary_spec=tt.BoundarySpec(
+            x=tt.Boundary.bloch(bloch_vec=0.2), y=tt.Boundary.periodic(),
+            z=tt.Boundary.pml(num_layers=3))))
+    with pytest.raises(NotImplementedError,
+                       match="nonlinear media with Bloch"):
+        tt.web.run(bloch, device="cpu", verbose=False)
 
 
 @pytest.mark.parametrize("knob", ["TIDY3D_TPU_PSI_DTYPE",

@@ -34,10 +34,21 @@ SIZE = (12 * DL, 10 * DL, 16 * DL)
 
 
 def to_reference(sim):
-    """The JAX package's ``Simulation`` equal to the port's ``sim``."""
+    """The JAX package's ``Simulation`` equal to the port's ``sim``. The
+    JAX package's ``Medium.modulation_spec`` field keeps a parsed dict as a
+    dict (no ``applied_modulation``, so its lowering would drop the
+    modulation): each is rebuilt as its ``ModulationSpec``."""
     import tidy3d_tpu
 
-    return tidy3d_tpu.Simulation.parse_raw(sim.json())
+    ref = tidy3d_tpu.Simulation.parse_raw(sim.json())
+    structures = []
+    for st in ref.structures:
+        spec = getattr(st.medium, "modulation_spec", None)
+        if isinstance(spec, dict):
+            st = st.copy(update=dict(medium=st.medium.copy(update=dict(
+                modulation_spec=tidy3d_tpu.ModulationSpec.parse_obj(spec)))))
+        structures.append(st)
+    return ref.copy(update=dict(structures=structures))
 
 
 def lower_reference(sim):

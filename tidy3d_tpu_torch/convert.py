@@ -4,8 +4,8 @@ between a global state and the shards of a sharded run.
 The JAX runner's unsharded one-step tiers keep E/H as dicts of
 ``(nx, ny, nz)`` arrays, psi slabs keyed ``"comp|axis|side"`` and the pole
 currents ``Q`` as a list (one entry per pole) of ``{comp: (qr, qi)}``. A
-complex (Bloch) run adds the imaginary copy ``E1``, ``H1``, ``psi1`` (and
-``Q1``, empty: the port takes no Bloch run with poles), as in
+complex (Bloch) run adds the imaginary copy ``E1``, ``H1``, ``psi1`` and its
+pole currents ``Q1``, as in
 ``tidy3d_tpu/solver/fdtd.py:816-821``. The XLA path stores every slab in
 natural layout (the slab width on its own axis); the Pallas tiers store the
 z slabs transposed as ``(x, z-slab, y)`` (``tidy3d_tpu/solver/fdtd.py:
@@ -49,7 +49,8 @@ def state_from_reference(state_np: dict, runner, z_transposed: bool = False
                          ) -> dict:
     """Port state (tensors on ``runner.device``, empty monitor
     accumulators) from the reference's E/H/psi numpy dicts (both copies of
-    a complex run) and, where the plan has poles, its ``Q`` list."""
+    a complex run) and, where the plan has poles, its ``Q`` list (and
+    ``Q1``)."""
 
     def put(a, dtype=runner.dtype):
         # a copy: the runner updates the pole currents in place
@@ -75,19 +76,19 @@ def state_from_reference(state_np: dict, runner, z_transposed: bool = False
                 raise ValueError(f"psi slab '{key}': shape {tuple(v.shape)}, "
                                  f"expected {tuple(state[p][key].shape)}")
         state[p] = psi
-    Q = state_np.get("Q", [])
-    if len(Q) != len(state["Q"]):
-        raise ValueError(f"{len(Q)} pole currents given, the plan has "
-                         f"{len(state['Q'])} poles")
-    state["Q"] = [{c: (put(qr, runner.q_dtype), put(qi, runner.q_dtype))
-                   for c, (qr, qi) in Qp.items()} for Qp in Q]
+    for key in ("Q", "Q1")[:1 + ("E1" in state)]:
+        Q = state_np.get(key, [])
+        if len(Q) != len(state[key]):
+            raise ValueError(f"{len(Q)} pole currents given in {key}, the "
+                             f"plan has {len(state[key])} poles")
+        state[key] = [{c: (put(qr, runner.q_dtype), put(qi, runner.q_dtype))
+                       for c, (qr, qi) in Qp.items()} for Qp in Q]
     return state
 
 
 def state_to_reference(state: dict, z_transposed: bool = False) -> dict:
     """The reference's E/H/psi numpy dicts (with ``E1``, ``H1``, ``psi1``
-    and an empty ``Q1`` for a complex run) and ``Q`` list from port
-    state."""
+    and ``Q1`` for a complex run) and ``Q`` list from port state."""
     out = {}
     for e, h, p in _COPIES[:1 + ("E1" in state)]:
         for fam in (e, h):
@@ -98,10 +99,10 @@ def state_to_reference(state: dict, z_transposed: bool = False) -> dict:
             if z_transposed and _is_z_slab(key):
                 a = np.ascontiguousarray(np.transpose(a, (0, 2, 1)))
             out[p][key] = a
-    out["Q"] = [{c: (_numpy(qr), _numpy(qi))
-                 for c, (qr, qi) in Qp.items()} for Qp in state.get("Q", [])]
-    if "E1" in state:
-        out["Q1"] = []
+    for key in ("Q", "Q1")[:1 + ("E1" in state)]:
+        out[key] = [{c: (_numpy(qr), _numpy(qi))
+                     for c, (qr, qi) in Qp.items()}
+                    for Qp in state.get(key, [])]
     return out
 
 

@@ -7,7 +7,7 @@
 // XLA corrections and the pole update of FDTDRunner._step_fused
 // (tidy3d_tpu/solver/fdtd.py:1505). It computes what the XLA step
 // FDTDRunner._step (fdtd.py:1614) computes up to the H-side sources, for
-// real runs with up to MAX_POLES poles:
+// real runs with any number of pole slots:
 //
 //   E' = ca_E * E + cb_E * (curl H + psi_E' - sum_p Re(Gc_p Q_p)),
 //        zeroed on the PEC lo walls, plus the J source terms of this step
@@ -42,6 +42,13 @@
 // A component's 2 P pole currents are held at a time (the pole term of E'_i
 // and then Q'_{p,i}).
 //
+// More than MAX_POLES slots (a metal on an adhesion layer, two metals) do
+// not fit the parameter block: such a call reads its slots from a device
+// table of PoleSlot (`poles`, built by the host wrapper) on the MANY
+// instantiations, one slot at a time, loading each current again for its
+// update rather than holding them (2 P of them would not fit the
+// registers at P = 13).
+//
 // Tiles whose cells meet no psi slab, no wall and no source box and lie
 // clear of the domain's edge run the bulk instantiation (a launch of its
 // own over the box of such tiles) with none of those branches; the rest
@@ -74,6 +81,7 @@
 #include <stdint.h>
 
 constexpr int MAX_POLES = 8;     // MAX_POLES in solver/kernels/step.py
+constexpr int MANY = -2;         // the NP of the table instantiations
 constexpr int MAX_SOURCES = 32;  // MAX_SOURCES in solver/kernels/fused.py
 
 constexpr int TZ = 32;              // owned z columns of a tile
@@ -205,6 +213,19 @@ struct SrcBox {
     float w;
 };
 
+// One pole slot of a call with more than MAX_POLES of them, in a device
+// table. Mirrored by PoleSlot in tidy3d_tpu_torch/solver/kernels/fused.py.
+struct PoleSlot {
+    const q_t* q[6];          // [comp * 2 + (0 qr, 1 qi)]
+    q_t* q_out[6];
+    const float* b[6];        // the mask (part 0) or the dense re/im maps
+    float gc_re, gc_im;       // Gc = a (A + 1)
+    float a_re, a_im;         // A = (1 + a dt/2) / (1 - a dt/2)
+    float b0[6];              // mask kind: B0 (re, im) per comp
+    int32_t kind[3];          // POLE_* per comp
+    int32_t pad;
+};
+
 // Mirrored by FusedParams in tidy3d_tpu_torch/solver/kernels/fused.py.
 struct FusedParams {
     const field_t* e_old[3];
@@ -252,6 +273,7 @@ struct FusedParams {
     int32_t num_poles;
     int32_t num_src;
     int32_t vec;               // set by t3d_fused_step: pairs aligned
+    const PoleSlot* poles;     // the table of num_poles slots (MANY), or null
 };
 
 static_assert(sizeof(FusedParams) <= 4096,
@@ -459,7 +481,14 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
         *r = val2<VEC>(p.q[(q * 3 + i) * 2], base, c);
         *m = val2<VEC>(p.q[(q * 3 + i) * 2 + 1], base, c);
     };
-    if (NP >= 0) {
+    if constexpr (NP == MANY) {
+        for (int q = 0; q < np; ++q) {
+            const PoleSlot& slot = p.poles[q];
+            const float2 r = val2<VEC>(slot.q[2 * i], base, c);
+            const float2 m = val2<VEC>(slot.q[2 * i + 1], base, c);
+            rhs = rhs - (slot.gc_re * r - slot.gc_im * m);
+        }
+    } else if (NP >= 0) {
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
             if (q >= np) break;
@@ -523,7 +552,27 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
                 store2<VEC>(p.q_out[qx], base, c, r);
                 store2<VEC>(p.q_out[qx + 1], base, c, m);
             };
-            if (NP >= 0) {
+            if constexpr (NP == MANY) {
+                for (int q = 0; q < np; ++q) {
+                    const PoleSlot& slot = p.poles[q];
+                    const float2 cr = val2<VEC>(slot.q[2 * i], base, c);
+                    const float2 ci = val2<VEC>(slot.q[2 * i + 1], base, c);
+                    float2 r = slot.a_re * cr + (-slot.a_im) * ci;
+                    float2 m = slot.a_re * ci + slot.a_im * cr;
+                    const int kind = slot.kind[i];
+                    if (kind == POLE_MASK) {
+                        const float2 mes =
+                            coef2<VEC>(slot.b[2 * i], base, c) * esum;
+                        r = r + slot.b0[2 * i] * mes;
+                        m = m + slot.b0[2 * i + 1] * mes;
+                    } else if (kind == POLE_DENSE) {
+                        r = r + coef2<VEC>(slot.b[2 * i], base, c) * esum;
+                        m = m + coef2<VEC>(slot.b[2 * i + 1], base, c) * esum;
+                    }
+                    store2<VEC>(slot.q_out[2 * i], base, c, r);
+                    store2<VEC>(slot.q_out[2 * i + 1], base, c, m);
+                }
+            } else if (NP >= 0) {
 #pragma unroll
                 for (int q = 0; q < NQ; ++q)
                     if (q < np) update(q, qr[q], qi[q]);
@@ -871,6 +920,10 @@ static KernelFn kernel_np(bool bulk, bool vec) {
 }
 
 static KernelFn kernel_for(int np, bool bulk, bool vec = true) {
+    if (np > MAX_POLES)
+        return !vec ? fused_step_kernel<MANY, false, false>
+               : bulk ? fused_step_kernel<MANY, true, true>
+                      : fused_step_kernel<MANY, false, true>;
     switch (np) {
         case 0: return kernel_np<0>(bulk, vec);
         case 1: return kernel_np<1>(bulk, vec);
@@ -903,10 +956,11 @@ static bool pair_aligned(const FusedParams& p) {
             (uintptr_t)p.ca_h[i] % 8 || (uintptr_t)p.cb_h[i] % 8)
             return false;
     }
-    for (int i = 0; i < 6 * p.num_poles; ++i)
-        if ((uintptr_t)p.q[i] % qa || (uintptr_t)p.q_out[i] % qa ||
-            (uintptr_t)p.pole_b[i] % 8)
-            return false;
+    if (!p.poles)   // (the currents of a table: checked by the host wrapper)
+        for (int i = 0; i < 6 * p.num_poles; ++i)
+            if ((uintptr_t)p.q[i] % qa || (uintptr_t)p.q_out[i] % qa ||
+                (uintptr_t)p.pole_b[i] % 8)
+                return false;
     return true;
 }
 
@@ -921,6 +975,7 @@ static void bulk_range(int lo_cell, int hi_cell, int len, int reach,
 }
 
 extern "C" int t3d_fused_params_size() { return (int)sizeof(FusedParams); }
+extern "C" int t3d_fused_pole_slot_size() { return (int)sizeof(PoleSlot); }
 
 // The bytes of the field, psi and pole-current values this library stores.
 extern "C" void t3d_fused_storage(int32_t* out) {
@@ -930,8 +985,8 @@ extern "C" void t3d_fused_storage(int32_t* out) {
 }
 
 // Threads, shared bytes, blocks per SM and registers of the instantiation
-// for np pole slots (bulk, or the shell of pair-aligned arrays); a CUDA
-// error code, or 0.
+// for np pole slots (bulk, or the shell of pair-aligned arrays; np above
+// MAX_POLES: the table's); a CUDA error code, or 0.
 extern "C" int t3d_fused_info(int np, int bulk, int32_t* out) {
     const KernelFn fn = kernel_for(np, bulk != 0);
     if (!fn) return (int)cudaErrorInvalidValue;
@@ -956,7 +1011,8 @@ extern "C" int t3d_fused_info(int np, int bulk, int32_t* out) {
 extern "C" int t3d_fused_step(const FusedParams* p, void* stream,
                               int32_t* counts) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
-    if (p->num_poles < 0 || p->num_poles > MAX_POLES || p->num_src < 0 ||
+    if (p->num_poles < 0 || (p->num_poles > MAX_POLES) != (p->poles != 0) ||
+        p->num_src < 0 ||
         p->num_src > MAX_SOURCES ||
         (int64_t)p->n[0] * p->n[1] * p->n[2] > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel PallasStepper.family_update
 // (tidy3d_tpu/solver/kernels/pallas_step.py:118, pallas_call at :417) and
 // computes what FDTDRunner._update_field_family (tidy3d_tpu/solver/fdtd.py:982)
-// specifies, for real runs with up to MAX_POLES dispersive poles.
+// specifies, for real runs with any number of dispersive pole slots and for
+// the two real copies of a Bloch (complex) run.
 // One call updates one family (E from H, or H from E^{n+1}) for all three
 // components:
 //
@@ -48,6 +49,25 @@
 // branches; the rest run the shell instantiation, which also takes odd z
 // sizes and arrays not aligned to a pair (vec false: staged and loaded cell
 // by cell).
+//
+// Pole slots. Up to MAX_POLES slots ride in the parameter block (gc_re,
+// gc_im, q); a call with more reads them from a device table of PoleSlot
+// (`poles`, built by the host wrapper; the TAB instantiations), one slot at
+// a time, each holding a component's two currents only while it is used.
+//
+// Bloch runs step two real copies (re, im) of the fields, each with its own
+// pole currents (Q and Q1). One call of t3d_family_update_bloch updates the
+// family of both copies: BlochParams holds a FamilyParams per copy, the
+// launch's z blocks are the x chunks of copy 0 and then those of copy 1.
+// Bulk tiles meet no wall, so they run as in a real run (the table path
+// for the poles). Shell tiles stage their planes value by value: a staged
+// cell past a Bloch wall (logical coordinate below 0 or at n and above on
+// an axis with a phase e^{i phi}) takes the other copy's value too and is
+// rotated, F(-1) = e^{-i phi} F(n - 1) and F(n) = e^{i phi} F(0) (the
+// port of FDTDRunner._wrap_col, tidy3d_tpu/solver/fdtd.py:861-893): copy 0
+// stores c F0 - s' F1 and copy 1 c F1 + s' F0, s' = +-s by the side. The
+// chunk's lead-in x plane rotates the same way. In bfloat16 storage the
+// rotated value is rounded once more where it is staged.
 //
 // The bound is HBM bandwidth: 36 B per cell (3 source, 3 old and 3 new
 // float32 values), plus the per-cell ca/cb arrays where the medium varies
@@ -164,6 +184,13 @@ __device__ __forceinline__ void set_cell(float2& v, int q, float s) {
     if (q) v.y = s; else v.x = s;
 }
 
+// One pole slot of a call that reads its slots from a device table.
+// Mirrored by PoleSlot in tidy3d_tpu_torch/solver/kernels/step.py.
+struct PoleSlot {
+    const q_t* q[6];          // [comp * 2 + (0 qr, 1 qi)]
+    float gc_re, gc_im;       // Gc = a (A + 1)
+};
+
 // Mirrored by FamilyParams in tidy3d_tpu_torch/solver/kernels/step.py.
 struct FamilyParams {
     const field_t* src[3];    // source components (H for E, E^{n+1} for H)
@@ -191,7 +218,20 @@ struct FamilyParams {
     float gc_re[MAX_POLES];   // Re and Im of Gc = a (A + 1) per pole
     float gc_im[MAX_POLES];
     const q_t* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
+    const PoleSlot* poles;    // the table of num_poles slots (TAB), or null
 };
+
+// Both copies of a Bloch run. Mirrored by BlochParams in step.py.
+struct BlochParams {
+    FamilyParams c[2];        // copy 0 (re) and copy 1 (im)
+    float bc[3];              // cos and sin of the phase of each axis
+    float bs[3];
+    int32_t bloch[3];         // the axis wraps with a phase
+    int32_t nchunk;           // set by t3d_family_update_bloch: x chunks of
+                              // a copy in the launch
+};
+static_assert(sizeof(BlochParams) <= 4096,
+              "kernel parameters must fit the 4 KB launch limit");
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
 
@@ -267,7 +307,7 @@ __device__ __forceinline__ float wall(int kind, float self) {
 
 // Component I of the family at the own pair of plane x (wrapped xw, base
 // = xw * ny * nz) from its curl terms d1 (along j) and d2 (along k).
-template <int I, bool IS_E, bool BULK, bool VEC>
+template <int I, bool IS_E, bool BULK, bool VEC, bool TAB>
 __device__ __forceinline__ void comp_update(const FamilyParams& p,
                                             const PairAt& c, int xw, int base,
                                             float2 d1, float2 d2,
@@ -290,7 +330,14 @@ __device__ __forceinline__ void comp_update(const FamilyParams& p,
             set_cell(rhs, q, r);
         }
     }
-    if (IS_E) {
+    if constexpr (IS_E && TAB) {
+        for (int q = 0; q < p.num_poles; ++q) {
+            const PoleSlot& slot = p.poles[q];
+            const float2 qr = val2<VEC>(slot.q[2 * i], base, c);
+            const float2 qi = val2<VEC>(slot.q[2 * i + 1], base, c);
+            rhs = rhs - (slot.gc_re * qr - slot.gc_im * qi);
+        }
+    } else if constexpr (IS_E) {
         for (int q = 0; q < p.num_poles; ++q) {
             const float2 qr = val2<VEC>(p.q[(q * 3 + i) * 2], base, c);
             const float2 qi = val2<VEC>(p.q[(q * 3 + i) * 2 + 1], base, c);
@@ -321,7 +368,7 @@ __device__ __forceinline__ void comp_update(const FamilyParams& p,
 // The family's three components of the own pair at plane x (wrapped xw)
 // from the staged source plane f (at the pair) and the source's x
 // neighbour (cx: components 1 and 2 of plane x - 1 for E, x + 1 for H).
-template <bool IS_E, bool BULK, bool VEC>
+template <bool IS_E, bool BULK, bool VEC, bool TAB>
 __device__ __forceinline__ void update_pair(const FamilyParams& p,
                                             const PairAt& c,
                                             const field_t* f, int x, int xw,
@@ -386,25 +433,63 @@ __device__ __forceinline__ void update_pair(const FamilyParams& p,
                             : inv_x * (n1_x - fo[1]);
     const float2 d2x = IS_E ? inv_x * (fo[2] - n2_x)
                             : inv_x * (n2_x - fo[2]);
-    comp_update<0, IS_E, BULK, VEC>(p, c, xw, base, d2y, d1z, psi_axes);
-    comp_update<1, IS_E, BULK, VEC>(p, c, xw, base, d0z, d2x, psi_axes);
-    comp_update<2, IS_E, BULK, VEC>(p, c, xw, base, d1x, d0y, psi_axes);
+    comp_update<0, IS_E, BULK, VEC, TAB>(p, c, xw, base, d2y, d1z,
+                                         psi_axes);
+    comp_update<1, IS_E, BULK, VEC, TAB>(p, c, xw, base, d0z, d2x,
+                                         psi_axes);
+    comp_update<2, IS_E, BULK, VEC, TAB>(p, c, xw, base, d1x, d0y,
+                                         psi_axes);
 }
 
-// The march of one tile (blockIdx + base: the tile's z, y and x chunk
-// index): E up in x, H down. BULK: a bulk tile; else the shell path, which
-// returns at once for a bulk tile when p.vec (the bulk launch takes it).
-// VEC: pairs staged and loaded whole (p.vec; the bulk path always).
-template <bool IS_E, bool BULK, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
-                     int base_y, int base_x) {
+// The phase of a staged cell at logical (x, y, z) of a Bloch run: the
+// product of e^{+-i phi} over the axes it lies past (cos in *pc, sin in
+// *ps); false when it lies past none.
+__device__ __forceinline__ bool bloch_phase(const BlochParams& b,
+                                            const int* n, int x, int y,
+                                            int z, float* pc, float* ps) {
+    const int cw[3] = {x, y, z};
+    float c = 1.0f, s = 0.0f;
+    bool any = false;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+        if (!b.bloch[a] || (cw[a] >= 0 && cw[a] < n[a])) continue;
+        const float sa = cw[a] < 0 ? -b.bs[a] : b.bs[a];
+        const float nc = c * b.bc[a] - s * sa;
+        s = c * sa + s * b.bc[a];
+        c = nc;
+        any = true;
+    }
+    *pc = c;
+    *ps = s;
+    return any;
+}
+
+// The value of copy `part` at a cell whose own value is v and the other
+// copy's vp, turned by the phase (pc, ps): Re or Im of (pc + i ps)(F0 + i
+// F1).
+__device__ __forceinline__ float rotate(int part, float v, float vp,
+                                        float pc, float ps) {
+    return part == 0 ? pc * v - ps * vp : pc * v + ps * vp;
+}
+
+// The march of one tile (tz, ty, tx: the tile's z, y and x chunk index):
+// E up in x, H down. BULK: a bulk tile; else the shell path, which returns
+// at once for a bulk tile when p.vec (the bulk launch takes it). VEC: pairs
+// staged and loaded whole (p.vec; the bulk path always). TAB: the pole
+// slots from the table p.poles. BLOCH: copy `part` of a Bloch run, whose
+// other copy is pp and whose phases are bl (shell tiles stage value by
+// value, rotating the cells past a Bloch wall).
+template <bool IS_E, bool BULK, bool VEC, bool TAB, bool BLOCH>
+__device__ __forceinline__ void march(const FamilyParams& p,
+                                      const FamilyParams& pp,
+                                      const BlochParams* bl, int part,
+                                      int tz, int ty, int tx) {
     extern __shared__ __align__(16) unsigned char smem[];
     field_t* const stage = reinterpret_cast<field_t*>(smem);  // [NST][3][YS][ZS]
     const int nx = p.n[0], ny = p.n[1], nz = p.n[2];
-    const int z0 = (blockIdx.x + base_z) * TZ;
-    const int y0 = (blockIdx.y + base_y) * TY;
-    const int x0 = (blockIdx.z + base_x) * BX;
+    const int z0 = tz * TZ;
+    const int y0 = ty * TY;
+    const int x0 = tx * BX;
     if (z0 >= nz || y0 >= ny || x0 >= nx) return;
     const int x_end = min(x0 + BX, nx);
     const bool bulk = tile_bulk(p, x0, y0, z0);
@@ -427,6 +512,8 @@ family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
     // the staged region: rows from ry0, columns from cz0
     const int ry0 = IS_E ? y0 - 1 : y0;
     const int cz0 = IS_E ? z0 - 2 : z0;
+    // a Bloch shell tile stages value by value, rotating past the walls
+    constexpr bool ROT = BLOCH && !BULK;
     int soff[STAGE_ITEMS], ga[STAGE_ITEMS], gb[STAGE_ITEMS];
 #pragma unroll
     for (int it = 0; it < STAGE_ITEMS; ++it) {
@@ -467,7 +554,21 @@ family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
 #pragma unroll
                 for (int it = 0; it < STAGE_ITEMS; ++it) {
                     if (soff[it] < 0) continue;
-                    if (vec) {
+                    if constexpr (ROT) {
+                        const int s = t + it * THREADS;
+                        const int jj = s / PS, qq = s - jj * PS;
+                        const int g2[2] = {ga[it], gb[it]};
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            float v = ld1(src + g2[h]), pc, ps;
+                            if (bloch_phase(*bl, p.n, plane(pos), ry0 + jj,
+                                            cz0 + 2 * qq + h, &pc, &ps))
+                                v = rotate(part, v,
+                                           ld1(pp.src[m] + base + g2[h]),
+                                           pc, ps);
+                            st1(dst + soff[it] + h, v);
+                        }
+                    } else if (vec) {
                         __pipeline_memcpy_async(dst + soff[it], src + ga[it],
                                                 2 * sizeof(field_t));
                     } else {
@@ -489,6 +590,17 @@ family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
                     : val2<false>(p.src[1], base, c);
         cx[1] = vec ? val2<true>(p.src[2], base, c)
                     : val2<false>(p.src[2], base, c);
+        if constexpr (ROT) {
+            float pc, ps;
+            if (bloch_phase(*bl, p.n, xl, 0, 0, &pc, &ps)) {
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                    const float2 o = val2<false>(pp.src[1 + m], base, c);
+                    cx[m] = make_float2(rotate(part, cx[m].x, o.x, pc, ps),
+                                        rotate(part, cx[m].y, o.y, pc, ps));
+                }
+            }
+        }
     }
     stage_plane(0);
     stage_plane(1);
@@ -501,34 +613,79 @@ family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
         const field_t* const f = stage + (pos % NST) * 3 * SPLANE + so;
         float2 fo[3];
         if (vec)
-            update_pair<IS_E, BULK, true>(p, c, f, x, x, cx, psi_axes, fo);
+            update_pair<IS_E, BULK, true, TAB>(p, c, f, x, x, cx, psi_axes,
+                                               fo);
         else
-            update_pair<IS_E, BULK, false>(p, c, f, x, x, cx, psi_axes, fo);
+            update_pair<IS_E, BULK, false, TAB>(p, c, f, x, x, cx, psi_axes,
+                                                fo);
         cx[0] = fo[1];
         cx[1] = fo[2];
     }
 }
 
-typedef void (*KernelFn)(FamilyParams, int, int, int);
-
-static KernelFn kernel_for(bool is_e, bool bulk, bool vec = true) {
-    if (is_e)
-        return bulk ? family_update_kernel<true, true, true>
-               : vec ? family_update_kernel<true, false, true>
-                     : family_update_kernel<true, false, false>;
-    return bulk ? family_update_kernel<false, true, true>
-           : vec ? family_update_kernel<false, false, true>
-                 : family_update_kernel<false, false, false>;
+// A real run's tile (blockIdx + base: its z, y and x chunk index). TAB: the
+// pole slots from the table (more than MAX_POLES).
+template <bool IS_E, bool BULK, bool VEC, bool TAB>
+__global__ void __launch_bounds__(THREADS)
+family_update_kernel(const __grid_constant__ FamilyParams p, int base_z,
+                     int base_y, int base_x) {
+    march<IS_E, BULK, VEC, TAB, false>(p, p, nullptr, 0, blockIdx.x + base_z,
+                                       blockIdx.y + base_y,
+                                       blockIdx.z + base_x);
 }
 
-static cudaError_t prepare(KernelFn fn) {
-    return cudaFuncSetAttribute((const void*)fn,
+// A Bloch run's tile: z blocks [0, nchunk) are copy 0's x chunks, the rest
+// copy 1's.
+template <bool IS_E, bool BULK, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+family_update_bloch_kernel(const __grid_constant__ BlochParams b, int base_z,
+                           int base_y, int base_x) {
+    const int part = blockIdx.z >= (unsigned)b.nchunk;
+    const int chunk = blockIdx.z - part * b.nchunk;
+    march<IS_E, BULK, VEC, true, true>(b.c[part], b.c[1 - part], &b, part,
+                                       blockIdx.x + base_z,
+                                       blockIdx.y + base_y, chunk + base_x);
+}
+
+typedef void (*KernelFn)(FamilyParams, int, int, int);
+typedef void (*BlochFn)(BlochParams, int, int, int);
+
+template <bool TAB>
+static KernelFn kernel_tab(bool is_e, bool bulk, bool vec) {
+    if (is_e)
+        return bulk ? family_update_kernel<true, true, true, TAB>
+               : vec ? family_update_kernel<true, false, true, TAB>
+                     : family_update_kernel<true, false, false, TAB>;
+    return bulk ? family_update_kernel<false, true, true, false>
+           : vec ? family_update_kernel<false, false, true, false>
+                 : family_update_kernel<false, false, false, false>;
+}
+
+static KernelFn kernel_for(bool is_e, bool bulk, bool vec = true,
+                           bool tab = false) {
+    return tab ? kernel_tab<true>(is_e, bulk, vec)
+               : kernel_tab<false>(is_e, bulk, vec);
+}
+
+static BlochFn bloch_for(bool is_e, bool bulk, bool vec = true) {
+    if (is_e)
+        return bulk ? family_update_bloch_kernel<true, true, true>
+               : vec ? family_update_bloch_kernel<true, false, true>
+                     : family_update_bloch_kernel<true, false, false>;
+    return bulk ? family_update_bloch_kernel<false, true, true>
+           : vec ? family_update_bloch_kernel<false, false, true>
+                 : family_update_bloch_kernel<false, false, false>;
+}
+
+static cudaError_t prepare(const void* fn) {
+    return cudaFuncSetAttribute(fn,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 smem_bytes());
 }
 
 // Every array a pair load reads or a pair store writes is aligned to a
-// pair, and z holds an even number of cells.
+// pair, and z holds an even number of cells (the currents of a table are
+// checked by the host wrapper).
 static bool pair_aligned(const FamilyParams& p) {
     if (p.n[2] % 2) return false;
     const uintptr_t fa = 2 * sizeof(field_t), qa = 2 * sizeof(q_t);
@@ -537,8 +694,9 @@ static bool pair_aligned(const FamilyParams& p) {
             (uintptr_t)p.out[i] % fa || (uintptr_t)p.ca[i] % 8 ||
             (uintptr_t)p.cb[i] % 8)
             return false;
-    for (int i = 0; i < 6 * p.num_poles; ++i)
-        if ((uintptr_t)p.q[i] % qa) return false;
+    if (!p.poles)
+        for (int i = 0; i < 6 * p.num_poles; ++i)
+            if ((uintptr_t)p.q[i] % qa) return false;
     return true;
 }
 
@@ -552,6 +710,10 @@ static void bulk_range(int lo_cell, int hi_cell, int len, int tiles, int* lo,
 }
 
 extern "C" int t3d_family_params_size() { return (int)sizeof(FamilyParams); }
+extern "C" int t3d_family_bloch_params_size() {
+    return (int)sizeof(BlochParams);
+}
+extern "C" int t3d_family_pole_slot_size() { return (int)sizeof(PoleSlot); }
 
 // The bytes of the field, psi and pole-current values this library stores.
 extern "C" void t3d_family_storage(int32_t* out) {
@@ -561,35 +723,35 @@ extern "C" void t3d_family_storage(int32_t* out) {
 }
 
 // Threads, shared bytes, blocks per SM and registers of the E (is_e) or H
-// instantiation, bulk or the shell of pair-aligned arrays; a CUDA error
-// code, or 0.
-extern "C" int t3d_family_info(int is_e, int bulk, int32_t* out) {
-    const KernelFn fn = kernel_for(is_e != 0, bulk != 0);
+// instantiation, bulk or the shell of pair-aligned arrays, of a real run
+// (mode 0), a real run with the pole table (mode 1) or a Bloch run (mode
+// 2); a CUDA error code, or 0.
+extern "C" int t3d_family_info(int is_e, int bulk, int mode,
+                               int32_t* out) {
+    const void* fn = mode == 2 ? (const void*)bloch_for(is_e != 0, bulk != 0)
+                               : (const void*)kernel_for(is_e != 0, bulk != 0,
+                                                         true, mode == 1);
     cudaError_t err = prepare(fn);
     if (err != cudaSuccess) return (int)err;
     out[0] = THREADS;
     out[1] = smem_bytes();
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, (const void*)fn, THREADS, smem_bytes());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
+                                                        smem_bytes());
     if (err != cudaSuccess) return (int)err;
     out[2] = blocks;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, (const void*)fn);
+    err = cudaFuncGetAttributes(&attr, fn);
     out[3] = attr.numRegs;
     return (int)err;
 }
 
-// The bulk launch over the box of bulk tiles (when the arrays are
-// pair-aligned), then the shell launch over every tile. counts (may be
-// null): the two launches' blocks and the launches made.
-extern "C" int t3d_family_update(const FamilyParams* p, void* stream,
-                                 int32_t* counts) {
-    if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
-    if (p->num_poles < 0 || p->num_poles > MAX_POLES ||
-        (int64_t)p->n[0] * p->n[1] * p->n[2] > 0x7fffffffLL)
-        return (int)cudaErrorInvalidValue;
-    FamilyParams q = *p;
+// Checks the call, marks pair alignment and sets the bulk box of q; the
+// grid's tiles (z, y, x chunk) in tiles and the bulk tiles' box in lo/hi.
+static cudaError_t plan_call(FamilyParams& q, int* tiles, int* lo, int* hi) {
+    if (q.num_poles < 0 || (!q.poles && q.num_poles > MAX_POLES) ||
+        (int64_t)q.n[0] * q.n[1] * q.n[2] > 0x7fffffffLL)
+        return cudaErrorInvalidValue;
     q.vec = pair_aligned(q) ? 1 : 0;
     const bool is_e = q.is_e != 0;
     for (int a = 0; a < 3; ++a) {
@@ -598,41 +760,93 @@ extern "C" int t3d_family_update(const FamilyParams* p, void* stream,
         q.bulk_hi[a] = is_e ? q.n[a] - q.w[2 * a + 1]
                             : min(q.n[a] - 1, q.n[a] - q.w[2 * a + 1]);
     }
-    const int tiles[3] = {(q.n[2] + TZ - 1) / TZ, (q.n[1] + TY - 1) / TY,
-                          (q.n[0] + BX - 1) / BX};
-    if (tiles[1] > 65535 || tiles[2] > 65535)
-        return (int)cudaErrorInvalidConfiguration;
-    const KernelFn shell = kernel_for(is_e, false, q.vec != 0);
-    const KernelFn bulk = kernel_for(is_e, true);
-    cudaError_t err = prepare(shell);
-    if (err == cudaSuccess) err = prepare(bulk);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem_bytes();
-    cfg.stream = (cudaStream_t)stream;
-    int lo[3] = {0, 0, 0}, hi[3] = {0, 0, 0};
+    tiles[0] = (q.n[2] + TZ - 1) / TZ;
+    tiles[1] = (q.n[1] + TY - 1) / TY;
+    tiles[2] = (q.n[0] + BX - 1) / BX;
+    if (tiles[1] > 65535 || 2 * tiles[2] > 65535)
+        return cudaErrorInvalidConfiguration;
+    for (int a = 0; a < 3; ++a) lo[a] = hi[a] = 0;
     if (q.vec) {
         bulk_range(max(q.bulk_lo[2], 2), q.bulk_hi[2], TZ, tiles[0], &lo[0],
                    &hi[0]);
         bulk_range(q.bulk_lo[1], q.bulk_hi[1], TY, tiles[1], &lo[1], &hi[1]);
         bulk_range(q.bulk_lo[0], q.bulk_hi[0], BX, tiles[2], &lo[2], &hi[2]);
     }
+    return cudaSuccess;
+}
+
+// The bulk launch over the box of bulk tiles (when the arrays are
+// pair-aligned), then the shell launch over every tile; `copies` z blocks
+// per x chunk (2: both copies of a Bloch run). counts (may be null): the
+// two launches' blocks and the launches made.
+template <typename Fn, typename Params>
+static int launch_pair(Fn bulk, Fn shell, Params& q, const int* tiles,
+                       const int* lo, const int* hi, int copies,
+                       int* nchunk, void* stream, int32_t* counts) {
+    cudaError_t err = prepare((const void*)shell);
+    if (err == cudaSuccess) err = prepare((const void*)bulk);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem_bytes();
+    cfg.stream = (cudaStream_t)stream;
     const int64_t nbulk = (int64_t)(hi[0] - lo[0]) * (hi[1] - lo[1]) *
                           (hi[2] - lo[2]);
     if (nbulk > 0) {
-        cfg.gridDim = dim3(hi[0] - lo[0], hi[1] - lo[1], hi[2] - lo[2]);
+        if (nchunk) *nchunk = hi[2] - lo[2];
+        cfg.gridDim = dim3(hi[0] - lo[0], hi[1] - lo[1],
+                           copies * (hi[2] - lo[2]));
         err = cudaLaunchKernelEx(&cfg, bulk, q, lo[0], lo[1], lo[2]);
         if (err == cudaSuccess) err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    cfg.gridDim = dim3(tiles[0], tiles[1], tiles[2]);
+    if (nchunk) *nchunk = tiles[2];
+    cfg.gridDim = dim3(tiles[0], tiles[1], copies * tiles[2]);
     err = cudaLaunchKernelEx(&cfg, shell, q, 0, 0, 0);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (counts) {
-        counts[0] = (int32_t)nbulk;
-        counts[1] = tiles[0] * tiles[1] * tiles[2];
+        counts[0] = (int32_t)(copies * nbulk);
+        counts[1] = copies * tiles[0] * tiles[1] * tiles[2];
         counts[2] = nbulk > 0 ? 2 : 1;
     }
     return (int)err;
+}
+
+// One family of a real run: with p->poles, the pole slots from that table
+// (any number), else up to MAX_POLES from the parameter block.
+extern "C" int t3d_family_update(const FamilyParams* p, void* stream,
+                                 int32_t* counts) {
+    if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
+    FamilyParams q = *p;
+    int tiles[3], lo[3], hi[3];
+    cudaError_t err = plan_call(q, tiles, lo, hi);
+    if (err != cudaSuccess) return (int)err;
+    const bool is_e = q.is_e != 0, tab = q.poles != nullptr;
+    return launch_pair(kernel_for(is_e, true, true, tab),
+                       kernel_for(is_e, false, q.vec != 0, tab), q, tiles,
+                       lo, hi, 1, nullptr, stream, counts);
+}
+
+// One family of both copies of a Bloch run (each copy's poles from its
+// table); the copies share the layout.
+extern "C" int t3d_family_update_bloch(const BlochParams* b, void* stream,
+                                       int32_t* counts) {
+    if (b->c[0].n[0] <= 0 || b->c[0].n[1] <= 0 || b->c[0].n[2] <= 0)
+        return 0;
+    BlochParams q = *b;
+    int tiles[3], lo[3], hi[3], tiles1[3], lo1[3], hi1[3];
+    cudaError_t err = plan_call(q.c[0], tiles, lo, hi);
+    if (err == cudaSuccess) err = plan_call(q.c[1], tiles1, lo1, hi1);
+    if (err != cudaSuccess) return (int)err;
+    for (int a = 0; a < 3; ++a)
+        if (q.c[1].n[a] != q.c[0].n[a] || q.c[1].w[2 * a] != q.c[0].w[2 * a] ||
+            q.c[1].w[2 * a + 1] != q.c[0].w[2 * a + 1])
+            return (int)cudaErrorInvalidValue;
+    if (q.c[0].vec != q.c[1].vec || (q.c[0].num_poles && !q.c[0].poles) ||
+        (q.c[1].num_poles && !q.c[1].poles))
+        return (int)cudaErrorInvalidValue;
+    const bool is_e = q.c[0].is_e != 0;
+    return launch_pair(bloch_for(is_e, true), bloch_for(is_e, false,
+                                                        q.c[0].vec != 0),
+                       q, tiles, lo, hi, 2, &q.nchunk, stream, counts);
 }

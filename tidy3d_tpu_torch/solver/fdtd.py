@@ -1,9 +1,10 @@
 """The FDTD time-stepping runner in PyTorch: the counterpart of
 ``tidy3d_tpu/solver/fdtd.py``.
 
-One step is an E half-step, E-source injection, the dispersive pole update,
-an H half-step, H-source injection and running-DFT / time-sample monitor
-accumulation, exactly as in ``tidy3d_tpu.solver.fdtd.FDTDRunner._step``.
+One step is an E half-step, E-source injection, the modulation and nonlinear
+passes, the dispersive pole update, an H half-step, H-source injection and
+running-DFT / time-sample monitor accumulation, exactly as in
+``tidy3d_tpu.solver.fdtd.FDTDRunner._step``.
 The field update runs on one of three tiers (``self.tier``), each a
 hand-written CUDA kernel for tensors on the GPU and its plain PyTorch
 version for tensors on the CPU:
@@ -16,14 +17,22 @@ version for tensors on the CPU:
 * ``fused``: one call of ``kernels.fused.fused_step`` per step (both
   half-steps, J sources and the pole update inside), then the H sources
   and the monitors, in the order of ``FDTDRunner._step_fused``;
-* ``pallas2``: two calls of ``kernels.step.family_update`` per step, the
-  pole update (``update_poles``, plain PyTorch) between them.
+* ``pallas2``: two calls of the family kernel per step
+  (``kernels.step.family_update_copies``: both copies of a Bloch run in one
+  launch), with the J sources, the modulation and nonlinear passes
+  (``kernels.post_e``, one launch; constants and plain version in
+  ``nonlinear``) and the pole update (``update_poles``, plain PyTorch) of
+  each copy between them, in the order of ``FDTDRunner._step``.
 
 ``TIDY3D_TPU_KERNEL`` picks the tier as in the JAX package: ``auto`` (the
 default) takes, on a CUDA device, ``kstep`` when the k-step kernel takes the
 run, else ``fused`` when the fused kernel does, else ``pallas2``; on the
 CPU it starts at ``fused``, as the JAX package's ``auto`` takes its XLA path
 off the TPU, so the CPU default samples the monitors at every step.
+Nonlinear and modulated plans take ``pallas2`` (the passes sit between the
+E update and the pole update, where neither the fused nor the k-step kernel
+leaves a place, as the JAX package's ``supported`` gates decide); more than
+``MAX_POLES`` pole slots leave the k-step kernel, as in the JAX package.
 ``kstep``, ``fused`` and ``pallas2`` force a tier, and a forced tier that
 does not take the run raises. ``xla``, which selects the JAX package's
 two-phase reference path, selects ``pallas2``, and an ``_interpret`` suffix
@@ -47,18 +56,20 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
   kstep tier reads one buffer set and writes the other, and the fused tier
   one pole-current set and the other (ping-pong, allocated once in
   ``init_state`` as ``state["alt"]``).
-* The plain pole update of the ``pallas2`` tier and the monitor
-  accumulation run inside the profiler ranges ``fdtd.poles`` and
-  ``fdtd.monitors``.
+* The plain pole update of the ``pallas2`` tier, its modulation and
+  nonlinear passes and the monitor accumulation run inside the profiler
+  ranges ``fdtd.poles``, ``fdtd.post_e`` and ``fdtd.monitors``.
 
 Bloch (complex) runs step two real copies of the fields (re and im: ``E``,
-``H``, ``psi`` and ``E1``, ``H1``, ``psi1``) that mix only where a stencil
-wraps across an axis with a Bloch phase and in the complex source terms.
-They run on the kstep tier only, as in the JAX package, whose one-step
-kernels have no copy machinery (``tidy3d_tpu/solver/fdtd.py:297-300``):
-``auto`` takes kstep on the CPU too, a forced one-step tier raises, and so
-does a plan the kstep tier does not take. The DFT adds copy 1 rotated into
-both quadratures, time monitors record copy 0.
+``H``, ``psi``, ``Q`` and ``E1``, ``H1``, ``psi1``, ``Q1``) that mix only
+where a stencil wraps across an axis with a Bloch phase and in the complex
+source terms. They take the kstep tier where the k-step kernel takes them
+(``auto`` tries it on the CPU too) and ``pallas2`` otherwise (poles,
+modulation, a time monitor off the group ends, more source terms than the
+k-step table), where the JAX package steps them on its XLA path
+(``tidy3d_tpu/solver/fdtd.py:297-300``); a forced ``fused`` raises (no
+copies). The DFT adds copy 1 rotated into both quadratures, time monitors
+record copy 0. A nonlinear Bloch run raises, as in the JAX package.
 
 Sharded runs (``sharding_plan``, a ``sharding.ShardingPlan``) split x into
 slabs, one per mesh entry, on the kstep tier, as the JAX package's
@@ -79,10 +90,12 @@ sharded on the kstep tier or raises, and mixed 2D/3D decompositions and
 sharded Bloch runs, which the JAX package sends to its GSPMD XLA path,
 raise ``NotImplementedError``.
 
-Covered: linear runs, real with up to ``MAX_POLES`` dispersive
-(pole-residue) pole slots, or complex without poles (unsharded). Nonlinear
-media, time modulation and Bloch runs with poles (the JAX package runs them
-on its XLA path only) raise ``NotImplementedError``.
+Covered: every plan the JAX package runs on one device: real or complex
+(Bloch) runs with any number of dispersive (pole-residue) pole slots, time
+modulation in either, nonlinear media in real runs. Sharded Bloch runs and
+mixed 2D/3D decompositions (the JAX package's GSPMD XLA path) raise
+``NotImplementedError``, and so does a nonlinear Bloch run (as the JAX
+package refuses it).
 
 Storage types (``storage_types``), as the JAX package picks them
 (``tidy3d_tpu/solver/fdtd.py:115-122``, ``pallas_kstep.py:158-175``): the
@@ -150,7 +163,12 @@ from .kernels import fused as fused_kernels
 from .kernels import kstep as kstep_kernels
 from .kernels import step as step_kernels
 from .kernels.step import MAX_POLES, StepMeta
+from .kernels import post_e as post_e_kernels
 from .lowering import E_COMPS, H_COMPS, SimulationPlan
+from .nonlinear import (
+    build_post_e_constants, compact, has_post_e, pad_mod_tables,
+    post_e_reference, post_e_to_device,
+)
 from .plan_rotate import perm_for_rot, rotate_plan, unrotate_raw
 from .sharding import ShardingPlan, XSlabs, mesh_devices
 
@@ -168,6 +186,7 @@ AUTODIFF_TIER = ("autodiff: PyTorch autograd through the plain pallas2 step "
 # TIDY3D_TPU_KERNEL value -> requested tier ("auto" chooses)
 _KERNEL_ENV = {"auto": "auto", "kstep": "kstep", "fused": "fused",
                "pallas2": "pallas2", "xla": "pallas2"}
+Q_KEYS = ("Q", "Q1")    # the pole currents of copy 0 and copy 1
 
 
 def _axis_reshape(vec: np.ndarray, axis: int) -> np.ndarray:
@@ -212,18 +231,11 @@ def type_name(dtype: torch.dtype) -> str:
 
 
 def _check_supported(plan: SimulationPlan, precision) -> None:
-    if len(plan.poles) > MAX_POLES:
+    if plan.is_complex and plan.nonlinear is not None:
+        # the reference's refusal and words (tidy3d_tpu/solver/fdtd.py:124)
         raise NotImplementedError(
-            f"{len(plan.poles)} dispersive pole slots: the port takes at "
-            f"most {MAX_POLES}")
-    if plan.nonlinear is not None:
-        raise NotImplementedError("nonlinear media are not ported yet")
-    if plan.modulation:
-        raise NotImplementedError("time-modulated media are not ported yet")
-    if plan.is_complex and plan.poles:
-        raise NotImplementedError(
-            "Bloch boundaries with dispersive poles are not ported yet (the "
-            "JAX package runs them on its XLA path only)")
+            "nonlinear media with Bloch (complex-field) boundaries are "
+            "not supported")
     field_dtype(precision)
 
 
@@ -239,19 +251,12 @@ def bloch_phases(plan: SimulationPlan):
 def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
     """Host (numpy) constants of one plan: ``(consts, pml_meta)``.
 
-    The port of ``FDTDRunner._build_constants`` for the runs the port covers,
-    with tile quanta 1, 1, 1. ``pml_meta[(family, axis)]`` is the
+    The port of ``FDTDRunner._build_constants``, with tile quanta 1, 1, 1
+    (the modulation and nonlinear constants: ``nonlinear``).
+    ``pml_meta[(family, axis)]`` is the
     ``(w_lo, w_hi)`` width of the psi slabs, ``family`` being ``"dual"`` (E
     update) or ``"primal"`` (H update)."""
     f32 = np.float32
-
-    def compact(arr):
-        arr = np.asarray(arr, f32)
-        flat0 = arr.flat[0]
-        if np.all(arr == flat0):
-            return f32(flat0)
-        return arr
-
     consts: dict = {}
     consts["coeffs_E"] = {c: (compact(a), compact(b))
                           for c, (a, b) in plan.coeffs_E.items()}
@@ -306,6 +311,7 @@ def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
             consts["wall_masks"][comp] = masks
     consts["dft"] = build_dft_tables(plan)
     consts.update(build_pole_constants(plan))
+    consts.update(build_post_e_constants(plan, consts["coeffs_E"]))
     return consts, pml_meta
 
 
@@ -462,11 +468,14 @@ def kstep_unsupported_reason(plan: SimulationPlan, k: int,
                              num_sources: Dict[str, int]):
     """Why the k-step tier does not take the plan at group size k, or
     None if it does. The semantic gates of ``PallasKStepper.supported``
-    (real, linear, unmodulated, at most ``MAX_POLES`` pole slots, monitors
-    that sample at group ends) and the kernel's own (its k, its source
+    (no Bloch copies with poles, linear, unmodulated, at most
+    ``MAX_POLES`` pole slots, monitors that sample at group ends;
+    ``pallas_kstep.py:290-299``) and the kernel's own (its k, its source
     tables: ``kstep.unsupported_reason``). The TPU's layout gates (z
     alignment, profile and waveform byte caps, packed z-psi lanes, VMEM
     configuration) do not apply."""
+    if plan.is_complex and plan.poles:
+        return "Bloch copies with dispersive poles"
     if plan.nonlinear is not None or plan.modulation:
         return "nonlinear or time-modulated media"
     if len(plan.poles) > MAX_POLES:
@@ -573,27 +582,34 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
     pallas2, as the JAX package does on the TPU; ``auto`` on the CPU takes
     fused, as the JAX package takes its XLA path off the TPU, so the CPU
     default keeps every-step monitor sampling. A complex (Bloch) plan takes
-    kstep on every device: the one-step tiers have no Bloch copies; so
-    does a ``sharded`` run: only the k-step kernel has a shard-local mode.
-    A forced tier that does not take the run raises, and so does a complex
-    or sharded plan that the kstep tier does not take.
-    ``_check_supported`` has already refused what no tier takes."""
+    kstep where the k-step kernel takes it (on every device) and pallas2
+    otherwise (poles, modulation, a time monitor off the group ends, more
+    source terms than its table): the fused kernel has no Bloch copies, as
+    the JAX package's one-step kernels have none and it steps such plans on
+    its XLA path. A nonlinear or modulated plan leaves kstep and fused,
+    whose kernels leave no place for the passes between the E update and
+    the pole update (``PallasFusedStepper.supported``), and takes pallas2.
+    A ``sharded`` run takes kstep: only the k-step kernel has a shard-local
+    mode. A forced tier that does not take the run raises, and so does a
+    sharded plan that the kstep tier does not take. ``_check_supported``
+    has already refused what no tier takes."""
     kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
     # the CPU runs the plain versions, so the interpret modes are the tiers
     want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
     if want is None:
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel!r}: the port has the "
                          "tiers " + ", ".join(sorted(_KERNEL_ENV)))
-    if plan.is_complex and want not in ("auto", "kstep"):
+    if plan.is_complex and want == "fused":
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
-                         "no Bloch copies; complex runs take the kstep tier")
+                         "no Bloch copies; complex runs take the kstep or "
+                         "the pallas2 tier")
     if sharded and want not in ("auto", "kstep"):
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
                          "no shard-local mode; sharded runs take the kstep "
                          "tier")
-    only_kstep = want == "kstep" or plan.is_complex or sharded
-    if only_kstep or (want == "auto"
-                      and torch.device(device).type == "cuda"):
+    only_kstep = want == "kstep" or sharded
+    if only_kstep or (want == "auto" and (
+            plan.is_complex or torch.device(device).type == "cuda")):
         reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
                    " disables it"] if not kstep_order() else []
         for k in kstep_order():
@@ -604,13 +620,26 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
         if only_kstep:
             raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the kstep tier "
                              f"does not take this run ({'; '.join(reasons)})")
-    reason = fused_kernels.unsupported_reason(num_sources["E"])
+    if plan.is_complex:
+        return "pallas2", 1
+    reason = fused_unsupported_reason(plan, num_sources)
     if want == "auto":
         return ("fused", 1) if reason is None else ("pallas2", 1)
     if want == "fused" and reason is not None:
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the fused tier does "
                          f"not take this run ({reason})")
     return want, 1
+
+
+def fused_unsupported_reason(plan: SimulationPlan,
+                             num_sources: Dict[str, int]):
+    """Why the fused tier does not take a real plan, or None if it does:
+    nonlinear or modulated media (``PallasFusedStepper.supported``: the
+    passes run between the E update and the pole update) and the kernel's
+    own source-box cap (``fused.unsupported_reason``)."""
+    if plan.nonlinear is not None or plan.modulation:
+        return "nonlinear or time-modulated media"
+    return fused_kernels.unsupported_reason(num_sources["E"])
 
 
 def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
@@ -753,6 +782,7 @@ def consts_to_device(consts: dict, device) -> dict:
         "pole_scalars": list(consts["pole_scalars"]),
         "pole_B_meta": consts["pole_B_meta"],
     }
+    out.update(post_e_to_device(consts, lambda v: _dev(v, device)))
     return out
 
 
@@ -986,14 +1016,22 @@ class FDTDRunner:
 
     def step_sources(self, family: str, step: int) -> list:
         """``(comp, slices, term, w)`` of each source term at ``step`` (the
-        one-step tiers: real runs only)."""
+        one-step tiers of a real run)."""
         return [(s.comp, s.slices, s.term, float(self._waveforms[s.key, step]))
                 for s in self._sources[family]]
 
-    def _inject(self, family: str, fields: dict, step: int):
-        """Adds the source terms of ``family`` at ``step``, each rounded to
-        the fields' type first, as the reference adds
-        ``delta.astype(dtype)`` (``tidy3d_tpu/solver/fdtd.py:1522-1527``)."""
+    def _inject(self, family: str, fields: dict, step: int, part: int = 0):
+        """Adds the source terms of ``family`` at ``step`` to copy ``part``,
+        each rounded to the fields' type first, as the reference adds
+        ``delta.astype(dtype)`` (``tidy3d_tpu/solver/fdtd.py:1522-1527``); a
+        complex run's copy takes its part of each complex term
+        (``kstep.complex_adds``, what the reference's per-plan deltas of
+        that copy add, ``:1127-1143``)."""
+        if self.is_complex:
+            for comp, sl, *adds in kstep_kernels.complex_adds(
+                    self._sources[family], self._waveforms, step):
+                fields[comp][sl].add_(adds[part].to(fields[comp].dtype))
+            return
         for comp, sl, term, w in self.step_sources(family, step):
             fields[comp][sl].add_((term * w).to(fields[comp].dtype))
 
@@ -1023,17 +1061,21 @@ class FDTDRunner:
 
     def _fields(self, meta: StepMeta, device) -> dict:
         """Zero fields, psi slabs and pole currents (both copies of a
-        complex run) of the run or of one shard."""
+        complex run, ``Q1`` the second copy's currents) of the run or of
+        one shard."""
         shape = meta.array_shape
 
         def zeros(s, dtype=self.dtype):
             return torch.zeros(s, dtype=dtype, device=device)
 
-        out = {"Q": [{c: (zeros(shape, self.q_dtype),
-                          zeros(shape, self.q_dtype)) for c in E_COMPS}
-                     for _ in self.plan.poles]}
-        # copy 1 of a complex run: the imaginary part
-        for e, h, p in kstep_kernels.COPIES[:1 + self.is_complex]:
+        out = {}
+        # copy 1 of a complex run: the imaginary part, with its own pole
+        # currents Q1 (tidy3d_tpu/solver/fdtd.py:816-821)
+        for (e, h, p), q in zip(kstep_kernels.COPIES[:1 + self.is_complex],
+                                Q_KEYS):
+            out[q] = [{c: (zeros(shape, self.q_dtype),
+                           zeros(shape, self.q_dtype)) for c in E_COMPS}
+                      for _ in self.plan.poles]
             out[e] = {c: zeros(shape) for c in E_COMPS}
             out[h] = {c: zeros(shape) for c in H_COMPS}
             out[p] = {k: zeros(s, self.psi_dtype)
@@ -1093,10 +1135,14 @@ class FDTDRunner:
     # the step
     # ------------------------------------------------------------------ #
 
-    def _family_update(self, family, state, src_fields):
-        fn = step_kernels.family_update if self.use_kernel \
-            else step_kernels.family_update_reference
-        return fn(family, state, self.consts, src_fields, self.meta)
+    def _family_update(self, family, views, srcs) -> list:
+        """``[(new_fields, new_psi)]`` of ``family`` per copy (``views``,
+        ``srcs``: each copy's state and source fields): the kernel, which
+        takes both copies of a complex run in one launch, or the plain
+        version copy by copy."""
+        fn = step_kernels.family_update_copies if self.use_kernel \
+            else step_kernels.family_update_copies_reference
+        return fn(family, views, self.consts, srcs, self.meta)
 
     def _accumulate_monitors(self, step: int, newE, newH, mon, newE1=None,
                              newH1=None, dft: dict = None,
@@ -1159,14 +1205,7 @@ class FDTDRunner:
                     state, self.consts, self.meta, sources)
             self._inject("H", nH, step)
         else:
-            nE, psi_E = self._family_update("E", state, state["H"])
-            self._inject("E", nE, step)
-            Q = self._update_poles(nE, state)
-            nH, psi_H = self._family_update("H", state, nE)
-            self._inject("H", nH, step)
-            psi = dict(state["psi"])
-            psi.update(psi_E)
-            psi.update(psi_H)
+            return self._step_two_phase(step, state)
         with record_function("fdtd.monitors"):
             mon = self._accumulate_monitors(step, nE, nH, state["mon"])
         new = {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
@@ -1174,11 +1213,61 @@ class FDTDRunner:
             new["alt"] = {"Q": state["Q"]}
         return new
 
-    def _update_poles(self, new_e, state):
-        if not state["Q"]:
-            return state["Q"]
+    def _views(self, state: dict) -> list:
+        """Per copy, ``{"E", "H", "psi", "Q"}`` of ``state``: one for a real
+        run, two (re, im) for a complex one (``FDTDRunner._views``)."""
+        return [{"E": state[e], "H": state[h], "psi": state[p],
+                 "Q": state[q]} for (e, h, p), q in
+                zip(kstep_kernels.COPIES[:1 + self.is_complex], Q_KEYS)]
+
+    def _step_two_phase(self, step: int, state: dict) -> dict:
+        """One step on ``pallas2``, in the order of the reference's XLA
+        ``_step`` (``tidy3d_tpu/solver/fdtd.py:1614-1723``): the E family of
+        every copy (one call; a complex run's two copies in one launch),
+        then per copy its J sources, the modulation and nonlinear passes
+        (``fdtd.post_e``) and the pole update (Q1 for copy 1), then the H
+        family of every copy from the new E, its M sources and the
+        monitors (copy 1 rotated into the DFT)."""
+        views = self._views(state)
+        newE, newQ = [], []
+        outs = self._family_update("E", views, [v["H"] for v in views])
+        for p, (view, (nE, _)) in enumerate(zip(views, outs)):
+            self._inject("E", nE, step, p)
+            nE = self._post_e(nE, view["E"], step)
+            newE.append(nE)
+            newQ.append(self._update_poles(nE, view))
+        psis = [dict(v["psi"], **pE) for v, (_, pE) in zip(views, outs)]
+        outs = self._family_update("H", views, newE)
+        newH = []
+        for p, (nH, pH) in enumerate(outs):
+            self._inject("H", nH, step, p)
+            newH.append(nH)
+            psis[p].update(pH)
+        with record_function("fdtd.monitors"):
+            mon = self._accumulate_monitors(
+                step, newE[0], newH[0], state["mon"],
+                *(newE[1:] + newH[1:]))
+        new = {"mon": mon}
+        for (e, h, p), q, nE, nH, psi, Q in zip(
+                kstep_kernels.COPIES, Q_KEYS, newE, newH, psis, newQ):
+            new.update({e: nE, h: nH, p: psi, q: Q})
+        return new
+
+    def _post_e(self, new_e: dict, old_e: dict, step: int) -> dict:
+        """The modulation and nonlinear passes on one copy's E (``new_e``
+        in place on a card's kernel, a new dict from the plain version)."""
+        if not has_post_e(self.consts):
+            return new_e
+        with record_function("fdtd.post_e"):
+            if self.use_kernel:
+                return post_e_kernels.post_e(new_e, old_e, self.consts, step)
+            return post_e_reference(new_e, old_e, self.consts, step)
+
+    def _update_poles(self, new_e, view):
+        if not view["Q"]:
+            return view["Q"]
         with record_function("fdtd.poles"):
-            return update_poles(new_e, state["E"], state["Q"], self.consts)
+            return update_poles(new_e, view["E"], view["Q"], self.consts)
 
     def step_group(self, gi: int, state: dict, accumulate: bool = True
                    ) -> dict:
@@ -1310,6 +1399,9 @@ class FDTDRunner:
         if extra <= 0:
             return
         self._waveforms = np.pad(self._waveforms, ((0, 0), (0, extra)))
+        pad_mod_tables(self.host_consts, extra)
+        if self.consts is not None:
+            pad_mod_tables(self.consts, extra)
         self.host_consts["dft"] = {
             k: tuple(np.pad(t, ((0, extra), (0, 0))) for t in tables)
             for k, tables in self.host_consts["dft"].items()}
@@ -1388,6 +1480,8 @@ class FDTDRunner:
                 for storage in self.kernel_storages():
                     {"kstep": kstep_kernels, "fused": fused_kernels,
                      "pallas2": step_kernels}[self.tier].prepare(dev, storage)
+                    if has_post_e(self.host_consts):
+                        post_e_kernels.prepare(dev, storage[0])
         self.compile_time = _time.perf_counter() - t0
 
         cuda_devices = [dev for dev in self.devices if dev.type == "cuda"]
@@ -1509,8 +1603,9 @@ class FDTDRunner:
     def _diff_step(self, step: int, state: dict, consts: dict) -> dict:
         """One step out of place, in the order of the reference's XLA
         ``_step`` (``fdtd.py:1614-1723``): the plain E family, the J
-        sources, the pole update, the plain H family, the M sources and the
-        monitors; a new state, ``state`` left as it is. The families are
+        sources, the modulation and nonlinear passes, the pole update, the
+        plain H family, the M sources and the monitors; a new state,
+        ``state`` left as it is. The families are
         ``family_update_reference`` in float32, which builds new tensors."""
         def family(name, src_fields):
             return step_kernels.family_update_reference(
@@ -1518,6 +1613,8 @@ class FDTDRunner:
 
         nE, psi_E = family("E", state["H"])
         nE = self._add_sources("E", nE, step, consts)
+        if has_post_e(consts):
+            nE = post_e_reference(nE, state["E"], consts, step)
         Q = pole_update(nE, state["E"], state["Q"], consts)
         nH, psi_H = family("H", nE)
         nH = self._add_sources("H", nH, step, consts)
@@ -1740,7 +1837,8 @@ class FDTDRunner:
                 # a one-step tier: the E, H and psi of the next step, beside
                 # the fused tier's second pole-current set
                 st = dict(st, alt=dict(st.get("alt", {}), **{
-                    key: st[key] for key in ("E", "H", "psi")}))
+                    key: st[key] for key in ("E", "H", "psi", "E1", "H1",
+                                             "psi1") if key in st}))
             for _, t in _named(st, skip=()):
                 n = t.numel() * t.element_size()
                 halo = n * 2 * self.k // padded \

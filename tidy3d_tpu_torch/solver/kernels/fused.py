@@ -48,16 +48,18 @@ from .step import MAX_POLES, StepMeta, _check_field, storage_of
 
 LAUNCHES = 0
 DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
+MANY_POLES_LAUNCHES = 0  # calls with more than MAX_POLES pole slots
 MAX_SOURCES = 32    # J source boxes the kernel takes (csrc/fused.cu)
 
 Source = Tuple[str, Tuple[slice, slice, slice], torch.Tensor, float]
 
 
 def unsupported_reason(num_sources: int) -> Optional[str]:
-    """Why the fused tier does not take a run with ``num_sources`` E-side
-    source terms, or None if it does. (The runner refuses complex,
-    nonlinear and modulated runs and more than ``MAX_POLES`` poles on
-    either tier.)"""
+    """Why the fused kernel does not take a run with ``num_sources``
+    E-side source terms, or None if it does. (The runner's
+    ``select_tier`` keeps complex, nonlinear and modulated runs off the
+    fused tier; the kernel takes any number of pole slots, more than
+    ``MAX_POLES`` from a device table.)"""
     if num_sources > MAX_SOURCES:
         return (f"{num_sources} E-side source terms (the kernel takes "
                 f"{MAX_SOURCES})")
@@ -147,8 +149,60 @@ class FusedParams(ctypes.Structure):
         ("bk_lo", _I3), ("bk_hi", _I3), ("pec_lo", _I3),
         ("bulk_lo", _I3), ("bulk_hi", _I3),
         ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32),
-        ("vec", ctypes.c_int32),
+        ("vec", ctypes.c_int32), ("poles", ctypes.c_void_p),
     ]
+
+
+class PoleSlot(ctypes.Structure):
+    """Mirror of ``struct PoleSlot`` in ``csrc/fused.cu``: one slot of the
+    device table of a call with more than ``MAX_POLES`` slots."""
+
+    _fields_ = [
+        ("q", ctypes.c_void_p * 6), ("q_out", ctypes.c_void_p * 6),
+        ("b", ctypes.c_void_p * 6),
+        ("gc_re", ctypes.c_float), ("gc_im", ctypes.c_float),
+        ("a_re", ctypes.c_float), ("a_im", ctypes.c_float),
+        ("b0", ctypes.c_float * 6), ("kind", ctypes.c_int32 * 3),
+        ("pad", ctypes.c_int32),
+    ]
+
+
+def pole_table(state, q_out, consts, shape, dtype, device) -> torch.Tensor:
+    """The device table of every pole slot (``PoleSlot``): the slots' Gc and
+    A, their currents and outputs (of type ``dtype``) and, per component,
+    the residue's kind, maps and B0, as ``step.set_pole_update_params``
+    fills the parameter block's."""
+    poles = step.pole_terms(state, consts)
+    if len(q_out) != len(poles):
+        raise ValueError(f"out holds {len(q_out)} pole currents, the plan "
+                         f"{len(poles)} poles")
+    slots = (PoleSlot * len(poles))()
+    for pi, ((gc_re, gc_im, Qp), (A, _), metas) in enumerate(zip(
+            poles, consts["pole_scalars"], consts["pole_B_meta"])):
+        slot = slots[pi]
+        slot.gc_re, slot.gc_im = gc_re, gc_im
+        slot.a_re, slot.a_im = A.real, A.imag
+        for ci, comp in enumerate(E_COMPS):
+            for part in range(2):
+                for arr, tensors, what in ((slot.q, Qp, "Q"),
+                                           (slot.q_out, q_out[pi], "out Q")):
+                    arr[2 * ci + part] = step.check_pair_aligned(
+                        _check_field(tensors[comp][part], shape,
+                                     f"{what}{pi}_{comp}", dtype),
+                        f"{what}{pi}_{comp}").data_ptr()
+            m = metas[ci]
+            slot.kind[ci] = step.POLE_KIND[m["kind"]]
+            if m["kind"] == "mask":
+                slot.b[2 * ci] = _check_field(
+                    consts["pole_masks"][m["mask_id"]], shape,
+                    f"pole mask {m['mask_id']}").data_ptr()
+                slot.b0[2 * ci], slot.b0[2 * ci + 1] = m["B0"]
+            elif m["kind"] == "dense":
+                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
+                slot.b[2 * ci] = _check_field(b_re, shape, "B re").data_ptr()
+                slot.b[2 * ci + 1] = _check_field(b_im, shape,
+                                                  "B im").data_ptr()
+    return step.pole_table(slots, device)
 
 
 def _library(storage=(torch.float32,) * 3):
@@ -158,6 +212,7 @@ def _library(storage=(torch.float32,) * 3):
     fn = lib.t3d_fused_step
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_fused_params_size", FusedParams)
+        _build.check_struct(lib, "t3d_fused_pole_slot_size", PoleSlot)
         step.check_storage(lib, "t3d_fused_storage", storage)
         fn.argtypes = [ctypes.POINTER(FusedParams), ctypes.c_void_p,
                        ctypes.c_void_p]
@@ -216,7 +271,7 @@ LAST_BLOCKS = (0, 0, 0)
 
 
 def _fused_step_cuda(state, consts, meta, sources, q_out=None):
-    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS
+    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS, MANY_POLES_LAUNCHES
     shape = tuple(meta.shape)
     device = state["E"][E_COMPS[0]].device
     if len(sources) > MAX_SOURCES:
@@ -264,7 +319,15 @@ def _fused_step_cuda(state, consts, meta, sources, q_out=None):
         raise ValueError("fused_step: q_out shares memory with the state's "
                          "pole currents (neighbouring blocks read Q while "
                          "Q' is stored)")
-    step.set_pole_update_params(p, state, q_out, consts, shape, storage[2])
+    table = None
+    if len(state["Q"]) > MAX_POLES:
+        # every slot from a device table (the MANY instantiations)
+        table = pole_table(state, q_out, consts, shape, storage[2], device)
+        p.num_poles = len(state["Q"])
+        p.poles = table.data_ptr()
+    else:
+        step.set_pole_update_params(p, state, q_out, consts, shape,
+                                    storage[2])
 
     p.num_src = len(sources)
     for s, (comp, sl, term, w) in enumerate(sources):
@@ -279,7 +342,9 @@ def _fused_step_cuda(state, consts, meta, sources, q_out=None):
         box_src.w = float(w)
 
     blocks = step.launch_counted(_library(storage), p, device, "fused_step")
+    del table
     LAUNCHES += 1
+    MANY_POLES_LAUNCHES += len(state["Q"]) > MAX_POLES
     DEVICE_LAUNCHES += blocks[2]
     LAST_BLOCKS = blocks
     return new_e, new_h, new_psi, q_out

@@ -226,19 +226,27 @@ class SourceTables:
                 for s in self.sources[family]]
 
     def copy_adds(self, family: str, t: int) -> list:
-        """``(comp, slices, add0, add1)`` of each source term of a complex
-        run at step t: the real and imaginary parts of ``(term + i term_im)
-        (w[key] + i w[key_im])``, which copies 0 and 1 add
-        (``pallas_kstep.py:1047-1049``)."""
-        out = []
-        for s in self.sources[family]:
-            wr, wi = self._w(s.key, t), self._w(s.key_im, t)
-            add0, add1 = s.term * wr, s.term * wi
-            if s.term_im is not None:
-                add0 = add0 - s.term_im * wi
-                add1 = add1 + s.term_im * wr
-            out.append((s.comp, s.slices, add0, add1))
-        return out
+        """``complex_adds`` of the family's terms at step t."""
+        return complex_adds(self.sources[family], self.waveforms, t)
+
+
+def complex_adds(terms: list, waveforms: np.ndarray, t: int) -> list:
+    """``(comp, slices, add0, add1)`` of each ``SourceTerm`` of a complex
+    run at step t (``waveforms``: the host table): the real and imaginary
+    parts of ``(term + i term_im) (w[key] + i w[key_im])``, which copies 0
+    and 1 add (``pallas_kstep.py:1047-1049``)."""
+    def w(key):
+        return 0.0 if key is None else float(waveforms[key, t])
+
+    out = []
+    for s in terms:
+        wr, wi = w(s.key), w(s.key_im)
+        add0, add1 = s.term * wr, s.term * wi
+        if s.term_im is not None:
+            add0 = add0 - s.term_im * wi
+            add1 = add1 + s.term_im * wr
+        out.append((s.comp, s.slices, add0, add1))
+    return out
 
 
 def clip_sources_x(sources: list, shape, shift: int, nx: int) -> list:

@@ -6,8 +6,17 @@ the curl with the boundary column of each axis, the CPML psi recursions of
 all three axes, ``ca * old +- cb * rhs`` and the PEC lo-wall masks. It
 returns ``(new_fields, new_psi)`` with the semantics of
 ``tidy3d_tpu.solver.fdtd.FDTDRunner._update_field_family`` (the XLA path,
-for real runs, with the ``-Re(Gc Q)`` term of up to ``MAX_POLES``
-dispersive poles in the E update) and ``PallasStepper.family_update``.
+with the ``-Re(Gc Q)`` term of every dispersive pole slot in the E update)
+and ``PallasStepper.family_update``. ``family_update_copies`` updates the
+family of every copy of a run: the two real copies of a Bloch (complex) run
+in one launch of the kernel's two-copy instantiation, each copy with its own
+pole currents (``Q1`` for copy 1), the other copy entering where a stencil
+wraps across a Bloch wall.
+
+Pole slots: up to ``MAX_POLES`` ride in the kernel's parameter block; a
+call with more of them, and every Bloch call, passes them in a device
+table of ``PoleSlot`` (``pole_table``, built once per distinct content and
+kept).
 
 Storage: the fields, the psi slabs and the pole currents are float32 or
 bfloat16 tensors (``STORAGE``), as the run stores them. Both versions load
@@ -19,7 +28,9 @@ combination of storage types (``storage_defines``).
 Dispatch is by device: a CPU tensor goes to ``family_update_reference``,
 the XLA body's arithmetic in whole-array operations; a CUDA tensor
 launches the hand-written kernel in ``csrc/step.cu`` or raises.
-``LAUNCHES`` counts the kernel launches.
+``LAUNCHES`` counts the kernel calls, ``BLOCH_LAUNCHES`` those of the
+two-copy instantiation and ``MANY_POLES_LAUNCHES`` those that read more than
+``MAX_POLES`` slots from a table.
 """
 
 from __future__ import annotations
@@ -34,9 +45,11 @@ from ..lowering import E_COMPS, H_COMPS
 
 LAUNCHES = 0
 DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
+BLOCH_LAUNCHES = 0   # calls of the two-copy (Bloch) instantiation
+MANY_POLES_LAUNCHES = 0  # calls with more than MAX_POLES pole slots
 # the last call's blocks (bulk and shell launches) and device launches
 LAST_BLOCKS = (0, 0, 0)
-MAX_POLES = 8       # pole slots the kernels take (csrc/*.cu MAX_POLES)
+MAX_POLES = 8       # pole slots in the parameter block (csrc/*.cu MAX_POLES)
 STORAGE = (torch.float32, torch.bfloat16)   # the storage types of the state
 
 _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
@@ -333,7 +346,53 @@ class FamilyParams(ctypes.Structure):
         ("gc_re", ctypes.c_float * MAX_POLES),
         ("gc_im", ctypes.c_float * MAX_POLES),
         ("q", ctypes.c_void_p * (6 * MAX_POLES)),
+        ("poles", ctypes.c_void_p),
     ]
+
+
+class PoleSlot(ctypes.Structure):
+    """Mirror of ``struct PoleSlot`` in ``csrc/step.cu``: one slot of a
+    device pole table."""
+
+    _fields_ = [("q", ctypes.c_void_p * 6), ("gc_re", ctypes.c_float),
+                ("gc_im", ctypes.c_float)]
+
+
+class BlochParams(ctypes.Structure):
+    """Mirror of ``struct BlochParams`` in ``csrc/step.cu``."""
+
+    _fields_ = [("c", FamilyParams * 2), ("bc", ctypes.c_float * 3),
+                ("bs", ctypes.c_float * 3), ("bloch", ctypes.c_int32 * 3),
+                ("nchunk", ctypes.c_int32)]
+
+
+# device copies of the pole tables, keyed by (device, content): a table
+# depends only on the current tensors' addresses and the slots' constants,
+# which stay put across a run's steps (a kernel still reading an evicted
+# table is safe: the caching allocator reuses its memory in stream order)
+_TABLES: Dict[tuple, torch.Tensor] = {}
+_MAX_TABLES = 32
+
+
+def pole_table(slots, device) -> torch.Tensor:
+    """The device copy of a ``ctypes`` array of pole slots."""
+    key = (str(device), bytes(slots))
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= _MAX_TABLES:
+            _TABLES.pop(next(iter(_TABLES)))
+        table = torch.frombuffer(bytearray(key[1]), dtype=torch.uint8).to(
+            device)
+        _TABLES[key] = table
+    return table
+
+
+def check_pair_aligned(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A current read through a table: its pairs must be aligned, as the
+    kernels' pair loads need (the library checks the rest)."""
+    if t.data_ptr() % (2 * t.element_size()):
+        raise ValueError(f"{name}: not aligned to a pair of values")
+    return t
 
 
 def check_storage(lib, fn_name: str, storage) -> None:
@@ -357,27 +416,46 @@ def _library(storage=(torch.float32,) * 3):
     fn = lib.t3d_family_update
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_family_params_size", FamilyParams)
+        _build.check_struct(lib, "t3d_family_bloch_params_size",
+                            BlochParams)
+        _build.check_struct(lib, "t3d_family_pole_slot_size", PoleSlot)
         check_storage(lib, "t3d_family_storage", storage)
         fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bloch = lib.t3d_family_update_bloch
+        bloch.argtypes = [ctypes.POINTER(BlochParams), ctypes.c_void_p,
+                          ctypes.c_void_p]
+        bloch.restype = ctypes.c_int
     return fn
 
 
-def resources(family: str, bulk: bool,
-              storage=(torch.float32,) * 3) -> dict:
+def _bloch_library(storage):
+    from ... import _build
+
+    _library(storage)
+    lib = _build.load("step", storage_defines(*storage))
+    return lib.t3d_family_update_bloch
+
+
+MODES = {"real": 0, "many": 1, "bloch": 2}   # t3d_family_info's mode
+
+
+def resources(family: str, bulk: bool, storage=(torch.float32,) * 3,
+              mode: str = "real") -> dict:
     """Threads, shared bytes, blocks per SM and registers of the E or H,
     bulk or shell (pair-aligned arrays) instantiation of the kernel in the
     library of the storage types ``(field, psi, q)`` (the CUDA occupancy
-    calculator); needs the card."""
+    calculator), of a real run (``mode`` ``real``), a real run with the
+    pole table (``many``) or a Bloch run (``bloch``); needs the card."""
     from ... import _build
 
     _library(storage)
     fn = _build.load("step", storage_defines(*storage)).t3d_family_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int32 * 4)()
-    err = fn(int(family == "E"), int(bulk), out)
+    err = fn(int(family == "E"), int(bulk), MODES[mode], out)
     if err:
         raise RuntimeError(f"family resources: CUDA error {err}")
     return dict(zip(("threads", "shared_bytes", "blocks_per_sm",
@@ -419,6 +497,30 @@ def _vec(t, n, name):
         raise ValueError(f"{name}: expected {n} contiguous float32 CUDA "
                          "values")
     return v
+
+
+def set_family_poles(p, state, consts, shape, dtype, device,
+                     table: bool) -> list:
+    """The pole slots of the family kernel's parameter struct: in the
+    block (``set_pole_params``), or with ``table`` in a device table of
+    ``PoleSlot`` (``p.poles``), which is returned to be kept alive."""
+    if not table:
+        set_pole_params(p, state, consts, shape, dtype)
+        return []
+    poles = pole_terms(state, consts)
+    slots = (PoleSlot * max(len(poles), 1))()
+    for pi, (gc_re, gc_im, Qp) in enumerate(poles):
+        slots[pi].gc_re = gc_re
+        slots[pi].gc_im = gc_im
+        for ci, comp in enumerate(E_COMPS):
+            for part in range(2):
+                slots[pi].q[2 * ci + part] = check_pair_aligned(_check_field(
+                    Qp[comp][part], shape, f"Q{pi}_{comp}", dtype),
+                    f"Q{pi}_{comp}").data_ptr()
+    p.num_poles = len(poles)
+    tab = pole_table(slots, device)
+    p.poles = tab.data_ptr()
+    return [tab]
 
 
 def set_pole_params(p, state, consts, shape, dtype=torch.float32) -> None:
@@ -571,20 +673,14 @@ def launch_counted(fn, params, device, what: str) -> tuple:
     return tuple(counts)
 
 
-def _family_update_cuda(family, state, consts, src_fields, meta):
-    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS
+def _family_params(family, state, consts, src_fields, meta, storage,
+                   device, table: bool):
+    """The parameter struct of one copy's family call: ``(p, new_fields,
+    new_psi, keep)``, ``keep`` the device tables it points to."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     src_comps = H_COMPS if is_e else E_COMPS
     shape = tuple(meta.shape)
-    device = src_fields[src_comps[0]].device
-    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
-        raise ValueError(f"grid {shape}: the family kernel takes fewer "
-                         "than 2^31 cells")
-    storage = storage_of({"E": state[family], "H": src_fields,
-                          "psi": state["psi"],
-                          "Q": state["Q"] if is_e else []})
-
     p = FamilyParams()
     for a in range(3):
         p.n[a] = shape[a]
@@ -606,14 +702,108 @@ def _family_update_cuda(family, state, consts, src_fields, meta):
     new_psi = set_family_params(family, state, consts, meta, {
         name: getattr(p, name) for name in FAMILY_FIELDS},
         psi_dtype=storage[1])
-    if is_e:
-        set_pole_params(p, state, consts, shape, storage[2])
+    keep = set_family_poles(p, state, consts, shape, storage[2], device,
+                            table) if is_e else []
+    return p, new_fields, new_psi, keep
 
-    blocks = launch_counted(_library(storage), p, device, "family_update")
+
+def _count(blocks, bloch: bool, many: bool) -> None:
+    global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS, BLOCH_LAUNCHES, \
+        MANY_POLES_LAUNCHES
     LAUNCHES += 1
+    BLOCH_LAUNCHES += bloch
+    MANY_POLES_LAUNCHES += many
     DEVICE_LAUNCHES += blocks[2]
     LAST_BLOCKS = blocks
+
+
+def _storage_and_device(family, states, srcs):
+    """The storage types of the copies' arrays (one for all) and their
+    device."""
+    is_e = family == "E"
+    storage = {storage_of({"E": st[family], "H": src, "psi": st["psi"],
+                           "Q": st["Q"] if is_e else []})
+               for st, src in zip(states, srcs)}
+    if len(storage) > 1:
+        raise ValueError(f"copies of several storage types: {storage}")
+    return storage.pop(), next(iter(srcs[0].values())).device
+
+
+def _check_cells(meta):
+    shape = tuple(meta.shape)
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"grid {shape}: the family kernel takes fewer "
+                         "than 2^31 cells")
+
+
+def _many(state, consts, family) -> bool:
+    return family == "E" and len(pole_terms(state, consts)) > MAX_POLES
+
+
+def _family_update_cuda(family, state, consts, src_fields, meta):
+    _check_cells(meta)
+    storage, device = _storage_and_device(family, [state], [src_fields])
+    many = _many(state, consts, family)
+    p, new_fields, new_psi, keep = _family_params(
+        family, state, consts, src_fields, meta, storage, device, many)
+    blocks = launch_counted(_library(storage), p, device, "family_update")
+    del keep
+    _count(blocks, False, many)
     return new_fields, new_psi
+
+
+def _family_update_bloch_cuda(family, states, consts, srcs, meta):
+    """Both copies of a Bloch run in one call of the two-copy
+    instantiation (each copy's pole slots from its table)."""
+    _check_cells(meta)
+    storage, device = _storage_and_device(family, states, srcs)
+    b = BlochParams()
+    outs, keep = [], []
+    for part in range(2):
+        p, nf, npsi, kp = _family_params(family, states[part], consts,
+                                         srcs[part], meta, storage, device,
+                                         True)
+        b.c[part] = p
+        outs.append((nf, npsi))
+        keep += kp
+    for a, cs in enumerate(meta.bloch):
+        b.bloch[a] = int(cs is not None)
+        b.bc[a], b.bs[a] = cs if cs is not None else (1.0, 0.0)
+    blocks = launch_counted(_bloch_library(storage), b, device,
+                            "family_update (Bloch)")
+    del keep
+    _count(blocks, True, _many(states[0], consts, family))
+    return outs
+
+
+def family_update_copies_reference(family: str, states: list, consts: dict,
+                                   srcs: list, meta: StepMeta) -> list:
+    """``[(new_fields, new_psi)]`` of ``family`` for each copy (``states``,
+    ``srcs``: one, or the two of a complex run), the plain version copy by
+    copy, the other copy's sources as ``partner``."""
+    if len(states) == 1:
+        return [family_update_reference(family, states[0], consts, srcs[0],
+                                        meta)]
+    return [family_update_reference(family, st, consts, src, meta,
+                                    partner=srcs[1 - part], part=part)
+            for part, (st, src) in enumerate(zip(states, srcs))]
+
+
+def family_update_copies(family: str, states: list, consts: dict,
+                         srcs: list, meta: StepMeta) -> list:
+    """``family_update_copies_reference`` for CPU tensors; for CUDA tensors
+    one call of the kernel (the two-copy instantiation for a complex
+    run)."""
+    device = next(iter(srcs[0].values())).device
+    if device.type == "cpu":
+        return family_update_copies_reference(family, states, consts, srcs,
+                                              meta)
+    if device.type != "cuda":
+        raise ValueError(f"family_update: unsupported device '{device}'")
+    if len(states) == 1:
+        return [_family_update_cuda(family, states[0], consts, srcs[0],
+                                    meta)]
+    return _family_update_bloch_cuda(family, states, consts, srcs, meta)
 
 
 def family_update(family: str, state: dict, consts: dict, src_fields: dict,

@@ -177,8 +177,8 @@ def _eme_or_heat(obj) -> bool:
 
 @pytest.mark.parametrize("where", ["top", "web"])
 def test_public_names_are_the_references(where):
-    """The port binds the JAX package's top-level and ``web`` names, but
-    for the EME and heat solvers, which are not ported yet."""
+    """The port binds the JAX package's top-level and ``web`` names, the
+    32 of the EME and heat solvers included, each from its own module."""
     import tidy3d_tpu
     import tidy3d_tpu_torch
 
@@ -187,17 +187,45 @@ def test_public_names_are_the_references(where):
         ref, port = ref.web, port.web
         assert sorted(port.__all__) == sorted(ref.__all__)
         assert len(port.__all__) == 14
-    want = {name for name in _public_names(ref)
-            if not _eme_or_heat(getattr(ref, name))}
+    want = _public_names(ref)
     got = _public_names(port)
     assert got == want, (sorted(want - got), sorted(got - want))
     if where == "top":
-        assert len(_public_names(ref) - want) == 32
-        for name in ("ModeData", "ModeSolverData", "DiffractionData",
-                     "PermittivityData", "FieldDataset", "Updater",
-                     "Graphene", "RunTimeSpec", "LumpedResistor", "config"):
-            assert getattr(port, name).__module__.startswith(
-                "tidy3d_tpu_torch"), name
+        eme_heat = {n for n in want if _eme_or_heat(getattr(ref, n))}
+        assert len(eme_heat) == 32
+        for name in sorted(eme_heat) + [
+                "ModeData", "ModeSolverData", "DiffractionData",
+                "PermittivityData", "FieldDataset", "Updater", "Graphene",
+                "RunTimeSpec", "LumpedResistor", "config"]:
+            assert getattr(port, name).__module__ == getattr(
+                ref, name).__module__.replace(
+                    "tidy3d_tpu.", "tidy3d_tpu_torch.", 1), name
+
+
+def test_plugins_and_solvers_are_the_ports_own():
+    """The copied EME and heat solvers and JAX-free plugins: each public
+    class of the port lives in the port's module of the reference's
+    relative path."""
+    import importlib
+
+    for mod, names in (
+            ("solver.eme", ["run_eme"]),
+            ("components.heat.simulation", ["HeatSimulation"]),
+            ("plugins.smatrix", ["ComponentModeler", "Port",
+                                 "TerminalComponentModeler"]),
+            ("plugins.design", ["DesignSpace", "ParameterFloat"]),
+            ("plugins.waveguide", ["RectangularDielectric"]),
+            ("plugins.resonance", ["ResonanceFinder"]),
+            ("plugins.expressions", ["Expression", "ModePower"]),
+            ("plugins.microwave", ["VoltageIntegralAxisAligned"]),
+            ("plugins.polyslab", ["ComplexPolySlab"])):
+        port = importlib.import_module(f"tidy3d_tpu_torch.{mod}")
+        ref = importlib.import_module(f"tidy3d_tpu.{mod}")
+        for name in names:
+            got, want = getattr(port, name), getattr(ref, name)
+            assert got is not want
+            assert got.__module__ == want.__module__.replace(
+                "tidy3d_tpu.", "tidy3d_tpu_torch.", 1), (mod, name)
 
 
 def _equal(a, b, path: str):

@@ -17,6 +17,8 @@ port's own ARPACK path, on the CPU.
   2e-5, 5e-5 for the bend; field overlap above 0.999), with and without an
   8-layer PML, and against the JAX package's filter on the same strip.
 - The routing by device, the fallback counter and the TF32 guard.
+- A plane whose filtered block loses rank: the port falls back to ARPACK
+  where the reference's ``cholqr2`` raises.
 - The slice: ``web.run(device="cpu")`` of a mode source and a mode monitor
   on a plane of 2N = 648 under ``TIDY3D_TPU_MODE_SOLVER=filter`` against
   ``tidy3d_tpu.web.run`` under the same knob, mode amplitudes and
@@ -233,6 +235,34 @@ def test_fallback_is_counted(monkeypatch):
     assert device_solver.FALLBACKS == fallbacks + 1
     assert device_solver.RECORDS[-1]["fallback"]
     assert np.array_equal(n_f, n_a)
+
+
+@pytest.mark.parametrize("num_modes", [1, 3])
+def test_rank_collapse_falls_back_to_arpack(monkeypatch, num_modes):
+    """A plane with fewer propagating states than the filter's block (30 x
+    24 at dl = 0.05 um, eps 12.1 in 2.085): the first filter pass
+    collapses the block's rank and the float32 Gram is not positive
+    definite. The port's ``cholqr2`` returns None and the solve falls back
+    to ARPACK (``fallback`` and its ``reason`` recorded), giving ARPACK's
+    n_eff within 1e-6; the reference's raises ``LinAlgError`` there (a
+    deliberate divergence, ROADMAP.md queue 3)."""
+    eps, coords = strip_eps(nx=30, ny=24, dl=0.05, n_core=np.sqrt(12.1),
+                            n_clad=np.sqrt(2.085), w=0.5, h=0.22)
+    monkeypatch.setenv("TIDY3D_TPU_MODE_SOLVER", "arpack")
+    _, n_a = compute_modes(eps, coords, FREQ0, ModeSpec(num_modes=num_modes),
+                           device="cpu")
+    monkeypatch.setenv("TIDY3D_TPU_MODE_SOLVER", "filter")
+    solves, fallbacks = device_solver.SOLVES, device_solver.FALLBACKS
+    _, n_f = compute_modes(eps, coords, FREQ0, ModeSpec(num_modes=num_modes),
+                           device="cpu")
+    assert device_solver.SOLVES == solves + 1
+    assert device_solver.FALLBACKS == fallbacks + 1
+    record = device_solver.RECORDS[-1]
+    assert record["fallback"] and "cholqr2" in record["reason"]
+    assert np.max(np.abs(n_f - n_a)) <= 1e-6
+    with pytest.raises(np.linalg.LinAlgError):
+        ref_compute_modes(eps, coords, FREQ0,
+                          RefModeSpec(num_modes=num_modes))
 
 
 def test_matmuls_run_in_full_float32(monkeypatch):

@@ -16,8 +16,10 @@ hand-written CUDA kernels for Hopper.
 
 A simulation of either package crosses to the other through its JSON:
 ``tidy3d_tpu.Simulation.parse_raw(sim.json())`` and back. The top-level
-and ``web`` names are the JAX package's, but for its EME and heat solvers,
-which are not ported yet.
+and ``web`` names are the JAX package's. The EME solver
+(``solver.eme.run_eme``, its cells' mode solves on the card's filter) and
+the heat solver (``HeatSimulation.run``, scipy on the host) are copies of
+the JAX package's, as are its JAX-free plugins.
 """
 
 from . import _malloc  # noqa: F401  (glibc tuning; must run before numpy allocs)
@@ -194,6 +196,46 @@ from .components.data.monitor_data import (
     PermittivityData,
 )
 from .components.data.sim_data import SimulationData
+
+# --- EME ------------------------------------------------------------------- #
+from .components.eme.data import (
+    EMECoefficientData,
+    EMEFieldData,
+    EMEModeSolverData,
+    EMESimulationData,
+    EMESMatrixDataset,
+)
+from .components.eme.monitor import (
+    EMECoefficientMonitor,
+    EMEFieldMonitor,
+    EMEModeSolverMonitor,
+)
+from .components.eme.grid import (
+    EMECompositeGrid,
+    EMEExplicitGrid,
+    EMEModeSpec,
+    EMEUniformGrid,
+)
+from .components.eme.simulation import EMESimulation
+from .components.eme.sweep import EMEFreqSweep, EMELengthSweep, EMEModeSweep
+
+# --- heat ------------------------------------------------------------------ #
+from .components.heat.boundary import (
+    ConvectionBC,
+    HeatBoundarySpec,
+    HeatFluxBC,
+    MediumMediumInterface,
+    SimulationBoundary,
+    StructureBoundary,
+    StructureSimulationBoundary,
+    StructureStructureInterface,
+    TemperatureBC,
+)
+from .components.heat.data import HeatSimulationData, TemperatureData
+from .components.heat.heat_spec import FluidSpec, SolidSpec
+from .components.heat.monitor import TemperatureMonitor
+from .components.heat.simulation import HeatSimulation
+from .components.heat.source import UniformHeatSource
 
 # --- lumped elements / perturbations / modulation -------------------------- #
 from .components.lumped_element import CoaxialLumpedResistor, LumpedResistor

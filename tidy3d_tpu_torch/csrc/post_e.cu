@@ -24,7 +24,11 @@
 //
 // Storage: E_lin, E and E' are float32 or bfloat16 (T3D_FIELD_BF16, one
 // library each); they are widened where loaded and E' is rounded once, to
-// nearest even, where it is stored.
+// nearest even, where it is stored, after every entry and the fixed point.
+// Up to MAX_ENTRIES entries ride in the parameter block; a plan with more
+// passes all of them in a device table of ModEntry (the time samples of
+// this step beside each entry's terms), so that one launch still takes
+// every entry and E' is rounded once.
 //
 // A grid-stride loop over z pairs (two cells a thread: one 64-bit load of
 // each field in float32, 32-bit in bfloat16, where the arrays are aligned
@@ -80,6 +84,13 @@ struct ModTerm {
     int32_t has_sig;
 };
 
+// One modulation entry with its time samples of this step, for the device
+// table. Mirrored by ModEntry in tidy3d_tpu_torch/solver/kernels/post_e.py.
+struct ModEntry {
+    ModTerm mod[3];
+    float t[6];
+};
+
 // Mirrored by PostEParams in tidy3d_tpu_torch/solver/kernels/post_e.py.
 struct PostEParams {
     field_t* e[3];               // E_lin in, E' out (in place)
@@ -88,6 +99,8 @@ struct PostEParams {
     const float* nl_k[3];        // K per cell, or null for nl_ks
     ModTerm mod[MAX_ENTRIES][3];
     float t[MAX_ENTRIES][6];     // c_n, s_n, c_n1, s_n1, c_h, s_h
+    const ModEntry* table;       // every entry, where more than
+                                 // MAX_ENTRIES; else null (mod and t)
     float nl_bs[3];
     float nl_ks[3];
     int32_t has_b[3];
@@ -113,9 +126,9 @@ __device__ __forceinline__ float cube(float v) {
 __device__ __forceinline__ float cell(const PostEParams& p, int c, int i,
                                       float v, float o) {
     for (int en = 0; en < p.num_entries; ++en) {
-        const ModTerm& m = p.mod[en][c];
+        const ModTerm& m = p.table ? p.table[en].mod[c] : p.mod[en][c];
         if (!m.has_eps && !m.has_sig) continue;
-        const float* t = p.t[en];
+        const float* t = p.table ? p.table[en].t : p.t[en];
         float num = 0.0f, den = 0.0f;
         if (m.has_eps) {
             const float b1 = coef(m.b[0], m.bs[0], i);
@@ -194,6 +207,7 @@ static KernelFn kernel_for(bool vec) {
 }
 
 extern "C" int t3d_post_e_params_size() { return (int)sizeof(PostEParams); }
+extern "C" int t3d_post_e_entry_size() { return (int)sizeof(ModEntry); }
 extern "C" int t3d_post_e_field_bytes() { return (int)sizeof(field_t); }
 
 // Threads, shared bytes, blocks per SM and registers of the pair-aligned
@@ -217,8 +231,8 @@ extern "C" int t3d_post_e_info(int vec, int32_t* out) {
 extern "C" int t3d_post_e(const PostEParams* p, void* stream,
                           int32_t* counts) {
     if (p->n <= 0) return 0;
-    if (p->num_entries < 0 || p->num_entries > MAX_ENTRIES ||
-        p->num_iters < 0)
+    if (p->num_entries < 0 || p->num_iters < 0 ||
+        (p->num_entries > MAX_ENTRIES && !p->table))
         return (int)cudaErrorInvalidValue;
     PostEParams q = *p;
     bool vec = q.n % 2 == 0;

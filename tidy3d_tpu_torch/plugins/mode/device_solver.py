@@ -51,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+import threading
 import time
 from typing import Callable, Optional, Tuple
 
@@ -413,6 +414,9 @@ def _chebyshev_filter(apply_m2, x, lo, cut, lam_amp, degree):
 
 
 _CAPTURE_STREAMS = {}
+# one capture at a time in the process: captures share their device's side
+# stream, and a solve on another thread (a ``Batch`` job) may capture too
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _capture_stream(device) -> "torch.cuda.Stream":
@@ -442,15 +446,20 @@ class _GraphFilter:
         if entry is None:
             coefs = torch.zeros(2 * degree, dtype=torch.float32,
                                 device=self.x.device)
-            # warm-up on the capture stream (library handles, workspaces)
-            side = _capture_stream(self.x.device)
-            side.wait_stream(torch.cuda.current_stream(self.x.device))
-            with torch.cuda.stream(side):
-                _filter_steps(self.apply, self.x, coefs, 2)
-            torch.cuda.current_stream(self.x.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                out = _filter_steps(self.apply, self.x, coefs, degree)
+            with _CAPTURE_LOCK:
+                # warm-up on the capture stream (library handles,
+                # workspaces)
+                side = _capture_stream(self.x.device)
+                side.wait_stream(torch.cuda.current_stream(self.x.device))
+                with torch.cuda.stream(side):
+                    _filter_steps(self.apply, self.x, coefs, 2)
+                torch.cuda.current_stream(self.x.device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                # thread-local: what other threads run on the card meanwhile
+                # (another job's time loop) leaves the capture valid
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = _filter_steps(self.apply, self.x, coefs, degree)
             entry = self.graphs[degree] = (graph, coefs, out)
         graph, coefs, out = entry
         coefs.copy_(torch.as_tensor(filter_coefs(lo, cut, lam_amp, degree),
@@ -596,7 +605,7 @@ def chebyshev_eigs(
     Returns ``(vals, vecs)`` with vecs (2N, k) numpy complex128, or ``None``
     if the iteration failed to converge (caller falls back to ARPACK);
     ``SOLVES`` and ``FALLBACKS`` count both, ``RECORDS`` gets the solve's
-    iterations, degree and seconds.
+    iterations, degree and seconds, and for a fallback its ``reason``.
     """
     global SOLVES, FALLBACKS
     SOLVES += 1
@@ -686,6 +695,7 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
     lo_gersh = -float(row_sums.max()) if m_csr.nnz else 0.0
     lo = min(lam_dom * 1.05, lo_gersh, -abs(lam_hi))
     if not np.isfinite(lo):
+        record["reason"] = "non-finite spectral bound"
         return None
     # degree scales with the filter sharpness requirement: amplification per
     # pass goes as exp(2 m sqrt(2 d / span)) with d ~ O(lam_hi) the guided
@@ -700,11 +710,18 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
 
     def cholqr2(x):
         """Orthonormalize columns: device Gram matmuls + host k x k
-        Cholesky (all heavy ops are matmuls; no device factorization)."""
+        Cholesky (all heavy ops are matmuls; no device factorization).
+        None where the float32 Gram is not positive definite (the filter
+        collapsed the block's rank: a plane with fewer propagating states
+        than the block), so that the solve falls back to ARPACK; the
+        reference's ``cholqr2`` raises ``LinAlgError`` there."""
         for _ in range(2):
             g = (x.T @ x).cpu().numpy().astype(np.float64)
             g += 1e-10 * np.trace(g) * np.eye(g.shape[0])
-            r = np.linalg.cholesky(g).T
+            try:
+                r = np.linalg.cholesky(g).T
+            except np.linalg.LinAlgError:
+                return None
             r_inv = np.linalg.inv(r)
             x = x @ to_dev(r_inv)
         return x
@@ -731,6 +748,12 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
         n_outer += 1
         x = filt(x, lo, cut, lam_amp, degree)
         q = cholqr2(x)
+        if q is None:
+            record["reason"] = "rank-deficient block (cholqr2)"
+            log.warning("device Chebyshev mode eigensolver: the filtered "
+                        "block lost rank (fewer propagating states than "
+                        "its %d columns); falling back to ARPACK." % k_sub)
+            return None
         # Rayleigh-Ritz against the DEVICE operator itself: the f32 iterate
         # can only converge in the device operator's own geometry — Ritz
         # values/residuals measured against the exact host operator are
@@ -796,6 +819,7 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
         x = q
     record.update(outer=n_outer, degree=degree)
     if q is None or not np.all(np.isfinite(theta)):
+        record["reason"] = "non-finite basis"
         log.warning("device Chebyshev mode eigensolver produced a "
                     "non-finite basis; falling back to ARPACK.")
         return None
@@ -891,6 +915,7 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
                   f"{np.round(res64 / scale64, 7)}")
         if not np.all(np.isfinite(res64)) or np.any(
                 res64 > 50 * tol_vec * scale64):
+            record["reason"] = "failed the float64 re-check"
             log.warning(
                 "device mode eigensolver failed the trusted float64 "
                 "re-check (max rel resid %.2e); falling back to ARPACK."
@@ -977,6 +1002,7 @@ def _chebyshev_eigs(apply_real, shape2d, num_modes, lam_hi, m_host, degree,
             keep.append(i)
     keep = keep[:k_sub]
     if len(keep) < num_modes:
+        record["reason"] = "refinement kept too few pairs"
         log.warning(
             "device mode eigensolver refinement kept only %d/%d pairs; "
             "falling back to ARPACK." % (len(keep), num_modes))

@@ -131,9 +131,12 @@ transpose) and takes ``jax.grad`` through its XLA step under
 ``jax.checkpoint``; the port takes PyTorch autograd through the plain
 out-of-place step sequence of the ``pallas2`` tier (``_diff_step``) under
 ``torch.utils.checkpoint``, one chunk at a time, on the runner's device
-(``AUTODIFF_TIER``, the ``kernel tier:`` line such a run logs). Real
-float32 runs only: Bloch runs, bfloat16 storage and sharded runs raise
-``NotImplementedError``.
+(``AUTODIFF_TIER``, the ``kernel tier:`` line such a run logs). A Bloch
+run steps both real copies in the order of ``_step_two_phase``; a bfloat16
+run rounds the carry (fields, psi, pole currents) where the reference's
+``_cast_state`` rounds it, and autograd follows the roundings. Sharded runs
+raise ``NotImplementedError``, as the JAX package differentiates unsharded
+runs only.
 
 ``run_checkpointed`` saves the state every few chunks into a ``.npz`` of
 named arrays (``save_checkpoint``), resumes from it when the file exists
@@ -750,6 +753,11 @@ def pole_update(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
     for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
         out[pi][comp] = (nqr, nqi)
     return out
+
+
+def _cast_like(new: dict, old: dict) -> dict:
+    """Each tensor of ``new`` at the type of its namesake in ``old``."""
+    return {key: v.to(old[key].dtype) for key, v in new.items()}
 
 
 def _dev(x, device):
@@ -1560,15 +1568,6 @@ class FDTDRunner:
             raise NotImplementedError(
                 "a differentiable sharded run is not ported (the JAX "
                 "package differentiates unsharded runs only)")
-        if self.is_complex:
-            raise NotImplementedError(
-                "a differentiable Bloch (complex) run is not ported yet "
-                "(ROADMAP.md: autodiff on Bloch runs)")
-        if self.storage != (torch.float32,) * 3:
-            raise NotImplementedError(
-                f"a differentiable run with storage {self.storage_name}: "
-                "the autodiff route is float32 only (ROADMAP.md: autodiff "
-                "in bfloat16)")
         num_steps = num_steps or self.num_steps
         chunk_size = -(-num_steps // (checkpoint_chunks or NUM_CHUNKS))
         num_chunks = -(-num_steps // chunk_size)
@@ -1587,7 +1586,10 @@ class FDTDRunner:
 
         def run_fn(consts):
             init = self.init_state()
-            state = {key: init[key] for key in ("E", "H", "psi", "Q", "mon")}
+            keys = [k for copy, q in zip(
+                kstep_kernels.COPIES[:1 + self.is_complex], Q_KEYS)
+                for k in copy + (q,)]
+            state = {key: init[key] for key in keys + ["mon"]}
             for ci in range(num_chunks):
                 # a step draws no random numbers: no RNG state to keep
                 state = torch.utils.checkpoint.checkpoint(
@@ -1602,51 +1604,85 @@ class FDTDRunner:
 
     def _diff_step(self, step: int, state: dict, consts: dict) -> dict:
         """One step out of place, in the order of the reference's XLA
-        ``_step`` (``fdtd.py:1614-1723``): the plain E family, the J
-        sources, the modulation and nonlinear passes, the pole update, the
-        plain H family, the M sources and the monitors; a new state,
-        ``state`` left as it is. The families are
-        ``family_update_reference`` in float32, which builds new tensors."""
-        def family(name, src_fields):
-            return step_kernels.family_update_reference(
-                name, state, consts, src_fields, self.meta, store=False)
+        ``_step`` (``fdtd.py:1614-1723``) and of ``_step_two_phase``: the
+        plain E family of every copy, then per copy its J sources, the
+        modulation and nonlinear passes and the pole update (``Q1`` for
+        copy 1), then the plain H family of every copy, its M sources and
+        the monitors (copy 1 rotated into the DFT); a new state, ``state``
+        left as it is. The families are ``family_update_reference``, which
+        builds new tensors and rounds the fields to their storage type. In
+        bfloat16 the rest follows the reference's step as XLA compiles it,
+        which keeps float32 inside a fusion: a field plus its source term
+        is rounded once, E^{n+1} + E^n enters the pole update unrounded,
+        the passes stay in float32, and the carry is rounded to the state's
+        types at the end of the step (``_cast_state``). In float32 every
+        rounding is a no-op."""
+        views = self._views(state)
+        cx = len(views) == 2
 
-        nE, psi_E = family("E", state["H"])
-        nE = self._add_sources("E", nE, step, consts)
-        if has_post_e(consts):
-            nE = post_e_reference(nE, state["E"], consts, step)
-        Q = pole_update(nE, state["E"], state["Q"], consts)
-        nH, psi_H = family("H", nE)
-        nH = self._add_sources("H", nH, step, consts)
-        psi = dict(state["psi"], **psi_E, **psi_H)
-        mon = self._accumulate(step, nE, nH, state["mon"], consts)
-        return {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
+        def families(name, srcs):
+            return [step_kernels.family_update_reference(
+                name, view, consts, srcs[p], self.meta,
+                partner=srcs[1 - p] if cx else None, part=p)
+                for p, view in enumerate(views)]
+
+        newE, newQ, psis = [], [], []
+        for p, (view, (nE, psi_E)) in enumerate(zip(
+                views, families("E", [v["H"] for v in views]))):
+            nE = self._add_sources("E", nE, step, consts, p)
+            if has_post_e(consts):
+                nE = post_e_reference(nE, view["E"], consts, step,
+                                      store=False)
+            newQ.append(pole_update({c: step_kernels.f32(v) for c, v in
+                                     nE.items()}, view["E"], view["Q"],
+                                    consts))
+            newE.append(nE)
+            psis.append(dict(view["psi"], **psi_E))
+        newH = []
+        for p, (nH, psi_H) in enumerate(families("H", newE)):
+            newH.append(self._add_sources("H", nH, step, consts, p))
+            psis[p].update(psi_H)
+        mon = self._accumulate(step, newE, newH, state["mon"], consts)
+        new = {"mon": mon}
+        for (e, h, ps), q, nE, nH, psi, Q in zip(
+                kstep_kernels.COPIES, Q_KEYS, newE, newH, psis, newQ):
+            new.update({
+                e: _cast_like(nE, state[e]), h: _cast_like(nH, state[h]),
+                ps: _cast_like(psi, state[ps]),
+                q: [{c: tuple(v.to(old.dtype) for v, old in zip(
+                    pair, state[q][pi][c])) for c, pair in Qp.items()}
+                    for pi, Qp in enumerate(Q)]})
+        return new
 
     def _add_sources(self, family: str, fields: dict, step: int,
-                     consts: dict) -> dict:
-        """The fields with the current sources of ``family`` at ``step``
-        added out of place, each ``-c_b profile w(t)`` from ``consts`` (the
-        reference's ``_source_deltas``, ``fdtd.py:1127-1143``)."""
+                     consts: dict, part: int = 0) -> dict:
+        """The fields of copy ``part`` with the current sources of
+        ``family`` at ``step`` added out of place, each ``-c_b profile
+        w(t)`` from ``consts`` (the reference's ``_source_deltas``,
+        ``fdtd.py:1127-1143``: copy 1 reads each plan's
+        ``waveform_key_im``); a sum is rounded to the field's type."""
         comps = E_COMPS if family == "E" else H_COMPS
         coeffs = consts["coeffs_E" if family == "E" else "coeffs_H"]
         out = dict(fields)
         for si, sp in enumerate(self.plan.sources):
-            if sp.comp not in comps or sp.waveform_key is None:
+            key = sp.waveform_key if part == 0 else sp.waveform_key_im
+            if sp.comp not in comps or key is None:
                 continue
             _, cb = coeffs[sp.comp]
             cb_sl = cb[sp.slices] if torch.is_tensor(cb) and cb.ndim else cb
             delta = -cb_sl * consts["src_profiles"][si] \
-                * consts["waveforms"][sp.waveform_key, step]
+                * consts["waveforms"][key, step]
             new = out[sp.comp].clone()
             new[sp.slices] = new[sp.slices] + delta
             out[sp.comp] = new
         return out
 
-    def _accumulate(self, step: int, nE: dict, nH: dict, mon: list,
+    def _accumulate(self, step: int, newE: list, newH: list, mon: list,
                     consts: dict) -> list:
-        """``_accumulate_monitors`` out of place: new DFT accumulators
-        ``acc + vals * cos`` (and ``sin``), time samples by
-        ``index_copy``."""
+        """``_accumulate_monitors`` out of place on the copies' new fields
+        (``newE``, ``newH``: one dict a copy): new float32 DFT accumulators
+        ``acc + vals * cos`` (and ``sin``; copy 1 rotated in as ``(v0 + i
+        v1) e^{i w t}``), time samples of copy 0 by ``index_copy``."""
         dft = consts["dft"]
         out = []
         for mi, (mp, acc) in enumerate(zip(self.plan.monitors, mon)):
@@ -1656,19 +1692,23 @@ class FDTDRunner:
                       "H": (cos_h[step], sin_h[step])}
                 new = {}
                 for comp, sl in _owned(mp, mp.slices):
-                    vals = (nE if comp in E_COMPS else nH)[comp][
-                        sl].unsqueeze(-1)
+                    copies = newE if comp in E_COMPS else newH
+                    vals = copies[0][comp][sl].unsqueeze(-1)
                     cos_t, sin_t = ph[comp[0]]
                     re, im = acc[comp]
-                    new[comp] = (re + vals * cos_t, im + vals * sin_t)
+                    re, im = re + vals * cos_t, im + vals * sin_t
+                    if len(copies) == 2:
+                        vals1 = copies[1][comp][sl].unsqueeze(-1)
+                        re, im = re - vals1 * sin_t, im + vals1 * cos_t
+                    new[comp] = (re, im)
                 out.append(new)
             elif mp.kind == "field_time" and mp.t_start <= step < mp.t_stop \
                     and (step - mp.t_start) % mp.t_interval == 0:
                 idx = torch.tensor([(step - mp.t_start) // mp.t_interval],
                                    device=self.device)
                 out.append({comp: acc[comp].index_copy(
-                    0, idx, (nE if comp in E_COMPS else nH)[comp][
-                        sl].unsqueeze(0))
+                    0, idx, (newE[0] if comp in E_COMPS else newH[0])[comp][
+                        sl].unsqueeze(0).to(acc[comp].dtype))
                     for comp, sl in _owned(mp, mp.slices)})
             else:
                 out.append(acc)

@@ -10,16 +10,20 @@ kernel, ``csrc/post_e.cu``.
 
 Dispatch is by device: CPU tensors go to ``post_e_reference`` (new
 tensors); CUDA tensors launch the kernel, which writes E' over ``new_e``'s
-tensors and returns ``new_e``, or raises. A plan with more than
-``MAX_ENTRIES`` modulation entries takes one launch per ``MAX_ENTRIES`` of
-them, the fixed point in the last. ``LAUNCHES`` counts the calls,
-``DEVICE_LAUNCHES`` the launches.
+tensors and returns ``new_e``, or raises. Up to ``MAX_ENTRIES`` modulation
+entries ride in the parameter block; a plan with more passes every entry,
+with its time samples of the step, in a device table of ``ModEntry`` (a
+pinned host copy sent ahead of the launch on the same stream), so that
+one launch takes them all and E' is rounded to the fields' type once, as
+the reference rounds it (``TABLE_LAUNCHES`` counts these calls).
+``LAUNCHES`` counts the calls, ``DEVICE_LAUNCHES`` the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..lowering import E_COMPS
@@ -28,7 +32,8 @@ from .step import STORAGE, _check_field, launch_counted
 
 LAUNCHES = 0
 DEVICE_LAUNCHES = 0
-MAX_ENTRIES = 8     # modulation entries a launch takes (csrc/post_e.cu)
+TABLE_LAUNCHES = 0
+MAX_ENTRIES = 8     # modulation entries of the parameter block (csrc/post_e.cu)
 
 _P3 = ctypes.c_void_p * 3
 _I3 = ctypes.c_int32 * 3
@@ -42,6 +47,13 @@ class ModTerm(ctypes.Structure):
                 ("has_eps", ctypes.c_int32), ("has_sig", ctypes.c_int32)]
 
 
+class ModEntry(ctypes.Structure):
+    """Mirror of ``struct ModEntry`` in ``csrc/post_e.cu``: an entry's terms
+    and its time samples of the step, for the device table."""
+
+    _fields_ = [("mod", ModTerm * 3), ("t", ctypes.c_float * 6)]
+
+
 class PostEParams(ctypes.Structure):
     """Mirror of ``struct PostEParams`` in ``csrc/post_e.cu``."""
 
@@ -49,6 +61,7 @@ class PostEParams(ctypes.Structure):
         ("e", _P3), ("e_old", _P3), ("nl_b", _P3), ("nl_k", _P3),
         ("mod", (ModTerm * 3) * MAX_ENTRIES),
         ("t", (ctypes.c_float * 6) * MAX_ENTRIES),
+        ("table", ctypes.c_void_p),
         ("nl_bs", _F3), ("nl_ks", _F3),
         ("has_b", _I3), ("has_k", _I3), ("active", _I3),
         ("num_entries", ctypes.c_int32), ("num_iters", ctypes.c_int32),
@@ -70,6 +83,7 @@ def _library(field=torch.float32):
     fn = lib.t3d_post_e
     if fn.argtypes is None:
         _build.check_struct(lib, "t3d_post_e_params_size", PostEParams)
+        _build.check_struct(lib, "t3d_post_e_entry_size", ModEntry)
         size = lib.t3d_post_e_field_bytes
         size.restype = ctypes.c_int
         want = torch.empty((), dtype=field).element_size()
@@ -114,8 +128,35 @@ def _coef(v, shape, name):
     return None, float(v)
 
 
+def _set_entry(terms, times, ce, step, shape, active) -> None:
+    """Fills one entry's ``ModTerm`` per component (``terms``) and its time
+    samples (``times``) at ``step``; marks the components it modulates."""
+    for j, v in enumerate(mod_times(ce, step)):
+        times[j] = float(v)
+    for c, comp in enumerate(E_COMPS):
+        m = terms[c]
+        for slot, key, flag in ((0, "Beps", "has_eps"),
+                                (2, "Bsig", "has_sig")):
+            if comp not in ce.get(key, {}):
+                continue
+            setattr(m, flag, 1)
+            active[c] = True
+            for h, v in enumerate(ce[key][comp]):
+                m.b[slot + h], m.bs[slot + h] = _coef(
+                    v, shape, f"{key}{h + 1}_{comp}")
+
+
+def _entry_table(entries, device) -> torch.Tensor:
+    """The device copy of a ``ctypes`` array of ``ModEntry``, sent from
+    pinned memory on the current stream (ordered before the launch)."""
+    raw = bytes(entries)
+    host = torch.empty(len(raw), dtype=torch.uint8, pin_memory=True)
+    host.numpy()[:] = np.frombuffer(raw, np.uint8)
+    return host.to(device, non_blocking=True)
+
+
 def _post_e_cuda(new_e, old_e, consts, step):
-    global LAUNCHES, DEVICE_LAUNCHES
+    global LAUNCHES, DEVICE_LAUNCHES, TABLE_LAUNCHES
     field = new_e[E_COMPS[0]].dtype
     shape = tuple(new_e[E_COMPS[0]].shape)
     n = shape[0] * shape[1] * shape[2]
@@ -124,49 +165,42 @@ def _post_e_cuda(new_e, old_e, consts, step):
                          "2^31 cells")
     device = new_e[E_COMPS[0]].device
     entries = list(consts.get("mod", ()))
-    chunks = [entries[i:i + MAX_ENTRIES]
-              for i in range(0, len(entries), MAX_ENTRIES)] or [[]]
     fn = _library(field)
-    for ci, chunk in enumerate(chunks):
-        p = PostEParams()
-        p.n = n
-        p.num_entries = len(chunk)
-        active = [False] * 3
-        for en, ce in enumerate(chunk):
-            times = mod_times(ce, step)
-            for j in range(6):
-                p.t[en][j] = float(times[j])
-            for c, comp in enumerate(E_COMPS):
-                m = p.mod[en][c]
-                for slot, key, flag in ((0, "Beps", "has_eps"),
-                                        (2, "Bsig", "has_sig")):
-                    if comp not in ce.get(key, {}):
-                        continue
-                    setattr(m, flag, 1)
-                    active[c] = True
-                    for h, v in enumerate(ce[key][comp]):
-                        m.b[slot + h], m.bs[slot + h] = _coef(
-                            v, shape, f"{key}{h + 1}_{comp}")
-        if ci == len(chunks) - 1 and "nl" in consts:
-            p.num_iters = consts["nl_num_iters"]
-            for c, comp in enumerate(E_COMPS):
-                for kind, has, ptr, sc in (("B", p.has_b, p.nl_b, p.nl_bs),
-                                           ("K", p.has_k, p.nl_k, p.nl_ks)):
-                    v = consts["nl"][kind].get(comp)
-                    if v is None:
-                        continue
-                    has[c] = 1
-                    active[c] = True
-                    ptr[c], sc[c] = _coef(v, shape, f"{kind}_{comp}")
+    p = PostEParams()
+    p.n = n
+    p.num_entries = len(entries)
+    active = [False] * 3
+    table = None
+    if len(entries) > MAX_ENTRIES:
+        rows = (ModEntry * len(entries))()
+        for row, ce in zip(rows, entries):
+            _set_entry(row.mod, row.t, ce, step, shape, active)
+        table = _entry_table(rows, device)
+        p.table = table.data_ptr()
+        TABLE_LAUNCHES += 1
+    else:
+        for en, ce in enumerate(entries):
+            _set_entry(p.mod[en], p.t[en], ce, step, shape, active)
+    if "nl" in consts:
+        p.num_iters = consts["nl_num_iters"]
         for c, comp in enumerate(E_COMPS):
-            p.active[c] = int(active[c])
-            if active[c]:
-                p.e[c] = _check_field(new_e[comp], shape, comp,
-                                      field).data_ptr()
-                p.e_old[c] = _check_field(old_e[comp], shape,
-                                          f"old {comp}", field).data_ptr()
-        blocks = launch_counted(fn, p, device, "post_e")
-        DEVICE_LAUNCHES += blocks[1]
+            for kind, has, ptr, sc in (("B", p.has_b, p.nl_b, p.nl_bs),
+                                       ("K", p.has_k, p.nl_k, p.nl_ks)):
+                v = consts["nl"][kind].get(comp)
+                if v is None:
+                    continue
+                has[c] = 1
+                active[c] = True
+                ptr[c], sc[c] = _coef(v, shape, f"{kind}_{comp}")
+    for c, comp in enumerate(E_COMPS):
+        p.active[c] = int(active[c])
+        if active[c]:
+            p.e[c] = _check_field(new_e[comp], shape, comp,
+                                  field).data_ptr()
+            p.e_old[c] = _check_field(old_e[comp], shape,
+                                      f"old {comp}", field).data_ptr()
+    blocks = launch_counted(fn, p, device, "post_e")
+    DEVICE_LAUNCHES += blocks[1]
     LAUNCHES += 1
     return new_e
 

@@ -131,7 +131,7 @@ Phases (any failure exits non-zero):
     (the bar of the JAX package's ``test_diffraction_vacuum_zero_order``);
     then without and with the plane once more, in turns against phase 11;
 19. checkpoint and resume: the 384^3 dispersive case on the kstep tier and
-    on 4 virtual x-shards, and the Bloch dipole, each over the first third
+    on 4 virtual x-shards, and the Bloch dipole, each over the first sixth
     of its run: an uninterrupted run, half
     of the chunks in a fresh runner through ``run_steps`` and
     ``save_checkpoint``, the rest in a third runner through
@@ -204,7 +204,7 @@ Phases (any failure exits non-zero):
     polish, refinement); one filter pass on the solve's own operator,
     eager and as a graph, at degrees 50 and 200 (CUDA events), the ATen
     operations a pass dispatches and the kernels the profiler records;
-    then the mode monitor's solve at its first ``N_MON_FREQS`` (4)
+    then the mode monitor's solve at its first ``N_MON_FREQS`` (2)
     frequencies by both routes (the filter's solves may leave at most 64
     MiB allocated);
 27. ``web.Job(...).run()`` of the 64x48x80 mixed case with the broadband
@@ -307,7 +307,7 @@ Phases (any failure exits non-zero):
     ``eme_taper_case``: a Si strip tapering from 0.5 to 3 um over 10 um in
     SiO2, 12 um of EME along x, a 5 x 3 um cross-section at dl = 0.025 um
     (200 x 120 cells, 2N = 48000: every plane on the card's filter under
-    ``auto``), 8 EME cells of 4 modes, 3 frequencies: each cell's host
+    ``auto``), 8 EME cells of 4 modes, 2 frequencies: each cell's host
     seconds with the filter's split (device loop, fetch, polish,
     refinement), each solve's device and fallback, |S21|^2 of the
     fundamental mode (at least 0.85), each input mode's |S11|^2 + |S21|^2
@@ -342,7 +342,36 @@ Phases (any failure exits non-zero):
     float32 bit-equal to that split and within 1e-6 of plain; the 30 x 24
     strip plane forced to the filter on the card falls back to ARPACK (its
     record's ``fallback`` and ``reason``) with ARPACK's n_eff;
-41. the JSON summary lines; the last line is the contract line. Each
+41-44. (run after phases 31-35) sharded runs on bricks of the card, one
+    case a phase: the family kernel's brick-local halo mode, one E and one
+    H launch on every brick of a random state split into bricks, against
+    its plain version on the same bricks (1e-6; bf16 1e-2) and against the
+    unsharded launches (the same bars), each call's device ms summed over
+    the bricks (CUDA events, queued behind a sleep kernel) beside its byte
+    bound (the bricks' arrays and halo planes) and the unsharded launch's,
+    and the registers and blocks
+    per SM of the shell instantiations that hold the halo sides; and the
+    main path on bricks, ``FDTDRunner.run()`` with an explicit
+    ``ShardingPlan`` naming the card once a brick, then the port's
+    ``SimulationData`` builders, in turns with the unsharded ``pallas2``
+    run (unsharded, bricks, bricks, unsharded), the launch counts set to 0
+    just before the first brick run and read just after: 2 family calls
+    a step and brick, every one in halo mode, one post_e call a step and
+    brick with nonlinear media, no k-step or fused launch; raw monitors
+    against the unsharded run (2e-5); ms a step and Gcell*steps/s of
+    both, peak device memory, a step split by part over every brick
+    (device ms by CUDA events: the family calls, post_e, the pole update,
+    sources and monitors, the two halo exchanges) and the host's enqueue
+    ms of the exchanges. 41: the 384^3 Kerr + TPA block case (~210
+    steps) in (2, 2, 1) bricks, the halo launch in float32 and in bf16;
+    42: the Bloch metal grating (192 x 192 x 512, 13 slots, both copies,
+    ~105 steps) in (1, 2, 2), the two-copy instantiation; 43: the 13-slot
+    stack cut to 96 cells of depth in (2, 2, 1), the pole-table
+    instantiation's halo launch; 44: the dispersive case (~210 steps) over
+    5 x-bricks of 77, 77, 77, 77 and 76 planes (a split the x-slab route
+    refuses), the main path. Each phase's ``[time]`` line gives the
+    process's peak host memory and the host's available memory;
+45. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -361,6 +390,11 @@ Phases (any failure exits non-zero):
     ``pole_chan_bf16``'s its SASS classes. The bf16 entries (phase 28)
     carry the share of their values bit-equal to the plain version's, and
     ``post_e`` the 9-entry check's bf16 error (phase 40).
+    ``family_update_bricks`` (phases 41-44) is timed on the Kerr + TPA
+    bricks (one family over every brick, its bound the bricks' bytes with
+    their halo planes) and carries the unsharded launch's ms, the bf16,
+    Bloch and pole-table launches' ms and bounds, and each main-path
+    case's ms a step, exchange ms and Gcell*steps/s.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -368,9 +402,11 @@ go to the ``OUT_DIR`` directory.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
+import resource
 import sys
 import time
 
@@ -410,7 +446,7 @@ TOL_PATTERN = 0.1
 # overlap of each mode (tests/test_plugins/test_mode_tpu.py:57,62)
 TOL_NEFF = 2e-5
 MIN_OVERLAP = 0.999
-N_MON_FREQS = 4         # phase 26's frequencies of the mode monitor (of 11)
+N_MON_FREQS = 2         # phase 26's frequencies of the mode monitor (of 11)
 N_LAB = 384             # the step labs' default n
 OUT_DIR = "chiprun_out"
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # git-ignored
@@ -444,7 +480,19 @@ T0 = time.perf_counter()
 
 def stamp(phase: str) -> None:
     STAMPS[phase] = round(time.perf_counter() - T0, 1)
-    log(f"[time] phase {phase} begins at {STAMPS[phase]} s")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"[time] phase {phase} begins at {STAMPS[phase]} s; host memory: "
+        f"process peak {peak:.1f} GiB, {host_available_gib():.1f} GiB "
+        "available")
+
+
+def host_available_gib() -> float:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
 
 
 def sync() -> None:
@@ -2179,21 +2227,21 @@ def resume_case(make_runner, plan, what: str, smi: str) -> None:
 def run_resume(td, dev, smi: str) -> None:
     """Phase 19: resume on the kstep tier at 384^3 (dispersive), on 4
     virtual x-shards (dispersive) and on the Bloch dipole (256^3), each over
-    the first third of its run."""
+    the first sixth of its run."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.lowering import lower
 
-    def third(sim):
-        return lower(sim.copy(update=dict(run_time=sim.run_time / 3)))
+    def sixth(sim):
+        return lower(sim.copy(update=dict(run_time=sim.run_time / 6)))
 
-    plan_d = third(dispersive_case(td))
+    plan_d = sixth(dispersive_case(td))
     resume_case(lambda p: FDTDRunner(p, device=dev), plan_d,
                 "dispersive 384^3, kstep tier", smi)
     torch.cuda.empty_cache()
     resume_case(lambda p: sharded_runner(p, [dev] * 4), plan_d,
                 "dispersive 384^3, 4 virtual x-shards", smi)
     torch.cuda.empty_cache()
-    resume_case(lambda p: FDTDRunner(p, device=dev), third(bloch_case(td)),
+    resume_case(lambda p: FDTDRunner(p, device=dev), sixth(bloch_case(td)),
                 "Bloch dipole 256^3, two copies", smi)
     torch.cuda.empty_cache()
 
@@ -3510,8 +3558,8 @@ def eme_taper_case(td):
     wide for x < -5 um, tapering linearly to 3 um at x = 5 um and 3 um wide
     beyond; the EME region is 12 x 5 x 3 um along x, its cross-section
     gridded at dl = 0.025 um (200 x 120 cells: 2N = 48000, the device
-    filter under ``auto``), 8 uniform EME cells of 4 modes, 3 frequencies
-    around 1.55 um."""
+    filter under ``auto``), 8 uniform EME cells of 4 modes, 2 frequencies
+    (1.55 um and 2 % above it)."""
     freq0 = td.C_0 / 1.55
     taper = td.PolySlab(
         vertices=[(-7.0, -0.25), (-5.0, -0.25), (5.0, -1.5), (7.0, -1.5),
@@ -3519,7 +3567,7 @@ def eme_taper_case(td):
         slab_bounds=(-0.11, 0.11), axis=2)
     return td.EMESimulation(
         center=(0, 0, 0), size=(12.0, 5.0, 3.0), axis=0,
-        freqs=[0.98 * freq0, freq0, 1.02 * freq0],
+        freqs=[freq0, 1.02 * freq0],
         medium=td.Medium(permittivity=2.085),
         structures=[td.Structure(geometry=taper,
                                  medium=td.Medium(permittivity=12.1))],
@@ -3576,7 +3624,7 @@ def run_eme_phase(td, smi: str) -> None:
     assert np.all(np.isfinite(power)) and np.all(power <= 1 + TOL_PASSIVE)
     assert np.all(power[:, 0] >= MIN_POWER_FUNDAMENTAL), power
     assert np.all(fund >= MIN_S21_FUNDAMENTAL), fund
-    # cell 0's plane through ARPACK at the middle frequency
+    # cell 0's plane through ARPACK at 1.55 um
     fdtd = sim._to_fdtd_sim()
     old = os.environ.get("TIDY3D_TPU_MODE_SOLVER")
     os.environ["TIDY3D_TPU_MODE_SOLVER"] = "arpack"
@@ -3586,7 +3634,7 @@ def run_eme_phase(td, smi: str) -> None:
             simulation=fdtd, plane=Box(
                 center=(float(sim.cell_centers[0]), 0, 0),
                 size=(0, sim.size[1], sim.size[2])),
-            mode_spec=sim.mode_specs[0], freqs=[sim.freqs[1]],
+            mode_spec=sim.mode_specs[0], freqs=[sim.freqs[0]],
             colocate=False).data_raw
         t_arpack = time.perf_counter() - t0
     finally:
@@ -3595,7 +3643,7 @@ def run_eme_phase(td, smi: str) -> None:
         else:
             os.environ["TIDY3D_TPU_MODE_SOLVER"] = old
     n_arpack = np.sort(np.real(np.asarray(ref.n_complex.values)[0]))
-    n_filter = np.sort(np.real(np.asarray(data.n_complex.values)[1, 0, 0]))
+    n_filter = np.sort(np.real(np.asarray(data.n_complex.values)[0, 0, 0]))
     err = float(np.max(np.abs(n_filter - n_arpack)))
     log(f"[eme] cell 0 n_eff: filter {n_filter.tolist()}, ARPACK "
         f"{n_arpack.tolist()} ({t_arpack:.2f} host s): max diff {err:.2e} "
@@ -4003,6 +4051,395 @@ def run_sixteenth(td, dev, smi: str) -> tuple:
     err = run_repairs(td, dev, smi)
     torch.cuda.empty_cache()
     return n, err
+
+
+# --------------------------------------------------------------------------- #
+# phases 41-44: sharded runs on bricks (the family kernel's halo mode)
+# --------------------------------------------------------------------------- #
+
+BRICK_KERR = (2, 2, 1)       # the Kerr + TPA block case
+BRICK_BLOCH = (1, 2, 2)      # the Bloch metal grating
+BRICK_DISP = (5, 1, 1)       # the dispersive case: 77 x 4 + 76 planes
+BRICK_MANY = (2, 2, 1)       # the 13-slot stack cut in depth (pole table)
+
+
+def bricks_runner(plan, dev, decomp, **kw):
+    """A runner on virtual bricks of the card (the brick route under the
+    default tier: ``sharded_runner`` with a decomposition)."""
+    return sharded_runner(plan, [dev] * int(np.prod(decomp)), decomp=decomp,
+                          **kw)
+
+
+def brick_pair_work(runner, states) -> tuple:
+    """``(bytes, operations)`` of one family launch over every brick, half
+    of an E and H pair: per brick and copy 6 fields read and 3 written,
+    its psi slabs read and written, the pole currents read by E, its
+    constants and the halo planes the launch reads (the H lo planes in E,
+    the E hi planes in H)."""
+    total, ops = 0.0, 0.0
+    for sh, st in zip(runner.shards, states):
+        copies = [(e, h, p) for e, h, p in (("E", "H", "psi"),
+                                            ("E1", "H1", "psi1")) if e in st]
+        c = sh.consts
+        consts = [c["coeffs_E"], c["coeffs_H"], c["inv_dual"],
+                  c["inv_primal"], c["pml"], c["pole_masks"],
+                  c["pole_B_dense"]]
+        q = [st[key] for key in ("Q", "Q1") if key in st]
+        cells = int(np.prod(sh.meta.shape))
+        psi = sum(numel(st[p]) for _, _, p in copies)
+        total += (3 * nbytes([st[e] for e, _, _ in copies],
+                             [st[h] for _, h, _ in copies])
+                  + 2 * nbytes([st[p] for _, _, p in copies]) + nbytes(q)
+                  + nbytes(consts) + nbytes(st["halo"])) / 2
+        ops += (len(copies) * OPS_FAMILY * cells + OPS_PSI * psi / 2
+                + 4 * 3 * len(runner.plan.poles) * len(copies) * cells / 2)
+    return total, ops
+
+
+def brick_updates(fn, runner, states, halos: bool = True) -> list:
+    """One E update of every brick (``fn``: the kernel's
+    ``family_update_copies`` or its plain version), the E^{n+1} hi halos
+    exchanged (``halos``), then the H update from the new E: per brick
+    ``(E outputs, H outputs)``, each a list per copy."""
+    outs_e = []
+    for sh, st in zip(runner.shards, states):
+        views = runner._views(st)
+        outs_e.append(fn("E", views, sh.consts, [v["H"] for v in views],
+                         sh.meta, st["halo"]["H"]))
+    new_e = [[f for f, _ in out] for out in outs_e]
+    if halos:
+        runner.exchange_brick_halos(states, "H", new_e)
+    outs_h = [fn("H", runner._views(st), sh.consts, es, sh.meta,
+                 st["halo"]["E"])
+              for sh, st, es in zip(runner.shards, states, new_e)]
+    return list(zip(outs_e, outs_h))
+
+
+def brick_errors(got, ref, cut=None) -> tuple:
+    """``(largest relative, largest absolute)`` difference of two sets of
+    brick outputs (fields and psi of every copy), or, with ``cut``, of the
+    bricks' outputs (``got``) against an unsharded one (``ref``: ``(E
+    outputs, H outputs)``) at each brick's cells: ``cut(s, key)`` gives the
+    slices of brick s's part of array ``key``."""
+    worst_rel, worst_abs = 0.0, 0.0
+    for s, (g_e, g_h) in enumerate(got):
+        r_e, r_h = ref if cut else ref[s]
+        for gs, rs in ((g_e, r_e), (g_h, r_h)):
+            for (gf, gp), (rf, rp) in zip(gs, rs):
+                for g, r in ((gf, rf), (gp, rp)):
+                    if cut:
+                        r = {k: r[k][cut(s, k)] for k in g}
+                    if not g:
+                        continue
+                    worst_abs = max(worst_abs, max_diff(g, r))
+                    worst_rel = max(worst_rel, rel_err(g, r))
+    return worst_rel, worst_abs
+
+
+def compare_brick_updates(step, plan, dev, decomp, what: str, smi: str,
+                          precision=None, seed: int = 41) -> dict:
+    """Phase 41 on one case: one E and one H launch of the family kernel's
+    halo mode on every brick, from one random global state split into
+    bricks, against its plain version on the same bricks (1e-6; bf16 1e-2,
+    where a contracted product may move a stored value by one bf16 step)
+    and against the unsharded launches on the global state; the launches'
+    device ms summed over the bricks (``device_ms``) beside their byte
+    bound and the unsharded launch's; returns the numbers."""
+    from tidy3d_tpu_torch import convert
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+
+    tol = TOL_BF16 if precision else TOL_UPDATE
+    ur = FDTDRunner(plan, device=dev, kernel="pallas2", precision=precision)
+    br = bricks_runner(plan, dev, decomp, precision=precision)
+    assert br.bricks and br.tier == "pallas2", br.tier_name
+    glob = random_state(ur, seed)
+    views = ur._views(glob)
+    uE = step.family_update_copies("E", views, ur.consts,
+                                   [v["H"] for v in views], ur.meta)
+    uH = step.family_update_copies("H", views, ur.consts,
+                                   [f for f, _ in uE], ur.meta)
+    states = convert.shard_states_from_reference(glob, br)
+    before = step.BRICK_LAUNCHES
+    got = brick_updates(step.family_update_copies, br, states)
+    sync()
+    assert step.BRICK_LAUNCHES == before + 2 * len(br.shards), \
+        "halo-mode kernel did not launch"
+    plain = brick_updates(step.family_update_copies_reference, br, states,
+                          halos=False)
+
+    def cut(s, key):
+        if "|" in key:
+            return convert._psi_cut(br, s, key)
+        return br.layout.owned_slices(s)
+
+    err_p = brick_errors(got, plain)
+    err_u = brick_errors(got, (uE, uH), cut)
+    log(f"[bricks] {what} {plan.shape} in {decomp} bricks: halo-mode family "
+        f"kernel vs plain max rel err {err_p[0]:.3e} (max abs "
+        f"{err_p[1]:.3e}), vs the unsharded kernel {err_u[0]:.3e} (max abs "
+        f"{err_u[1]:.3e}) (tol {tol:g}; E then H of every copy, fields and "
+        f"psi)")
+    assert err_p[0] <= tol and err_u[0] <= tol, (what, err_p, err_u)
+    del got, plain, uE, uH
+
+    def launches(fn):
+        def once():
+            for fam, src in (("E", "H"), ("H", "E")):
+                for sh, st in zip(br.shards, states):
+                    vs = br._views(st)
+                    fn(fam, vs, sh.consts, [v[src] for v in vs], sh.meta,
+                       st["halo"][src])
+        return once
+
+    # device time (queued behind a sleep kernel): the host's enqueue of a
+    # call a brick would otherwise count where it outruns the launches
+    k_ms = device_ms(launches(step.family_update_copies), 5) / 2
+    p_ms = cuda_ms(launches(step.family_update_copies_reference), 2) / 2
+    u_ms = device_ms(lambda: (
+        step.family_update_copies("E", views, ur.consts,
+                                  [v["H"] for v in views], ur.meta),
+        step.family_update_copies("H", views, ur.consts,
+                                  [v["E"] for v in views], ur.meta)), 5) / 2
+    bnd = bound(*brick_pair_work(br, states),
+                PEAK_BF16 if precision else PEAK_F32)
+    mode = "bloch" if plan.is_complex else \
+        "many" if len(plan.poles) > step.MAX_POLES else "real"
+    storage = br.storage
+    res = {f"{f} shell": step.resources(f, False, storage, mode)
+           for f in "EH"}
+    log(f"[bricks] {what} in {decomp} bricks: halo-mode family launch "
+        f"{k_ms:.3f} ms (one family over every brick), bound {bnd[0]:.3f} "
+        f"ms by {bnd[1]}, ratio {k_ms / bnd[0]:.2f}; unsharded launch "
+        f"{u_ms:.3f} ms; plain {p_ms:.3f} ms; shell (halo side) "
+        f"instantiation's registers and blocks per SM {regs_blocks(res)} "
+        f"| {smi}")
+    del glob, views, states, ur, br
+    torch.cuda.empty_cache()
+    return dict(err=max(err_p[1], err_u[1]), err_rel=err_p[0], ms=k_ms,
+                plain_ms=p_ms, unsharded_ms=u_ms, bound=bnd, res=res)
+
+
+def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
+    """Phases 42-44 on one case: ``FDTDRunner.run()`` on bricks with an
+    explicit ``ShardingPlan`` of the card named once a brick, in turns
+    with the unsharded ``pallas2`` run (unsharded, bricks, bricks,
+    unsharded), the launch counts set to 0 just before the first brick run
+    and read just after: the brick route's family calls (two a step and
+    brick, each in halo mode) and post_e calls only, no k-step or fused
+    launch; raw monitors against the unsharded run (2e-5), then the
+    port's ``SimulationData`` builders; ms a step, Gcell*steps/s and peak
+    memory of each; the two halo exchanges' share of a step (device ms by
+    CUDA events, and the host's enqueue ms)."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
+    from tidy3d_tpu_torch.web.run import assemble_sim_data
+
+    t_phase = time.perf_counter()
+    ncell = int(np.prod(plan.shape))
+    out = {"unsharded": [], "bricks": []}
+    raws, peaks, counts = {}, {}, None
+    runners = {"unsharded": FDTDRunner(plan, device=dev, kernel="pallas2"),
+               "bricks": bricks_runner(plan, dev, decomp)}
+    for name in ("unsharded", "bricks", "bricks", "unsharded"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        runner = runners[name]
+        first = name == "bricks" and counts is None
+        if first:
+            step.LAUNCHES = step.BRICK_LAUNCHES = post_e.LAUNCHES = 0
+            fused.LAUNCHES = kstep.LAUNCHES = 0
+        raws[name] = runner.run()
+        if first:
+            counts = {"family": step.LAUNCHES, "halo": step.BRICK_LAUNCHES,
+                      "post_e": post_e.LAUNCHES, "fused": fused.LAUNCHES,
+                      "kstep": kstep.LAUNCHES}
+            MEMORY.append((f"{what}, {decomp} bricks",
+                           runner.estimate_device_memory()["total"],
+                           runner.hbm_peak_bytes, base))
+            tier = runner.tier_name
+            nbricks, steps = len(runner.shards), runner.steps_run
+            assert runner.bricks, tier
+            data = assemble_sim_data(sim, plan, raws[name], runner,
+                                     "chip_smoke")
+        out[name].append(runner.wall_time / runner.steps_run * 1e3)
+        peaks[name] = runner.hbm_peak_bytes - base
+    del runners, runner
+    assert counts["fused"] == counts["kstep"] == 0, counts
+    assert counts["family"] == counts["halo"] == 2 * nbricks * steps, counts
+    n_post_e = nbricks * steps * (1 + plan.is_complex) \
+        if plan.nonlinear is not None or plan.modulation else 0
+    assert counts["post_e"] == n_post_e, counts
+    err = raw_err(raws["unsharded"], raws["bricks"])
+    flux = np.asarray(data["flux"].flux.values)
+    assert np.all(np.isfinite(flux)) and np.any(flux != 0)
+    log(f"[bricks] {what}, {tier}: {steps} steps, launches {counts} (family "
+        f"calls 2 a step and brick, all in halo mode); raw monitors vs the "
+        f"unsharded pallas2 run max rel err {err:.3e} (tol {TOL_STEPS:g}); "
+        f"flux finite and non-zero")
+    assert err <= TOL_STEPS, f"{what} bricks: rel err {err:.3e}"
+    split, host_ms, planes = brick_step_split(plan, dev, decomp)
+    ex_ms = split["exchange"]
+    step_ms = float(np.mean(out["bricks"]))
+    rates = {k: [ncell / (ms * 1e-3) / 1e9 for ms in v]
+             for k, v in out.items()}
+    log(f"[bricks] {what}, {decomp} bricks: ms a step bricks {out['bricks']} "
+        f"unsharded {out['unsharded']} (ratio "
+        f"{step_ms / float(np.mean(out['unsharded'])):.3f}); Gcell*steps/s "
+        f"bricks {rates['bricks']} unsharded {rates['unsharded']}; the two "
+        f"halo exchanges {ex_ms:.3f} device ms a step "
+        f"({ex_ms / step_ms:.1%} of the step; {planes} halo values), host "
+        f"{host_ms:.3f} ms enqueued; peak device memory bricks "
+        f"{peaks['bricks'] / 2**30:.2f} GiB, unsharded "
+        f"{peaks['unsharded'] / 2**30:.2f}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    log(f"[split] {what}, {decomp} bricks, per step (device ms by CUDA "
+        f"events, part by part over every brick): "
+        f"{ {k: round(v, 3) for k, v in split.items()} } ms, sum "
+        f"{sum(split.values()):.3f} ms against the step's {step_ms:.3f} ms "
+        f"| {smi}")
+    return dict(launches=counts["halo"], err=err, step_ms=step_ms,
+                exchange_ms=ex_ms, rate=float(np.mean(rates["bricks"])),
+                split=split)
+
+
+def brick_step_split(plan, dev, decomp) -> tuple:
+    """Device ms a step of each part of a step on bricks (``device_ms``,
+    one part at a time over every brick, on the zero state: no part's
+    work depends on the values): the two family calls, post_e and the
+    plain pole update of every copy, the sources and the monitors, and
+    the two halo exchanges; with the host's enqueue ms of the exchanges
+    and the halo values they move."""
+    from tidy3d_tpu_torch.solver.fdtd import update_poles
+
+    br = bricks_runner(plan, dev, decomp)
+    states = br.init_state()["shards"]
+    views = [br._views(st) for st in states]
+    new_e = [[{c: v.clone() for c, v in vw["E"].items()} for vw in vs]
+             for vs in views]
+    t = min(40, br.num_steps - 1)
+
+    def family():
+        for fam, src in (("E", "H"), ("H", "E")):
+            for sh, st, vs in zip(br.shards, states, views):
+                br._family_update(fam, vs, [v[src] for v in vs], sh,
+                                  st["halo"][src])
+
+    def passes():
+        for sh, vs, es in zip(br.shards, views, new_e):
+            for ne, vw in zip(es, vs):
+                br._post_e(ne, vw["E"], t, sh.consts)
+
+    def poles():
+        for sh, vs, es in zip(br.shards, views, new_e):
+            for ne, vw in zip(es, vs):
+                update_poles(ne, vw["E"], vw["Q"], sh.consts)
+
+    def sources_monitors():
+        for sh, st, vs, es in zip(br.shards, states, views, new_e):
+            for p, ne in enumerate(es):
+                br._inject("E", ne, t, p, sh.sources)
+                br._inject("H", vs[p]["H"], t, p, sh.sources)
+            br._accumulate_monitors(t, es[0], vs[0]["H"], st["mon"],
+                                    *(es[1:] + [v["H"] for v in vs[1:]]),
+                                    dft=sh.consts["dft"],
+                                    slices=sh.mon_slices)
+
+    def exchanges():
+        br.exchange_brick_halos(states, "E")
+        br.exchange_brick_halos(states, "H", new_e)
+
+    nl = plan.nonlinear is not None or bool(plan.modulation)
+    split = {"family": device_ms(family, 5),
+             "post_e": device_ms(passes, 5) if nl else 0.0,
+             "poles": device_ms(poles, 3) if plan.poles else 0.0,
+             "sources_monitors": device_ms(sources_monitors, 5),
+             "exchange": device_ms(exchanges, 10)}
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        exchanges()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    sync()
+    planes = sum(t_.numel() for st in states for fam in st["halo"].values()
+                 for copy in fam for planes_ in copy.values()
+                 for t_ in planes_.values())
+    return split, host_ms, planes
+
+
+def run_bricks(td, dev, smi: str) -> dict:
+    """Phases 41-44, one case at a time (each plan lowered where its phase
+    begins and dropped where it ends): the family kernel's halo mode,
+    launch by launch, and the main path on bricks, on the Kerr + TPA block
+    case in (2, 2, 1) (the halo launch in float32 and in bf16), the Bloch
+    metal grating in (1, 2, 2) (the two-copy instantiation with its pole
+    tables), the 13-slot stack cut in depth in (2, 2, 1) (the halo launch
+    of the pole-table instantiation) and the dispersive case over 5
+    uneven x-bricks (a split the x-slab route refuses; the main path).
+    Returns the ``family_update_bricks`` entry of the kernels line."""
+    from tidy3d_tpu_torch.solver.kernels import step
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    def cut(sim, div):
+        return sim.copy(update=dict(run_time=sim.run_time / div))
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    stamp("41")
+    sim = cut(block_case(td, kerr_medium(td), probe=True), 9)
+    plan = lower(sim)
+    upd = {"kerr": compare_brick_updates(step, plan, dev, BRICK_KERR,
+                                         "Kerr + TPA", smi),
+           "kerr_bf16": compare_brick_updates(step, plan, dev, BRICK_KERR,
+                                              "Kerr + TPA, bf16", smi,
+                                              precision="bfloat16")}
+    main = {"kerr": brick_main_path(td, sim, plan, dev, BRICK_KERR,
+                                    "Kerr + TPA 384^3", smi)}
+    del sim, plan
+    release()
+    stamp("42")
+    sim = cut(bloch_metal_case(td), 3)
+    plan = lower(sim)
+    upd["bloch"] = compare_brick_updates(step, plan, dev, BRICK_BLOCH,
+                                         "Bloch metal (2 copies)", smi)
+    main["bloch"] = brick_main_path(td, sim, plan, dev, BRICK_BLOCH,
+                                    "Bloch metal", smi)
+    del sim, plan
+    release()
+    stamp("43")
+    plan = lower(many_poles_case(td, nz=N_MP_Z_TURNS))
+    upd["many"] = compare_brick_updates(step, plan, dev, BRICK_MANY,
+                                        "13 slots (pole table)", smi)
+    del plan
+    release()
+    stamp("44")
+    sim = cut(dispersive_case(td), 9)
+    plan = lower(sim)
+    sizes = bricks_runner(plan, dev, BRICK_DISP).layout.sizes[0]
+    assert sizes == [77, 77, 77, 77, 76], sizes
+    main["disp"] = brick_main_path(td, sim, plan, dev, BRICK_DISP,
+                                   "dispersive 384^3, 5 uneven x-bricks",
+                                   smi)
+    del sim, plan
+    release()
+    k = upd["kerr"]
+    return entry(
+        "family_update_bricks", "tidy3d_tpu_torch/csrc/step.cu",
+        "tidy3d_tpu/solver/kernels/pallas_step.py:118",
+        sum(m["launches"] for m in main.values()),
+        max(u["err"] for key, u in upd.items() if key != "kerr_bf16"),
+        k["ms"], k["plain_ms"], k["bound"], unsharded_ms=k["unsharded_ms"],
+        instantiations=regs_blocks(k["res"]),
+        bf16={key: upd["kerr_bf16"][key] for key in ("ms", "err")},
+        bf16_bound_ms=upd["kerr_bf16"]["bound"][0],
+        bloch={key: upd["bloch"][key] for key in ("ms", "unsharded_ms")},
+        bloch_bound_ms=upd["bloch"]["bound"][0],
+        many_poles={key: upd["many"][key] for key in ("ms",
+                                                       "unsharded_ms")},
+        many_poles_bound_ms=upd["many"]["bound"][0],
+        runs={key: {k2: m[k2] for k2 in ("step_ms", "exchange_ms", "rate")}
+              for key, m in main.items()})
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
@@ -5053,6 +5490,9 @@ def main() -> int:
     # media: the two-copy and pole-table kernels and post_e
     new_entries = run_fifteenth(td, dev, smi)
     torch.cuda.empty_cache()
+    # 41-44. sharded runs on bricks: the family kernel's halo mode
+    bricks_entry = run_bricks(td, dev, smi)
+    torch.cuda.empty_cache()
 
     stamp("10-11")
     # 10-11. Bloch (complex) runs
@@ -5137,8 +5577,8 @@ def main() -> int:
               shard["ms"], shard["plain_ms"], shard["bound"],
               registers=shard["registers"],
               blocks_per_sm=shard["blocks_per_sm"]),
-    ] + new_entries + bf16_entries + labs}
-    stamp("41")
+    ] + new_entries + [bricks_entry] + bf16_entries + labs}
+    stamp("45")
     log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s; "
         f"phases begun at (s): {STAMPS}")
     log(smi)

@@ -12,7 +12,8 @@ unsharded kstep runs and against the JAX XLA runner fed the same strided
 DFT tables (raw monitors to 2e-5, the JAX package's bar in
 ``tests/test_solver/test_kstep_sharded.py``); the y and z decompositions
 through the rotation; ``web.run`` under ``TIDY3D_TPU_SHARD``; and the
-refusals.
+refusals of a forced ``kstep`` (the plans ``auto`` sends to bricks,
+``tests/test_torch_sharded_bricks.py``).
 
 The JAX package's own sharded path (``_run(sim, ndev=4,
 kernel="kstep_interpret", k=2)`` of ``test_kstep_sharded.py``) is not run
@@ -295,26 +296,34 @@ def test_web_run_sharded_env_matches_unsharded(monkeypatch, caplog):
 # --------------------------------------------------------------------------- #
 
 
+def forced_kstep(env, plan, ndev: int, decomp=None) -> FDTDRunner:
+    """``sharded`` under ``TIDY3D_TPU_KERNEL=kstep``: the x-slab k-step
+    route or its refusal (``auto`` takes bricks where it refuses,
+    ``tests/test_torch_sharded_bricks.py``)."""
+    env.setenv("TIDY3D_TPU_KERNEL", "kstep")
+    return sharded(plan, ndev, decomp, kernel=None)
+
+
 def _refuse_2d(env):
-    sharded(lower(sized(SIMS["pml_all"]())), 4, decomp=(2, 2, 1))
+    forced_kstep(env, lower(sized(SIMS["pml_all"]())), 4, decomp=(2, 2, 1))
 
 
 def _refuse_bloch(env):
-    sharded(lower(BLOCH["bloch_dipole"]()), 2)
+    forced_kstep(env, lower(BLOCH["bloch_dipole"]()), 2)
 
 
 def _refuse_uneven(env):
     plan = lower(SIMS["pml_all"]())
     assert plan.shape[0] % 2
-    sharded(plan, 2)
+    forced_kstep(env, plan, 2)
 
 
 def _refuse_cone(env):
-    sharded(lower(sized(SIMS["pml_all"](), 20)), 4)
+    forced_kstep(env, lower(sized(SIMS["pml_all"](), 20)), 4)
 
 
 def _refuse_thin(env):
-    sharded(lower(sized(SIMS["periodic"](), 12)), 4)
+    forced_kstep(env, lower(sized(SIMS["periodic"](), 12)), 4)
 
 
 def _refuse_fused(env):

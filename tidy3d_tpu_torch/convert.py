@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .solver.fdtd import brick_psi_cut
+
 _COPIES = (("E", "H", "psi"), ("E1", "H1", "psi1"))
 
 
@@ -112,7 +114,10 @@ def shard_states_from_reference(state_np: dict, runner) -> list:
     dicts and the ``Q`` list of a real run, of numpy arrays or tensors):
     every x-spanning array as the shard's padded x-slice, its halo planes
     already holding the neighbours' core edges (what a ring exchange
-    gives), and the x psi slabs on the edge shards that hold them."""
+    gives), and the x psi slabs on the edge shards that hold them. A run
+    on bricks: ``brick_states_from_reference``."""
+    if runner.bricks:
+        return brick_states_from_reference(state_np, runner)
     lay = runner.layout
     states = runner.init_state()["shards"]
     for s, (sh, st) in enumerate(zip(runner.shards, states)):
@@ -142,7 +147,10 @@ def shard_states_to_reference(states: list, runner,
     arrays, or with ``tensors`` of tensors of their own types on the first
     shard's device) from the shards' states: the owned planes of each
     x-spanning array joined in x order, and each x psi slab from the edge
-    shard that holds it."""
+    shard that holds it. A run on bricks:
+    ``brick_states_to_reference``."""
+    if runner.bricks:
+        return brick_states_to_reference(states, runner, tensors)
     lay = runner.layout
     dev = states[0]["E"]["Ex"].device
 
@@ -166,4 +174,87 @@ def shard_states_to_reference(states: list, runner,
     out["Q"] = [{c: (join([st["Q"][pi][c][0] for st in states]),
                      join([st["Q"][pi][c][1] for st in states]))
                  for c in Qp} for pi, Qp in enumerate(states[0]["Q"])]
+    return out
+
+
+def _psi_cut(runner, s: int, key: str) -> tuple:
+    """The slices of the global psi slab ``key`` (``comp|axis|side``) that
+    brick s of ``runner`` holds: its owned cells on the other axes, its
+    part of the slab on the slab's own axis."""
+    _, axis, side = key.split("|")
+    axis = int(axis)
+    fam = "dual" if key[0] == "E" else "primal"
+    lay = runner.layout
+    cut = list(lay.owned_slices(s))
+    cut[axis] = brick_psi_cut(lay, runner.pml_meta[(fam, axis)], s, axis,
+                              0 if side == "lo" else 1)
+    return tuple(cut)
+
+
+def brick_states_from_reference(state_np: dict, runner) -> list:
+    """The state of each brick of a ``runner`` on bricks (tensors on the
+    bricks' devices, empty monitor parts) from a global state (E/H/psi
+    dicts and the ``Q`` list, both copies of a complex run, of numpy
+    arrays or tensors): each array cut to the brick's cells, each psi
+    slab to the brick's part of it, and the halo planes filled by the
+    runner's own exchange (what the step gives them before it reads
+    them)."""
+    lay = runner.layout
+    states = runner.init_state()["shards"]
+    copies = _COPIES[:1 + ("E1" in states[0])]
+    for s, (sh, st) in enumerate(zip(runner.shards, states)):
+        def put(a, dtype=runner.dtype, cut=None):
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a, np.float32))
+            a = lay.take(a, s) if cut is None else a[cut]
+            return _tensor(a, dtype, sh.device)
+
+        for e, h, p in copies:
+            for fam in (e, h):
+                st[fam] = {c: put(v) for c, v in state_np[fam].items()}
+            st[p] = {key: put(state_np[p][key], runner.psi_dtype,
+                              _psi_cut(runner, s, key)) for key in st[p]}
+        for key in ("Q", "Q1")[:len(copies)]:
+            Q = state_np.get(key, [])
+            if len(Q) != len(st[key]):
+                raise ValueError(f"{len(Q)} pole currents given in {key}, "
+                                 f"the plan has {len(st[key])} poles")
+            st[key] = [{c: (put(qr, runner.q_dtype), put(qi, runner.q_dtype))
+                        for c, (qr, qi) in Qp.items()} for Qp in Q]
+    runner.exchange_brick_halos(states, "E")
+    runner.exchange_brick_halos(states, "H")
+    return states
+
+
+def brick_states_to_reference(states: list, runner,
+                              tensors: bool = False) -> dict:
+    """The global state (E/H/psi dicts and ``Q`` lists, float32 numpy, or
+    with ``tensors`` float32 tensors on the first brick's device) from the
+    bricks' states: each brick's arrays placed at its cells, its psi parts
+    at their place in the global slabs."""
+    dev = states[0]["E"]["Ex"].device
+    shapes = runner.psi_shapes()
+    copies = _COPIES[:1 + ("E1" in states[0])]
+
+    def join(parts, shape):
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        for cut, a in parts:
+            out[cut] = a.to(dev).float()
+        return out if tensors else out.cpu().numpy()
+
+    cells = [runner.layout.owned_slices(s) for s in range(len(states))]
+    out = {}
+    for e, h, p in copies:
+        for fam in (e, h):
+            out[fam] = {c: join([(cut, st[fam][c]) for cut, st in
+                                 zip(cells, states)], runner.shape)
+                        for c in states[0][fam]}
+        out[p] = {key: join([(_psi_cut(runner, s, key), st[p][key])
+                             for s, st in enumerate(states) if key in st[p]],
+                            shape) for key, shape in shapes.items()}
+    for key in ("Q", "Q1")[:len(copies)]:
+        out[key] = [{c: tuple(join([(cut, st[key][pi][c][part]) for cut, st
+                                    in zip(cells, states)], runner.shape)
+                              for part in (0, 1))
+                     for c in Qp} for pi, Qp in enumerate(states[0][key])]
     return out

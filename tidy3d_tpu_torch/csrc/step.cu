@@ -69,6 +69,22 @@
 // chunk's lead-in x plane rotates the same way. In bfloat16 storage the
 // rotated value is rounded once more where it is staged.
 //
+// Bricks (the brick-local halo mode). A brick of a sharded run holds the
+// cells it owns in arrays of its own shape; its halo planes, one on each
+// side of each decomposed axis that has a neighbour, are separate tensors
+// (a y or z plane of the neighbour is strided, so the host exchange copies
+// it into a contiguous (nx, 1, nz) or (nx, ny, 1) tensor; an x halo is
+// (1, ny, nz)), one per source component the curl differentiates along
+// that axis. A side with a halo has the wall kind WALL_HALO: where the
+// stencil crosses it (y = 0 or z = 0 or x = 0 for E, the last plane for
+// H) the neighbour column is read from the halo plane (halo[3 * axis +
+// component]), where a PEC or PMC wall would put its zero or mirror. Only
+// shell tiles reach a side, so the bulk instantiations are unchanged; the
+// staged value that the halo replaces is the wrapped cell of the brick,
+// staged as before and not used. A decomposed axis never wraps or rotates
+// inside the kernel (its Bloch phase, bloch[a], is 0: the halo planes
+// carry the phase), and PEC lo masks apply on a global wall only.
+//
 // The bound is HBM bandwidth: 36 B per cell (3 source, 3 old and 3 new
 // float32 values), plus the per-cell ca/cb arrays where the medium varies
 // and the psi slabs; each pole adds 24 B per cell to the E family (its 3 qr
@@ -219,6 +235,9 @@ struct FamilyParams {
     float gc_im[MAX_POLES];
     const q_t* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
     const PoleSlot* poles;    // the table of num_poles slots (TAB), or null
+    const field_t* halo[9];   // [3 * axis + source component]: the brick's
+                              // halo plane of that component on the side
+                              // the family crosses (bkind WALL_HALO)
 };
 
 // Both copies of a Bloch run. Mirrored by BlochParams in step.py.
@@ -233,7 +252,7 @@ struct BlochParams {
 static_assert(sizeof(BlochParams) <= 4096,
               "kernel parameters must fit the 4 KB launch limit");
 
-enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2 };
+enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2, WALL_HALO = 3 };
 
 __host__ __device__ __forceinline__ int wrap(int v, int n) {
     return (v % n + n) % n;
@@ -303,6 +322,18 @@ __device__ __forceinline__ float2 val2(const T* a, int base,
 
 __device__ __forceinline__ float wall(int kind, float self) {
     return kind == WALL_PEC ? 0.0f : self;
+}
+
+// Whether the stencil meets a PEC or PMC wall (not a wrap or a halo).
+__device__ __forceinline__ bool is_wall(int kind) {
+    return kind == WALL_PEC || kind == WALL_PMC;
+}
+
+// A brick's halo value of source component m across axis a at offset off
+// of the halo plane.
+__device__ __forceinline__ float halo_at(const FamilyParams& p, int a, int m,
+                                         int off) {
+    return ld1(p.halo[3 * a + m] + off);
 }
 
 // Component I of the family at the own pair of plane x (wrapped xw, base
@@ -395,15 +426,21 @@ __device__ __forceinline__ void update_pair(const FamilyParams& p,
         n0_z = make_float2(fo[0].y, sh_after(f));
     }
     if (!BULK) {
-        // the wall the stencil crosses: at 0 for E, at n - 1 for H
+        // the wall the stencil crosses: at 0 for E, at n - 1 for H; a
+        // brick's halo side reads the halo planes (y: (nx, 1, nz), z: (nx,
+        // ny, 1), x: (1, ny, nz))
         const int edge_y = IS_E ? 0 : p.n[1] - 1;
-        if (c.y == edge_y && p.bkind[1] != WALL_WRAP) {
+        if (c.y == edge_y && is_wall(p.bkind[1])) {
             n2_y = make_float2(wall(p.bkind[1], fo[2].x),
                                wall(p.bkind[1], fo[2].y));
             n0_y = make_float2(wall(p.bkind[1], fo[0].x),
                                wall(p.bkind[1], fo[0].y));
+        } else if (c.y == edge_y && p.bkind[1] == WALL_HALO) {
+            const int o0 = xw * p.n[2] + c.zw0, o1 = xw * p.n[2] + c.zw1;
+            n2_y = make_float2(halo_at(p, 1, 2, o0), halo_at(p, 1, 2, o1));
+            n0_y = make_float2(halo_at(p, 1, 0, o0), halo_at(p, 1, 0, o1));
         }
-        if (p.bkind[2] != WALL_WRAP) {
+        if (is_wall(p.bkind[2])) {
             if (IS_E ? c.z == 0 : c.z == p.n[2] - 1) {
                 n1_z.x = wall(p.bkind[2], fo[1].x);
                 n0_z.x = wall(p.bkind[2], fo[0].x);
@@ -412,12 +449,29 @@ __device__ __forceinline__ void update_pair(const FamilyParams& p,
                 n1_z.y = wall(p.bkind[2], fo[1].y);
                 n0_z.y = wall(p.bkind[2], fo[0].y);
             }
+        } else if (p.bkind[2] == WALL_HALO) {
+            const int o = xw * p.n[1] + c.yw;
+            if (IS_E ? c.z == 0 : c.z == p.n[2] - 1) {
+                n1_z.x = halo_at(p, 2, 1, o);
+                n0_z.x = halo_at(p, 2, 0, o);
+            }
+            if (!IS_E && c.z + 1 == p.n[2] - 1) {
+                n1_z.y = halo_at(p, 2, 1, o);
+                n0_z.y = halo_at(p, 2, 0, o);
+            }
         }
-        if (x == (IS_E ? 0 : p.n[0] - 1) && p.bkind[0] != WALL_WRAP) {
-            n1_x = make_float2(wall(p.bkind[0], fo[1].x),
-                               wall(p.bkind[0], fo[1].y));
-            n2_x = make_float2(wall(p.bkind[0], fo[2].x),
-                               wall(p.bkind[0], fo[2].y));
+        if (x == (IS_E ? 0 : p.n[0] - 1)) {
+            if (is_wall(p.bkind[0])) {
+                n1_x = make_float2(wall(p.bkind[0], fo[1].x),
+                                   wall(p.bkind[0], fo[1].y));
+                n2_x = make_float2(wall(p.bkind[0], fo[2].x),
+                                   wall(p.bkind[0], fo[2].y));
+            } else if (p.bkind[0] == WALL_HALO) {
+                n1_x = make_float2(halo_at(p, 0, 1, c.off0),
+                                   halo_at(p, 0, 1, c.off1));
+                n2_x = make_float2(halo_at(p, 0, 2, c.off0),
+                                   halo_at(p, 0, 2, c.off1));
+            }
         }
     }
     // sgn * (F - F_shifted) * inv: F - F(-1) for E, F(+1) - F for H

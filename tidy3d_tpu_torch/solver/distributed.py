@@ -4,7 +4,9 @@
 ``TIDY3D_TPU_SHARD`` asks for a sharded run as in the JAX package: unset,
 ``""``, ``"0"`` or ``"none"`` run unsharded; ``"auto"`` splits x over every
 device; ``"dx,dy,dz"`` (padded with ones) names the decomposition. One
-process drives every shard. Multi-host runs, which the JAX package joins
+process drives every shard. The runner takes the plan on x-slabs of the
+k-step kernel where that route takes it and on bricks of the ``pallas2``
+tier otherwise (any decomposition: ``solver/fdtd.py``). Multi-host runs, which the JAX package joins
 through ``jax.distributed.initialize`` and a coordinator, are not ported:
 ``initialize`` raises when a coordinator is set.
 

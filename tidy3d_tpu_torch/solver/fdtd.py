@@ -71,31 +71,52 @@ k-step table), where the JAX package steps them on its XLA path
 copies). The DFT adds copy 1 rotated into both quadratures, time monitors
 record copy 0. A nonlinear Bloch run raises, as in the JAX package.
 
-Sharded runs (``sharding_plan``, a ``sharding.ShardingPlan``) split x into
-slabs, one per mesh entry, on the kstep tier, as the JAX package's
-``_make_run_fn_sharded`` runs its k-step kernel under ``shard_map``
-(``tidy3d_tpu/solver/fdtd.py:1823-1906``). One process drives every
-shard; a mesh may name one device several times (virtual shards). Shard s
-owns ``nx / n`` planes and holds every x-spanning array padded by k halo
-planes per side (``sharding.XSlabs``). Each group first refreshes the halo
-planes of the buffer set it reads from the neighbours' core edges (a ring:
-shard 0's left neighbour is the last shard), then launches the k-step
-kernel once per shard in its shard-local mode; the set that was exchanged
-is the one carried forward as the next ping-pong set. Each shard
-accumulates the part of each monitor it owns, and ``run()`` joins the parts
-in x order. A single-axis y or z decomposition rotates the plan onto x
-(``plan_rotate.py``) and the raw monitors back. The gate
-(``shard_unsupported_reason``) and the refusals: a sharded request runs
-sharded on the kstep tier or raises, and mixed 2D/3D decompositions and
-sharded Bloch runs, which the JAX package sends to its GSPMD XLA path,
-raise ``NotImplementedError``.
+Sharded runs (``sharding_plan``, a ``sharding.ShardingPlan``) take one of
+two routes, decided as the JAX package's ``_kernel_intent`` and
+``_init_kernel_mode`` decide between its sharded k-step kernel and its
+GSPMD XLA path (``tidy3d_tpu/solver/fdtd.py:188-265``; ``select_tier``
+with ``sharded``). One process drives every shard; a mesh may name one
+device several times (virtual shards).
 
-Covered: every plan the JAX package runs on one device: real or complex
+* x-slabs on the kstep tier, as the JAX package's ``_make_run_fn_sharded``
+  runs its k-step kernel under ``shard_map``
+  (``tidy3d_tpu/solver/fdtd.py:1823-1906``), for a real plan whose
+  decomposition is x-only or a single y or z axis (rotated onto x by
+  ``plan_rotate.py``, the raw monitors rotated back) when
+  ``TIDY3D_TPU_SHARDED_KSTEP`` is not ``0``, ``nx`` splits evenly, the
+  monitors sample at group ends and both the k-step kernel and its shard
+  gate (``shard_unsupported_reason``) take the plan. Shard s owns ``nx /
+  n`` planes and holds every x-spanning array padded by k halo planes per
+  side (``sharding.XSlabs``). Each group first refreshes the halo planes
+  of the buffer set it reads from the neighbours' core edges (a ring:
+  shard 0's left neighbour is the last shard), then launches the k-step
+  kernel once per shard in its shard-local mode; the set that was
+  exchanged is the one carried forward as the next ping-pong set.
+* bricks on the ``pallas2`` tier for every other sharded plan (the
+  counterpart of the GSPMD path): mixed 2D/3D decompositions, Bloch runs,
+  nonlinear and modulated media, more than 8 pole slots, time monitors off
+  the group ends, uneven splits, thin shards, an x-PML cone that does not
+  fit its edge shard, ``TIDY3D_TPU_SHARDED_KSTEP=0``, a forced
+  ``pallas2``. Each brick owns the cells ``sharding.Bricks`` gives it
+  (extents as ``np.array_split`` cuts each axis) and one halo plane on
+  each decomposed side, in tensors of its own. A step (``_step_bricks``)
+  exchanges the H lo halos, runs the E family of every brick in the
+  family kernel's brick-local halo mode, then per brick and copy the J
+  sources, the passes and the pole update on its own cells and
+  constants, exchanges the E^{n+1} hi halos, runs the H family, the M
+  sources and the monitors: the order of ``_step_two_phase``. A Bloch
+  phase on a decomposed axis rides the halos that cross the global wall.
+
+A forced kstep that the x-slab route refuses raises, and so does a forced
+fused (no shard-local mode). Each shard accumulates the part of each
+monitor it owns, and ``run()`` joins the parts (in x order, or by each
+brick's place). Differentiable sharded runs raise.
+
+Covered: every plan the JAX package runs on one host: real or complex
 (Bloch) runs with any number of dispersive (pole-residue) pole slots, time
-modulation in either, nonlinear media in real runs. Sharded Bloch runs and
-mixed 2D/3D decompositions (the JAX package's GSPMD XLA path) raise
-``NotImplementedError``, and so does a nonlinear Bloch run (as the JAX
-package refuses it).
+modulation in either, nonlinear media in real runs, unsharded or over any
+``(dx, dy, dz)`` decomposition. A nonlinear Bloch run raises
+``NotImplementedError``, as the JAX package refuses it.
 
 Storage types (``storage_types``), as the JAX package picks them
 (``tidy3d_tpu/solver/fdtd.py:115-122``, ``pallas_kstep.py:158-175``): the
@@ -173,7 +194,7 @@ from .nonlinear import (
     post_e_reference, post_e_to_device,
 )
 from .plan_rotate import perm_for_rot, rotate_plan, unrotate_raw
-from .sharding import ShardingPlan, XSlabs, mesh_devices
+from .sharding import Bricks, ShardingPlan, XSlabs, mesh_devices
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
@@ -267,7 +288,7 @@ def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
                           for c, (a, b) in plan.coeffs_H.items()}
 
     # inverse steps with the CPML 1/kappa stretch folded in
-    pml_meta: Dict[Tuple[str, int], Tuple[int, int]] = {}
+    pml_meta = pml_widths(plan)
     consts["pml"] = {}
     inv_dual, inv_primal = [], []
     for axis in range(3):
@@ -279,9 +300,7 @@ def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
         inv_primal.append(_axis_reshape(
             (plan.inv_primal[axis] * cf_p.inv_kappa).astype(f32), axis))
         for fam, cf in (("dual", cf_d), ("primal", cf_p)):
-            w_lo = min(cf.n_lo + 1, n) if cf.n_lo else 0
-            w_hi = min(cf.n_hi + 1, n) if cf.n_hi else 0
-            pml_meta[(fam, axis)] = (w_lo, w_hi)
+            w_lo, w_hi = pml_meta[(fam, axis)]
             if w_lo == 0 and w_hi == 0:
                 continue
             # c_eff = c * kappa compensates the kappa folded into inv_*
@@ -316,6 +335,20 @@ def build_constants(plan: SimulationPlan) -> Tuple[dict, dict]:
     consts.update(build_pole_constants(plan))
     consts.update(build_post_e_constants(plan, consts["coeffs_E"]))
     return consts, pml_meta
+
+
+def pml_widths(plan: SimulationPlan) -> Dict[Tuple[str, int], Tuple[int,
+                                                                    int]]:
+    """``{(family, axis): (w_lo, w_hi)}``: the psi slab widths of the
+    plan, the CPML layers plus one, at most the axis."""
+    out = {}
+    for axis in range(3):
+        n = plan.shape[axis]
+        for fam, cf in (("dual", plan.pml_dual[axis]),
+                        ("primal", plan.pml_primal[axis])):
+            out[(fam, axis)] = (min(cf.n_lo + 1, n) if cf.n_lo else 0,
+                                min(cf.n_hi + 1, n) if cf.n_hi else 0)
+    return out
 
 
 def build_pole_constants(plan: SimulationPlan) -> dict:
@@ -516,6 +549,33 @@ def shard_unsupported_reason(shape, pml_meta, k: int, ndev: int):
     return None
 
 
+def _sliced_constants(host_consts: dict, take) -> dict:
+    """The host constants with ``take`` applied to every spatial array:
+    the per-cell coefficients, the inverse steps, the PEC masks, the pole
+    masks and dense residues, the nonlinear maps and the modulation
+    maps."""
+    out = dict(host_consts)
+    for key in ("coeffs_E", "coeffs_H"):
+        out[key] = {c: (take(a), take(b))
+                    for c, (a, b) in host_consts[key].items()}
+    for key in ("inv_dual", "inv_primal"):
+        out[key] = [take(v) for v in host_consts[key]]
+    out["wall_masks"] = {c: [take(m) for m in ms]
+                         for c, ms in host_consts["wall_masks"].items()}
+    out["pole_masks"] = [take(m) for m in host_consts["pole_masks"]]
+    out["pole_B_dense"] = {key: (take(re), take(im)) for key, (re, im)
+                           in host_consts["pole_B_dense"].items()}
+    if "nl" in host_consts:
+        out["nl"] = {kind: {c: take(v) for c, v in maps.items()}
+                     for kind, maps in host_consts["nl"].items()}
+    if "mod" in host_consts:
+        out["mod"] = [dict(ce, **{key: {c: (take(b1), take(b2))
+                                        for c, (b1, b2) in ce[key].items()}
+                                  for key in ("Beps", "Bsig") if key in ce})
+                      for ce in host_consts["mod"]]
+    return out
+
+
 def shard_constants(host_consts: dict, pml_meta: dict, layout: XSlabs,
                     s: int) -> Tuple[dict, dict]:
     """Shard s's host constants and psi slab widths: every x-spanning
@@ -531,17 +591,7 @@ def shard_constants(host_consts: dict, pml_meta: dict, layout: XSlabs,
             return layout.take(v, s)
         return v
 
-    out = dict(host_consts)
-    for key in ("coeffs_E", "coeffs_H"):
-        out[key] = {c: (take(a), take(b))
-                    for c, (a, b) in host_consts[key].items()}
-    for key in ("inv_dual", "inv_primal"):
-        out[key] = [take(v) for v in host_consts[key]]
-    out["wall_masks"] = {c: [take(m) for m in ms]
-                         for c, ms in host_consts["wall_masks"].items()}
-    out["pole_masks"] = [take(m) for m in host_consts["pole_masks"]]
-    out["pole_B_dense"] = {key: (take(re), take(im)) for key, (re, im)
-                           in host_consts["pole_B_dense"].items()}
+    out = _sliced_constants(host_consts, take)
     edge = [not h for h in layout.halo(s)]
     meta = dict(pml_meta)
     for fam in ("dual", "primal"):
@@ -550,6 +600,129 @@ def shard_constants(host_consts: dict, pml_meta: dict, layout: XSlabs,
     out["pml"] = {key: d for key, d in host_consts["pml"].items()
                   if key[-1] != "0" or any(meta[(key[:-1], 0)])}
     return out, meta
+
+
+def brick_constants(host_consts: dict, pml_meta: dict, layout: Bricks,
+                    s: int) -> Tuple[dict, dict]:
+    """Brick s's host constants and psi slab widths: every spatial array
+    cut to the cells it owns (``Bricks.take``), and on every axis the part
+    of each global psi slab that falls inside the brick (a slab may span
+    several bricks, and a brick may hold part of one), with its CPML
+    tables cut at the brick's global offset (``brick_psi_cut``)."""
+    def take(v):
+        if isinstance(v, np.ndarray) and v.ndim == 3:
+            return layout.take(v, s)
+        return v
+
+    out = _sliced_constants(host_consts, take)
+    meta, pml = {}, {}
+    for (fam, a), widths in pml_meta.items():
+        cuts = [brick_psi_cut(layout, widths, s, a, side)
+                for side in (0, 1)]
+        meta[(fam, a)] = tuple(c.stop - c.start for c in cuts)
+        if not any(meta[(fam, a)]):
+            continue
+        tabs = host_consts["pml"][f"{fam}{a}"]
+        lead = (slice(None),) * a
+        pml[f"{fam}{a}"] = {
+            f"{key}_{side}": np.ascontiguousarray(
+                tabs[f"{key}_{side}"][lead + (cut,)])
+            for key in ("b", "c") for side, cut in zip(("lo", "hi"), cuts)}
+    out["pml"] = pml
+    return out, meta
+
+
+def brick_psi_cut(layout: Bricks, widths: Tuple[int, int], s: int,
+                  axis: int, side: int) -> slice:
+    """The planes of the global psi slab of ``axis`` on ``side`` (``widths
+    = (w_lo, w_hi)``, counted from the slab's first plane) that brick s
+    owns: on the lo side its local planes start at 0, on the hi side they
+    end at the brick's last plane."""
+    n = layout.shape[axis]
+    g0 = layout.origin(s)[axis]
+    g1 = g0 + layout.extent(s)[axis]
+    w_lo, w_hi = widths
+    if side == 0:
+        return slice(g0, max(g0, min(g1, w_lo)))
+    start = max(g0, n - w_hi)
+    return slice(start - (n - w_hi), max(start, g1) - (n - w_hi))
+
+
+def brick_sources(terms: list, layout: Bricks, s: int, device) -> list:
+    """The ``SourceTerm`` boxes (global slices) that reach brick s, cut to
+    the cells it owns, in its coordinates, their terms cut with them and
+    moved to ``device``."""
+    out = []
+    for t in terms:
+        lo, hi = fused_kernels._source_box(t.slices, layout.shape)
+        rng = [layout.owned_range(s, a, lo[a], hi[a]) for a in range(3)]
+        if any(r is None for r in rng):
+            continue
+        org = layout.origin(s)
+        cut = tuple(slice(r[0] + o - b, r[1] + o - b)
+                    for r, o, b in zip(rng, org, lo))
+
+        def part(term):
+            return None if term is None else \
+                term[cut].contiguous().to(device)
+
+        out.append(t._replace(slices=tuple(slice(*r) for r in rng),
+                              term=part(t.term), term_im=part(t.term_im)))
+    return out
+
+
+def slab_rotation(decomp) -> int:
+    """The plan rotation that puts a decomposition onto x-slabs: 0 for an
+    x-only one, 1 or 2 for a single y or z axis (``plan_rotate.py``), None
+    for a mixed 2D/3D one."""
+    if decomp[1] == 1 and decomp[2] == 1:
+        return 0
+    if decomp[0] == 1 and (decomp[1] > 1) != (decomp[2] > 1):
+        return 1 if decomp[1] > 1 else 2
+    return None
+
+
+def slab_refusal(plan: SimulationPlan, num_sources: Dict[str, int],
+                 decomp) -> Tuple[Exception, int]:
+    """``(None, k)`` when the x-slab k-step route takes a sharded plan over
+    ``decomp`` at group size k, else ``(error, 0)``: the error a forced
+    kstep raises. The route needs, as the JAX package's
+    ``_kernel_intent`` / ``_init_kernel_mode`` do
+    (``tidy3d_tpu/solver/fdtd.py:188-265``): a real plan, an x-only or
+    single-axis decomposition, ``TIDY3D_TPU_SHARDED_KSTEP`` other than
+    ``0``, and for some k the k-step kernel's gates
+    (``kstep_unsupported_reason``, the monitors at group ends included)
+    and the shard gate (``shard_unsupported_reason``: ``nx`` split evenly,
+    shards of at least 2k planes, the x-PML cones in their edge shards)."""
+    if plan.is_complex:
+        return NotImplementedError(
+            "sharded Bloch (complex) runs leave the x-slab k-step route (the "
+            "k-step kernel has no shard-local Bloch mode, nor has the JAX "
+            "package's); they take the pallas2 tier on bricks"), 0
+    rot = slab_rotation(decomp)
+    if rot is None:
+        return NotImplementedError(
+            f"decomposition {tuple(decomp)}: mixed 2D/3D decompositions "
+            "leave the x-slab k-step route; they take the pallas2 tier on "
+            "bricks"), 0
+    if os.environ.get("TIDY3D_TPU_SHARDED_KSTEP", "1") == "0":
+        return ValueError("TIDY3D_TPU_SHARDED_KSTEP=0 turns the sharded "
+                          "k-step route off"), 0
+    axis = rot
+    ndev = int(decomp[axis])
+    widths = pml_widths(plan)
+    slab_pml = {(fam, 0): widths[(fam, axis)] for fam in ("dual", "primal")}
+    reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
+               " disables it"] if not kstep_order() else []
+    for k in kstep_order():
+        reason = kstep_unsupported_reason(plan, k, num_sources) \
+            or shard_unsupported_reason((plan.shape[axis],), slab_pml, k,
+                                        ndev)
+        if reason is None:
+            return None, k
+        reasons.append(f"k={k}: {reason}")
+    return ValueError(f"the kstep tier does not take this sharded run over "
+                      f"{ndev} x-slabs ({'; '.join(reasons)})"), 0
 
 
 def kstep_order() -> Tuple[int, ...]:
@@ -576,7 +749,7 @@ def align_chunk(chunk_size: int, k: int, B: int) -> int:
 
 def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
                 device, kernel: str = None,
-                sharded: bool = False) -> Tuple[str, int]:
+                sharded: Tuple[int, int, int] = None) -> Tuple[str, int]:
     """``(tier, k)`` of a run: ``("kstep", k)``, ``("fused", 1)`` or
     ``("pallas2", 1)``, decided from the plan alone (nothing is built or
     launched to find out). ``num_sources`` counts the source terms per
@@ -592,10 +765,13 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
     its XLA path. A nonlinear or modulated plan leaves kstep and fused,
     whose kernels leave no place for the passes between the E update and
     the pole update (``PallasFusedStepper.supported``), and takes pallas2.
-    A ``sharded`` run takes kstep: only the k-step kernel has a shard-local
-    mode. A forced tier that does not take the run raises, and so does a
-    sharded plan that the kstep tier does not take. ``_check_supported``
-    has already refused what no tier takes."""
+    A ``sharded`` run (its decomposition) takes kstep where the x-slab
+    route takes it (``slab_refusal``) and pallas2 on bricks otherwise, as
+    the JAX package takes its GSPMD XLA path; a forced kstep that the
+    route refuses raises, a forced pallas2 takes bricks and a forced fused
+    raises (no shard-local mode). A forced tier that does not take the run
+    raises. ``_check_supported`` has already refused what no tier
+    takes."""
     kernel = kernel or os.environ.get("TIDY3D_TPU_KERNEL", "auto") or "auto"
     # the CPU runs the plain versions, so the interpret modes are the tiers
     want = _KERNEL_ENV.get(kernel.removesuffix("_interpret"))
@@ -606,11 +782,21 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
                          "no Bloch copies; complex runs take the kstep or "
                          "the pallas2 tier")
-    if sharded and want not in ("auto", "kstep"):
-        raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the {want} tier has "
-                         "no shard-local mode; sharded runs take the kstep "
-                         "tier")
-    only_kstep = want == "kstep" or sharded
+    if sharded is not None:
+        if want == "fused":
+            raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the fused tier "
+                             "has no shard-local mode; sharded runs take "
+                             "the kstep tier (x-slabs) or the pallas2 tier "
+                             "(bricks)")
+        if want == "pallas2":
+            return "pallas2", 1
+        error, k = slab_refusal(plan, num_sources, sharded)
+        if error is None:
+            return "kstep", k
+        if want == "kstep":
+            raise type(error)(f"TIDY3D_TPU_KERNEL={kernel}: {error}")
+        return "pallas2", 1
+    only_kstep = want == "kstep"
     if only_kstep or (want == "auto" and (
             plan.is_complex or torch.device(device).type == "cuda")):
         reasons = [f"TIDY3D_TPU_KSTEP={os.environ.get('TIDY3D_TPU_KSTEP')}"
@@ -632,6 +818,18 @@ def select_tier(plan: SimulationPlan, num_sources: Dict[str, int],
         raise ValueError(f"TIDY3D_TPU_KERNEL={kernel}: the fused tier does "
                          f"not take this run ({reason})")
     return want, 1
+
+
+def count_sources(plan: SimulationPlan) -> Dict[str, int]:
+    """The source terms per family that ``FDTDRunner.num_sources`` counts,
+    from the plan alone (a Bloch run's (re, im) plan pair is one)."""
+    out = {"E": 0, "H": 0}
+    for i_re, _ in kstep_kernels.group_source_plans(plan.sources,
+                                                    plan.is_complex):
+        sp = plan.sources[i_re]
+        if sp.waveform_key is not None:
+            out["E" if sp.comp in E_COMPS else "H"] += 1
+    return out
 
 
 def fused_unsupported_reason(plan: SimulationPlan,
@@ -795,18 +993,24 @@ def consts_to_device(consts: dict, device) -> dict:
 
 
 class _Shard:
-    """One x-slab of a sharded run: its index and device, its constants
-    (padded x-slices of the run's), its ``StepMeta``, source tables and,
-    per monitor, the slices of the monitor's cells that it owns, in its
-    padded planes (only the components it owns any of)."""
+    """One x-slab or brick of a sharded run: its index and device, its
+    constants (padded x-slices, or its own cells, of the run's), its
+    ``StepMeta``, the k-step source tables of a slab or the source terms
+    of a brick (``sources``, per family) and, per monitor, the slices of
+    the monitor's cells that it owns, in its planes (only the components
+    it owns any of), with a brick's place in the monitor (``mon_at``: per
+    component the offset of its part on each axis)."""
 
-    def __init__(self, index, device, consts, meta, tables, mon_slices):
+    def __init__(self, index, device, consts, meta, tables, mon_slices,
+                 sources=None, mon_at=None):
         self.index = index
         self.device = device
         self.consts = consts
         self.meta = meta
         self.tables = tables
         self.mon_slices = mon_slices
+        self.sources = sources
+        self.mon_at = mon_at
 
 
 def _owned(mp, slices: dict):
@@ -845,15 +1049,25 @@ class FDTDRunner:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
-        # single-axis y/z decompositions rotate onto the x slabs
-        # (tidy3d_tpu/solver/fdtd.py:86-100); run() rotates the raw
+        # single-axis y/z decompositions on the x-slab route rotate onto
+        # x (tidy3d_tpu/solver/fdtd.py:86-100); run() rotates the raw
         # monitors back
         self._plan_rot = 0
         # the decomposition asked for (before a rotation onto x)
         self.decomp = (1, 1, 1) if sharding_plan is None \
             else tuple(sharding_plan.decomp)
+        sharded_tier = None
         if sharding_plan is not None:
-            plan, sharding_plan = self._x_decomposition(plan, sharding_plan)
+            self._check_mesh(sharding_plan)
+            sharded_tier = select_tier(plan, count_sources(plan),
+                                       self.device, kernel,
+                                       sharded=self.decomp)
+            if sharded_tier[0] == "kstep" and slab_rotation(self.decomp):
+                self._plan_rot = slab_rotation(self.decomp)
+                plan = rotate_plan(plan, self._plan_rot)
+                sharding_plan = ShardingPlan(np.transpose(
+                    sharding_plan.mesh, perm_for_rot(self._plan_rot)),
+                    plan.shape)
         self.sharding = sharding_plan
         self.plan = plan
         self.shape = tuple(plan.shape)
@@ -873,8 +1087,8 @@ class FDTDRunner:
             kstep_kernels.COPIES[1] if self.is_complex else ())
         self._sources = {"E": [], "H": []}
         self._build_sources()
-        self.tier, self.k = select_tier(plan, self.num_sources, self.device,
-                                        kernel, sharded=sharded)
+        self.tier, self.k = sharded_tier or select_tier(
+            plan, self.num_sources, self.device, kernel)
         # the storage types of the fields, the psi slabs and the pole
         # currents (compute is float32 everywhere)
         self.dtype, self.psi_dtype, self.q_dtype = storage_types(
@@ -894,47 +1108,27 @@ class FDTDRunner:
                     for key, tables in self.host_consts["dft"].items()}
                 self.tables = kstep_kernels.SourceTables(
                     self._sources, self._waveforms, self.shape, self.device)
+        elif sharded:
+            self._build_bricks()
 
     # ------------------------------------------------------------------ #
     # sharding
     # ------------------------------------------------------------------ #
 
-    def _x_decomposition(self, plan, sharding_plan):
-        """The plan and sharding plan of an x-only decomposition: a
-        single-axis y or z one rotated onto x; refuses the rest."""
-        d = sharding_plan.decomp
+    def _check_mesh(self, sharding_plan):
         devices = mesh_devices(sharding_plan.mesh)
         if any(torch.device(dv).type != self.device.type for dv in devices):
             raise ValueError(f"the mesh's devices {devices} are not all of "
                              f"the run's kind ({self.device.type})")
-        if plan.is_complex:
-            raise NotImplementedError(
-                "sharded Bloch (complex) runs are not ported yet (the JAX "
-                "package runs them on its GSPMD XLA path) (ROADMAP.md: "
-                "sharded Bloch runs)")
-        if d[0] == 1 and (d[1] > 1) != (d[2] > 1):
-            self._plan_rot = 1 if d[1] > 1 else 2
-            p = perm_for_rot(self._plan_rot)
-            plan = rotate_plan(plan, self._plan_rot)
-            sharding_plan = ShardingPlan(
-                np.transpose(sharding_plan.mesh, p), plan.shape)
-        elif d[1] > 1 or d[2] > 1:
-            raise NotImplementedError(
-                f"decomposition {d}: mixed 2D/3D decompositions are not "
-                "ported yet (the JAX package runs them on its GSPMD XLA "
-                "path) (ROADMAP.md: mixed 2D/3D decompositions)")
-        return plan, sharding_plan
 
     def _build_shards(self):
-        """The x-slab layout, each shard's constants on its device, its
-        ``StepMeta``, its source tables and its monitor slices."""
+        """The x-slab layout (``select_tier`` has checked its gate), each
+        shard's constants on its device, its ``StepMeta``, its source
+        tables and its monitor slices."""
         plan, k = self.plan, self.k
         devices = [torch.device(dv) for dv in
                    mesh_devices(self.sharding.mesh)]
         ndev = len(devices)
-        reason = shard_unsupported_reason(self.shape, self.pml_meta, k, ndev)
-        if reason is not None:
-            raise ValueError(f"a sharded run over {ndev} x-slabs: {reason}")
         lay = self.layout = XSlabs(self.shape[0], ndev, k,
                                    plan.boundaries[0][0] == "periodic")
         self.shards = []
@@ -962,6 +1156,65 @@ class FDTDRunner:
                 mon_slices.append(owned)
             self.shards.append(_Shard(s, dev, consts_to_device(hc, dev), meta,
                                       tables, mon_slices))
+
+    def _build_bricks(self):
+        """The brick layout, each brick's constants on its device, its
+        ``StepMeta`` (its own psi slab widths, the Bloch phase of the axes
+        that are not decomposed, its halo sides), its source terms and its
+        monitor slices and places."""
+        plan = self.plan
+        devices = [torch.device(dv) for dv in
+                   mesh_devices(self.sharding.mesh)]
+        lay = self.layout = Bricks(self.shape, self.sharding.decomp,
+                                   [b[0] == "periodic"
+                                    for b in plan.boundaries])
+        phases = bloch_phases(plan)
+        # a decomposed axis carries its phase in the halos across its wall
+        self.halo_phases = tuple(cs if lay.decomp[a] > 1 else None
+                                 for a, cs in enumerate(phases))
+        self.shards = []
+        for s, dev in enumerate(devices):
+            hc, pml_meta = brick_constants(self.host_consts, self.pml_meta,
+                                           lay, s)
+            meta = StepMeta(
+                shape=lay.extent(s), boundaries=tuple(plan.boundaries),
+                pml_meta=pml_meta, bloch=tuple(
+                    None if lay.decomp[a] > 1 else cs
+                    for a, cs in enumerate(phases)), halo=lay.halo(s))
+            sources = {fam: brick_sources(terms, lay, s, dev)
+                       for fam, terms in self._sources.items()}
+            mon_slices, mon_at = [], []
+            for mp in plan.monitors:
+                owned, at = {}, {}
+                for comp, sl in mp.slices.items():
+                    rng = [lay.owned_range(s, a, sl[a].start, sl[a].stop)
+                           for a in range(3)]
+                    if all(r is not None for r in rng):
+                        owned[comp] = tuple(slice(*r) for r in rng)
+                        at[comp] = tuple(
+                            r[0] + o - s_.start for r, o, s_ in
+                            zip(rng, lay.origin(s), sl))
+                mon_slices.append(owned)
+                mon_at.append(at)
+            self.shards.append(_Shard(s, dev, consts_to_device(hc, dev), meta,
+                                      None, mon_slices, sources, mon_at))
+
+    @property
+    def bricks(self) -> bool:
+        """Whether the run is sharded on bricks (the ``pallas2`` tier)."""
+        return self.shards is not None and self.tier != "kstep"
+
+    def exchange_brick_halos(self, states: list, family: str,
+                             fields: list = None) -> None:
+        """Refreshes the halo planes that the ``family`` update of every
+        brick reads: the H lo halos for E, the E hi halos for H (from
+        ``fields``, each brick's copies, or its state's)."""
+        src = "H" if family == "E" else "E"
+        if fields is None:
+            keys = [key for key in (src, src + "1") if key in states[0]]
+            fields = [[st[key] for key in keys] for st in states]
+        self.layout.exchange(fields, [st["halo"][src] for st in states],
+                             0 if family == "E" else 1, self.halo_phases)
 
     @property
     def devices(self) -> list:
@@ -1022,25 +1275,28 @@ class FDTDRunner:
                 term(i_im, box, cb_sl) if i_im is not None else None,
                 sp.waveform_key_im if self.is_complex else None))
 
-    def step_sources(self, family: str, step: int) -> list:
+    def step_sources(self, family: str, step: int, sources=None) -> list:
         """``(comp, slices, term, w)`` of each source term at ``step`` (the
-        one-step tiers of a real run)."""
+        one-step tiers of a real run; ``sources``: a brick's terms)."""
+        sources = self._sources if sources is None else sources
         return [(s.comp, s.slices, s.term, float(self._waveforms[s.key, step]))
-                for s in self._sources[family]]
+                for s in sources[family]]
 
-    def _inject(self, family: str, fields: dict, step: int, part: int = 0):
+    def _inject(self, family: str, fields: dict, step: int, part: int = 0,
+                sources=None):
         """Adds the source terms of ``family`` at ``step`` to copy ``part``,
         each rounded to the fields' type first, as the reference adds
         ``delta.astype(dtype)`` (``tidy3d_tpu/solver/fdtd.py:1522-1527``); a
         complex run's copy takes its part of each complex term
         (``kstep.complex_adds``, what the reference's per-plan deltas of
-        that copy add, ``:1127-1143``)."""
+        that copy add, ``:1127-1143``). ``sources``: a brick's terms."""
+        sources = self._sources if sources is None else sources
         if self.is_complex:
             for comp, sl, *adds in kstep_kernels.complex_adds(
-                    self._sources[family], self._waveforms, step):
+                    sources[family], self._waveforms, step):
                 fields[comp][sl].add_(adds[part].to(fields[comp].dtype))
             return
-        for comp, sl, term, w in self.step_sources(family, step):
+        for comp, sl, term, w in self.step_sources(family, step, sources):
             fields[comp][sl].add_((term * w).to(fields[comp].dtype))
 
     # ------------------------------------------------------------------ #
@@ -1095,6 +1351,14 @@ class FDTDRunner:
         state per shard, each with its own monitor parts. ``device``
         overrides the run's and every shard's device (``"meta"`` sizes the
         state without allocating it)."""
+        if self.bricks:
+            return {"shards": [dict(
+                self._fields(sh.meta, device or sh.device),
+                mon=[self._init_monitor_acc(mi, mp, sh.mon_slices[mi],
+                                            device or sh.device)
+                     for mi, mp in enumerate(self.plan.monitors)],
+                halo=self._halos(sh, device or sh.device))
+                for sh in self.shards]}
         if self.shards is not None:
             return {"shards": [dict(
                 self._fields(sh.meta, device or sh.device),
@@ -1116,6 +1380,21 @@ class FDTDRunner:
             # blocks read Q while Q' is stored
             state["alt"] = {"Q": self._fields(self.meta, device)["Q"]}
         return state
+
+    def _halos(self, shard, device) -> dict:
+        """A brick's halo planes, per copy: ``{"H": [{axis: {comp: t}}],
+        "E": [...]}``, the H planes on the lo sides (read by the E family)
+        and the E planes on the hi sides (read by the H family), of the
+        components the curl differentiates along that axis, at the fields'
+        storage type."""
+        out = {}
+        for fam, side, comps in (("H", 0, H_COMPS), ("E", 1, E_COMPS)):
+            out[fam] = [{a: {c: torch.zeros(
+                self.layout.halo_shape(shard.index, a), dtype=self.dtype,
+                device=device) for m, c in enumerate(comps) if m != a}
+                for a in range(3) if shard.meta.halo[a][side]}
+                for _ in range(1 + self.is_complex)]
+        return out
 
     def _init_monitor_acc(self, mi, mp, slices: dict = None, device=None):
         """The accumulators of monitor ``mi`` over ``slices`` (default: the
@@ -1143,14 +1422,18 @@ class FDTDRunner:
     # the step
     # ------------------------------------------------------------------ #
 
-    def _family_update(self, family, views, srcs) -> list:
+    def _family_update(self, family, views, srcs, shard=None,
+                       halos=None) -> list:
         """``[(new_fields, new_psi)]`` of ``family`` per copy (``views``,
         ``srcs``: each copy's state and source fields): the kernel, which
         takes both copies of a complex run in one launch, or the plain
-        version copy by copy."""
+        version copy by copy; a brick's (``shard``) in its halo mode, each
+        copy reading its ``halos``."""
         fn = step_kernels.family_update_copies if self.use_kernel \
             else step_kernels.family_update_copies_reference
-        return fn(family, views, self.consts, srcs, self.meta)
+        if shard is None:
+            return fn(family, views, self.consts, srcs, self.meta)
+        return fn(family, views, shard.consts, srcs, shard.meta, halos)
 
     def _accumulate_monitors(self, step: int, newE, newH, mon, newE1=None,
                              newH1=None, dft: dict = None,
@@ -1212,6 +1495,8 @@ class FDTDRunner:
                 nE, nH, psi, Q = fused_kernels.fused_step_reference(
                     state, self.consts, self.meta, sources)
             self._inject("H", nH, step)
+        elif self.bricks:
+            return self._step_bricks(step, state)
         else:
             return self._step_two_phase(step, state)
         with record_function("fdtd.monitors"):
@@ -1261,21 +1546,74 @@ class FDTDRunner:
             new.update({e: nE, h: nH, p: psi, q: Q})
         return new
 
-    def _post_e(self, new_e: dict, old_e: dict, step: int) -> dict:
+    def _post_e(self, new_e: dict, old_e: dict, step: int,
+                consts: dict = None) -> dict:
         """The modulation and nonlinear passes on one copy's E (``new_e``
-        in place on a card's kernel, a new dict from the plain version)."""
-        if not has_post_e(self.consts):
+        in place on a card's kernel, a new dict from the plain version);
+        ``consts``: a brick's."""
+        consts = self.consts if consts is None else consts
+        if not has_post_e(consts):
             return new_e
         with record_function("fdtd.post_e"):
             if self.use_kernel:
-                return post_e_kernels.post_e(new_e, old_e, self.consts, step)
-            return post_e_reference(new_e, old_e, self.consts, step)
+                return post_e_kernels.post_e(new_e, old_e, consts, step)
+            return post_e_reference(new_e, old_e, consts, step)
 
-    def _update_poles(self, new_e, view):
+    def _update_poles(self, new_e, view, consts: dict = None):
         if not view["Q"]:
             return view["Q"]
         with record_function("fdtd.poles"):
-            return update_poles(new_e, view["E"], view["Q"], self.consts)
+            return update_poles(new_e, view["E"], view["Q"],
+                                self.consts if consts is None else consts)
+
+    def _step_bricks(self, step: int, state: dict) -> dict:
+        """One step of a run on bricks, in the order of
+        ``_step_two_phase``: the H lo halos exchanged, the E family of
+        every brick (its copies in one call of the family kernel's halo
+        mode), per brick and copy its J sources, the passes and the pole
+        update on its own cells; the E^{n+1} hi halos exchanged, then per
+        brick the H family, its M sources and the monitor cells it
+        owns."""
+        states = state["shards"]
+        views = [self._views(st) for st in states]
+        with record_function("fdtd.halo_exchange"):
+            self.exchange_brick_halos(states, "E")
+        newE, newQ, psis = [], [], []
+        for sh, st, vs in zip(self.shards, states, views):
+            outs = self._family_update("E", vs, [v["H"] for v in vs], sh,
+                                       st["halo"]["H"])
+            es, qs = [], []
+            for p, (view, (nE, _)) in enumerate(zip(vs, outs)):
+                self._inject("E", nE, step, p, sh.sources)
+                nE = self._post_e(nE, view["E"], step, sh.consts)
+                es.append(nE)
+                qs.append(self._update_poles(nE, view, sh.consts))
+            newE.append(es)
+            newQ.append(qs)
+            psis.append([dict(v["psi"], **pE) for v, (_, pE) in
+                         zip(vs, outs)])
+        with record_function("fdtd.halo_exchange"):
+            self.exchange_brick_halos(states, "H", newE)
+        out = []
+        for sh, st, vs, es, qs, ps in zip(self.shards, states, views, newE,
+                                          newQ, psis):
+            hs = []
+            for p, (nH, pH) in enumerate(self._family_update(
+                    "H", vs, es, sh, st["halo"]["E"])):
+                self._inject("H", nH, step, p, sh.sources)
+                hs.append(nH)
+                ps[p].update(pH)
+            with record_function("fdtd.monitors"):
+                self._accumulate_monitors(step, es[0], hs[0], st["mon"],
+                                          *(es[1:] + hs[1:]),
+                                          dft=sh.consts["dft"],
+                                          slices=sh.mon_slices)
+            new = dict(st)
+            for (e, h, pk), q, nE, nH, psi, Q in zip(
+                    kstep_kernels.COPIES, Q_KEYS, es, hs, ps, qs):
+                new.update({e: nE, h: nH, pk: psi, q: Q})
+            out.append(new)
+        return {"shards": out}
 
     def step_group(self, gi: int, state: dict, accumulate: bool = True
                    ) -> dict:
@@ -1347,7 +1685,10 @@ class FDTDRunner:
     def tier_name(self) -> str:
         """The tier as the run log names it: ``kstep (k=2)``, ``fused``,
         ``pallas2``; a sharded run adds its decomposition, ``kstep (k=2,
-        4 x-shards)``."""
+        4 x-shards)`` or ``pallas2 (2x2x1 bricks)``."""
+        if self.bricks:
+            return (f"{self.tier} ("
+                    f"{'x'.join(map(str, self.layout.decomp))} bricks)")
         if self.tier != "kstep":
             return self.tier
         if self.shards is None:
@@ -1359,7 +1700,7 @@ class FDTDRunner:
         """The source terms per family (``"E"``, ``"H"``), as the tiers'
         source-table caps count them (a Bloch run's (re, im) pair is
         one)."""
-        return {fam: len(terms) for fam, terms in self._sources.items()}
+        return count_sources(self.plan)
 
     @property
     def storage(self) -> Tuple[torch.dtype, ...]:
@@ -1388,6 +1729,12 @@ class FDTDRunner:
         """The largest |E| over both copies of a complex run
         (``tidy3d_tpu/solver/fdtd.py:1765-1776``), over the owned planes of
         every shard of a sharded run (the ``lax.pmax`` at :1858)."""
+        if self.bricks:
+            dev = self.shards[0].device
+            return torch.stack([
+                st[e][c].abs().amax().float().to(dev)
+                for st in state["shards"] for c in E_COMPS
+                for e in ("E", "E1") if e in st]).amax()
         if self.shards is not None:
             dev = self.shards[0].device
             return torch.stack([
@@ -1408,8 +1755,10 @@ class FDTDRunner:
             return
         self._waveforms = np.pad(self._waveforms, ((0, 0), (0, extra)))
         pad_mod_tables(self.host_consts, extra)
-        if self.consts is not None:
-            pad_mod_tables(self.consts, extra)
+        for consts in [self.consts] + [sh.consts
+                                       for sh in self.shards or ()]:
+            if consts is not None:
+                pad_mod_tables(consts, extra)
         self.host_consts["dft"] = {
             k: tuple(np.pad(t, ((0, extra), (0, 0))) for t in tables)
             for k, tables in self.host_consts["dft"].items()}
@@ -1427,7 +1776,9 @@ class FDTDRunner:
         """The raw monitor data (numpy) keyed by monitor-plan index from the
         accumulators of the run or, in x order, of its shards: a shard's
         DFT part covers its planes of axis 0, a time part those of axis
-        1."""
+        1; a brick's part goes to its place (``_join_bricks``)."""
+        if self.bricks:
+            return self._join_bricks(mon_parts)
         out = {}
         for idx, mp in enumerate(self.plan.monitors):
             parts = [mon[idx] for mon in mon_parts]
@@ -1446,6 +1797,42 @@ class FDTDRunner:
             out[idx] = mon
         if self._plan_rot:
             out = unrotate_raw(out, self.plan, self._plan_rot)
+        return out
+
+    def _join_bricks(self, mon_parts: list) -> dict:
+        """The raw monitors of a run on bricks: each brick's part of each
+        component placed at its offset (``_Shard.mon_at``) in the
+        monitor's cells; DFT parts span cells then frequencies, time parts
+        samples then cells."""
+        out = {}
+        for idx, mp in enumerate(self.plan.monitors):
+            mon = {}
+            for comp, sl in mp.slices.items():
+                parts = [(sh.mon_at[idx][comp], mon_[idx][comp]) for sh, mon_
+                         in zip(self.shards, mon_parts)
+                         if comp in mon_[idx]]
+                if not parts:
+                    continue
+                box = tuple(s_.stop - s_.start for s_ in sl)
+                if mp.kind == "field":
+                    nf = parts[0][1][0].shape[-1]
+                    re_, im_ = (np.zeros(box + (nf,), np.float32)
+                                for _ in range(2))
+                    for at, pair in parts:
+                        cut = tuple(slice(o, o + n) for o, n in
+                                    zip(at, pair[0].shape[:3]))
+                        re_[cut] = pair[0].cpu().numpy()
+                        im_[cut] = pair[1].cpu().numpy()
+                    arr = re_ + 1j * im_
+                else:
+                    ns = parts[0][1].shape[0]
+                    arr = np.zeros((ns,) + box, np.float32)
+                    for at, part in parts:
+                        cut = tuple(slice(o, o + n) for o, n in
+                                    zip(at, part.shape[1:]))
+                        arr[(slice(None),) + cut] = part.cpu().numpy()
+                mon[comp] = arr
+            out[idx] = mon
         return out
 
     def chunking(self) -> Tuple[int, int]:
@@ -1811,7 +2198,7 @@ class FDTDRunner:
         out = [(self.device, [self._sources])]
         if self.shards is None:
             return out + [(self.device, [self.consts, tables(self.tables)])]
-        return out + [(sh.device, [sh.consts, tables(sh.tables)])
+        return out + [(sh.device, [sh.consts, tables(sh.tables), sh.sources])
                       for sh in self.shards]
 
     def _pole_work(self, cells: int) -> int:
@@ -1846,7 +2233,8 @@ class FDTDRunner:
           one-step tiers the E, H and psi that each step allocates while
           the old ones are live, and on the fused tier the second
           pole-current set), halo planes excepted;
-        * ``halo``: the k halo planes on each side of a shard's arrays;
+        * ``halo``: the k halo planes on each side of an x-slab's arrays,
+          a brick's halo plane tensors;
         * ``work``: a step's temporaries: on the ``pallas2`` tier the plain
           pole update's (``_pole_work``), else one field for the field
           maximum;
@@ -1871,7 +2259,8 @@ class FDTDRunner:
         shards = state["shards"] if self.shards is not None else [state]
         devices = [sh.device for sh in self.shards] \
             if self.shards is not None else [self.device]
-        padded = self.layout.padded if self.shards is not None else None
+        padded = self.layout.padded \
+            if self.shards is not None and not self.bricks else None
         for dev, st in zip(devices, shards):
             if self.tier != "kstep":
                 # a one-step tier: the E, H and psi of the next step, beside
@@ -1879,7 +2268,8 @@ class FDTDRunner:
                 st = dict(st, alt=dict(st.get("alt", {}), **{
                     key: st[key] for key in ("E", "H", "psi", "E1", "H1",
                                              "psi1") if key in st}))
-            for _, t in _named(st, skip=()):
+            add(dev, "halo", _nbytes(st.get("halo")))
+            for _, t in _named(st, skip=("halo",)):
                 n = t.numel() * t.element_size()
                 halo = n * 2 * self.k // padded \
                     if padded and t.ndim == 3 and t.shape[0] == padded else 0
@@ -1929,10 +2319,12 @@ class FDTDRunner:
         return est
 
 
-def _named(tree, prefix: str = "", skip=("alt",)):
+def _named(tree, prefix: str = "", skip=("alt", "halo")):
     """``(name, tensor)`` of every tensor in a state, named by its place:
     dict keys and list indices joined by dots, a ``(re, im)`` pair's parts
-    ``re`` and ``im``; keys in ``skip`` are left out."""
+    ``re`` and ``im``; keys in ``skip`` are left out (by default the kstep
+    tier's ping-pong set and a brick's halo planes, which every step
+    refreshes before it reads them)."""
     if isinstance(tree, torch.Tensor):
         yield prefix[:-1], tree
         return

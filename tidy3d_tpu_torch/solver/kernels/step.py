@@ -13,6 +13,13 @@ in one launch of the kernel's two-copy instantiation, each copy with its own
 pole currents (``Q1`` for copy 1), the other copy entering where a stencil
 wraps across a Bloch wall.
 
+A brick of a sharded ``pallas2`` run (``sharding.Bricks``) is updated in
+its brick-local halo mode: ``meta.halo`` says which sides of each axis read
+a halo plane, and ``halos`` passes those planes of the source components
+(``{axis: {comp: (.., 1, ..) tensor}}``), which the stencil reads where it
+crosses such a side (the kernel's ``WALL_HALO``); the other sides keep the
+global wall, an axis that is not decomposed its wall or wrap.
+
 Pole slots: up to ``MAX_POLES`` ride in the kernel's parameter block; a
 call with more of them, and every Bloch call, passes them in a device
 table of ``PoleSlot`` (``pole_table``, built once per distinct content and
@@ -29,8 +36,9 @@ Dispatch is by device: a CPU tensor goes to ``family_update_reference``,
 the XLA body's arithmetic in whole-array operations; a CUDA tensor
 launches the hand-written kernel in ``csrc/step.cu`` or raises.
 ``LAUNCHES`` counts the kernel calls, ``BLOCH_LAUNCHES`` those of the
-two-copy instantiation and ``MANY_POLES_LAUNCHES`` those that read more than
-``MAX_POLES`` slots from a table.
+two-copy instantiation, ``MANY_POLES_LAUNCHES`` those that read more than
+``MAX_POLES`` slots from a table and ``BRICK_LAUNCHES`` those of a brick in
+its halo mode.
 """
 
 from __future__ import annotations
@@ -47,12 +55,14 @@ LAUNCHES = 0
 DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
 BLOCH_LAUNCHES = 0   # calls of the two-copy (Bloch) instantiation
 MANY_POLES_LAUNCHES = 0  # calls with more than MAX_POLES pole slots
+BRICK_LAUNCHES = 0  # calls in the brick-local halo mode (a sharded run)
 # the last call's blocks (bulk and shell launches) and device launches
 LAST_BLOCKS = (0, 0, 0)
 MAX_POLES = 8       # pole slots in the parameter block (csrc/*.cu MAX_POLES)
 STORAGE = (torch.float32, torch.bfloat16)   # the storage types of the state
 
 _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
+WALL_HALO = 3   # csrc/step.cu: the neighbour is the brick's halo plane
 
 
 @dataclass(frozen=True)
@@ -68,7 +78,14 @@ class StepMeta:
     owned x planes of arrays padded by ``xpad`` halo planes on each x side
     (``array_shape``); ``x_halo`` says which x sides read their halo (a
     neighbour shard) instead of meeting the global x wall, and ``pml_meta``
-    holds the shard's own x psi slabs (the edge shards' only)."""
+    holds the shard's own x psi slabs (the edge shards' only).
+
+    A brick of a sharded one-step run (``sharding.Bricks``) steps the
+    ``shape`` cells it owns, in arrays of that shape (no padding: its halo
+    planes are tensors of their own). ``halo[axis]`` says which (lo, hi)
+    sides read a halo plane; ``pml_meta`` holds the parts of the global psi
+    slabs inside the brick, and ``bloch`` is None on a decomposed axis,
+    whose halos carry the phase."""
 
     shape: Tuple[int, int, int]
     boundaries: Tuple[Tuple[str, str], ...]
@@ -76,6 +93,12 @@ class StepMeta:
     bloch: Tuple[Optional[Tuple[float, float]], ...] = (None, None, None)
     xpad: int = 0
     x_halo: Tuple[bool, bool] = (False, False)
+    halo: Tuple[Tuple[bool, bool], ...] = ((False, False),) * 3
+
+    def halo_side(self, family: str, axis: int) -> bool:
+        """Whether the ``family`` update reads a halo plane across its
+        side of ``axis``: lo for E (backward differences), hi for H."""
+        return self.halo[axis][0 if family == "E" else 1]
 
     @property
     def array_shape(self) -> Tuple[int, int, int]:
@@ -133,10 +156,11 @@ def _wrap_col(F, axis: int, side: str, boundaries, Fp=None, cs=None,
 
 
 def _shift_take(F, sl, axis: int, dn: bool, boundaries, Fp=None, cs=None,
-                part: int = 0):
+                part: int = 0, col=None):
     """The shifted operand F_{i-1} (dn) or F_{i+1} (up) restricted to the
     region slice ``sl`` (``Fp``, ``cs``, ``part``: the Bloch wrap of
-    ``_wrap_col``)."""
+    ``_wrap_col``; ``col``: a brick's halo plane, read across the edge in
+    place of the wall column)."""
     n = F.shape[axis]
     s = sl[axis]
     start = 0 if s == slice(None) else (s.start or 0)
@@ -148,8 +172,8 @@ def _shift_take(F, sl, axis: int, dn: bool, boundaries, Fp=None, cs=None,
             sl2 = list(sl)
             sl2[axis] = slice(start - 1, stop - 1)
             return _take(F, tuple(sl2))
-        col = _take(_wrap_col(F, axis, "lo", boundaries, Fp, cs, part),
-                    tuple(oth))
+        col = _take(_wrap_col(F, axis, "lo", boundaries, Fp, cs, part)
+                    if col is None else col, tuple(oth))
         if stop <= 1:
             return col
         rest = list(sl)
@@ -159,8 +183,8 @@ def _shift_take(F, sl, axis: int, dn: bool, boundaries, Fp=None, cs=None,
         sl2 = list(sl)
         sl2[axis] = slice(start + 1, stop + 1)
         return _take(F, tuple(sl2))
-    col = _take(_wrap_col(F, axis, "hi", boundaries, Fp, cs, part),
-                tuple(oth))
+    col = _take(_wrap_col(F, axis, "hi", boundaries, Fp, cs, part)
+                if col is None else col, tuple(oth))
     if start >= n - 1:
         return col
     rest = list(sl)
@@ -229,7 +253,7 @@ def pole_terms(state: dict, consts: dict):
 def family_update_reference(family: str, state: dict, consts: dict,
                             src_fields: dict, meta: StepMeta,
                             partner: dict = None, part: int = 0,
-                            store: bool = True):
+                            store: bool = True, halo: dict = None):
     """Plain PyTorch family update on any device, in whole-array
     operations: each derivative over the whole grid, each psi slab updated
     from its slice of the derivative, an axis's psi terms added as one
@@ -239,7 +263,8 @@ def family_update_reference(family: str, state: dict, consts: dict,
     differentiable run steps on it). In a complex run ``state`` and
     ``src_fields`` are copy ``part`` and ``partner`` holds the other copy's
     ``src_fields``, which enters where a stencil wraps across a Bloch
-    axis.
+    axis. A brick (``meta.halo``) reads ``halo[axis][comp]``, the halo plane
+    of a source component, where the stencil crosses a side that has one.
 
     Every input is widened to float32 and the update computed in float32;
     the new fields and psi are rounded to the types of ``state``'s fields
@@ -264,8 +289,10 @@ def family_update_reference(family: str, state: dict, consts: dict,
         for axis, name in ((j, other[k]), (k, other[j])):
             F = f32(src_fields[name])
             Fp = f32(partner[name]) if partner is not None else None
+            col = f32(halo[axis][name]) if meta.halo_side(family, axis) \
+                else None
             shifted = _shift_take(F, whole, axis, is_e, boundaries, Fp,
-                                  meta.bloch[axis], part)
+                                  meta.bloch[axis], part, col)
             d[axis] = sign_shift * (F - shifted) * inv[axis]
             pml = consts["pml"].get(f"{fam}{axis}")
             slabs = {}
@@ -347,6 +374,7 @@ class FamilyParams(ctypes.Structure):
         ("gc_im", ctypes.c_float * MAX_POLES),
         ("q", ctypes.c_void_p * (6 * MAX_POLES)),
         ("poles", ctypes.c_void_p),
+        ("halo", ctypes.c_void_p * 9),
     ]
 
 
@@ -674,9 +702,10 @@ def launch_counted(fn, params, device, what: str) -> tuple:
 
 
 def _family_params(family, state, consts, src_fields, meta, storage,
-                   device, table: bool):
+                   device, table: bool, halo: dict = None):
     """The parameter struct of one copy's family call: ``(p, new_fields,
-    new_psi, keep)``, ``keep`` the device tables it points to."""
+    new_psi, keep)``, ``keep`` the device tables it points to. A brick's
+    sides with a halo take ``WALL_HALO`` and the planes of ``halo``."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     src_comps = H_COMPS if is_e else E_COMPS
@@ -688,7 +717,17 @@ def _family_params(family, state, consts, src_fields, meta, storage,
         if kind not in _WALL:
             raise ValueError(f"unsupported boundary kind '{kind}'")
         p.bkind[a] = _WALL[kind]
-        p.pec_lo[a] = int(is_e and meta.boundaries[a][0] == "pec")
+        p.pec_lo[a] = int(is_e and meta.boundaries[a][0] == "pec"
+                          and not meta.halo[a][0])
+        if meta.halo_side(family, a):
+            p.bkind[a] = WALL_HALO
+            plane = list(shape)
+            plane[a] = 1
+            for m, sc in enumerate(src_comps):
+                if m != a:
+                    p.halo[3 * a + m] = _check_field(
+                        halo[a][sc], plane, f"halo {sc} axis {a}",
+                        storage[0]).data_ptr()
     p.is_e = int(is_e)
 
     new_fields = {}
@@ -707,12 +746,13 @@ def _family_params(family, state, consts, src_fields, meta, storage,
     return p, new_fields, new_psi, keep
 
 
-def _count(blocks, bloch: bool, many: bool) -> None:
+def _count(blocks, bloch: bool, many: bool, meta: StepMeta) -> None:
     global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS, BLOCH_LAUNCHES, \
-        MANY_POLES_LAUNCHES
+        MANY_POLES_LAUNCHES, BRICK_LAUNCHES
     LAUNCHES += 1
     BLOCH_LAUNCHES += bloch
     MANY_POLES_LAUNCHES += many
+    BRICK_LAUNCHES += any(any(sides) for sides in meta.halo)
     DEVICE_LAUNCHES += blocks[2]
     LAST_BLOCKS = blocks
 
@@ -740,19 +780,21 @@ def _many(state, consts, family) -> bool:
     return family == "E" and len(pole_terms(state, consts)) > MAX_POLES
 
 
-def _family_update_cuda(family, state, consts, src_fields, meta):
+def _family_update_cuda(family, state, consts, src_fields, meta,
+                        halo=None):
     _check_cells(meta)
     storage, device = _storage_and_device(family, [state], [src_fields])
     many = _many(state, consts, family)
     p, new_fields, new_psi, keep = _family_params(
-        family, state, consts, src_fields, meta, storage, device, many)
+        family, state, consts, src_fields, meta, storage, device, many, halo)
     blocks = launch_counted(_library(storage), p, device, "family_update")
     del keep
-    _count(blocks, False, many)
+    _count(blocks, False, many, meta)
     return new_fields, new_psi
 
 
-def _family_update_bloch_cuda(family, states, consts, srcs, meta):
+def _family_update_bloch_cuda(family, states, consts, srcs, meta,
+                              halos=(None, None)):
     """Both copies of a Bloch run in one call of the two-copy
     instantiation (each copy's pole slots from its table)."""
     _check_cells(meta)
@@ -762,7 +804,7 @@ def _family_update_bloch_cuda(family, states, consts, srcs, meta):
     for part in range(2):
         p, nf, npsi, kp = _family_params(family, states[part], consts,
                                          srcs[part], meta, storage, device,
-                                         True)
+                                         True, halos[part])
         b.c[part] = p
         outs.append((nf, npsi))
         keep += kp
@@ -772,38 +814,45 @@ def _family_update_bloch_cuda(family, states, consts, srcs, meta):
     blocks = launch_counted(_bloch_library(storage), b, device,
                             "family_update (Bloch)")
     del keep
-    _count(blocks, True, _many(states[0], consts, family))
+    _count(blocks, True, _many(states[0], consts, family), meta)
     return outs
 
 
 def family_update_copies_reference(family: str, states: list, consts: dict,
-                                   srcs: list, meta: StepMeta) -> list:
+                                   srcs: list, meta: StepMeta,
+                                   halos: list = None) -> list:
     """``[(new_fields, new_psi)]`` of ``family`` for each copy (``states``,
     ``srcs``: one, or the two of a complex run), the plain version copy by
-    copy, the other copy's sources as ``partner``."""
+    copy, the other copy's sources as ``partner``; ``halos``: each copy's
+    halo planes of a brick."""
+    halos = halos or [None] * len(states)
     if len(states) == 1:
         return [family_update_reference(family, states[0], consts, srcs[0],
-                                        meta)]
+                                        meta, halo=halos[0])]
     return [family_update_reference(family, st, consts, src, meta,
-                                    partner=srcs[1 - part], part=part)
+                                    partner=srcs[1 - part], part=part,
+                                    halo=halos[part])
             for part, (st, src) in enumerate(zip(states, srcs))]
 
 
 def family_update_copies(family: str, states: list, consts: dict,
-                         srcs: list, meta: StepMeta) -> list:
+                         srcs: list, meta: StepMeta,
+                         halos: list = None) -> list:
     """``family_update_copies_reference`` for CPU tensors; for CUDA tensors
-    one call of the kernel (the two-copy instantiation for a complex
-    run)."""
+    one call of the kernel (the two-copy instantiation for a complex run;
+    a brick's in its halo mode, ``BRICK_LAUNCHES``)."""
     device = next(iter(srcs[0].values())).device
     if device.type == "cpu":
         return family_update_copies_reference(family, states, consts, srcs,
-                                              meta)
+                                              meta, halos)
     if device.type != "cuda":
         raise ValueError(f"family_update: unsupported device '{device}'")
+    halos = halos or [None] * len(states)
     if len(states) == 1:
         return [_family_update_cuda(family, states[0], consts, srcs[0],
-                                    meta)]
-    return _family_update_bloch_cuda(family, states, consts, srcs, meta)
+                                    meta, halos[0])]
+    return _family_update_bloch_cuda(family, states, consts, srcs, meta,
+                                     halos)
 
 
 def family_update(family: str, state: dict, consts: dict, src_fields: dict,

@@ -12,9 +12,11 @@ trace of the run (``solver/profiling.maybe_profile``); ``checkpoint_path``
 saves the state every ``checkpoint_every`` chunks and resumes from the file
 when it exists (``FDTDRunner.run_checkpointed``). ``TIDY3D_TPU_SHARD`` asks
 for a sharded run as in the JAX package
-(``solver/distributed.sharding_plan_from_env``): x-slabs, or one y or z
-axis rotated onto x, over the visible CUDA devices (on the CPU, over
-virtual shards). The runner decides what media it takes
+(``solver/distributed.sharding_plan_from_env``) over the visible CUDA
+devices (on the CPU, over virtual shards): x-slabs of the k-step kernel
+(one y or z axis rotated onto x) where that route takes the plan, bricks
+of the ``pallas2`` tier otherwise (``kernel tier: pallas2 (2x2x1
+bricks)``). The runner decides what media it takes
 (``solver/fdtd.py``: linear, up to 8 dispersive pole slots in a real run,
 none in a Bloch (complex) run), which kernel tier steps the run and at
 which storage types (``TIDY3D_TPU_PRECISION``, and on the kstep tier

@@ -371,7 +371,22 @@ Phases (any failure exits non-zero):
     5 x-bricks of 77, 77, 77, 77 and 76 planes (a split the x-slab route
     refuses), the main path. Each phase's ``[time]`` line gives the
     process's peak host memory and the host's available memory;
-45. the JSON summary lines; the last line is the contract line. Each
+45. (run after phases 22-25; its child process lowers during them)
+    sharded runs across processes: in a child process, a world of one
+    process over NCCL (``distributed.initialize`` on the coordinator
+    ``127.0.0.1:<free port>``), the dispersive case on (4, 1, 1) x-slabs
+    of the k-step kernel and the Kerr + TPA block case on (2, 2, 1) bricks
+    (the family kernel's halo mode and ``post_e``), both at 384^3, cut to
+    ~220 steps, over ``make_global_mesh(decomp, [cuda:0] * n)``: the
+    collective memory gate, the launch counts set to 0 just before each
+    run and read just after, the raw monitors bit-equal to the same runs
+    without a process group (run before and after it), the NCCL version,
+    each chunk's step and all-reduce (device ms by CUDA events, host
+    seconds) and the monitors' gather (host seconds);
+46. where two or more cards are visible, a world of two processes, a
+    card each, on both routes, held to the single-process run at 2e-5;
+    else one line saying it was not run;
+47. the JSON summary lines; the last line is the contract line. Each
     kernel's ``bound_ms`` is the least time the card could take for the
     call timed in ``ms``: the larger of the bytes of its inputs and outputs
     (each once) over 3.35 TB/s and the operations its function needs over
@@ -394,7 +409,10 @@ Phases (any failure exits non-zero):
     bricks (one family over every brick, its bound the bricks' bytes with
     their halo planes) and carries the unsharded launch's ms, the bf16,
     Bloch and pole-table launches' ms and bounds, and each main-path
-    case's ms a step, exchange ms and Gcell*steps/s.
+    case's ms a step, exchange ms and Gcell*steps/s. ``kstep_group_sharded``
+    and ``family_update_bricks`` carry phase 45's run of their route in a
+    process group (``multiprocess``: its launches, bit-equality, the mean
+    all-reduce and chunk device ms, the gather's host seconds).
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -3136,8 +3154,10 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     del plan_t
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    w = web_run(td, bloch_metal_case(td), "Bloch metal, default tier", smi,
-                field=None)
+    # half the run (cut to keep the script in its time limit)
+    sim = bloch_metal_case(td)
+    w = web_run(td, sim.copy(update=dict(run_time=sim.run_time / 2)),
+                "Bloch metal, default tier", smi, field=None)
     split = step_split(runner, "Bloch metal, pallas2", w.rate, smi)
     del runner
     none = {"family": 0, "fused": 0, "kstep": 0}
@@ -5203,6 +5223,283 @@ def compare_runners_bf16(plan, dev, smi: str) -> dict:
     return rates
 
 
+# --------------------------------------------------------------------------- #
+# 45-46. sharded runs across processes
+# --------------------------------------------------------------------------- #
+
+MP_DEPTH = 9        # phases 45-46 cut their cases' run time 9-fold
+MP_TIMEOUT = 420    # seconds a world of phase 45 or 46 may take
+MP_DIST_TIMEOUT = 300   # its process group's own timeout
+
+
+def mp_cases(td) -> list:
+    """Phases 45-46's runs: ``(name, simulation, decomposition)``: the
+    dispersive case on x-slabs of the k-step kernel and the Kerr + TPA
+    block case on bricks of the family kernel (with ``post_e``), both at
+    full width, cut in depth."""
+    def cut(sim):
+        return sim.copy(update=dict(run_time=sim.run_time / MP_DEPTH))
+
+    return [("dispersive 384^3, (4, 1, 1) x-slabs", cut(dispersive_case(td)),
+             (4, 1, 1)),
+            ("Kerr + TPA 384^3, (2, 2, 1) bricks",
+             cut(block_case(td, kerr_medium(td))), (2, 2, 1))]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def world_child(world: int, rank: int, port: int, out: str) -> int:
+    """One process of phase 45's world (one process) or phase 46's (two,
+    a card each), started by ``World``. It lowers each case of
+    ``mp_cases``, waits for the parent's ``go`` line on its standard input
+    (the lowering runs on the host while the parent still measures), then
+    on its card: each case over the same mesh with no process group (the
+    single-process run); the group joined on the coordinator
+    ``127.0.0.1:port`` over NCCL and each case run through
+    ``make_global_mesh`` (this process's share of the mesh on its card):
+    the collective memory gate, the launch counts set to 0 just before the
+    run and read just after, the raw monitors against the single-process
+    run (equal bit for bit in a world of one, 2e-5 across cards), each
+    chunk's step and all-reduce (CUDA events and host clock), the
+    monitors' gather (host clock) and the halo traffic; then the group
+    left and each case once more without it, so that the group's run is
+    timed between two runs without it. Writes its findings to
+    ``out.rank<r>.json``."""
+    import tidy3d_tpu_torch as td
+    from tidy3d_tpu_torch.solver import distributed
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
+    from tidy3d_tpu_torch.solver.lowering import lower
+    from tidy3d_tpu_torch.solver.sharding import ShardingPlan, make_mesh
+
+    dev = torch.device("cuda", rank)
+    tag = f"[multiprocess {world}x1 rank {rank}]"
+    cases = []
+    for name, sim, decomp in mp_cases(td):
+        t0 = time.perf_counter()
+        cases.append((name, lower(sim), decomp))
+        log(f"{tag} {name}: lowered in {time.perf_counter() - t0:.1f} s")
+    assert sys.stdin.readline().strip() == "go"
+    torch.cuda.set_device(dev)
+
+    # the single-process runs of the same meshes, on this card (each
+    # runner runs again once the group is left)
+    singles = {}
+    for name, plan, decomp in cases:
+        mesh, _ = make_mesh(devices=[dev] * int(np.prod(decomp)),
+                            decomp=decomp)
+        singles[name] = FDTDRunner(
+            plan, device=dev, sharding_plan=ShardingPlan(mesh, plan.shape))
+    refs = {}
+    for name, runner in singles.items():
+        refs[name] = (runner.run(), runner.wall_time)
+    t0 = time.perf_counter()
+    assert distributed.initialize(f"127.0.0.1:{port}", world, rank, [rank],
+                                  device=dev)
+    init_s = time.perf_counter() - t0
+    backend = str(torch.distributed.get_backend())
+    assert backend == "nccl", backend
+    result = {"world": world, "rank": rank, "backend": backend,
+              "nccl": distributed.nccl_version(), "init_s": init_s,
+              "runs": {}}
+    log(f"{tag} process group up in {init_s:.2f} s: backend {backend}, NCCL "
+        f"{result['nccl']}, {distributed.process_count()} process(es)")
+    for name, plan, decomp in cases:
+        n = int(np.prod(decomp))
+        mesh, _ = distributed.make_global_mesh(decomp, [dev] * (n // world))
+        runner = FDTDRunner(plan, device=dev,
+                            sharding_plan=ShardingPlan(mesh, plan.shape))
+        assert runner.collective, runner.tier_name
+        est = runner.check_memory_budget()
+        kstep.LAUNCHES = kstep.SHARDED_LAUNCHES = 0
+        step.LAUNCHES = step.BRICK_LAUNCHES = post_e.LAUNCHES = 0
+        fused.LAUNCHES = 0
+        raw = runner.run()
+        counts = {"kstep": kstep.LAUNCHES,
+                  "kstep_sharded": kstep.SHARDED_LAUNCHES,
+                  "family": step.LAUNCHES, "halo": step.BRICK_LAUNCHES,
+                  "post_e": post_e.LAUNCHES, "fused": fused.LAUNCHES}
+        local, steps = len(runner.shards), runner.steps_run
+        if runner.bricks:
+            want = dict(kstep=0, kstep_sharded=0, fused=0,
+                        family=2 * local * steps, halo=2 * local * steps,
+                        post_e=local * steps)
+        else:
+            want = dict(kstep=local * steps // runner.k,
+                        kstep_sharded=local * steps // runner.k, family=0,
+                        halo=0, post_e=0, fused=0)
+        assert counts == want, (name, counts, want)
+        ref = refs[name][0]
+        err = raw_err(ref, raw)
+        equal = all(np.array_equal(ref[i][c], raw[i][c])
+                    for i in ref for c in ref[i])
+        recs = runner.chunk_records
+        t = runner.transport
+        res = {
+            "tier": runner.tier_name, "steps": steps, "launches": counts,
+            "local_shards": [sh.index for sh in runner.shards],
+            "err": err, "equal": equal, "wall_s": runner.wall_time,
+            "single_wall_s": [refs[name][1]],
+            "estimate_bytes": est["total"], "peak_bytes":
+            runner.hbm_peak_bytes, "chunks": len(recs),
+            "steps_ms": [r["steps_ms"] for r in recs],
+            "allreduce_ms": [r["allreduce_ms"] for r in recs],
+            "steps_host_s": [r["steps_host_s"] for r in recs],
+            "allreduce_host_s": [r["allreduce_host_s"] for r in recs],
+            "gather_s": runner.gather_s,
+            "halo_bytes_sent": 0 if t is None else t.sent,
+            "halo_swaps": 0 if t is None else t.swaps}
+        result["runs"][name] = res
+        log(f"{tag} {name}, {runner.tier_name}: {steps} steps, mesh entries "
+            f"{res['local_shards']} here, launches {counts}; raw monitors vs "
+            f"the run without a process group: max rel err {err:.3e}, "
+            f"bit-equal {equal}; memory gate estimate {est['total']} B, "
+            f"peak {runner.hbm_peak_bytes} B; halo bytes sent "
+            f"{res['halo_bytes_sent']} in {res['halo_swaps']} exchanges")
+        if world == 1:
+            assert equal, f"{name}: not bit-equal ({err:.3e})"
+        assert err <= TOL_STEPS, f"{name}: rel err {err:.3e}"
+        del runner, raw
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    for name, runner in singles.items():
+        assert not runner.collective
+        raw, wall = runner.run(), runner.wall_time
+        assert raw_err(refs[name][0], raw) == 0.0, name
+        res = result["runs"][name]
+        res["single_wall_s"].append(wall)
+        log(f"{tag} {name}: per chunk ({res['chunks']} chunks of "
+            f"{res['steps'] // res['chunks']} steps) device ms steps "
+            f"{np.mean(res['steps_ms']):.3f} (max "
+            f"{np.max(res['steps_ms']):.3f}), all-reduce "
+            f"{np.mean(res['allreduce_ms']):.4f} (max "
+            f"{np.max(res['allreduce_ms']):.4f}); host s steps enqueued "
+            f"{np.mean(res['steps_host_s']):.4f}, all-reduce and wait "
+            f"{np.mean(res['allreduce_host_s']):.4f}; monitor gather "
+            f"{res['gather_s']:.3f} host s; run s without, with, without "
+            f"the group {res['single_wall_s'][0]:.3f}, {res['wall_s']:.3f}, "
+            f"{wall:.3f}")
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+class World:
+    """``world`` processes of ``world_child`` (rank r on card r), started
+    at once: each lowers its cases and waits; ``go`` lets them run;
+    ``finish`` relays their output to the log, waits at most
+    ``MP_TIMEOUT`` s from ``go`` (then kills every one) and returns each
+    rank's findings. A process that fails fails the phase; none outlives
+    ``finish``."""
+
+    def __init__(self, world: int, out: str):
+        import atexit
+        import subprocess
+
+        self.world, self.out = world, out
+        port = free_port()
+        env = dict(os.environ, TIDY3D_TPU_DIST_TIMEOUT=str(MP_DIST_TIMEOUT))
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--world-child",
+             str(world), str(rank), str(port), out], env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+        atexit.register(self.kill)
+
+    def go(self) -> None:
+        for proc in self.procs:
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+        self.t0 = time.perf_counter()
+
+    def finish(self) -> list:
+        import subprocess
+
+        outs = []
+        try:
+            for proc in self.procs:
+                left = MP_TIMEOUT - (time.perf_counter() - self.t0)
+                outs.append(proc.communicate(timeout=max(left, 1))[0])
+        except subprocess.TimeoutExpired:
+            outs.append(f"killed after {MP_TIMEOUT} s")
+        finally:
+            self.kill()
+        for rank, (proc, text) in enumerate(zip(self.procs, outs)):
+            for line in text.splitlines():
+                if line.startswith("[multiprocess") or proc.returncode:
+                    log(line if line.startswith("[") else
+                        f"  (rank {rank}) {line}")
+        for rank, proc in enumerate(self.procs):
+            assert proc.returncode == 0, \
+                f"rank {rank} of {self.world} exited {proc.returncode}"
+        out = []
+        for rank in range(self.world):
+            with open(f"{self.out}.rank{rank}.json") as f:
+                out.append(json.load(f))
+        return out
+
+    def kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def run_multiprocess(world45: "World", smi: str) -> dict:
+    """Phases 45-46: phase 45 a world of one process over NCCL in a child
+    process (``world45``, started before the labs so that it lowers its
+    cases meanwhile; the coordinator on ``127.0.0.1``), both cases of
+    ``mp_cases`` from ``make_global_mesh(decomp, [cuda:0] * n)``, against
+    the same runs without a process group; phase 46 a world of two
+    processes, a card each, on both routes, where two cards are visible,
+    else one line that it was not run. Returns phase 45's runs by route
+    (``slabs``, ``bricks``) for the kernels line."""
+    stamp("45")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    world45.go()
+    (res,) = world45.finish()
+    runs = list(res["runs"].values())
+    log(f"[multiprocess] phase 45: a world of 1 process over NCCL "
+        f"{res['nccl']} on the card, both routes bit-equal to the runs "
+        f"without a process group: "
+        + "; ".join(f"{r['tier']} all-reduce {np.mean(r['allreduce_ms']):.4f}"
+                    f" device ms a chunk beside steps "
+                    f"{np.mean(r['steps_ms']):.3f}, gather "
+                    f"{r['gather_s']:.3f} s, run {r['wall_s']:.3f} s "
+                    f"between {r['single_wall_s']} s without"
+                    for r in runs)
+        + f"; phase took {time.perf_counter() - t0:.1f} s after its "
+        f"lowering | {smi}")
+    stamp("46")
+    if torch.cuda.device_count() < 2:
+        log("[multiprocess] phase 46: a world of 2 processes, one card "
+            "each: not run (one CUDA device visible)")
+    else:
+        t0 = time.perf_counter()
+        world46 = World(2, os.path.join(OUT_DIR, "chip_smoke_world2"))
+        world46.go()
+        both = world46.finish()
+        errs = [r["err"] for rank in both for r in rank["runs"].values()]
+        log(f"[multiprocess] phase 46: a world of 2 processes over NCCL, "
+            f"one card each: raw monitors vs the single-process run max rel "
+            f"err {max(errs):.3e} (tol {TOL_STEPS:g}); phase took "
+            f"{time.perf_counter() - t0:.1f} s | {smi}")
+    keep = ("steps", "launches", "err", "equal", "gather_s", "wall_s",
+            "single_wall_s")
+    return {("bricks" if "bricks" in r["tier"] else "slabs"): dict(
+        {k: r[k] for k in keep},
+        allreduce_ms=float(np.mean(r["allreduce_ms"])),
+        chunk_steps_ms=float(np.mean(r["steps_ms"])), nccl=res["nccl"])
+        for r in runs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5537,6 +5834,9 @@ def main() -> int:
     next(e for e in new_entries if e["name"] == "post_e")[
         "nine_entries_bf16_err"] = err_post_e_table
 
+    # 45. its child process starts now and lowers its cases during the
+    # labs; it touches the card only once phase 45 lets it
+    world45 = World(1, os.path.join(OUT_DIR, "chip_smoke_world"))
     stamp("22-25")
     # 22-25. the labs: their entry points, then each kernel against plain
     lab_counts = run_lab_mains(smi)
@@ -5545,6 +5845,9 @@ def main() -> int:
     labs += run_lab_kstep(smi, lab_counts["kernel_lab2"])
     torch.cuda.empty_cache()
     labs += run_pole_lab(smi, lab_counts["pole_lab"])
+
+    # 45-46. sharded runs across processes, in child processes
+    multiprocess = run_multiprocess(world45, smi)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     assert not leaked, f"JAX was imported: {leaked[:5]}"
@@ -5576,9 +5879,12 @@ def main() -> int:
               f"{kstep_tpu} with :1386", shard["launches"], shard["err"],
               shard["ms"], shard["plain_ms"], shard["bound"],
               registers=shard["registers"],
-              blocks_per_sm=shard["blocks_per_sm"]),
-    ] + new_entries + [bricks_entry] + bf16_entries + labs}
-    stamp("45")
+              blocks_per_sm=shard["blocks_per_sm"],
+              multiprocess=multiprocess["slabs"]),
+    ] + new_entries + [dict(bricks_entry,
+                            multiprocess=multiprocess["bricks"])]
+        + bf16_entries + labs}
+    stamp("47")
     log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s; "
         f"phases begun at (s): {STAMPS}")
     log(smi)
@@ -5590,4 +5896,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-child"]:
+        sys.exit(world_child(*map(int, sys.argv[2:5]), sys.argv[5]))
     sys.exit(main())

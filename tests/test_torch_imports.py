@@ -1,8 +1,9 @@
 """The port stands alone: it imports nothing of ``tidy3d_tpu`` or JAX.
 
-An AST scan of every module of ``tidy3d_tpu_torch``, of ``chip_smoke.py``
-and of the port's ``labs/`` (no ``tidy3d_tpu`` or ``jax`` import, and every
-relative import resolves inside the port); every module of the port
+An AST scan of every module of ``tidy3d_tpu_torch``, of ``chip_smoke.py``,
+of the multi-process tests' worker and of the port's ``labs/`` (no
+``tidy3d_tpu`` or ``jax`` import, and every relative import resolves
+inside the port); every module of the port
 imported, and a small ``web.run`` on the CPU, unsharded and over two
 virtual shards (the JAX package's distributed layer imports JAX, so a
 stray import of it would show here), in a process where a meta-path finder
@@ -43,7 +44,10 @@ FOREIGN = ("tidy3d_tpu", "jax", "jaxlib")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and the worker of the multi-process tests, whose
+    # processes run the port alone
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_multiprocess_worker.py")]
     for top in (PORT, os.path.join(REPO, "labs")):
         for root, _, files in os.walk(top):
             out += [os.path.join(root, f) for f in files

@@ -25,6 +25,8 @@ semantics that the JAX XLA runner gives here on the small cases.
 The kernel tests at the end need a CUDA card and skip without one.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -183,11 +185,60 @@ def test_env_refuses_more_devices_than_there_are(monkeypatch):
         ["cuda:1", "cuda:0"]) == sp.devices
 
 
-def test_initialize_is_single_host_only(monkeypatch):
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture
+def world_of_one(monkeypatch):
+    """The environment of a one-process world on the coordinator
+    ``127.0.0.1:<free port>``, left again afterwards (the worlds of
+    several processes: ``tests/test_torch_multiprocess.py``)."""
+    monkeypatch.setenv("TIDY3D_TPU_COORDINATOR", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("TIDY3D_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("TIDY3D_TPU_PROCESS_ID", "0")
+    monkeypatch.setenv("TIDY3D_TPU_DIST_TIMEOUT", "60")
+    try:
+        yield
+    finally:
+        distributed.shutdown()
+
+
+def test_initialize_without_a_coordinator_is_single_process():
     assert distributed.initialize() is False
-    monkeypatch.setenv("TIDY3D_TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        distributed.initialize()
+    assert not torch.distributed.is_initialized()
+    assert distributed.process_index() == 0
+    assert distributed.process_count() == 1
+    assert distributed.all_gather_object("x") == ["x"]
+
+
+def test_initialize_needs_the_process_count_and_index(monkeypatch):
+    monkeypatch.setenv("TIDY3D_TPU_COORDINATOR", f"127.0.0.1:{_free_port()}")
+    monkeypatch.delenv("TIDY3D_TPU_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("TIDY3D_TPU_PROCESS_ID", raising=False)
+    with pytest.raises(ValueError, match="TIDY3D_TPU_NUM_PROCESSES"):
+        distributed.initialize(device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_initialize_joins_a_gloo_world_of_one(world_of_one):
+    assert distributed.initialize(device="cpu") is True
+    assert torch.distributed.is_initialized()
+    assert torch.distributed.get_backend() == "gloo"
+    assert (distributed.process_index(), distributed.process_count()) \
+        == (0, 1)
+    # idempotent; a CUDA run never rides the gloo group
+    assert distributed.initialize(device="cpu") is True
+    with pytest.raises(RuntimeError, match="needs nccl"):
+        distributed.initialize(device="cuda")
+    mesh, decomp = distributed.make_global_mesh((2, 1, 1), ["cpu"] * 2)
+    assert decomp == (2, 1, 1)
+    assert np.array_equal(mesh.ranks, np.zeros((2, 1, 1), int))
+    assert list(mesh.devices.reshape(-1)) == [torch.device("cpu")] * 2
 
 
 def test_exchange_fills_the_halos_from_the_ring():
@@ -330,12 +381,6 @@ def _refuse_fused(env):
     sharded(lower(sized(SIMS["pml_all"]())), 4, kernel="fused")
 
 
-def _refuse_coordinator(env):
-    env.setenv("TIDY3D_TPU_SHARD", "2,1,1")
-    env.setenv("TIDY3D_TPU_COORDINATOR", "localhost:1234")
-    tt.web.run(SIMS["pml_all"](), device="cpu", verbose=False)
-
-
 @pytest.mark.parametrize("attempt,error,match", [
     (_refuse_2d, NotImplementedError, "mixed 2D/3D"),
     (_refuse_bloch, NotImplementedError, "sharded Bloch"),
@@ -343,11 +388,32 @@ def _refuse_coordinator(env):
     (_refuse_cone, ValueError, "x-PML slab of 4 planes"),
     (_refuse_thin, ValueError, "shards of 3 planes"),
     (_refuse_fused, ValueError, "no shard-local mode"),
-    (_refuse_coordinator, NotImplementedError, "multi-host"),
 ], ids=lambda v: getattr(v, "__name__", None))
 def test_sharded_refusals(attempt, error, match, monkeypatch):
     with pytest.raises(error, match=match):
         attempt(monkeypatch)
+
+
+def test_web_run_with_a_coordinator_matches_the_run_without(
+        monkeypatch, world_of_one):
+    """``web.run`` under ``TIDY3D_TPU_SHARD=2,1,1`` in a world of one gloo
+    process: the collective path (process 0 lowers and builds the data,
+    the all-reduced shutoff maximum, the gathered monitors) gives the data
+    of the run without a coordinator, bit for bit."""
+    sim = sized(SIMS["pml_all"](monitors=_dft_monitors(), run_time=2e-14))
+    monkeypatch.setenv("TIDY3D_TPU_SHARD", "2,1,1")
+    monkeypatch.setenv("TIDY3D_TPU_KERNEL", "auto")
+    coordinator = os.environ.pop("TIDY3D_TPU_COORDINATOR")
+    ref = tt.web.run(sim, device="cpu", verbose=False)
+    os.environ["TIDY3D_TPU_COORDINATOR"] = coordinator
+    got = tt.web.run(sim, device="cpu", verbose=False)
+    assert torch.distributed.is_initialized()
+    assert "kstep (k=2, 2 x-shards)" in got.log
+    for name in ("flux", "field"):
+        for comp in (("flux",) if name == "flux" else ("Ex", "Ez", "Hy")):
+            r = getattr(ref[name], comp).values
+            assert np.any(r != 0)
+            assert np.array_equal(r, getattr(got[name], comp).values)
 
 
 def test_shard_state_keeps_its_x_psi_slabs_on_the_edges():

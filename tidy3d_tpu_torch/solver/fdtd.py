@@ -75,8 +75,15 @@ Sharded runs (``sharding_plan``, a ``sharding.ShardingPlan``) take one of
 two routes, decided as the JAX package's ``_kernel_intent`` and
 ``_init_kernel_mode`` decide between its sharded k-step kernel and its
 GSPMD XLA path (``tidy3d_tpu/solver/fdtd.py:188-265``; ``select_tier``
-with ``sharded``). One process drives every shard; a mesh may name one
-device several times (virtual shards).
+with ``sharded``). A mesh may name one device several times (virtual
+shards). Without a process group one process drives every shard; in one
+(``distributed.initialize``) each process builds and steps only the mesh
+entries its ``ShardingPlan.ranks`` give it (``shards`` holds those, each
+with its global index), the halos from other processes' entries come
+through ``sharding.Transport``, and every host decision is taken alike:
+the field maximum is all-reduced every chunk (the shutoff and the
+divergence test), the memory gate and a resume are decided by all, and
+the raw monitors are gathered so that every process returns them whole.
 
 * x-slabs on the kstep tier, as the JAX package's ``_make_run_fn_sharded``
   runs its k-step kernel under ``shard_map``
@@ -194,7 +201,10 @@ from .nonlinear import (
     post_e_reference, post_e_to_device,
 )
 from .plan_rotate import perm_for_rot, rotate_plan, unrotate_raw
-from .sharding import Bricks, ShardingPlan, XSlabs, mesh_devices
+from . import distributed
+from .sharding import (
+    Bricks, ShardingPlan, Transport, XSlabs, mesh_devices,
+)
 
 NUM_CHUNKS = 20
 SHUTOFF_MIN_CHUNKS = 4
@@ -1065,10 +1075,18 @@ class FDTDRunner:
             if sharded_tier[0] == "kstep" and slab_rotation(self.decomp):
                 self._plan_rot = slab_rotation(self.decomp)
                 plan = rotate_plan(plan, self._plan_rot)
-                sharding_plan = ShardingPlan(np.transpose(
-                    sharding_plan.mesh, perm_for_rot(self._plan_rot)),
-                    plan.shape)
+                perm = perm_for_rot(self._plan_rot)
+                sharding_plan = ShardingPlan(
+                    np.transpose(sharding_plan.mesh, perm), plan.shape,
+                    np.transpose(sharding_plan.ranks, perm))
         self.sharding = sharding_plan
+        # in a process group a sharded run decides every host question
+        # (the shutoff, the memory gate, a resume) with the other
+        # processes, and gathers the monitors from them; halos from their
+        # mesh entries come through ``transport``
+        self.collective = sharding_plan is not None \
+            and torch.distributed.is_initialized()
+        self.transport = None
         self.plan = plan
         self.shape = tuple(plan.shape)
         self.num_steps = plan.num_steps
@@ -1116,23 +1134,40 @@ class FDTDRunner:
     # ------------------------------------------------------------------ #
 
     def _check_mesh(self, sharding_plan):
-        devices = mesh_devices(sharding_plan.mesh)
+        me = distributed.process_index()
+        devices = [dv for dv, r in zip(mesh_devices(sharding_plan.mesh),
+                                       sharding_plan.ranks.reshape(-1))
+                   if r == me]
         if any(torch.device(dv).type != self.device.type for dv in devices):
             raise ValueError(f"the mesh's devices {devices} are not all of "
                              f"the run's kind ({self.device.type})")
+        if not torch.distributed.is_initialized() \
+                and np.any(sharding_plan.ranks != me):
+            raise ValueError("the mesh names other processes "
+                             f"({sorted(set(sharding_plan.ranks.flat))}) but "
+                             "no process group is up (distributed."
+                             "initialize)")
+
+    def _local_entries(self) -> list:
+        """``(s, device)`` of the mesh entries this process owns, and the
+        transport to the other processes' entries where there are any."""
+        me = distributed.process_index()
+        ranks = self.sharding.ranks.reshape(-1)
+        if np.any(ranks != me):
+            self.transport = Transport(ranks, self.device)
+        return [(s, torch.device(dv)) for s, (dv, r) in enumerate(zip(
+            mesh_devices(self.sharding.mesh), ranks)) if r == me]
 
     def _build_shards(self):
         """The x-slab layout (``select_tier`` has checked its gate), each
         shard's constants on its device, its ``StepMeta``, its source
         tables and its monitor slices."""
         plan, k = self.plan, self.k
-        devices = [torch.device(dv) for dv in
-                   mesh_devices(self.sharding.mesh)]
-        ndev = len(devices)
+        ndev = int(np.prod(self.sharding.decomp))
         lay = self.layout = XSlabs(self.shape[0], ndev, k,
                                    plan.boundaries[0][0] == "periodic")
         self.shards = []
-        for s, dev in enumerate(devices):
+        for s, dev in self._local_entries():
             hc, pml_meta = shard_constants(self.host_consts, self.pml_meta,
                                            lay, s)
             meta = StepMeta(
@@ -1163,8 +1198,6 @@ class FDTDRunner:
         that are not decomposed, its halo sides), its source terms and its
         monitor slices and places."""
         plan = self.plan
-        devices = [torch.device(dv) for dv in
-                   mesh_devices(self.sharding.mesh)]
         lay = self.layout = Bricks(self.shape, self.sharding.decomp,
                                    [b[0] == "periodic"
                                     for b in plan.boundaries])
@@ -1172,17 +1205,10 @@ class FDTDRunner:
         # a decomposed axis carries its phase in the halos across its wall
         self.halo_phases = tuple(cs if lay.decomp[a] > 1 else None
                                  for a, cs in enumerate(phases))
-        self.shards = []
-        for s, dev in enumerate(devices):
-            hc, pml_meta = brick_constants(self.host_consts, self.pml_meta,
-                                           lay, s)
-            meta = StepMeta(
-                shape=lay.extent(s), boundaries=tuple(plan.boundaries),
-                pml_meta=pml_meta, bloch=tuple(
-                    None if lay.decomp[a] > 1 else cs
-                    for a, cs in enumerate(phases)), halo=lay.halo(s))
-            sources = {fam: brick_sources(terms, lay, s, dev)
-                       for fam, terms in self._sources.items()}
+        # every brick's place in each monitor (the join of the gathered
+        # parts needs the other processes' too)
+        self.mon_at, mon_slices_of = [], []
+        for s in range(lay.n):
             mon_slices, mon_at = [], []
             for mp in plan.monitors:
                 owned, at = {}, {}
@@ -1196,8 +1222,22 @@ class FDTDRunner:
                             zip(rng, lay.origin(s), sl))
                 mon_slices.append(owned)
                 mon_at.append(at)
+            mon_slices_of.append(mon_slices)
+            self.mon_at.append(mon_at)
+        self.shards = []
+        for s, dev in self._local_entries():
+            hc, pml_meta = brick_constants(self.host_consts, self.pml_meta,
+                                           lay, s)
+            meta = StepMeta(
+                shape=lay.extent(s), boundaries=tuple(plan.boundaries),
+                pml_meta=pml_meta, bloch=tuple(
+                    None if lay.decomp[a] > 1 else cs
+                    for a, cs in enumerate(phases)), halo=lay.halo(s))
+            sources = {fam: brick_sources(terms, lay, s, dev)
+                       for fam, terms in self._sources.items()}
             self.shards.append(_Shard(s, dev, consts_to_device(hc, dev), meta,
-                                      None, mon_slices, sources, mon_at))
+                                      None, mon_slices_of[s], sources,
+                                      self.mon_at[s]))
 
     @property
     def bricks(self) -> bool:
@@ -1211,10 +1251,12 @@ class FDTDRunner:
         ``fields``, each brick's copies, or its state's)."""
         src = "H" if family == "E" else "E"
         if fields is None:
-            keys = [key for key in (src, src + "1") if key in states[0]]
+            keys = [key for key in (src, src + "1")
+                    if states and key in states[0]]
             fields = [[st[key] for key in keys] for st in states]
         self.layout.exchange(fields, [st["halo"][src] for st in states],
-                             0 if family == "E" else 1, self.halo_phases)
+                             0 if family == "E" else 1, self.halo_phases,
+                             [sh.index for sh in self.shards], self.transport)
 
     @property
     def devices(self) -> list:
@@ -1226,7 +1268,8 @@ class FDTDRunner:
     def exchange_halos(self, states: list) -> None:
         """Refreshes the halo planes of each shard's buffer set in
         ``states`` from its neighbours' core edges, in place."""
-        self.layout.exchange([halo_arrays(st) for st in states])
+        self.layout.exchange([halo_arrays(st) for st in states],
+                             [sh.index for sh in self.shards], self.transport)
 
     # ------------------------------------------------------------------ #
     # sources
@@ -1693,7 +1736,7 @@ class FDTDRunner:
             return self.tier
         if self.shards is None:
             return f"kstep (k={self.k})"
-        return f"kstep (k={self.k}, {len(self.shards)} x-shards)"
+        return f"kstep (k={self.k}, {self.layout.ndev} x-shards)"
 
     @property
     def num_sources(self) -> Dict[str, int]:
@@ -1728,7 +1771,10 @@ class FDTDRunner:
     def _max_field(self, state) -> torch.Tensor:
         """The largest |E| over both copies of a complex run
         (``tidy3d_tpu/solver/fdtd.py:1765-1776``), over the owned planes of
-        every shard of a sharded run (the ``lax.pmax`` at :1858)."""
+        every shard of a sharded run (the ``lax.pmax`` at :1858); 0 in a
+        process that owns no mesh entry."""
+        if self.shards == []:
+            return torch.zeros((), device=self.device)
         if self.bricks:
             dev = self.shards[0].device
             return torch.stack([
@@ -1776,40 +1822,56 @@ class FDTDRunner:
         """The raw monitor data (numpy) keyed by monitor-plan index from the
         accumulators of the run or, in x order, of its shards: a shard's
         DFT part covers its planes of axis 0, a time part those of axis
-        1; a brick's part goes to its place (``_join_bricks``)."""
+        1; a brick's part goes to its place (``_join_bricks``). In a
+        process group every process's parts are gathered first, so that
+        every process joins the whole set."""
+        parts = [[{comp: tuple(a.cpu().numpy() for a in acc)
+                   if isinstance(acc, tuple) else acc.cpu().numpy()
+                   for comp, acc in mon.items()} for mon in mons]
+                 for mons in mon_parts]
+        if self.collective:
+            # by mesh entry: an entry that several processes own (a plain
+            # mesh in a group: each process runs all of it) counts once
+            t0 = _time.perf_counter()
+            gathered = {}
+            for got in distributed.all_gather_object(
+                    [(sh.index, part) for sh, part in zip(self.shards,
+                                                          parts)]):
+                for index, part in got:
+                    gathered.setdefault(index, part)
+            parts = [gathered[index] for index in sorted(gathered)]
+            self.gather_s = _time.perf_counter() - t0
         if self.bricks:
-            return self._join_bricks(mon_parts)
+            return self._join_bricks(parts)
         out = {}
         for idx, mp in enumerate(self.plan.monitors):
-            parts = [mon[idx] for mon in mon_parts]
             mon = {}
             for comp in mp.comps:
-                arrs = [p[comp] for p in parts if comp in p]
+                arrs = [p[idx][comp] for p in parts if comp in p[idx]]
                 if not arrs:
                     continue
                 if mp.kind == "field":
-                    re_ = np.concatenate([a[0].cpu().numpy() for a in arrs])
-                    im_ = np.concatenate([a[1].cpu().numpy() for a in arrs])
+                    re_ = np.concatenate([a[0] for a in arrs])
+                    im_ = np.concatenate([a[1] for a in arrs])
                     mon[comp] = re_ + 1j * im_
                 else:
-                    mon[comp] = np.concatenate(
-                        [a.cpu().numpy() for a in arrs], axis=1)
+                    mon[comp] = np.concatenate(arrs, axis=1)
             out[idx] = mon
         if self._plan_rot:
             out = unrotate_raw(out, self.plan, self._plan_rot)
         return out
 
     def _join_bricks(self, mon_parts: list) -> dict:
-        """The raw monitors of a run on bricks: each brick's part of each
-        component placed at its offset (``_Shard.mon_at``) in the
-        monitor's cells; DFT parts span cells then frequencies, time parts
-        samples then cells."""
+        """The raw monitors of a run on bricks from every brick's host
+        parts (in brick order): each brick's part of each component placed
+        at its offset (``mon_at``) in the monitor's cells; DFT parts span
+        cells then frequencies, time parts samples then cells."""
         out = {}
         for idx, mp in enumerate(self.plan.monitors):
             mon = {}
             for comp, sl in mp.slices.items():
-                parts = [(sh.mon_at[idx][comp], mon_[idx][comp]) for sh, mon_
-                         in zip(self.shards, mon_parts)
+                parts = [(at[idx][comp], mon_[idx][comp]) for at, mon_
+                         in zip(self.mon_at, mon_parts)
                          if comp in mon_[idx]]
                 if not parts:
                     continue
@@ -1821,8 +1883,8 @@ class FDTDRunner:
                     for at, pair in parts:
                         cut = tuple(slice(o, o + n) for o, n in
                                     zip(at, pair[0].shape[:3]))
-                        re_[cut] = pair[0].cpu().numpy()
-                        im_[cut] = pair[1].cpu().numpy()
+                        re_[cut] = pair[0]
+                        im_[cut] = pair[1]
                     arr = re_ + 1j * im_
                 else:
                     ns = parts[0][1].shape[0]
@@ -1830,7 +1892,7 @@ class FDTDRunner:
                     for at, part in parts:
                         cut = tuple(slice(o, o + n) for o, n in
                                     zip(at, part.shape[1:]))
-                        arr[(slice(None),) + cut] = part.cpu().numpy()
+                        arr[(slice(None),) + cut] = part
                 mon[comp] = arr
             out[idx] = mon
         return out
@@ -1871,21 +1933,30 @@ class FDTDRunner:
 
         t0 = _time.perf_counter()
         if self.use_kernel:
-            for dev in self.devices:
-                for storage in self.kernel_storages():
-                    {"kstep": kstep_kernels, "fused": fused_kernels,
-                     "pallas2": step_kernels}[self.tier].prepare(dev, storage)
-                    if has_post_e(self.host_consts):
-                        post_e_kernels.prepare(dev, storage[0])
+            # in a process group process 0 builds first and the others
+            # then load what it built
+            with distributed.process_zero_first(self.collective):
+                for dev in self.devices:
+                    for storage in self.kernel_storages():
+                        {"kstep": kstep_kernels, "fused": fused_kernels,
+                         "pallas2": step_kernels}[self.tier].prepare(
+                             dev, storage)
+                        if has_post_e(self.host_consts):
+                            post_e_kernels.prepare(dev, storage[0])
         self.compile_time = _time.perf_counter() - t0
 
         cuda_devices = [dev for dev in self.devices if dev.type == "cuda"]
         for dev in cuda_devices:
             torch.cuda.reset_peak_memory_stats(dev)
         self.checkpoint_save_s = self.checkpoint_load_s = 0.0
+        # per chunk in a process group: its steps and its all-reduce
+        self.chunk_records = []
+        if checkpoint_path is not None:
+            checkpoint_path = self.checkpoint_file(checkpoint_path)
         start_time = _time.perf_counter()
-        if checkpoint_path is not None and os.path.exists(checkpoint_path):
-            state, ci, max_ever, cur = self.load_checkpoint(checkpoint_path)
+        resume = self._resume(checkpoint_path)
+        if resume is not None:
+            state, ci, max_ever, cur = resume
             if verbose:
                 log.info(f"resuming from {checkpoint_path} at chunk {ci}.")
         else:
@@ -1894,8 +1965,11 @@ class FDTDRunner:
             if shutoff > 0 and ci >= SHUTOFF_MIN_CHUNKS \
                     and cur < shutoff * max_ever:
                 break
-            state = self.run_steps(ci * chunk_size, chunk_size, state)
-            cur = float(self._max_field(state).item())
+            if self.collective:
+                state, cur = self._chunk_collective(ci, chunk_size, state)
+            else:
+                state = self.run_steps(ci * chunk_size, chunk_size, state)
+                cur = float(self._max_field(state).item())
             max_ever = float(np.maximum(max_ever, cur))
             ci += 1
             if checkpoint_path is not None and ci % checkpoint_every == 0 \
@@ -1928,6 +2002,37 @@ class FDTDRunner:
         out = self._raw_monitors(parts)
         self.transfer_time = _time.perf_counter() - t1
         return out
+
+    def _chunk_collective(self, ci: int, chunk_size: int, state):
+        """One chunk of a run in a process group: its steps, then the
+        field maximum all-reduced (MAX) over the processes, on the run's
+        device (NCCL on a card), so that every process takes the same
+        shutoff and divergence decisions. Appends ``(steps, all-reduce)``
+        to ``chunk_records``: host seconds and, on a card, device ms by
+        CUDA events (the steps' events bracket the chunk's launches on
+        the current stream, the all-reduce's the wait on it)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            evs[0].record()
+        t0 = _time.perf_counter()
+        state = self.run_steps(ci * chunk_size, chunk_size, state)
+        peak = self._max_field(state).to(self.device).reshape(1)
+        if cuda:
+            evs[1].record()
+        t1 = _time.perf_counter()
+        distributed.all_max(peak)
+        if cuda:
+            evs[2].record()
+        cur = float(peak.item())
+        t2 = _time.perf_counter()
+        rec = {"chunk": ci, "steps_host_s": t1 - t0,
+               "allreduce_host_s": t2 - t1}
+        if cuda:
+            rec.update(steps_ms=evs[0].elapsed_time(evs[1]),
+                       allreduce_ms=evs[1].elapsed_time(evs[2]))
+        self.chunk_records.append(rec)
+        return state, cur
 
     # ------------------------------------------------------------------ #
     # the differentiable run
@@ -2107,14 +2212,55 @@ class FDTDRunner:
 
     def _checkpoint_meta(self) -> dict:
         """The run's identity in a checkpoint: a file of another grid,
-        tier, k, decomposition or storage types is refused."""
-        return {"__version__": np.asarray(CHECKPOINT_VERSION),
+        tier, k, decomposition, storage types or (in a process group)
+        process is refused."""
+        meta = {"__version__": np.asarray(CHECKPOINT_VERSION),
                 "__grid_shape__": np.asarray(self.shape),
                 "__tier__": np.asarray(self.tier),
                 "__k__": np.asarray(self.k),
                 "__decomp__": np.asarray(self.decomp),
                 "__storage__": np.asarray([type_name(dt)
                                            for dt in self.storage])}
+        if self.collective:
+            meta["__process__"] = np.asarray(
+                [distributed.process_index(), distributed.process_count()])
+        return meta
+
+    def checkpoint_file(self, path: str) -> str:
+        """The file this process saves to and resumes from: ``path``, or in
+        a process group ``path.process<i>``, one file a process holding
+        its own shards."""
+        if not self.collective:
+            return path
+        return f"{path}.process{distributed.process_index()}"
+
+    def _resume(self, path):
+        """``load_checkpoint(path)`` when the file exists, else None. In a
+        process group all decide together: every process resumes from its
+        own file at the same chunk or none does, and a file that one
+        process refuses (another run, a missing file, another chunk)
+        raises ``SetupError`` in all."""
+        found = path is not None and os.path.exists(path)
+        if not self.collective:
+            return self.load_checkpoint(path) if found else None
+        got = error = None
+        if found:
+            try:
+                got = self.load_checkpoint(path)
+            except SetupError as exc:
+                error = str(exc)
+        views = distributed.all_gather_object(
+            (found, None if got is None else got[1], error))
+        distributed.agree(next((e for _, _, e in views if e), None),
+                          SetupError)
+        if not any(f for f, _, _ in views):
+            return None
+        if not all(f for f, _, _ in views) \
+                or len({c for _, c, _ in views}) != 1:
+            raise SetupError(
+                f"the processes' checkpoints disagree (found, chunk): "
+                f"{[(f, c) for f, c, _ in views]}: refusing to resume.")
+        return got
 
     def save_checkpoint(self, path: str, state: dict, chunk_idx: int,
                         max_ever: float, cur: float) -> int:
@@ -2290,12 +2436,24 @@ class FDTDRunner:
         ``FDTDRunner.check_memory_budget``): ``TIDY3D_TPU_HBM_BYTES`` when
         set, else the CUDA device's total memory; a CPU device is not
         checked, as the JAX package checks no platform but the TPU.
-        ``TIDY3D_TPU_MEM_CHECK=0`` turns the check off. Returns the
-        estimate (None when off)."""
-        if os.environ.get("TIDY3D_TPU_MEM_CHECK", "1") == "0":
-            return None
+        ``TIDY3D_TPU_MEM_CHECK=0`` turns the check off. In a process group
+        the processes decide together: all raise when one device of one of
+        them is over its limit. Returns the estimate (None when off)."""
+        est = None
+        if os.environ.get("TIDY3D_TPU_MEM_CHECK", "1") != "0":
+            est = self.estimate_device_memory()
+        message = None if est is None else self._over_budget(est)
+        if self.collective:
+            # every process raises or none does
+            distributed.agree(message, SetupError)
+        elif message:
+            raise SetupError(message)
+        return est
+
+    def _over_budget(self, est: dict):
+        """The gate's message for the first device of ``est`` over its
+        limit, or None."""
         env_limit = os.environ.get("TIDY3D_TPU_HBM_BYTES")
-        est = self.estimate_device_memory()
         for name, d in est["devices"].items():
             dev = torch.device(name)
             if env_limit:
@@ -2306,7 +2464,7 @@ class FDTDRunner:
                 continue
             if d["total"] > limit:
                 gib = 1 << 30
-                raise SetupError(
+                return (
                     f"Simulation needs an estimated {d['total'] / gib:.2f} "
                     f"GiB of device memory on {name} (constants "
                     f"{d['consts'] / gib:.2f} + state {d['state'] / gib:.2f}"
@@ -2316,7 +2474,7 @@ class FDTDRunner:
                     f"{limit / gib:.2f} GiB. Reduce the grid/monitor "
                     "footprint, or shard the run over more devices "
                     "(TIDY3D_TPU_SHARD=auto).")
-        return est
+        return None
 
 
 def _named(tree, prefix: str = "", skip=("alt", "halo")):

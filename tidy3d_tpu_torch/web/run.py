@@ -16,7 +16,11 @@ for a sharded run as in the JAX package
 devices (on the CPU, over virtual shards): x-slabs of the k-step kernel
 (one y or z axis rotated onto x) where that route takes the plan, bricks
 of the ``pallas2`` tier otherwise (``kernel tier: pallas2 (2x2x1
-bricks)``). The runner decides what media it takes
+bricks)``). With a coordinator configured (``TIDY3D_TPU_COORDINATOR``,
+``solver/distributed.py``) the process joins the process group before
+lowering; process 0 lowers and builds the ``SimulationData`` and every
+process returns them, and only process 0 writes ``path``. The runner
+decides what media it takes
 (``solver/fdtd.py``: linear, up to 8 dispersive pole slots in a real run,
 none in a Bloch (complex) run), which kernel tier steps the run and at
 which storage types (``TIDY3D_TPU_PRECISION``, and on the kstep tier
@@ -78,6 +82,7 @@ from ..constants import C_0
 from ..log import log
 from ..plugins.mode.device_solver import solve_on
 from ..plugins.mode.mode_solver import ModeSolver
+from ..solver import distributed
 from ..solver.distributed import sharding_plan_from_env
 from ..solver.fdtd import FDTDRunner
 from ..solver.lowering import E_COMPS, lower
@@ -117,10 +122,11 @@ def run(
         raise RuntimeError("web.run: no CUDA device is available; pass "
                            "device='cpu' to run the plain PyTorch path")
     simulation.validate_pre_upload()
-    # every mode solve of the run (the mode sources' in lower(), the mode
-    # and mode-solver monitors') runs its device stage on this device
-    with solve_on(device):
-        plan = lower(simulation)
+    # with a coordinator configured the process joins the group first:
+    # process 0 lowers and hands every process its plan (a mode source's
+    # eigenvectors may differ in sign from one solve to another)
+    distributed.initialize(device=device)
+    plan = distributed.on_process_zero(_lower, simulation, device)
     if verbose:
         nx, ny, nz = plan.shape
         log.info(f"[{task_name}] lowered: grid {nx}x{ny}x{nz}, "
@@ -153,6 +159,21 @@ def run(
         log.info(f"[{task_name}] solved {runner.steps_run} steps in "
                  f"{runner.wall_time:.2f}s ({rate / 1e9:.2f} "
                  "Gcell*steps/s).")
+    # in a process group process 0 builds the data (the mode monitors'
+    # solves) and every process returns it; only process 0 writes ``path``
+    sim_data = distributed.on_process_zero(_assemble, simulation, plan, raw,
+                                           runner, task_name, device, path)
+    return sim_data
+
+
+def _lower(simulation, device):
+    # every mode solve of the run (the mode sources' in lower(), the mode
+    # and mode-solver monitors') runs its device stage on this device
+    with solve_on(device):
+        return lower(simulation)
+
+
+def _assemble(simulation, plan, raw, runner, task_name, device, path):
     with solve_on(device):
         sim_data = assemble_sim_data(simulation, plan, raw, runner,
                                      task_name)

@@ -5,10 +5,11 @@
 Phases (any failure exits non-zero):
 
 1. the card's name and power limit, the torch and CUDA versions;
-2. build the seven kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
-   ``fused.cu``, ``kstep.cu``, ``post_e.cu`` and the labs' ``lab_step.cu``,
-   ``lab_kstep.cu``, ``lab_pole.cu``) and phase 28's bf16 variants of the
-   first three (six libraries) with nvcc for sm_90a, one nvcc process
+2. build the eight kernel sources (``tidy3d_tpu_torch/csrc/step.cu``,
+   ``fused.cu``, ``kstep.cu``, ``post_e.cu``, ``poles.cu`` and the labs'
+   ``lab_step.cu``, ``lab_kstep.cu``, ``lab_pole.cu``) and phase 28's bf16
+   variants of the first three (six libraries) and of ``poles.cu`` with
+   nvcc for sm_90a, one nvcc process
    each, started together, and print their register and spill reports; for every instantiation of the k-step kernel (0 to 8 pole slots
    and Bloch, each bulk and shell) its registers, spills and blocks of 512
    threads per SM (the CUDA occupancy calculator); the same for the
@@ -117,7 +118,7 @@ Phases (any failure exits non-zero):
     the backward amplitude below the forward one, the permittivity
     plane equal to ``plan.eps_yee``; Gcell*steps/s, peak memory and the
     host seconds of the mode solves, then the same case with the flux
-    plane only (the cost of the new monitors);
+    plane only over half its run (the cost of the new monitors);
 17. ``web.run`` of the broadband case with a 4 um projection box around
     its Ez dipole: |E_theta| isotropic in phi at theta = pi/2 (max/min
     below 1.1) and within 10 % of sin(theta) from 30 to 150 degrees (the
@@ -204,7 +205,7 @@ Phases (any failure exits non-zero):
     polish, refinement); one filter pass on the solve's own operator,
     eager and as a graph, at degrees 50 and 200 (CUDA events), the ATen
     operations a pass dispatches and the kernels the profiler records;
-    then the mode monitor's solve at its first ``N_MON_FREQS`` (2)
+    then the mode monitor's solve at its first ``N_MON_FREQS`` (1)
     frequencies by both routes (the filter's solves may leave at most 64
     MiB allocated);
 27. ``web.Job(...).run()`` of the 64x48x80 mixed case with the broadband
@@ -280,11 +281,17 @@ Phases (any failure exits non-zero):
     kernel's two-copy instantiation against its plain version for one E
     and H update of both copies and one whole step (1e-6), its ms beside
     its bound; 100 steps in turns on the stack cut to 128 cells of depth
-    (2e-5, both copies' fields and Q, Q1); ``web.run``: 2 family calls a
-    step, each one two-copy call, no fused or k-step launch, the probe's
-    time series finite and non-zero, the estimate at least the peak; the
-    step split by CUDA events into the family calls, the pole update and
-    the sources and monitors;
+    (2e-5, both copies' fields and Q, Q1; one pole-kernel call a step);
+    the pole kernel (``csrc/poles.cu``, both copies' 26 slots in one
+    launch) against the plain update for one call, float32 to 1e-6 of
+    the largest |Q'| and bf16 (to 1e-2, the share of bit-equal values
+    printed), its ms beside its bound and the plain update's, registers
+    and blocks per SM; ``web.run``: 2 family calls a step, each one
+    two-copy call, one pole-kernel call a step, no fused or k-step
+    launch, the probe's time series finite and non-zero, the estimate at
+    least the peak; the step split by CUDA events into the family calls,
+    the pole kernel (the plain update beside it) and the sources and
+    monitors;
 32-33. the broadband case with a 4 um Kerr + two-photon-absorption block
     (and a point Ez probe at the dipole) and with a block whose
     permittivity and conductivity are modulated: pallas2 under ``auto``;
@@ -299,7 +306,8 @@ Phases (any failure exits non-zero):
     their bounds, 100 steps of each in turns on the stack cut to 96 cells
     of depth (2e-5); ``web.run`` under ``auto`` (a default-start time
     probe): the fused tier, one pole-table call a step; a short forced
-    pallas2 ``web.run``: a pole-table family call a step;
+    pallas2 ``web.run``: a pole-table family call a step and one
+    pole-kernel call a step;
 35. the JAX package's Kerr phase shift, two-photon absorption, chi3 =
     Kerr and modulation sideband tests (2D, through ``web.run`` on the
     card) with their own asserts (``physics_checks``);
@@ -307,7 +315,7 @@ Phases (any failure exits non-zero):
     ``eme_taper_case``: a Si strip tapering from 0.5 to 3 um over 10 um in
     SiO2, 12 um of EME along x, a 5 x 3 um cross-section at dl = 0.025 um
     (200 x 120 cells, 2N = 48000: every plane on the card's filter under
-    ``auto``), 8 EME cells of 4 modes, 2 frequencies: each cell's host
+    ``auto``), 8 EME cells of 4 modes, 1 frequency: each cell's host
     seconds with the filter's split (device loop, fetch, polish,
     refinement), each solve's device and fallback, |S21|^2 of the
     fundamental mode (at least 0.85), each input mode's |S11|^2 + |S21|^2
@@ -357,19 +365,23 @@ Phases (any failure exits non-zero):
     run (unsharded, bricks, bricks, unsharded), the launch counts set to 0
     just before the first brick run and read just after: 2 family calls
     a step and brick, every one in halo mode, one post_e call a step and
-    brick with nonlinear media, no k-step or fused launch; raw monitors
+    brick with nonlinear media, one pole-kernel call a step and brick
+    with poles, no k-step or fused launch; raw monitors
     against the unsharded run (2e-5); ms a step and Gcell*steps/s of
     both, peak device memory, a step split by part over every brick
-    (device ms by CUDA events: the family calls, post_e, the pole update,
-    sources and monitors, the two halo exchanges) and the host's enqueue
-    ms of the exchanges. 41: the 384^3 Kerr + TPA block case (~210
-    steps) in (2, 2, 1) bricks, the halo launch in float32 and in bf16;
-    42: the Bloch metal grating (192 x 192 x 512, 13 slots, both copies,
-    ~105 steps) in (1, 2, 2), the two-copy instantiation; 43: the 13-slot
-    stack cut to 96 cells of depth in (2, 2, 1), the pole-table
-    instantiation's halo launch; 44: the dispersive case (~210 steps) over
+    (device ms by CUDA events: the family calls, post_e, the pole kernel
+    with the plain update beside it, sources and monitors, the two halo
+    exchanges) and the host's enqueue ms of the exchanges. 41: the 384^3
+    Kerr + TPA block case (~105 steps) in (2, 2, 1) bricks, the halo
+    launch in float32 and in bf16; 42: the Bloch metal grating (192 x 192
+    x 512, 13 slots, both copies, ~105 steps) in (1, 2, 2), the two-copy
+    instantiation; 43: the 13-slot stack cut to 96 cells of depth in (2,
+    2, 1), the pole-table instantiation's halo launch; 44: the dispersive
+    case (~210 steps) over
     5 x-bricks of 77, 77, 77, 77 and 76 planes (a split the x-slab route
-    refuses), the main path. Each phase's ``[time]`` line gives the
+    refuses), the main path, then the pole kernel against the plain
+    update on the unsharded case in float32 and bf16 and on one brick
+    (``compare_poles``, as phase 31). Each phase's ``[time]`` line gives the
     process's peak host memory and the host's available memory;
 45. (run after phases 22-25; its child process lowers during them)
     sharded runs across processes: in a child process, a world of one
@@ -413,6 +425,11 @@ Phases (any failure exits non-zero):
     and ``family_update_bricks`` carry phase 45's run of their route in a
     process group (``multiprocess``: its launches, bit-equality, the mean
     all-reduce and chunk device ms, the gather's host seconds).
+    ``pole_update`` is timed on phase 31's Bloch metal call (both copies,
+    26 slots, float32; its bound the currents read and written, E' and E,
+    each mask once) and carries its calls on each main path (``main_runs``:
+    one a step and runner or brick) and every check's ms, plain ms, bound,
+    error and bf16 bit-equal share (``cases``).
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -464,12 +481,18 @@ TOL_PATTERN = 0.1
 # overlap of each mode (tests/test_plugins/test_mode_tpu.py:57,62)
 TOL_NEFF = 2e-5
 MIN_OVERLAP = 0.999
-N_MON_FREQS = 2         # phase 26's frequencies of the mode monitor (of 11)
+N_MON_FREQS = 1         # phase 26's frequencies of the mode monitor (of 11)
 N_LAB = 384             # the step labs' default n
 OUT_DIR = "chiprun_out"
 CKPT_DIR = os.path.join("build", "chip_smoke_ckpt")   # git-ignored
 # (what, estimate, peak, allocated before the run) of every main-path run
 MEMORY = []
+# the pole kernel's bf16 library (fields and currents in bf16)
+POLES_BF16 = ("poles", ("T3D_FIELD_BF16", "T3D_Q_BF16"))
+# (what, pole-kernel calls) of every main-path run on pallas2 with poles
+POLE_RUNS = []
+# what -> the numbers of each pole-kernel check (compare_poles)
+POLE_CHECKS = {}
 # float32 operations per cell update, as the kernels write them: per
 # component two differences times inverse steps, their difference and
 # ca * F + cb * rhs (8); per psi cell b * psi + c * d and its add (4); per
@@ -1296,14 +1319,21 @@ def compare_runners(plan, dev, ncell, what: str, smi: str, runners=None,
     run compared); returns the Gcell*steps/s of each. ``runners``: the
     ``{"plain", "kernel"}`` runners of ``plan`` where already built."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import poles
 
     runners = runners or {
         "plain": FDTDRunner(plan, device=dev, use_kernel=False, **kw),
         "kernel": FDTDRunner(plan, device=dev, **kw)}
     rates = {"plain": [], "kernel": []}
     finals, currents = {}, {}
+    # the pole kernel: one call a step on pallas2 with poles (both copies)
+    want = STEPS_COMPARE if runners["kernel"].tier == "pallas2" \
+        and plan.poles else 0
     for name in ("plain", "kernel", "kernel", "plain"):
+        poles.LAUNCHES = 0
         st, secs = run_steps_timed(runners[name], STEPS_COMPARE)
+        assert poles.LAUNCHES == (want if name == "kernel" else 0), \
+            (what, name, poles.LAUNCHES)
         rates[name].append(ncell * STEPS_COMPARE / secs / 1e9)
         finals[name] = {f"{fam}:{c}": v for fam in ("E", "H", "E1", "H1")
                         if fam in st for c, v in st[fam].items()}
@@ -1462,7 +1492,8 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
     device memory."""
     from types import SimpleNamespace
 
-    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
+    from tidy3d_tpu_torch.solver.kernels import (fused, kstep, poles,
+                                                 post_e, step)
 
     old = os.environ.get("TIDY3D_TPU_KERNEL")
     if tier is not None:
@@ -1474,18 +1505,18 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
         kstep.DEVICE_LAUNCHES = 0
         step.BLOCH_LAUNCHES = step.MANY_POLES_LAUNCHES = 0
-        fused.MANY_POLES_LAUNCHES = post_e.LAUNCHES = 0
+        fused.MANY_POLES_LAUNCHES = post_e.LAUNCHES = poles.LAUNCHES = 0
         t0 = time.perf_counter()
         data = td.web.run(sim, task_name="chip_smoke", verbose=False)
         total_s = time.perf_counter() - t0
         launches = {"family": step.LAUNCHES, "fused": fused.LAUNCHES,
                     "kstep": kstep.LAUNCHES}
-        # the instantiations of this PR: the family kernel's two-copy and
-        # pole-table calls, the fused kernel's pole-table calls, post_e
+        # the family kernel's two-copy and pole-table calls, the fused
+        # kernel's pole-table calls, post_e and the pole kernel
         extra = {"family_bloch": step.BLOCH_LAUNCHES,
                  "family_many_poles": step.MANY_POLES_LAUNCHES,
                  "fused_many_poles": fused.MANY_POLES_LAUNCHES,
-                 "post_e": post_e.LAUNCHES}
+                 "post_e": post_e.LAUNCHES, "poles": poles.LAUNCHES}
         device_launches = kstep.DEVICE_LAUNCHES
     finally:
         if old is None:
@@ -1867,9 +1898,10 @@ def run_waveguide(td, smi: str, modes: dict) -> int:
     tier (k-step launches only), every mode solve under ``auto`` (the
     device filter on the card, no fallback), mode 0 forward against the
     flux, the power balance of both directions, the permittivity plane
-    against the plan; then the same case with the flux plane only, for the
-    cost of the new monitors. ``modes`` holds phase 26's ARPACK and filter
-    seconds of the mode monitor's solve. Returns the k-step launches."""
+    against the plan; then the same case with the flux plane only over
+    half its run, for the cost of the new monitors. ``modes`` holds phase
+    26's ARPACK and filter seconds of the mode monitor's solve. Returns the
+    k-step launches."""
     from tidy3d_tpu_torch.plugins.mode import device_solver
     from tidy3d_tpu_torch.solver.lowering import lower
 
@@ -1919,7 +1951,9 @@ def run_waveguide(td, smi: str, modes: dict) -> int:
         f"host seconds of the mode solves: mode monitor {w.host['mode']:.3f}"
         f" (11 frequencies), mode-solver monitor {w.host['modes']:.3f}, "
         f"permittivity {w.host['eps']:.3f}, flux {w.host['flux']:.3f}")
-    base = web_run(td, waveguide_case(td, monitors=False),
+    # half the run: a rate and a peak, which the run's length leaves alone
+    bare = waveguide_case(td, monitors=False)
+    base = web_run(td, bare.copy(update=dict(run_time=bare.run_time / 2)),
                    "waveguide without the new monitors, default tier", smi,
                    field=None)
     assert base.launches == dict(none, kstep=base.steps // 2)
@@ -3058,10 +3092,12 @@ def device_ms(fn, reps: int) -> float:
 def step_split(runner, what: str, rate: float, smi: str) -> dict:
     """Device ms a step of each part of a ``pallas2`` step (``device_ms``,
     one part at a time on a random state of ``runner``): the two family
-    calls (every copy), post_e and the plain pole update of every copy,
-    the sources and the monitors; against the step time of ``rate``
-    Gcell*steps/s (torch.profiler drops some kernel records in this long
-    process: a window of it was "not measured" on these cases)."""
+    calls (every copy), post_e, the pole kernel's call for every copy
+    (``poles``; the plain update of every copy beside it, ``poles_plain``,
+    outside the sum), the sources and the monitors; against the step time
+    of ``rate`` Gcell*steps/s (torch.profiler drops some kernel records in
+    this long process: a window of it was "not measured" on these
+    cases)."""
     from tidy3d_tpu_torch.solver.fdtd import update_poles
 
     state = random_state(runner, 36)
@@ -3078,6 +3114,9 @@ def step_split(runner, what: str, rate: float, smi: str) -> dict:
             runner._post_e(ne, view["E"], t)
 
     def poles():
+        runner._update_poles(new_e, views)
+
+    def poles_plain():
         for ne, view in zip(new_e, views):
             update_poles(ne, view["E"], view["Q"], runner.consts)
 
@@ -3089,17 +3128,104 @@ def step_split(runner, what: str, rate: float, smi: str) -> dict:
                                     state["mon"], *(new_e[1:] + [
                                         v["H"] for v in views[1:]]))
 
+    has_poles = bool(runner.plan.poles)
     out = {"family": device_ms(family, 5),
            "post_e": device_ms(passes, 5) if "nl" in runner.consts
            or runner.consts.get("mod") else 0.0,
-           "poles": device_ms(poles, 3) if runner.plan.poles else 0.0,
+           "poles": device_ms(poles, 5) if has_poles else 0.0,
            "sources_monitors": device_ms(sources_monitors, 5)}
+    plain = device_ms(poles_plain, 3) if has_poles else 0.0
     step_ms = int(np.prod(runner.shape)) / (rate * 1e9) * 1e3
     log(f"[split] {what} per step (device ms by CUDA events, part by part): "
         f"{ {k: round(v, 3) for k, v in out.items()} } ms, sum "
-        f"{sum(out.values()):.3f} ms against the step's {step_ms:.3f} ms "
-        f"| {smi}")
-    return dict(out, step=step_ms)
+        f"{sum(out.values()):.3f} ms against the step's {step_ms:.3f} ms; "
+        f"the plain pole update {plain:.3f} ms | {smi}")
+    return dict(out, poles_plain=plain, step=step_ms)
+
+
+def pole_work(new_es: list, old_es: list, Qs: list, consts: dict) -> tuple:
+    """``(bytes, operations)`` of one pole-kernel call on every copy: each
+    slot's currents read and written, E' and E of each (copy, component) a
+    residue reads, each distinct mask or dense map read once; per slot,
+    component and cell 6 operations for A Q, per residue 1 for the mask's
+    product and 2 per non-zero part of B0, or 4 for the dense maps, and 1
+    per E' + E (what this run's slots need)."""
+    from tidy3d_tpu_torch.solver.kernels.poles import slot_records
+    from tidy3d_tpu_torch.solver.lowering import E_COMPS
+
+    records = slot_records(Qs, consts)
+    cells = new_es[0][E_COMPS[0]].numel()
+    maps, need, ops = {}, set(), 0
+    for rec in records:
+        for ci in range(3):
+            ops += 6 * cells
+            if not rec.kind[ci]:
+                continue
+            need.add((rec.copy, E_COMPS[ci]))
+            b = [t for t in rec.b[2 * ci:2 * ci + 2] if t is not None]
+            maps.update((t.data_ptr(), t) for t in b)
+            ops += cells * (4 if len(b) == 2 else 1 + 2 * sum(
+                v != 0 for v in rec.b0[2 * ci:2 * ci + 2]))
+    e = sum(nbytes(new_es[c][comp], old_es[c][comp]) for c, comp in need)
+    return (2 * nbytes(Qs) + e + nbytes(list(maps.values())),
+            ops + cells * len(need))
+
+
+def compare_poles(runner, views: list, consts: dict, what: str, smi: str,
+                  seed: int) -> dict:
+    """One pole-kernel call on every copy of ``views`` (a runner's or a
+    brick's, ``consts`` its constants) against the plain update of each
+    copy, from E' random and the views' E and Q: float32 within 1e-6 of
+    the largest |Q'|, bf16 the share of bit-equal values (and the error);
+    then the kernel's and the plain version's device ms a call
+    (``device_ms``), the bound and the kernel's registers and blocks per
+    SM. Returns the numbers."""
+    from tidy3d_tpu_torch.solver.kernels import poles
+
+    gen = torch.Generator(device=runner.device).manual_seed(seed)
+    new_es = [{c: torch.randn(v.shape, generator=gen, device=v.device,
+                              dtype=v.dtype) for c, v in view["E"].items()}
+              for view in views]
+    old_es = [view["E"] for view in views]
+    ref = [[{c: (qr.clone(), qi.clone()) for c, (qr, qi) in Qp.items()}
+            for Qp in view["Q"]] for view in views]
+    got = [view["Q"] for view in views]
+    cache = {}
+    before = poles.LAUNCHES
+    poles.update_poles_copies(new_es, old_es, got, consts, cache)
+    sync()
+    assert poles.LAUNCHES == before + 1, "pole kernel did not launch"
+    for ne, oe, Q in zip(new_es, old_es, ref):
+        poles.update_poles(ne, oe, Q, consts)
+    flat = [{f"{c}:{p}:{k}:{i}": v for c, Q in enumerate(Qs)
+             for p, Qp in enumerate(Q) for k, pair in Qp.items()
+             for i, v in enumerate(pair)} for Qs in (got, ref)]
+    err_rel, err = rel_err(*flat), max_diff(*flat)
+    bf16 = runner.q_dtype == torch.bfloat16
+    share = equal_share(*flat) if bf16 else None
+    del ref, flat
+    k_ms = device_ms(lambda: poles.update_poles_copies(
+        new_es, old_es, got, consts, cache), 5)
+    p_ms = cuda_ms(lambda: [poles.update_poles(ne, oe, Q, consts) for
+                            ne, oe, Q in zip(new_es, old_es, got)], 2)
+    bnd = bound(*pole_work(new_es, old_es, got, consts))
+    nslots = len(views) * len(runner.plan.poles)
+    res = poles.resources(runner.dtype, runner.q_dtype, nslots)
+    log(f"[poles] {what}: {len(views)} copies, {nslots} slots in one "
+        f"launch; kernel vs plain max rel err {err_rel:.3e} (max abs "
+        f"{err:.3e}; tol {TOL_UPDATE:g} in float32"
+        + (f"; bf16 bit-equal share {share:.6f}" if bf16 else "")
+        + f"); kernel {k_ms:.3f} ms a call, bound {bnd[0]:.3f} ms by "
+        f"{bnd[1]}, ratio {k_ms / bnd[0]:.2f}; plain {p_ms:.3f} ms; "
+        f"{res['registers']} registers, {res['blocks_per_sm']} blocks of "
+        f"{res['threads']} threads per SM, {res['shared_bytes']} shared "
+        f"bytes | {smi}")
+    assert err_rel <= (TOL_BF16 if bf16 else TOL_UPDATE), \
+        f"{what}: rel err {err_rel:.3e}"
+    del new_es, got
+    POLE_CHECKS[what] = dict(err=err, err_rel=err_rel, share=share, ms=k_ms,
+                             plain_ms=p_ms, bound=bnd, res=res)
+    return POLE_CHECKS[what]
 
 
 def run_bloch_metal(td, dev, smi: str) -> dict:
@@ -3109,9 +3235,11 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     its time beside the bound; 100 steps in turns on the stack cut to
     ``N_BM_Z_TURNS`` cells of depth (2e-5, fields of both copies and Q,
     Q1); ``web.run``, 2 family calls a step, each one
-    two-copy call, no fused or k-step launch, its memory estimate at least
-    its peak. Returns the entries of the two-copy and pole-table family
-    instantiations."""
+    two-copy call, one pole-kernel call, no fused or k-step launch, its
+    memory estimate at least its peak; the pole kernel against its plain
+    version for one call on both copies (13 slots each), float32 and bf16
+    (``compare_poles``). Returns the numbers of the two-copy family
+    instantiation and the pole kernel."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
     from tidy3d_tpu_torch.solver.kernels import step
     from tidy3d_tpu_torch.solver.lowering import lower
@@ -3129,6 +3257,8 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     err = compare_copies(step, runner, state, f"{plan.shape} Bloch metal")
     err = max(err, compare_step(runner, state, f"{plan.shape} Bloch metal"))
     views = runner._views(state)
+    pole = {"float32": compare_poles(runner, views, runner.consts,
+                                     "Bloch metal, float32", smi, 311)}
 
     def pair(fn):
         def once():
@@ -3148,6 +3278,13 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
         f"SM {regs_blocks(res)} | {smi}")
     del state, views
     torch.cuda.empty_cache()
+    r16 = FDTDRunner(plan, device=dev, precision="bfloat16")
+    assert r16.tier == "pallas2" and r16.q_dtype == torch.bfloat16
+    st16 = random_state(r16, 312)
+    pole["bfloat16"] = compare_poles(r16, r16._views(st16), r16.consts,
+                                     "Bloch metal, bf16", smi, 313)
+    del r16, st16
+    torch.cuda.empty_cache()
     plan_t = lower(bloch_metal_case(td, nz=N_BM_Z_TURNS))
     rates = compare_runners(plan_t, dev, int(np.prod(plan_t.shape)),
                             f"Bloch metal {plan_t.shape} (depth cut)", smi)
@@ -3165,6 +3302,9 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     assert w.launches == dict(none, family=2 * w.steps), w.launches
     assert w.extra["family_bloch"] == 2 * w.steps, w.extra
     assert w.extra["family_many_poles"] == w.steps, w.extra
+    # the pole kernel: one call a step for both copies
+    assert w.extra["poles"] == w.steps, w.extra
+    POLE_RUNS.append(("Bloch metal web.run", w.extra["poles"]))
     probe = np.asarray(w.data["probe"].Ex.values)
     assert probe.size > 1 and np.all(np.isfinite(probe))
     assert np.any(probe != 0)
@@ -3172,7 +3312,8 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     log(f"[bloch-metal] web.run {w.rate} Gcell*steps/s, {w.steps} steps; "
         f"phase 31 took {time.perf_counter() - t_phase:.1f} s | {smi}")
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd, rate=w.rate,
-                launches=w.extra["family_bloch"], split=split, res=res)
+                launches=w.extra["family_bloch"], split=split, res=res,
+                poles=pole)
 
 
 def post_e_work(new_e: dict, consts: dict) -> tuple:
@@ -3358,11 +3499,14 @@ def run_many_poles(td, dev, smi: str) -> dict:
     assert w.tier == "fused", w.tier
     assert w.launches == dict(none, fused=w.steps), w.launches
     assert w.extra["fused_many_poles"] == w.steps, w.extra
+    assert w.extra["poles"] == 0, w.extra
     check_memory(w)
     short = many_poles_case(td).copy(update=dict(run_time=1e-14))
     w2 = web_run(td, short, "Au/Cr 13 slots, pallas2", smi, tier="pallas2")
     assert w2.launches == dict(none, family=2 * w2.steps), w2.launches
     assert w2.extra["family_many_poles"] == w2.steps, w2.extra
+    assert w2.extra["poles"] == w2.steps, w2.extra
+    POLE_RUNS.append(("Au/Cr 13 slots pallas2 web.run", w2.extra["poles"]))
     check_memory(w2)
     log(f"[many-poles] web.run fused {w.rate}, pallas2 {w2.rate} "
         f"Gcell*steps/s; phase 34 took {time.perf_counter() - t_phase:.1f} "
@@ -3578,8 +3722,8 @@ def eme_taper_case(td):
     wide for x < -5 um, tapering linearly to 3 um at x = 5 um and 3 um wide
     beyond; the EME region is 12 x 5 x 3 um along x, its cross-section
     gridded at dl = 0.025 um (200 x 120 cells: 2N = 48000, the device
-    filter under ``auto``), 8 uniform EME cells of 4 modes, 2 frequencies
-    (1.55 um and 2 % above it)."""
+    filter under ``auto``), 8 uniform EME cells of 4 modes, 1 frequency
+    (1.55 um)."""
     freq0 = td.C_0 / 1.55
     taper = td.PolySlab(
         vertices=[(-7.0, -0.25), (-5.0, -0.25), (5.0, -1.5), (7.0, -1.5),
@@ -3587,7 +3731,7 @@ def eme_taper_case(td):
         slab_bounds=(-0.11, 0.11), axis=2)
     return td.EMESimulation(
         center=(0, 0, 0), size=(12.0, 5.0, 3.0), axis=0,
-        freqs=[freq0, 1.02 * freq0],
+        freqs=[freq0],
         medium=td.Medium(permittivity=2.085),
         structures=[td.Structure(geometry=taper,
                                  medium=td.Medium(permittivity=12.1))],
@@ -4246,12 +4390,14 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
     unsharded), the launch counts set to 0 just before the first brick run
     and read just after: the brick route's family calls (two a step and
     brick, each in halo mode) and post_e calls only, no k-step or fused
-    launch; raw monitors against the unsharded run (2e-5), then the
+    launch, one pole-kernel call a step and brick where the plan has
+    poles; raw monitors against the unsharded run (2e-5), then the
     port's ``SimulationData`` builders; ms a step, Gcell*steps/s and peak
     memory of each; the two halo exchanges' share of a step (device ms by
     CUDA events, and the host's enqueue ms)."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
-    from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
+    from tidy3d_tpu_torch.solver.kernels import (fused, kstep, poles,
+                                                 post_e, step)
     from tidy3d_tpu_torch.web.run import assemble_sim_data
 
     t_phase = time.perf_counter()
@@ -4267,12 +4413,12 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         first = name == "bricks" and counts is None
         if first:
             step.LAUNCHES = step.BRICK_LAUNCHES = post_e.LAUNCHES = 0
-            fused.LAUNCHES = kstep.LAUNCHES = 0
+            fused.LAUNCHES = kstep.LAUNCHES = poles.LAUNCHES = 0
         raws[name] = runner.run()
         if first:
             counts = {"family": step.LAUNCHES, "halo": step.BRICK_LAUNCHES,
                       "post_e": post_e.LAUNCHES, "fused": fused.LAUNCHES,
-                      "kstep": kstep.LAUNCHES}
+                      "kstep": kstep.LAUNCHES, "poles": poles.LAUNCHES}
             MEMORY.append((f"{what}, {decomp} bricks",
                            runner.estimate_device_memory()["total"],
                            runner.hbm_peak_bytes, base))
@@ -4289,6 +4435,10 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
     n_post_e = nbricks * steps * (1 + plan.is_complex) \
         if plan.nonlinear is not None or plan.modulation else 0
     assert counts["post_e"] == n_post_e, counts
+    # the pole kernel: one call a step and brick, its copies in it
+    assert counts["poles"] == (nbricks * steps if plan.poles else 0), counts
+    if plan.poles:
+        POLE_RUNS.append((f"{what} bricks run", counts["poles"]))
     err = raw_err(raws["unsharded"], raws["bricks"])
     flux = np.asarray(data["flux"].flux.values)
     assert np.all(np.isfinite(flux)) and np.any(flux != 0)
@@ -4297,7 +4447,7 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         f"unsharded pallas2 run max rel err {err:.3e} (tol {TOL_STEPS:g}); "
         f"flux finite and non-zero")
     assert err <= TOL_STEPS, f"{what} bricks: rel err {err:.3e}"
-    split, host_ms, planes = brick_step_split(plan, dev, decomp)
+    split, host_ms, planes, poles_plain = brick_step_split(plan, dev, decomp)
     ex_ms = split["exchange"]
     step_ms = float(np.mean(out["bricks"]))
     rates = {k: [ncell / (ms * 1e-3) / 1e9 for ms in v]
@@ -4315,20 +4465,21 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
     log(f"[split] {what}, {decomp} bricks, per step (device ms by CUDA "
         f"events, part by part over every brick): "
         f"{ {k: round(v, 3) for k, v in split.items()} } ms, sum "
-        f"{sum(split.values()):.3f} ms against the step's {step_ms:.3f} ms "
-        f"| {smi}")
+        f"{sum(split.values()):.3f} ms against the step's {step_ms:.3f} ms; "
+        f"the plain pole update {poles_plain:.3f} ms | {smi}")
     return dict(launches=counts["halo"], err=err, step_ms=step_ms,
                 exchange_ms=ex_ms, rate=float(np.mean(rates["bricks"])),
-                split=split)
+                split=dict(split, poles_plain=poles_plain))
 
 
 def brick_step_split(plan, dev, decomp) -> tuple:
     """Device ms a step of each part of a step on bricks (``device_ms``,
     one part at a time over every brick, on the zero state: no part's
-    work depends on the values): the two family calls, post_e and the
-    plain pole update of every copy, the sources and the monitors, and
-    the two halo exchanges; with the host's enqueue ms of the exchanges
-    and the halo values they move."""
+    work depends on the values): the two family calls, post_e, the pole
+    kernel's call a brick, the sources and the monitors, and the two halo
+    exchanges; with the host's enqueue ms of the exchanges, the halo
+    values they move and the plain pole update of every copy (outside the
+    parts)."""
     from tidy3d_tpu_torch.solver.fdtd import update_poles
 
     br = bricks_runner(plan, dev, decomp)
@@ -4350,6 +4501,10 @@ def brick_step_split(plan, dev, decomp) -> tuple:
                 br._post_e(ne, vw["E"], t, sh.consts)
 
     def poles():
+        for b, (sh, vs, es) in enumerate(zip(br.shards, views, new_e)):
+            br._update_poles(es, vs, sh.consts, b)
+
+    def poles_plain():
         for sh, vs, es in zip(br.shards, views, new_e):
             for ne, vw in zip(es, vs):
                 update_poles(ne, vw["E"], vw["Q"], sh.consts)
@@ -4371,9 +4526,10 @@ def brick_step_split(plan, dev, decomp) -> tuple:
     nl = plan.nonlinear is not None or bool(plan.modulation)
     split = {"family": device_ms(family, 5),
              "post_e": device_ms(passes, 5) if nl else 0.0,
-             "poles": device_ms(poles, 3) if plan.poles else 0.0,
+             "poles": device_ms(poles, 5) if plan.poles else 0.0,
              "sources_monitors": device_ms(sources_monitors, 5),
              "exchange": device_ms(exchanges, 10)}
+    plain = device_ms(poles_plain, 3) if plan.poles else 0.0
     sync()
     t0 = time.perf_counter()
     for _ in range(10):
@@ -4383,7 +4539,33 @@ def brick_step_split(plan, dev, decomp) -> tuple:
     planes = sum(t_.numel() for st in states for fam in st["halo"].values()
                  for copy in fam for planes_ in copy.values()
                  for t_ in planes_.values())
-    return split, host_ms, planes
+    return split, host_ms, planes, plain
+
+
+def run_disp_poles(plan, dev, smi: str) -> None:
+    """Phase 44's pole-kernel checks on the dispersive case (one slot):
+    the unsharded ``pallas2`` call in float32 and bf16, and the call of
+    brick 0 of the 5 x-bricks (``compare_poles``)."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+
+    for prec in ("float32", "bfloat16"):
+        r = FDTDRunner(plan, device=dev, kernel="pallas2", precision=prec)
+        st = random_state(r, 44)
+        compare_poles(r, r._views(st), r.consts, f"dispersive 384^3, {prec}",
+                      smi, 441)
+        del r, st
+    br = bricks_runner(plan, dev, BRICK_DISP)
+    views = br._views(br.init_state()["shards"][0])
+    gen = torch.Generator(device=dev).manual_seed(442)
+    for view in views:
+        for t in [*view["E"].values(), *(x for Qp in view["Q"]
+                                         for pair in Qp.values()
+                                         for x in pair)]:
+            t.normal_(generator=gen)
+    compare_poles(br, views, br.shards[0].consts,
+                  "dispersive 384^3, brick 0 of 5", smi, 443)
+    del br, views
+    torch.cuda.empty_cache()
 
 
 def run_bricks(td, dev, smi: str) -> dict:
@@ -4407,7 +4589,7 @@ def run_bricks(td, dev, smi: str) -> dict:
         torch.cuda.empty_cache()
 
     stamp("41")
-    sim = cut(block_case(td, kerr_medium(td), probe=True), 9)
+    sim = cut(block_case(td, kerr_medium(td), probe=True), 18)
     plan = lower(sim)
     upd = {"kerr": compare_brick_updates(step, plan, dev, BRICK_KERR,
                                          "Kerr + TPA", smi),
@@ -4441,6 +4623,7 @@ def run_bricks(td, dev, smi: str) -> dict:
     main["disp"] = brick_main_path(td, sim, plan, dev, BRICK_DISP,
                                    "dispersive 384^3, 5 uneven x-bricks",
                                    smi)
+    run_disp_poles(plan, dev, smi)
     del sim, plan
     release()
     k = upd["kerr"]
@@ -5141,6 +5324,12 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
                          tier=tier)
             assert wm.launches[name] > 0 and sum(wm.launches.values()) == \
                 wm.launches[name], wm.launches
+            # the bf16 pole kernel on pallas2, one call a step
+            n_poles = wm.steps if tier == "pallas2" else 0
+            assert wm.extra["poles"] == n_poles, wm.extra
+            if n_poles:
+                POLE_RUNS.append(("64x48x80 mixed bf16 pallas2 web.run",
+                                  n_poles))
             main[name] = wm.launches[name]
         wb = web_run(td, bloch_case(td), "Bloch dipole bf16, default tier",
                      smi)
@@ -5500,6 +5689,27 @@ def run_multiprocess(world45: "World", smi: str) -> dict:
         for r in runs}
 
 
+def pole_entry() -> dict:
+    """The pole kernel's entry of the kernels line: its calls on the main
+    paths (``POLE_RUNS``), the largest float32 error of its checks, the
+    Bloch metal call's times and bound (13 slots, both copies, float32)
+    and every check's numbers (``POLE_CHECKS``)."""
+    bm = POLE_CHECKS["Bloch metal, float32"]
+    return entry(
+        "pole_update", "tidy3d_tpu_torch/csrc/poles.cu",
+        "tidy3d_tpu/solver/fdtd.py:1145",
+        sum(n for _, n in POLE_RUNS),
+        max(c["err"] for c in POLE_CHECKS.values() if c["share"] is None),
+        bm["ms"], bm["plain_ms"], bm["bound"],
+        registers=bm["res"]["registers"],
+        blocks_per_sm=bm["res"]["blocks_per_sm"],
+        main_runs=dict(POLE_RUNS),
+        cases={what: dict(ms=c["ms"], plain_ms=c["plain_ms"],
+                          bound_ms=c["bound"][0], max_abs_err=c["err"],
+                          bf16_equal_share=c["share"])
+               for what, c in POLE_CHECKS.items()})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5521,11 +5731,12 @@ def main() -> int:
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
-    # 2. build the seven kernel sources, in parallel
-    sources = ["step", "fused", "kstep", "post_e", "lab_step", "lab_kstep",
-               "lab_pole"]
-    # with the bf16 variants of phase 28: one nvcc each, all at once
-    _build.load_all(sources + bf16_variants())
+    # 2. build the eight kernel sources, in parallel
+    sources = ["step", "fused", "kstep", "post_e", "poles", "lab_step",
+               "lab_kstep", "lab_pole"]
+    # with the bf16 variants of phase 28 and the pole kernel's bf16 one
+    # (phases 28, 31 and 44): one nvcc each, all at once
+    _build.load_all(sources + bf16_variants() + [POLES_BF16])
     for name in sources:
         info = _build.BUILDS[name]
         log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
@@ -5882,7 +6093,8 @@ def main() -> int:
               blocks_per_sm=shard["blocks_per_sm"],
               multiprocess=multiprocess["slabs"]),
     ] + new_entries + [dict(bricks_entry,
-                            multiprocess=multiprocess["bricks"])]
+                            multiprocess=multiprocess["bricks"]),
+                       pole_entry()]
         + bf16_entries + labs}
     stamp("47")
     log(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s; "

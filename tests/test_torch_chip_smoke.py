@@ -329,3 +329,31 @@ def test_fused_work_counts_the_pole_currents_both_ways():
     assert all(t.shape == state["E"]["Ex"].shape and t.dtype == torch.float32
                for Qp in chip_smoke.q_buffers(state) for pair in Qp.values()
                for t in pair)
+
+
+@pytest.mark.parametrize("case,copies", [("lorentz_mixed", 1),
+                                         ("gold_halfspace", 1),
+                                         ("lorentz_mixed", 2)])
+def test_pole_work_counts_each_array_once(case, copies):
+    """A pole-kernel call's bound reads and writes every slot's currents,
+    reads E' and E of each component a residue reads, and each support
+    mask once however many slots share it."""
+    from tests.torch_cases import DISPERSIVE
+
+    runner = FDTDRunner(lower(DISPERSIVE[case]()), device="cpu",
+                        kernel="pallas2")
+    state = runner.init_state()
+    views = [runner._views(state)[0]] * copies
+    Qs = [v["Q"] for v in views]
+    new_es = [dict(v["E"]) for v in views]
+    nbytes, ops = chip_smoke.pole_work(new_es, [v["E"] for v in views], Qs,
+                                       runner.consts)
+    ncell = int(np.prod(runner.shape))
+    metas = runner.consts["pole_B_meta"]
+    comps = {ci for ms in metas for ci, m in enumerate(ms)
+             if m["kind"] != "zero"}
+    masks = {m["mask_id"] for ms in metas for m in ms if m["kind"] == "mask"}
+    assert comps and masks and len(Qs[0]) == len(runner.plan.poles)
+    assert nbytes == 4 * ncell * (copies * (2 * 6 * len(Qs[0])
+                                            + 2 * len(comps)) + len(masks))
+    assert ops >= copies * ncell * (6 * 3 * len(Qs[0]) + len(comps))

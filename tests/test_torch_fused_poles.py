@@ -32,9 +32,9 @@ import torch
 
 import tidy3d_tpu_torch as tt
 from tidy3d_tpu_torch import convert
-from tidy3d_tpu_torch.solver import fdtd as fdtd_mod
 from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, select_tier
 from tidy3d_tpu_torch.solver.kernels import fused as fused_kernels
+from tidy3d_tpu_torch.solver.kernels import poles as poles_kernels
 
 # first: where h5py is missing it makes the JAX package importable
 from tests.torch_cases import (
@@ -243,7 +243,7 @@ def test_runner_step_calls_no_plain_pole_update(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("update_poles called on the fused tier")
 
-    monkeypatch.setattr(fdtd_mod, "update_poles", refuse)
+    monkeypatch.setattr(poles_kernels, "update_poles", refuse)
     port = FDTDRunner(_plan("lorentz"), device="cpu", kernel="fused")
     state = convert.state_from_reference(_state(port, 4), port)
     assert set(state["alt"]) == {"Q"}
@@ -259,13 +259,13 @@ def test_runner_step_calls_no_plain_pole_update(monkeypatch):
 
 def test_plain_pole_update_stays_on_pallas2(monkeypatch):
     calls = []
-    real = fdtd_mod.update_poles
+    real = poles_kernels.update_poles
 
     def counted(*args, **kwargs):
         calls.append(1)
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(fdtd_mod, "update_poles", counted)
+    monkeypatch.setattr(poles_kernels, "update_poles", counted)
     port = FDTDRunner(_plan("lorentz"), device="cpu", kernel="pallas2")
     state = port.init_state()
     assert "alt" not in state

@@ -21,8 +21,9 @@ version for tensors on the CPU:
   (``kernels.step.family_update_copies``: both copies of a Bloch run in one
   launch), with the J sources, the modulation and nonlinear passes
   (``kernels.post_e``, one launch; constants and plain version in
-  ``nonlinear``) and the pole update (``update_poles``, plain PyTorch) of
-  each copy between them, in the order of ``FDTDRunner._step``.
+  ``nonlinear``) of each copy and the pole update of every copy
+  (``kernels.poles.update_poles_copies``, one launch) between them, in
+  the order of ``FDTDRunner._step``.
 
 ``TIDY3D_TPU_KERNEL`` picks the tier as in the JAX package: ``auto`` (the
 default) takes, on a CUDA device, ``kstep`` when the k-step kernel takes the
@@ -56,7 +57,7 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
   kstep tier reads one buffer set and writes the other, and the fused tier
   one pole-current set and the other (ping-pong, allocated once in
   ``init_state`` as ``state["alt"]``).
-* The plain pole update of the ``pallas2`` tier, its modulation and
+* The pole update of the ``pallas2`` tier, its modulation and
   nonlinear passes and the monitor accumulation run inside the profiler
   ranges ``fdtd.poles``, ``fdtd.post_e`` and ``fdtd.monitors``.
 
@@ -136,8 +137,9 @@ fields' type. Every kernel computes in float32 and rounds where it stores;
 the monitor accumulators stay float32. On the one-step tiers the source
 terms are rounded to the fields' type and then added, and a bfloat16 pole
 update of the ``pallas2`` tier computes as the reference's
-``_update_poles`` does under JAX's promotion rules (``update_poles``);
-both round at their stores as ``FDTDRunner._cast_state`` does. The fused
+``_update_poles`` does under JAX's promotion rules (``update_poles``,
+and the pole kernel at the same rounding points); both round at their
+stores as ``FDTDRunner._cast_state`` does. The fused
 tier computes its pole update in float32 from E' rounded to the fields'
 type and rounds Q' once, where it stores it.
 
@@ -194,7 +196,10 @@ from .kernels import fused as fused_kernels
 from .kernels import kstep as kstep_kernels
 from .kernels import step as step_kernels
 from .kernels.step import MAX_POLES, StepMeta
+from .kernels import poles as poles_kernels
 from .kernels import post_e as post_e_kernels
+# the plain pole updates: on one copy in place, and out of place
+from .kernels.poles import pole_update, update_poles
 from .lowering import E_COMPS, H_COMPS, SimulationPlan
 from .nonlinear import (
     build_post_e_constants, compact, has_post_e, pad_mod_tables,
@@ -853,116 +858,6 @@ def fused_unsupported_reason(plan: SimulationPlan,
     return fused_kernels.unsupported_reason(num_sources["E"])
 
 
-def update_poles(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
-    """The semi-implicit pole-current update (the port of
-    ``FDTDRunner._update_poles``, ``fdtd.py:1145-1184``), in place on the
-    ``(qr, qi)`` buffers of ``Q``, which it returns.
-
-    ``Q' = A Q + B (E^{n+1} + E^n)`` per pole and component, with the
-    complex products written out in real and imaginary parts as the
-    reference writes them. ``E^{n+1} + E^n`` is formed once per component
-    and its product with a support mask once per (mask, component), so the
-    poles of one metal share them.
-
-    Stored in bfloat16 (fields or currents), the update is
-    ``_update_poles_stored``."""
-    tensors = list(new_e.values()) + [t for Qp in Q for pair in Qp.values()
-                                      for t in pair]
-    if any(t.dtype != torch.float32 for t in tensors):
-        return _update_poles_stored(new_e, old_e, Q, consts)
-    cache = {}
-    for pi, ((A, _), metas, Qp) in enumerate(zip(
-            consts["pole_scalars"], consts["pole_B_meta"], Q)):
-        for ci, comp in enumerate(E_COMPS):
-            qr, qi = Qp[comp]
-            # qr' = Re(A) qr - Im(A) qi, qi' = Im(A) qr + Re(A) qi
-            im_qr = qr * A.imag
-            qr.mul_(A.real).add_(qi, alpha=-A.imag)
-            qi.mul_(A.real).add_(im_qr)
-            del im_qr
-            m = metas[ci]
-            if m["kind"] == "zero":
-                continue
-            if ("e", ci) not in cache:
-                cache[("e", ci)] = new_e[comp] + old_e[comp]
-            esum = cache[("e", ci)]
-            if m["kind"] == "mask":
-                mkey = (m["mask_id"], ci)
-                if mkey not in cache:
-                    cache[mkey] = consts["pole_masks"][m["mask_id"]] * esum
-                mes = cache[mkey]
-                b_re, b_im = m["B0"]
-                if b_re:
-                    qr.add_(mes, alpha=b_re)
-                if b_im:
-                    qi.add_(mes, alpha=b_im)
-            else:
-                b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
-                qr.addcmul_(b_re, esum)
-                qi.addcmul_(b_im, esum)
-    return Q
-
-
-def _pole_currents(new_e: dict, old_e: dict, Q: list, consts: dict):
-    """Yields ``(p, comp, qr', qi')``, the new currents of pole p, one
-    component at a time, with the arithmetic of the reference's
-    ``_update_poles`` (``fdtd.py:1145-1184``) as new tensors: ``A Q`` and
-    its sum, and ``E^{n+1} + E^n``, at the state's types (a Python scalar
-    keeps a tensor's type under PyTorch's promotion rules, as under JAX's);
-    the float32 masks and residues promote the residue term, and the sum,
-    to float32. ``E^{n+1} + E^n`` is formed once per component and its
-    product with a support mask once per (mask, component)."""
-    cache = {}
-    for pi, ((A, _), metas, Qp) in enumerate(zip(
-            consts["pole_scalars"], consts["pole_B_meta"], Q)):
-        for ci, comp in enumerate(E_COMPS):
-            qr, qi = Qp[comp]
-            nqr = qr * A.real - qi * A.imag
-            nqi = qr * A.imag + qi * A.real
-            m = metas[ci]
-            if m["kind"] != "zero":
-                if ("e", ci) not in cache:
-                    cache[("e", ci)] = new_e[comp] + old_e[comp]
-                esum = cache[("e", ci)]
-                if m["kind"] == "mask":
-                    mkey = (m["mask_id"], ci)
-                    if mkey not in cache:
-                        cache[mkey] = consts["pole_masks"][m["mask_id"]] \
-                            * esum
-                    b_re, b_im = m["B0"]
-                    if b_re:
-                        nqr = nqr + b_re * cache[mkey]
-                    if b_im:
-                        nqi = nqi + b_im * cache[mkey]
-                else:
-                    b_re, b_im = consts["pole_B_dense"][f"{pi}_{ci}"]
-                    nqr = nqr + b_re * esum
-                    nqi = nqi + b_im * esum
-            yield pi, comp, nqr, nqi
-
-
-def _update_poles_stored(new_e: dict, old_e: dict, Q: list,
-                         consts: dict) -> list:
-    """``update_poles`` on bfloat16 fields and currents: the currents of
-    ``_pole_currents``, each written back as soon as it is formed, rounded
-    once more to its type, as ``_cast_state`` casts the carry."""
-    for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
-        qr, qi = Q[pi][comp]
-        qr.copy_(nqr)
-        qi.copy_(nqi)
-    return Q
-
-
-def pole_update(new_e: dict, old_e: dict, Q: list, consts: dict) -> list:
-    """The pole-current update out of place, for the differentiable run
-    and the fused step's plain version (float32 currents there): the new
-    ``[{comp: (qr, qi)}]`` of ``_pole_currents``, ``Q`` left as it is."""
-    out = [{} for _ in Q]
-    for pi, comp, nqr, nqi in _pole_currents(new_e, old_e, Q, consts):
-        out[pi][comp] = (nqr, nqi)
-    return out
-
-
 def _cast_like(new: dict, old: dict) -> dict:
     """Each tensor of ``new`` at the type of its namesake in ``old``."""
     return {key: v.to(old[key].dtype) for key, v in new.items()}
@@ -1091,6 +986,8 @@ class FDTDRunner:
         self.shape = tuple(plan.shape)
         self.num_steps = plan.num_steps
         self.use_kernel = use_kernel
+        # the pole kernel's device tables, per brick (None: unsharded)
+        self._pole_tables: Dict[object, dict] = {}
         self.host_consts, self.pml_meta = build_constants(plan)
         sharded = sharding_plan is not None
         # a sharded run keeps its constants per shard (self.shards)
@@ -1560,18 +1457,18 @@ class FDTDRunner:
         """One step on ``pallas2``, in the order of the reference's XLA
         ``_step`` (``tidy3d_tpu/solver/fdtd.py:1614-1723``): the E family of
         every copy (one call; a complex run's two copies in one launch),
-        then per copy its J sources, the modulation and nonlinear passes
-        (``fdtd.post_e``) and the pole update (Q1 for copy 1), then the H
-        family of every copy from the new E, its M sources and the
-        monitors (copy 1 rotated into the DFT)."""
+        then per copy its J sources and the modulation and nonlinear passes
+        (``fdtd.post_e``), then the pole update of every copy (one call; Q1
+        for copy 1, which reads copy 1's E only, so each copy keeps the
+        reference's order), then the H family of every copy from the new
+        E, its M sources and the monitors (copy 1 rotated into the DFT)."""
         views = self._views(state)
-        newE, newQ = [], []
+        newE = []
         outs = self._family_update("E", views, [v["H"] for v in views])
         for p, (view, (nE, _)) in enumerate(zip(views, outs)):
             self._inject("E", nE, step, p)
-            nE = self._post_e(nE, view["E"], step)
-            newE.append(nE)
-            newQ.append(self._update_poles(nE, view))
+            newE.append(self._post_e(nE, view["E"], step))
+        newQ = self._update_poles(newE, views)
         psis = [dict(v["psi"], **pE) for v, (_, pE) in zip(views, outs)]
         outs = self._family_update("H", views, newE)
         newH = []
@@ -1602,37 +1499,46 @@ class FDTDRunner:
                 return post_e_kernels.post_e(new_e, old_e, consts, step)
             return post_e_reference(new_e, old_e, consts, step)
 
-    def _update_poles(self, new_e, view, consts: dict = None):
-        if not view["Q"]:
-            return view["Q"]
+    def _update_poles(self, new_es: list, views: list, consts: dict = None,
+                      brick: int = None) -> list:
+        """The pole update of every copy, in place on each view's ``Q``
+        (returned per copy): one call of the kernel (its table kept per
+        runner or ``brick``), or the plain version copy by copy;
+        ``consts``: a brick's."""
+        consts = self.consts if consts is None else consts
+        old_es, Qs = [v["E"] for v in views], [v["Q"] for v in views]
+        if not Qs[0]:
+            return Qs
         with record_function("fdtd.poles"):
-            return update_poles(new_e, view["E"], view["Q"],
-                                self.consts if consts is None else consts)
+            if self.use_kernel:
+                return poles_kernels.update_poles_copies(
+                    new_es, old_es, Qs, consts,
+                    self._pole_tables.setdefault(brick, {}))
+            return [update_poles(ne, oe, Q, consts)
+                    for ne, oe, Q in zip(new_es, old_es, Qs)]
 
     def _step_bricks(self, step: int, state: dict) -> dict:
         """One step of a run on bricks, in the order of
         ``_step_two_phase``: the H lo halos exchanged, the E family of
         every brick (its copies in one call of the family kernel's halo
-        mode), per brick and copy its J sources, the passes and the pole
-        update on its own cells; the E^{n+1} hi halos exchanged, then per
-        brick the H family, its M sources and the monitor cells it
-        owns."""
+        mode), per brick and copy its J sources and the passes, then per
+        brick the pole update of its copies (one call) on its own cells;
+        the E^{n+1} hi halos exchanged, then per brick the H family, its M
+        sources and the monitor cells it owns."""
         states = state["shards"]
         views = [self._views(st) for st in states]
         with record_function("fdtd.halo_exchange"):
             self.exchange_brick_halos(states, "E")
         newE, newQ, psis = [], [], []
-        for sh, st, vs in zip(self.shards, states, views):
+        for b, (sh, st, vs) in enumerate(zip(self.shards, states, views)):
             outs = self._family_update("E", vs, [v["H"] for v in vs], sh,
                                        st["halo"]["H"])
-            es, qs = [], []
+            es = []
             for p, (view, (nE, _)) in enumerate(zip(vs, outs)):
                 self._inject("E", nE, step, p, sh.sources)
-                nE = self._post_e(nE, view["E"], step, sh.consts)
-                es.append(nE)
-                qs.append(self._update_poles(nE, view, sh.consts))
+                es.append(self._post_e(nE, view["E"], step, sh.consts))
             newE.append(es)
-            newQ.append(qs)
+            newQ.append(self._update_poles(es, vs, sh.consts, b))
             psis.append([dict(v["psi"], **pE) for v, (_, pE) in
                          zip(vs, outs)])
         with record_function("fdtd.halo_exchange"):
@@ -1943,6 +1849,9 @@ class FDTDRunner:
                              dev, storage)
                         if has_post_e(self.host_consts):
                             post_e_kernels.prepare(dev, storage[0])
+                        if self.tier == "pallas2" and self.plan.poles:
+                            poles_kernels.prepare(dev, storage[0],
+                                                  storage[2])
         self.compile_time = _time.perf_counter() - t0
 
         cuda_devices = [dev for dev in self.devices if dev.type == "cuda"]
@@ -2348,12 +2257,13 @@ class FDTDRunner:
                       for sh in self.shards]
 
     def _pole_work(self, cells: int) -> int:
-        """Bytes of the ``pallas2`` tier's pole-update temporaries
-        (``update_poles``): the sum E' + E of each component with a
-        residue (at the fields' type), each (mask, component) product
-        (float32) and the rotation temporaries: one float32 field in
-        place, and in bfloat16 (``_update_poles_stored``) the new re and
-        im currents, float32 at most, with two bfloat16 products."""
+        """Bytes of the ``pallas2`` tier's plain pole-update temporaries
+        (``update_poles``; the kernel holds none): the sum E' + E of each
+        component with a residue (at the fields' type), each (mask,
+        component) product (float32) and the rotation temporaries: one
+        float32 field in place, and in bfloat16 (``_update_poles_stored``)
+        the new re and im currents, float32 at most, with two bfloat16
+        products."""
         comps, masks = set(), set()
         for metas in self.host_consts["pole_B_meta"]:
             for ci, m in enumerate(metas):
@@ -2382,8 +2292,8 @@ class FDTDRunner:
         * ``halo``: the k halo planes on each side of an x-slab's arrays,
           a brick's halo plane tensors;
         * ``work``: a step's temporaries: on the ``pallas2`` tier the plain
-          pole update's (``_pole_work``), else one field for the field
-          maximum;
+          pole update's (``_pole_work``) where it runs (not on a card's
+          kernel), else one field for the field maximum;
         * ``margin``: half of state and halo plus 256 MiB, as the
           reference keeps;
 
@@ -2422,8 +2332,10 @@ class FDTDRunner:
                 add(dev, "state", n - halo)
                 add(dev, "halo", halo)
             cells = int(np.prod(st["E"]["Ex"].shape))
-            add(dev, "work", self._pole_work(cells) if self.tier == "pallas2"
-                and self.plan.poles else st["E"]["Ex"].element_size() * cells)
+            plain_poles = self.tier == "pallas2" and self.plan.poles and not (
+                self.use_kernel and torch.device(dev).type == "cuda")
+            add(dev, "work", self._pole_work(cells) if plain_poles
+                else st["E"]["Ex"].element_size() * cells)
         for d in per.values():
             d["margin"] = (d["state"] + d["halo"]) // 2 + MARGIN_BYTES
             d["total"] = sum(d[key] for key in keys)

@@ -24,7 +24,7 @@ reads) and round E', H', psi' and Q' once where they are stored, as
 
 Dispatch is by device: a CPU tensor goes to ``fused_step_reference`` (the
 two family updates of ``step.py`` with the injection between them, and the
-out-of-place pole update of ``fdtd.pole_update`` in float32); a CUDA tensor
+out-of-place pole update of ``poles.pole_update`` in float32); a CUDA tensor
 launches the hand-written kernel in ``csrc/fused.cu`` or raises. The
 kernel writes Q' to ``q_out`` where the caller gives it (the runner's
 second pole-current set), else to new tensors. ``LAUNCHES`` counts the
@@ -44,6 +44,7 @@ import torch
 from ..lowering import E_COMPS, H_COMPS
 
 from . import step
+from .poles import pole_update
 from .step import MAX_POLES, StepMeta, _check_field, storage_of
 
 LAUNCHES = 0
@@ -77,9 +78,7 @@ def fused_step_reference(state: dict, consts: dict, meta: StepMeta,
     pole update, in float32, out of place; E', H', the new psi and Q'
     rounded to the state's types (or left in float32 with ``store=False``,
     and then ``E' + E`` takes the float32 E'). The pole update is
-    ``fdtd.pole_update`` on float32 currents."""
-    from ..fdtd import pole_update
-
+    ``poles.pole_update`` on float32 currents."""
     new_e, psi_e = step.family_update_reference("E", state, consts,
                                                 state["H"], meta, store=False)
     for comp, sl, term, w in sources:

@@ -303,11 +303,14 @@ Phases (any failure exits non-zero):
 34. ``many_poles_case``, Au on a Cr layer (13 slots, real) at 280^3:
     forced fused and forced pallas2, one step against the plain versions
     (1e-6), the pole-table fused step's and family launch's ms beside
-    their bounds, 100 steps of each in turns on the stack cut to 96 cells
-    of depth (2e-5); ``web.run`` under ``auto`` (a default-start time
-    probe): the fused tier, one pole-table call a step; a short forced
-    pallas2 ``web.run``: a pole-table family call a step and one
-    pole-kernel call a step;
+    their bounds (the fused step's also beside the bound of its own
+    tensors, the carried pole drive included), the fused step in bf16
+    against its plain version (1e-2) and its ms beside its bound, 100
+    steps of each in turns on the stack cut to 96 cells of depth (2e-5);
+    ``web.run`` under ``auto`` (a default-start time probe): the fused
+    tier, one pole-table call a step, the drive derived at most once, two
+    slot tables built; a short forced pallas2 ``web.run``: a pole-table
+    family call a step and one pole-kernel call a step;
 35. the JAX package's Kerr phase shift, two-photon absorption, chi3 =
     Kerr and modulation sideband tests (2D, through ``web.run`` on the
     card) with their own asserts (``physics_checks``);
@@ -1506,6 +1509,7 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         kstep.DEVICE_LAUNCHES = 0
         step.BLOCH_LAUNCHES = step.MANY_POLES_LAUNCHES = 0
         fused.MANY_POLES_LAUNCHES = post_e.LAUNCHES = poles.LAUNCHES = 0
+        fused.TABLE_BUILDS = fused.DRIVE_DERIVES = 0
         t0 = time.perf_counter()
         data = td.web.run(sim, task_name="chip_smoke", verbose=False)
         total_s = time.perf_counter() - t0
@@ -1516,7 +1520,9 @@ def web_run(td, sim, what: str, smi: str, tier: str = None,
         extra = {"family_bloch": step.BLOCH_LAUNCHES,
                  "family_many_poles": step.MANY_POLES_LAUNCHES,
                  "fused_many_poles": fused.MANY_POLES_LAUNCHES,
-                 "post_e": post_e.LAUNCHES, "poles": poles.LAUNCHES}
+                 "post_e": post_e.LAUNCHES, "poles": poles.LAUNCHES,
+                 "fused_table_builds": fused.TABLE_BUILDS,
+                 "fused_drive_derives": fused.DRIVE_DERIVES}
         device_launches = kstep.DEVICE_LAUNCHES
     finally:
         if old is None:
@@ -3432,6 +3438,53 @@ def run_post_e_case(td, dev, smi: str, name: str, medium, what: str):
                 launches=w.extra["post_e"], split=split, ratio=ratio)
 
 
+def drive_buffers(state: dict) -> dict:
+    """A pole-drive set shaped as ``state``'s fields (the fused kernel's
+    output drive with more than 8 slots)."""
+    return {c: torch.empty(v.shape, dtype=torch.float32, device=v.device)
+            for c, v in state["E"].items()}
+
+
+def run_many_poles_bf16(plan, dev, smi: str) -> dict:
+    """Phase 34's bf16 fused step: the 13-slot table path with fields, psi
+    and currents in bf16 against its plain version (``TOL_BF16``), its ms
+    beside its bound, registers and blocks per SM."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused
+
+    bf = torch.bfloat16
+    runner = FDTDRunner(plan, device=dev, kernel="fused",
+                        precision="bfloat16")
+    state = random_state(runner, 35)
+    src = step_sources(runner)
+    cache = {}
+    before = fused.LAUNCHES
+    got = fused.fused_step(state, runner.consts, runner.meta, src,
+                           cache=cache)
+    sync()
+    assert fused.LAUNCHES == before + 1, "fused kernel did not launch"
+    ref = fused.fused_step_reference(state, runner.consts, runner.meta, src)
+    err = bf16_compare(fused_flat(got), fused_flat(ref),
+                       f"{plan.shape} Au/Cr 13 slots fused step")
+    del got, ref
+    q_out, d_out = q_buffers(state), drive_buffers(state)
+    k_ms = cuda_ms(lambda: fused.fused_step(
+        state, runner.consts, runner.meta, src, q_out=q_out, drive_out=d_out,
+        cache=cache), 10)
+    p_ms = timed(lambda: fused.fused_step_reference(
+        state, runner.consts, runner.meta, src))[1]
+    bnd = bound(*fused_work(runner, state))
+    res = {part: fused.resources(13, part == "bulk", (bf,) * 3)
+           for part in ("bulk", "shell")}
+    log(f"[many-poles] fused bf16: step {k_ms:.3f} ms at {plan.shape} with "
+        f"13 slots, bound {bnd[0]:.3f} ms by {bnd[1]}, ratio "
+        f"{k_ms / bnd[0]:.2f}; plain {p_ms:.3f} ms; registers and blocks "
+        f"per SM {regs_blocks(res)} | {smi}")
+    del state, runner, q_out, d_out
+    torch.cuda.empty_cache()
+    return dict(err=err[1], ms=k_ms, plain_ms=p_ms, bound=bnd, res=res)
+
+
 def run_many_poles(td, dev, smi: str) -> dict:
     """Phase 34: ``many_poles_case`` (13 slots, real): forced fused and
     forced pallas2, one step each against its plain version (1e-6), the
@@ -3455,15 +3508,26 @@ def run_many_poles(td, dev, smi: str) -> dict:
         err = compare_step(runner, state, f"{plan.shape} Au/Cr 13 slots")
         if tier == "fused":
             src = step_sources(runner)
-            q_out = q_buffers(state)
+            q_out, d_out, cache = q_buffers(state), drive_buffers(state), {}
+            derives, builds = fused.DRIVE_DERIVES, fused.TABLE_BUILDS
             k_ms = cuda_ms(lambda: fused.fused_step(
-                state, runner.consts, runner.meta, src, q_out=q_out), 10)
+                state, runner.consts, runner.meta, src, q_out=q_out,
+                drive_out=d_out, cache=cache), 10)
+            # the state's drive derived once (random currents), one table
+            assert (fused.DRIVE_DERIVES - derives,
+                    fused.TABLE_BUILDS - builds) == (1, 1)
             p_ms = cuda_ms(lambda: fused.fused_step_reference(
                 state, runner.consts, runner.meta, src), 2)
             bnd = bound(*fused_work(runner, state))
+            # the kernel's own tensors: D read and D' written besides
+            own = bound(*np.add(fused_work(runner, state),
+                                (2 * nbytes(d_out), 0)))
             res = {part: fused.resources(13, part == "bulk")
                    for part in ("bulk", "shell")}
-            del q_out
+            log(f"[many-poles] fused: blocks of the bulk and shell launches "
+                f"and device launches {fused.LAST_BLOCKS}")
+            del q_out, d_out
+            bf = run_many_poles_bf16(plan, dev, smi)
         else:
             k_ms = cuda_ms(lambda: step.family_update(
                 "E", state, runner.consts, state["H"], runner.meta), 10)
@@ -3485,6 +3549,11 @@ def run_many_poles(td, dev, smi: str) -> dict:
             f"blocks per SM {regs_blocks(res)} | {smi}")
         out[tier] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd,
                          res=res)
+        if tier == "fused":
+            log(f"[many-poles] fused: with the drive's bytes (D read, D' "
+                f"written) the bound is {own[0]:.3f} ms, ratio "
+                f"{k_ms / own[0]:.2f} | {smi}")
+            out[tier].update(own_bound=own, bf16=bf)
         del state, runner
         torch.cuda.empty_cache()
     plan_t = lower(many_poles_case(td, nz=N_MP_Z_TURNS))
@@ -3500,6 +3569,10 @@ def run_many_poles(td, dev, smi: str) -> dict:
     assert w.launches == dict(none, fused=w.steps), w.launches
     assert w.extra["fused_many_poles"] == w.steps, w.extra
     assert w.extra["poles"] == 0, w.extra
+    # a fresh state: its drive derived at most once; one table each way of
+    # the ping-pong
+    assert w.extra["fused_drive_derives"] <= 1, w.extra
+    assert w.extra["fused_table_builds"] == 2, w.extra
     check_memory(w)
     short = many_poles_case(td).copy(update=dict(run_time=1e-14))
     w2 = web_run(td, short, "Au/Cr 13 slots, pallas2", smi, tier="pallas2")
@@ -3511,7 +3584,9 @@ def run_many_poles(td, dev, smi: str) -> dict:
     log(f"[many-poles] web.run fused {w.rate}, pallas2 {w2.rate} "
         f"Gcell*steps/s; phase 34 took {time.perf_counter() - t_phase:.1f} "
         f"s | {smi}")
-    out["fused"].update(launches=w.extra["fused_many_poles"], rate=w.rate)
+    out["fused"].update(launches=w.extra["fused_many_poles"], rate=w.rate,
+                        derives=w.extra["fused_drive_derives"],
+                        table_builds=w.extra["fused_table_builds"])
     out["pallas2"].update(launches=w2.extra["family_many_poles"],
                           rate=w2.rate)
     return out
@@ -3670,7 +3745,15 @@ def run_fifteenth(td, dev, smi: str) -> list:
               "tidy3d_tpu/solver/kernels/pallas_fused.py:109",
               mp["fused"]["launches"], mp["fused"]["err"],
               mp["fused"]["ms"], mp["fused"]["plain_ms"],
-              mp["fused"]["bound"], instantiations=mp["fused"]["res"]),
+              mp["fused"]["bound"], instantiations=mp["fused"]["res"],
+              own_bound_ms=mp["fused"]["own_bound"][0],
+              drive_derives=mp["fused"]["derives"],
+              table_builds=mp["fused"]["table_builds"],
+              bf16_ms=mp["fused"]["bf16"]["ms"],
+              bf16_plain_ms=mp["fused"]["bf16"]["plain_ms"],
+              bf16_bound_ms=mp["fused"]["bf16"]["bound"][0],
+              bf16_max_abs_err=mp["fused"]["bf16"]["err"],
+              bf16_instantiations=mp["fused"]["bf16"]["res"]),
         entry("post_e", "tidy3d_tpu_torch/csrc/post_e.cu",
               "tidy3d_tpu/solver/fdtd.py:1632",
               kerr["launches"] + mod["launches"], max(kerr["err"],

@@ -44,10 +44,23 @@
 //
 // More than MAX_POLES slots (a metal on an adhesion layer, two metals) do
 // not fit the parameter block: such a call reads its slots from a device
-// table of PoleSlot (`poles`, built by the host wrapper) on the MANY
-// instantiations, one slot at a time, loading each current again for its
-// update rather than holding them (2 P of them would not fit the
-// registers at P = 13).
+// table of PoleSlot (`poles`, built once per current set by the host
+// wrapper, the slots of one mask next to each other), which each block of
+// the MANY instantiations stages in shared memory. Those instantiations
+// carry the pole drive D_i = sum_p (Re Gc_p qr_{p,i} - Im Gc_p qi_{p,i})
+// (float32, summed in table order: the JAX fused kernel's pole_term) in
+// arrays of its own: E' reads D (`drive`, one pair load a component on
+// every pair it computes, the recomputed ones too) in place of 2 P
+// currents, and once E' of all three components is known the update
+// streams the slots once, the components together: E' + E formed once a
+// component, each distinct mask loaded once a component (mask * (E' + E)
+// kept while the next slots share the mask), each slot's six currents
+// loaded once, the next slot's before this slot's Q' is stored, Q'
+// rounded to the currents' type, stored and added to D' (`drive_out`) as
+// rounded, so that D' is the drive the next step would compute from the
+// stored Q'. Like Q', D' goes to a buffer of its own: neighbouring blocks
+// read D. Measured variants (PERF.md): one component at a time, deeper
+// prefetch and three blocks an SM were no faster.
 //
 // Tiles whose cells meet no psi slab, no wall and no source box and lie
 // clear of the domain's edge run the bulk instantiation (a launch of its
@@ -73,7 +86,8 @@
 // The floor is HBM bandwidth: per cell E, H read and E', H' written (24 B
 // each way in float32), per pole Q read and Q' written (24 B each way), the
 // per-cell ca/cb and residue arrays where the medium varies, and the psi
-// slabs (PERF.md).
+// slabs (PERF.md); on the table path also D read and D' written (12 B
+// each way).
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -82,6 +96,7 @@
 
 constexpr int MAX_POLES = 8;     // MAX_POLES in solver/kernels/step.py
 constexpr int MANY = -2;         // the NP of the table instantiations
+constexpr int MAX_TABLE_SLOTS = 240;  // MAX_TABLE_SLOTS in .../fused.py
 constexpr int MAX_SOURCES = 32;  // MAX_SOURCES in solver/kernels/fused.py
 
 constexpr int TZ = 32;              // owned z columns of a tile
@@ -123,6 +138,7 @@ typedef float q_t;
 __host__ __device__ constexpr int smem_bytes() {
     return NST * 6 * SPLANE * (int)sizeof(field_t) + 2 * 3 * RPLANE * 4;
 }
+static_assert(smem_bytes() % 16 == 0, "the slot table follows the ring");
 
 // Loads (widened to float32) and stores (rounded to nearest even) of one
 // value or of a pair of z neighbours (p at the pair's first cell).
@@ -181,6 +197,10 @@ template <typename T> __device__ __forceinline__ float rnd(float v);
 template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
 template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
     return wid(__float2bfloat16_rn(v));
+}
+
+template <typename T> __device__ __forceinline__ float2 rnd2(float2 v) {
+    return make_float2(rnd<T>(v.x), rnd<T>(v.y));
 }
 
 __device__ __forceinline__ float2 operator+(float2 a, float2 b) {
@@ -274,7 +294,16 @@ struct FusedParams {
     int32_t num_src;
     int32_t vec;               // set by t3d_fused_step: pairs aligned
     const PoleSlot* poles;     // the table of num_poles slots (MANY), or null
+    const float* drive[3];     // MANY: the pole drive D of Q, per comp
+    float* drive_out[3];       // MANY: D' of Q'
 };
+
+// dynamic shared memory of a launch: the stage and the ring, then the
+// slot table on the MANY instantiations
+__host__ __device__ constexpr int smem_for(int np) {
+    return smem_bytes() + (np > MAX_POLES ? np * (int)sizeof(PoleSlot) : 0);
+}
+static_assert(sizeof(PoleSlot) % 8 == 0, "the table is staged in words");
 
 static_assert(sizeof(FusedParams) <= 4096,
               "kernel parameters must fit the 4 KB launch limit");
@@ -453,11 +482,77 @@ __device__ __forceinline__ float wall(int kind, float self) {
     return kind == WALL_PEC ? 0.0f : self;
 }
 
+// One slot's currents at a pair, all three components.
+struct SlotIn {
+    float2 qr[3], qi[3];
+};
+
+template <bool VEC>
+__device__ __forceinline__ SlotIn load_slot(const PoleSlot& s, int base,
+                                            const PairAt& c) {
+    SlotIn in;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        in.qr[i] = val2<VEC>(s.q[2 * i], base, c);
+        in.qi[i] = val2<VEC>(s.q[2 * i + 1], base, c);
+    }
+    return in;
+}
+
+// The pole update at the own pair c from the staged table (np slots), the
+// three components together: Q'_p = A_p Q_p + B_p esum, one slot at a
+// time, the next slot's currents loaded before this slot's are stored; a
+// mask's product with esum formed where the slot's mask is not the one
+// held (once a group of slots); Q' rounded to the currents' type and
+// stored; per component D' = sum_p (Re Gc_p qr'_p - Im Gc_p qi'_p) of the
+// rounded Q', stored in float32.
+template <bool VEC>
+__device__ __forceinline__ void update_many(const FusedParams& p,
+                                            const PoleSlot* slots, int np,
+                                            const PairAt& c, int base,
+                                            const float2 (&esum)[3]) {
+    const float* held[3] = {nullptr, nullptr, nullptr};
+    float2 mes[3], drive[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mes[i] = drive[i] = f2(0.0f);
+    SlotIn next = load_slot<VEC>(slots[0], base, c);
+#pragma unroll 1
+    for (int q = 0; q < np; ++q) {
+        const PoleSlot& s = slots[q];
+        const SlotIn cur = next;
+        if (q + 1 < np) next = load_slot<VEC>(slots[q + 1], base, c);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            float2 r = s.a_re * cur.qr[i] + (-s.a_im) * cur.qi[i];
+            float2 m = s.a_re * cur.qi[i] + s.a_im * cur.qr[i];
+            if (s.kind[i] == POLE_MASK) {
+                if (s.b[2 * i] != held[i]) {
+                    held[i] = s.b[2 * i];
+                    mes[i] = coef2<VEC>(held[i], base, c) * esum[i];
+                }
+                r = r + s.b0[2 * i] * mes[i];
+                m = m + s.b0[2 * i + 1] * mes[i];
+            } else if (s.kind[i] == POLE_DENSE) {
+                r = r + coef2<VEC>(s.b[2 * i], base, c) * esum[i];
+                m = m + coef2<VEC>(s.b[2 * i + 1], base, c) * esum[i];
+            }
+            r = rnd2<q_t>(r);
+            m = rnd2<q_t>(m);
+            store2<VEC>(s.q_out[2 * i], base, c, r);
+            store2<VEC>(s.q_out[2 * i + 1], base, c, m);
+            const float2 t = s.gc_re * r - s.gc_im * m;
+            drive[i] = q ? drive[i] + t : t;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) store2<VEC>(p.drive_out[i], base, c, drive[i]);
+}
+
 // E'_i of the pair c of plane x (logical; wrapped xw, base = xw * ny * nz)
 // from its curl terms d1 (along j) and d2 (along k), into e; when store
 // (an own plane), E', psi_E' and the pole currents Q' of the owned cells
-// are written. q_base: the pole currents' offset (base). esum of the pole
-// update: E' rounded to the field type, widened, plus E.
+// are written (MANY: e_pair updates the currents, update_many). esum of
+// the pole update: E' rounded to the field type, widened, plus E.
 template <int I, int NP, bool BULK, bool VEC>
 __device__ __forceinline__ float2 e_comp(const FusedParams& p,
                                          const PairAt& c, int xw, int base,
@@ -470,10 +565,11 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
         rhs = psi_terms<I>(p.psi_in_e, p.psi_out_e, p.pml_b_e, p.pml_c_e,
                            p.w_e, p.n, c, xw, rhs, d1, d2, store, psi_axes,
                            p.inv_e[0]);
-    // the pole term: NP >= 0 holds the component's 2 NP currents for the
-    // update below (a specialization per slot count: measured faster at 7
-    // slots than holding none); NP < 0 (the slots in use read at run time)
-    // holds none and loads each again there
+    // the pole term: MANY reads the carried drive; NP >= 0 holds the
+    // component's 2 NP currents for the update below (a specialization per
+    // slot count: measured faster at 7 slots than holding none); NP = -1
+    // (the slots in use read at run time) holds none and loads each again
+    // there
     constexpr int NQ = NP > 0 ? NP : 1;
     const int np = NP < 0 ? p.num_poles : NP;
     float2 qr[NQ], qi[NQ];
@@ -482,12 +578,7 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
         *m = val2<VEC>(p.q[(q * 3 + i) * 2 + 1], base, c);
     };
     if constexpr (NP == MANY) {
-        for (int q = 0; q < np; ++q) {
-            const PoleSlot& slot = p.poles[q];
-            const float2 r = val2<VEC>(slot.q[2 * i], base, c);
-            const float2 m = val2<VEC>(slot.q[2 * i + 1], base, c);
-            rhs = rhs - (slot.gc_re * r - slot.gc_im * m);
-        }
+        rhs = rhs - coef2<VEC>(p.drive[i], base, c);
     } else if (NP >= 0) {
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
@@ -530,7 +621,7 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
     }
     if (store) {
         store2<VEC>(p.e_new[i], base, c, out);
-        if (NP != 0 && np > 0) {
+        if (NP != 0 && NP != MANY && np > 0) {
             const float2 esum = make_float2(rnd<field_t>(out.x),
                                             rnd<field_t>(out.y)) + eold;
             auto update = [&](int q, float2 cr, float2 ci) {
@@ -552,27 +643,7 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
                 store2<VEC>(p.q_out[qx], base, c, r);
                 store2<VEC>(p.q_out[qx + 1], base, c, m);
             };
-            if constexpr (NP == MANY) {
-                for (int q = 0; q < np; ++q) {
-                    const PoleSlot& slot = p.poles[q];
-                    const float2 cr = val2<VEC>(slot.q[2 * i], base, c);
-                    const float2 ci = val2<VEC>(slot.q[2 * i + 1], base, c);
-                    float2 r = slot.a_re * cr + (-slot.a_im) * ci;
-                    float2 m = slot.a_re * ci + slot.a_im * cr;
-                    const int kind = slot.kind[i];
-                    if (kind == POLE_MASK) {
-                        const float2 mes =
-                            coef2<VEC>(slot.b[2 * i], base, c) * esum;
-                        r = r + slot.b0[2 * i] * mes;
-                        m = m + slot.b0[2 * i + 1] * mes;
-                    } else if (kind == POLE_DENSE) {
-                        r = r + coef2<VEC>(slot.b[2 * i], base, c) * esum;
-                        m = m + coef2<VEC>(slot.b[2 * i + 1], base, c) * esum;
-                    }
-                    store2<VEC>(slot.q_out[2 * i], base, c, r);
-                    store2<VEC>(slot.q_out[2 * i + 1], base, c, m);
-                }
-            } else if (NP >= 0) {
+            if constexpr (NP >= 0) {
 #pragma unroll
                 for (int q = 0; q < NQ; ++q)
                     if (q < np) update(q, qr[q], qi[q]);
@@ -592,7 +663,8 @@ __device__ __forceinline__ float2 e_comp(const FusedParams& p,
 // wrapped xw) from the staged H(x), its neighbours below in y and z, and
 // hp = (Hy, Hz) of plane x - 1; returns H(x) of the pair in h.
 template <int NP, bool BULK, bool VEC>
-__device__ __forceinline__ void e_pair(const FusedParams& p, const PairAt& c,
+__device__ __forceinline__ void e_pair(const FusedParams& p,
+                                       const PoleSlot* slots, const PairAt& c,
                                        const field_t* f, int x, int xw,
                                        float inv_x, const float2 (&hp)[2],
                                        bool store, unsigned smask,
@@ -638,6 +710,15 @@ __device__ __forceinline__ void e_pair(const FusedParams& p, const PairAt& c,
     e[2] = e_comp<2, NP, BULK, VEC>(p, c, xw, base, dy_x, dx_y,
                                     sh2(f + 2 * SPLANE), store, smask,
                                     psi_axes);
+    if constexpr (NP == MANY) {
+        if (store) {
+            float2 esum[3];
+#pragma unroll
+            for (int m = 0; m < 3; ++m)
+                esum[m] = rnd2<field_t>(e[m]) + sh2(f + m * SPLANE);
+            update_many<VEC>(p, slots, p.num_poles, c, base, esum);
+        }
+    }
 }
 
 // H'_i of the own pair from its curl terms, with psi_H' (shell).
@@ -718,20 +799,23 @@ __device__ __forceinline__ void put_ring(float* r, const float2 (&e)[3]) {
 // index). BULK: the tile is a bulk tile (no wall, psi slab, source or wrap
 // on its path); else the shell path, which returns at once for a bulk tile
 // when p.vec (the bulk launch takes it). VEC: pairs staged and loaded
-// whole (p.vec; the bulk path always). NP < 0: the pole slots in use are
-// read at run time (the shell of unaligned arrays). Up to two pole slots
-// the bulk path is held to three blocks an SM (85 registers) and the
-// shell path to two; more slots are held to none: each measured faster
-// so (PERF.md).
+// whole (p.vec; the bulk path always). NP = -1: the pole slots in use are
+// read at run time (the shell of unaligned arrays); MANY: from the table.
+// Up to two pole slots the bulk path is held to three blocks an SM (85
+// registers) and the shell path to two; 3 to 8 slots are held to none;
+// the table path to two: each measured faster so (PERF.md).
 template <int NP, bool BULK, bool VEC>
 __global__ void __launch_bounds__(THREADS,
-                                  NP < 0 || NP > 2 ? 1 : BULK ? 3 : 2)
+                                  NP == MANY ? 2
+                                  : NP < 0 || NP > 2 ? 1 : BULK ? 3 : 2)
 fused_step_kernel(const __grid_constant__ FusedParams p, int base_z,
                   int base_y, int base_x) {
     extern __shared__ __align__(16) unsigned char smem[];
     field_t* const stage = reinterpret_cast<field_t*>(smem);  // [NST][6][YE][ZE]
     float* const ring = reinterpret_cast<float*>(
         smem + NST * 6 * SPLANE * sizeof(field_t));           // [2][3][TY+1][RZ]
+    PoleSlot* const table = reinterpret_cast<PoleSlot*>(
+        smem + smem_bytes());                                 // [num_poles]
     const int nx = p.n[0], ny = p.n[1], nz = p.n[2];
     const int z0 = (blockIdx.x + base_z) * TZ;
     const int y0 = (blockIdx.y + base_y) * TY;
@@ -771,6 +855,14 @@ fused_step_kernel(const __grid_constant__ FusedParams p, int base_z,
     const int t = threadIdx.x;
     const int lane = t % 32;
     const bool extra = t / 32 == EXTRA_WARP;
+    if constexpr (NP == MANY) {
+        // the slot table, staged once a block (read after the march's
+        // first barrier)
+        const unsigned* src = reinterpret_cast<const unsigned*>(p.poles);
+        unsigned* dst = reinterpret_cast<unsigned*>(table);
+        const int words = p.num_poles * (int)(sizeof(PoleSlot) / 4);
+        for (int w = t; w < words; w += THREADS) dst[w] = __ldg(src + w);
+    }
 
     // the staged pairs this thread copies: shared offset, wrapped y * nz + z
     // of both cells
@@ -863,22 +955,22 @@ fused_step_kernel(const __grid_constant__ FusedParams p, int base_z,
             const bool owned = pos < nown;
             const float inv_x = __ldg(p.inv_e[0] + xw);
             if (vec)
-                e_pair<NP, BULK, true>(p, own, f + so, x, xw, inv_x, hp,
-                                       owned, smask, psi_e, e, h);
+                e_pair<NP, BULK, true>(p, table, own, f + so, x, xw, inv_x,
+                                       hp, owned, smask, psi_e, e, h);
             else
-                e_pair<NP, BULK, false>(p, own, f + so, x, xw, inv_x, hp,
-                                        owned, smask, psi_e, e, h);
+                e_pair<NP, BULK, false>(p, table, own, f + so, x, xw, inv_x,
+                                        hp, owned, smask, psi_e, e, h);
             if (owned) {
                 put_ring(rcur + ro, e);
                 if (extra) {  // the ring's edge
                     float2 xe[3], xhn[3];
                     if (vec)
-                        e_pair<NP, BULK, true>(p, xtra, f + xso, x, xw, inv_x,
-                                               xh, false, smask, psi_e, xe,
-                                               xhn);
+                        e_pair<NP, BULK, true>(p, table, xtra, f + xso, x,
+                                               xw, inv_x, xh, false, smask,
+                                               psi_e, xe, xhn);
                     else
-                        e_pair<NP, BULK, false>(p, xtra, f + xso, x, xw,
-                                                inv_x, xh, false, smask,
+                        e_pair<NP, BULK, false>(p, table, xtra, f + xso, x,
+                                                xw, inv_x, xh, false, smask,
                                                 psi_e, xe, xhn);
                     put_ring(rcur + xro, xe);
                     xh[0] = xhn[1];
@@ -938,10 +1030,11 @@ static KernelFn kernel_for(int np, bool bulk, bool vec = true) {
     return nullptr;
 }
 
-static cudaError_t prepare(KernelFn fn) {
-    return cudaFuncSetAttribute((const void*)fn,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_bytes());
+// the most dynamic shared memory a launch of the np-slot kernel may take
+static cudaError_t prepare(KernelFn fn, int np) {
+    return cudaFuncSetAttribute(
+        (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_for(np > MAX_POLES ? MAX_TABLE_SLOTS : np));
 }
 
 // Every array a pair load reads or a pair store writes is aligned to a
@@ -956,11 +1049,16 @@ static bool pair_aligned(const FusedParams& p) {
             (uintptr_t)p.ca_h[i] % 8 || (uintptr_t)p.cb_h[i] % 8)
             return false;
     }
-    if (!p.poles)   // (the currents of a table: checked by the host wrapper)
+    if (p.poles) {  // (the currents of a table: checked by the host wrapper)
+        for (int i = 0; i < 3; ++i)
+            if ((uintptr_t)p.drive[i] % 8 || (uintptr_t)p.drive_out[i] % 8)
+                return false;
+    } else {
         for (int i = 0; i < 6 * p.num_poles; ++i)
             if ((uintptr_t)p.q[i] % qa || (uintptr_t)p.q_out[i] % qa ||
                 (uintptr_t)p.pole_b[i] % 8)
                 return false;
+    }
     return true;
 }
 
@@ -989,14 +1087,14 @@ extern "C" void t3d_fused_storage(int32_t* out) {
 // MAX_POLES: the table's); a CUDA error code, or 0.
 extern "C" int t3d_fused_info(int np, int bulk, int32_t* out) {
     const KernelFn fn = kernel_for(np, bulk != 0);
-    if (!fn) return (int)cudaErrorInvalidValue;
-    cudaError_t err = prepare(fn);
+    if (!fn || np > MAX_TABLE_SLOTS) return (int)cudaErrorInvalidValue;
+    cudaError_t err = prepare(fn, np);
     if (err != cudaSuccess) return (int)err;
     out[0] = THREADS;
-    out[1] = smem_bytes();
+    out[1] = smem_for(np);
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, (const void*)fn, THREADS, smem_bytes());
+        &blocks, (const void*)fn, THREADS, smem_for(np));
     if (err != cudaSuccess) return (int)err;
     out[2] = blocks;
     cudaFuncAttributes attr;
@@ -1011,7 +1109,12 @@ extern "C" int t3d_fused_info(int np, int bulk, int32_t* out) {
 extern "C" int t3d_fused_step(const FusedParams* p, void* stream,
                               int32_t* counts) {
     if (p->n[0] <= 0 || p->n[1] <= 0 || p->n[2] <= 0) return 0;
-    if (p->num_poles < 0 || (p->num_poles > MAX_POLES) != (p->poles != 0) ||
+    const bool many = p->num_poles > MAX_POLES;
+    if (p->num_poles < 0 || many != (p->poles != 0) ||
+        p->num_poles > MAX_TABLE_SLOTS ||
+        (many && (!p->drive[0] || !p->drive[1] || !p->drive[2] ||
+                  !p->drive_out[0] || !p->drive_out[1] ||
+                  !p->drive_out[2])) ||
         p->num_src < 0 ||
         p->num_src > MAX_SOURCES ||
         (int64_t)p->n[0] * p->n[1] * p->n[2] > 0x7fffffffLL)
@@ -1024,12 +1127,12 @@ extern "C" int t3d_fused_step(const FusedParams* p, void* stream,
         return (int)cudaErrorInvalidConfiguration;
     const KernelFn shell = kernel_for(q.num_poles, false, q.vec != 0);
     const KernelFn bulk = kernel_for(q.num_poles, true);
-    cudaError_t err = prepare(shell);
-    if (err == cudaSuccess) err = prepare(bulk);
+    cudaError_t err = prepare(shell, q.num_poles);
+    if (err == cudaSuccess) err = prepare(bulk, q.num_poles);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = smem_bytes();
+    cfg.dynamicSmemBytes = smem_for(q.num_poles);
     cfg.stream = (cudaStream_t)stream;
     int lo[3] = {0, 0, 0}, hi[3] = {0, 0, 0};
     if (q.vec) {

@@ -19,16 +19,24 @@ runs on one card:
   else the kernel followed by the tree's plain ``update_poles``, as that
   tree's fused tier steps;
 * the family update on the 384^3 broadband case, float32 and bf16, in ms a
-  launch (an E and an H launch, halved).
+  launch (an E and an H launch, halved);
+* the fused step of ``chip_smoke.many_poles_case`` (Au on Cr, 13 pole
+  slots, 280^3) from a random state, float32 and bf16, in ms a step: the
+  table path, through that tree's ``fused_step`` (with its drive and table
+  cache where the tree's ``fused_step`` takes them), and its device ms a
+  step by kernel instantiation (torch.profiler over 5 steps: the bulk and
+  the shell launch).
 
 It prints one JSON line per tree and turn, then the card's name and power
 limit. Name a tree twice to run it in two turns (parent, this, this,
-parent). Needs a CUDA device.
+parent). ``--many-only`` first runs the 13-slot fused steps alone (for
+variants of the table path). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -49,7 +57,7 @@ def _this_chip_smoke():
     return mod
 
 
-def child(root: str) -> dict:
+def child(root: str, many_only: bool = False) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -67,6 +75,8 @@ def child(root: str) -> dict:
     os.environ.pop("TIDY3D_TPU_KERNEL", None)
     dev = torch.device("cuda")
 
+    if many_only:
+        return _many_poles(root, out)
     sim = _this_chip_smoke().timemonitor_case(td)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -112,18 +122,82 @@ def child(root: str) -> dict:
         del st, r
         torch.cuda.empty_cache()
     out["cells"] = int(np.prod(plan_d.shape))
+    return _many_poles(root, out)
+
+
+def _many_poles(root: str, out: dict) -> dict:
+    """The 13-slot fused steps of the tree at ``root`` (imported by
+    ``child``) into ``out``."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import tidy3d_tpu_torch as td
+    from tidy3d_tpu_torch.labs._common import cuda_ms
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import fused
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    dev = torch.device("cuda")
+    plan_m = lower(_this_chip_smoke().many_poles_case(td))
+    carries = "drive_out" in inspect.signature(fused.fused_step).parameters
+    for prec in ("float32", "bfloat16"):
+        r = FDTDRunner(plan_m, device=dev, kernel="fused", precision=prec)
+        st = cs.random_state(r, 34)
+        src = cs.step_sources(r)
+        kw = {"q_out": [{c: (torch.empty_like(a), torch.empty_like(b))
+                         for c, (a, b) in Qp.items()} for Qp in st["Q"]]}
+        if carries:
+            kw.update(cache={}, drive_out={
+                c: torch.empty(v.shape, dtype=torch.float32, device=dev)
+                for c, v in st["E"].items()})
+        out[f"fused_step_13_slots_{prec}"] = {
+            "ms": cuda_ms(lambda: fused.fused_step(
+                st, r.consts, r.meta, src, **kw), REPS),
+            "launch_ms": _launch_ms(lambda: fused.fused_step(
+                st, r.consts, r.meta, src, **kw), 5),
+            "drive": carries}
+        del st, r, kw
+        torch.cuda.empty_cache()
+    out["cells_13_slots"] = int(np.prod(plan_m.shape))
+    return out
+
+
+def _launch_ms(fn, reps: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (torch.profiler over ``reps`` calls after one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us:
+            out[evt.key] = dev_us / 1e3 / reps
     return out
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    many_only = "--many-only" in argv
+    argv = [a for a in argv if a != "--many-only"]
     if argv[:1] == ["--child"]:
-        print(json.dumps(child(os.path.abspath(argv[1]))), flush=True)
+        print(json.dumps(child(os.path.abspath(argv[1]), many_only)),
+              flush=True)
         return 0
     roots = [os.path.abspath(r) for r in (argv or [HERE])]
     for root in roots:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", root],
+            [sys.executable, os.path.abspath(__file__), "--child", root]
+            + ["--many-only"] * many_only,
             capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             sys.stderr.write(proc.stderr[-4000:])

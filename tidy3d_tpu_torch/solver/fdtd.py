@@ -56,7 +56,11 @@ Differences from the JAX runner, all of which leave the arithmetic alone:
 * On the ``pallas2`` tier the pole currents are updated in place; the
   kstep tier reads one buffer set and writes the other, and the fused tier
   one pole-current set and the other (ping-pong, allocated once in
-  ``init_state`` as ``state["alt"]``).
+  ``init_state`` as ``state["alt"]``). With more than ``MAX_POLES`` slots
+  on a card the fused tier also carries the pole drive (``state["drive"]``
+  and its second set, ``carries_drive``), which the JAX kernel recomputes
+  from the currents every step; checkpoints leave it out (a resumed run
+  derives it).
 * The pole update of the ``pallas2`` tier, its modulation and
   nonlinear passes and the monitor accumulation run inside the profiler
   ranges ``fdtd.poles``, ``fdtd.post_e`` and ``fdtd.monitors``.
@@ -852,10 +856,11 @@ def fused_unsupported_reason(plan: SimulationPlan,
     """Why the fused tier does not take a real plan, or None if it does:
     nonlinear or modulated media (``PallasFusedStepper.supported``: the
     passes run between the E update and the pole update) and the kernel's
-    own source-box cap (``fused.unsupported_reason``)."""
+    own caps on source boxes and pole slots (``fused.unsupported_reason``)."""
     if plan.nonlinear is not None or plan.modulation:
         return "nonlinear or time-modulated media"
-    return fused_kernels.unsupported_reason(num_sources["E"])
+    return fused_kernels.unsupported_reason(num_sources["E"],
+                                            len(plan.poles))
 
 
 def _cast_like(new: dict, old: dict) -> dict:
@@ -1319,7 +1324,23 @@ class FDTDRunner:
             # the fused kernel's second pole-current set: neighbouring
             # blocks read Q while Q' is stored
             state["alt"] = {"Q": self._fields(self.meta, device)["Q"]}
+            if self.carries_drive:
+                # its pole drive and the second set of it (derived from
+                # the currents at the first step)
+                for st in (state, state["alt"]):
+                    st["drive"] = {c: torch.zeros(
+                        self.meta.array_shape, dtype=torch.float32,
+                        device=device) for c in E_COMPS}
         return state
+
+    @property
+    def carries_drive(self) -> bool:
+        """Whether the state carries the pole drive (``state["drive"]``,
+        ``fused.derive_drive``): the fused kernel's table path, more than
+        ``MAX_POLES`` slots on a CUDA device."""
+        return (self.tier == "fused" and len(self.plan.poles) > MAX_POLES
+                and self.use_kernel and self.shards is None
+                and torch.device(self.device).type == "cuda")
 
     def _halos(self, shard, device) -> dict:
         """A brick's halo planes, per copy: ``{"H": [{axis: {comp: t}}],
@@ -1418,19 +1439,22 @@ class FDTDRunner:
     def step(self, step: int, state: dict) -> dict:
         """One leapfrog step from ``state`` on a one-step tier; the monitors
         accumulate in place. On ``pallas2`` the pole currents update in
-        place; on ``fused`` the kernel writes them to the second set
-        (``state["alt"]["Q"]``), which the returned state swaps in."""
+        place; on ``fused`` the kernel writes them (and their drive, where
+        the state carries one) to the second set (``state["alt"]``), which
+        the returned state swaps in."""
         if self.tier == "kstep":
             raise ValueError("the kstep tier steps in groups of k "
                              "(run_steps, step_group)")
         if self.tier == "fused":
             sources = self.step_sources("E", step)
             if self.use_kernel:
-                # Q' into the second pole-current set, which then swaps
+                # Q' (and its drive) into the second set, which then swaps
                 # with the first
+                alt = state.get("alt", {})
                 nE, nH, psi, Q = fused_kernels.fused_step(
                     state, self.consts, self.meta, sources,
-                    q_out=state["alt"]["Q"] if "alt" in state else None)
+                    q_out=alt.get("Q"), drive_out=alt.get("drive"),
+                    cache=self._pole_tables.setdefault(None, {}))
             else:
                 nE, nH, psi, Q = fused_kernels.fused_step_reference(
                     state, self.consts, self.meta, sources)
@@ -1444,6 +1468,9 @@ class FDTDRunner:
         new = {"E": nE, "H": nH, "psi": psi, "Q": Q, "mon": mon}
         if "alt" in state:
             new["alt"] = {"Q": state["Q"]}
+        if "drive" in state:
+            new["drive"] = state["alt"]["drive"]
+            new["alt"]["drive"] = state["drive"]
         return new
 
     def _views(self, state: dict) -> list:
@@ -2334,8 +2361,10 @@ class FDTDRunner:
             cells = int(np.prod(st["E"]["Ex"].shape))
             plain_poles = self.tier == "pallas2" and self.plan.poles and not (
                 self.use_kernel and torch.device(dev).type == "cuda")
+            # (the drive's derivation holds one float32 field)
             add(dev, "work", self._pole_work(cells) if plain_poles
-                else st["E"]["Ex"].element_size() * cells)
+                else max(st["E"]["Ex"].element_size(),
+                         4 * self.carries_drive) * cells)
         for d in per.values():
             d["margin"] = (d["state"] + d["halo"]) // 2 + MARGIN_BYTES
             d["total"] = sum(d[key] for key in keys)
@@ -2389,12 +2418,13 @@ class FDTDRunner:
         return None
 
 
-def _named(tree, prefix: str = "", skip=("alt", "halo")):
+def _named(tree, prefix: str = "", skip=("alt", "halo", "drive")):
     """``(name, tensor)`` of every tensor in a state, named by its place:
     dict keys and list indices joined by dots, a ``(re, im)`` pair's parts
     ``re`` and ``im``; keys in ``skip`` are left out (by default the kstep
     tier's ping-pong set and a brick's halo planes, which every step
-    refreshes before it reads them)."""
+    refreshes before it reads them, and the fused tier's pole drive, which
+    a resumed run derives from its currents)."""
     if isinstance(tree, torch.Tensor):
         yield prefix[:-1], tree
         return

@@ -32,12 +32,27 @@ calls; each makes two device launches (``DEVICE_LAUNCHES``): the bulk
 tiles, on an instantiation without wall, psi slab and source code, then
 every tile on the shell instantiation, whose blocks for bulk tiles
 return at once.
+
+More than ``MAX_POLES`` slots: the kernel reads its slots from a device
+table (``pole_table``, the slots in ``slot_order``), built once per
+current set and kept in the caller's ``cache`` under the ``data_ptr``s it
+points to (``TABLE_BUILDS``), and carries the pole drive ``D``
+(``state["drive"]``, ``{comp: float32}``): E' reads D in place of every
+slot's currents and the kernel writes D' of Q' to ``drive_out`` (the
+runner's second set, ``state["alt"]["drive"]``). A drive belongs to the
+current tensors it was written for, as they were then (the tensors
+themselves and their version counters, not their addresses, which the
+caching allocator reuses): where the state's drive does not belong to its
+``Q`` (a fresh or resumed state, currents replaced or edited in place),
+``drive_for`` first derives it from Q in plain torch ops
+(``derive_drive``; ``DRIVE_DERIVES``). The plain version takes no drive.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,20 +65,26 @@ from .step import MAX_POLES, StepMeta, _check_field, storage_of
 LAUNCHES = 0
 DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
 MANY_POLES_LAUNCHES = 0  # calls with more than MAX_POLES pole slots
+TABLE_BUILDS = 0    # slot tables built (more than MAX_POLES slots)
+DRIVE_DERIVES = 0   # pole drives derived from the currents (drive_for)
 MAX_SOURCES = 32    # J source boxes the kernel takes (csrc/fused.cu)
+MAX_TABLE_SLOTS = 240  # slots of a staged table (csrc/fused.cu)
 
 Source = Tuple[str, Tuple[slice, slice, slice], torch.Tensor, float]
 
 
-def unsupported_reason(num_sources: int) -> Optional[str]:
+def unsupported_reason(num_sources: int, num_poles: int) -> Optional[str]:
     """Why the fused kernel does not take a run with ``num_sources``
-    E-side source terms, or None if it does. (The runner's
-    ``select_tier`` keeps complex, nonlinear and modulated runs off the
-    fused tier; the kernel takes any number of pole slots, more than
-    ``MAX_POLES`` from a device table.)"""
+    E-side source terms and ``num_poles`` pole slots, or None if it does.
+    (The runner's ``select_tier`` keeps complex, nonlinear and modulated
+    runs off the fused tier; the kernel takes up to ``MAX_TABLE_SLOTS``
+    pole slots, more than ``MAX_POLES`` from a device table.)"""
     if num_sources > MAX_SOURCES:
         return (f"{num_sources} E-side source terms (the kernel takes "
                 f"{MAX_SOURCES})")
+    if num_poles > MAX_TABLE_SLOTS:
+        return (f"{num_poles} pole slots (the kernel takes "
+                f"{MAX_TABLE_SLOTS})")
     return None
 
 
@@ -149,6 +170,7 @@ class FusedParams(ctypes.Structure):
         ("bulk_lo", _I3), ("bulk_hi", _I3),
         ("num_poles", ctypes.c_int32), ("num_src", ctypes.c_int32),
         ("vec", ctypes.c_int32), ("poles", ctypes.c_void_p),
+        ("drive", _P3), ("drive_out", _P3),
     ]
 
 
@@ -166,19 +188,33 @@ class PoleSlot(ctypes.Structure):
     ]
 
 
+def slot_order(consts: dict) -> List[int]:
+    """The pole slots in the order of the kernel's table: the slots whose
+    residues read the same masks next to each other, groups in the order
+    of their first slot (the plan's own order where it already is so), so
+    that the kernel loads each distinct mask once a component."""
+    keys = [tuple(m["mask_id"] if m["kind"] == "mask" else None
+                  for m in metas) for metas in consts["pole_B_meta"]]
+    first: Dict[tuple, int] = {}
+    for key in keys:
+        first.setdefault(key, len(first))
+    return sorted(range(len(keys)), key=lambda pi: first[keys[pi]])
+
+
 def pole_table(state, q_out, consts, shape, dtype, device) -> torch.Tensor:
-    """The device table of every pole slot (``PoleSlot``): the slots' Gc and
-    A, their currents and outputs (of type ``dtype``) and, per component,
-    the residue's kind, maps and B0, as ``step.set_pole_update_params``
-    fills the parameter block's."""
+    """The device table of every pole slot (``PoleSlot``) in
+    ``slot_order``: the slots' Gc and A, their currents and outputs (of
+    type ``dtype``) and, per component, the residue's kind, maps and B0,
+    as ``step.set_pole_update_params`` fills the parameter block's."""
     poles = step.pole_terms(state, consts)
     if len(q_out) != len(poles):
         raise ValueError(f"out holds {len(q_out)} pole currents, the plan "
                          f"{len(poles)} poles")
     slots = (PoleSlot * len(poles))()
-    for pi, ((gc_re, gc_im, Qp), (A, _), metas) in enumerate(zip(
-            poles, consts["pole_scalars"], consts["pole_B_meta"])):
-        slot = slots[pi]
+    for slot, pi in zip(slots, slot_order(consts)):
+        gc_re, gc_im, Qp = poles[pi]
+        A = consts["pole_scalars"][pi][0]
+        metas = consts["pole_B_meta"][pi]
         slot.gc_re, slot.gc_im = gc_re, gc_im
         slot.a_re, slot.a_im = A.real, A.imag
         for ci, comp in enumerate(E_COMPS):
@@ -201,7 +237,120 @@ def pole_table(state, q_out, consts, shape, dtype, device) -> torch.Tensor:
                 slot.b[2 * ci] = _check_field(b_re, shape, "B re").data_ptr()
                 slot.b[2 * ci + 1] = _check_field(b_im, shape,
                                                   "B im").data_ptr()
-    return step.pole_table(slots, device)
+    return torch.frombuffer(bytearray(bytes(slots)),
+                            dtype=torch.uint8).to(device)
+
+
+def table_key(Q: list, q_out: list, consts: dict) -> tuple:
+    """The addresses a table of ``Q`` and ``q_out`` points to: every
+    current's and every residue map's ``data_ptr``."""
+    return tuple(t.data_ptr() for t in _currents(Q) + _currents(q_out)
+                 + list(consts["pole_masks"])
+                 + [t for pair in consts["pole_B_dense"].values()
+                    for t in pair])
+
+
+def _table(state, q_out, consts, shape, dtype, device, cache):
+    """The table of the state's and ``q_out``'s currents from ``cache``
+    (a dict the caller keeps; its last two tables, the ping-pong's two
+    directions), built where missing."""
+    global TABLE_BUILDS
+    key = table_key(state["Q"], q_out, consts)
+    tables = cache.setdefault("fused_tables", {})
+    table = tables.get(key)
+    if table is None:
+        while len(tables) >= 2:
+            tables.pop(next(iter(tables)))
+        table = tables[key] = pole_table(state, q_out, consts, shape, dtype,
+                                         device)
+        TABLE_BUILDS += 1
+    return table
+
+
+# --------------------------------------------------------------------------- #
+# the pole drive of the table path
+# --------------------------------------------------------------------------- #
+
+
+def _currents(Q: list) -> list:
+    """Every current tensor of ``Q``, slot by slot, component by
+    component, re before im."""
+    return [t for Qp in Q for comp in E_COMPS for t in Qp[comp]]
+
+
+def derive_drive(Q: list, consts: dict, out: dict = None) -> dict:
+    """The pole drive of the currents ``Q``: per E component ``D =
+    sum_p (Re Gc_p qr_p - Im Gc_p qi_p)`` in float32, summed in
+    ``slot_order`` (the JAX fused kernel's ``pole_term``,
+    ``pallas_fused.py:414-425``), into ``out`` where given (one float32
+    temporary a call)."""
+    order = slot_order(consts)
+    scalars = consts["pole_scalars"]
+    out = {} if out is None else out
+    for comp in E_COMPS:
+        ref = Q[0][comp][0]
+        acc = out.get(comp)
+        if acc is None:
+            acc = out[comp] = torch.empty(ref.shape, dtype=torch.float32,
+                                          device=ref.device)
+        t = torch.empty_like(acc)
+        for n, pi in enumerate(order):
+            gc = scalars[pi][1]
+            qr, qi = Q[pi][comp]
+            dst = acc if n == 0 else t
+            dst.copy_(qr).mul_(gc.real).sub_(qi, alpha=gc.imag)
+            if n:
+                acc.add_(t)
+    return out
+
+
+# the drive tensors' record: id of a drive's first tensor -> (the drive's
+# tensors, the currents it was written for), each a weak reference with
+# the tensor's version counter at the time
+_DRIVES: Dict[int, tuple] = {}
+
+
+def _refs(tensors) -> tuple:
+    return tuple((weakref.ref(t), t._version) for t in tensors)
+
+
+def _same(refs: tuple, tensors) -> bool:
+    return len(refs) == len(tensors) and all(
+        r() is t and v == t._version for (r, v), t in zip(refs, tensors))
+
+
+def record_drive(drive: dict, Q: list) -> None:
+    """Notes that ``drive`` holds the drive of ``Q`` as both are now."""
+    for key in [k for k, (d, _) in _DRIVES.items() if d[0][0]() is None]:
+        del _DRIVES[key]
+    ts = [drive[c] for c in E_COMPS]
+    _DRIVES[id(ts[0])] = (_refs(ts), _refs(_currents(Q)))
+
+
+def drive_current(drive: Optional[dict], Q: list) -> bool:
+    """Whether ``drive`` was written for the current tensors ``Q`` and
+    neither has changed since."""
+    if not drive:
+        return False
+    ts = [drive[c] for c in E_COMPS]
+    rec = _DRIVES.get(id(ts[0]))
+    return rec is not None and _same(rec[0], ts) and \
+        _same(rec[1], _currents(Q))
+
+
+def drive_for(state: dict, consts: dict) -> dict:
+    """The pole drive of ``state["Q"]``: ``state["drive"]`` where it
+    belongs to those currents, else derived from them (into
+    ``state["drive"]`` where the state has one; counted in
+    ``DRIVE_DERIVES``). A set-up pass on any device; the kernel runs
+    after it on every call."""
+    global DRIVE_DERIVES
+    drive = state.get("drive")
+    if not drive_current(drive, state["Q"]):
+        drive = derive_drive(state["Q"], consts, drive)
+        record_drive(drive, state["Q"])
+        DRIVE_DERIVES += 1
+    return drive
 
 
 def _library(storage=(torch.float32,) * 3):
@@ -269,7 +418,8 @@ def _source_box(sl, shape):
 LAST_BLOCKS = (0, 0, 0)
 
 
-def _fused_step_cuda(state, consts, meta, sources, q_out=None):
+def _fused_step_cuda(state, consts, meta, sources, q_out=None,
+                     drive_out=None, cache=None):
     global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS, MANY_POLES_LAUNCHES
     shape = tuple(meta.shape)
     device = state["E"][E_COMPS[0]].device
@@ -318,10 +468,30 @@ def _fused_step_cuda(state, consts, meta, sources, q_out=None):
         raise ValueError("fused_step: q_out shares memory with the state's "
                          "pole currents (neighbouring blocks read Q while "
                          "Q' is stored)")
-    table = None
-    if len(state["Q"]) > MAX_POLES:
-        # every slot from a device table (the MANY instantiations)
-        table = pole_table(state, q_out, consts, shape, storage[2], device)
+    many = len(state["Q"]) > MAX_POLES
+    if many:
+        # every slot from a device table (the MANY instantiations), the
+        # pole term from the carried drive
+        reason = unsupported_reason(0, len(state["Q"]))
+        if reason:
+            raise ValueError(f"fused_step: {reason}")
+        table = _table(state, q_out, consts, shape, storage[2], device,
+                       {} if cache is None else cache)
+        drive = drive_for(state, consts)
+        if drive_out is None:
+            drive_out = {c: torch.empty(shape, dtype=torch.float32,
+                                        device=device) for c in E_COMPS}
+        if {t.data_ptr() for t in drive.values()} & {
+                t.data_ptr() for t in drive_out.values()}:
+            raise ValueError("fused_step: drive_out shares memory with the "
+                             "state's drive (neighbouring blocks read D "
+                             "while D' is stored)")
+        for i, comp in enumerate(E_COMPS):
+            p.drive[i] = _check_field(drive[comp], shape, f"drive {comp}",
+                                      torch.float32).data_ptr()
+            p.drive_out[i] = _check_field(drive_out[comp], shape,
+                                          f"out drive {comp}",
+                                          torch.float32).data_ptr()
         p.num_poles = len(state["Q"])
         p.poles = table.data_ptr()
     else:
@@ -341,22 +511,29 @@ def _fused_step_cuda(state, consts, meta, sources, q_out=None):
         box_src.w = float(w)
 
     blocks = step.launch_counted(_library(storage), p, device, "fused_step")
-    del table
+    if many:
+        record_drive(drive_out, q_out)
     LAUNCHES += 1
-    MANY_POLES_LAUNCHES += len(state["Q"]) > MAX_POLES
+    MANY_POLES_LAUNCHES += many
     DEVICE_LAUNCHES += blocks[2]
     LAST_BLOCKS = blocks
     return new_e, new_h, new_psi, q_out
 
 
 def fused_step(state: dict, consts: dict, meta: StepMeta,
-               sources: List[Source], q_out: list = None):
+               sources: List[Source], q_out: list = None,
+               drive_out: dict = None, cache: dict = None):
     """One leapfrog step with the pole update: the CUDA kernel for CUDA
     tensors (Q' into ``q_out`` where given), the plain version for CPU
-    tensors (new tensors). Returns ``(new_E, new_H, new_psi, new_Q)``."""
+    tensors (new tensors). Returns ``(new_E, new_H, new_psi, new_Q)``.
+    More than ``MAX_POLES`` slots on the card: the drive of ``new_Q`` goes
+    to ``drive_out`` (``{comp: float32}``, where given), the slot tables
+    are kept in ``cache`` (a dict the caller keeps across calls; none
+    builds them anew every call)."""
     device = state["E"][E_COMPS[0]].device
     if device.type == "cpu":
         return fused_step_reference(state, consts, meta, sources)
     if device.type != "cuda":
         raise ValueError(f"fused_step: unsupported device '{device}'")
-    return _fused_step_cuda(state, consts, meta, sources, q_out)
+    return _fused_step_cuda(state, consts, meta, sources, q_out, drive_out,
+                            cache)

@@ -27,7 +27,7 @@ Phases (any failure exits non-zero):
    to 1e-6 of the largest magnitude; kernel and plain times per launch at
    the full size (CUDA events) and the blocks of its bulk and shell
    launches;
-4. 100 steps of the full-size broadband-DFT case (384^3 cells with CPML,
+4. 40 steps (``STEPS_COMPARE``) of the full-size broadband-DFT case (384^3 cells with CPML,
    an 11-frequency field monitor and flux box) on the two-phase tier, with
    the kernel and with the plain versions, timed in turns plain, kernel,
    kernel, plain; the fields must agree to 2e-5;
@@ -37,7 +37,7 @@ Phases (any failure exits non-zero):
    E', H', psi' and Q' each to 1e-6; kernel and plain times per step at
    384^3 (CUDA events) beside the bound (Q' stored, the residues read), and
    the broadband case's kernel time;
-6. 100 steps on the fused tier, kernel against plain versions, in turns
+6. 40 steps on the fused tier, kernel against plain versions, in turns
    plain, kernel, kernel, plain, on the 384^3 dispersive case and on the
    280^3 7-pole Au half-space, fields and pole currents to 2e-5 (one step
    of the Au case to 1e-6 first, and its kernel time);
@@ -47,7 +47,7 @@ Phases (any failure exits non-zero):
    and plain ms per group and per step (CUDA events) beside the fused
    kernel (plus the plain pole update), the ratio to the group's bound, the
    bulk and shell blocks (two device launches a group), registers and
-   blocks per SM; 100 steps on the kstep tier, kernel against plain in
+   blocks per SM; 40 steps on the kstep tier, kernel against plain in
    turns, on the broadband, the dispersive and the Au case, to 2e-5;
 8. torch.profiler windows of 20 steps: device time of the two-phase tier on
    the broadband case, of the fused tier on the dispersive case split into
@@ -62,7 +62,8 @@ Phases (any failure exits non-zero):
    forced to the fused tier (one fused launch per step), then both on the
    default tier, the kstep tier (one k-step call per group of k steps, its
    device launches one per non-empty block list, no fused or family
-   launch); the flux must be finite and non-zero, and on
+   launch), each over the first half of its run time (``MAIN_DEPTH``);
+   the flux must be finite and non-zero, and on
    the kstep tier within 2e-2 of the fused tier's (a strided DFT against an
    every-step one); throughput and peak device memory of each;
 10. Bloch (complex) runs, two real copies of the fields on the kstep tier:
@@ -71,7 +72,7 @@ Phases (any failure exits non-zero):
     field plane and flux box: the Bloch instantiation of the k-step kernel
     against its plain version for one group (to 1e-6 over both copies),
     kernel and plain ms per group, the ratio to the bound, registers and
-    blocks per SM, 100 steps kernel against plain in turns
+    blocks per SM, 40 steps kernel against plain in turns
     (to 2e-5), a 20-step profiler window; and the angled plane wave (256^3,
     a PML x, Bloch y from a 25-degree plane wave, periodic z), one group
     against plain;
@@ -88,14 +89,14 @@ Phases (any failure exits non-zero):
     unsharded kernel on the same random state (to 1e-6), the group's
     CUDA-event time split into the exchange and each shard's launch, the
     host's enqueue time, the ratio to the bound, registers and blocks per
-    SM, 100 steps sharded against unsharded in turns (to
+    SM, 40 steps sharded against unsharded in turns (to
     2e-5); on several visible cards the same group on distinct devices,
     otherwise a line that says it was not run;
 13. the 1-shard ring (``bench.py``'s ``fdtd_sharded``): the broadband case
     on a (1, 1, 1) mesh, the halos exchanged onto itself, against the
-    unsharded runner, 100 steps in turns: ms per step and the ratio;
+    unsharded runner, 40 steps in turns: ms per step and the ratio;
 14. the sharded main path, its launch counts set to 0 just before it: a
-    full-length run of the broadband case over 4 x-shards through
+    half-length run of the broadband case over 4 x-shards through
     ``FDTDRunner`` with an explicit ``ShardingPlan``, then the port's
     ``SimulationData`` builders; raw monitors against the unsharded run (to
     2e-5), kstep calls equal to 4 per group (each shard's bulk and shell
@@ -124,13 +125,14 @@ Phases (any failure exits non-zero):
     below 1.1) and within 10 % of sin(theta) from 30 to 150 degrees (the
     reference's projection has a first-order grid error,
     ``labs/builder_grid_error.py``); the host seconds of the projection;
-    then the case without and with the box once more, Gcell*steps/s in
-    turns against phase 9's run;
+    then the case without and with the box once more over half the run,
+    Gcell*steps/s in turns against phase 9's run;
 18. ``web.run`` of the angled plane wave (the two-copy k-step kernel) with
     a diffraction plane ahead of the source: the (0, 0) order holds more
     than 98 % of the diffracted power and the total is within 0.1 of 1
     (the bar of the JAX package's ``test_diffraction_vacuum_zero_order``);
-    then without and with the plane once more, in turns against phase 11;
+    then without and with the plane once more over half the run, in
+    turns against phase 11;
 19. checkpoint and resume: the 384^3 dispersive case on the kstep tier and
     on 4 virtual x-shards, and the Bloch dipole, each over the first sixth
     of its run: an uninterrupted run, half
@@ -139,8 +141,9 @@ Phases (any failure exits non-zero):
     ``run_checkpointed``; raw monitors to 1e-6 of the largest magnitude;
     the file's bytes and its save and load seconds;
 20. a short ``web.run`` of the broadband case under
-    ``TIDY3D_TPU_PROFILE`` in a process of its own: the trace file holds
-    the k-step kernel's records and ``fdtd.monitors`` ranges;
+    ``TIDY3D_TPU_PROFILE`` in a process of its own (started once the
+    kernels are built, it waits for its go): the trace file holds the
+    k-step kernel's records and ``fdtd.monitors`` ranges;
 21. memory: every main-path run's ``estimate_device_memory()`` beside its
     measured peak (``hbm_peak_bytes``, less what was allocated before it;
     the 4-shard run of phase 14 included), each estimate at least the peak;
@@ -195,7 +198,7 @@ Phases (any failure exits non-zero):
     iteration, float32 matmuls on the card without TF32, each degree
     bucket of the filter one captured CUDA graph) forced by
     ``TIDY3D_TPU_MODE_SOLVER=filter`` on the card against ARPACK on the
-    host, on the waveguide's source plane (100 x 100, 2N = 20000) and on
+    host (solved beside the card's phases, see the end), on the waveguide's source plane (100 x 100, 2N = 20000) and on
     a 200 x 200 plane of the same strip at dl = 0.01 um (2N = 80000), 2
     modes at 1.55 um: n_eff within 2e-5 and each mode's Ex and Ey overlap
     with ARPACK's above 0.999 (the bars of the JAX package's
@@ -224,7 +227,7 @@ Phases (any failure exits non-zero):
     k-step group on the 384^3 broadband and dispersive cases, on the 280^3
     7-pole Au case with the pole state alone in bf16, on the 256^3 Bloch
     dipole and on 4 virtual x-shards of the dispersive case; kernel and
-    plain ms and the bound at the bf16 bytes; 100 k-step steps of the
+    plain ms and the bound at the bf16 bytes; 40 k-step steps of the
     dispersive case in bf16, kernel against plain in turns (to 1e-2);
     ``TIDY3D_TPU_HBM_BYTES`` between the bf16 and the float32 estimate of
     the dispersive case: the float32 ``web.run`` raises ``SetupError`` with
@@ -280,7 +283,7 @@ Phases (any failure exits non-zero):
     and y, 192 x 192 x 512 cells: the default tier is pallas2; the family
     kernel's two-copy instantiation against its plain version for one E
     and H update of both copies and one whole step (1e-6), its ms beside
-    its bound; 100 steps in turns on the stack cut to 128 cells of depth
+    its bound; 40 steps in turns on the stack cut to 128 cells of depth
     (2e-5, both copies' fields and Q, Q1; one pole-kernel call a step);
     the pole kernel (``csrc/poles.cu``, both copies' 26 slots in one
     launch) against the plain update for one call, float32 to 1e-6 of
@@ -296,7 +299,7 @@ Phases (any failure exits non-zero):
     (and a point Ez probe at the dipole) and with a block whose
     permittivity and conductivity are modulated: pallas2 under ``auto``;
     post_e against its plain version (1e-6) and one whole step, post_e's
-    ms beside its bound and the eager plain version's; 100 steps in turns
+    ms beside its bound and the eager plain version's; 40 steps in turns
     (2e-5); the step split by CUDA events (family, post_e, sources and
     monitors); ``web.run``, one post_e call a step; the Kerr term B E^2 at
     the dipole at least 1e-3;
@@ -305,7 +308,7 @@ Phases (any failure exits non-zero):
     (1e-6), the pole-table fused step's and family launch's ms beside
     their bounds (the fused step's also beside the bound of its own
     tensors, the carried pole drive included), the fused step in bf16
-    against its plain version (1e-2) and its ms beside its bound, 100
+    against its plain version (1e-2) and its ms beside its bound, 40
     steps of each in turns on the stack cut to 96 cells of depth (2e-5);
     ``web.run`` under ``auto`` (a default-start time probe): the fused
     tier, one pole-table call a step, the drive derived at most once, two
@@ -324,7 +327,7 @@ Phases (any failure exits non-zero):
     fundamental mode (at least 0.85), each input mode's |S11|^2 + |S21|^2
     (at most 1 + 1e-3: the taper is lossless; the fundamental's at least
     0.9, as 4 modes a cell keep it), and cell 0's plane through ARPACK
-    (n_eff within 1e-4 of the filter's);
+    (beside the card's phases; n_eff within 1e-4 of the filter's);
 37. the modal S-matrix modeler (``plugins/smatrix``) on the waveguide's
     384^3 strip with its source and monitors off, two ports of one mode:
     its ``Batch`` on the card, launch counts set to 0 just before and read
@@ -355,26 +358,31 @@ Phases (any failure exits non-zero):
     record's ``fallback`` and ``reason``) with ARPACK's n_eff;
 41-44. (run after phases 31-35) sharded runs on bricks of the card, one
     case a phase: the family kernel's brick-local halo mode, one E and one
-    H launch on every brick of a random state split into bricks, against
-    its plain version on the same bricks (1e-6; bf16 1e-2) and against the
-    unsharded launches (the same bars), each call's device ms summed over
-    the bricks (CUDA events, queued behind a sleep kernel) beside its byte
-    bound (the bricks' arrays and halo planes) and the unsharded launch's,
-    and the registers and blocks
-    per SM of the shell instantiations that hold the halo sides; and the
+    H call over every brick of a random state split into bricks (one call
+    a family for the card: ``step.BRICK_CALLS`` + 2, ``BRICK_LAUNCHES`` +
+    2 a brick), against its plain version on the same bricks (1e-6; bf16
+    1e-2), bit-equal to calls one brick at a time and against the
+    unsharded launches (the same bars), each call's device ms (CUDA
+    events, queued behind a sleep kernel) beside its byte bound (the
+    bricks' arrays and halo planes), the calls one brick at a time and the
+    unsharded launch's, the host's enqueue ms of a call, and the
+    registers and blocks per SM of the call's bulk and shell
+    instantiations; and the
     main path on bricks, ``FDTDRunner.run()`` with an explicit
     ``ShardingPlan`` naming the card once a brick, then the port's
     ``SimulationData`` builders, in turns with the unsharded ``pallas2``
     run (unsharded, bricks, bricks, unsharded), the launch counts set to 0
     just before the first brick run and read just after: 2 family calls
-    a step and brick, every one in halo mode, one post_e call a step and
+    a step, each over every brick in halo mode (and the brick tables
+    sent to the card), one post_e call a step and
     brick with nonlinear media, one pole-kernel call a step and brick
     with poles, no k-step or fused launch; raw monitors
     against the unsharded run (2e-5); ms a step and Gcell*steps/s of
     both, peak device memory, a step split by part over every brick
     (device ms by CUDA events: the family calls, post_e, the pole kernel
     with the plain update beside it, sources and monitors, the two halo
-    exchanges) and the host's enqueue ms of the exchanges. 41: the 384^3
+    exchanges, the unsharded family pair beside them) and the host's
+    enqueue ms of the exchanges and of the family calls. 41: the 384^3
     Kerr + TPA block case (~105 steps) in (2, 2, 1) bricks, the halo
     launch in float32 and in bf16; 42: the Bloch metal grating (192 x 192
     x 512, 13 slots, both copies, ~105 steps) in (1, 2, 2), the two-copy
@@ -384,7 +392,11 @@ Phases (any failure exits non-zero):
     5 x-bricks of 77, 77, 77, 77 and 76 planes (a split the x-slab route
     refuses), the main path, then the pole kernel against the plain
     update on the unsharded case in float32 and bf16 and on one brick
-    (``compare_poles``, as phase 31). Each phase's ``[time]`` line gives the
+    (``compare_poles``, as phase 31), and pole tables past 240 records (a
+    241-pole plan and a Bloch plan of 121 poles a copy, 64^3): the default
+    tier on the card, each pole call in two launches, the run against the
+    plain run on the card (2e-5), one call bit-equal to the plain update
+    (float32 and bf16). Each phase's ``[time]`` line gives the
     process's peak host memory and the host's available memory;
 45. (run after phases 22-25; its child process lowers during them)
     sharded runs across processes: in a child process, a world of one
@@ -421,10 +433,12 @@ Phases (any failure exits non-zero):
     carry the share of their values bit-equal to the plain version's, and
     ``post_e`` the 9-entry check's bf16 error (phase 40).
     ``family_update_bricks`` (phases 41-44) is timed on the Kerr + TPA
-    bricks (one family over every brick, its bound the bricks' bytes with
-    their halo planes) and carries the unsharded launch's ms, the bf16,
-    Bloch and pole-table launches' ms and bounds, and each main-path
-    case's ms a step, exchange ms and Gcell*steps/s. ``kstep_group_sharded``
+    bricks (one call, one family over every brick, its bound the bricks'
+    bytes with their halo planes) and carries the unsharded launch's ms,
+    the calls one brick at a time, the bf16, Bloch and pole-table calls'
+    ms and bounds, each main-path case's ms a step, the unsharded step,
+    exchange ms, Gcell*steps/s, the family calls' host ms and brick
+    tables, and the pole-split checks. ``kstep_group_sharded``
     and ``family_update_bricks`` carry phase 45's run of their route in a
     process group (``multiprocess``: its launches, bit-equality, the mean
     all-reduce and chunk device ms, the gather's host seconds).
@@ -433,6 +447,14 @@ Phases (any failure exits non-zero):
     each mask once) and carries its calls on each main path (``main_runs``:
     one a step and runner or brick) and every check's ms, plain ms, bound,
     error and bf16 bit-equal share (``cases``).
+
+The host's references (phase 26's and 36's ARPACK solves, phase 29b's
+and 39's CPU routes) run in a child process that sees no card
+(``HostRefs``), started once the kernels are built, while the card's
+phases run; its host seconds are logged as such. Phases 9, 14, 28's bf16
+``web.run``, 30 and the second pairs of 17 and 18 run the first half of
+their cases' run time, and the kernel-against-plain turns 40 steps, to
+keep the script well inside its time limit.
 
 It needs a CUDA device and exits non-zero without one. The profiler tables
 go to the ``OUT_DIR`` directory.
@@ -458,7 +480,13 @@ from tidy3d_tpu_torch.labs._common import (PEAK_BF16, PEAK_F32, bound,
 N_FULL = 360            # cells per side inside the PML (384^3 with it)
 N_METAL = 256           # the Au case: 280^3 with the PML
 N_BLOCH = 256           # the Bloch cases: 256^3 cells, the PML included
-STEPS_COMPARE = 100     # steps of the kernel-against-plain turns
+# steps of the kernel-against-plain turns: the plain runs take most of
+# these phases, and the script has a time limit
+STEPS_COMPARE = 40
+# phase 9's main-path runs, and the runs held to them in phases 28 and 30,
+# over the first half of their run time (their checks compare runs of the
+# same length)
+MAIN_DEPTH = 2
 NPROF = 20
 TOL_UPDATE = 1e-6
 TOL_STEPS = 2e-5
@@ -582,6 +610,11 @@ def full_case(td):
         monitors=_dft_monitors(td, size, freqs),
         boundary_spec=td.BoundarySpec.all_sides(td.PML()),
         grid_spec=td.GridSpec.uniform(dl=dl), shutoff=0.0)
+
+
+def cut_main(sim):
+    """``sim`` over the first 1 / ``MAIN_DEPTH`` of its run time."""
+    return sim.copy(update=dict(run_time=sim.run_time / MAIN_DEPTH))
 
 
 def lorentz(td):
@@ -1317,7 +1350,7 @@ def run_steps_timed(runner, steps: int):
 
 def compare_runners(plan, dev, ncell, what: str, smi: str, runners=None,
                     **kw):
-    """100 steps with the kernel and with the plain versions, in turns
+    """``STEPS_COMPARE`` steps with the kernel and with the plain versions, in turns
     plain, kernel, kernel, plain (the fields of both copies of a complex
     run compared); returns the Gcell*steps/s of each. ``runners``: the
     ``{"plain", "kernel"}`` runners of ``plan`` where already built."""
@@ -1350,8 +1383,8 @@ def compare_runners(plan, dev, ncell, what: str, smi: str, runners=None,
         f"steps kernel vs plain max rel err {err:.3e}, pole currents "
         f"{err_q:.3e} (tol {TOL_STEPS:g})")
     assert max_abs(finals["plain"]) > 0
-    assert err <= TOL_STEPS, f"{what}: 100-step rel err {err:.3e}"
-    assert err_q <= TOL_STEPS, f"{what}: 100-step Q rel err {err_q:.3e}"
+    assert err <= TOL_STEPS, f"{what}: {STEPS_COMPARE}-step rel err {err:.3e}"
+    assert err_q <= TOL_STEPS, f"{what}: {STEPS_COMPARE}-step Q rel err {err_q:.3e}"
     log(f"[steps] {what} Gcell*steps/s: plain {rates['plain']} kernel "
         f"{rates['kernel']} | {smi}")
     return rates
@@ -1727,11 +1760,12 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     from tidy3d_tpu_torch.solver import distributed
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, halo_arrays
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+    from tidy3d_tpu_torch.solver.lowering import lower
     from tidy3d_tpu_torch.web.run import assemble_sim_data
 
     ncell = int(np.prod(plan.shape))
     # 12. the 4-shard dispersive case: one group against plain and against
-    # the unsharded kernel, times, 100 steps
+    # the unsharded kernel, times, STEPS_COMPARE steps
     ur = FDTDRunner(plan_d, device=dev, kernel="kstep")
     sr = sharded_runner(plan_d, [dev] * 4)
     lay = sr.layout
@@ -1786,7 +1820,7 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
         f"{sh_bound[0]:.3f} ms by {sh_bound[1]} (unsharded "
         f"{u_bound[0]:.3f}) | {smi}")
     del states
-    # 100 steps, sharded against unsharded, in turns
+    # STEPS_COMPARE steps, sharded against unsharded, in turns
     finals, rates = {}, {"unsharded": [], "sharded": []}
     for name in ("unsharded", "sharded", "sharded", "unsharded"):
         st, secs = run_steps_timed(ur if name == "unsharded" else sr,
@@ -1803,7 +1837,7 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     log(f"[sharded] dispersive: {STEPS_COMPARE} steps, 4 shards vs unsharded "
         f"max rel err {err:.3e} (tol {TOL_STEPS:g}); Gcell*steps/s "
         f"unsharded {rates['unsharded']} sharded {rates['sharded']} | {smi}")
-    assert err <= TOL_STEPS, f"sharded 100 steps: rel err {err:.3e}"
+    assert err <= TOL_STEPS, f"sharded {STEPS_COMPARE} steps: rel err {err:.3e}"
     del finals, ur, sr
 
     # distinct devices, where there are several
@@ -1818,7 +1852,8 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
     else:
         log("[sharded] distinct devices: not run (one CUDA device visible)")
 
-    # 13. the 1-shard ring (bench.py fdtd_sharded): 100 steps in turns
+    # 13. the 1-shard ring (bench.py fdtd_sharded): STEPS_COMPARE steps in
+    # turns
     ring = {"unsharded": FDTDRunner(plan, device=dev, kernel="kstep"),
             "ring": sharded_runner(plan, [dev])}
     ms = {"unsharded": [], "ring": []}
@@ -1830,9 +1865,12 @@ def run_sharded(td, dev, smi: str, sim, plan, plan_d) -> dict:
         f"{ms['ring']} unsharded {ms['unsharded']}, ratio {ratio:.4f} | {smi}")
     del ring
 
-    # 14. the main path: a full-length broadband run over 4 x-shards,
-    # then the port's SimulationData builders
+    # 14. the main path: a broadband run over 4 x-shards (the first
+    # 1 / MAIN_DEPTH of its run time), then the port's SimulationData
+    # builders
     none = {"family": 0, "fused": 0, "kstep": 0}
+    sim = cut_main(sim)
+    plan = lower(sim)
     ref_raw = FDTDRunner(plan, device=dev, kernel="kstep").run()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2051,15 +2089,50 @@ def filter_pass_costs(apply_m, rec: dict, smi: str) -> dict:
     return dict(ms=out, ops=Count.ops, records=records)
 
 
-def run_mode_solver(td, smi: str) -> dict:
+def mode_planes(td) -> list:
+    """Phase 26's planes, ``(what, simulation, plane)``: the waveguide's
+    source plane (100 x 100) and a 200 x 200 plane of the same strip at dl
+    = 0.01."""
+    sim = waveguide_case(td)
+    return [("100x100 source plane", sim, sim.sources[0].geometry),
+            ("200x200 plane at dl 0.01", fine_plane_case(td),
+             td.Box(center=(0, 0, 0), size=(0, 2.0, 2.0)))]
+
+
+def arpack_refs(td) -> dict:
+    """Phase 26's references, ARPACK on the host: on each of
+    ``mode_planes`` (2 modes at 1.55 um) n_eff, each mode's Ex and Ey, the
+    host seconds and the device solver's records (none); then the mode
+    monitor's solve at its first ``N_MON_FREQS`` frequencies (its host
+    seconds)."""
+    freq0 = td.C_0 / 1.55
+    spec = td.ModeSpec(num_modes=2)
+    out = {}
+    for what, case, plane in mode_planes(td):
+        ref, secs, recs = mode_solve(td, case, plane, spec, [freq0],
+                                     "arpack", "cpu")
+        out[what] = dict(
+            n=np.asarray(ref.n_complex.values)[0], seconds=secs,
+            records=len(recs),
+            fields={c: np.asarray(getattr(ref, c).values)[..., 0, :]
+                    for c in ("Ex", "Ey")})
+    sim = waveguide_case(td)
+    mon = next(m for m in sim.monitors if m.name == "mode")
+    _, secs, _ = mode_solve(td, sim, mon.geometry, mon.mode_spec,
+                            list(mon.freqs)[:N_MON_FREQS], "arpack", "cpu")
+    out["mode monitor"] = dict(seconds=secs)
+    return out
+
+
+def run_mode_solver(td, smi: str, refs: "HostRefs") -> dict:
     """Phase 26: the device mode solver on the card against ARPACK on the
-    host, on the waveguide's source plane (100 x 100) and on a 200 x 200
-    plane of the same strip at dl = 0.01, 2 modes at 1.55 um: n_eff within
-    ``TOL_NEFF``, each mode's Ex and Ey overlap above ``MIN_OVERLAP``, no
-    fallback; each route's host seconds, the filter's outer iterations,
-    final degree and split; one filter pass's cost; then the mode
-    monitor's solve at its first ``N_MON_FREQS`` frequencies by both
-    routes. Returns the ARPACK and filter seconds of that solve."""
+    host (``arpack_refs``, from ``refs``), on ``mode_planes``, 2 modes at
+    1.55 um: n_eff within ``TOL_NEFF``, each mode's Ex and Ey overlap
+    above ``MIN_OVERLAP``, no fallback; each route's host seconds, the
+    filter's outer iterations, final degree and split; one filter pass's
+    cost; then the mode monitor's solve at its first ``N_MON_FREQS``
+    frequencies by both routes. Returns the ARPACK and filter seconds of
+    that solve."""
     from tidy3d_tpu_torch.plugins.mode import device_solver
 
     sim = waveguide_case(td)
@@ -2068,18 +2141,15 @@ def run_mode_solver(td, smi: str) -> dict:
     fallbacks = device_solver.FALLBACKS
     made = []
     make = device_solver.make_apply_real
+    arpack = refs.get("mode")
 
     def keep(*args, **kw):
         made.append(make(*args, **kw))
         return made[-1]
 
-    for what, case, plane in (
-            ("100x100 source plane", sim, sim.sources[0].geometry),
-            ("200x200 plane at dl 0.01", fine_plane_case(td),
-             td.Box(center=(0, 0, 0), size=(0, 2.0, 2.0)))):
-        ref, t_arpack, recs = mode_solve(td, case, plane, spec, [freq0],
-                                         "arpack", "cpu")
-        assert not recs, recs
+    for what, case, plane in mode_planes(td):
+        ref = arpack[what]
+        assert not ref["records"], ref["records"]
         device_solver.make_apply_real = keep
         try:
             got, t_filter, recs = mode_solve(td, case, plane, spec, [freq0],
@@ -2089,15 +2159,16 @@ def run_mode_solver(td, smi: str) -> dict:
         assert len(recs) == 1 and recs[0]["device"] == "cuda", recs
         rec = recs[0]
         assert not rec["fallback"] and device_solver.FALLBACKS == fallbacks
-        n_ref = np.asarray(ref.n_complex.values)[0]
+        n_ref = ref["n"]
         n_got = np.asarray(got.n_complex.values)[0]
         d_neff = float(np.max(np.abs(n_got.real - n_ref.real)))
-        overlaps = [_overlap(getattr(ref, c).values[..., 0, m],
+        overlaps = [_overlap(ref["fields"][c][..., m],
                              getattr(got, c).values[..., 0, m])
                     for m in range(2) for c in ("Ex", "Ey")]
         nx, ny = rec["shape"]
-        log(f"[mode] {what} ({nx}x{ny}, 2N = {2 * nx * ny}): ARPACK (host) "
-            f"{t_arpack:.3f} s, filter (card) {t_filter:.3f} s; n_eff "
+        log(f"[mode] {what} ({nx}x{ny}, 2N = {2 * nx * ny}): ARPACK (host, "
+            f"{REFS_WHERE}) {ref['seconds']:.3f} s, filter (card) "
+            f"{t_filter:.3f} s; n_eff "
             f"{n_got.real.tolist()} against {n_ref.real.tolist()}, max "
             f"|dn_eff| {d_neff:.2e} (tol {TOL_NEFF:g}); overlaps "
             f"{[round(o, 8) for o in overlaps]}; {rec['outer']} outer "
@@ -2112,8 +2183,7 @@ def run_mode_solver(td, smi: str) -> dict:
             filter_pass_costs(made[-1], rec, smi)
     mon = next(m for m in sim.monitors if m.name == "mode")
     freqs = list(mon.freqs)[:N_MON_FREQS]
-    _, t_arpack, _ = mode_solve(td, sim, mon.geometry, mon.mode_spec,
-                                freqs, "arpack", "cpu")
+    t_arpack = arpack["mode monitor"]["seconds"]
     held = torch.cuda.memory_allocated()
     _, t_filter, recs = mode_solve(td, sim, mon.geometry, mon.mode_spec,
                                    freqs, "filter", "cuda")
@@ -2126,7 +2196,8 @@ def run_mode_solver(td, smi: str) -> dict:
              for k in ("device_s", "fetch_s", "polish_s", "refine_s")}
     log(f"[mode] mode monitor ({N_MON_FREQS} of its 11 frequencies, 2 "
         f"modes, 100x100): ARPACK "
-        f"(host) {t_arpack:.3f} s, filter (card) {t_filter:.3f} s; device "
+        f"(host, {REFS_WHERE}) {t_arpack:.3f} s, filter (card) "
+        f"{t_filter:.3f} s; device "
         f"loop {split['device_s']:.3f} s, basis fetch {split['fetch_s']:.4f}"
         f" s, host polish {split['polish_s']:.3f} s, refinement "
         f"{split['refine_s']:.3f} s; outer iterations "
@@ -2188,7 +2259,8 @@ def run_farfield(td, smi: str, rate_without: float) -> int:
         f"{w.rate} (without the projection box {rate_without}) | {smi}")
     assert iso < 1.1 and dev <= TOL_PATTERN, (iso, dev)
     return w.launches["kstep"] + rates_in_turns(
-        td, farfield_case(td), full_case(td), "far field", smi, w.rate,
+        td, cut_main(farfield_case(td)), cut_main(full_case(td)),
+        "far field", smi, w.rate,
         rate_without)
 
 
@@ -2214,7 +2286,8 @@ def run_diffraction(td, smi: str, rate_without: float) -> int:
         f"(without the plane {rate_without}) | {smi}")
     assert p0 / total > 0.98 and abs(total - 1.0) < 0.1, (p0, total)
     return w.launches["kstep"] + rates_in_turns(
-        td, diffraction_case(td), planewave_case(td), "diffraction", smi,
+        td, cut_main(diffraction_case(td)), cut_main(planewave_case(td)),
+        "diffraction", smi,
         w.rate, rate_without)
 
 
@@ -2306,10 +2379,13 @@ def run_resume(td, dev, smi: str) -> None:
 
 PROFILE_SCRIPT = """
 import json, os, sys
+import torch
 import tidy3d_tpu_torch as td
 from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 import chip_smoke
 sim = chip_smoke.full_case(td).copy(update=dict(run_time=2e-14))
+torch.zeros(1, device="cuda")
+sys.stdin.readline()
 step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
 data = td.web.run(sim, task_name="chip_smoke", verbose=False)
 print(json.dumps({"launches": {"family": step.LAUNCHES,
@@ -2317,6 +2393,46 @@ print(json.dumps({"launches": {"family": step.LAUNCHES,
                                "kstep": kstep.LAUNCHES},
                   "log": data.log}))
 """
+
+
+class Profiled:
+    """Phase 20's process: started early (``PROFILE_SCRIPT`` imports the
+    port, builds its case and touches the card, then waits for a line on
+    its input); ``finish`` lets it run and returns its output. It does not
+    outlive the script."""
+
+    def __init__(self):
+        import atexit
+        import shutil
+        import subprocess
+
+        self.trace_dir = os.path.join(OUT_DIR, "chip_smoke_trace")
+        shutil.rmtree(self.trace_dir, ignore_errors=True)
+        env = dict(os.environ, TIDY3D_TPU_PROFILE=self.trace_dir)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [env.get("PYTHONPATH")] if p])
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", PROFILE_SCRIPT], env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        atexit.register(self.kill)
+
+    def finish(self) -> tuple:
+        """``(returncode, stdout, stderr)`` of the run, at most 600 s."""
+        import subprocess
+
+        try:
+            out, err = self.proc.communicate("go\n", timeout=600)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            out, err = "", "killed after 600 s"
+        return self.proc.returncode, out, err
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
 
 
 def trace_counts(path: str) -> dict:
@@ -2332,29 +2448,20 @@ def trace_counts(path: str) -> dict:
         "events": len(events)}
 
 
-def run_profiled(smi: str) -> int:
+def run_profiled(smi: str, prof: Profiled) -> int:
     """Phase 20: a short ``web.run`` of the broadband case (212 steps) under
-    ``TIDY3D_TPU_PROFILE`` in a process of its own (torch.profiler loses
-    kernel records late in a long process, ``PERF.md`` section 7): the
-    trace must hold the k-step kernel's records and ``fdtd.monitors``
-    ranges. Returns the k-step launches."""
+    ``TIDY3D_TPU_PROFILE`` in a process of its own (``prof``, started
+    early; torch.profiler loses kernel records late in a long process,
+    ``PERF.md`` section 7): the trace must hold the k-step kernel's
+    records and ``fdtd.monitors`` ranges. Returns the k-step launches."""
     import glob
     import shutil
-    import subprocess
 
-    trace_dir = os.path.join(OUT_DIR, "chip_smoke_trace")
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    env = dict(os.environ, TIDY3D_TPU_PROFILE=trace_dir)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.dirname(os.path.abspath(__file__))]
-        + [p for p in [env.get("PYTHONPATH")] if p])
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", PROFILE_SCRIPT], env=env,
-                          capture_output=True, text=True, timeout=600,
-                          check=False)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    code, stdout, stderr = prof.finish()
+    assert code == 0, stderr[-3000:]
+    out = json.loads(stdout.strip().splitlines()[-1])
+    traces = glob.glob(os.path.join(prof.trace_dir, "*.pt.trace.json"))
     assert len(traces) == 1, traces
     counts = trace_counts(traces[0])
     lines = out["log"].splitlines()
@@ -2362,10 +2469,11 @@ def run_profiled(smi: str) -> int:
     log(f"[profiler] web.run under TIDY3D_TPU_PROFILE: {steps} steps, "
         f"launches {out['launches']}, trace {traces[0]} "
         f"({os.path.getsize(traces[0])} B): {counts}; the process took "
-        f"{time.perf_counter() - t0:.1f} s; log: {' | '.join(lines[2:4])}")
+        f"{time.perf_counter() - t0:.1f} s from its go; log: "
+        f"{' | '.join(lines[2:4])}")
     assert out["launches"] == {"family": 0, "fused": 0, "kstep": steps // 2}
     assert counts["kstep_kernel"] > 0 and counts["fdtd.monitors"] > 0, counts
-    shutil.rmtree(trace_dir, ignore_errors=True)
+    shutil.rmtree(prof.trace_dir, ignore_errors=True)
     return out["launches"]["kstep"]
 
 
@@ -2647,42 +2755,78 @@ def run_region_ops(region, sim, cotangent, dl: float, smi: str) -> None:
     assert max(errs) <= TOL_CARD_CPU, errs
 
 
-def run_invdes_2d(td, smi: str) -> int:
-    """Phase 29b: the coupling case on both routes, card against CPU on one
-    tier, the autodiff route against central differences, its ms per
-    forward + backward step and peak memory at ``CHUNKS``. Returns the
-    k-step launches of the adjoint route on the card."""
+COUPLING_RHO = 0.5     # phase 29b's uniform density
+
+
+def adjoint_2d(td, dev: str) -> dict:
+    """Phase 29b's adjoint route on ``dev``, forced to the k-step tier (the
+    kernel on the card, its plain version on the CPU): the coupling case's
+    value and gradient at ``COUPLING_RHO``, and the host seconds."""
     from tidy3d_tpu_torch.plugins import invdes
-    from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
-    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     sim = coupling_case(td)
-    region = td.Box(**coupling_region(td))
-    rho = 0.5 * np.ones((21, 31, 1), np.float32)
-
-    # the adjoint route on the k-step tier: the kernel on the card, its
-    # plain version on the CPU
+    rho = COUPLING_RHO * np.ones((21, 31, 1), np.float32)
     old = os.environ.get("TIDY3D_TPU_KERNEL")
     os.environ["TIDY3D_TPU_KERNEL"] = "kstep"
     try:
-        out = {}
-        for dev in ("cuda", "cpu"):
-            design = invdes.InverseDesign(
-                simulation=sim, output_monitor_name="out", device=dev,
-                design_region=invdes.TopologyDesignRegion(
-                    **coupling_region(td), eps_bounds=(1.0, 6.0)))
-            t0 = time.perf_counter()
-            out[dev] = design._density_value_and_grad_adjoint(rho)
-            log(f"[invdes 2D] adjoint route on {dev} (kstep): value "
-                f"{out[dev][0]}, {time.perf_counter() - t0:.2f} s")
+        design = invdes.InverseDesign(
+            simulation=sim, output_monitor_name="out", device=dev,
+            design_region=invdes.TopologyDesignRegion(
+                **coupling_region(td), eps_bounds=(1.0, 6.0)))
+        t0 = time.perf_counter()
+        value, grad = design._density_value_and_grad_adjoint(rho)
+        secs = time.perf_counter() - t0
     finally:
         if old is None:
             os.environ.pop("TIDY3D_TPU_KERNEL", None)
         else:
             os.environ["TIDY3D_TPU_KERNEL"] = old
+    return dict(value=value, grad=grad, seconds=secs)
+
+
+def autodiff_2d(td, dev: str) -> tuple:
+    """Phase 29b's autodiff route on ``dev`` (no kernel): the coupling
+    case's ``TopologyObjective`` and its value and gradient at
+    ``COUPLING_RHO``, the host seconds (set-up included), the launches
+    (family, fused, k-step) and the runner's device."""
+    from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    rho = COUPLING_RHO * np.ones((21, 31, 1), np.float32)
+    t0 = time.perf_counter()
+    topo = TopologyObjective(coupling_case(td), td.Box(**coupling_region(td)),
+                             eps_min=1.0, eps_max=6.0,
+                             mode_monitor_name="out", device=dev)
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    value, grad = topo.value_and_grad(rho)
+    return topo, dict(value=value, grad=grad,
+                      seconds=time.perf_counter() - t0,
+                      launches=(step.LAUNCHES, fused.LAUNCHES,
+                                kstep.LAUNCHES),
+                      device=str(topo.runner.device))
+
+
+def run_invdes_2d(td, smi: str, refs: "HostRefs") -> int:
+    """Phase 29b: the coupling case on both routes, card against CPU on one
+    tier (the CPU's from ``refs``), the autodiff route against central
+    differences, its ms per forward + backward step and peak memory at
+    ``CHUNKS``. Returns the k-step launches of the adjoint route on the
+    card."""
+    from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
+
+    rho = COUPLING_RHO * np.ones((21, 31, 1), np.float32)
+    cpu = refs.get("invdes_2d")
+    # the adjoint route on the k-step tier: the kernel on the card, its
+    # plain version on the CPU
+    out = {"cuda": adjoint_2d(td, "cuda"), "cpu": cpu["adjoint"]}
+    for dev, r in out.items():
+        log(f"[invdes 2D] adjoint route on {dev} (kstep): value "
+            f"{r['value']}, {r['seconds']:.2f} s"
+            + (f" ({REFS_WHERE})" if dev == "cpu" else ""))
     n_adjoint = kstep.LAUNCHES
     assert n_adjoint > 0 and step.LAUNCHES == fused.LAUNCHES == 0
-    (v_c, g_c), (v_h, g_h) = out["cuda"], out["cpu"]
+    (v_c, g_c), (v_h, g_h) = ((out[d]["value"], out[d]["grad"])
+                              for d in ("cuda", "cpu"))
     err_adj = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
     log(f"[invdes 2D] adjoint gradient card vs CPU: {err_adj:.3e} of max "
         f"|g| (tol {TOL_CARD_CPU:g}); values {abs(v_c - v_h) / v_h:.3e} "
@@ -2690,25 +2834,21 @@ def run_invdes_2d(td, smi: str) -> int:
     assert err_adj <= TOL_CARD_CPU, err_adj
 
     # the autodiff route: no kernel
-    topo = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        topo[dev] = TopologyObjective(sim, region, eps_min=1.0, eps_max=6.0,
-                                      mode_monitor_name="out", device=dev)
-        step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
-        out[dev] = topo[dev].value_and_grad(rho)
-        launches = (step.LAUNCHES, fused.LAUNCHES, kstep.LAUNCHES)
-        log(f"[invdes 2D] autodiff on {topo[dev].runner.device}: value "
-            f"{out[dev][0]}, {time.perf_counter() - t0:.2f} s (set-up "
-            f"included), kernel launches {launches}")
-        assert launches == (0, 0, 0), launches
-    (v_c, g_c), (v_h, g_h) = out["cuda"], out["cpu"]
+    card, out["cuda"] = autodiff_2d(td, "cuda")
+    out["cpu"] = cpu["autodiff"]
+    for dev, r in out.items():
+        log(f"[invdes 2D] autodiff on {r['device']}: value {r['value']}, "
+            f"{r['seconds']:.2f} s (set-up included"
+            + (f"; {REFS_WHERE}" if dev == "cpu" else "")
+            + f"), kernel launches {r['launches']}")
+        assert r["launches"] == (0, 0, 0), r["launches"]
+    (v_c, g_c), (v_h, g_h) = ((out[d]["value"], out[d]["grad"])
+                              for d in ("cuda", "cpu"))
     err_ad = float(np.max(np.abs(g_c - g_h)) / np.max(np.abs(g_h)))
     log(f"[invdes 2D] autodiff gradient card vs CPU: {err_ad:.3e} of max "
         f"|g| (tol {TOL_CARD_CPU:g}); values {abs(v_c - v_h) / v_h:.3e} "
         "apart")
     assert err_ad <= TOL_CARD_CPU, err_ad
-    card = topo["cuda"]
     idx = np.unravel_index(np.argmax(np.abs(g_c)), g_c.shape)
     h = 5e-3
     rp, rm = rho.copy(), rho.copy()
@@ -2722,7 +2862,7 @@ def run_invdes_2d(td, smi: str) -> int:
     assert err_fd <= TOL_FD_PIXEL, err_fd
 
     for chunks in CHUNKS:
-        time_autodiff(topo["cuda"], rho, chunks, smi)
+        time_autodiff(card, rho, chunks, smi)
     return n_adjoint
 
 
@@ -2808,9 +2948,10 @@ def run_autodiff_timing(td, smi: str) -> None:
         time_autodiff(topo, rho, chunks, smi)
 
 
-def run_invdes(td, smi: str) -> int:
-    """Phase 29: inverse design on the card; the launch counts set to 0
-    just before and read just after. Returns the k-step launches."""
+def run_invdes(td, smi: str, refs: "HostRefs") -> int:
+    """Phase 29: inverse design on the card (the CPU's routes of 29b from
+    ``refs``); the launch counts set to 0 just before and read just after.
+    Returns the k-step launches."""
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, step
 
     t_phase = time.perf_counter()
@@ -2825,7 +2966,7 @@ def run_invdes(td, smi: str) -> int:
         f"{sum(sec for _, sec in clock.solves):.3f} host s")
     t_3d = time.perf_counter() - t_phase
     kstep.LAUNCHES = 0
-    n2 = run_invdes_2d(td, smi)
+    n2 = run_invdes_2d(td, smi, refs)
     log(f"[invdes] 2D: {n2} k-step launches on the adjoint route")
     n += n2
     log(f"[invdes] phase 29 took {time.perf_counter() - t_phase:.1f} s (3D "
@@ -2840,8 +2981,8 @@ def run_invdes(td, smi: str) -> int:
 # --------------------------------------------------------------------------- #
 
 N_BM_XY, N_BM_Z = 192, 512   # bloch_metal_case: 18.9 M cells, PML in z
-N_BM_Z_TURNS = 128           # its 100-step turns: the stack cut in depth
-N_MP_Z_TURNS = 96            # many_poles_case's 100-step turns, likewise
+N_BM_Z_TURNS = 128           # its turns: the stack cut in depth
+N_MP_Z_TURNS = 96            # many_poles_case's turns, likewise
 MIN_NL_RATIO = 1e-3          # the Kerr term against E at the dipole
 # the reference's own physics bars (tests/test_solver/test_nonlinear.py,
 # test_modulation.py), through the port
@@ -2964,7 +3105,7 @@ def many_poles_case(td, nz: int = N_METAL + 24):
     2 has passed, the fields at step 200 are far below their peak, and
     against them the rounding of the peak's steps breaks the 200-step bar
     at every slot count, 6 and 7 too) 1.6 um below the Cr
-    (1.2 um at the depth of the 100-step turns); the broadband case's
+    (1.2 um at the depth of the turns); the broadband case's
     field plane and flux box, and a point Ez field-time monitor from the
     default start; ~300 steps."""
     au, cr = au_cr(td)
@@ -3238,7 +3379,7 @@ def run_bloch_metal(td, dev, smi: str) -> dict:
     """Phase 31: ``bloch_metal_case`` (Bloch x and y with 13 pole slots):
     the default tier is pallas2 with both copies; the two-copy family
     kernel against plain for one E and H update and one whole step (1e-6),
-    its time beside the bound; 100 steps in turns on the stack cut to
+    its time beside the bound; 40 steps in turns on the stack cut to
     ``N_BM_Z_TURNS`` cells of depth (2e-5, fields of both copies and Q,
     Q1); ``web.run``, 2 family calls a step, each one
     two-copy call, one pole-kernel call, no fused or k-step launch, its
@@ -3352,7 +3493,7 @@ def run_post_e_case(td, dev, smi: str, name: str, medium, what: str):
     """Phases 32 and 33: the block case with ``medium`` (384^3): pallas2
     under ``auto``; one post_e call against its plain version (1e-6) and
     one whole step (1e-6); post_e's time beside its bound and the eager
-    plain version's; 100 steps in turns (2e-5);
+    plain version's; 40 steps in turns (2e-5);
     ``web.run`` over a third of the broadband run (~660 steps, past the
     pulse's peak at the dipole), one post_e call a step (its dipole's Ez
     at the probe gives the size of the Kerr term). Returns the case's
@@ -3488,7 +3629,7 @@ def run_many_poles_bf16(plan, dev, smi: str) -> dict:
 def run_many_poles(td, dev, smi: str) -> dict:
     """Phase 34: ``many_poles_case`` (13 slots, real): forced fused and
     forced pallas2, one step each against its plain version (1e-6), the
-    pole-table fused and family kernels' times beside their bounds, 100
+    pole-table fused and family kernels' times beside their bounds, 40
     steps of each in turns on the stack cut to ``N_MP_Z_TURNS`` cells of
     depth (2e-5); ``web.run`` under ``auto`` (a default-start time
     monitor): the fused tier, one pole-table fused call a step; a short
@@ -3823,17 +3964,16 @@ def eme_taper_case(td):
         grid_spec=td.GridSpec.uniform(dl=0.025))
 
 
-def run_eme_phase(td, smi: str) -> None:
+def run_eme_phase(td, smi: str, refs: "HostRefs") -> None:
     """Phase 36: ``run_eme`` of ``eme_taper_case`` on the card: the host
     seconds per cell with the mode solves' split, each solve's route and
     fallback, |S21|^2 of the fundamental mode (at least
     ``MIN_S21_FUNDAMENTAL``), each input mode's |S11|^2 + |S21|^2 (at most
     1 + ``TOL_PASSIVE``: the taper is lossless; the fundamental's at least
     ``MIN_POWER_FUNDAMENTAL``), and cell 0's plane through ARPACK (n_eff
-    within ``TOL_EME_NEFF`` of the filter's)."""
-    from tidy3d_tpu_torch.components.geometry.base import Box
+    within ``TOL_EME_NEFF`` of the filter's; ``eme_arpack_ref``, from
+    ``refs``)."""
     from tidy3d_tpu_torch.plugins.mode import device_solver
-    from tidy3d_tpu_torch.plugins.mode.mode_solver import ModeSolver
     from tidy3d_tpu_torch.solver import eme
 
     t_phase = time.perf_counter()
@@ -3872,6 +4012,25 @@ def run_eme_phase(td, smi: str) -> None:
     assert np.all(power[:, 0] >= MIN_POWER_FUNDAMENTAL), power
     assert np.all(fund >= MIN_S21_FUNDAMENTAL), fund
     # cell 0's plane through ARPACK at 1.55 um
+    ref = refs.get("eme")
+    n_arpack = ref["n"]
+    n_filter = np.sort(np.real(np.asarray(data.n_complex.values)[0, 0, 0]))
+    err = float(np.max(np.abs(n_filter - n_arpack)))
+    log(f"[eme] cell 0 n_eff: filter {n_filter.tolist()}, ARPACK "
+        f"{n_arpack.tolist()} ({ref['seconds']:.2f} host s, {REFS_WHERE}): "
+        f"max diff {err:.2e} (tol {TOL_EME_NEFF:g}); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
+    assert err <= TOL_EME_NEFF
+
+
+def eme_arpack_ref(td) -> dict:
+    """Phase 36's reference: the plane of ``eme_taper_case``'s cell 0
+    through ARPACK on the host at its first frequency: n_eff (sorted) and
+    the host seconds."""
+    from tidy3d_tpu_torch.components.geometry.base import Box
+    from tidy3d_tpu_torch.plugins.mode.mode_solver import ModeSolver
+
+    sim = eme_taper_case(td)
     fdtd = sim._to_fdtd_sim()
     old = os.environ.get("TIDY3D_TPU_MODE_SOLVER")
     os.environ["TIDY3D_TPU_MODE_SOLVER"] = "arpack"
@@ -3883,20 +4042,14 @@ def run_eme_phase(td, smi: str) -> None:
                 size=(0, sim.size[1], sim.size[2])),
             mode_spec=sim.mode_specs[0], freqs=[sim.freqs[0]],
             colocate=False).data_raw
-        t_arpack = time.perf_counter() - t0
+        secs = time.perf_counter() - t0
     finally:
         if old is None:
             os.environ.pop("TIDY3D_TPU_MODE_SOLVER")
         else:
             os.environ["TIDY3D_TPU_MODE_SOLVER"] = old
-    n_arpack = np.sort(np.real(np.asarray(ref.n_complex.values)[0]))
-    n_filter = np.sort(np.real(np.asarray(data.n_complex.values)[0, 0, 0]))
-    err = float(np.max(np.abs(n_filter - n_arpack)))
-    log(f"[eme] cell 0 n_eff: filter {n_filter.tolist()}, ARPACK "
-        f"{n_arpack.tolist()} ({t_arpack:.2f} host s): max diff {err:.2e} "
-        f"(tol {TOL_EME_NEFF:g}); phase took "
-        f"{time.perf_counter() - t_phase:.1f} s | {smi}")
-    assert err <= TOL_EME_NEFF
+    return dict(n=np.sort(np.real(np.asarray(ref.n_complex.values)[0])),
+                seconds=secs)
 
 
 def smatrix_case(td):
@@ -4067,65 +4220,78 @@ def grating_objective(mon_out):
     return sum(torch.sum(a ** 2) for a in mon_out[0].values()) * 1e30
 
 
-def run_autodiff_bloch(td, smi: str) -> None:
-    """Phase 39: ``TopologyObjective`` on ``bloch_grating_case`` (autograd
-    through both real copies, no kernel: no launch), on the card and on
-    the CPU, in float32 and in bf16 storage, at one random density: the
-    card's gradient within ``TOL_GRAD_CARD`` (f32) and
-    ``TOL_GRAD_BF16_CARD`` (bf16) of the CPU's, and the bf16 gradient
-    within ``TOL_GRAD_BF16_F32`` of the float32 one (of max |g|); each
-    route's ms a step (forward and backward) and peak memory."""
+def autodiff_bloch(td, prec: str, device: str) -> dict:
+    """One route of phase 39: ``TopologyObjective`` on
+    ``bloch_grating_case`` in ``prec`` storage on ``device`` at one random
+    density, a warm-up call (timed apart) then the value and gradient
+    timed: no launch; the value, gradient, host seconds of both calls,
+    steps, peak device memory (None on the CPU) and the runner's storage."""
     from tidy3d_tpu_torch.plugins.adjoint import TopologyObjective
     from tidy3d_tpu_torch.solver.kernels import fused, kstep, post_e, step
 
-    t_phase = time.perf_counter()
-    grads = {}
     old = os.environ.get("TIDY3D_TPU_PRECISION")
+    # the runner reads its storage type from the environment, as the
+    # reference's does
+    os.environ["TIDY3D_TPU_PRECISION"] = prec
+    try:
+        topo = TopologyObjective(
+            bloch_grating_case(td), td.Box(**GRATING_REGION),
+            eps_min=1.0, eps_max=4.0, objective=grating_objective,
+            device=device)
+    finally:
+        if old is None:
+            os.environ.pop("TIDY3D_TPU_PRECISION")
+        else:
+            os.environ["TIDY3D_TPU_PRECISION"] = old
+    assert topo.runner.is_complex
+    rho = 0.5 + 0.1 * np.random.default_rng(0).standard_normal(
+        topo.density_shape)
+    step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
+    post_e.LAUNCHES = 0
+    t0 = time.perf_counter()
+    topo.value_and_grad(rho)        # warm-up, timed apart
+    first = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    val, g = topo.value_and_grad(rho)
+    secs = time.perf_counter() - t0
+    assert step.LAUNCHES == fused.LAUNCHES == kstep.LAUNCHES \
+        == post_e.LAUNCHES == 0
+    assert topo.runner.storage_name.startswith(f"fields {prec}")
+    size, n = topo.runner.checkpoint_chunks
+    peak = (torch.cuda.max_memory_allocated() - base) \
+        if device == "cuda" else None
+    return dict(value=val, grad=g, seconds=secs, first=first,
+                steps=size * n, peak=peak,
+                storage=topo.runner.storage_name)
+
+
+def run_autodiff_bloch(td, smi: str, refs: "HostRefs") -> None:
+    """Phase 39: ``autodiff_bloch`` (autograd through both real copies, no
+    kernel: no launch), on the card here and on the CPU (from ``refs``),
+    in float32 and in bf16 storage: the card's gradient within
+    ``TOL_GRAD_CARD`` (f32) and ``TOL_GRAD_BF16_CARD`` (bf16) of the
+    CPU's, and the bf16 gradient within ``TOL_GRAD_BF16_F32`` of the
+    float32 one (of max |g|); each route's ms a step (forward and
+    backward) and peak memory."""
+    t_phase = time.perf_counter()
+    runs = {}
+    cpu = refs.get("autodiff_bloch")
     for prec in ("float32", "bfloat16"):
-        for device in ("cuda", "cpu"):
-            # the runner reads its storage type from the environment, as
-            # the reference's does
-            os.environ["TIDY3D_TPU_PRECISION"] = prec
-            try:
-                topo = TopologyObjective(
-                    bloch_grating_case(td), td.Box(**GRATING_REGION),
-                    eps_min=1.0, eps_max=4.0, objective=grating_objective,
-                    device=device)
-            finally:
-                if old is None:
-                    os.environ.pop("TIDY3D_TPU_PRECISION")
-                else:
-                    os.environ["TIDY3D_TPU_PRECISION"] = old
-            assert topo.runner.is_complex
-            rho = 0.5 + 0.1 * np.random.default_rng(0).standard_normal(
-                topo.density_shape)
-            step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
-            post_e.LAUNCHES = 0
-            t0 = time.perf_counter()
-            topo.value_and_grad(rho)        # warm-up, timed apart
-            first = time.perf_counter() - t0
-            if device == "cuda":
-                torch.cuda.empty_cache()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            val, g = topo.value_and_grad(rho)
-            secs = time.perf_counter() - t0
-            assert step.LAUNCHES == fused.LAUNCHES == kstep.LAUNCHES \
-                == post_e.LAUNCHES == 0
-            assert topo.runner.storage_name.startswith(f"fields {prec}")
-            size, n = topo.runner.checkpoint_chunks
-            peak = (torch.cuda.max_memory_allocated() - base) \
-                if device == "cuda" else None
-            grads[(prec, device)] = g
-            log(f"[autodiff bloch] {prec} on {device}: value {val:.6e}, "
-                f"max |g| {np.max(np.abs(g)):.4e}, {size * n} steps in "
-                f"{secs:.2f} s ({secs / (size * n) * 1e3:.3f} ms a forward "
-                f"and backward step; the first call, timed apart, "
-                f"{first / (size * n) * 1e3:.3f}), peak device memory "
-                f"{peak} B, storage "
-                f"{topo.runner.storage_name} | {smi}")
-            del topo
+        runs[(prec, "cuda")] = autodiff_bloch(td, prec, "cuda")
+        runs[(prec, "cpu")] = cpu[prec]
+    for (prec, device), r in runs.items():
+        log(f"[autodiff bloch] {prec} on {device}: value {r['value']:.6e}, "
+            f"max |g| {np.max(np.abs(r['grad'])):.4e}, {r['steps']} steps in "
+            f"{r['seconds']:.2f} s ({r['seconds'] / r['steps'] * 1e3:.3f} ms "
+            f"a forward and backward step; the first call, timed apart, "
+            f"{r['first'] / r['steps'] * 1e3:.3f}), peak device memory "
+            f"{r['peak']} B, storage {r['storage']}"
+            + (f" ({REFS_WHERE})" if device == "cpu" else "") + f" | {smi}")
+    grads = {key: r["grad"] for key, r in runs.items()}
     errs = {}
     for name, a, b in (
             ("f32 card vs cpu", ("float32", "cuda"), ("float32", "cpu")),
@@ -4281,18 +4447,19 @@ def run_repairs(td, dev, smi: str) -> float:
     return err_bf16
 
 
-def run_sixteenth(td, dev, smi: str) -> tuple:
-    """Phases 36-40; returns the S-matrix modeler's k-step calls and the
-    9-entry post_e check's bf16 error."""
+def run_sixteenth(td, dev, smi: str, refs: "HostRefs") -> tuple:
+    """Phases 36-40 (the host's references of 36 and 39 from ``refs``);
+    returns the S-matrix modeler's k-step calls and the 9-entry post_e
+    check's bf16 error."""
     stamp("36")
-    run_eme_phase(td, smi)
+    run_eme_phase(td, smi, refs)
     stamp("37")
     n = run_smatrix(td, smi)
     torch.cuda.empty_cache()
     stamp("38")
     run_heat(td, smi)
     stamp("39")
-    run_autodiff_bloch(td, smi)
+    run_autodiff_bloch(td, smi, refs)
     torch.cuda.empty_cache()
     stamp("40")
     err = run_repairs(td, dev, smi)
@@ -4343,23 +4510,48 @@ def brick_pair_work(runner, states) -> tuple:
     return total, ops
 
 
+def plain_bricks(family, views, consts, srcs, metas, halos) -> list:
+    """The plain version of ``step.family_update_bricks``, brick by
+    brick."""
+    from tidy3d_tpu_torch.solver.kernels import step
+
+    return [step.family_update_copies_reference(family, *b)
+            for b in zip(views, consts, srcs, metas, halos)]
+
+
+def single_bricks(family, views, consts, srcs, metas, halos) -> list:
+    """``step.family_update_bricks`` one brick at a time (a call each)."""
+    from tidy3d_tpu_torch.solver.kernels import step
+
+    return [step.family_update_bricks(family, *([x] for x in b))[0]
+            for b in zip(views, consts, srcs, metas, halos)]
+
+
 def brick_updates(fn, runner, states, halos: bool = True) -> list:
-    """One E update of every brick (``fn``: the kernel's
-    ``family_update_copies`` or its plain version), the E^{n+1} hi halos
-    exchanged (``halos``), then the H update from the new E: per brick
-    ``(E outputs, H outputs)``, each a list per copy."""
-    outs_e = []
-    for sh, st in zip(runner.shards, states):
-        views = runner._views(st)
-        outs_e.append(fn("E", views, sh.consts, [v["H"] for v in views],
-                         sh.meta, st["halo"]["H"]))
+    """One E update of every brick (``fn``: ``step.family_update_bricks``,
+    ``single_bricks`` or ``plain_bricks``), the E^{n+1} hi halos exchanged
+    (``halos``), then the H update from the new E: per brick ``(E
+    outputs, H outputs)``, each a list per copy."""
+    views = [runner._views(st) for st in states]
+    consts = [sh.consts for sh in runner.shards]
+    metas = [sh.meta for sh in runner.shards]
+    outs_e = fn("E", views, consts, [[v["H"] for v in vs] for vs in views],
+                metas, [st["halo"]["H"] for st in states])
     new_e = [[f for f, _ in out] for out in outs_e]
     if halos:
         runner.exchange_brick_halos(states, "H", new_e)
-    outs_h = [fn("H", runner._views(st), sh.consts, es, sh.meta,
-                 st["halo"]["E"])
-              for sh, st, es in zip(runner.shards, states, new_e)]
+    outs_h = fn("H", views, consts, new_e, metas,
+                [st["halo"]["E"] for st in states])
     return list(zip(outs_e, outs_h))
+
+
+def brick_bit_equal(got, ref) -> bool:
+    """Whether two sets of brick outputs hold the same bits."""
+    return all(torch.equal(g[k], r[k])
+               for (g_e, g_h), (r_e, r_h) in zip(got, ref)
+               for gs, rs in ((g_e, r_e), (g_h, r_h))
+               for (gf, gp), (rf, rp) in zip(gs, rs)
+               for g, r in ((gf, rf), (gp, rp)) for k in g)
 
 
 def brick_errors(got, ref, cut=None) -> tuple:
@@ -4385,13 +4577,14 @@ def brick_errors(got, ref, cut=None) -> tuple:
 
 def compare_brick_updates(step, plan, dev, decomp, what: str, smi: str,
                           precision=None, seed: int = 41) -> dict:
-    """Phase 41 on one case: one E and one H launch of the family kernel's
-    halo mode on every brick, from one random global state split into
+    """Phase 41 on one case: one E and one H call of the family kernel's
+    halo mode over every brick, from one random global state split into
     bricks, against its plain version on the same bricks (1e-6; bf16 1e-2,
-    where a contracted product may move a stored value by one bf16 step)
-    and against the unsharded launches on the global state; the launches'
-    device ms summed over the bricks (``device_ms``) beside their byte
-    bound and the unsharded launch's; returns the numbers."""
+    where a contracted product may move a stored value by one bf16 step),
+    bit-equal to calls one brick at a time and against the unsharded
+    launches on the global state; the call's device ms (``device_ms``)
+    beside its byte bound, the single-brick calls' and the unsharded
+    launch's; returns the numbers."""
     from tidy3d_tpu_torch import convert
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
 
@@ -4406,13 +4599,18 @@ def compare_brick_updates(step, plan, dev, decomp, what: str, smi: str,
     uH = step.family_update_copies("H", views, ur.consts,
                                    [f for f, _ in uE], ur.meta)
     states = convert.shard_states_from_reference(glob, br)
-    before = step.BRICK_LAUNCHES
-    got = brick_updates(step.family_update_copies, br, states)
+    before = (step.BRICK_LAUNCHES, step.BRICK_CALLS)
+    got = brick_updates(step.family_update_bricks, br, states)
     sync()
-    assert step.BRICK_LAUNCHES == before + 2 * len(br.shards), \
-        "halo-mode kernel did not launch"
-    plain = brick_updates(step.family_update_copies_reference, br, states,
-                          halos=False)
+    # one card: one call a family for every brick, each in halo mode
+    assert step.BRICK_LAUNCHES == before[0] + 2 * len(br.shards) and \
+        step.BRICK_CALLS == before[1] + 2, "halo-mode kernel did not launch"
+    blocks = step.LAST_BLOCKS
+    single = brick_updates(single_bricks, br, states)
+    sync()
+    equal = brick_bit_equal(got, single)
+    del single
+    plain = brick_updates(plain_bricks, br, states, halos=False)
 
     def cut(s, key):
         if "|" in key:
@@ -4422,26 +4620,47 @@ def compare_brick_updates(step, plan, dev, decomp, what: str, smi: str,
     err_p = brick_errors(got, plain)
     err_u = brick_errors(got, (uE, uH), cut)
     log(f"[bricks] {what} {plan.shape} in {decomp} bricks: halo-mode family "
-        f"kernel vs plain max rel err {err_p[0]:.3e} (max abs "
-        f"{err_p[1]:.3e}), vs the unsharded kernel {err_u[0]:.3e} (max abs "
-        f"{err_u[1]:.3e}) (tol {tol:g}; E then H of every copy, fields and "
-        f"psi)")
+        f"kernel (one call over every brick) vs plain max rel err "
+        f"{err_p[0]:.3e} (max abs {err_p[1]:.3e}), vs the unsharded kernel "
+        f"{err_u[0]:.3e} (max abs {err_u[1]:.3e}) (tol {tol:g}; E then H of "
+        f"every copy, fields and psi); bit-equal to calls one brick at a "
+        f"time: {equal}; H call blocks (bulk, shell, launches) {blocks}")
     assert err_p[0] <= tol and err_u[0] <= tol, (what, err_p, err_u)
+    assert equal, f"{what}: the call over bricks differs from single calls"
     del got, plain, uE, uH
 
     def launches(fn):
+        views = [br._views(st) for st in states]
+        consts = [sh.consts for sh in br.shards]
+        metas = [sh.meta for sh in br.shards]
+
         def once():
             for fam, src in (("E", "H"), ("H", "E")):
-                for sh, st in zip(br.shards, states):
-                    vs = br._views(st)
-                    fn(fam, vs, sh.consts, [v[src] for v in vs], sh.meta,
-                       st["halo"][src])
+                fn(fam, views, consts, [[v[src] for v in vs] for vs in views],
+                   metas, [st["halo"][src] for st in states])
         return once
 
-    # device time (queued behind a sleep kernel): the host's enqueue of a
-    # call a brick would otherwise count where it outruns the launches
-    k_ms = device_ms(launches(step.family_update_copies), 5) / 2
-    p_ms = cuda_ms(launches(step.family_update_copies_reference), 2) / 2
+    # the runner's calls (into the bricks' second buffer sets, prepared
+    # once); device time queued behind a sleep kernel: the host's enqueue
+    # of a call would otherwise count where it outruns the launches
+    alts = [br._brick_alt(st) for st in states]
+    bviews = [br._views(st) for st in states]
+
+    def runner_calls():
+        for fam, src in (("E", "H"), ("H", "E")):
+            br._family_update_bricks(
+                fam, bviews, [[v[src] for v in vs] for vs in bviews],
+                [st["halo"][src] for st in states], alts)
+
+    k_ms = device_ms(runner_calls, 5) / 2
+    s_ms = device_ms(launches(single_bricks), 5) / 2
+    p_ms = cuda_ms(launches(plain_bricks), 2) / 2
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        runner_calls()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    sync()
     u_ms = device_ms(lambda: (
         step.family_update_copies("E", views, ur.consts,
                                   [v["H"] for v in views], ur.meta),
@@ -4449,21 +4668,23 @@ def compare_brick_updates(step, plan, dev, decomp, what: str, smi: str,
                                   [v["E"] for v in views], ur.meta)), 5) / 2
     bnd = bound(*brick_pair_work(br, states),
                 PEAK_BF16 if precision else PEAK_F32)
-    mode = "bloch" if plan.is_complex else \
-        "many" if len(plan.poles) > step.MAX_POLES else "real"
+    mode = "bricks_bloch" if plan.is_complex else \
+        "bricks_many" if len(plan.poles) > step.MAX_POLES else "bricks"
     storage = br.storage
-    res = {f"{f} shell": step.resources(f, False, storage, mode)
-           for f in "EH"}
+    res = {f"{f} {kind}": step.resources(f, kind == "bulk", storage, mode)
+           for f in "EH" for kind in ("bulk", "shell")}
     log(f"[bricks] {what} in {decomp} bricks: halo-mode family launch "
-        f"{k_ms:.3f} ms (one family over every brick), bound {bnd[0]:.3f} "
-        f"ms by {bnd[1]}, ratio {k_ms / bnd[0]:.2f}; unsharded launch "
-        f"{u_ms:.3f} ms; plain {p_ms:.3f} ms; shell (halo side) "
-        f"instantiation's registers and blocks per SM {regs_blocks(res)} "
-        f"| {smi}")
-    del glob, views, states, ur, br
+        f"{k_ms:.3f} ms (one family over every brick, one call), bound "
+        f"{bnd[0]:.3f} ms by {bnd[1]}, ratio {k_ms / bnd[0]:.2f}; one call "
+        f"a brick {s_ms:.3f} ms; unsharded launch {u_ms:.3f} ms; plain "
+        f"{p_ms:.3f} ms; host enqueue of a prepared call {host_ms:.3f} ms; "
+        f"registers and blocks per SM of the call's instantiations "
+        f"{regs_blocks(res)} | {smi}")
+    del glob, views, states, ur, br, alts, bviews
     torch.cuda.empty_cache()
     return dict(err=max(err_p[1], err_u[1]), err_rel=err_p[0], ms=k_ms,
-                plain_ms=p_ms, unsharded_ms=u_ms, bound=bnd, res=res)
+                single_ms=s_ms, plain_ms=p_ms, unsharded_ms=u_ms,
+                host_ms=host_ms, bound=bnd, res=res)
 
 
 def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
@@ -4471,8 +4692,8 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
     explicit ``ShardingPlan`` of the card named once a brick, in turns
     with the unsharded ``pallas2`` run (unsharded, bricks, bricks,
     unsharded), the launch counts set to 0 just before the first brick run
-    and read just after: the brick route's family calls (two a step and
-    brick, each in halo mode) and post_e calls only, no k-step or fused
+    and read just after: the brick route's family calls (two a step, each
+    over every brick in halo mode) and post_e calls only, no k-step or fused
     launch, one pole-kernel call a step and brick where the plan has
     poles; raw monitors against the unsharded run (2e-5), then the
     port's ``SimulationData`` builders; ms a step, Gcell*steps/s and peak
@@ -4496,10 +4717,13 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         first = name == "bricks" and counts is None
         if first:
             step.LAUNCHES = step.BRICK_LAUNCHES = post_e.LAUNCHES = 0
+            step.BRICK_CALLS = step.BRICK_TABLE_BUILDS = 0
             fused.LAUNCHES = kstep.LAUNCHES = poles.LAUNCHES = 0
         raws[name] = runner.run()
         if first:
-            counts = {"family": step.LAUNCHES, "halo": step.BRICK_LAUNCHES,
+            counts = {"family": step.LAUNCHES, "calls": step.BRICK_CALLS,
+                      "halo": step.BRICK_LAUNCHES,
+                      "tables": step.BRICK_TABLE_BUILDS,
                       "post_e": post_e.LAUNCHES, "fused": fused.LAUNCHES,
                       "kstep": kstep.LAUNCHES, "poles": poles.LAUNCHES}
             MEMORY.append((f"{what}, {decomp} bricks",
@@ -4514,7 +4738,9 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         peaks[name] = runner.hbm_peak_bytes - base
     del runners, runner
     assert counts["fused"] == counts["kstep"] == 0, counts
-    assert counts["family"] == counts["halo"] == 2 * nbricks * steps, counts
+    # one card: one call a family and step, every brick in it
+    assert counts["family"] == counts["calls"] == 2 * steps, counts
+    assert counts["halo"] == 2 * nbricks * steps, counts
     n_post_e = nbricks * steps * (1 + plan.is_complex) \
         if plan.nonlinear is not None or plan.modulation else 0
     assert counts["post_e"] == n_post_e, counts
@@ -4526,11 +4752,13 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
     flux = np.asarray(data["flux"].flux.values)
     assert np.all(np.isfinite(flux)) and np.any(flux != 0)
     log(f"[bricks] {what}, {tier}: {steps} steps, launches {counts} (family "
-        f"calls 2 a step and brick, all in halo mode); raw monitors vs the "
+        f"calls 2 a step, each over every brick in halo mode; brick tables "
+        f"sent to the card {counts['tables']}); raw monitors vs the "
         f"unsharded pallas2 run max rel err {err:.3e} (tol {TOL_STEPS:g}); "
         f"flux finite and non-zero")
     assert err <= TOL_STEPS, f"{what} bricks: rel err {err:.3e}"
-    split, host_ms, planes, poles_plain = brick_step_split(plan, dev, decomp)
+    sp = brick_step_split(plan, dev, decomp)
+    split, host_ms, planes = sp["split"], sp["host_ms"], sp["planes"]
     ex_ms = split["exchange"]
     step_ms = float(np.mean(out["bricks"]))
     rates = {k: [ncell / (ms * 1e-3) / 1e9 for ms in v]
@@ -4541,7 +4769,8 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         f"bricks {rates['bricks']} unsharded {rates['unsharded']}; the two "
         f"halo exchanges {ex_ms:.3f} device ms a step "
         f"({ex_ms / step_ms:.1%} of the step; {planes} halo values), host "
-        f"{host_ms:.3f} ms enqueued; peak device memory bricks "
+        f"{host_ms:.3f} ms enqueued; the two family calls' host enqueue "
+        f"{sp['family_host_ms']:.3f} ms; peak device memory bricks "
         f"{peaks['bricks'] / 2**30:.2f} GiB, unsharded "
         f"{peaks['unsharded'] / 2**30:.2f}; phase took "
         f"{time.perf_counter() - t_phase:.1f} s | {smi}")
@@ -4549,21 +4778,26 @@ def brick_main_path(td, sim, plan, dev, decomp, what: str, smi: str) -> dict:
         f"events, part by part over every brick): "
         f"{ {k: round(v, 3) for k, v in split.items()} } ms, sum "
         f"{sum(split.values()):.3f} ms against the step's {step_ms:.3f} ms; "
-        f"the plain pole update {poles_plain:.3f} ms | {smi}")
+        f"the unsharded family pair {sp['family_unsharded']:.3f} ms; the "
+        f"plain pole update {sp['poles_plain']:.3f} ms | {smi}")
     return dict(launches=counts["halo"], err=err, step_ms=step_ms,
+                unsharded_ms=float(np.mean(out["unsharded"])),
                 exchange_ms=ex_ms, rate=float(np.mean(rates["bricks"])),
-                split=dict(split, poles_plain=poles_plain))
+                split=dict(split, poles_plain=sp["poles_plain"]),
+                family_unsharded_ms=sp["family_unsharded"],
+                family_host_ms=sp["family_host_ms"], tables=counts["tables"])
 
 
-def brick_step_split(plan, dev, decomp) -> tuple:
+def brick_step_split(plan, dev, decomp) -> dict:
     """Device ms a step of each part of a step on bricks (``device_ms``,
     one part at a time over every brick, on the zero state: no part's
     work depends on the values): the two family calls, post_e, the pole
     kernel's call a brick, the sources and the monitors, and the two halo
-    exchanges; with the host's enqueue ms of the exchanges, the halo
-    values they move and the plain pole update of every copy (outside the
-    parts)."""
-    from tidy3d_tpu_torch.solver.fdtd import update_poles
+    exchanges (``split``); with the host's enqueue ms of the exchanges,
+    the halo values they move, the plain pole update of every copy
+    (outside the parts), the host's enqueue ms of the two family calls and
+    the device ms of the unsharded run's family pair."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner, update_poles
 
     br = bricks_runner(plan, dev, decomp)
     states = br.init_state()["shards"]
@@ -4572,11 +4806,14 @@ def brick_step_split(plan, dev, decomp) -> tuple:
              for vs in views]
     t = min(40, br.num_steps - 1)
 
+    alts = [br._brick_alt(st) for st in states]
+
     def family():
         for fam, src in (("E", "H"), ("H", "E")):
-            for sh, st, vs in zip(br.shards, states, views):
-                br._family_update(fam, vs, [v[src] for v in vs], sh,
-                                  st["halo"][src])
+            br._family_update_bricks(fam, views,
+                                     [[v[src] for v in vs] for vs in views],
+                                     [st["halo"][src] for st in states],
+                                     alts)
 
     def passes():
         for sh, vs, es in zip(br.shards, views, new_e):
@@ -4619,10 +4856,26 @@ def brick_step_split(plan, dev, decomp) -> tuple:
         exchanges()
     host_ms = (time.perf_counter() - t0) / 10 * 1e3
     sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        family()
+    fam_host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    sync()
     planes = sum(t_.numel() for st in states for fam in st["halo"].values()
                  for copy in fam for planes_ in copy.values()
                  for t_ in planes_.values())
-    return split, host_ms, planes, plain
+    del br, states, views, new_e, alts
+    torch.cuda.empty_cache()
+    ur = FDTDRunner(plan, device=dev, kernel="pallas2")
+    uviews = ur._views(ur.init_state())
+    unsharded = device_ms(lambda: (
+        ur._family_update("E", uviews, [v["H"] for v in uviews]),
+        ur._family_update("H", uviews, [v["E"] for v in uviews])), 5)
+    del ur, uviews
+    torch.cuda.empty_cache()
+    return dict(split=split, host_ms=host_ms, planes=planes,
+                poles_plain=plain, family_host_ms=fam_host_ms,
+                family_unsharded=unsharded)
 
 
 def run_disp_poles(plan, dev, smi: str) -> None:
@@ -4649,6 +4902,118 @@ def run_disp_poles(plan, dev, smi: str) -> None:
                   "dispersive 384^3, brick 0 of 5", smi, 443)
     del br, views
     torch.cuda.empty_cache()
+
+
+def lorentz_many(td, n: int):
+    """A Lorentz medium of ``n`` weak terms over 1.1 to 2.5 f0: ``n`` pole
+    slots."""
+    freq0 = td.C_0 / 1.55
+    return td.Lorentz(eps_inf=1.5, coeffs=[
+        (1.0 / n, freq0 * (1.1 + 1.4 * i / n), freq0 / 8) for i in range(n)])
+
+
+def pole_split_case(td, n: int, bloch: bool):
+    """64^3 cells (a 12-layer PML on every side, or Bloch x and y and a
+    PML z; dl 0.05) with the ``n``-pole medium in the upper half under an
+    Ez dipole, a field plane and a point field-time monitor; 20-odd
+    steps."""
+    freq0 = td.C_0 / 1.55
+    dl = 0.05
+    size = (64 * dl,) * 2 + (40 * dl,) if bloch else (40 * dl,) * 3
+    bspec = td.BoundarySpec(
+        x=td.Boundary.bloch(bloch_vec=0.27),
+        y=td.Boundary.bloch(bloch_vec=-0.13),
+        z=td.Boundary.pml()) if bloch else td.BoundarySpec.all_sides(
+            td.PML())
+    return td.Simulation(
+        center=(0, 0, 0), size=size, run_time=2e-15,
+        sources=[td.PointDipole(
+            center=(0, 0, -0.2), polarization="Ez",
+            source_time=td.GaussianPulse(freq0=freq0, fwidth=freq0 / 5))],
+        structures=[td.Structure(
+            geometry=td.Box(center=(0, 0, size[2] / 4 + 0.5),
+                            size=(td.inf, td.inf, size[2] / 2 + 1.0)),
+            medium=lorentz_many(td, n))],
+        monitors=[td.FieldMonitor(center=(0, 0, -0.1),
+                                  size=(td.inf, td.inf, 0), freqs=[freq0],
+                                  name="field"),
+                  td.FieldTimeMonitor(center=(0, 0, 0.1), size=(0, 0, 0),
+                                      name="probe")],
+        boundary_spec=bspec, grid_spec=td.GridSpec.uniform(dl=dl),
+        shutoff=0.0)
+
+
+def run_pole_split(td, dev, smi: str) -> dict:
+    """Phase 44's check of pole tables past ``poles.MAX_SLOTS`` records (a
+    241-pole real plan and a Bloch plan of 121 poles a copy, 64^3): the
+    default tier takes each on the card (``pallas2``), the pole kernel
+    runs in two launches a call, its run against the port's plain run on
+    the card (2e-5); one call from random E' and currents bit-equal to the
+    plain update (float32 ``pole_update``, bf16 ``update_poles``), its
+    device ms beside its bound."""
+    from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
+    from tidy3d_tpu_torch.solver.kernels import poles
+    from tidy3d_tpu_torch.solver.lowering import lower
+
+    out = {}
+    for n, bloch in ((241, False), (121, True)):
+        what = f"{n} poles{' (Bloch, 2 copies)' if bloch else ''}"
+        plan = lower(pole_split_case(td, n, bloch))
+        runner = FDTDRunner(plan, device=dev)
+        assert runner.tier == "pallas2", runner.tier_name
+        before = (poles.LAUNCHES, poles.DEVICE_LAUNCHES)
+        got = runner.run()
+        sync()
+        calls = poles.LAUNCHES - before[0]
+        launches = poles.DEVICE_LAUNCHES - before[1]
+        steps = runner.steps_run
+        assert calls == steps and launches == 2 * steps, (calls, launches)
+        plain = FDTDRunner(plan, device=dev, use_kernel=False).run()
+        err = raw_err(plain, got)
+        assert err <= TOL_STEPS, f"{what}: run rel err {err:.3e}"
+        equal = {}
+        for prec in ("float32", "bfloat16"):
+            r = FDTDRunner(plan, device=dev, precision=prec)
+            views = r._views(random_state(r, 44))
+            gen = torch.Generator(device=dev).manual_seed(445)
+            new_es = [{c: torch.randn(v.shape, generator=gen, device=dev,
+                                      dtype=v.dtype)
+                       for c, v in vw["E"].items()} for vw in views]
+            old_es = [vw["E"] for vw in views]
+            Qs = [vw["Q"] for vw in views]
+            if prec == "float32":
+                want = [poles.pole_update(ne, oe, Q, r.consts)
+                        for ne, oe, Q in zip(new_es, old_es, Qs)]
+            else:
+                want = [[{c: (a.clone(), b.clone()) for c, (a, b) in
+                          Qp.items()} for Qp in Q] for Q in Qs]
+                for ne, oe, Q in zip(new_es, old_es, want):
+                    poles.update_poles(ne, oe, Q, r.consts)
+            cache = {}
+            poles.update_poles_copies(new_es, old_es, Qs, r.consts, cache)
+            sync()
+            equal[prec] = all(
+                torch.equal(g, w) for gq, wq in zip(Qs, want)
+                for gp, wp in zip(gq, wq) for c in gp
+                for g, w in zip(gp[c], wp[c]))
+            if prec == "float32":
+                ms = device_ms(lambda: poles.update_poles_copies(
+                    new_es, old_es, Qs, r.consts, cache), 5)
+                bnd = bound(*pole_work(new_es, old_es, Qs, r.consts))
+            del r, views, new_es, old_es, Qs, want
+        log(f"[poles] split table, {what}, {plan.shape}: default tier "
+            f"{runner.tier_name}; {steps} steps, {calls} pole-kernel calls "
+            f"in {launches} launches (at most {poles.MAX_SLOTS} records "
+            f"a launch); run vs the plain run on the card max rel err "
+            f"{err:.3e} (tol {TOL_STEPS:g}); one call bit-equal to the "
+            f"plain update {equal}; a call {ms:.3f} ms, bound "
+            f"{bnd[0]:.3f} ms by {bnd[1]}, ratio {ms / bnd[0]:.2f} | {smi}")
+        assert all(equal.values()), (what, equal)
+        out[what] = dict(err=err, equal=equal, ms=ms, bound=bnd,
+                         launches=launches)
+        del runner, got, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_bricks(td, dev, smi: str) -> dict:
@@ -4709,6 +5074,8 @@ def run_bricks(td, dev, smi: str) -> dict:
     run_disp_poles(plan, dev, smi)
     del sim, plan
     release()
+    split = run_pole_split(td, dev, smi)
+    release()
     k = upd["kerr"]
     return entry(
         "family_update_bricks", "tidy3d_tpu_torch/csrc/step.cu",
@@ -4716,16 +5083,23 @@ def run_bricks(td, dev, smi: str) -> dict:
         sum(m["launches"] for m in main.values()),
         max(u["err"] for key, u in upd.items() if key != "kerr_bf16"),
         k["ms"], k["plain_ms"], k["bound"], unsharded_ms=k["unsharded_ms"],
+        single_brick_calls_ms=k["single_ms"], host_ms=k["host_ms"],
         instantiations=regs_blocks(k["res"]),
         bf16={key: upd["kerr_bf16"][key] for key in ("ms", "err")},
         bf16_bound_ms=upd["kerr_bf16"]["bound"][0],
-        bloch={key: upd["bloch"][key] for key in ("ms", "unsharded_ms")},
+        bloch={key: upd["bloch"][key] for key in ("ms", "single_ms",
+                                                  "unsharded_ms")},
         bloch_bound_ms=upd["bloch"]["bound"][0],
-        many_poles={key: upd["many"][key] for key in ("ms",
+        many_poles={key: upd["many"][key] for key in ("ms", "single_ms",
                                                        "unsharded_ms")},
         many_poles_bound_ms=upd["many"]["bound"][0],
-        runs={key: {k2: m[k2] for k2 in ("step_ms", "exchange_ms", "rate")}
-              for key, m in main.items()})
+        runs={key: {k2: m[k2] for k2 in ("step_ms", "unsharded_ms",
+                                         "exchange_ms", "rate",
+                                         "family_unsharded_ms",
+                                         "family_host_ms", "tables")}
+              for key, m in main.items()},
+        pole_split={key: {k2: v[k2] for k2 in ("ms", "launches", "err")}
+                    for key, v in split.items()})
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
@@ -5067,7 +5441,8 @@ def run_timemonitors(td, smi: str, flux_kstep: np.ndarray) -> int:
     (``flux_kstep``), the memory estimate at least the peak. Returns the
     fused calls."""
     t_phase = time.perf_counter()
-    w = web_run(td, timemonitor_case(td), "dispersive with time monitors, "
+    w = web_run(td, cut_main(timemonitor_case(td)), "dispersive with time "
+                "monitors, "
                 "default tier", smi)
     assert w.tier == "fused", w.tier
     assert w.launches == {"family": 0, "fused": w.steps, "kstep": 0}, \
@@ -5151,7 +5526,7 @@ def bf16_compare(got: dict, ref: dict, what: str) -> tuple:
 def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     """Phase 28: bf16 storage on the card. The bf16 libraries' build
     seconds and resources; each bf16 kernel against its bf16 plain version
-    at full size; 100 k-step steps in turns; ``web.run`` of the dispersive
+    at full size; 40 k-step steps in turns; ``web.run`` of the dispersive
     case in bf16 (against ``w_f32``, phase 9's float32 run) under a memory
     limit that refuses the float32 run; short ``web.run``s that launch the
     other instantiations on their main paths. Returns the kernels line's
@@ -5350,7 +5725,8 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
     assert res["sharded"][2] == 4 * 20 // sr.k, res["sharded"][2]
     del sr, states, news, kd
 
-    # 100 k-step steps of the dispersive case, kernel against plain
+    # STEPS_COMPARE k-step steps of the dispersive case, kernel against
+    # plain
     rates = compare_runners_bf16(plan_d, dev, smi)
 
     # web.run of the dispersive case in bf16 under a limit between the
@@ -5365,7 +5741,7 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
         step.LAUNCHES = fused.LAUNCHES = kstep.LAUNCHES = 0
         kstep.DEVICE_LAUNCHES = 0
         try:
-            td.web.run(dispersive_case(td), task_name="chip_smoke",
+            td.web.run(cut_main(dispersive_case(td)), task_name="chip_smoke",
                        verbose=False)
             raise AssertionError("the float32 run passed the memory gate")
         except SetupError as err:
@@ -5377,7 +5753,8 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
             f"{est['f32']}, bf16 {est['bf16']} B): the float32 web.run "
             f"raised SetupError ({refused[:100]}...), launches {launches}")
         os.environ["TIDY3D_TPU_PRECISION"] = "bfloat16"
-        w = web_run(td, dispersive_case(td), "dispersive bf16, default tier",
+        w = web_run(td, cut_main(dispersive_case(td)),
+                    "dispersive bf16, default tier",
                     smi)
     finally:
         del os.environ["TIDY3D_TPU_HBM_BYTES"]
@@ -5462,12 +5839,12 @@ def run_bf16(td, dev, smi: str, plan, plan_d, plan_m, w_f32) -> list:
                      f"{kstep_tpu} with :1386", n, e[1], g, p, b,
                      bit_equal=e[2]))
     log(f"[bf16] broadband group: {res['broadband'][1][0]:.3f} ms vs bound "
-        f"{res['broadband'][1][2][0]:.3f}; 100-step rates {rates}")
+        f"{res['broadband'][1][2][0]:.3f}; {STEPS_COMPARE}-step rates {rates}")
     return out
 
 
 def compare_runners_bf16(plan, dev, smi: str) -> dict:
-    """100 steps of ``plan`` on the kstep tier in bf16, kernel against
+    """``STEPS_COMPARE`` steps of ``plan`` on the kstep tier in bf16, kernel against
     plain in turns plain, kernel, kernel, plain; fields within
     ``TOL_BF16``. Returns the Gcell*steps/s of each."""
     from tidy3d_tpu_torch.solver.fdtd import FDTDRunner
@@ -5491,8 +5868,102 @@ def compare_runners_bf16(plan, dev, smi: str) -> dict:
         f" bit-equal; Gcell*steps/s plain {rates['plain']} kernel "
         f"{rates['kernel']} | {smi}")
     assert max_abs(finals["plain"]) > 0
-    assert err <= TOL_BF16, f"100 bf16 steps: rel err {err:.3e}"
+    assert err <= TOL_BF16, f"{STEPS_COMPARE} bf16 steps: rel err {err:.3e}"
     return rates
+
+
+# --------------------------------------------------------------------------- #
+# the host's references, in a child process beside the card's phases
+# --------------------------------------------------------------------------- #
+
+REFS_THREADS = 3        # CPU threads of the references' child process
+REFS_TIMEOUT = 900      # seconds the references may take from their start
+REFS_WHERE = "in a child process on the CPU beside the card's phases"
+
+
+def host_refs(td) -> dict:
+    """The references that run on the host alone, in the order the phases
+    read them: phase 26's ARPACK solves (``arpack_refs``), phase 29b's two
+    routes on the CPU (``adjoint_2d``, ``autodiff_2d``), phase 36's ARPACK
+    solve (``eme_arpack_ref``) and phase 39's CPU gradients
+    (``autodiff_bloch``)."""
+    return {"mode": arpack_refs(td),
+            "invdes_2d": {"adjoint": adjoint_2d(td, "cpu"),
+                          "autodiff": autodiff_2d(td, "cpu")[1]},
+            "eme": eme_arpack_ref(td),
+            "autodiff_bloch": {prec: autodiff_bloch(td, prec, "cpu")
+                               for prec in ("float32", "bfloat16")}}
+
+
+def refs_child(out: str) -> int:
+    """``--host-refs OUT``: ``host_refs`` pickled to ``OUT``."""
+    import pickle
+
+    import tidy3d_tpu_torch as td
+
+    torch.set_num_threads(REFS_THREADS)
+    t0 = time.perf_counter()
+    refs = dict(host_refs(td), seconds=time.perf_counter() - t0)
+    with open(out + ".tmp", "wb") as fh:
+        pickle.dump(refs, fh)
+    os.replace(out + ".tmp", out)
+    return 0
+
+
+class HostRefs:
+    """``host_refs`` in a child process that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty) and runs ``REFS_THREADS`` threads,
+    started once the kernels are built, so that the host's references run
+    while the card's phases do; its output goes to ``OUT.log``. ``get``
+    waits for it (at most ``REFS_TIMEOUT`` s from its start) and returns
+    one of its results; a child that fails fails the phase that reads it.
+    None outlives the script."""
+
+    def __init__(self, out: str):
+        import atexit
+        import subprocess
+
+        self.out, self.results = out, None
+        threads = str(REFS_THREADS)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=threads, MKL_NUM_THREADS=threads,
+                   OPENBLAS_NUM_THREADS=threads)
+        self.t0 = time.perf_counter()
+        with open(out + ".log", "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--host-refs",
+                 out], env=env, stdin=subprocess.DEVNULL, stdout=fh,
+                stderr=subprocess.STDOUT)
+        atexit.register(self.kill)
+
+    def get(self, key: str):
+        import pickle
+        import subprocess
+
+        if self.results is None:
+            t0 = time.perf_counter()
+            try:
+                self.proc.wait(timeout=max(
+                    REFS_TIMEOUT - (t0 - self.t0), 1))
+            except subprocess.TimeoutExpired:
+                self.kill()
+            with open(self.out + ".log") as fh:
+                tail = fh.read()[-4000:]
+            assert self.proc.returncode == 0, \
+                f"the host's references exited {self.proc.returncode}:\n{tail}"
+            with open(self.out, "rb") as fh:
+                self.results = pickle.load(fh)
+            now = time.perf_counter()
+            log(f"[refs] the host's references ({REFS_THREADS} threads, "
+                f"{REFS_WHERE}) took {self.results['seconds']:.1f} s, read "
+                f"{now - self.t0:.1f} s after their start; this phase "
+                f"waited {now - t0:.1f} s for them")
+        return self.results[key]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 # --------------------------------------------------------------------------- #
@@ -5599,9 +6070,10 @@ def world_child(world: int, rank: int, port: int, out: str) -> int:
                   "post_e": post_e.LAUNCHES, "fused": fused.LAUNCHES}
         local, steps = len(runner.shards), runner.steps_run
         if runner.bricks:
+            # one call a family and step on each device of this process
             want = dict(kstep=0, kstep_sharded=0, fused=0,
-                        family=2 * local * steps, halo=2 * local * steps,
-                        post_e=local * steps)
+                        family=2 * len(runner.devices) * steps,
+                        halo=2 * local * steps, post_e=local * steps)
         else:
             want = dict(kstep=local * steps // runner.k,
                         kstep_sharded=local * steps // runner.k, family=0,
@@ -5819,7 +6291,15 @@ def main() -> int:
                "lab_kstep", "lab_pole"]
     # with the bf16 variants of phase 28 and the pole kernel's bf16 one
     # (phases 28, 31 and 44): one nvcc each, all at once
+    stamp("2")
     _build.load_all(sources + bf16_variants() + [POLES_BF16])
+    stamp("2, built")
+    # the host's references (phases 26, 29, 36 and 39) from now on, in a
+    # child process beside the card's phases
+    refs = HostRefs(os.path.join(OUT_DIR, "chip_smoke_refs"))
+    # phase 20's process, which waits for its go once it has touched the
+    # card
+    prof = Profiled()
     for name in sources:
         info = _build.BUILDS[name]
         log(f"[build] {info.path} built={info.built} in {info.seconds:.2f} s")
@@ -5897,7 +6377,8 @@ def main() -> int:
     del state, kr
 
     stamp("4")
-    # 4. 100 steps on the two-phase tier, plain / kernel / kernel / plain
+    # 4. STEPS_COMPARE steps on the two-phase tier, plain / kernel /
+    # kernel / plain
     rates_2 = compare_runners(plan, dev, ncell, "broadband 384^3", smi,
                               kernel="pallas2")
 
@@ -5941,7 +6422,8 @@ def main() -> int:
     del state, q_out, st_b, fb
 
     stamp("6")
-    # 6. 100 steps on the fused tier: dispersive 384^3 and 7-pole Au 280^3
+    # 6. STEPS_COMPARE steps on the fused tier: dispersive 384^3 and
+    # 7-pole Au 280^3
     rates_d = compare_runners(plan_d, dev, ncell, "dispersive 384^3", smi,
                               kernel="fused")
     plan_m = lower(metal_case(td))
@@ -5964,7 +6446,8 @@ def main() -> int:
                               kernel="fused")
 
     stamp("7")
-    # 7. the k-step kernel: one group against plain, times, 100 steps
+    # 7. the k-step kernel: one group against plain, times, STEPS_COMPARE
+    # steps
     mk = FDTDRunner(lower(mixed_case(td, dispersive=True)), device=dev,
                     kernel="kstep")
     err_kstep = [compare_kstep(kstep, mk, random_state(mk, 8),
@@ -6034,19 +6517,20 @@ def main() -> int:
     stamp("9")
     # 9. the main paths: web.run, launch counts read around each
     none = {"family": 0, "fused": 0, "kstep": 0}
-    w2 = web_run(td, full_case(td), "broadband, two-phase tier", smi,
+    w2 = web_run(td, cut_main(full_case(td)), "broadband, two-phase tier", smi,
                  tier="pallas2")
     assert w2.launches == dict(none, family=2 * w2.steps), w2.launches
-    wfd = web_run(td, dispersive_case(td), "dispersive, fused tier", smi,
+    wfd = web_run(td, cut_main(dispersive_case(td)), "dispersive, fused tier",
+                  smi,
                   tier="fused")
     assert wfd.launches == dict(none, fused=wfd.steps), wfd.launches
-    wfb = web_run(td, full_case(td), "broadband, fused tier", smi,
+    wfb = web_run(td, cut_main(full_case(td)), "broadband, fused tier", smi,
                   tier="fused")
     assert wfb.launches == dict(none, fused=wfb.steps), wfb.launches
     n_kstep = 0
     rates_k, w_k = {}, {}
-    for what, sim, wf in (("dispersive", dispersive_case(td), wfd),
-                          ("broadband", full_case(td), wfb)):
+    for what, sim, wf in (("dispersive", cut_main(dispersive_case(td)), wfd),
+                          ("broadband", cut_main(full_case(td)), wfb)):
         w = web_run(td, sim, f"{what}, default tier", smi)
         k = int(w.tier.split("k=")[1].rstrip(")"))
         assert w.tier.startswith("kstep") and w.steps % k == 0, w.tier
@@ -6096,7 +6580,7 @@ def main() -> int:
 
     stamp("26")
     # 26. the device mode solver against ARPACK
-    modes = run_mode_solver(td, smi)
+    modes = run_mode_solver(td, smi, refs)
     stamp("16-18")
     # 16-18. mode, mode-solver, permittivity, projection and diffraction
     # monitors through web.run
@@ -6112,18 +6596,18 @@ def main() -> int:
     del plan, plan_d
     stamp("20")
     # 20. web.run under TIDY3D_TPU_PROFILE, in a process of its own
-    n_kstep += run_profiled(smi)
+    n_kstep += run_profiled(smi, prof)
     stamp("21")
     # 21. the memory estimate against every run's peak, and the gate
     run_memory(td, smi)
     stamp("29")
     # 29. inverse design on the card: the two-solve adjoint on the k-step
     # kernel, Adam, central differences; the autodiff route
-    n_kstep += run_invdes(td, smi)
+    n_kstep += run_invdes(td, smi, refs)
     torch.cuda.empty_cache()
     # 36-40. EME, the S-matrix modeler, heat, differentiable Bloch and bf16
     # runs, the repairs
-    n_smatrix, err_post_e_table = run_sixteenth(td, dev, smi)
+    n_smatrix, err_post_e_table = run_sixteenth(td, dev, smi, refs)
     n_kstep += n_smatrix
     next(e for e in new_entries if e["name"] == "post_e")[
         "nine_entries_bf16_err"] = err_post_e_table
@@ -6193,4 +6677,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world-child"]:
         sys.exit(world_child(*map(int, sys.argv[2:5]), sys.argv[5]))
+    if sys.argv[1:2] == ["--host-refs"]:
+        sys.exit(refs_child(sys.argv[2]))
     sys.exit(main())

@@ -31,7 +31,10 @@
 //
 // The slots come from a device table of PoleSlot (the layout of the fused
 // kernel's, q_out equal to q here), grouped by copy, staged in shared
-// memory once a block. A thread takes VW = 4 cells a pass (one 16-byte
+// memory once a block; a table of more than MAX_SLOTS records runs as
+// consecutive launches over parts of it (each with its own copy ranges and
+// E arrays), which give the one launch's values: a record reads only its
+// own currents and its copy's E^{n+1} and E^n. A thread takes VW = 4 cells a pass (one 16-byte
 // load of each float32 array, 8 bytes in bfloat16, where every array is
 // aligned to 4 values and the cell count divides by 4; else cell by cell):
 // per copy and component it loads E^{n+1} and E^n once, then per slot the
@@ -51,6 +54,8 @@ constexpr int THREADS = 256;
 constexpr int VW = 4;            // cells a thread takes a pass
 constexpr int MAX_COPIES = 2;    // MAX_COPIES in solver/kernels/poles.py
 constexpr int MAX_SLOTS = 240;   // MAX_SLOTS: the staged table under 48 KB
+                                 // (the host cuts a larger table into
+                                 // launches of at most this many)
 
 enum { POLE_ZERO = 0, POLE_MASK = 1, POLE_DENSE = 2 };
 

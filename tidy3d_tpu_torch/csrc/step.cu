@@ -78,12 +78,25 @@
 // that axis. A side with a halo has the wall kind WALL_HALO: where the
 // stencil crosses it (y = 0 or z = 0 or x = 0 for E, the last plane for
 // H) the neighbour column is read from the halo plane (halo[3 * axis +
-// component]), where a PEC or PMC wall would put its zero or mirror. Only
-// shell tiles reach a side, so the bulk instantiations are unchanged; the
-// staged value that the halo replaces is the wrapped cell of the brick,
-// staged as before and not used. A decomposed axis never wraps or rotates
-// inside the kernel (its Bloch phase, bloch[a], is 0: the halo planes
-// carry the phase), and PEC lo masks apply on a global wall only.
+// component]), where a PEC or PMC wall would put its zero or mirror. A
+// decomposed axis never wraps or rotates inside the kernel (its Bloch
+// phase, bloch[a], is 0: the halo planes carry the phase), and PEC lo
+// masks apply on a global wall only.
+//
+// Every brick of a device goes in one call (t3d_family_update_bricks): a
+// device table of BrickEntry, one per brick and copy (the FamilyParams of
+// that brick, its tile grid, its bulk box and its first block in each of
+// the two launches), planned by the host wrapper and checked here. One
+// bulk launch covers every entry's bulk box and one shell launch every
+// entry's tiles, on one-dimensional grids; a block finds its entry among
+// the entries' first blocks and stages it (and a Bloch copy's partner) in
+// shared memory beside the staged planes. A halo side is not a wall: the
+// bulk instantiation of the call (BRICK) stages the row or the column past
+// a halo side from the halo plane, the pointer chosen once per staged item,
+// and a chunk's lead-in x plane past an x halo side from the x halo plane,
+// so the bulk box reaches a halo face; a bulk x chunk may also end short
+// of BX at the brick's last plane. PEC and PMC walls, psi slabs and Bloch
+// walls stay in the shell.
 //
 // The bound is HBM bandwidth: 36 B per cell (3 source, 3 old and 3 new
 // float32 values), plus the per-cell ca/cb arrays where the medium varies
@@ -226,11 +239,11 @@ struct FamilyParams {
     int32_t w[6];             // psi slab widths [2 * axis + side]
     int32_t bkind[3];         // wall the stencil crosses: 0 PEC, 1 PMC, 2 wrap
     int32_t pec_lo[3];        // E family: the lo wall of the axis is PEC
-    int32_t bulk_lo[3];       // set by t3d_family_update: [bulk_lo,
-    int32_t bulk_hi[3];       // bulk_hi) meets no psi slab and no wall
+    int32_t bulk_lo[3];       // the box of bulk tiles [bulk_lo, bulk_hi)
+    int32_t bulk_hi[3];       // per axis, in x chunks, y and z tiles
     int32_t is_e;
     int32_t num_poles;        // E family: pole slots in use (<= MAX_POLES)
-    int32_t vec;              // set by t3d_family_update: pairs aligned
+    int32_t vec;              // pairs aligned (set by t3d_family_update)
     float gc_re[MAX_POLES];   // Re and Im of Gc = a (A + 1) per pole
     float gc_im[MAX_POLES];
     const q_t* q[6 * MAX_POLES];  // [(pole * 3 + comp) * 2 + (0 qr, 1 qi)]
@@ -240,17 +253,42 @@ struct FamilyParams {
                               // the family crosses (bkind WALL_HALO)
 };
 
-// Both copies of a Bloch run. Mirrored by BlochParams in step.py.
-struct BlochParams {
-    FamilyParams c[2];        // copy 0 (re) and copy 1 (im)
+// The Bloch phases of a run. Mirrored by BlochPhase in step.py.
+struct BlochPhase {
     float bc[3];              // cos and sin of the phase of each axis
     float bs[3];
     int32_t bloch[3];         // the axis wraps with a phase
+};
+
+// Both copies of a Bloch run. Mirrored by BlochParams in step.py.
+struct BlochParams {
+    FamilyParams c[2];        // copy 0 (re) and copy 1 (im)
+    BlochPhase ph;
     int32_t nchunk;           // set by t3d_family_update_bloch: x chunks of
                               // a copy in the launch
 };
 static_assert(sizeof(BlochParams) <= 4096,
               "kernel parameters must fit the 4 KB launch limit");
+
+// One brick (and copy) of a call over every brick of a device. Mirrored
+// by BrickEntry in step.py.
+struct BrickEntry {
+    FamilyParams p;           // the brick's, its bulk box and vec planned
+    int32_t tiles[3];         // x chunks, y and z tiles of the brick
+    int32_t first[2];         // first block in the bulk and the shell launch
+    int32_t pad;
+};
+static_assert(sizeof(BrickEntry) % 8 == 0, "entries stage in 8-byte words");
+
+// A call over every brick of a device. Mirrored by BrickCall in step.py.
+struct BrickCall {
+    const BrickEntry* entries;  // the device table: a Bloch call's entries
+                                // in pairs (copy 0, copy 1) of one brick
+    int32_t num;              // entries (at most THREADS)
+    int32_t copies;           // 1, or 2 (a Bloch run)
+    int32_t blocks[2];        // blocks of the bulk and of the shell launch
+    BlochPhase ph;
+};
 
 enum { WALL_PEC = 0, WALL_PMC = 1, WALL_WRAP = 2, WALL_HALO = 3 };
 
@@ -258,14 +296,13 @@ __host__ __device__ __forceinline__ int wrap(int v, int n) {
     return (v % n + n) % n;
 }
 
-// Whether the tile (chunk x0.., rows y0.., columns z0..) runs on the
-// bulk path: the whole tile lies in the bulk box (which keeps the staged
-// neighbours inside the domain).
-__device__ __forceinline__ bool tile_bulk(const FamilyParams& p, int x0,
-                                          int y0, int z0) {
-    return x0 >= p.bulk_lo[0] && x0 + BX <= p.bulk_hi[0] &&
-           y0 >= p.bulk_lo[1] && y0 + TY <= p.bulk_hi[1] &&
-           z0 >= max(p.bulk_lo[2], 2) && z0 + TZ <= p.bulk_hi[2];
+// Whether the tile (x chunk tx, y tile ty, z tile tz) runs on the bulk
+// path: it lies in the bulk box (whose tiles meet no psi slab and no wall,
+// and stage their neighbours inside the domain or from a halo plane).
+__device__ __forceinline__ bool tile_bulk(const FamilyParams& p, int tx,
+                                          int ty, int tz) {
+    return tx >= p.bulk_lo[0] && tx < p.bulk_hi[0] && ty >= p.bulk_lo[1] &&
+           ty < p.bulk_hi[1] && tz >= p.bulk_lo[2] && tz < p.bulk_hi[2];
 }
 
 // psi' = b * psi + c * d of the slab on axis A that holds the cell at
@@ -498,7 +535,7 @@ __device__ __forceinline__ void update_pair(const FamilyParams& p,
 // The phase of a staged cell at logical (x, y, z) of a Bloch run: the
 // product of e^{+-i phi} over the axes it lies past (cos in *pc, sin in
 // *ps); false when it lies past none.
-__device__ __forceinline__ bool bloch_phase(const BlochParams& b,
+__device__ __forceinline__ bool bloch_phase(const BlochPhase& b,
                                             const int* n, int x, int y,
                                             int z, float* pc, float* ps) {
     const int cw[3] = {x, y, z};
@@ -532,11 +569,13 @@ __device__ __forceinline__ float rotate(int part, float v, float vp,
 // staged and loaded whole (p.vec; the bulk path always). TAB: the pole
 // slots from the table p.poles. BLOCH: copy `part` of a Bloch run, whose
 // other copy is pp and whose phases are bl (shell tiles stage value by
-// value, rotating the cells past a Bloch wall).
-template <bool IS_E, bool BULK, bool VEC, bool TAB, bool BLOCH>
+// value, rotating the cells past a Bloch wall). BRICK: a bulk tile of a
+// brick, which stages what lies past a halo side from the halo planes.
+template <bool IS_E, bool BULK, bool VEC, bool TAB, bool BLOCH,
+          bool BRICK = false>
 __device__ __forceinline__ void march(const FamilyParams& p,
                                       const FamilyParams& pp,
-                                      const BlochParams* bl, int part,
+                                      const BlochPhase* bl, int part,
                                       int tz, int ty, int tx) {
     extern __shared__ __align__(16) unsigned char smem[];
     field_t* const stage = reinterpret_cast<field_t*>(smem);  // [NST][3][YS][ZS]
@@ -546,10 +585,11 @@ __device__ __forceinline__ void march(const FamilyParams& p,
     const int x0 = tx * BX;
     if (z0 >= nz || y0 >= ny || x0 >= nx) return;
     const int x_end = min(x0 + BX, nx);
-    const bool bulk = tile_bulk(p, x0, y0, z0);
+    const bool bulk = tile_bulk(p, tx, ty, tz);
     if (BULK ? !bulk : (bulk && p.vec)) return;
     static_assert(VEC || !BULK, "the bulk path loads pairs");
     constexpr bool vec = VEC;
+    constexpr bool HALO = BULK && BRICK;
     const int t = threadIdx.x;
     const int nyz = ny * nz;
     // the axes on which the tile's cells meet a psi slab
@@ -568,6 +608,11 @@ __device__ __forceinline__ void march(const FamilyParams& p,
     const int cz0 = IS_E ? z0 - 2 : z0;
     // a Bloch shell tile stages value by value, rotating past the walls
     constexpr bool ROT = BLOCH && !BULK;
+    // HALO: gb is where the item comes from (STAGE_OWN: ga in the plane
+    // of the source; STAGE_Y: ga = z in the y halo plane (nx, 1, nz);
+    // STAGE_Z: ga = y in the z halo plane (nx, ny, 1), one cell; the
+    // corner past both sides, which no stencil reads, is not staged)
+    enum { STAGE_OWN = 0, STAGE_Y = 1, STAGE_Z = 2, STAGE_NONE = 3 };
     int soff[STAGE_ITEMS], ga[STAGE_ITEMS], gb[STAGE_ITEMS];
 #pragma unroll
     for (int it = 0; it < STAGE_ITEMS; ++it) {
@@ -575,9 +620,18 @@ __device__ __forceinline__ void march(const FamilyParams& p,
         const int jj = s / PS, qq = s - jj * PS;
         const int y = BULK ? ry0 + jj : wrap(ry0 + jj, ny);
         soff[it] = s < STAGED ? jj * ZS + 2 * qq : -1;
-        ga[it] = y * nz + (BULK ? cz0 + 2 * qq : wrap(cz0 + 2 * qq, nz));
-        gb[it] = y * nz + (BULK ? cz0 + 1 + 2 * qq
-                                : wrap(cz0 + 1 + 2 * qq, nz));
+        if constexpr (HALO) {
+            const int z = cz0 + 2 * qq;
+            const bool y_out = y < 0 || y >= ny, z_out = z < 0 || z >= nz;
+            gb[it] = y_out ? (z_out ? STAGE_NONE : STAGE_Y)
+                           : (z_out ? STAGE_Z : STAGE_OWN);
+            ga[it] = y_out ? z : z_out ? y : y * nz + z;
+        } else {
+            ga[it] = y * nz + (BULK ? cz0 + 2 * qq
+                                    : wrap(cz0 + 2 * qq, nz));
+            gb[it] = y * nz + (BULK ? cz0 + 1 + 2 * qq
+                                    : wrap(cz0 + 1 + 2 * qq, nz));
+        }
     }
     const int oj = t / PZ, op = t % PZ;
     const int so = IS_E ? (oj + 1) * ZS + 2 * (op + 1) : oj * ZS + 2 * op;
@@ -599,7 +653,8 @@ __device__ __forceinline__ void march(const FamilyParams& p,
     auto plane = [&](int pos) { return IS_E ? x0 + pos : x_end - 1 - pos; };
     auto stage_plane = [&](int pos) {
         if (pos < nown) {
-            const int base = plane(pos) * nyz;
+            const int x = plane(pos);
+            const int base = x * nyz;
             field_t* const dst0 = stage + (pos % NST) * 3 * SPLANE;
 #pragma unroll
             for (int m = 0; m < 3; ++m) {
@@ -608,14 +663,41 @@ __device__ __forceinline__ void march(const FamilyParams& p,
 #pragma unroll
                 for (int it = 0; it < STAGE_ITEMS; ++it) {
                     if (soff[it] < 0) continue;
-                    if constexpr (ROT) {
+                    if constexpr (HALO) {
+                        // a halo plane holds no value of the component
+                        // its axis differentiates (m == axis): no stencil
+                        // reads it
+                        if (gb[it] == STAGE_OWN) {
+                            __pipeline_memcpy_async(dst + soff[it],
+                                                    src + ga[it],
+                                                    2 * sizeof(field_t));
+                        } else if (gb[it] == STAGE_Y) {
+                            const field_t* h = p.halo[3 + m];
+                            if (h)
+                                __pipeline_memcpy_async(
+                                    dst + soff[it], h + x * nz + ga[it],
+                                    2 * sizeof(field_t));
+                        } else if (gb[it] == STAGE_Z) {
+                            // E reads z = -1 (the pair's second cell), H
+                            // z = nz (its first)
+                            const field_t* h = p.halo[6 + m];
+                            field_t* d = dst + soff[it] + (IS_E ? 1 : 0);
+                            if (h) {
+                                if constexpr (sizeof(field_t) == 4)
+                                    __pipeline_memcpy_async(
+                                        d, h + x * ny + ga[it], 4);
+                                else
+                                    *d = h[x * ny + ga[it]];
+                            }
+                        }
+                    } else if constexpr (ROT) {
                         const int s = t + it * THREADS;
                         const int jj = s / PS, qq = s - jj * PS;
                         const int g2[2] = {ga[it], gb[it]};
 #pragma unroll
                         for (int h = 0; h < 2; ++h) {
                             float v = ld1(src + g2[h]), pc, ps;
-                            if (bloch_phase(*bl, p.n, plane(pos), ry0 + jj,
+                            if (bloch_phase(*bl, p.n, x, ry0 + jj,
                                             cz0 + 2 * qq + h, &pc, &ps))
                                 v = rotate(part, v,
                                            ld1(pp.src[m] + base + g2[h]),
@@ -635,15 +717,21 @@ __device__ __forceinline__ void march(const FamilyParams& p,
         __pipeline_commit();
     };
 
-    // components 1 and 2 of the source at the chunk's lead-in plane
+    // components 1 and 2 of the source at the chunk's lead-in plane (past
+    // an x halo side: the x halo plane, (1, ny, nz))
     float2 cx[2];
     {
         const int xl = IS_E ? x0 - 1 : x_end;
         const int base = (BULK ? xl : wrap(xl, nx)) * nyz;
-        cx[0] = vec ? val2<true>(p.src[1], base, c)
-                    : val2<false>(p.src[1], base, c);
-        cx[1] = vec ? val2<true>(p.src[2], base, c)
-                    : val2<false>(p.src[2], base, c);
+        if (HALO && (xl < 0 || xl >= nx)) {
+            cx[0] = val2<true>(p.halo[1], 0, c);
+            cx[1] = val2<true>(p.halo[2], 0, c);
+        } else {
+            cx[0] = vec ? val2<true>(p.src[1], base, c)
+                        : val2<false>(p.src[1], base, c);
+            cx[1] = vec ? val2<true>(p.src[2], base, c)
+                        : val2<false>(p.src[2], base, c);
+        }
         if constexpr (ROT) {
             float pc, ps;
             if (bloch_phase(*bl, p.n, xl, 0, 0, &pc, &ps)) {
@@ -696,9 +784,69 @@ family_update_bloch_kernel(const __grid_constant__ BlochParams b, int base_z,
                            int base_y, int base_x) {
     const int part = blockIdx.z >= (unsigned)b.nchunk;
     const int chunk = blockIdx.z - part * b.nchunk;
-    march<IS_E, BULK, VEC, true, true>(b.c[part], b.c[1 - part], &b, part,
-                                       blockIdx.x + base_z,
+    march<IS_E, BULK, VEC, true, true>(b.c[part], b.c[1 - part], &b.ph,
+                                       part, blockIdx.x + base_z,
                                        blockIdx.y + base_y, chunk + base_x);
+}
+
+// the staged entries of a brick call, after the staged planes
+constexpr int ENTRY_OFF = (NST * 3 * SPLANE * (int)sizeof(field_t) + 15) /
+                          16 * 16;
+
+__host__ __device__ constexpr int bricks_smem_bytes(bool bloch) {
+    return ENTRY_OFF + (bloch ? 2 : 1) * (int)sizeof(BrickEntry);
+}
+
+// One tile of a call over every brick of a device (block blockIdx.x of the
+// bulk launch, BULK, or of the shell launch): the block finds its entry
+// (the one whose blocks hold blockIdx.x), stages it (and a Bloch copy's
+// partner, the other entry of its pair) in shared memory and marches its
+// tile, counted in the entry's bulk box or tile grid (z fastest).
+template <bool IS_E, bool BULK, bool VEC, bool TAB, bool BLOCH>
+__global__ void __launch_bounds__(THREADS)
+family_bricks_kernel(const __grid_constant__ BrickCall call) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    BrickEntry* const ent = reinterpret_cast<BrickEntry*>(smem + ENTRY_OFF);
+    __shared__ int found;
+    constexpr int L = BULK ? 0 : 1;
+    const int b = blockIdx.x;
+    const int t = threadIdx.x;
+    if (t < call.num) {
+        const int lo = call.entries[t].first[L];
+        const int hi = t + 1 < call.num ? call.entries[t + 1].first[L]
+                                        : call.blocks[L];
+        if (b >= lo && b < hi) found = t;
+    }
+    __syncthreads();
+    const int e = found;
+    constexpr int WORDS = (int)sizeof(BrickEntry) / 8;
+    {
+        const uint2* src = reinterpret_cast<const uint2*>(call.entries + e);
+        uint2* dst = reinterpret_cast<uint2*>(ent);
+        for (int w = t; w < WORDS; w += THREADS) dst[w] = src[w];
+        if constexpr (BLOCH) {
+            src = reinterpret_cast<const uint2*>(call.entries + (e ^ 1));
+            for (int w = t; w < WORDS; w += THREADS) dst[WORDS + w] = src[w];
+        }
+    }
+    __syncthreads();
+    const FamilyParams& p = ent[0].p;
+    const int l = b - ent[0].first[L];
+    int nz_t, ny_t, z_lo = 0, y_lo = 0, x_lo = 0;
+    if (BULK) {
+        nz_t = p.bulk_hi[2] - p.bulk_lo[2];
+        ny_t = p.bulk_hi[1] - p.bulk_lo[1];
+        z_lo = p.bulk_lo[2];
+        y_lo = p.bulk_lo[1];
+        x_lo = p.bulk_lo[0];
+    } else {
+        nz_t = ent[0].tiles[2];
+        ny_t = ent[0].tiles[1];
+    }
+    const int r = l / nz_t;
+    march<IS_E, BULK, VEC, TAB, BLOCH, true>(
+        p, BLOCH ? ent[1].p : p, &call.ph, BLOCH ? (e & 1) : 0,
+        z_lo + l - r * nz_t, y_lo + r % ny_t, x_lo + r / ny_t);
 }
 
 typedef void (*KernelFn)(FamilyParams, int, int, int);
@@ -731,10 +879,29 @@ static BlochFn bloch_for(bool is_e, bool bulk, bool vec = true) {
                  : family_update_bloch_kernel<false, false, false>;
 }
 
-static cudaError_t prepare(const void* fn) {
+static cudaError_t prepare(const void* fn, int shared = smem_bytes()) {
     return cudaFuncSetAttribute(fn,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_bytes());
+                                shared);
+}
+
+typedef void (*BricksFn)(BrickCall);
+
+template <bool BULK, bool VEC>
+static BricksFn bricks_kernel(bool is_e, bool tab, bool bloch) {
+    if (!is_e)
+        return bloch ? family_bricks_kernel<false, BULK, VEC, false, true>
+                     : family_bricks_kernel<false, BULK, VEC, false, false>;
+    return bloch ? family_bricks_kernel<true, BULK, VEC, true, true>
+           : tab ? family_bricks_kernel<true, BULK, VEC, true, false>
+                 : family_bricks_kernel<true, BULK, VEC, false, false>;
+}
+
+static BricksFn bricks_for(bool is_e, bool bulk, bool vec, bool tab,
+                           bool bloch) {
+    return bulk ? bricks_kernel<true, true>(is_e, tab, bloch)
+           : vec ? bricks_kernel<false, true>(is_e, tab, bloch)
+                 : bricks_kernel<false, false>(is_e, tab, bloch);
 }
 
 // Every array a pair load reads or a pair store writes is aligned to a
@@ -768,6 +935,12 @@ extern "C" int t3d_family_bloch_params_size() {
     return (int)sizeof(BlochParams);
 }
 extern "C" int t3d_family_pole_slot_size() { return (int)sizeof(PoleSlot); }
+extern "C" int t3d_family_brick_entry_size() {
+    return (int)sizeof(BrickEntry);
+}
+extern "C" int t3d_family_brick_call_size() {
+    return (int)sizeof(BrickCall);
+}
 
 // The bytes of the field, psi and pole-current values this library stores.
 extern "C" void t3d_family_storage(int32_t* out) {
@@ -778,20 +951,27 @@ extern "C" void t3d_family_storage(int32_t* out) {
 
 // Threads, shared bytes, blocks per SM and registers of the E (is_e) or H
 // instantiation, bulk or the shell of pair-aligned arrays, of a real run
-// (mode 0), a real run with the pole table (mode 1) or a Bloch run (mode
-// 2); a CUDA error code, or 0.
+// (mode 0), a real run with the pole table (mode 1), a Bloch run (mode 2),
+// or of a call over bricks (t3d_family_update_bricks) of a real run (mode
+// 3), with the pole table (mode 4) or of a Bloch run (mode 5); a CUDA error
+// code, or 0.
 extern "C" int t3d_family_info(int is_e, int bulk, int mode,
                                int32_t* out) {
-    const void* fn = mode == 2 ? (const void*)bloch_for(is_e != 0, bulk != 0)
-                               : (const void*)kernel_for(is_e != 0, bulk != 0,
-                                                         true, mode == 1);
-    cudaError_t err = prepare(fn);
+    const bool e = is_e != 0, b = bulk != 0;
+    const void* fn =
+        mode >= 3 ? (const void*)bricks_for(e, b, true, mode == 4,
+                                             mode == 5)
+        : mode == 2 ? (const void*)bloch_for(e, b)
+                    : (const void*)kernel_for(e, b, true, mode == 1);
+    const int shared = mode >= 3 ? bricks_smem_bytes(mode == 5)
+                                 : smem_bytes();
+    cudaError_t err = prepare(fn, shared);
     if (err != cudaSuccess) return (int)err;
     out[0] = THREADS;
-    out[1] = smem_bytes();
+    out[1] = shared;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS,
-                                                        smem_bytes());
+                                                        shared);
     if (err != cudaSuccess) return (int)err;
     out[2] = blocks;
     cudaFuncAttributes attr;
@@ -825,6 +1005,11 @@ static cudaError_t plan_call(FamilyParams& q, int* tiles, int* lo, int* hi) {
                    &hi[0]);
         bulk_range(q.bulk_lo[1], q.bulk_hi[1], TY, tiles[1], &lo[1], &hi[1]);
         bulk_range(q.bulk_lo[0], q.bulk_hi[0], BX, tiles[2], &lo[2], &hi[2]);
+    }
+    // the box in tiles, axis by axis (x chunks, y, z tiles)
+    for (int a = 0; a < 3; ++a) {
+        q.bulk_lo[a] = lo[2 - a];
+        q.bulk_hi[a] = hi[2 - a];
     }
     return cudaSuccess;
 }
@@ -903,4 +1088,141 @@ extern "C" int t3d_family_update_bloch(const BlochParams* b, void* stream,
     return launch_pair(bloch_for(is_e, true), bloch_for(is_e, false,
                                                         q.c[0].vec != 0),
                        q, tiles, lo, hi, 2, &q.nchunk, stream, counts);
+}
+
+// The bulk box of a brick's entry (tiles in tiles, axis by axis): the
+// tiles whose cells meet no psi slab and whose stencil crosses no wall; a
+// side with a halo (WALL_HALO) is no wall, and an x chunk may end short of
+// BX at the last plane. Mirrored by bulk_box in step.py, which plans it.
+static void brick_box(const FamilyParams& q, const int* tiles, int* lo,
+                      int* hi) {
+    const bool is_e = q.is_e != 0;
+    const int len[3] = {BX, TY, TZ};
+    bool empty = !q.vec;
+    for (int a = 0; a < 3; ++a) {
+        const int n = q.n[a], wl = q.w[2 * a], wh = q.w[2 * a + 1];
+        const bool halo = q.bkind[a] == WALL_HALO;
+        // E: c - 1 in the domain or its halo; H: c + 1 likewise
+        const int lo_cell = is_e && !halo ? max(1, wl) : wl;
+        const int hi_cell = !is_e && !halo ? min(n - 1, n - wh) : n - wh;
+        lo[a] = (lo_cell + len[a] - 1) / len[a];
+        hi[a] = lo[a];
+        while (hi[a] < tiles[a] &&
+               (a == 0 ? min((hi[a] + 1) * len[a], n)
+                       : (hi[a] + 1) * len[a]) <= hi_cell)
+            ++hi[a];
+        empty |= hi[a] <= lo[a];
+    }
+    if (empty)
+        for (int a = 0; a < 3; ++a) lo[a] = hi[a] = 0;
+}
+
+// What a pair-aligned entry loads in pairs besides pair_aligned's arrays:
+// the x and y halo planes.
+static bool halo_aligned(const FamilyParams& q) {
+    const uintptr_t fa = 2 * sizeof(field_t);
+    for (int i = 0; i < 6; ++i)
+        if ((uintptr_t)q.halo[i] % fa) return false;
+    return true;
+}
+
+// Checks a call over bricks against the host copy of its table: every
+// entry's extents, wall kinds and halo planes, its tile grid, its bulk box
+// (brick_box), its first blocks (running sums in table order) and one
+// instantiation for all (family, vec, table, Bloch pairs of one layout).
+static cudaError_t check_bricks(const BrickCall& call, const BrickEntry* host,
+                                bool* vec, bool* tab) {
+    if (call.num < 1 || call.num > THREADS ||
+        (call.copies != 1 && call.copies != 2) || call.num % call.copies)
+        return cudaErrorInvalidValue;
+    const FamilyParams& q0 = host[0].p;
+    *vec = q0.vec != 0;
+    *tab = q0.poles != nullptr;
+    int64_t blocks[2] = {0, 0};
+    for (int e = 0; e < call.num; ++e) {
+        const BrickEntry& en = host[e];
+        const FamilyParams& q = en.p;
+        if (q.n[0] <= 0 || q.n[1] <= 0 || q.n[2] <= 0 ||
+            (int64_t)q.n[0] * q.n[1] * q.n[2] > 0x7fffffffLL ||
+            q.is_e != q0.is_e || (q.vec != 0) != *vec ||
+            (q.poles != nullptr) != *tab || q.num_poles < 0 ||
+            (!q.poles && q.num_poles > MAX_POLES) ||
+            (call.copies == 2 && q.num_poles && !q.poles))
+            return cudaErrorInvalidValue;
+        if (*vec && !(pair_aligned(q) && halo_aligned(q)))
+            return cudaErrorMisalignedAddress;
+        for (int a = 0; a < 3; ++a) {
+            if (q.bkind[a] < WALL_PEC || q.bkind[a] > WALL_HALO)
+                return cudaErrorInvalidValue;
+            if (q.bkind[a] == WALL_HALO)
+                for (int m = 0; m < 3; ++m)
+                    if (m != a && !q.halo[3 * a + m])
+                        return cudaErrorInvalidValue;
+        }
+        if (call.copies == 2 && e % 2)
+            for (int a = 0; a < 3; ++a)
+                if (q.n[a] != host[e - 1].p.n[a] ||
+                    q.w[2 * a] != host[e - 1].p.w[2 * a] ||
+                    q.w[2 * a + 1] != host[e - 1].p.w[2 * a + 1])
+                    return cudaErrorInvalidValue;
+        const int tiles[3] = {(q.n[0] + BX - 1) / BX, (q.n[1] + TY - 1) / TY,
+                              (q.n[2] + TZ - 1) / TZ};
+        int lo[3], hi[3];
+        brick_box(q, tiles, lo, hi);
+        int64_t nbulk = 1, ntiles = 1;
+        for (int a = 0; a < 3; ++a) {
+            if (en.tiles[a] != tiles[a] || q.bulk_lo[a] != lo[a] ||
+                q.bulk_hi[a] != hi[a])
+                return cudaErrorInvalidValue;
+            nbulk *= hi[a] - lo[a];
+            ntiles *= tiles[a];
+        }
+        if (en.first[0] != blocks[0] || en.first[1] != blocks[1])
+            return cudaErrorInvalidValue;
+        blocks[0] += nbulk;
+        blocks[1] += ntiles;
+    }
+    if (blocks[0] != call.blocks[0] || blocks[1] != call.blocks[1] ||
+        blocks[1] > 0x7fffffffLL)
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+// One family of every brick of a device (each brick's copies too) in two
+// launches: the bulk tiles of every entry, then every tile of every entry,
+// bulk ones returning at once. call->entries is the device copy of host
+// (table order: a Bloch call's copies in pairs). counts (may be null): the
+// two launches' blocks and the launches made.
+extern "C" int t3d_family_update_bricks(const BrickCall* call,
+                                        const BrickEntry* host, void* stream,
+                                        int32_t* counts) {
+    bool vec = false, tab = false;
+    cudaError_t err = check_bricks(*call, host, &vec, &tab);
+    if (err != cudaSuccess) return (int)err;
+    const bool is_e = host[0].p.is_e != 0, bloch = call->copies == 2;
+    const BricksFn bulk = bricks_for(is_e, true, true, tab, bloch);
+    const BricksFn shell = bricks_for(is_e, false, vec, tab, bloch);
+    const int shared = bricks_smem_bytes(bloch);
+    err = prepare((const void*)shell, shared);
+    if (err == cudaSuccess) err = prepare((const void*)bulk, shared);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = shared;
+    cfg.stream = (cudaStream_t)stream;
+    if (call->blocks[0] > 0) {
+        cfg.gridDim = dim3(call->blocks[0]);
+        err = cudaLaunchKernelEx(&cfg, bulk, *call);
+        if (err == cudaSuccess) err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    cfg.gridDim = dim3(call->blocks[1]);
+    err = cudaLaunchKernelEx(&cfg, shell, *call);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (counts) {
+        counts[0] = call->blocks[0];
+        counts[1] = call->blocks[1];
+        counts[2] = call->blocks[0] > 0 ? 2 : 1;
+    }
+    return (int)err;
 }

@@ -113,7 +113,8 @@ the raw monitors are gathered so that every process returns them whole.
   (extents as ``np.array_split`` cuts each axis) and one halo plane on
   each decomposed side, in tensors of its own. A step (``_step_bricks``)
   exchanges the H lo halos, runs the E family of every brick in the
-  family kernel's brick-local halo mode, then per brick and copy the J
+  family kernel's brick-local halo mode (one call per device, every brick
+  of it in the call), then per brick and copy the J
   sources, the passes and the pole update on its own cells and
   constants, exchanges the E^{n+1} hi halos, runs the H family, the M
   sources and the monitors: the order of ``_step_two_phase``. A Bloch
@@ -993,6 +994,8 @@ class FDTDRunner:
         self.use_kernel = use_kernel
         # the pole kernel's device tables, per brick (None: unsharded)
         self._pole_tables: Dict[object, dict] = {}
+        # the family kernel's prepared calls over bricks, per buffer set
+        self._brick_calls: dict = {}
         self.host_consts, self.pml_meta = build_constants(plan)
         sharded = sharding_plan is not None
         # a sharded run keeps its constants per shard (self.shards)
@@ -1383,18 +1386,48 @@ class FDTDRunner:
     # the step
     # ------------------------------------------------------------------ #
 
-    def _family_update(self, family, views, srcs, shard=None,
-                       halos=None) -> list:
+    def _family_update(self, family, views, srcs) -> list:
         """``[(new_fields, new_psi)]`` of ``family`` per copy (``views``,
         ``srcs``: each copy's state and source fields): the kernel, which
         takes both copies of a complex run in one launch, or the plain
-        version copy by copy; a brick's (``shard``) in its halo mode, each
-        copy reading its ``halos``."""
+        version copy by copy."""
         fn = step_kernels.family_update_copies if self.use_kernel \
             else step_kernels.family_update_copies_reference
-        if shard is None:
-            return fn(family, views, self.consts, srcs, self.meta)
-        return fn(family, views, shard.consts, srcs, shard.meta, halos)
+        return fn(family, views, self.consts, srcs, self.meta)
+
+    def _family_update_bricks(self, family, views, srcs, halos,
+                              alts=None) -> list:
+        """Per brick ``[(new_fields, new_psi)]`` of ``family`` per copy
+        (``views[b]``, ``srcs[b]``, ``halos[b]``: brick b's copies, their
+        source fields and halo planes), written to the second buffer sets
+        ``alts`` (``_brick_alt``) where given: one call of the kernel's
+        halo mode per device, every brick of it in the call, kept prepared
+        per buffer set (``_brick_calls``), or the plain version brick by
+        brick."""
+        consts = [sh.consts for sh in self.shards]
+        metas = [sh.meta for sh in self.shards]
+        k = 0 if family == "E" else 1
+        outs = None if alts is None else [
+            [(a[c[k]], a[c[2]]) for c in
+             kstep_kernels.COPIES[:1 + self.is_complex]] for a in alts]
+        if self.use_kernel:
+            return step_kernels.family_update_bricks(
+                family, views, consts, srcs, metas, halos, outs,
+                self._brick_calls)
+        return [step_kernels.family_update_copies_reference(family, *b)
+                for b in zip(views, consts, srcs, metas, halos)]
+
+    def _brick_alt(self, st: dict) -> dict:
+        """A brick's second buffer set (its copies' E, H and psi), which
+        the kernel's calls write; it swaps with the state's each step,
+        so a call's buffers, and its prepared table, come back every
+        other step. Allocated at the brick's first step."""
+        alt = st.get("alt")
+        if alt is None:
+            alt = {key: {k: torch.empty_like(t) for k, t in st[key].items()}
+                   for copy in kstep_kernels.COPIES[:1 + self.is_complex]
+                   for key in copy}
+        return alt
 
     def _accumulate_monitors(self, step: int, newE, newH, mon, newE1=None,
                              newH1=None, dft: dict = None,
@@ -1547,35 +1580,43 @@ class FDTDRunner:
     def _step_bricks(self, step: int, state: dict) -> dict:
         """One step of a run on bricks, in the order of
         ``_step_two_phase``: the H lo halos exchanged, the E family of
-        every brick (its copies in one call of the family kernel's halo
-        mode), per brick and copy its J sources and the passes, then per
-        brick the pole update of its copies (one call) on its own cells;
-        the E^{n+1} hi halos exchanged, then per brick the H family, its M
-        sources and the monitor cells it owns."""
+        every brick (every brick of a device and its copies in one call of
+        the family kernel's halo mode), per brick and copy its J sources
+        and the passes, then per brick the pole update of its copies (one
+        call) on its own cells; the E^{n+1} hi halos exchanged, then the H
+        family of every brick (one call a device), per brick its M sources
+        and the monitor cells it owns. The bricks never read each other's
+        arrays but through the halos, so the order across bricks is free."""
         states = state["shards"]
         views = [self._views(st) for st in states]
+        copies = kstep_kernels.COPIES[:1 + self.is_complex]
+        alts = [self._brick_alt(st) for st in states] \
+            if self.use_kernel else None
         with record_function("fdtd.halo_exchange"):
             self.exchange_brick_halos(states, "E")
+        outs_e = self._family_update_bricks(
+            "E", views, [[v["H"] for v in vs] for vs in views],
+            [st["halo"]["H"] for st in states], alts)
         newE, newQ, psis = [], [], []
-        for b, (sh, st, vs) in enumerate(zip(self.shards, states, views)):
-            outs = self._family_update("E", vs, [v["H"] for v in vs], sh,
-                                       st["halo"]["H"])
+        for b, (sh, vs, outs_b) in enumerate(zip(self.shards, views,
+                                                 outs_e)):
             es = []
-            for p, (view, (nE, _)) in enumerate(zip(vs, outs)):
+            for p, (view, (nE, _)) in enumerate(zip(vs, outs_b)):
                 self._inject("E", nE, step, p, sh.sources)
                 es.append(self._post_e(nE, view["E"], step, sh.consts))
             newE.append(es)
             newQ.append(self._update_poles(es, vs, sh.consts, b))
             psis.append([dict(v["psi"], **pE) for v, (_, pE) in
-                         zip(vs, outs)])
+                         zip(vs, outs_b)])
         with record_function("fdtd.halo_exchange"):
             self.exchange_brick_halos(states, "H", newE)
+        outs_h = self._family_update_bricks(
+            "H", views, newE, [st["halo"]["E"] for st in states], alts)
         out = []
-        for sh, st, vs, es, qs, ps in zip(self.shards, states, views, newE,
-                                          newQ, psis):
+        for sh, st, es, qs, ps, outs_b in zip(self.shards, states, newE,
+                                              newQ, psis, outs_h):
             hs = []
-            for p, (nH, pH) in enumerate(self._family_update(
-                    "H", vs, es, sh, st["halo"]["E"])):
+            for p, (nH, pH) in enumerate(outs_b):
                 self._inject("H", nH, step, p, sh.sources)
                 hs.append(nH)
                 ps[p].update(pH)
@@ -1586,8 +1627,10 @@ class FDTDRunner:
                                           slices=sh.mon_slices)
             new = dict(st)
             for (e, h, pk), q, nE, nH, psi, Q in zip(
-                    kstep_kernels.COPIES, Q_KEYS, es, hs, ps, qs):
+                    copies, Q_KEYS, es, hs, ps, qs):
                 new.update({e: nE, h: nH, pk: psi, q: Q})
+            if alts is not None:
+                new["alt"] = {key: st[key] for c in copies for key in c}
             out.append(new)
         return {"shards": out}
 

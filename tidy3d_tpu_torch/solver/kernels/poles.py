@@ -22,7 +22,12 @@ copy on the current stream ahead of the launch. A table holds pointers
 only; it is built once per runner or brick and kept in the caller's
 ``cache`` under the ``data_ptr``s of the currents and constant maps it
 points to, so that a resumed or re-cast state gets a fresh table and a
-state allocated at the same addresses keeps its table.
+state allocated at the same addresses keeps its table. A launch stages at
+most ``MAX_SLOTS`` records; a table of more is cut into consecutive
+launches of at most that many (``split_records``), each with its own copy
+ranges and the components its records read. A record reads only its own
+currents and its copy's E^{n+1} and E^n, so the launches give what one
+launch would, bit for bit.
 
 Dispatch is by device: CPU tensors go to ``update_poles``, copy by copy;
 CUDA tensors launch the kernel or raise. ``LAUNCHES`` counts the calls that
@@ -47,7 +52,7 @@ DEVICE_LAUNCHES = 0
 TABLE_BUILDS = 0
 VW = 4              # cells a thread takes a pass (csrc/poles.cu)
 MAX_COPIES = 2      # the copies of a Bloch run (csrc/poles.cu MAX_COPIES)
-MAX_SLOTS = 240     # slots of one call: the table staged in 48 KB
+MAX_SLOTS = 240     # records of one launch: the table staged in 48 KB
 
 _P6 = ctypes.c_void_p * 6
 _F6 = ctypes.c_float * 6
@@ -161,19 +166,48 @@ def table_key(Qs: list, consts: dict) -> tuple:
                   for t in pair))
 
 
+@dataclass(frozen=True)
+class Launch:
+    """One launch of a table: its records ``start`` to ``stop - 1``, the
+    range of each copy in it (``first``, ``MAX_COPIES + 1`` entries, from
+    0) and per copy the components some record of it reads E on
+    (``need``)."""
+
+    start: int
+    stop: int
+    first: Tuple[int, ...]
+    need: Tuple[Tuple[bool, bool, bool], ...]
+
+
+def split_records(records: list, copies: int,
+                  most: int = MAX_SLOTS) -> list:
+    """The ``Launch``es of ``records`` (copy 0's first): consecutive runs
+    of at most ``most`` records, in order."""
+    out = []
+    for start in range(0, len(records), most):
+        part = records[start:start + most]
+        first = [0] * (MAX_COPIES + 1)
+        for c in range(copies):
+            first[c + 1] = first[c] + sum(rec.copy == c for rec in part)
+        first[copies + 1:] = [first[copies]] * (MAX_COPIES - copies)
+        need = tuple(tuple(any(rec.kind[ci] and rec.copy == c
+                               for rec in part) for ci in range(3))
+                     for c in range(copies))
+        out.append(Launch(start, start + len(part), tuple(first), need))
+    return out
+
+
 class PoleTable:
-    """The device table of a runner's or brick's slots, with what a launch
-    needs besides: the slot range of each copy (``first``), per copy the
-    components some residue reads (``need``) and whether every array it
+    """The device table of a runner's or brick's slots, with what its
+    launches need besides: per launch its records, the slot range of each
+    copy and the components some residue reads (``launches``; the whole
+    table's in ``first`` and ``need``), and whether every array the table
     points to is aligned to ``VW`` values (``aligned``). It keeps no
     tensor but its own, so the currents it points to are freed with the
     state."""
 
     def __init__(self, key, Qs, consts, shape, q_dtype, device):
         records = slot_records(Qs, consts)
-        if len(records) > MAX_SLOTS:
-            raise ValueError(f"{len(records)} pole slots: the kernel takes "
-                             f"at most {MAX_SLOTS} a call")
         width = VW * torch.empty((), dtype=q_dtype).element_size()
         aligned = True
         for rec in records:
@@ -186,12 +220,10 @@ class PoleTable:
                     aligned &= t.data_ptr() % (4 * VW) == 0
         self.key = key
         self.aligned = aligned
-        self.first = [0] * (MAX_COPIES + 1)
-        for c in range(len(Qs)):
-            self.first[c + 1] = self.first[c] + sum(
-                rec.copy == c for rec in records)
-        self.need = [[any(rec.kind[ci] and rec.copy == c for rec in records)
-                      for ci in range(3)] for c in range(len(Qs))]
+        whole = split_records(records, len(Qs), max(len(records), 1))[0]
+        self.first = list(whole.first)
+        self.need = [list(n) for n in whole.need]
+        self.launches = split_records(records, len(Qs))
         raw = bytes(pack(records))
         host = torch.empty(len(raw), dtype=torch.uint8,
                            pin_memory=torch.device(device).type == "cuda")
@@ -284,25 +316,27 @@ def _update_poles_cuda(new_es, old_es, Qs, consts, cache):
     device = new_es[0][E_COMPS[0]].device
     table = _table(Qs, consts, shape, q_dtype, device, cache)
     fn = _library(field, q_dtype)
-    p = PoleParams()
-    p.n = n
-    p.num_copies = len(Qs)
-    p.slots = table.tensor.data_ptr()
-    p.first[:] = table.first
     width = VW * torch.empty((), dtype=field).element_size()
-    vec = table.aligned and n % VW == 0
-    for c, (ne, oe) in enumerate(zip(new_es, old_es)):
-        for ci, comp in enumerate(E_COMPS):
-            if not table.need[c][ci]:
-                continue
-            for arr, d, what in ((p.e_new, ne, comp), (p.e_old, oe,
-                                                       f"old {comp}")):
-                ptr = _check(d[comp], shape, what, field, device).data_ptr()
-                arr[3 * c + ci] = ptr
-                vec &= ptr % width == 0
-    p.vec = int(vec)
-    counts = launch_counted(fn, p, device, "poles")
-    DEVICE_LAUNCHES += counts[1]
+    for launch in table.launches:
+        p = PoleParams()
+        p.n = n
+        p.num_copies = len(Qs)
+        p.slots = table.tensor.data_ptr() + launch.start * ctypes.sizeof(
+            PoleSlot)
+        p.first[:] = launch.first
+        vec = table.aligned and n % VW == 0
+        for c, (ne, oe) in enumerate(zip(new_es, old_es)):
+            for ci, comp in enumerate(E_COMPS):
+                if not launch.need[c][ci]:
+                    continue
+                for arr, d, what in ((p.e_new, ne, comp),
+                                     (p.e_old, oe, f"old {comp}")):
+                    ptr = _check(d[comp], shape, what, field,
+                                 device).data_ptr()
+                    arr[3 * c + ci] = ptr
+                    vec &= ptr % width == 0
+        p.vec = int(vec)
+        DEVICE_LAUNCHES += launch_counted(fn, p, device, "poles")[1]
     LAUNCHES += 1
     return Qs
 

@@ -19,6 +19,14 @@ a halo plane, and ``halos`` passes those planes of the source components
 (``{axis: {comp: (.., 1, ..) tensor}}``), which the stencil reads where it
 crosses such a side (the kernel's ``WALL_HALO``); the other sides keep the
 global wall, an axis that is not decomposed its wall or wrap.
+``family_update_bricks`` updates the family of every brick of a run: on a
+card, one call of the kernel per device (every brick and copy on it, two
+launches) from a device table of ``BrickEntry`` that this module plans
+(``plan_bricks``: each entry's tile grid, bulk box and first blocks; the
+library checks the plan), kept by content (``BRICK_TABLE_BUILDS``). A
+brick's halo sides are no walls there: its bulk tiles reach them and read
+the halo planes (``bulk_box``). ``family_update_copies`` of one brick is
+that call with one brick.
 
 Pole slots: up to ``MAX_POLES`` ride in the kernel's parameter block; a
 call with more of them, and every Bloch call, passes them in a device
@@ -37,8 +45,9 @@ the XLA body's arithmetic in whole-array operations; a CUDA tensor
 launches the hand-written kernel in ``csrc/step.cu`` or raises.
 ``LAUNCHES`` counts the kernel calls, ``BLOCH_LAUNCHES`` those of the
 two-copy instantiation, ``MANY_POLES_LAUNCHES`` those that read more than
-``MAX_POLES`` slots from a table and ``BRICK_LAUNCHES`` those of a brick in
-its halo mode.
+``MAX_POLES`` slots from a table, ``BRICK_CALLS`` the calls over bricks
+and ``BRICK_LAUNCHES`` the bricks (each with its copies) updated in halo
+mode.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import ctypes
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..lowering import E_COMPS, H_COMPS
@@ -55,7 +65,9 @@ LAUNCHES = 0
 DEVICE_LAUNCHES = 0  # the bulk and the shell launch of each call
 BLOCH_LAUNCHES = 0   # calls of the two-copy (Bloch) instantiation
 MANY_POLES_LAUNCHES = 0  # calls with more than MAX_POLES pole slots
-BRICK_LAUNCHES = 0  # calls in the brick-local halo mode (a sharded run)
+BRICK_LAUNCHES = 0  # bricks updated in the halo mode (a sharded run)
+BRICK_CALLS = 0     # calls over the bricks of a device (t3d_family_update_bricks)
+BRICK_TABLE_BUILDS = 0  # brick tables sent to a device
 # the last call's blocks (bulk and shell launches) and device launches
 LAST_BLOCKS = (0, 0, 0)
 MAX_POLES = 8       # pole slots in the parameter block (csrc/*.cu MAX_POLES)
@@ -63,6 +75,7 @@ STORAGE = (torch.float32, torch.bfloat16)   # the storage types of the state
 
 _WALL = {"pec": 0, "pmc": 1, "periodic": 2}
 WALL_HALO = 3   # csrc/step.cu: the neighbour is the brick's halo plane
+TILE = (16, 16, 32)   # csrc/step.cu BX, TY, TZ: a tile's cells per axis
 
 
 @dataclass(frozen=True)
@@ -386,12 +399,34 @@ class PoleSlot(ctypes.Structure):
                 ("gc_im", ctypes.c_float)]
 
 
+class BlochPhase(ctypes.Structure):
+    """Mirror of ``struct BlochPhase`` in ``csrc/step.cu``."""
+
+    _fields_ = [("bc", ctypes.c_float * 3), ("bs", ctypes.c_float * 3),
+                ("bloch", ctypes.c_int32 * 3)]
+
+
 class BlochParams(ctypes.Structure):
     """Mirror of ``struct BlochParams`` in ``csrc/step.cu``."""
 
-    _fields_ = [("c", FamilyParams * 2), ("bc", ctypes.c_float * 3),
-                ("bs", ctypes.c_float * 3), ("bloch", ctypes.c_int32 * 3),
+    _fields_ = [("c", FamilyParams * 2), ("ph", BlochPhase),
                 ("nchunk", ctypes.c_int32)]
+
+
+class BrickEntry(ctypes.Structure):
+    """Mirror of ``struct BrickEntry`` in ``csrc/step.cu``: one brick (and
+    copy) of a call over bricks."""
+
+    _fields_ = [("p", FamilyParams), ("tiles", ctypes.c_int32 * 3),
+                ("first", ctypes.c_int32 * 2), ("pad", ctypes.c_int32)]
+
+
+class BrickCall(ctypes.Structure):
+    """Mirror of ``struct BrickCall`` in ``csrc/step.cu``."""
+
+    _fields_ = [("entries", ctypes.c_void_p), ("num", ctypes.c_int32),
+                ("copies", ctypes.c_int32), ("blocks", ctypes.c_int32 * 2),
+                ("ph", BlochPhase)]
 
 
 # device copies of the pole tables, keyed by (device, content): a table
@@ -447,6 +482,8 @@ def _library(storage=(torch.float32,) * 3):
         _build.check_struct(lib, "t3d_family_bloch_params_size",
                             BlochParams)
         _build.check_struct(lib, "t3d_family_pole_slot_size", PoleSlot)
+        _build.check_struct(lib, "t3d_family_brick_entry_size", BrickEntry)
+        _build.check_struct(lib, "t3d_family_brick_call_size", BrickCall)
         check_storage(lib, "t3d_family_storage", storage)
         fn.argtypes = [ctypes.POINTER(FamilyParams), ctypes.c_void_p,
                        ctypes.c_void_p]
@@ -455,18 +492,24 @@ def _library(storage=(torch.float32,) * 3):
         bloch.argtypes = [ctypes.POINTER(BlochParams), ctypes.c_void_p,
                           ctypes.c_void_p]
         bloch.restype = ctypes.c_int
+        bricks = lib.t3d_family_update_bricks
+        bricks.argtypes = [ctypes.POINTER(BrickCall),
+                           ctypes.POINTER(BrickEntry), ctypes.c_void_p,
+                           ctypes.c_void_p]
+        bricks.restype = ctypes.c_int
     return fn
 
 
-def _bloch_library(storage):
+def _entry_point(storage, name: str):
     from ... import _build
 
     _library(storage)
-    lib = _build.load("step", storage_defines(*storage))
-    return lib.t3d_family_update_bloch
+    return getattr(_build.load("step", storage_defines(*storage)), name)
 
 
-MODES = {"real": 0, "many": 1, "bloch": 2}   # t3d_family_info's mode
+# t3d_family_info's mode: the unsharded calls, then the calls over bricks
+MODES = {"real": 0, "many": 1, "bloch": 2, "bricks": 3, "bricks_many": 4,
+         "bricks_bloch": 5}
 
 
 def resources(family: str, bulk: bool, storage=(torch.float32,) * 3,
@@ -475,7 +518,9 @@ def resources(family: str, bulk: bool, storage=(torch.float32,) * 3,
     bulk or shell (pair-aligned arrays) instantiation of the kernel in the
     library of the storage types ``(field, psi, q)`` (the CUDA occupancy
     calculator), of a real run (``mode`` ``real``), a real run with the
-    pole table (``many``) or a Bloch run (``bloch``); needs the card."""
+    pole table (``many``) or a Bloch run (``bloch``), or of a call over
+    bricks of each (``bricks``, ``bricks_many``, ``bricks_bloch``); needs
+    the card."""
     from ... import _build
 
     _library(storage)
@@ -702,10 +747,12 @@ def launch_counted(fn, params, device, what: str) -> tuple:
 
 
 def _family_params(family, state, consts, src_fields, meta, storage,
-                   device, table: bool, halo: dict = None):
+                   device, table: bool, halo: dict = None, out=None):
     """The parameter struct of one copy's family call: ``(p, new_fields,
     new_psi, keep)``, ``keep`` the device tables it points to. A brick's
-    sides with a halo take ``WALL_HALO`` and the planes of ``halo``."""
+    sides with a halo take ``WALL_HALO`` and the planes of ``halo``. The
+    new fields and psi go to ``out`` (``(fields, psi)`` of the caller's
+    buffers, keyed as the state's) where given, else to new tensors."""
     is_e = family == "E"
     out_comps = E_COMPS if is_e else H_COMPS
     src_comps = H_COMPS if is_e else E_COMPS
@@ -736,25 +783,34 @@ def _family_params(family, state, consts, src_fields, meta, storage,
                                 storage[0]).data_ptr()
         p.old[i] = _check_field(state[family][oc], shape, oc,
                                 storage[0]).data_ptr()
-        new_fields[oc] = torch.empty(shape, dtype=storage[0], device=device)
+        new_fields[oc] = torch.empty(shape, dtype=storage[0],
+                                     device=device) if out is None else \
+            _check_field(out[0][oc], shape, f"out {oc}", storage[0])
         p.out[i] = new_fields[oc].data_ptr()
     new_psi = set_family_params(family, state, consts, meta, {
         name: getattr(p, name) for name in FAMILY_FIELDS},
-        psi_dtype=storage[1])
+        None if out is None else out[1], psi_dtype=storage[1])
     keep = set_family_poles(p, state, consts, shape, storage[2], device,
                             table) if is_e else []
     return p, new_fields, new_psi, keep
 
 
-def _count(blocks, bloch: bool, many: bool, meta: StepMeta) -> None:
+def _count(blocks, bloch: bool, many: bool, bricks: int = 0) -> None:
     global LAUNCHES, DEVICE_LAUNCHES, LAST_BLOCKS, BLOCH_LAUNCHES, \
         MANY_POLES_LAUNCHES, BRICK_LAUNCHES
     LAUNCHES += 1
     BLOCH_LAUNCHES += bloch
     MANY_POLES_LAUNCHES += many
-    BRICK_LAUNCHES += any(any(sides) for sides in meta.halo)
+    BRICK_LAUNCHES += bricks
     DEVICE_LAUNCHES += blocks[2]
     LAST_BLOCKS = blocks
+
+
+def set_phase(ph, bloch) -> None:
+    """The ``BlochPhase`` of a layout's per-axis phases (``meta.bloch``)."""
+    for a, cs in enumerate(bloch):
+        ph.bloch[a] = int(cs is not None)
+        ph.bc[a], ph.bs[a] = cs if cs is not None else (1.0, 0.0)
 
 
 def _storage_and_device(family, states, srcs):
@@ -780,21 +836,19 @@ def _many(state, consts, family) -> bool:
     return family == "E" and len(pole_terms(state, consts)) > MAX_POLES
 
 
-def _family_update_cuda(family, state, consts, src_fields, meta,
-                        halo=None):
+def _family_update_cuda(family, state, consts, src_fields, meta):
     _check_cells(meta)
     storage, device = _storage_and_device(family, [state], [src_fields])
     many = _many(state, consts, family)
     p, new_fields, new_psi, keep = _family_params(
-        family, state, consts, src_fields, meta, storage, device, many, halo)
+        family, state, consts, src_fields, meta, storage, device, many)
     blocks = launch_counted(_library(storage), p, device, "family_update")
     del keep
-    _count(blocks, False, many, meta)
+    _count(blocks, False, many)
     return new_fields, new_psi
 
 
-def _family_update_bloch_cuda(family, states, consts, srcs, meta,
-                              halos=(None, None)):
+def _family_update_bloch_cuda(family, states, consts, srcs, meta):
     """Both copies of a Bloch run in one call of the two-copy
     instantiation (each copy's pole slots from its table)."""
     _check_cells(meta)
@@ -804,18 +858,292 @@ def _family_update_bloch_cuda(family, states, consts, srcs, meta,
     for part in range(2):
         p, nf, npsi, kp = _family_params(family, states[part], consts,
                                          srcs[part], meta, storage, device,
-                                         True, halos[part])
+                                         True)
         b.c[part] = p
         outs.append((nf, npsi))
         keep += kp
-    for a, cs in enumerate(meta.bloch):
-        b.bloch[a] = int(cs is not None)
-        b.bc[a], b.bs[a] = cs if cs is not None else (1.0, 0.0)
-    blocks = launch_counted(_bloch_library(storage), b, device,
-                            "family_update (Bloch)")
+    set_phase(b.ph, meta.bloch)
+    blocks = launch_counted(_entry_point(storage, "t3d_family_update_bloch"),
+                            b, device, "family_update (Bloch)")
     del keep
-    _count(blocks, True, _many(states[0], consts, family), meta)
+    _count(blocks, True, _many(states[0], consts, family))
     return outs
+
+
+# --------------------------------------------------------------------------- #
+# every brick of a device in one call (t3d_family_update_bricks)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class EntryPlan:
+    """One entry of a call over bricks: the brick's tile grid (x chunks, y
+    and z tiles), its bulk box ``[lo, hi)`` in tiles per axis (empty: all
+    zero) and its first block in the bulk and in the shell launch."""
+
+    tiles: Tuple[int, int, int]
+    lo: Tuple[int, int, int]
+    hi: Tuple[int, int, int]
+    first: Tuple[int, int]
+
+    @property
+    def bulk_blocks(self) -> int:
+        return int(np.prod(np.subtract(self.hi, self.lo)))
+
+    @property
+    def blocks(self) -> int:
+        return int(np.prod(self.tiles))
+
+
+def tile_grid(shape) -> Tuple[int, int, int]:
+    """The tiles of a grid per axis: x chunks, y and z tiles."""
+    return tuple(-(-n // t) for n, t in zip(shape, TILE))
+
+
+def bulk_box(family: str, meta: StepMeta, vec: bool = True) -> tuple:
+    """``(lo, hi)``: the box of tiles of ``meta``'s grid that the kernel's
+    bulk instantiation takes in a call over bricks (``brick_box`` in
+    ``csrc/step.cu``, which checks it): per axis the tiles whose cells lie
+    outside both psi slabs of the family and whose stencil (x - 1 for E, x
+    + 1 for H, the wall the family crosses) stays in the brick or crosses
+    a side with a halo plane; y and z tiles whole, an x chunk whole or
+    ending at the last plane. Pair-aligned arrays only (``vec``); an
+    empty box is all zero."""
+    is_e = family == "E"
+    fam = "dual" if is_e else "primal"
+    tiles = tile_grid(meta.shape)
+    lo, hi = [0] * 3, [0] * 3
+    for a, (n, length) in enumerate(zip(meta.shape, TILE)):
+        w_lo, w_hi = meta.pml_meta[(fam, a)]
+        halo = meta.halo_side(family, a)
+        lo_cell = max(1, w_lo) if is_e and not halo else w_lo
+        hi_cell = min(n - 1, n - w_hi) if not is_e and not halo \
+            else n - w_hi
+        lo[a] = hi[a] = -(-lo_cell // length)
+        while hi[a] < tiles[a] and min((hi[a] + 1) * length,
+                                       n if a == 0 else 2 ** 31) <= hi_cell:
+            hi[a] += 1
+    if not vec or any(h <= l for l, h in zip(lo, hi)):
+        return (0, 0, 0), (0, 0, 0)
+    return tuple(lo), tuple(hi)
+
+
+def plan_bricks(family: str, metas: list, copies: int = 1,
+                vecs: list = None) -> Tuple[list, Tuple[int, int]]:
+    """The plan of one call over bricks: an ``EntryPlan`` per brick and
+    copy (``copies`` consecutive entries of each brick's ``meta``; ``vecs``
+    per brick whether its arrays are pair-aligned, default: z even), and
+    the blocks of the bulk and of the shell launch. The shape alone
+    decides it; no tensor is needed."""
+    vecs = [m.shape[2] % 2 == 0 for m in metas] if vecs is None else vecs
+    entries, blocks = [], [0, 0]
+    for meta, vec in zip(metas, vecs):
+        lo, hi = bulk_box(family, meta, vec)
+        for _ in range(copies):
+            e = EntryPlan(tile_grid(meta.shape), lo, hi, tuple(blocks))
+            entries.append(e)
+            blocks[0] += e.bulk_blocks
+            blocks[1] += e.blocks
+    return entries, tuple(blocks)
+
+
+def pairs_aligned(p: FamilyParams, storage) -> bool:
+    """``pair_aligned`` and ``halo_aligned`` of ``csrc/step.cu``: z even and
+    every array the kernel loads or stores in pairs aligned to a pair (the
+    fields, ca/cb, the inline pole currents, the x and y halo planes)."""
+    fa, qa = (2 * torch.empty((), dtype=dt).element_size()
+              for dt in (storage[0], storage[2]))
+    ptrs = [(v, fa) for name in ("src", "old", "out")
+            for v in getattr(p, name)]
+    ptrs += [(v, 8) for name in ("ca", "cb") for v in getattr(p, name)]
+    ptrs += [(v, fa) for v in p.halo[:6]]
+    if not p.poles:
+        ptrs += [(v, qa) for v in p.q[:6 * p.num_poles]]
+    return p.n[2] % 2 == 0 and all((v or 0) % a == 0 for v, a in ptrs)
+
+
+def brick_table(entries, device) -> torch.Tensor:
+    """The device copy of a ``ctypes`` array of ``BrickEntry``, sent from
+    a pinned host copy on the current stream."""
+    global BRICK_TABLE_BUILDS
+    raw = bytes(entries)
+    host = torch.empty(len(raw), dtype=torch.uint8, pin_memory=True)
+    host.numpy()[:] = np.frombuffer(raw, np.uint8)
+    BRICK_TABLE_BUILDS += 1
+    return host.to(device, non_blocking=True)
+
+
+@dataclass
+class PreparedCall:
+    """One call over bricks, ready to launch: the host table
+    (``entries``), its device copy, the call's parameters and what its
+    launch counts; ``keep`` holds the pole tables the entries point to."""
+
+    fn: object
+    call: BrickCall
+    entries: object
+    table: torch.Tensor
+    device: torch.device
+    bloch: bool
+    many: bool
+    bricks: int
+    keep: list
+
+    def launch(self) -> None:
+        global BRICK_CALLS
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        counts = (ctypes.c_int32 * 3)()
+        with torch.cuda.device(self.device):
+            err = self.fn(ctypes.byref(self.call), self.entries,
+                          ctypes.c_void_p(stream), counts)
+        if err != 0:
+            raise RuntimeError(f"family_update (bricks) kernel launch "
+                               f"failed: CUDA error {err}")
+        BRICK_CALLS += 1
+        _count(tuple(counts), self.bloch, self.many, self.bricks)
+
+
+def _prepare_call(family, params, metas, storage, device, copies, many,
+                  keep) -> PreparedCall:
+    """The call of ``t3d_family_update_bricks`` over ``params`` (a
+    ``FamilyParams`` per brick and copy, ``copies`` consecutive ones a
+    brick, of one instantiation) for the bricks of ``metas``: its plan and
+    its table on ``device``."""
+    if any(m.bloch != metas[0].bloch for m in metas):
+        raise ValueError("bricks of one call differ in their Bloch phases")
+    plans, blocks = plan_bricks(family, metas, copies,
+                                [bool(params[copies * b].vec)
+                                 for b in range(len(metas))])
+    entries = (BrickEntry * len(plans))()
+    for en, p, plan in zip(entries, params, plans):
+        en.p = p
+        en.p.bulk_lo[:], en.p.bulk_hi[:] = plan.lo, plan.hi
+        en.tiles[:] = plan.tiles
+        en.first[:] = plan.first
+    table = brick_table(entries, device)
+    call = BrickCall(entries=table.data_ptr(), num=len(plans),
+                     copies=copies)
+    call.blocks[:] = blocks
+    set_phase(call.ph, metas[0].bloch)
+    return PreparedCall(_entry_point(storage, "t3d_family_update_bricks"),
+                        call, entries, table, torch.device(device),
+                        copies == 2, many,
+                        sum(any(any(s) for s in m.halo) for m in metas), keep)
+
+
+def _call_key(family, states, consts, srcs, halos, outs) -> tuple:
+    """What a prepared call depends on: the addresses of every tensor its
+    entries point to (sources, old fields and psi, outputs, halo planes,
+    E's pole currents) and each brick's constants."""
+    ptrs = [family]
+    for sts, cs, src, hs, ob in zip(states, consts, srcs, halos, outs):
+        ptrs.append(id(cs))
+        for part, st in enumerate(sts):
+            for d in (src[part], st[family], st["psi"], ob[part][0],
+                      ob[part][1]):
+                ptrs += [t.data_ptr() for t in d.values()]
+            if hs and hs[part]:
+                ptrs += [t.data_ptr() for planes in hs[part].values()
+                         for t in planes.values()]
+            if family == "E":
+                ptrs += [t.data_ptr() for Qp in st["Q"]
+                         for pair in Qp.values() for t in pair]
+    return tuple(ptrs)
+
+
+_MAX_CALLS = 8   # prepared calls a cache keeps (a run uses 4: E and H of
+                 # each buffer set)
+
+
+def _family_update_bricks_cuda(family, states, consts, srcs, metas, halos,
+                               outs, cache):
+    """Every brick in one call per device and instantiation (storage, pole
+    table, pair alignment; today's plans share one): each brick's and
+    copy's ``FamilyParams`` into the call's table, in brick order. With
+    ``outs`` and a ``cache``, the prepared calls are kept under the
+    addresses they point to and launched again as they are."""
+    key = None if cache is None or outs is None else _call_key(
+        family, states, consts, srcs, halos, outs)
+    hit = None if key is None else cache.get(key)
+    if hit is not None:
+        calls, result = hit
+        for call in calls:
+            call.launch()
+        return result
+    groups: Dict[tuple, list] = {}
+    params, result = [], []
+    for b, (sts, cs, src, meta, hs) in enumerate(zip(states, consts, srcs,
+                                                     metas, halos)):
+        _check_cells(meta)
+        storage, device = _storage_and_device(family, sts, src)
+        copies = len(sts)
+        many = _many(sts[0], consts=cs, family=family)
+        ps, out = [], []
+        for part in range(copies):
+            p, nf, npsi, keep = _family_params(
+                family, sts[part], cs, src[part], meta, storage, device,
+                many or copies == 2, (hs or [None] * copies)[part],
+                None if outs is None else outs[b][part])
+            ps.append((p, keep))
+            out.append((nf, npsi))
+        vec = all(pairs_aligned(p, storage) for p, _ in ps)
+        for p, _ in ps:
+            p.vec = int(vec)
+        groups.setdefault((device, storage, copies, many, vec),
+                          []).append(b)
+        params.append(ps)
+        result.append(out)
+    calls = [_prepare_call(family, [p for b in bricks for p, _ in params[b]],
+                           [metas[b] for b in bricks], storage, device,
+                           copies, many,
+                           [k for b in bricks for _, k in params[b]])
+             for (device, storage, copies, many, _), bricks in
+             groups.items()]
+    for call in calls:
+        call.launch()
+    if key is not None:
+        if len(cache) >= _MAX_CALLS:
+            cache.pop(next(iter(cache)))
+        cache[key] = (calls, result)
+    return result
+
+
+def _into(out, got):
+    """``got`` (new fields and psi) copied into the buffers ``out``."""
+    fields, psi = out
+    for d, src in ((fields, got[0]), (psi, got[1])):
+        for k, v in src.items():
+            d[k].copy_(v)
+    return ({k: fields[k] for k in got[0]}, {k: psi[k] for k in got[1]})
+
+
+def family_update_bricks(family: str, states: list, consts: list,
+                         srcs: list, metas: list, halos: list,
+                         outs: list = None, cache: dict = None) -> list:
+    """``family`` of every brick (``states[b]``, ``srcs[b]``, ``halos[b]``:
+    brick b's copies, ``consts[b]``, ``metas[b]`` its constants and
+    layout): per brick ``[(new_fields, new_psi)]`` per copy, written to
+    ``outs[b][copy]`` (``(fields, psi)`` buffers keyed as the state's)
+    where given. CPU tensors: ``family_update_copies_reference`` brick by
+    brick; CUDA tensors: one call of the kernel's halo mode per device
+    (``BRICK_CALLS``; bricks of different instantiations in calls of their
+    own; no brick, no call), its table built anew, or with ``outs`` kept
+    in ``cache`` (a dict that serves one runner's layouts) and launched
+    again when the same buffers come back."""
+    if not states:
+        return []
+    device = next(iter(srcs[0][0].values())).device
+    if device.type == "cpu":
+        got = [family_update_copies_reference(family, st, cs, src, meta, hs)
+               for st, cs, src, meta, hs in zip(states, consts, srcs, metas,
+                                                halos)]
+        return got if outs is None else [
+            [_into(o, g) for o, g in zip(ob, gb)]
+            for ob, gb in zip(outs, got)]
+    if device.type != "cuda":
+        raise ValueError(f"family_update: unsupported device '{device}'")
+    return _family_update_bricks_cuda(family, states, consts, srcs, metas,
+                                      halos, outs, cache)
 
 
 def family_update_copies_reference(family: str, states: list, consts: dict,
@@ -840,19 +1168,21 @@ def family_update_copies(family: str, states: list, consts: dict,
                          halos: list = None) -> list:
     """``family_update_copies_reference`` for CPU tensors; for CUDA tensors
     one call of the kernel (the two-copy instantiation for a complex run;
-    a brick's in its halo mode, ``BRICK_LAUNCHES``)."""
+    a brick's, one with halo sides, ``family_update_bricks`` of that
+    brick)."""
     device = next(iter(srcs[0].values())).device
     if device.type == "cpu":
         return family_update_copies_reference(family, states, consts, srcs,
                                               meta, halos)
     if device.type != "cuda":
         raise ValueError(f"family_update: unsupported device '{device}'")
-    halos = halos or [None] * len(states)
+    if any(any(sides) for sides in meta.halo):
+        return family_update_bricks(family, [states], [consts], [srcs],
+                                    [meta], [halos])[0]
     if len(states) == 1:
         return [_family_update_cuda(family, states[0], consts, srcs[0],
-                                    meta, halos[0])]
-    return _family_update_bloch_cuda(family, states, consts, srcs, meta,
-                                     halos)
+                                    meta)]
+    return _family_update_bloch_cuda(family, states, consts, srcs, meta)
 
 
 def family_update(family: str, state: dict, consts: dict, src_fields: dict,
